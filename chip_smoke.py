@@ -9,19 +9,42 @@ Phases, one JSON line each (a failed phase prints ``"ok": false`` and
 the script exits non-zero without a result line):
 
 1. env     — the card (``nvidia-smi`` name and power limit), torch and
-             CUDA versions, and the ``nvcc`` build of every kernel of
-             the serve path from ``cxxnet_tpu_torch/csrc/``.
+             CUDA versions, and the ``nvcc`` build of every kernel from
+             ``cxxnet_tpu_torch/csrc/`` (one ``nvcc`` per source, all
+             started together).
 2. kernels — each kernel against its plain PyTorch version on the card,
-             at every shape the served Inception-BN-224 gives it at
-             bucket 128, plus dtype, layout and ragged-channel cases:
-             max error, kernel / plain / library times (CUDA events)
-             and the bound from bytes and operations.
+             at every shape its path gives it: ``conv_epilogue`` at the
+             served Inception-BN-224's bucket-128 shapes (plus dtype,
+             layout and ragged-channel cases); ``bn_apply`` forward
+             (bit-exact) and backward (dx bit-exact, channel sums within
+             rtol 1e-5 of the sum of their terms' magnitudes) at every
+             batch-norm shape of the batch-128 training step; ``matmul``
+             at fc1's three products and a ragged case (within rtol
+             1e-5 of sum |a*b|). Max error, kernel / plain / library
+             times (CUDA events) and the bound from bytes and operations.
 3. serve   — Inception-BN-224 (1000 classes, random weights from a seed,
              realistic BN running stats) saved as a snapshot, served
              through ``ServeSession(device="cuda")`` to closed-loop
              clients and one full-bucket burst; launch counts show the
              path went through the kernels; 4 rows are held against the
              port on the CPU.
+4. train   — Inception-BN-224 with fc1 declared ``pallas_fullc`` and
+             ``bn_pallas = bn_fuse_relu = 1``, seeded weights, batch 128:
+             2 warm and 10 timed ``NetTrainer.update`` steps on one
+             batch (step time by CUDA events and host clock, img/s,
+             TFLOP/s, peak memory, the loss of every step, which must be
+             finite and fall); exactly 69 bn_apply forward, 69 backward,
+             3 matmul and 0 conv_epilogue launches per step; a profiled
+             step (medians over 5 profiled steps: top kernels, time by
+             kind, idle share); then one update at batch 4 from the
+             same weights on the card and on the CPU: the loss within
+             rtol 1e-5; every parameter's update in float64 on the card
+             within 1e-3 of the CPU's, and through the kernels within
+             1e-3 of the card's plain path (``update_delta_check`` says
+             why float32 updates are not held to the CPU's); and every
+             pool's backward on the card against the CPU's at batch 8
+             (max: every tie credited to the same element; avg: within
+             rtol 1e-5).
 
 Then a ``kernels`` line (every ported kernel with its launches, error
 and times), the ``nvidia-smi`` line, and the last line
@@ -48,6 +71,29 @@ KNOBS = [("bn_fold_eval", "1"), ("bn_fuse_relu", "1"),
 EPILOGUE = {"name": "conv_epilogue", "route": "cuda",
             "source": "cxxnet_tpu_torch/csrc/conv_epilogue.cu",
             "replaces": "cxxnet_tpu/layers/pallas_kernels.py:327"}
+BN_FWD = {"name": "bn_apply_fwd", "route": "cuda",
+          "source": "cxxnet_tpu_torch/csrc/bn_apply.cu",
+          "replaces": "cxxnet_tpu/layers/pallas_kernels.py:247"}
+BN_BWD = {"name": "bn_apply_bwd", "route": "cuda",
+          "source": "cxxnet_tpu_torch/csrc/bn_apply.cu",
+          "replaces": "cxxnet_tpu/layers/pallas_kernels.py:310"}
+MATMUL = {"name": "matmul", "route": "cuda",
+          "source": "cxxnet_tpu_torch/csrc/matmul.cu",
+          "replaces": "cxxnet_tpu/layers/pallas_kernels.py:35"}
+NCLASS = 1000
+DEVICE = "cuda"
+TRAIN_BATCH = 128
+TRAIN_KNOBS = [("bn_pallas", "1"), ("bn_fuse_relu", "1")]
+WARM_STEPS, TIMED_STEPS = 2, 10
+# per training step of Inception-BN-224: launches each wrapper must count
+TRAIN_LAUNCHES = {"bn_apply_fwd": 69, "bn_apply_bwd": 69, "matmul": 3,
+                  "conv_epilogue": 0}
+# channel sums and matmul outputs: error against rtol * sum |terms|
+SUM_RTOL = 1e-5
+# one update at batch 4, per parameter: the card's float64 update
+# against the CPU's, and the kernels against the card's plain path
+UPDATE_RTOL = 1e-3
+LOSS_RTOL = 1e-5
 # serve results held against the port on the CPU (TF32 off on the card)
 SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-4
 
@@ -114,21 +160,33 @@ def phase_env():
     from cxxnet_tpu_torch.layers import kernels
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    path = kernels.build_kernel("conv_epilogue")
+    paths = kernels.build_kernels()
     build_s = time.perf_counter() - t0
-    log = kernels.build_info["conv_epilogue"]["log"]
-    ptxas = [ln.strip() for ln in str(log).splitlines()
-             if "registers" in ln or "spill" in ln]
+    build = {"wall_s": round(build_s, 3)}
+    for name, path in paths.items():
+        info = kernels.build_info[name]
+        build[name] = {"so": os.path.relpath(path),
+                       "seconds": round(float(info["seconds"]), 3),
+                       "ptxas": [ln.strip() for ln in
+                                 str(info["log"]).splitlines()
+                                 if "Used" in ln and "registers" in ln
+                                 or "spill" in ln and " 0 bytes spill"
+                                 not in ln][:12]}
     emit({"phase": "env", "ok": True, "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0],
-          "build": {"conv_epilogue": os.path.relpath(path),
-                    "seconds": round(build_s, 3), "ptxas": ptxas[:8]}})
+          "python": sys.version.split()[0], "build": build})
     return smi
 
 
 # ------------------------------------------------------------- phase 2
+
+
+def _configured(cfg):
+    from cxxnet_tpu_torch.graph import NetGraph
+    g = NetGraph()
+    g.configure(cfg)
+    return g
 
 
 def path_epilogue_shapes(net, batch: int):
@@ -147,7 +205,7 @@ def epilogue_case(shape, in_dtype, out_dtype, relu: bool, bw: float,
     the same inputs, with times and the bound."""
     import torch
     from cxxnet_tpu_torch.layers import kernels
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + sum(shape))
     c = shape[-1]
     n = int(np.prod(shape))
@@ -195,13 +253,155 @@ def epilogue_case(shape, in_dtype, out_dtype, relu: bool, bw: float,
     return out
 
 
+def train_cfg(batch: int):
+    """Inception-BN-224 as the training slice runs it: fc1 declared
+    ``pallas_fullc`` (the same function as ``fullc``), BN through the
+    bn_apply kernel with the relu fused."""
+    from cxxnet_tpu_torch.models import inception_bn
+    from cxxnet_tpu_torch.utils.config import parse_config
+    text = inception_bn(nclass=NCLASS, batch_size=batch, image_size=224)
+    return parse_config(text.replace("fullc:fc1", "pallas_fullc:fc1")) \
+        + TRAIN_KNOBS + [("seed", str(SEED))]
+
+
+def path_bn_shapes(net, batch: int):
+    """Shape of every bn_apply launch of one training forward (and so of
+    every backward launch): the input of each batch-norm layer."""
+    shapes = []
+    for li, info in enumerate(net.graph.layers):
+        if info.type in ("batch_norm", "pallas_batch_norm"):
+            s = net.layer_objs[li].out_shapes[0]
+            shapes.append((batch, s.x) if s.is_mat
+                          else (batch, s.y, s.x, s.ch))
+    return shapes
+
+
+def path_matmul_products(net, batch: int):
+    """(M, K, N, A transposed, B transposed) of every matmul launch of
+    one training step: per pallas_fullc layer the forward x.w, and the
+    backward dy.w^T and x^T.dy (transposed operands are strided views)."""
+    out = []
+    for li in range(len(net.graph.layers)):
+        if net.graph.effective_type(li) == "pallas_fullc":
+            p = net.layer_objs[li].param
+            m, k, n = batch, p.num_input_node, p.num_hidden
+            out += [(m, k, n, False, False), (m, n, k, False, True),
+                    (k, m, n, True, False)]
+    return out
+
+
+def bound(nbytes: float, ops: float, bw: float, flops: float):
+    """(bound ms, what bounds it) of a function moving ``nbytes`` and
+    doing ``ops`` float32 operations."""
+    return max(nbytes / bw, ops / flops) * 1e3, \
+        "bytes" if nbytes / bw >= ops / flops else "operations"
+
+
+def bn_case(shape, bw: float, flops: float):
+    """bn_apply forward and backward (relu fused, as on the path) on the
+    card against their plain versions on the same inputs, with times
+    and bounds. Forward and dx must agree bit for bit; each channel sum
+    within SUM_RTOL of the sum of its terms' magnitudes (the f32 sums
+    run in another order than torch.sum's)."""
+    import torch
+    from cxxnet_tpu_torch.layers import kernels
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + sum(shape))
+    c = shape[-1]
+    n = int(np.prod(shape))
+    nbuf = int(min(16, max(1, -(-200e6 // (n * 4)))))
+    xs = [torch.randn(shape, generator=gen, device=dev) for _ in range(nbuf)]
+    dys = [torch.randn(shape, generator=gen, device=dev)
+           for _ in range(nbuf)]
+    scale = torch.rand(c, generator=gen, device=dev) + 0.5
+    shift = 0.5 * torch.randn(c, generator=gen, device=dev)
+    counts0 = kernels.launch_counts()
+    y = kernels.bn_apply_fwd(xs[0], scale, shift, True)
+    yp = kernels.bn_apply_plain(xs[0], scale, shift, True)
+    dx, ds, dt = kernels.bn_apply_bwd(xs[0], y, dys[0], scale, True)
+    px, ps, pt = kernels.bn_apply_bwd_plain(xs[0], yp, dys[0], scale, True)
+    axes = tuple(range(len(shape) - 1))
+    dym = torch.where(yp > 0, dys[0], torch.zeros_like(dys[0]))
+    mag_s = (dym * xs[0]).abs().sum(axes)
+    mag_t = dym.abs().sum(axes)
+    torch.cuda.synchronize()
+    es, et = (ds - ps).abs(), (dt - pt).abs()
+    out = {"shape": list(shape),
+           "fwd_err": float((y - yp).abs().max()),
+           "dx_err": float((dx - px).abs().max()),
+           "sum_err": float(max(es.max(), et.max())),
+           "sum_rel": float(max((es / mag_s.clamp_min(1e-30)).max(),
+                                (et / mag_t.clamp_min(1e-30)).max()))}
+    out["ok"] = bool(out["fwd_err"] == 0.0 and out["dx_err"] == 0.0
+                     and bool((es <= SUM_RTOL * mag_s).all())
+                     and bool((et <= SUM_RTOL * mag_t).all()))
+    del yp, dx, px, dym, ds, dt, ps, pt
+    # forward: read x, write y (+ scale, shift); mul, add, max each
+    out["fwd_bound_ms"], out["fwd_bound_by"] = bound(8 * n + 8 * c, 3 * n,
+                                                     bw, flops)
+    # backward: read x, y, dy, write dx (+ scale, two sums); select,
+    # mul, add 0, mul, two adds each
+    out["bwd_bound_ms"], out["bwd_bound_by"] = bound(16 * n + 12 * c, 6 * n,
+                                                     bw, flops)
+    ys = [kernels.bn_apply_fwd(x, scale, shift, True) for x in xs]
+    iters = int(min(200, max(10, 4e9 // (8 * n))))
+    out["fwd_ms"] = cuda_time_ms(
+        lambda i: kernels.bn_apply_fwd(xs[i % nbuf], scale, shift, True),
+        iters)
+    out["fwd_plain_ms"] = cuda_time_ms(
+        lambda i: kernels.bn_apply_plain(xs[i % nbuf], scale, shift, True),
+        iters)
+    out["bwd_ms"] = cuda_time_ms(
+        lambda i: kernels.bn_apply_bwd(xs[i % nbuf], ys[i % nbuf],
+                                       dys[i % nbuf], scale, True), iters)
+    out["bwd_plain_ms"] = cuda_time_ms(
+        lambda i: kernels.bn_apply_bwd_plain(xs[i % nbuf], ys[i % nbuf],
+                                             dys[i % nbuf], scale, True),
+        iters)
+    # comparison and timing launches are not main-path launches
+    kernels.bn_apply_fwd.launches = counts0["bn_apply_fwd"]
+    kernels.bn_apply_bwd.launches = counts0["bn_apply_bwd"]
+    del xs, dys, ys, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def matmul_case(m: int, k: int, n: int, ta: bool, tb: bool, bw: float,
+                flops: float):
+    """The matmul kernel on the card against its plain version (and
+    torch.matmul, the library call) for an (M, K) . (K, N) product whose
+    operands may be transposed views; every output within SUM_RTOL of
+    sum_k |a * b|."""
+    import torch
+    from cxxnet_tpu_torch.layers import kernels
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + m + 3 * k + 7 * n)
+    a = torch.randn((k, m) if ta else (m, k), generator=gen, device=dev)
+    b = torch.randn((n, k) if tb else (k, n), generator=gen, device=dev)
+    A, B = (a.t() if ta else a), (b.t() if tb else b)
+    counts0 = kernels.launch_counts()
+    got = kernels.matmul_kernel(A, B)
+    ref = kernels.matmul_plain(A, B)
+    mag = torch.matmul(A.abs(), B.abs())
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    out = {"mkn": [m, k, n], "a_transposed": ta, "b_transposed": tb,
+           "max_abs_err": float(err.max()),
+           "rel_err": float((err / mag.clamp_min(1e-30)).max()),
+           "ok": bool((err <= SUM_RTOL * mag).all())}
+    out["bound_ms"], out["bound_by"] = bound(
+        4 * (m * k + k * n + m * n), 2 * m * n * k, bw, flops)
+    out["ms"] = cuda_time_ms(lambda i: kernels.matmul_kernel(A, B), 50)
+    out["plain_ms"] = cuda_time_ms(lambda i: kernels.matmul_plain(A, B), 50)
+    out["library_ms"] = cuda_time_ms(lambda i: torch.matmul(A, B), 50)
+    kernels.matmul_kernel.launches = counts0["matmul"]
+    return out
+
+
 def phase_kernels(bw: float, flops: float):
     import torch
-    from cxxnet_tpu_torch.graph import NetGraph
     from cxxnet_tpu_torch.nnet.net import FuncNet
-    g = NetGraph()
-    g.configure(inception_cfg())
-    net = FuncNet(g, MAX_BATCH)
+    net = FuncNet(_configured(inception_cfg()), MAX_BATCH)
     shapes = path_epilogue_shapes(net, MAX_BATCH)
     if len(shapes) != 69:
         raise RuntimeError("expected 69 epilogue launches per forward, "
@@ -225,6 +425,31 @@ def phase_kernels(bw: float, flops: float):
     ]
     cases = list(per_shape.values()) + extra
     ok = all(c["ok"] for c in cases)
+    # the training step's kernels, at its shapes (batch 128)
+    tnet = FuncNet(_configured(train_cfg(TRAIN_BATCH)), TRAIN_BATCH)
+    bn_shapes = path_bn_shapes(tnet, TRAIN_BATCH)
+    if len(bn_shapes) != TRAIN_LAUNCHES["bn_apply_fwd"]:
+        raise RuntimeError("expected %d batch norms, the net has %d"
+                           % (TRAIN_LAUNCHES["bn_apply_fwd"],
+                              len(bn_shapes)))
+    bn_cases = {}
+    for s in sorted(set(bn_shapes), key=lambda s: -int(np.prod(s))):
+        bn_cases[s] = bn_case(s, bw, flops)
+    bn_step = {k: sum(bn_cases[s][k] for s in bn_shapes)
+               for k in ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms",
+                         "bwd_ms", "bwd_plain_ms", "bwd_bound_ms")}
+    products = path_matmul_products(tnet, TRAIN_BATCH)
+    if len(products) != TRAIN_LAUNCHES["matmul"]:
+        raise RuntimeError("expected %d matmul launches per step, the net "
+                           "has %d" % (TRAIN_LAUNCHES["matmul"],
+                                       len(products)))
+    mm_path = [matmul_case(*p, bw, flops) for p in products]
+    mm_extra = [matmul_case(77, 1000, 129, False, True, bw, flops)]
+    mm_step = {k: sum(c[k] for c in mm_path)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    bn_ok = all(c["ok"] for c in bn_cases.values())
+    mm_ok = all(c["ok"] for c in mm_path + mm_extra)
+    ok = ok and bn_ok and mm_ok
     res = {"phase": "kernels", "ok": ok, "kernel": "conv_epilogue",
            "path_launches_per_forward": len(shapes),
            "distinct_path_shapes": len(per_shape),
@@ -235,10 +460,39 @@ def phase_kernels(bw: float, flops: float):
            "max_abs_err": max(c["max_abs_err"] for c in cases),
            "path_cases": [dict(c, count=shapes.count(tuple(c["shape"])))
                           for c in per_shape.values()],
-           "extra_cases": extra}
+           "extra_cases": extra,
+           "bn_apply": {
+               "ok": bn_ok, "launches_per_step": len(bn_shapes),
+               "distinct_path_shapes": len(bn_cases), "step_sum": bn_step,
+               "fwd_max_abs_err": max(c["fwd_err"]
+                                      for c in bn_cases.values()),
+               "bwd_max_abs_err": max(max(c["dx_err"], c["sum_err"])
+                                      for c in bn_cases.values()),
+               "bwd_sum_max_rel": max(c["sum_rel"]
+                                      for c in bn_cases.values()),
+               "sum_rtol": SUM_RTOL,
+               "fwd_bound_by": "bytes" if all(
+                   c["fwd_bound_by"] == "bytes" for c in bn_cases.values())
+               else "operations",
+               "bwd_bound_by": "bytes" if all(
+                   c["bwd_bound_by"] == "bytes" for c in bn_cases.values())
+               else "operations",
+               "cases": [dict(c, count=bn_shapes.count(tuple(c["shape"])))
+                         for c in bn_cases.values()]},
+           "matmul": {
+               "ok": mm_ok, "launches_per_step": len(products),
+               "step_sum": mm_step,
+               "max_abs_err": max(c["max_abs_err"]
+                                  for c in mm_path + mm_extra),
+               "max_rel_err": max(c["rel_err"] for c in mm_path + mm_extra),
+               "rtol": SUM_RTOL,
+               "bound_by": "bytes" if all(c["bound_by"] == "bytes"
+                                          for c in mm_path)
+               else "operations",
+               "path_cases": mm_path, "extra_cases": mm_extra}}
     emit(res)
     if not ok:
-        raise RuntimeError("conv_epilogue disagrees with its plain version")
+        raise RuntimeError("a kernel disagrees with its plain version")
     return res
 
 
@@ -257,7 +511,8 @@ def calibrate_bn(trainer, data) -> None:
             for li, info in enumerate(g.layers):
                 if info.type != "batch_norm":
                     continue
-                nodes = net.forward(trainer.params, trainer.net_state, data)
+                nodes, _, _ = net.forward(trainer.params, trainer.net_state,
+                                          data)
                 x = nodes[info.nindex_in[0]].float()
                 dims = tuple(range(x.dim() - 1))
                 st = trainer.net_state[g.layer_key(li)]
@@ -487,6 +742,396 @@ def phase_serve(workdir: str):
     return res
 
 
+# ------------------------------------------------------------- phase 4
+
+# kernel-name substrings -> the kind of work a training step spends on
+_KINDS = (("host-to-device copies", ("Memcpy HtoD",)),
+          ("bn_apply kernels", ("cxn_bn_",)),
+          ("matmul kernel", ("cxn_sgemm",)),
+          ("layout transposes", ("nhwcToNchw", "nchwToNhwc")),
+          ("reductions (BN moments, BN gradient sums, loss)",
+           ("reduce_kernel", "Reduce")),
+          ("convolutions", ("conv", "gemm", "Gemm", "fft", "FFT", "xmma",
+                            "complex",
+                            "winograd", "Winograd", "implicit", "cudnn",
+                            "cutlass", "sm90", "sm80", "dgrad", "wgrad")),
+          ("pooling", ("pool",)),
+          ("concat copies", ("Cat", "cat_")),
+          ("elementwise (autograd BN gradient, optimizer, relu)",
+           ("elementwise", "vectorized", "foreach", "Elementwise")))
+
+
+def kind_of(name: str) -> str:
+    for kind, keys in _KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def profile_step(t, batch, reps: int = 5):
+    """torch.profiler over ``reps`` training steps, one profile per
+    step: device time by kernel name and by kind, and the device's busy
+    and idle share of the step. The per-step figures are medians over
+    the steps, each with its (min, max) under ``spread``; names and
+    kinds are averaged over the steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    walls, names = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            a.record()
+            t.update(batch)
+            b.record()
+            torch.cuda.synchronize()
+        walls.append(a.elapsed_time(b))
+        by_name = {}
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            e = by_name.setdefault(evt.name, [0.0, 0])
+            e[0] += evt.time_range.elapsed_us() / 1e3
+            e[1] += 1
+        names.append(by_name)
+
+    def dev_ms(by_name, key):
+        return sum(v[0] for k, v in by_name.items() if key in k)
+    per_step = {
+        "wall_ms": walls,
+        "device_busy_ms": [dev_ms(n, "") for n in names],
+        "bn_fwd_device_ms": [dev_ms(n, "cxn_bn_fwd") for n in names],
+        "bn_bwd_device_ms": [dev_ms(n, "cxn_bn_bwd") for n in names],
+        "matmul_device_ms": [dev_ms(n, "cxn_sgemm") for n in names]}
+    per_step["idle_share"] = [1.0 - busy / wall for busy, wall in
+                              zip(per_step["device_busy_ms"], walls)]
+    mean = {}
+    for by_name in names:
+        for name, (ms, cnt) in by_name.items():
+            e = mean.setdefault(name, [0.0, 0.0])
+            e[0] += ms / reps
+            e[1] += cnt / reps
+    kinds = {}
+    for name, (ms, cnt) in mean.items():
+        k = kinds.setdefault(kind_of(name), [0.0, 0.0])
+        k[0] += ms
+        k[1] += cnt
+    top = sorted(mean.items(), key=lambda kv: -kv[1][0])[:20]
+    out = {k: float(np.median(v)) for k, v in per_step.items()}
+    out.update({
+        "reps": reps,
+        "spread": {k: [min(v), max(v)] for k, v in per_step.items()},
+        "kernels_per_step": sum(v[1] for v in mean.values()),
+        "by_kind": {k: {"ms": v[0], "n": v[1]} for k, v in
+                    sorted(kinds.items(), key=lambda kv: -kv[1][0])},
+        "top": [{"name": k[:90], "ms": v[0], "n": v[1]} for k, v in top]})
+    return out
+
+
+def _as_float64(t) -> None:
+    """Cast a trainer's weights, BN statistics and optimizer state to
+    float64 in place (the precision witness of ``update_delta_check``;
+    the plain path only: the kernels take float32)."""
+    def cast(tree):
+        return {k: cast(v) if isinstance(v, dict) else v.double()
+                for k, v in tree.items()}
+    t.params, t.net_state, t.opt_state = \
+        cast(t.params), cast(t.net_state), cast(t.opt_state)
+
+
+def update_delta_check(workdir: str):
+    """One update at batch 4 from the same seeded weights and batch,
+    compared per parameter as ||d_a - d_b|| / ||d_b|| with d = w_after -
+    w_before. Runs: the card through the kernels (``gpu``) and through
+    the plain versions (``bn_pallas = 0``, fc1 as ``fullc``:
+    ``gpu_plain``); the CPU (``cpu``); the plain path in float64 on the
+    card and on the CPU (``gpu_f64``, ``cpu_f64``); and, to place the
+    card's float32 error, the kernels with cuDNN switched off, so the
+    convolutions run as im2col and cuBLAS products (``gpu_no_cudnn``).
+
+    At this state the float32 update of the deep layers is
+    ill-conditioned: a change of summation order alone moves it by
+    about 0.6 % (PERF.md section 6), so no float32 run can be held to
+    another within 1e-3. float64 shrinks that by about nine decimal
+    digits and leaves a card-side fault (convolution or pooling
+    backward, autograd through the moments, the optimizer) as large as
+    it was. Held, each within UPDATE_RTOL for every parameter: the
+    card's float64 update against the CPU's, and the card's kernels
+    against its plain path (which isolates the kernels); and the float32
+    losses against the CPU's within LOSS_RTOL. The float32 runs against
+    ``cpu_f64`` are reported, not held."""
+    import torch
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    cfg = train_cfg(4)
+    # the plain variant: BN without the kernel, fc1 as fullc (the same
+    # function, the same seeded weights)
+    plain_cfg = [(n, v.replace("pallas_fullc:", "fullc:"))
+                 for n, v in cfg if n != "bn_pallas"] + [("bn_pallas", "0")]
+    paths = {}
+    for name, c in (("kernels", cfg), ("plain", plain_cfg)):
+        init = NetTrainer(c, device=DEVICE)
+        init.init_model()
+        paths[name] = os.path.join(workdir, "train4_%s.model.npz" % name)
+        init.save_model(paths[name])
+        del init
+    rng = np.random.RandomState(SEED + 4)
+    batch = DataBatch(images(rng, 4),
+                      rng.randint(0, NCLASS, (4, 1)).astype(np.float32))
+
+    def delta(dev, plain=False, f64=False, cudnn=True):
+        t = NetTrainer(plain_cfg if plain else cfg, device=dev)
+        t.load_model(paths["plain" if plain else "kernels"])
+        if f64:
+            _as_float64(t)
+        w0 = {(lk, tag): w.detach().cpu().clone()
+              for lk, sub in t.params.items() for tag, w in sub.items()}
+        before = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            if f64:
+                # update() ships the batch as float32; the same step on a
+                # float64 copy of it
+                data, labels, mask = t._device_batch(batch)
+                t._last_loss, _ = t._train_step(
+                    data.double(), labels, mask, t.update_counter, True,
+                    False)
+            else:
+                t.update(batch)
+        finally:
+            torch.backends.cudnn.enabled = before
+        return ({k: t.params[k[0]][k[1]].detach().cpu().double() - w0[k]
+                 for k in w0}, t.last_loss)
+
+    runs = {"gpu": delta(DEVICE), "gpu_plain": delta(DEVICE, plain=True),
+            "cpu": delta("cpu"),
+            "gpu_f64": delta(DEVICE, plain=True, f64=True),
+            "cpu_f64": delta("cpu", plain=True, f64=True),
+            "gpu_no_cudnn": delta(DEVICE, cudnn=False)}
+
+    def rel(a, b, k):
+        nb = float(runs[b][0][k].norm())
+        return float((runs[a][0][k] - runs[b][0][k]).norm()) / max(nb, 1e-30)
+
+    def whole(a, b):
+        num = sum(float((runs[a][0][k] - runs[b][0][k]).norm()) ** 2
+                  for k in runs[b][0])
+        den = sum(float(v.norm()) ** 2 for v in runs[b][0].values())
+        return (num / max(den, 1e-60)) ** 0.5
+
+    # (run, reference): the held pairs first, then the reported ones
+    held = (("gpu_f64", "cpu_f64"), ("gpu", "gpu_plain"))
+    pairs = held + (("gpu", "cpu"), ("cpu", "cpu_f64"), ("gpu", "cpu_f64"),
+                    ("gpu_no_cudnn", "cpu_f64"))
+    keys = list(runs["cpu"][0])
+    table = {"%s_vs_%s" % p: [rel(p[0], p[1], k) for k in keys]
+             for p in pairs}
+    failed = sorted({"%s/%s" % keys[i] for a, b in held
+                     for i, r in enumerate(table["%s_vs_%s" % (a, b)])
+                     if not r <= UPDATE_RTOL})
+    loss = {k: v[1] for k, v in runs.items()}
+    loss_ok = all(abs(loss[k] - loss["cpu"]) <= LOSS_RTOL * abs(loss["cpu"])
+                  for k in loss)
+    out = {"params": len(keys), "losses": loss, "loss_ok": loss_ok,
+           "rtol": UPDATE_RTOL, "held": ["%s_vs_%s" % p for p in held],
+           "whole": {"%s_vs_%s" % p: whole(*p) for p in pairs},
+           "worst": {name: max(v) for name, v in table.items()},
+           "failed": failed,
+           # [param, then one column per pair in the order of "whole"]
+           "rows": [["%s/%s" % k] + [table[n][i] for n in table]
+                    for i, k in enumerate(keys)]}
+    out["ok"] = bool(loss_ok and not failed)
+    return out
+
+
+def pool_backward_check(net, batch: int = 8):
+    """Every pool of the training path, forward and backward through the
+    port's PoolingLayer on the card and on the CPU, on relu'd inputs
+    rounded to steps of 0.5 so that max windows hold tied maxima, zeros
+    and positive values alike. Max: the gradient entries that differ,
+    i.e. where the card credits a tie to another element than the CPU
+    does; none may. Avg: the largest gradient difference, within
+    SUM_RTOL of the largest entry (the same nine terms, summed in
+    another order). For a padded avg pool it also reports, not held,
+    how far the card's backward of ``F.avg_pool2d`` with the pad inside
+    the op (which the port avoids) lies from the CPU's, relative to its
+    norm: ``in_op_pad_grad_rel_err``."""
+    import torch.nn.functional as F
+    import torch
+    out = []
+    for li, info in enumerate(net.graph.layers):
+        if info.type not in ("max_pooling", "avg_pooling"):
+            continue
+        layer = net.layer_objs[li]
+        s = layer.in_shapes[0]
+        gen = torch.Generator().manual_seed(SEED + li)
+        x = torch.relu(torch.round(2 * torch.randn(
+            (batch, s.y, s.x, s.ch), generator=gen)) / 2)
+        grads = {}
+        for dev in ("cpu", DEVICE):
+            xd = x.to(dev).requires_grad_(True)
+            (y,), _ = layer.forward({}, {}, [xd], True)
+            dy = torch.arange(y.numel(), dtype=torch.float32,
+                              device=dev).reshape(y.shape) % 7 + 1
+            (g,) = torch.autograd.grad(y, [xd], dy)
+            grads[dev] = (y.detach().cpu(), g.cpu())
+            if info.type == "avg_pooling" and layer.param.pad_y:
+                p = layer.param
+                yi = F.avg_pool2d(xd.permute(0, 3, 1, 2), p.kernel_height,
+                                  p.stride, padding=p.pad_y,
+                                  count_include_pad=True)
+                (gi,) = torch.autograd.grad(yi, [xd],
+                                            dy.permute(0, 3, 1, 2))
+                grads[dev + "_in_op"] = gi.cpu()
+        (yc, gc), (yg, gg) = grads["cpu"], grads[DEVICE]
+        r = {"layer": net.graph.layers[li].name or "layer%d" % li,
+             "type": info.type, "in_shape": [batch, s.y, s.x, s.ch],
+             "kernel": layer.param.kernel_height,
+             "stride": layer.param.stride, "pad": layer.param.pad_y,
+             "fwd_max_abs_err": float((yc - yg).abs().max()),
+             "grad_max_abs_err": float((gc - gg).abs().max()),
+             "grad_entries_differing": int((gc != gg).sum()),
+             "grad_entries": int(gc.numel())}
+        if "cpu_in_op" in grads:
+            ref = grads["cpu_in_op"]
+            r["in_op_pad_grad_rel_err"] = float(
+                (grads[DEVICE + "_in_op"] - ref).norm() / ref.norm())
+        if info.type == "max_pooling":
+            r["ok"] = r["fwd_max_abs_err"] == 0 \
+                and r["grad_entries_differing"] == 0
+        else:
+            scale = float(gc.abs().max())
+            r["ok"] = r["fwd_max_abs_err"] <= SUM_RTOL * float(
+                yc.abs().max()) and r["grad_max_abs_err"] <= SUM_RTOL * scale
+        out.append(r)
+    return out
+
+
+def phase_train(workdir: str):
+    import torch
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    t0 = time.perf_counter()
+    t = NetTrainer(train_cfg(TRAIN_BATCH), device="cuda")
+    t.init_model()
+    rng = np.random.RandomState(SEED + 1)
+    batch = DataBatch(images(rng, TRAIN_BATCH),
+                      rng.randint(0, NCLASS, (TRAIN_BATCH, 1))
+                      .astype(np.float32))
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, per_step = [], []
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+
+    def step():
+        before = kernels.launch_counts()
+        t.update(batch)
+        losses.append(t._last_loss)
+        after = kernels.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+
+    # the main path: counts to 0, drive, read
+    kernels.reset_launch_counts()
+    t_first = time.perf_counter()
+    for _ in range(WARM_STEPS):
+        step()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t_first
+    t1 = time.perf_counter()
+    a.record()
+    for _ in range(TIMED_STEPS):
+        step()
+    b.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) / TIMED_STEPS * 1e3
+    launches = kernels.launch_counts()
+    step_ms = a.elapsed_time(b) / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    loss_values = [float(v) for v in losses]
+
+    prof = profile_step(t, batch)
+    flops = t.net.analytic_flops_per_example()
+    delta = update_delta_check(workdir)
+    pools = pool_backward_check(t.net)
+
+    steps = WARM_STEPS + TIMED_STEPS
+    counted = all(ps == TRAIN_LAUNCHES for ps in per_step) and all(
+        launches[k] == n * steps for k, n in TRAIN_LAUNCHES.items())
+    finite = bool(np.all(np.isfinite(loss_values)))
+    falling = finite and loss_values[-1] < loss_values[0]
+    res = {"phase": "train", "model": "inception_bn_224",
+           "config": "pallas_fullc fc1, bn_pallas, bn_fuse_relu, f32, "
+                     "TF32 off, sgd momentum 0.9",
+           "batch": TRAIN_BATCH, "setup_s": setup_s,
+           "first_steps_s": warm_s, "warm_steps": WARM_STEPS,
+           "timed_steps": TIMED_STEPS, "step_ms": step_ms,
+           "step_wall_ms": wall_ms,
+           "img_per_s": TRAIN_BATCH / step_ms * 1e3,
+           "tflops": 3 * flops * TRAIN_BATCH / (step_ms * 1e-3) / 1e12,
+           "fwd_gflop_per_img": flops / 1e9,
+           "peak_mem_gb": peak / 1e9, "losses": loss_values,
+           "finite": finite, "loss_falls": falling,
+           "launches": launches, "launches_per_step": per_step[-1],
+           "expected_per_step": TRAIN_LAUNCHES, "counted": counted,
+           "profile": prof, "update_vs_cpu": delta,
+           "pool_backward_vs_cpu": pools}
+    res["ok"] = bool(counted and finite and falling and delta["ok"]
+                     and all(p["ok"] for p in pools))
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("train phase failed")
+    return res
+
+
+def kernels_line(kres, sres, tres, part: str):
+    """The ``kernels`` record: every ported kernel with its launches on
+    its path's run, its error against its plain version, its times on
+    the card and its bound, at the path's shapes."""
+    fwd = kres["forward_sum"]
+    bn, mm = kres["bn_apply"], kres["matmul"]
+    prof = tres["profile"]
+    per_step = "one training step at batch %d" % TRAIN_BATCH
+    return {"kernels": [
+        dict(EPILOGUE, launches=sres["conv_epilogue_launches"],
+             max_abs_err=kres["max_abs_err"], ms=fwd["ms"],
+             plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
+             bound_by=kres["bound_by"], library_ms=None,
+             device_ms=sres["profile"]["epilogue_device_ms"],
+             per="one forward at bucket 128: %d launches"
+             % kres["path_launches_per_forward"], peaks=part),
+        dict(BN_FWD, launches=tres["launches"]["bn_apply_fwd"],
+             max_abs_err=bn["fwd_max_abs_err"], ms=bn["step_sum"]["fwd_ms"],
+             plain_ms=bn["step_sum"]["fwd_plain_ms"],
+             bound_ms=bn["step_sum"]["fwd_bound_ms"],
+             bound_by=bn["fwd_bound_by"], library_ms=None,
+             device_ms=prof["bn_fwd_device_ms"],
+             per="%s: %d launches" % (per_step, bn["launches_per_step"]),
+             peaks=part),
+        dict(BN_BWD, launches=tres["launches"]["bn_apply_bwd"],
+             max_abs_err=bn["bwd_max_abs_err"], ms=bn["step_sum"]["bwd_ms"],
+             plain_ms=bn["step_sum"]["bwd_plain_ms"],
+             bound_ms=bn["step_sum"]["bwd_bound_ms"],
+             bound_by=bn["bwd_bound_by"], library_ms=None,
+             device_ms=prof["bn_bwd_device_ms"],
+             sum_max_rel_err=bn["bwd_sum_max_rel"],
+             per="%s: %d launches" % (per_step, bn["launches_per_step"]),
+             peaks=part),
+        dict(MATMUL, launches=tres["launches"]["matmul"],
+             max_abs_err=mm["max_abs_err"], ms=mm["step_sum"]["ms"],
+             plain_ms=mm["step_sum"]["plain_ms"],
+             bound_ms=mm["step_sum"]["bound_ms"], bound_by=mm["bound_by"],
+             library_ms=mm["step_sum"]["library_ms"],
+             device_ms=prof["matmul_device_ms"],
+             max_rel_err=mm["max_rel_err"],
+             per="%s: %d launches" % (per_step, mm["launches_per_step"]),
+             peaks=part)]}
+
+
 def main() -> int:
     try:
         import torch
@@ -506,12 +1151,16 @@ def main() -> int:
     phase = "env"
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        from cxxnet_tpu_torch.device import resolve_device
+        resolve_device("cuda")           # TF32 off before any product
         smi = phase_env()
         bw, flops, part = card_peaks(torch.cuda.get_device_name(0))
         phase = "kernels"
         kres = phase_kernels(bw, flops)
         phase = "serve"
         sres = phase_serve(workdir)
+        phase = "train"
+        tres = phase_train(workdir)
     except Exception as e:
         import traceback
         traceback.print_exc()
@@ -520,16 +1169,7 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    fwd = kres["forward_sum"]
-    emit({"kernels": [dict(
-        EPILOGUE, launches=sres["conv_epilogue_launches"],
-        max_abs_err=kres["max_abs_err"], ms=fwd["ms"],
-        plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
-        bound_by=kres["bound_by"], library_ms=None,
-        device_ms=sres["profile"]["epilogue_device_ms"],
-        per="one forward at bucket 128: %d launches"
-        % kres["path_launches_per_forward"],
-        peaks=part)]})
+    emit(kernels_line(kres, sres, tres, part))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

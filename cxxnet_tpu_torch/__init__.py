@@ -6,13 +6,17 @@ activations, HWIO conv weights, ``(in, out)`` fullc weights) and
 replaces each TPU Pallas kernel on its path with a kernel written by
 hand for ``sm_90a`` (``csrc/``).
 
-What is ported so far is the serving path: ``serve.ServeSession`` over a
+What is ported so far: the serving path (``serve.ServeSession`` over a
 snapshot, through ``nnet.trainer.NetTrainer`` and ``nnet.net.FuncNet``,
-with the ``conv_epilogue`` kernel. Config keys whose feature is not
-ported raise :class:`~cxxnet_tpu_torch.utils.config.NotPortedError`.
+with the ``conv_epilogue`` kernel) and the training path
+(``NetTrainer.update`` / ``run_steps`` / ``update_many``, autograd over
+``FuncNet.loss_fn``, the ``updater`` rules, with the ``bn_apply`` and
+``matmul`` kernels). Config keys whose feature is not ported raise
+:class:`~cxxnet_tpu_torch.utils.config.NotPortedError`.
 
 Importing this package imports no JAX, builds no kernel and touches no
 device.
 """
 
-__all__ = ["graph", "layers", "models", "nnet", "serve", "utils"]
+__all__ = ["graph", "io", "layers", "models", "nnet", "serve", "updater",
+           "utils"]

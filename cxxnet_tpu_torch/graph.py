@@ -271,6 +271,22 @@ class NetGraph:
                     raise ConfigError(
                         "layer %d references invalid node %d" % (li, ni))
 
+    def label_field_index(self, name: str) -> int:
+        """Index of a named label field."""
+        if name in self.label_name_map:
+            return self.label_name_map[name]
+        raise ConfigError("unknown label field %r" % name)
+
+    def label_slices(self) -> List[Tuple[str, int, int]]:
+        """(name, begin, end) column ranges into the label matrix; a
+        single field ``label`` over column 0 when no ``label_vec`` is
+        configured."""
+        if not self.label_range:
+            return [("label", 0, 1)]
+        inv = {v: k for k, v in self.label_name_map.items()}
+        return [(inv.get(i, "label"), a, b)
+                for i, (a, b) in enumerate(self.label_range)]
+
     def node_consumers(self) -> Dict[int, List[int]]:
         """node index -> layer indices reading it (out-degree checks of
         the fusion passes in nnet/net.py)."""

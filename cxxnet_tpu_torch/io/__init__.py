@@ -1,5 +1,5 @@
 """Data records (the iterators are not ported yet)."""
 
-from .data import DataBatch, inst_array_shape
+from .data import DataBatch, batch_mask, inst_array_shape
 
-__all__ = ["DataBatch", "inst_array_shape"]
+__all__ = ["DataBatch", "batch_mask", "inst_array_shape"]

@@ -1,6 +1,6 @@
 """Layer registry: string type -> layer factory (counterpart of
 ``cxxnet_tpu/layers/__init__.py``), restricted to the layer types the
-ported serving slice runs. Every other type the reference knows raises
+ported serving and training slices run. Every other type the reference knows raises
 :class:`NotPortedError` naming the ROADMAP item that ports it; a type
 neither package knows raises ``ValueError``.
 """
@@ -12,12 +12,14 @@ from typing import Callable, Dict, Sequence, Tuple
 from ..utils.config import NotPortedError, Roadmap
 from .base import Layer, LayerParam, Shape3, array_shape, as_mat
 from .common import (ActivationLayer, ConcatLayer, DropoutLayer,
-                     FlattenLayer, FullConnectLayer, SplitLayer)
+                     FlattenLayer, FullConnectLayer, PallasFullConnectLayer,
+                     SplitLayer)
 from .conv import BatchNormLayer, ConvolutionLayer, PoolingLayer
 from .loss import LossLayer, SoftmaxLayer
 
 _FACTORY: Dict[str, Callable[..., Layer]] = {
     "fullc": lambda cfg, **kw: FullConnectLayer(cfg),
+    "pallas_fullc": lambda cfg, **kw: PallasFullConnectLayer(cfg),
     "softmax": lambda cfg, **kw: SoftmaxLayer(cfg),
     "relu": lambda cfg, **kw: ActivationLayer("relu", cfg),
     "sigmoid": lambda cfg, **kw: ActivationLayer("sigmoid", cfg),
@@ -32,17 +34,20 @@ _FACTORY: Dict[str, Callable[..., Layer]] = {
     "ch_concat": lambda cfg, **kw: ConcatLayer(1, cfg),
     "split": lambda cfg, n_out=2, **kw: SplitLayer(n_out, cfg),
     "batch_norm": lambda cfg, **kw: BatchNormLayer(cfg),
+    # batch_norm with the folded epilogue through the bn_apply kernel
+    "pallas_batch_norm": lambda cfg, **kw: BatchNormLayer(
+        cfg, use_pallas=True),
 }
 
 # reference layer types not ported yet -> the ROADMAP item porting them
 _NOT_PORTED = {
-    "pallas_fullc": Roadmap.MATMUL,
     "pallas_relu_max_pooling": Roadmap.RELU_MAX_POOL,
     "relu_max_pooling": Roadmap.RELU_MAX_POOL,
-    "pallas_batch_norm": Roadmap.BN_APPLY,
+    "insanity": Roadmap.KAIMING_TRAINING,
+    "rrelu": Roadmap.KAIMING_TRAINING,
 }
-for _t in ("fixconn", "bias", "sum_pooling", "lrn", "xelu", "insanity",
-           "rrelu", "insanity_max_pooling", "lp_loss", "l2_loss",
+for _t in ("fixconn", "bias", "sum_pooling", "lrn", "xelu",
+           "insanity_max_pooling", "lp_loss", "l2_loss",
            "multi_logistic", "prelu", "batch_norm_no_ma", "torch",
            "maxout"):
     _NOT_PORTED[_t] = Roadmap.LAYER_ZOO

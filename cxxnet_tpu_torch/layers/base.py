@@ -1,7 +1,9 @@
 """Layer base types (counterpart of ``cxxnet_tpu/layers/base.py``).
 
 Layers are plain objects over dictionaries of tensors: a declarative
-spec, shape inference, parameter init and an eval forward. The public
+spec, shape inference, parameter init and a forward that serves both
+evaluation and training (``is_train``; autograd differentiates the
+training forward, in place of the reference's ``jax.grad``). The public
 layouts are the reference's: spatial nodes are NHWC ``(batch, y, x,
 ch)``, flattened nodes 2-D ``(batch, features)``, and logical node
 shapes keep the ``(ch, y, x)`` convention (``Shape3``), where ch == 1
@@ -74,6 +76,9 @@ class LayerParam:
     # as one pass of the conv_epilogue kernel on the conv output,
     # instead of folding the scale into the weights
     conv_pallas_epilogue: int = 0
+    # training batch norm folds normalize + affine into one per-channel
+    # scale/shift (the default, as in the reference)
+    bn_fold_affine: int = 1
 
     def set_param(self, name: str, val: str) -> None:
         if name == "init_sigma":
@@ -127,6 +132,8 @@ class LayerParam:
                                  Roadmap.RELU_MAX_POOL)
         if name == "conv_pallas_epilogue":
             self.conv_pallas_epilogue = int(val)
+        if name == "bn_fold_affine":
+            self.bn_fold_affine = int(val)
 
     def rand_init_weight(self, gen: torch.Generator,
                          shape: Tuple[int, ...], in_num: int,
@@ -152,7 +159,7 @@ class LayerParam:
 
 
 class Layer:
-    """Base class: a declarative spec + an eval forward.
+    """Base class: a declarative spec + a forward.
 
     Lifecycle: construct with merged config -> ``infer_shape`` (records
     input shapes, returns output shapes; raises on inconsistency) ->
@@ -190,8 +197,14 @@ class Layer:
         """Non-learnable persistent state (BN running stats)."""
         return {}
 
+    #: layers that reduce over the batch dimension (batch norm) set this
+    #: so the net passes them the padded-row mask as a keyword
+    needs_mask = False
+
     def forward(self, params: Dict[str, torch.Tensor],
                 state: Dict[str, torch.Tensor],
-                inputs: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Eval forward: output tensors, one per output node."""
+                inputs: List[torch.Tensor], is_train: bool = False
+                ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+        """Output tensors (one per output node) and the layer's state
+        after the call (changed only by a training forward)."""
         raise NotImplementedError

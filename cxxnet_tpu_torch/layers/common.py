@@ -1,10 +1,15 @@
 """Dense / elementwise / structural layers (counterpart of
-``cxxnet_tpu/layers/common.py``), eval forwards only:
+``cxxnet_tpu/layers/common.py``); one forward for evaluation and
+training, differentiated by autograd:
 
 - fullc        — y = x @ W + b, W stored (in, out)
+- pallas_fullc — the same through the matmul kernel
+  (``PallasFullConnectLayer``, counterpart of the reference's in
+  ``pallas_kernels.py:543-559``)
 - flatten      — NHWC -> (batch, ch*y*x) in the reference's NCHW order
 - relu/sigmoid/tanh/softplus
-- dropout      — identity at inference (self-loop)
+- dropout      — identity at inference (self-loop); its training
+  forward is not ported and raises
 - concat/ch_concat
 - split
 """
@@ -16,7 +21,9 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 
+from ..utils.config import NotPortedError, Roadmap
 from .base import Layer, Shape3, as_mat
+from .kernels import matmul
 
 
 class FullConnectLayer(Layer):
@@ -48,11 +55,23 @@ class FullConnectLayer(Layer):
                                      dtype=torch.float32)
         return out
 
-    def forward(self, params, state, inputs):
-        y = inputs[0] @ params["wmat"]
+    def _matmul(self, x, w):
+        return x @ w
+
+    def forward(self, params, state, inputs, is_train=False):
+        y = self._matmul(inputs[0], params["wmat"])
         if self.param.no_bias == 0:
             y = y + params["bias"]
-        return [y]
+        return [y], state
+
+
+class PallasFullConnectLayer(FullConnectLayer):
+    """fullc with the product through the matmul kernel (config name
+    ``pallas_fullc``); the same function as ``fullc``. The forward and
+    both backward products are kernel launches; the bias add is plain."""
+
+    def _matmul(self, x, w):
+        return matmul(x, w)
 
 
 class FlattenLayer(Layer):
@@ -64,8 +83,8 @@ class FlattenLayer(Layer):
         self.out_shapes = [Shape3(1, 1, s.flat_size)]
         return self.out_shapes
 
-    def forward(self, params, state, inputs):
-        return [as_mat(inputs[0])]
+    def forward(self, params, state, inputs, is_train=False):
+        return [as_mat(inputs[0])], state
 
 
 class ActivationLayer(Layer):
@@ -89,8 +108,8 @@ class ActivationLayer(Layer):
         self.out_shapes = [s]
         return self.out_shapes
 
-    def forward(self, params, state, inputs):
-        return [self._FNS[self.kind](inputs[0])]
+    def forward(self, params, state, inputs, is_train=False):
+        return [self._FNS[self.kind](inputs[0])], state
 
 
 class DropoutLayer(Layer):
@@ -115,8 +134,11 @@ class DropoutLayer(Layer):
         self.out_shapes = [s]
         return self.out_shapes
 
-    def forward(self, params, state, inputs):
-        return [inputs[0]]
+    def forward(self, params, state, inputs, is_train=False):
+        if is_train:
+            raise NotPortedError("dropout in a training forward",
+                                 Roadmap.KAIMING_TRAINING)
+        return [inputs[0]], state
 
 
 class ConcatLayer(Layer):
@@ -145,13 +167,13 @@ class ConcatLayer(Layer):
         self.out_shapes = [Shape3(*out)]
         return self.out_shapes
 
-    def forward(self, params, state, inputs):
+    def forward(self, params, state, inputs, is_train=False):
         if inputs[0].dim() == 2:
             if self.dim != 3:
                 raise ValueError("ch_concat on matrix nodes is unsupported")
-            return [torch.cat(inputs, dim=1)]
+            return [torch.cat(inputs, dim=1)], state
         axis = {1: 3, 2: 1, 3: 2}[self.dim]   # NCHW dim -> NHWC axis
-        return [torch.cat(inputs, dim=axis)]
+        return [torch.cat(inputs, dim=axis)], state
 
 
 class SplitLayer(Layer):
@@ -167,5 +189,5 @@ class SplitLayer(Layer):
         self.out_shapes = [s] * self.n_out
         return self.out_shapes
 
-    def forward(self, params, state, inputs):
-        return [inputs[0]] * self.n_out
+    def forward(self, params, state, inputs, is_train=False):
+        return [inputs[0]] * self.n_out, state

@@ -1,5 +1,5 @@
 """Spatial layers: convolution, pooling, batch norm (counterpart of
-``cxxnet_tpu/layers/conv.py``), eval forwards only.
+``cxxnet_tpu/layers/conv.py``), eval and training forwards.
 
 - conv: one ``F.conv2d`` over an NCHW *view* of the NHWC activation
   (``permute(0, 3, 1, 2)``, channels-last strides) and a weight held in
@@ -15,19 +15,28 @@
   (``_pool_out_dim``): the base pad is a zero pad, the ceil overhang a
   truncated window (``-inf`` for max), and avg divides by the full
   ``kh * kw``. PyTorch's ``ceil_mode`` and ``count_include_pad`` do not
-  give these rules, so the pads are explicit.
+  give these rules, so the pads are explicit. (For avg they must be:
+  with the pad inside the op, ``F.avg_pool2d``'s CUDA backward is wrong
+  in PyTorch 2.11 / CUDA 12.8 while its forward is right; see
+  ROADMAP.md queue 3.)
+- training: the master conv weight stays HWIO (the snapshot layout);
+  the OIHW operand cuDNN takes is derived from it on every step under
+  autograd, so its gradient arrives in HWIO. Batch norm normalizes
+  with the masked single-pass batch moments and applies the folded
+  scale/shift through the ``bn_apply`` kernel under ``bn_pallas = 1``;
+  the gradient through the moments is plain autograd, as it is XLA in
+  the reference.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..utils.config import NotPortedError, Roadmap
 from .base import Layer, Shape3
-from .kernels import conv_epilogue
+from .kernels import bn_apply, bn_apply_plain, conv_epilogue
 
 
 def _conv_out_dim(size: int, pad: int, k: int, stride: int) -> int:
@@ -105,9 +114,15 @@ class ConvolutionLayer(Layer):
                      padding=(p.pad_y, p.pad_x), groups=p.num_group)
         return y.permute(0, 2, 3, 1)
 
-    def forward(self, params, state, inputs):
+    def forward(self, params, state, inputs, is_train=False):
         p = self.param
         x = inputs[0]
+        if is_train:
+            # no fold: the training forward is conv + bias on the masters
+            y = self.conv(x, hwio_to_oihw(params["wmat"]))
+            if p.no_bias == 0:
+                y = y + params["bias"]
+            return [y], state
         w = params.get("_oihw")
         shift = params.get("_r_shift")
         relu = False
@@ -117,13 +132,14 @@ class ConvolutionLayer(Layer):
         if shift is not None:
             # frozen weight-side fold: the weight was multiplied once
             y = self.conv(x, w) + shift
-            return [torch.relu(y) if relu else y]
+            return [torch.relu(y) if relu else y], state
         ep_scale = params.get("_ep_scale")
         if ep_scale is not None:
             # frozen output-side fold: one conv_epilogue launch
             y = self.conv(x, w)
             return [conv_epilogue(y, ep_scale, params["_ep_shift"],
-                                  "_ep_relu" in params, torch.float32)]
+                                  "_ep_relu" in params, torch.float32)], \
+                state
         # no frozen fold: the fold (if any) computed by the net for this
         # forward, the weight converted here unless it was frozen raw
         fold_scale = params.get("_fold_scale")
@@ -147,10 +163,10 @@ class ConvolutionLayer(Layer):
         if fold_in_epilogue:
             shift = b if b is not None else torch.zeros_like(fold_scale)
             return [conv_epilogue(y, fold_scale, shift, relu,
-                                  torch.float32)]
+                                  torch.float32)], state
         if b is not None:
             y = y + b
-        return [torch.relu(y) if relu else y]
+        return [torch.relu(y) if relu else y], state
 
 
 class PoolingLayer(Layer):
@@ -188,32 +204,38 @@ class PoolingLayer(Layer):
             if ey or ex:
                 x = F.pad(x, (0, 0, 0, ex, 0, ey), value=float("-inf"))
             y = F.max_pool2d(x.permute(0, 3, 1, 2), (kh, kw), st)
-        elif not (ey or ex) and py <= kh // 2 and px <= kw // 2:
-            # zero pad inside the op, every window divided by kh*kw
-            y = F.avg_pool2d(x.permute(0, 3, 1, 2), (kh, kw), st,
-                             padding=(py, px), count_include_pad=True)
         else:
-            x = F.pad(x, (0, 0, px, px + ex, py, py + ey))
+            # zero pad, every window divided by kh*kw
+            if py or px or ey or ex:
+                x = F.pad(x, (0, 0, px, px + ex, py, py + ey))
             y = F.avg_pool2d(x.permute(0, 3, 1, 2), (kh, kw), st,
                              divisor_override=kh * kw)
         return y.permute(0, 2, 3, 1)
 
-    def forward(self, params, state, inputs):
-        return [self._pool(inputs[0])]
+    def forward(self, params, state, inputs, is_train=False):
+        return [self._pool(inputs[0])], state
 
 
 class BatchNormLayer(Layer):
-    """Batch normalization with moving averages (``batch_norm``); at
-    eval it normalizes with the running stats. Per channel on spatial
-    nodes, per feature on matrix nodes; eps default 1e-10."""
+    """Batch normalization with moving averages (``batch_norm``; with
+    ``use_pallas``, ``pallas_batch_norm``). Per channel on spatial
+    nodes, per feature on matrix nodes; eps default 1e-10, running
+    average momentum 0.9.
 
-    def __init__(self, cfg=()):
+    Training normalizes with the batch moments, padded tail rows
+    excluded through the mask, and updates the running stats; eval
+    normalizes with the running stats."""
+
+    needs_mask = True
+
+    def __init__(self, cfg=(), use_pallas: bool = False):
         self.init_slope = 1.0
         self.init_bias = 0.0
         self.eps = 1e-10
         self.bn_momentum = 0.9
         self.channel = 0
         self.moving_avg = True
+        self.use_pallas = use_pallas
         # set by the net's bn_fuse_relu pass: the relu consuming this
         # BN's output runs inside this layer
         self.fuse_relu = False
@@ -229,8 +251,8 @@ class BatchNormLayer(Layer):
             self.eps = float(val)
         if name == "bn_momentum":
             self.bn_momentum = float(val)
-        if name == "bn_pallas" and int(val):
-            raise NotPortedError("bn_pallas = %s" % val, Roadmap.BN_APPLY)
+        if name == "bn_pallas":
+            self.use_pallas = bool(int(val))
 
     def infer_shape(self, in_shapes: List[Shape3]) -> List[Shape3]:
         s = self._expect_one(in_shapes)
@@ -260,8 +282,55 @@ class BatchNormLayer(Layer):
                                              + self.eps)
         return scale, params["bias"] - state["running_exp"] * scale
 
-    def forward(self, params, state, inputs):
+    @staticmethod
+    def _moments(x: torch.Tensor, mask: Optional[torch.Tensor]):
+        """Single-pass masked moments, E[x²] - E[x]² in f32, clamped at
+        0 (the reference's ``_moments``, term for term). A float64 net
+        (a precision check's witness) keeps float64."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        axes = tuple(range(x.dim() - 1))
+        if mask is None:
+            n = float(x.numel() // x.shape[-1])
+            s1 = xf.sum(axes)
+            s2 = (xf * xf).sum(axes)
+        else:
+            w = mask.reshape((-1,) + (1,) * (x.dim() - 1))
+            n = mask.sum() * (x.numel() // (x.shape[0] * x.shape[-1]))
+            n = torch.clamp_min(n, 1.0)
+            s1 = (xf * w).sum(axes)
+            s2 = (xf * xf * w).sum(axes)
+        mean = s1 / n
+        var = s2 / n - mean * mean
+        # torch.maximum splits the gradient at a tie, as jnp.maximum does
+        return mean, torch.maximum(var, torch.zeros_like(var))
+
+    def _apply(self, x, scale, shift):
+        """The folded per-channel epilogue (+ fused relu), through the
+        bn_apply kernel under ``bn_pallas``."""
+        if self.use_pallas:
+            return bn_apply(x, scale, shift, self.fuse_relu)
+        return bn_apply_plain(x, scale, shift, self.fuse_relu)
+
+    def forward(self, params, state, inputs, is_train=False, mask=None):
         x = inputs[0]
-        scale, shift = self.fold(params, state)
-        out = x * scale + shift
-        return [torch.relu(out) if self.fuse_relu else out]
+        slope, bias = params["wmat"], params["bias"]
+        if not is_train:
+            scale, shift = self.fold(params, state)
+            return [bn_apply_plain(x, scale, shift, self.fuse_relu)], state
+        mean, var = self._moments(x, mask)
+        if self.param.bn_fold_affine:
+            scale = slope * torch.rsqrt(var + self.eps)
+            shift = bias - mean * scale
+            out = self._apply(x, scale, shift)
+        else:
+            xhat = (x - mean) * torch.rsqrt(var + self.eps)
+            out = (xhat * slope + bias).to(x.dtype)
+            if self.fuse_relu:
+                out = torch.relu(out)
+        m = self.bn_momentum
+        with torch.no_grad():
+            state = dict(
+                state,
+                running_exp=state["running_exp"] * m + mean * (1 - m),
+                running_var=state["running_var"] * m + var * (1 - m))
+        return [out], state

@@ -13,7 +13,13 @@ here has
 - a launch counter on the wrapper (``wrapper.launches``), a plain int
   that only a kernel launch increments.
 
-Ported so far: ``conv_epilogue`` (float input, forward).
+Ported so far:
+
+- ``conv_epilogue`` (float input, forward);
+- ``bn_apply`` forward and backward (``bn_apply_fwd`` /
+  ``bn_apply_bwd``), differentiable as :func:`bn_apply`;
+- ``matmul``, differentiable as :func:`matmul`: the forward and both
+  backward products run through the kernel.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,6 +40,7 @@ from ..utils.config import NotPortedError, Roadmap
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+KERNEL_SOURCES = ("conv_epilogue", "bn_apply", "matmul")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -59,52 +66,83 @@ def _find_nvcc() -> str:
                        "cxxnet_tpu_torch build with nvcc at first use")
 
 
-def build_kernel(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` into ``_build/<name>-<hash>.so``
-    unless that file exists, and return its path. The hash covers the
-    source and the flags, so an edited source never loads a stale
+def _so_path(name: str) -> Tuple[str, str]:
+    """(source, shared library) of a kernel. The library's name hashes
+    the source and the flags, so an edited source never loads a stale
     build."""
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(
             f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, "%s-%s.so" % (name, digest))
-    if os.path.exists(so):
-        build_info.setdefault(name, {"path": so, "seconds": 0.0,
-                                     "log": "cached"})
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.tmp%d" % (so, os.getpid())
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed on %s (exit %d):\n%s%s"
-                           % (src, res.returncode, res.stdout, res.stderr))
-    os.replace(tmp, so)
-    build_info[name] = {"path": so, "seconds": secs,
-                        "log": (res.stdout + res.stderr).strip()}
-    return so
+    return src, os.path.join(BUILD_DIR, "%s-%s.so" % (name, digest))
+
+
+def build_kernels(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, str]:
+    """Compile each ``csrc/<name>.cu`` not built yet into
+    ``_build/<name>-<hash>.so``, one ``nvcc`` per source, all started
+    together; return every name's library path."""
+    paths: Dict[str, str] = {}
+    running = []
+    for name in names:
+        src, so = _so_path(name)
+        paths[name] = so
+        if os.path.exists(so):
+            build_info.setdefault(name, {"path": so, "seconds": 0.0,
+                                         "log": "cached"})
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = "%s.tmp%d" % (so, os.getpid())
+        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((name, src, so, tmp, proc, time.perf_counter()))
+    failures = []
+    for name, src, so, tmp, proc, t0 in running:
+        try:
+            log, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+            failures.append("nvcc timed out on %s" % src)
+            continue
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append("nvcc failed on %s (exit %d):\n%s"
+                            % (src, proc.returncode, log))
+            continue
+        os.replace(tmp, so)
+        build_info[name] = {"path": so, "seconds": secs,
+                            "log": (log or "").strip()}
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths
 
 
 def _load(name: str) -> ctypes.CDLL:
     with _lib_lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build_kernel(name))
+            lib = ctypes.CDLL(build_kernels((name,))[name])
             _bind(name, lib)
             _libs[name] = lib
         return lib
 
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "conv_epilogue": {"cxn_conv_epilogue": [_P, _P, _P, _P, _L, _I, _I, _I,
+                                            _I, _P]},
+    "bn_apply": {"cxn_bn_apply_fwd": [_P, _P, _P, _P, _L, _I, _I, _P],
+                 "cxn_bn_apply_bwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
+                                      _L, _I, _L, _I, _P]},
+    "matmul": {"cxn_matmul": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P]},
+}
+
+
 def _bind(name: str, lib: ctypes.CDLL) -> None:
-    if name == "conv_epilogue":
-        fn = lib.cxn_conv_epilogue
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+    for fname, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fname)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
 
 
@@ -116,6 +154,33 @@ def _cuda_error(code: int) -> str:
         return rt.cudaGetErrorString(code).decode()
     except OSError:
         return "cudaError %d" % code
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError("%s kernel launch failed: %s"
+                           % (what, _cuda_error(err)))
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _require_cuda(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError("%s: no kernel for device %s" % (what, t.device))
+
+
+def _check_vec(what: str, nm: str, v: torch.Tensor, c: int,
+               device: torch.device) -> None:
+    if v.dtype != torch.float32 or tuple(v.shape) != (c,):
+        raise ValueError("%s: %s must be float32 of shape (%d,), got %s %s"
+                         % (what, nm, c, v.dtype, tuple(v.shape)))
+    if v.device != device:
+        raise ValueError("%s: %s is on %s, x on %s"
+                         % (what, nm, v.device, device))
+    if not v.is_contiguous():
+        raise ValueError("%s: %s must be contiguous" % (what, nm))
 
 
 # ------------------------------------------------------- conv epilogue
@@ -148,18 +213,10 @@ def _check_epilogue(x, scale, shift, out_dtype) -> None:
                          "shape %s" % (tuple(x.shape),))
     c = x.shape[-1]
     for nm, v in (("scale", scale), ("shift", shift)):
-        if v.dtype != torch.float32 or tuple(v.shape) != (c,):
-            raise ValueError("conv_epilogue: %s must be float32 of shape "
-                             "(%d,), got %s %s"
-                             % (nm, c, v.dtype, tuple(v.shape)))
-        if v.device != x.device:
-            raise ValueError("conv_epilogue: %s is on %s, x on %s"
-                             % (nm, v.device, x.device))
-    for nm, v in (("x", x), ("scale", scale), ("shift", shift)):
-        if not v.is_contiguous():
-            raise ValueError("conv_epilogue: %s must be contiguous "
-                             "(the kernel reads a dense NHWC buffer)"
-                             % nm)
+        _check_vec("conv_epilogue", nm, v, c, x.device)
+    if not x.is_contiguous():
+        raise ValueError("conv_epilogue: x must be contiguous (the "
+                         "kernel reads a dense NHWC buffer)")
 
 
 def conv_epilogue(x: torch.Tensor, scale: torch.Tensor,
@@ -172,22 +229,17 @@ def conv_epilogue(x: torch.Tensor, scale: torch.Tensor,
     _check_epilogue(x, scale, shift, out_dtype)
     if x.device.type == "cpu":
         return conv_epilogue_plain(x, scale, shift, relu, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError("conv_epilogue: no kernel for device %s"
-                         % x.device)
+    _require_cuda(x, "conv_epilogue")
     lib = _load("conv_epilogue")
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if x.numel() == 0:
         return y
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.cxn_conv_epilogue(
             x.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
             x.numel(), x.shape[-1], _DTYPE_CODE[x.dtype],
-            _DTYPE_CODE[out_dtype], int(bool(relu)), stream)
-    if err != 0:
-        raise RuntimeError("conv_epilogue kernel launch failed: %s"
-                           % _cuda_error(err))
+            _DTYPE_CODE[out_dtype], int(bool(relu)), _stream(x))
+    _raise_on(err, "conv_epilogue")
     conv_epilogue.launches += 1
     return y
 
@@ -195,10 +247,295 @@ def conv_epilogue(x: torch.Tensor, scale: torch.Tensor,
 conv_epilogue.launches = 0
 
 
+# ------------------------------------------------------------ bn_apply
+
+
+def bn_apply_plain(x: torch.Tensor, scale: torch.Tensor,
+                   shift: torch.Tensor, relu: bool) -> torch.Tensor:
+    """``relu?(x * scale + shift)`` per channel in x's dtype: the plain
+    version of the bn_apply forward kernel (the reference's
+    ``_bn_apply_kernel`` arithmetic)."""
+    y = x * scale.to(x.dtype) + shift.to(x.dtype)
+    return torch.relu(y) if relu else y
+
+
+def bn_apply_bwd_plain(x: torch.Tensor, y: Optional[torch.Tensor],
+                       dy: torch.Tensor, scale: torch.Tensor, relu: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """(dx, dscale, dshift) of ``y = relu?(x * scale + shift)``: the
+    plain version of the bn_apply backward kernel, written as the
+    reference's VJP (``pallas_kernels.py:305-322``) computes it."""
+    dym = torch.where(y > 0, dy, torch.zeros_like(dy)) if relu else dy
+    dx = bn_apply_plain(dym, scale, torch.zeros_like(scale), False)
+    axes = tuple(range(x.dim() - 1))
+    dscale = (dym * x).float().sum(axes)
+    dshift = dym.float().sum(axes)
+    return dx, dscale, dshift
+
+
+def _check_bn(what: str, x: torch.Tensor, scale: torch.Tensor) -> None:
+    if x.dtype == torch.bfloat16:
+        raise NotPortedError("%s on bfloat16 activations" % what,
+                             Roadmap.LOW_PRECISION_TRAINING)
+    if x.dtype != torch.float32:
+        raise TypeError("%s: x must be float32, got %s" % (what, x.dtype))
+    if x.dim() not in (2, 4) or x.shape[-1] < 1:
+        raise ValueError("%s: x must be NHWC or (N, C), got shape %s"
+                         % (what, tuple(x.shape)))
+    _check_vec(what, "scale", scale, x.shape[-1], x.device)
+    if not x.is_contiguous():
+        raise ValueError("%s: x must be contiguous (the kernel reads a "
+                         "dense NHWC buffer)" % what)
+
+
+def _row_stride(t: torch.Tensor) -> Optional[int]:
+    """Row stride of ``t`` seen as a (rows, C) matrix with unit channel
+    stride (a contiguous tensor, or a channel slice of a wider one), or
+    None when no such view exists."""
+    c = t.shape[-1]
+    if t.stride(-1) != 1 and c != 1:
+        return None
+    ld = expect = None
+    # size-1 axes carry any stride; every other row axis must nest
+    for d in range(t.dim() - 2, -1, -1):
+        if t.shape[d] == 1:
+            continue
+        if expect is None:
+            ld = t.stride(d)
+        elif t.stride(d) != expect:
+            return None
+        expect = t.stride(d) * t.shape[d]
+    if ld is None:
+        return c                         # a single row
+    return int(ld) if ld >= c else None
+
+
+def bn_apply_fwd(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                 relu: bool) -> torch.Tensor:
+    """``relu?(x * scale + shift)`` per channel (last axis of a
+    contiguous float32 NHWC or (N, C) tensor): one launch of
+    ``cxn_bn_apply_fwd`` (``csrc/bn_apply.cu``) for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    _check_bn("bn_apply", x, scale)
+    _check_vec("bn_apply", "shift", shift, x.shape[-1], x.device)
+    if x.device.type == "cpu":
+        return bn_apply_plain(x, scale, shift, relu)
+    _require_cuda(x, "bn_apply")
+    lib = _load("bn_apply")
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    with torch.cuda.device(x.device):
+        err = lib.cxn_bn_apply_fwd(x.data_ptr(), scale.data_ptr(),
+                                   shift.data_ptr(), y.data_ptr(),
+                                   x.numel(), x.shape[-1], int(bool(relu)),
+                                   _stream(x))
+    _raise_on(err, "bn_apply")
+    bn_apply_fwd.launches += 1
+    return y
+
+
+bn_apply_fwd.launches = 0
+
+_sm_counts: Dict[int, int] = {}
+
+
+def _bwd_max_blocks(dev: torch.device) -> int:
+    """Row blocks the backward kernel may use: 8 per SM, as its
+    launcher caps them."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return 8 * _sm_counts[idx]
+
+
+def bn_apply_bwd(x: torch.Tensor, y: Optional[torch.Tensor],
+                 dy: torch.Tensor, scale: torch.Tensor, relu: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dscale, dshift) of ``y = relu?(x * scale + shift)`` from the
+    forward's input ``x``, its output ``y`` (read only under ``relu``)
+    and the cotangent ``dy``: one launch of ``cxn_bn_apply_bwd`` for
+    CUDA tensors, the plain version for CPU tensors. ``dy`` may be a
+    channel slice of a wider tensor."""
+    _check_bn("bn_apply_bwd", x, scale)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError("bn_apply_bwd: dy must match x, got %s %s on %s"
+                         % (tuple(dy.shape), dy.dtype, dy.device))
+    if relu and (y is None or y.shape != x.shape or y.dtype != x.dtype
+                 or y.device != x.device or not y.is_contiguous()):
+        raise ValueError("bn_apply_bwd: relu needs the forward output y, "
+                         "contiguous and shaped like x")
+    ld = _row_stride(dy)
+    if ld is None:
+        raise ValueError("bn_apply_bwd: dy must have unit channel stride "
+                         "and rows at one stride, got strides %s"
+                         % (dy.stride(),))
+    if x.device.type == "cpu":
+        return bn_apply_bwd_plain(x, y, dy, scale, relu)
+    _require_cuda(x, "bn_apply_bwd")
+    lib = _load("bn_apply")
+    c = x.shape[-1]
+    dx = torch.empty_like(x)
+    dscale = torch.empty(c, dtype=torch.float32, device=x.device)
+    dshift = torch.empty(c, dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return dx, dscale.zero_(), dshift.zero_()
+    max_blocks = _bwd_max_blocks(x.device)
+    part = torch.empty(2 * max_blocks * c, dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.cxn_bn_apply_bwd(
+            x.data_ptr(), y.data_ptr() if relu else None, dy.data_ptr(),
+            scale.data_ptr(), dx.data_ptr(), part.data_ptr(), max_blocks,
+            dscale.data_ptr(), dshift.data_ptr(), x.numel() // c, c, ld,
+            int(bool(relu)), _stream(x))
+    _raise_on(err, "bn_apply_bwd")
+    bn_apply_bwd.launches += 1
+    return dx, dscale, dshift
+
+
+bn_apply_bwd.launches = 0
+
+
+class _BnApply(torch.autograd.Function):
+    """Counterpart of the reference's ``bn_apply`` custom VJP: the
+    forward and the backward are one kernel launch each."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, relu):
+        x = x.contiguous()
+        y = bn_apply_fwd(x, scale.contiguous(), shift.contiguous(), relu)
+        ctx.relu = relu
+        ctx.save_for_backward(x, scale, y if relu else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, y = ctx.saved_tensors
+        if _row_stride(dy) is None:
+            dy = dy.contiguous()
+        dx, dscale, dshift = bn_apply_bwd(x, y, dy, scale.contiguous(),
+                                          ctx.relu)
+        return dx, dscale, dshift, None
+
+
+def bn_apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+             relu: bool = False) -> torch.Tensor:
+    """Fused BN epilogue ``relu?(x * scale + shift)``, differentiable in
+    all three tensors (``scale``/``shift`` are the folded per-channel
+    factors; the moments stay outside, so autograd composes through
+    them)."""
+    return _BnApply.apply(x, scale, shift, bool(relu))
+
+
+# -------------------------------------------------------------- matmul
+
+
+def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in float32 (the reference's ``jnp.dot`` with f32
+    accumulation): the plain version of the matmul kernel."""
+    return torch.matmul(a.float(), b.float())
+
+
+def _mat_strides(t: torch.Tensor) -> Optional[Tuple[int, int]]:
+    """(row stride, column stride) of a 2-D operand the kernel reads in
+    place (one of them 1), or None."""
+    r, c = t.stride()
+    if t.shape[1] == 1:
+        c = 1
+    elif t.shape[0] == 1:
+        r = 1 if c != 1 else t.shape[1]
+    if c == 1 or r == 1:
+        return int(r), int(c)
+    return None
+
+
+def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for float32 (M, K) and (K, N) operands, each read
+    through its strides (row-major or transposed): one launch of
+    ``csrc/matmul.cu`` for CUDA tensors, the plain version for CPU
+    tensors. The output is a contiguous float32 (M, N)."""
+    for nm, t in (("a", a), ("b", b)):
+        if t.dtype == torch.bfloat16:
+            raise NotPortedError("matmul on bfloat16 operands",
+                                 Roadmap.LOW_PRECISION_TRAINING)
+        if t.dtype != torch.float32 or t.dim() != 2:
+            raise ValueError("matmul: %s must be a 2-D float32 tensor, got "
+                             "%s %s" % (nm, t.dtype, tuple(t.shape)))
+        if _mat_strides(t) is None:
+            raise ValueError("matmul: %s must have a unit stride, got %s"
+                             % (nm, t.stride()))
+    if a.shape[1] != b.shape[0]:
+        raise ValueError("matmul: inner dimensions differ: %s @ %s"
+                         % (tuple(a.shape), tuple(b.shape)))
+    if a.device != b.device:
+        raise ValueError("matmul: a on %s, b on %s" % (a.device, b.device))
+    if a.device.type == "cpu":
+        return matmul_plain(a, b)
+    _require_cuda(a, "matmul")
+    m, k = a.shape
+    n = b.shape[1]
+    if max(m, n, k) >= 2 ** 31 or (m + 63) // 64 > 65535:
+        raise ValueError("matmul: shape %s @ %s exceeds the kernel's grid"
+                         % (tuple(a.shape), tuple(b.shape)))
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    (sam, sak), (sbk, sbn) = _mat_strides(a), _mat_strides(b)
+    lib = _load("matmul")
+    with torch.cuda.device(a.device):
+        err = lib.cxn_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                             m, n, k, sam, sak, sbk, sbn, _stream(a))
+    _raise_on(err, "matmul")
+    matmul_kernel.launches += 1
+    return out
+
+
+matmul_kernel.launches = 0
+
+
+class _Matmul(torch.autograd.Function):
+    """Counterpart of the reference's ``matmul`` custom VJP: the
+    forward and both backward products (``dy·wᵀ``, ``xᵀ·dy``) run
+    through the kernel, the transposes as strided views."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        if _mat_strides(x) is None:
+            x = x.contiguous()
+        if _mat_strides(w) is None:
+            w = w.contiguous()
+        ctx.save_for_backward(x, w)
+        return matmul_kernel(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        if _mat_strides(dy) is None:
+            dy = dy.contiguous()
+        dx = matmul_kernel(dy, w.t()) if ctx.needs_input_grad[0] else None
+        dw = matmul_kernel(x.t(), dy) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` through the matmul kernel, differentiable."""
+    return _Matmul.apply(x, w)
+
+
+# ------------------------------------------------------------ counters
+
+_COUNTED = {"conv_epilogue": conv_epilogue, "bn_apply_fwd": bn_apply_fwd,
+            "bn_apply_bwd": bn_apply_bwd, "matmul": matmul_kernel}
+
+
 def reset_launch_counts() -> None:
     """Zero every kernel wrapper's launch counter."""
-    conv_epilogue.launches = 0
+    for fn in _COUNTED.values():
+        fn.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {"conv_epilogue": conv_epilogue.launches}
+    return {name: fn.launches for name, fn in _COUNTED.items()}

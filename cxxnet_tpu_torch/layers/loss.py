@@ -1,10 +1,21 @@
-"""Loss layers (counterpart of ``cxxnet_tpu/layers/loss.py``), eval
-forwards only: the prediction transform that predict and extract
-observe. The training losses come with the training slice."""
+"""Loss layers (counterpart of ``cxxnet_tpu/layers/loss.py``).
+
+A loss layer is a self-loop layer with two faces:
+
+- ``forward``: the prediction transform (softmax probabilities) that
+  predict and extract observe;
+- ``loss_value``: a scalar whose gradient with respect to the
+  *pre-transform* input is the reference gradient, scaled by
+  ``grad_scale / batch_size`` (the trainer divides by
+  ``update_period`` when an accumulation window closes).
+
+``target`` binds the loss to a named label field (``label_vec``
+ranges).
+"""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -36,9 +47,31 @@ class LossLayer(Layer):
         self.out_shapes = [s]
         return self.out_shapes
 
+    def _scale(self) -> float:
+        if self.batch_size <= 0:
+            raise ValueError("loss layer: batch_size not set")
+        return self.grad_scale / self.batch_size
+
+    def loss_value(self, logit: torch.Tensor, label: torch.Tensor,
+                   mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Scalar loss; ``mask`` is 1.0 for real rows and 0.0 for tail
+        padding, or None when every row is real."""
+        raise NotImplementedError
+
 
 class SoftmaxLayer(LossLayer):
-    """Softmax over the class axis, in float32."""
+    """Softmax + cross-entropy on an integer class label (1 column), in
+    float32 (float64 stays float64)."""
 
-    def forward(self, params, state, inputs):
-        return [torch.softmax(inputs[0].float(), dim=-1)]
+    def forward(self, params, state, inputs, is_train=False):
+        return [torch.softmax(inputs[0].float(), dim=-1)], state
+
+    def loss_value(self, logit, label, mask):
+        lab = label[:, 0].long()
+        logp = torch.log_softmax(
+            logit.to(torch.promote_types(logit.dtype, torch.float32)),
+            dim=-1)
+        ce = -logp.gather(1, lab[:, None])[:, 0]
+        if mask is not None:
+            ce = ce * mask
+        return self._scale() * ce.sum()

@@ -2,19 +2,22 @@
 
 Both packages keep weights in the same logical layouts (conv HWIO,
 fullc ``(in, out)``, per-channel vectors 1-D) under the snapshot keys
-``param/<layer>/<tag>`` and ``state/<layer>/<name>``, so the arrays
-cross unchanged; PyTorch's own layouts (OIHW channels-last conv
-weights) are derived once, when the serve weights freeze.
+``param/<layer>/<tag>`` and ``state/<layer>/<name>``, and optimizer
+state (``save_optimizer = 1``) in the layout of its weight under
+``opt/<layer>/<tag>/<name>``, so the arrays cross unchanged;
+PyTorch's own layouts (OIHW channels-last conv weights) are derived
+when the serve weights freeze or, in training, on every step.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
+OptTree = Dict[str, Dict[str, Dict[str, torch.Tensor]]]
 
 
 def params_from_numpy(arrays: Dict[str, np.ndarray],
@@ -36,12 +39,34 @@ def params_from_numpy(arrays: Dict[str, np.ndarray],
     return params, state
 
 
-def params_to_numpy(params: Tree, state: Tree) -> Dict[str, np.ndarray]:
-    """The inverse: snapshot arrays of a (params, state) pair."""
+def opt_from_numpy(arrays: Dict[str, np.ndarray], device) -> OptTree:
+    """``opt/<layer>/<tag>/<name>`` arrays -> {layer: {tag: {name:
+    float32 tensor on ``device``}}}; other keys are ignored."""
+    opt: OptTree = {}
+    for key, arr in arrays.items():
+        kind, _, rest = key.partition("/")
+        if kind != "opt":
+            continue
+        lkey, tag, name = rest.rsplit("/", 2)
+        t = torch.from_numpy(np.array(arr, np.float32, copy=True))
+        opt.setdefault(lkey, {}).setdefault(tag, {})[name] = t.to(device)
+    return opt
+
+
+def params_to_numpy(params: Tree, state: Tree,
+                    opt_state: Optional[OptTree] = None
+                    ) -> Dict[str, np.ndarray]:
+    """The inverse: snapshot arrays of a (params, state) pair, and of
+    the optimizer state when given."""
     out: Dict[str, np.ndarray] = {}
     for kind, tree in (("param", params), ("state", state)):
         for lkey, sub in tree.items():
             for tag, t in sub.items():
                 out["%s/%s/%s" % (kind, lkey, tag)] = \
+                    t.detach().cpu().numpy()
+    for lkey, tags in (opt_state or {}).items():
+        for tag, st in tags.items():
+            for name, t in st.items():
+                out["opt/%s/%s/%s" % (lkey, tag, name)] = \
                     t.detach().cpu().numpy()
     return out

@@ -1,12 +1,14 @@
-"""The functional net: graph -> layer objects, shape inference and the
-eval forward (counterpart of ``cxxnet_tpu/nnet/net.py``).
+"""The functional net: graph -> layer objects, shape inference, the
+forward and the training loss (counterpart of
+``cxxnet_tpu/nnet/net.py``). Backprop is autograd over ``loss_fn``;
+there is no hand-written backward pass outside the kernels' own.
 
-Net-level fusion passes of the reference that the serving path runs:
+Net-level fusion passes of the reference that the port runs:
 
 - ``bn_fuse_relu = 1``: a relu that is the sole consumer of a
   batch-norm output runs inside the BN layer; the relu connection
-  becomes identity.
-- ``bn_fold_eval = 1``: a moving-average batch_norm that solely
+  becomes identity. It holds in training too.
+- ``bn_fold_eval = 1`` (eval only): a moving-average batch_norm that solely
   consumes a conv's output folds its running-stats scale/shift into
   the conv (into the weight, or into the conv_epilogue kernel under
   ``conv_pallas_epilogue = 1``); the BN connection becomes identity.
@@ -19,7 +21,7 @@ ported and raise.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,6 +34,7 @@ NetState = Dict[str, Dict[str, torch.Tensor]]
 
 # keys by which a frozen serve tree carries a conv's fold already
 FROZEN_FOLD_KEYS = ("_ep_scale", "_r_shift", "_r_shift_relu")
+BN_TYPES = ("batch_norm", "pallas_batch_norm")
 
 
 class FuncNet:
@@ -114,7 +117,7 @@ class FuncNet:
                                if info.type == "share")
         if self._net_flag("bn_fuse_relu"):
             for li, info in enumerate(g.layers):
-                if info.type != "batch_norm" or li in shared_primaries:
+                if info.type not in BN_TYPES or li in shared_primaries:
                     continue
                 cons = consumers.get(info.nindex_out[0], [])
                 if len(cons) == 1 and g.layers[cons[0]].type == "relu":
@@ -125,7 +128,7 @@ class FuncNet:
                 if info.type != "conv":
                     continue
                 cons = consumers.get(info.nindex_out[0], [])
-                if len(cons) == 1 and g.layers[cons[0]].type == "batch_norm":
+                if len(cons) == 1 and g.layers[cons[0]].type in BN_TYPES:
                     self.fold_pairs[li] = cons[0]
                     self._fold_bns.add(cons[0])
 
@@ -162,20 +165,29 @@ class FuncNet:
         return params, state
 
     def forward(self, params: Params, state: NetState,
-                data: torch.Tensor,
-                is_train: bool = False) -> List[Optional[torch.Tensor]]:
-        """Run all connections in config order; returns every node's
-        value. Eval only."""
-        if is_train:
-            raise NotPortedError("the training forward", Roadmap.TRAINING)
+                data: torch.Tensor, is_train: bool = False,
+                mask: Optional[torch.Tensor] = None,
+                collect_logits: bool = False
+                ) -> Tuple[List[Optional[torch.Tensor]], NetState,
+                           Dict[int, torch.Tensor]]:
+        """Run all connections in config order.
+
+        Returns (node values, new state, loss inputs): the state after
+        the training forward's running-stat updates (``state`` itself
+        at eval), and per loss layer index its pre-transform input
+        (only with ``collect_logits``). ``mask`` is the padded-row mask
+        (1.0 real, 0.0 padding) or None when every row is real."""
         g = self.graph
         nodes: List[Optional[torch.Tensor]] = [None] * g.num_nodes
         if not data.is_floating_point():
             data = data.float()          # uint8 pixels normalize here
         nodes[0] = data
+        new_state: NetState = dict(state)
+        loss_inputs: Dict[int, torch.Tensor] = {}
+        fold_eval = self.bn_fold_eval and not is_train
         for li, info in enumerate(g.layers):
             if li in self._identity_layers \
-                    or (self.bn_fold_eval and li in self._fold_bns):
+                    or (fold_eval and li in self._fold_bns):
                 # the epilogue already ran fused inside the producer
                 v = nodes[info.nindex_in[0]]
                 for ni in info.nindex_out:
@@ -184,15 +196,45 @@ class FuncNet:
             layer = self.layer_objs[li]
             pkey = g.layer_key(g.param_layer_index(li))
             p = params.get(pkey, {})
-            if self.bn_fold_eval and li in self.fold_pairs \
+            s = new_state.get(pkey, {})
+            if fold_eval and li in self.fold_pairs \
                     and not any(k in p for k in FROZEN_FOLD_KEYS):
                 p = dict(p)
                 p.update(self.fold_entries(params, state, li))
-            outs = layer.forward(p, state.get(pkey, {}),
-                                 [nodes[ni] for ni in info.nindex_in])
+            ins = [nodes[ni] for ni in info.nindex_in]
+            if collect_logits and layer.is_loss:
+                loss_inputs[li] = ins[0]
+            if layer.needs_mask:
+                outs, s2 = layer.forward(p, s, ins, is_train, mask=mask)
+            else:
+                outs, s2 = layer.forward(p, s, ins, is_train)
+            if s2:
+                new_state[pkey] = s2
             for ni, v in zip(info.nindex_out, outs):
                 nodes[ni] = v
-        return nodes
+        return nodes, new_state, loss_inputs
+
+    def loss_fn(self, params: Params, state: NetState,
+                data: torch.Tensor, labels: torch.Tensor,
+                mask: Optional[torch.Tensor],
+                collect_nodes: Sequence[int] = ()):
+        """Total training loss (sum over loss layers) and (new state,
+        the values of ``collect_nodes``). ``labels`` is the (batch,
+        label_width) matrix; each loss layer's ``target`` selects its
+        columns through the graph's label fields."""
+        nodes, new_state, loss_inputs = self.forward(
+            params, state, data, is_train=True, mask=mask,
+            collect_logits=True)
+        slices = {name: (a, b) for name, a, b in self.graph.label_slices()}
+        total = torch.zeros((), dtype=torch.float32, device=data.device)
+        for li, logit in loss_inputs.items():
+            layer = self.layer_objs[li]
+            if layer.target not in slices:
+                raise ValueError("loss layer: unknown target=%s"
+                                 % layer.target)
+            a, b = slices[layer.target]
+            total = total + layer.loss_value(logit, labels[:, a:b], mask)
+        return total, (new_state, [nodes[ni] for ni in collect_nodes])
 
     def analytic_flops_per_example(self) -> float:
         """Analytic forward FLOPs per example (2*MACs over the conv and
@@ -208,7 +250,7 @@ class FuncNet:
                 total += (2 * p.kernel_height * p.kernel_width
                           * (p.num_input_channel // p.num_group)
                           * out.ch * out.y * out.x)
-            elif t == "fullc":
+            elif t in ("fullc", "pallas_fullc"):
                 p = layer.param
                 total += 2 * p.num_input_node * p.num_hidden
         return float(total)

@@ -1,11 +1,16 @@
-"""NetTrainer, serve-side subset (counterpart of
-``cxxnet_tpu/nnet/trainer.py``).
+"""NetTrainer (counterpart of ``cxxnet_tpu/nnet/trainer.py``).
 
-What is ported: model init and snapshot load/save, the one-time freeze
-of the eval weights (``freeze_serve_weights``), the eval forward behind
-``predict`` / ``extract_feature``, and the reference-layout weight
-get/set. Training (``update``, updaters, metrics) comes with the
-training slice.
+What is ported: model init and snapshot load/save (optimizer state
+too, under ``save_optimizer = 1``), training (``update``,
+``run_steps``, ``update_many`` with ``update_period`` accumulation,
+one updater per (layer, tag), train and eval metrics), the one-time
+freeze of the eval weights (``freeze_serve_weights``), the eval forward
+behind ``predict`` / ``extract_feature``, and the reference-layout
+weight get/set.
+
+A training step is the reference's ``scan_step`` written eagerly:
+autograd over ``FuncNet.loss_fn`` in place of ``jax.value_and_grad``,
+then the updaters; the schedule is evaluated on the host per step.
 
 The freeze is the reference's device-resident serve weight tree
 (``serve_weight_residency = 1``, the default): the BN fold vectors are
@@ -19,21 +24,27 @@ conv_epilogue kernel; otherwise the scale multiplies the weight.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+import re
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..graph import NetGraph
-from ..io.data import DataBatch
+from ..io.data import DataBatch, batch_mask
 from ..layers.conv import hwio_to_oihw
+from ..updater import create_updater
 from ..utils.config import (ConfigError, ConfigPairs, NotPortedError,
                             Roadmap)
+from ..utils.metric import MetricSet
 from ..utils.stream import local_path
 from .checkpoint import read_snapshot, write_snapshot
-from .convert import Tree, params_from_numpy, params_to_numpy
+from .convert import (OptTree, Tree, opt_from_numpy, params_from_numpy,
+                      params_to_numpy)
 from .net import FuncNet
+
+_RE_METRIC = re.compile(r"^metric(?:\[([^\]]*)\])?$")
 
 SERVE_DTYPES = ("float32", "bfloat16", "int8", "fp8")
 _DTYPE_ALIAS = {"f32": "float32", "bf16": "bfloat16", "float8": "fp8",
@@ -52,7 +63,8 @@ def normalize_serve_dtype(val: str) -> str:
 
 
 class NetTrainer:
-    """A net and its weights on one device, for evaluation.
+    """A net, its weights and optimizer state on one device, for
+    training and evaluation.
 
     ``device`` defaults to the GPU; without one it raises unless the
     caller passes ``device="cpu"``.
@@ -63,20 +75,71 @@ class NetTrainer:
         self.device = resolve_device(device)
         self.batch_size = 0
         self.seed = 0
+        self.update_period = 1
+        self.eval_train = 0
+        self.save_optimizer = 0
         self.serve_dtype = "float32"
         self.serve_weight_residency = 1
-        self.update_counter = 0
+        self.metric_cfg: List[Tuple[str, str, str]] = []
+        self.sample_counter = 0          # within accumulation window
+        self.update_counter = 0          # applied updates (schedule epoch)
+        self.opt_state: OptTree = {}
+        # update_period > 1: f32 gradient sums of the open window, by
+        # (layer, tag)
+        self.grad_acc: Optional[Dict[Tuple[str, str], torch.Tensor]] = None
+        self._last_loss: Optional[torch.Tensor] = None
         self._serve_tree: Optional[Tree] = None
         self._initialized = False
 
     # -- config ----------------------------------------------------------
 
+    def set_param(self, name: str, val: str) -> None:
+        self.cfg.append((name, val))
+
     def _absorb_globals(self) -> None:
+        self.metric_cfg = []             # (metric, label field, node)
         for name, val in self.cfg:
             if name == "batch_size":
                 self.batch_size = int(val)
+            if name == "update_period":
+                self.update_period = int(val)
+            if name in ("eval_train", "train_eval"):
+                self.eval_train = int(val)
+            if name == "save_optimizer":
+                self.save_optimizer = int(val)
             if name == "seed":
                 self.seed = int(val)
+            if name == "grad_dtype":
+                if val not in ("float32", "bfloat16"):
+                    raise ValueError(
+                        "grad_dtype must be float32 or bfloat16")
+                if val == "bfloat16":
+                    raise NotPortedError("grad_dtype = bfloat16",
+                                         Roadmap.LOW_PRECISION_TRAINING)
+            if name == "remat":
+                if val not in ("none", "0", "full", "dots", "conv"):
+                    raise ValueError("remat must be none|full|dots|conv")
+                if val not in ("none", "0"):
+                    raise NotPortedError("remat = %s" % val, Roadmap.REMAT)
+            if name == "grad_sync":
+                if val not in ("fused", "overlap"):
+                    raise ValueError("grad_sync must be fused|overlap")
+                if val == "overlap":
+                    raise NotPortedError("grad_sync = overlap",
+                                         Roadmap.MULTI_GPU)
+            if name in ("shard_optimizer", "update_on_server",
+                        "optim_shard") and int(val):
+                raise NotPortedError("%s = %s" % (name, val),
+                                     Roadmap.MULTI_GPU)
+            m = _RE_METRIC.match(name)
+            if m:
+                field, node = "label", ""
+                if m.group(1):
+                    parts = [p.strip() for p in m.group(1).split(",")]
+                    field = parts[0] or "label"
+                    if len(parts) > 1:
+                        node = parts[1]
+                self.metric_cfg.append((val, field, node))
             if name == "serve_dtype":
                 self.serve_dtype = normalize_serve_dtype(val)
             if name == "serve_weight_residency":
@@ -105,9 +168,11 @@ class NetTrainer:
         self._build_net()
         params, state = self.net.init(self.seed)
         self._install(params, state)
+        self._post_init()
 
     def load_model(self, path: str) -> None:
-        """Load a snapshot (either package's), digest verified."""
+        """Load a snapshot (either package's), digest verified; its
+        optimizer state, when it carries one, resumes too."""
         if os.path.isdir(local_path(path)):
             raise NotPortedError("a bundle as model_path (%r)" % path,
                                  Roadmap.BUNDLES)
@@ -125,6 +190,42 @@ class NetTrainer:
                         sub[tag] = saved[lk][tag]
         self.update_counter = int(meta.get("update_counter", 0))
         self._install(params, state)
+        self._post_init()
+        saved_o = opt_from_numpy(blob, self.device)
+        for lk, tags in self.opt_state.items():
+            for tag, st in tags.items():
+                for k in st:
+                    if k in saved_o.get(lk, {}).get(tag, {}):
+                        st[k] = saved_o[lk][tag][k]
+
+    def _post_init(self) -> None:
+        """What init_model and load_model share after the weights are
+        in place: one updater per (layer, tag) and its state, the metric
+        bindings and the label fields."""
+        g = self.graph
+        self.updaters: Dict[str, Dict[str, Any]] = {}
+        for lkey, ptree in self.params.items():
+            li = g.layer_name_map[lkey] if lkey in g.layer_name_map \
+                else int(lkey[5:])
+            self.updaters[lkey] = {
+                tag: create_updater(g.updater_type, tag, g.defcfg,
+                                    g.layercfg[li])
+                for tag in ptree}
+        self.opt_state = {
+            lk: {tag: self.updaters[lk][tag].init_state(w)
+                 for tag, w in pt.items()}
+            for lk, pt in self.params.items()}
+        self.grad_acc = None
+        self._metrics = MetricSet()
+        self._train_metrics = MetricSet()
+        self._metric_nodes: List[int] = []
+        top = g.num_nodes - 1
+        for mname, field, node in self.metric_cfg:
+            self._metrics.add_metric(mname, field, node)
+            self._train_metrics.add_metric(mname, field, node)
+            self._metric_nodes.append(
+                self.net.node_index_by_name(node) if node else top)
+        self._label_slices = g.label_slices()
 
     def _install(self, params: Tree, state: Tree) -> None:
         dev = self.device
@@ -143,7 +244,7 @@ class NetTrainer:
         docstring). None when ``serve_weight_residency = 0``: the
         forward then folds and converts per call, as the reference's
         legacy path does."""
-        assert self._initialized, "call init_model/load_model first"
+        self._check_ready()
         if not self.serve_weight_residency:
             return None
         if self._serve_tree is not None:
@@ -190,7 +291,7 @@ class NetTrainer:
         nodes, on the device."""
         params = self._pred_operands()
         with torch.inference_mode():
-            nodes = self.net.forward(params, self.net_state, data)
+            nodes, _, _ = self.net.forward(params, self.net_state, data)
             return [nodes[i].float() for i in nodes_wanted]
 
     def to_device_batch(self, x) -> torch.Tensor:
@@ -224,6 +325,171 @@ class NetTrainer:
         (val,) = self.pred(self.to_device_batch(batch.data), (ni,))
         nvalid = batch.batch_size - batch.num_batch_padd
         return val[:nvalid].cpu().numpy()
+
+    # -- training --------------------------------------------------------
+
+    def _device_batch(self, batch: DataBatch):
+        """(data, labels, mask) of a batch on the device; the mask is
+        None when every row is real."""
+        if batch.label is None:
+            raise ValueError("a training batch needs labels")
+        labels = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(batch.label, np.float32))).to(self.device)
+        m = batch_mask(batch)
+        mask = None if m is None else torch.from_numpy(m).to(self.device)
+        return self.to_device_batch(batch.data), labels, mask
+
+    def _label_fields(self, label: np.ndarray, nvalid: int):
+        return {name: label[:nvalid, a:b]
+                for name, a, b in self._label_slices}
+
+    def _apply_updates(self, grads: Dict[Tuple[str, str], torch.Tensor],
+                       epoch: int) -> None:
+        """One update of every trained (layer, tag) from its gradient,
+        with its schedule at ``epoch``; frozen groups (no optimizer
+        state) pass through untouched. lr, momentum and wd enter as
+        float32 values, as the reference's packed hyper array holds
+        them; the epoch as an exact int."""
+        params = {lk: dict(sub) for lk, sub in self.params.items()}
+        for (lk, tag), g in grads.items():
+            if self.update_period > 1:
+                g = g / float(self.update_period)
+            upd = self.updaters[lk][tag]
+            upd.param.schedule_epoch(epoch)
+            hy = {"learning_rate": float(np.float32(upd.param.learning_rate)),
+                  "momentum": float(np.float32(upd.param.momentum)),
+                  "wd": float(np.float32(upd.param.wd)), "epoch": int(epoch)}
+            params[lk][tag], self.opt_state[lk][tag] = \
+                upd.apply(self.params[lk][tag], g, self.opt_state[lk][tag], hy)
+        self.params = params
+
+    def _train_step(self, data: torch.Tensor, labels: torch.Tensor,
+                    mask: Optional[torch.Tensor], epoch: int,
+                    do_update: bool, collect: bool
+                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The reference's ``scan_step``: loss and gradients of one
+        batch, then the update (or, under ``update_period > 1``, the f32
+        accumulation that a closing window applies). Returns the loss
+        and, with ``collect``, the metric nodes' values."""
+        trained = [(lk, tag) for lk, tags in self.opt_state.items()
+                   for tag, st in tags.items() if st]
+        leaves = {lk: dict(sub) for lk, sub in self.params.items()}
+        for lk, tag in trained:
+            leaves[lk][tag] = self.params[lk][tag].detach() \
+                .requires_grad_(True)
+        nodes = tuple(self._metric_nodes) if collect else ()
+        with torch.enable_grad():
+            loss, (new_state, preds) = self.net.loss_fn(
+                leaves, self.net_state, data, labels, mask, nodes)
+            grads = torch.autograd.grad(
+                loss, [leaves[lk][tag] for lk, tag in trained]) \
+                if trained else ()
+        preds = [p.detach().float() for p in preds]
+        self.net_state = new_state
+        self._serve_tree = None          # weights move: the frozen
+        #                                  serve tree is stale
+        with torch.no_grad():
+            g = dict(zip(trained, grads))
+            if self.update_period == 1:
+                self._apply_updates(g, epoch)
+            else:
+                if self.grad_acc is None:
+                    self.grad_acc = {k: torch.zeros_like(v)
+                                     for k, v in g.items()}
+                for k, v in g.items():
+                    self.grad_acc[k] = self.grad_acc[k] + v.float()
+                if do_update:
+                    self._apply_updates(self.grad_acc, epoch)
+                    self.grad_acc = None
+        return loss.detach(), preds
+
+    def _check_ready(self) -> None:
+        if not self._initialized:
+            raise RuntimeError("call init_model/load_model first")
+
+    def update(self, batch: DataBatch) -> None:
+        """One training step on a host batch (its padded tail excluded
+        from the BN moments and the loss)."""
+        self._check_ready()
+        data, labels, mask = self._device_batch(batch)
+        epoch = self.update_counter
+        self.sample_counter += 1
+        do_update = self.sample_counter >= self.update_period
+        collect = bool(self.eval_train and self._metrics.evals)
+        self._last_loss, preds = self._train_step(
+            data, labels, mask, epoch, do_update, collect)
+        if do_update:
+            self.sample_counter = 0
+            self.update_counter += 1
+        if collect:
+            nvalid = batch.batch_size - batch.num_batch_padd
+            self._train_metrics.add_eval(
+                [p[:nvalid].cpu().numpy() for p in preds],
+                self._label_fields(np.asarray(batch.label, np.float32),
+                                   nvalid))
+
+    def run_steps(self, batch: DataBatch, n_steps: int) -> None:
+        """``n_steps`` training steps on one resident batch, with the
+        schedule advancing per step and ``update_period`` windows
+        closing as in ``update``."""
+        self._check_ready()
+        n = int(n_steps)
+        if n <= 0:
+            return
+        data, labels, mask = self._device_batch(batch)
+        period = self.update_period
+        S, U = self.sample_counter, self.update_counter
+        for i in range(n):
+            epoch = U + (S + i) // period
+            self._last_loss, _ = self._train_step(
+                data, labels, mask, epoch, ((S + i + 1) % period) == 0,
+                False)
+        self.update_counter = U + (S + n) // period
+        self.sample_counter = (S + n) % period
+
+    def update_many(self, batches: Sequence[DataBatch]) -> None:
+        """Train on K batches; the same as K ``update`` calls (the
+        reference fuses them into one dispatch, which eager PyTorch has
+        no use for)."""
+        for b in batches:
+            self.update(b)
+
+    @property
+    def last_loss(self) -> float:
+        """The loss of the last training step (waits for the device)."""
+        if self._last_loss is None:
+            raise RuntimeError("no training step has run")
+        return float(self._last_loss)
+
+    def train_metric_str(self, name: str = "train") -> str:
+        """The train metrics accumulated by ``update`` under
+        ``eval_train = 1``, as an eval line; clears them."""
+        res = self._train_metrics.results()
+        self._train_metrics.clear()
+        return MetricSet.format_line(name, res)
+
+    def evaluate(self, data_iter: Iterable[DataBatch], name: str) -> str:
+        """One eval pass; returns ``'\\t<name>-<metric>:<value>'``."""
+        return self.evaluate_metrics(data_iter, name)[0]
+
+    def evaluate_metrics(self, data_iter: Iterable[DataBatch], name: str
+                         ) -> Tuple[str, Dict[str, float]]:
+        """One eval pass over ``DataBatch`` es: the eval line and the
+        ``{tag: value}`` dict."""
+        if not self._metrics.evals:
+            return "", {}
+        self._metrics.clear()
+        for batch in data_iter:
+            vals = self.pred(self.to_device_batch(batch.data),
+                             self._metric_nodes)
+            nvalid = batch.batch_size - batch.num_batch_padd
+            self._metrics.add_eval(
+                [v[:nvalid].cpu().numpy() for v in vals],
+                self._label_fields(np.asarray(batch.label, np.float32),
+                                   nvalid))
+        res = self._metrics.results()
+        return MetricSet.format_line(name, res), \
+            {t: float(v) for t, v in res}
 
     # -- weights ---------------------------------------------------------
 
@@ -265,8 +531,11 @@ class NetTrainer:
     # -- checkpoint ------------------------------------------------------
 
     def gather_snapshot(self) -> Tuple[Dict[str, np.ndarray], Dict]:
-        """Everything a snapshot holds, as host arrays, and its meta."""
-        arrays = params_to_numpy(self.params, self.net_state)
+        """Everything a snapshot holds, as host arrays, and its meta;
+        the optimizer state under ``save_optimizer = 1``."""
+        arrays = params_to_numpy(
+            self.params, self.net_state,
+            self.opt_state if self.save_optimizer else None)
         meta = {
             "update_counter": self.update_counter,
             "structure": self.graph.to_dict(),

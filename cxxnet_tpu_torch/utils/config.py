@@ -28,15 +28,16 @@ class ConfigError(ValueError):
 class Roadmap:
     """The ``ROADMAP.md`` items (queue and title) that port what a
     :class:`NotPortedError` reports."""
-    CLI = "queue 1, CLI serve and pred tasks"
-    TRAINING = "queue 1, training slice"
+    CLI = "queue 1, CLI tasks and iterators"
+    KAIMING_TRAINING = "queue 1, kaiming training slice"
+    LOW_PRECISION_TRAINING = "queue 1, low-precision training"
+    REMAT = "queue 1, rematerialization"
     LAYER_ZOO = "queue 1, rest of the layer zoo"
     CHECKPOINT_CLI = "queue 1, checkpoint and CLI remainder"
     QUANTIZED = "queue 1, quantized and low-precision inference"
     BUNDLES = "queue 1, sealed bundles"
-    MATMUL = "queue 2, matmul"
+    MULTI_GPU = "queue 1, multi-GPU"
     RELU_MAX_POOL = "queue 2, relu_max_pool"
-    BN_APPLY = "queue 2, bn_apply"
     CONV_EPILOGUE_INT32 = "queue 2, conv_epilogue int32 input and backward"
     POOL_CONCAT = "queue 2, pool_concat"
 

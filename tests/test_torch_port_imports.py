@@ -92,4 +92,9 @@ def test_kernel_wrapper_on_cpu_tensor_counts_no_launch():
     x = torch.from_numpy(np.ones((2, 3, 3, 4), np.float32))
     s = torch.ones(4)
     kernels.conv_epilogue(x, s, torch.zeros(4), True)
-    assert kernels.launch_counts() == {"conv_epilogue": 0}
+    kernels.bn_apply(x, s, torch.zeros(4), True)
+    kernels.matmul(x.reshape(6, 12), x.reshape(12, 6))
+    counts = kernels.launch_counts()
+    assert set(counts) == {"conv_epilogue", "bn_apply_fwd", "bn_apply_bwd",
+                           "matmul"}
+    assert all(v == 0 for v in counts.values())

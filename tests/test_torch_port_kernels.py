@@ -103,3 +103,141 @@ def test_conv_epilogue_wrapper_rejects(case):
         out, err = torch.float16, TypeError
     with pytest.raises(err):
         kernels.conv_epilogue(x, s, t, True, out)
+
+
+# ------------------------------------------------------------ bn_apply
+#
+# The reference runs its Pallas bn_apply in interpret mode; the port's
+# wrapper takes its plain version on the CPU. Tolerances:
+# - forward: rtol 1e-6, atol 1e-6, for the conv_epilogue reason above
+#   (XLA may contract x*scale + shift into one FMA);
+# - VJP dx: rtol 1e-6 (atol 1e-6, the same contraction of dym*scale+0);
+#   dscale/dshift: rtol 1e-5 (atol 1e-5 on O(1) sums), because the f32
+#   channel sums add in another order.
+
+from cxxnet_tpu.layers.pallas_kernels import bn_apply as jax_bn_apply  # noqa: E402
+from cxxnet_tpu.layers.pallas_kernels import matmul as jax_matmul  # noqa: E402
+import jax  # noqa: E402
+
+BN_SHAPES = [(2, 6, 10, 24), (5, 24), (3, 4, 5, 7)]
+BN_IDS = ["nhwc", "mat", "nhwc_ragged_c"]
+
+
+@pytest.mark.parametrize("shape", BN_SHAPES, ids=BN_IDS)
+@pytest.mark.parametrize("relu", [False, True], ids=["linear", "relu"])
+def test_bn_apply_fwd_plain_matches_pallas(shape, relu):
+    kernels.reset_launch_counts()
+    x, s, t, xj, sj, tj = _inputs(shape, torch.float32, seed=10 + len(shape))
+    got = kernels.bn_apply_fwd(x, s, t, relu)
+    ref = np.asarray(jax_bn_apply(xj, jnp.asarray(sj), jnp.asarray(tj),
+                                  relu))
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
+    # the autograd entry point computes the same
+    assert torch.equal(kernels.bn_apply(x, s, t, relu), got)
+    assert kernels.launch_counts()["bn_apply_fwd"] == 0
+
+
+@pytest.mark.parametrize("shape", BN_SHAPES, ids=BN_IDS)
+@pytest.mark.parametrize("relu", [False, True], ids=["linear", "relu"])
+def test_bn_apply_vjp_matches_jax(shape, relu):
+    x, s, t, xj, sj, tj = _inputs(shape, torch.float32, seed=20 + len(shape))
+    dy = np.random.RandomState(5).randn(*shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jax_bn_apply(a, b, c, relu), xj,
+                     jnp.asarray(sj), jnp.asarray(tj))
+    jdx, jds, jdt = (np.asarray(v) for v in vjp(jnp.asarray(dy)))
+    xa = x.clone().requires_grad_(True)
+    sa = s.clone().requires_grad_(True)
+    ta = t.clone().requires_grad_(True)
+    y = kernels.bn_apply(xa, sa, ta, relu)
+    pdx, pds, pdt = torch.autograd.grad(y, (xa, sa, ta),
+                                        torch.from_numpy(dy))
+    np.testing.assert_allclose(pdx.numpy(), jdx, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(pds.numpy(), jds, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(pdt.numpy(), jdt, rtol=1e-5, atol=1e-5)
+
+
+def test_bn_apply_bwd_reads_a_channel_slice():
+    """The cotangent a channel concat hands back is a slice of a wider
+    tensor: the wrapper takes it in place, with its row stride."""
+    x, s, t, _, _, _ = _inputs((2, 3, 4, 8), torch.float32, seed=4)
+    y = kernels.bn_apply_fwd(x, s, t, True)
+    wide = torch.randn(2, 3, 4, 20)
+    dy = wide[..., 4:12]
+    assert not dy.is_contiguous() and kernels._row_stride(dy) == 20
+    got = kernels.bn_apply_bwd(x, y, dy, s, True)
+    ref = kernels.bn_apply_bwd_plain(x, y, dy.contiguous(), s, True)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert kernels._row_stride(wide.permute(0, 2, 1, 3)) is None
+
+
+@pytest.mark.parametrize("case", ["bf16", "f64", "3d", "scale_shape",
+                                  "noncontig", "dy_shape", "no_y"])
+def test_bn_apply_wrappers_reject(case):
+    x = torch.zeros(2, 3, 3, 4)
+    s, t = torch.ones(4), torch.zeros(4)
+    dy, y = torch.zeros(2, 3, 3, 4), torch.zeros(2, 3, 3, 4)
+    err, fn = ValueError, "fwd"
+    if case == "bf16":
+        x, err = x.bfloat16(), NotPortedError
+    elif case == "f64":
+        x, err = x.double(), TypeError
+    elif case == "3d":
+        x = torch.zeros(2, 3, 4)
+    elif case == "scale_shape":
+        s = torch.ones(5)
+    elif case == "noncontig":
+        x = torch.zeros(2, 4, 3, 3).permute(0, 2, 3, 1)
+    elif case == "dy_shape":
+        dy, fn = torch.zeros(2, 3, 3, 5), "bwd"
+    elif case == "no_y":
+        y, fn = None, "bwd"
+    with pytest.raises(err):
+        if fn == "fwd":
+            kernels.bn_apply_fwd(x, s, t, True)
+        else:
+            kernels.bn_apply_bwd(x, y, dy, s, True)
+
+
+# -------------------------------------------------------------- matmul
+#
+# Tolerance rtol 1e-5, atol 1e-5 * sqrt(K): the same f32 products,
+# summed in another order (oneDNN here, the Pallas kernel in interpret
+# mode there).
+
+MM_SHAPES = [(8, 24, 16), (5, 37, 3), (1, 9, 130)]
+
+
+@pytest.mark.parametrize("m,k,n", MM_SHAPES, ids=["even", "ragged", "row"])
+def test_matmul_and_vjp_match_jax(m, k, n):
+    kernels.reset_launch_counts()
+    rng = np.random.RandomState(m + k + n)
+    x = rng.randn(m, k).astype(np.float32)
+    w = rng.randn(k, n).astype(np.float32)
+    dy = rng.randn(m, n).astype(np.float32)
+    jy, vjp = jax.vjp(jax_matmul, jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = (np.asarray(v) for v in vjp(jnp.asarray(dy)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    y = kernels.matmul(xt, wt)
+    pdx, pdw = torch.autograd.grad(y, (xt, wt), torch.from_numpy(dy))
+    for got, ref, depth in ((y.detach(), jy, k), (pdx, jdx, n),
+                            (pdw, jdw, m)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-5 * np.sqrt(depth))
+    assert kernels.launch_counts()["matmul"] == 0
+
+
+def test_matmul_kernel_takes_transposed_views():
+    a = torch.randn(6, 4)
+    b = torch.randn(5, 4)
+    assert kernels._mat_strides(b.t()) == (1, 4)
+    assert torch.equal(kernels.matmul_kernel(a, b.t()),
+                       kernels.matmul_plain(a, b.t()))
+    with pytest.raises(ValueError):
+        kernels.matmul_kernel(a, torch.randn(5, 3))
+    with pytest.raises(ValueError):
+        kernels.matmul_kernel(a, torch.randn(4, 5, 2)[:, :, 0])
+    with pytest.raises(NotPortedError):
+        kernels.matmul_kernel(a.bfloat16(), b.t().bfloat16())

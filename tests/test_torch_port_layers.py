@@ -44,7 +44,7 @@ def _forward(j, p, params, state, xs):
     pp = {k: (torch.ones(()) if k == "_fold_relu" else torch.from_numpy(v))
           for k, v in params.items()}
     ps = {k: torch.from_numpy(v) for k, v in state.items()}
-    pout = p.forward(pp, ps, [torch.from_numpy(x) for x in xs])
+    pout, _ = p.forward(pp, ps, [torch.from_numpy(x) for x in xs])
     assert len(jout) == len(pout)
     return ([np.asarray(v) for v in jout],
             [v.detach().numpy() for v in pout])
