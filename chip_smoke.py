@@ -20,8 +20,15 @@ the script exits non-zero without a result line):
              rtol 1e-5 of the sum of their terms' magnitudes) at every
              batch-norm shape of the batch-128 training step; ``matmul``
              at fc1's three products and a ragged case (within rtol
-             1e-5 of sum |a*b|). Max error, kernel / plain / library
-             times (CUDA events) and the bound from bytes and operations.
+             1e-5 of sum |a*b|); ``relu_max_pool`` forward and backward
+             (both bit-exact, NaN positions included) at kaiming-224's
+             three fused pools at batch 128 on inputs in steps of 0.5
+             (tied maxima), with the cotangent also as a permuted view,
+             plus a ragged-channel (C = 3) and a NaN case. Max error,
+             kernel / plain / library times (CUDA events) and the bound
+             from bytes and operations; for relu_max_pool, in place of a
+             library call, F.relu + F.max_pool2d and their autograd
+             backward (two calls, and a backward that credits one tie).
 3. serve   — Inception-BN-224 (1000 classes, random weights from a seed,
              realistic BN running stats) saved as a snapshot, served
              through ``ServeSession(device="cuda")`` to closed-loop
@@ -45,6 +52,15 @@ the script exits non-zero without a result line):
              pool's backward on the card against the CPU's at batch 8
              (max: every tie credited to the same element; avg: within
              rtol 1e-5).
+5. train_kaiming — kaiming-224 (model J', ``fused_pools``, ``pallas_pool =
+             1``, dropout 0.5 on fc1 and fc2), seeded weights, batch 128:
+             2 warm and 10 timed ``update`` steps as in phase 4; exactly 3
+             relu_max_pool forward and 3 backward launches per step and
+             none of the other kernels; the loss finite and falling; a
+             profiled step; the batch-4 update check of phase 4 with the
+             same dropout masks injected on the card and on the CPU (the
+             plain path is ``pallas_pool = 0``: relu, then max pooling);
+             and the SPP max pools' backward against the CPU's.
 
 Then a ``kernels`` line (every ported kernel with its launches, error
 and times), the ``nvidia-smi`` line, and the last line
@@ -80,6 +96,12 @@ BN_BWD = {"name": "bn_apply_bwd", "route": "cuda",
 MATMUL = {"name": "matmul", "route": "cuda",
           "source": "cxxnet_tpu_torch/csrc/matmul.cu",
           "replaces": "cxxnet_tpu/layers/pallas_kernels.py:35"}
+RMP_FWD = {"name": "relu_max_pool_fwd", "route": "cuda",
+           "source": "cxxnet_tpu_torch/csrc/relu_max_pool.cu",
+           "replaces": "cxxnet_tpu/layers/pallas_kernels.py:91"}
+RMP_BWD = {"name": "relu_max_pool_bwd", "route": "cuda",
+           "source": "cxxnet_tpu_torch/csrc/relu_max_pool.cu",
+           "replaces": "cxxnet_tpu/layers/pallas_kernels.py:107"}
 NCLASS = 1000
 DEVICE = "cuda"
 TRAIN_BATCH = 128
@@ -87,7 +109,12 @@ TRAIN_KNOBS = [("bn_pallas", "1"), ("bn_fuse_relu", "1")]
 WARM_STEPS, TIMED_STEPS = 2, 10
 # per training step of Inception-BN-224: launches each wrapper must count
 TRAIN_LAUNCHES = {"bn_apply_fwd": 69, "bn_apply_bwd": 69, "matmul": 3,
-                  "conv_epilogue": 0}
+                  "conv_epilogue": 0, "relu_max_pool_fwd": 0,
+                  "relu_max_pool_bwd": 0}
+# per training step of kaiming-224 with fused_pools and pallas_pool = 1
+KAIMING_LAUNCHES = {"bn_apply_fwd": 0, "bn_apply_bwd": 0, "matmul": 0,
+                    "conv_epilogue": 0, "relu_max_pool_fwd": 3,
+                    "relu_max_pool_bwd": 3}
 # channel sums and matmul outputs: error against rtol * sum |terms|
 SUM_RTOL = 1e-5
 # one update at batch 4, per parameter: the card's float64 update
@@ -398,6 +425,178 @@ def matmul_case(m: int, k: int, n: int, ta: bool, tb: bool, bw: float,
     return out
 
 
+def kaiming_cfg(batch: int, pallas_pool: int = 1):
+    """kaiming-224 (model J') as the kaiming training slice runs it:
+    ``fused_pools``, so three relu_max_pooling layers, through the
+    relu_max_pool kernels under ``pallas_pool = 1``."""
+    from cxxnet_tpu_torch.models import kaiming
+    from cxxnet_tpu_torch.utils.config import parse_config
+    text = kaiming(nclass=NCLASS, batch_size=batch, image_size=224,
+                   fused_pools=True)
+    return parse_config(text) + [("pallas_pool", str(pallas_pool)),
+                                 ("seed", str(SEED))]
+
+
+def path_relu_pool_shapes(net, batch: int):
+    """(B, H, W, C, k) of every relu_max_pool launch of one training
+    forward (and so of every backward launch): the input of each
+    relu_max_pooling layer that the kernels take."""
+    from cxxnet_tpu_torch.layers.conv import relu_max_pool_applicable
+    out = []
+    for layer in net.layer_objs:
+        p = getattr(layer, "param", None)
+        if (getattr(layer, "pre_relu", False) and layer.mode == "max"
+                and (layer.use_pallas or p.pallas_pool)
+                and relu_max_pool_applicable(p)):
+            s = layer.in_shapes[0]
+            out.append((batch, s.y, s.x, s.ch, p.kernel_height))
+    return out
+
+
+def same_bits(a, b) -> bool:
+    """Equal values and NaN at the same places."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)
+                and torch.equal(torch.where(na, 0.0, a),
+                                torch.where(nb, 0.0, b)))
+
+
+def max_err(a, b) -> float:
+    """Largest |a - b| where neither is NaN; inf if NaN places differ."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return float("inf")
+    d = (torch.where(na, 0.0, a) - torch.where(nb, 0.0, b)).abs()
+    return float(d.max()) if d.numel() else 0.0
+
+
+def relu_pool_case(shape, k: int, bw: float, flops: float,
+                   nan: bool = False, timed: bool = True):
+    """relu_max_pool forward and backward on the card against their
+    plain versions on the same inputs, bit for bit: x in steps of 0.5
+    (positive windows hold tied maxima, every one credited), the
+    backward also with the cotangent as a permuted view (read through
+    its strides). With ``timed``: kernel, plain and reference times
+    (F.relu + F.max_pool2d, and their autograd backward) and the
+    bounds."""
+    import torch
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch.layers import kernels
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + sum(shape) + k)
+    b, h, w, c = shape
+    oshape = (b, h - k + 1, w - k + 1, c)
+    n_in, n_out = int(np.prod(shape)), int(np.prod(oshape))
+    nbuf = int(min(8, max(1, -(-200e6 // (4 * n_in))))) if timed else 1
+    xs = [torch.round(2 * torch.randn(shape, generator=gen, device=dev)) / 2
+          for _ in range(nbuf)]
+    if nan:
+        xs[0].view(-1)[::997] = float("nan")
+    dys = [torch.randn(oshape, generator=gen, device=dev)
+           for _ in range(nbuf)]
+    counts0 = kernels.launch_counts()
+    strided0 = kernels.relu_max_pool_bwd.strided_dy
+    y = kernels.relu_max_pool_fwd(xs[0], k)
+    yp = kernels.relu_max_pool_plain(xs[0], k)
+    dx = kernels.relu_max_pool_bwd(xs[0], y, dys[0], k)
+    dxp = kernels.relu_max_pool_bwd_plain(xs[0], yp, dys[0], k)
+    dyv = dys[0].permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    dxv = kernels.relu_max_pool_bwd(xs[0], y, dyv, k)
+    # credits beyond one per positive window: how many ties the
+    # backward resolved
+    r = torch.clamp_min(xs[0], 0)
+    pos = yp > 0
+    credits = sum(int(((r[:, di:di + oshape[1], dj:dj + oshape[2]] == yp)
+                       & pos).sum()) for di in range(k) for dj in range(k))
+    torch.cuda.synchronize()
+    out = {"shape": list(shape), "k": k, "nan": nan,
+           "fwd_err": max_err(y, yp), "bwd_err": max_err(dx, dxp),
+           "bwd_strided_dy_err": max_err(dxv, dxp),
+           "fwd_exact": same_bits(y, yp),
+           "bwd_exact": same_bits(dx, dxp) and same_bits(dxv, dxp),
+           "tie_credits": credits - int(pos.sum()),
+           "nan_outputs": int(torch.isnan(y).sum())}
+    out["ok"] = out["fwd_exact"] and out["bwd_exact"]
+    del yp, dx, dxp, dyv, dxv, r, pos
+    if timed:
+        # forward: read x, write y; k*k maxima per output. backward: read
+        # x, y, dy, write dx; k*k compares and adds per input
+        out["fwd_bound_ms"], out["fwd_bound_by"] = bound(
+            4 * (n_in + n_out), k * k * n_out, bw, flops)
+        out["bwd_bound_ms"], out["bwd_bound_by"] = bound(
+            8 * (n_in + n_out), 2 * k * k * n_in, bw, flops)
+        ys = [kernels.relu_max_pool_fwd(x, k) for x in xs]
+        iters = int(min(40, max(5, 2e9 // (4 * (n_in + n_out)))))
+        out["fwd_ms"] = cuda_time_ms(
+            lambda i: kernels.relu_max_pool_fwd(xs[i % nbuf], k), iters)
+        out["fwd_plain_ms"] = cuda_time_ms(
+            lambda i: kernels.relu_max_pool_plain(xs[i % nbuf], k), iters)
+        out["bwd_ms"] = cuda_time_ms(
+            lambda i: kernels.relu_max_pool_bwd(xs[i % nbuf], ys[i % nbuf],
+                                                dys[i % nbuf], k), iters)
+        out["bwd_plain_ms"] = cuda_time_ms(
+            lambda i: kernels.relu_max_pool_bwd_plain(
+                xs[i % nbuf], ys[i % nbuf], dys[i % nbuf], k), iters)
+        del ys
+
+        def ref_fwd(x):
+            return F.max_pool2d(F.relu(x.permute(0, 3, 1, 2)), k, 1)
+        out["reference_fwd_ms"] = cuda_time_ms(
+            lambda i: ref_fwd(xs[i % nbuf]), iters)
+        leaves = [x.clone().requires_grad_(True) for x in xs]
+        graphs = [ref_fwd(x) for x in leaves]
+        dys_nchw = [d.permute(0, 3, 1, 2) for d in dys]
+        out["reference_bwd_ms"] = cuda_time_ms(
+            lambda i: torch.autograd.grad(graphs[i % nbuf],
+                                          [leaves[i % nbuf]],
+                                          dys_nchw[i % nbuf],
+                                          retain_graph=True), iters)
+        del leaves, graphs, dys_nchw
+    # comparison and timing launches are not main-path launches
+    kernels.relu_max_pool_fwd.launches = counts0["relu_max_pool_fwd"]
+    kernels.relu_max_pool_bwd.launches = counts0["relu_max_pool_bwd"]
+    kernels.relu_max_pool_bwd.strided_dy = strided0
+    del xs, dys, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def relu_pool_section(bw: float, flops: float):
+    """Every relu_max_pool shape of kaiming-224's batch-128 training
+    step, plus a ragged-channel and a NaN case."""
+    from cxxnet_tpu_torch.nnet.net import FuncNet
+    knet = FuncNet(_configured(kaiming_cfg(TRAIN_BATCH)), TRAIN_BATCH)
+    shapes = path_relu_pool_shapes(knet, TRAIN_BATCH)
+    if len(shapes) != KAIMING_LAUNCHES["relu_max_pool_fwd"]:
+        raise RuntimeError("expected %d fused pools, the net has %d"
+                           % (KAIMING_LAUNCHES["relu_max_pool_fwd"],
+                              len(shapes)))
+    path = [relu_pool_case(s[:4], s[4], bw, flops) for s in shapes]
+    extra = [relu_pool_case((TRAIN_BATCH, 37, 37, 3), 3, bw, flops,
+                            timed=False),
+             relu_pool_case((16, 18, 18, 256), 3, bw, flops, nan=True,
+                            timed=False),
+             relu_pool_case((8, 9, 9, 12), 2, bw, flops, timed=False)]
+    keys = ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "reference_fwd_ms",
+            "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "reference_bwd_ms")
+    cases = path + extra
+    return {"ok": all(c["ok"] for c in cases),
+            "launches_per_step": len(path),
+            "step_sum": {k: sum(c[k] for c in path) for k in keys},
+            "fwd_max_abs_err": max(c["fwd_err"] for c in cases),
+            "bwd_max_abs_err": max(max(c["bwd_err"], c["bwd_strided_dy_err"])
+                                   for c in cases),
+            "fwd_bound_by": "bytes" if all(c["fwd_bound_by"] == "bytes"
+                                           for c in path) else "operations",
+            "bwd_bound_by": "bytes" if all(c["bwd_bound_by"] == "bytes"
+                                           for c in path) else "operations",
+            "reference": "F.relu + F.max_pool2d (two calls; its backward "
+                         "credits one tied maximum per window)",
+            "path_cases": path, "extra_cases": extra}
+
+
 def phase_kernels(bw: float, flops: float):
     import torch
     from cxxnet_tpu_torch.nnet.net import FuncNet
@@ -449,7 +648,8 @@ def phase_kernels(bw: float, flops: float):
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     bn_ok = all(c["ok"] for c in bn_cases.values())
     mm_ok = all(c["ok"] for c in mm_path + mm_extra)
-    ok = ok and bn_ok and mm_ok
+    rmp = relu_pool_section(bw, flops)
+    ok = ok and bn_ok and mm_ok and rmp["ok"]
     res = {"phase": "kernels", "ok": ok, "kernel": "conv_epilogue",
            "path_launches_per_forward": len(shapes),
            "distinct_path_shapes": len(per_shape),
@@ -489,7 +689,8 @@ def phase_kernels(bw: float, flops: float):
                "bound_by": "bytes" if all(c["bound_by"] == "bytes"
                                           for c in mm_path)
                else "operations",
-               "path_cases": mm_path, "extra_cases": mm_extra}}
+               "path_cases": mm_path, "extra_cases": mm_extra},
+           "relu_max_pool": rmp}
     emit(res)
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version")
@@ -748,6 +949,7 @@ def phase_serve(workdir: str):
 _KINDS = (("host-to-device copies", ("Memcpy HtoD",)),
           ("bn_apply kernels", ("cxn_bn_",)),
           ("matmul kernel", ("cxn_sgemm",)),
+          ("relu_max_pool kernels", ("cxn_relu_max_pool",)),
           ("layout transposes", ("nhwcToNchw", "nchwToNhwc")),
           ("reductions (BN moments, BN gradient sums, loss)",
            ("reduce_kernel", "Reduce")),
@@ -768,10 +970,19 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def profile_step(t, batch, reps: int = 5):
+# per-step device time of the port's kernels, by kernel-name substring
+BN_DEVICE_KEYS = {"bn_fwd_device_ms": "cxn_bn_fwd",
+                  "bn_bwd_device_ms": "cxn_bn_bwd",
+                  "matmul_device_ms": "cxn_sgemm"}
+RMP_DEVICE_KEYS = {"relu_pool_fwd_device_ms": "cxn_relu_max_pool_fwd",
+                   "relu_pool_bwd_device_ms": "cxn_relu_max_pool_bwd"}
+
+
+def profile_step(t, batch, reps: int = 5, device_keys=BN_DEVICE_KEYS):
     """torch.profiler over ``reps`` training steps, one profile per
-    step: device time by kernel name and by kind, and the device's busy
-    and idle share of the step. The per-step figures are medians over
+    step: device time by kernel name and by kind, the device's busy
+    and idle share of the step, and the device time of the kernels
+    named in ``device_keys``. The per-step figures are medians over
     the steps, each with its (min, max) under ``spread``; names and
     kinds are averaged over the steps."""
     import torch
@@ -799,12 +1010,10 @@ def profile_step(t, batch, reps: int = 5):
 
     def dev_ms(by_name, key):
         return sum(v[0] for k, v in by_name.items() if key in k)
-    per_step = {
-        "wall_ms": walls,
-        "device_busy_ms": [dev_ms(n, "") for n in names],
-        "bn_fwd_device_ms": [dev_ms(n, "cxn_bn_fwd") for n in names],
-        "bn_bwd_device_ms": [dev_ms(n, "cxn_bn_bwd") for n in names],
-        "matmul_device_ms": [dev_ms(n, "cxn_sgemm") for n in names]}
+    per_step = {"wall_ms": walls,
+                "device_busy_ms": [dev_ms(n, "") for n in names]}
+    for key, sub in device_keys.items():
+        per_step[key] = [dev_ms(n, sub) for n in names]
     per_step["idle_share"] = [1.0 - busy / wall for busy, wall in
                               zip(per_step["device_busy_ms"], walls)]
     mean = {}
@@ -841,15 +1050,37 @@ def _as_float64(t) -> None:
         cast(t.params), cast(t.net_state), cast(t.opt_state)
 
 
-def update_delta_check(workdir: str):
+def seeded_uniform(shape, key, device):
+    """Dropout draws that are the same on every device: numpy's, from
+    the key's generator seed (``layers.common.dropout_uniform``'s
+    stand-in for the batch-4 update check)."""
+    import torch
+    rs = np.random.RandomState(key.generator_seed() % (2 ** 32))
+    return torch.from_numpy(
+        rs.random_sample(tuple(shape)).astype(np.float32)).to(device)
+
+
+def inception_plain_cfg(cfg):
+    """The Inception-BN training config through the plain versions:
+    BN without the kernel, fc1 as ``fullc`` (the same function, the
+    same seeded weights)."""
+    return [(n, v.replace("pallas_fullc:", "fullc:"))
+            for n, v in cfg if n != "bn_pallas"] + [("bn_pallas", "0")]
+
+
+def update_delta_check(workdir: str, cfg=None, plain_cfg=None,
+                       same_masks: bool = False, tag: str = "train4"):
     """One update at batch 4 from the same seeded weights and batch,
     compared per parameter as ||d_a - d_b|| / ||d_b|| with d = w_after -
     w_before. Runs: the card through the kernels (``gpu``) and through
-    the plain versions (``bn_pallas = 0``, fc1 as ``fullc``:
-    ``gpu_plain``); the CPU (``cpu``); the plain path in float64 on the
-    card and on the CPU (``gpu_f64``, ``cpu_f64``); and, to place the
-    card's float32 error, the kernels with cuDNN switched off, so the
-    convolutions run as im2col and cuBLAS products (``gpu_no_cudnn``).
+    the plain versions (``plain_cfg``; for Inception-BN ``bn_pallas =
+    0`` and fc1 as ``fullc``: ``gpu_plain``); the CPU (``cpu``); the
+    plain path in float64 on the card and on the CPU (``gpu_f64``,
+    ``cpu_f64``); and, to place the card's float32 error, the kernels
+    with cuDNN switched off, so the convolutions run as im2col and
+    cuBLAS products (``gpu_no_cudnn``). With ``same_masks`` every run
+    draws its dropout masks from :func:`seeded_uniform`, so the card
+    and the CPU drop the same units.
 
     At this state the float32 update of the deep layers is
     ill-conditioned: a change of summation order alone moves it by
@@ -864,17 +1095,16 @@ def update_delta_check(workdir: str):
     ``cpu_f64`` are reported, not held."""
     import torch
     from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.layers import common
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
-    cfg = train_cfg(4)
-    # the plain variant: BN without the kernel, fc1 as fullc (the same
-    # function, the same seeded weights)
-    plain_cfg = [(n, v.replace("pallas_fullc:", "fullc:"))
-                 for n, v in cfg if n != "bn_pallas"] + [("bn_pallas", "0")]
+    if cfg is None:
+        cfg = train_cfg(4)
+        plain_cfg = inception_plain_cfg(cfg)
     paths = {}
     for name, c in (("kernels", cfg), ("plain", plain_cfg)):
         init = NetTrainer(c, device=DEVICE)
         init.init_model()
-        paths[name] = os.path.join(workdir, "train4_%s.model.npz" % name)
+        paths[name] = os.path.join(workdir, "%s_%s.model.npz" % (tag, name))
         init.save_model(paths[name])
         del init
     rng = np.random.RandomState(SEED + 4)
@@ -897,7 +1127,7 @@ def update_delta_check(workdir: str):
                 data, labels, mask = t._device_batch(batch)
                 t._last_loss, _ = t._train_step(
                     data.double(), labels, mask, t.update_counter, True,
-                    False)
+                    False, t._step_scalar())
             else:
                 t.update(batch)
         finally:
@@ -905,11 +1135,17 @@ def update_delta_check(workdir: str):
         return ({k: t.params[k[0]][k[1]].detach().cpu().double() - w0[k]
                  for k in w0}, t.last_loss)
 
-    runs = {"gpu": delta(DEVICE), "gpu_plain": delta(DEVICE, plain=True),
-            "cpu": delta("cpu"),
-            "gpu_f64": delta(DEVICE, plain=True, f64=True),
-            "cpu_f64": delta("cpu", plain=True, f64=True),
-            "gpu_no_cudnn": delta(DEVICE, cudnn=False)}
+    uniform = common.dropout_uniform
+    if same_masks:
+        common.dropout_uniform = seeded_uniform
+    try:
+        runs = {"gpu": delta(DEVICE), "gpu_plain": delta(DEVICE, plain=True),
+                "cpu": delta("cpu"),
+                "gpu_f64": delta(DEVICE, plain=True, f64=True),
+                "cpu_f64": delta("cpu", plain=True, f64=True),
+                "gpu_no_cudnn": delta(DEVICE, cudnn=False)}
+    finally:
+        common.dropout_uniform = uniform
 
     def rel(a, b, k):
         nb = float(runs[b][0][k].norm())
@@ -1009,13 +1245,18 @@ def pool_backward_check(net, batch: int = 8):
     return out
 
 
-def phase_train(workdir: str):
+def drive_train(cfg, expected, device_keys):
+    """The training main path at batch TRAIN_BATCH: a seeded trainer
+    from ``cfg``, 2 warm and 10 timed ``update`` steps on one batch
+    (CUDA events and host clock), every step's launches against
+    ``expected`` (counts set to 0 just before, read just after), the
+    losses, peak memory and a profiled step. Returns (trainer, result)."""
     import torch
     from cxxnet_tpu_torch.io import DataBatch
     from cxxnet_tpu_torch.layers import kernels
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
     t0 = time.perf_counter()
-    t = NetTrainer(train_cfg(TRAIN_BATCH), device="cuda")
+    t = NetTrainer(cfg, device=DEVICE)
     t.init_model()
     rng = np.random.RandomState(SEED + 1)
     batch = DataBatch(images(rng, TRAIN_BATCH),
@@ -1050,24 +1291,19 @@ def phase_train(workdir: str):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t1) / TIMED_STEPS * 1e3
     launches = kernels.launch_counts()
+    strided_dy = kernels.relu_max_pool_bwd.strided_dy
     step_ms = a.elapsed_time(b) / TIMED_STEPS
     peak = torch.cuda.max_memory_allocated()
     loss_values = [float(v) for v in losses]
 
-    prof = profile_step(t, batch)
+    prof = profile_step(t, batch, device_keys=device_keys)
     flops = t.net.analytic_flops_per_example()
-    delta = update_delta_check(workdir)
-    pools = pool_backward_check(t.net)
-
     steps = WARM_STEPS + TIMED_STEPS
-    counted = all(ps == TRAIN_LAUNCHES for ps in per_step) and all(
-        launches[k] == n * steps for k, n in TRAIN_LAUNCHES.items())
+    counted = all(ps == expected for ps in per_step) and all(
+        launches[k] == n * steps for k, n in expected.items())
     finite = bool(np.all(np.isfinite(loss_values)))
     falling = finite and loss_values[-1] < loss_values[0]
-    res = {"phase": "train", "model": "inception_bn_224",
-           "config": "pallas_fullc fc1, bn_pallas, bn_fuse_relu, f32, "
-                     "TF32 off, sgd momentum 0.9",
-           "batch": TRAIN_BATCH, "setup_s": setup_s,
+    res = {"batch": TRAIN_BATCH, "setup_s": setup_s,
            "first_steps_s": warm_s, "warm_steps": WARM_STEPS,
            "timed_steps": TIMED_STEPS, "step_ms": step_ms,
            "step_wall_ms": wall_ms,
@@ -1077,10 +1313,21 @@ def phase_train(workdir: str):
            "peak_mem_gb": peak / 1e9, "losses": loss_values,
            "finite": finite, "loss_falls": falling,
            "launches": launches, "launches_per_step": per_step[-1],
-           "expected_per_step": TRAIN_LAUNCHES, "counted": counted,
-           "profile": prof, "update_vs_cpu": delta,
-           "pool_backward_vs_cpu": pools}
-    res["ok"] = bool(counted and finite and falling and delta["ok"]
+           "expected_per_step": expected, "counted": counted,
+           "relu_pool_bwd_strided_dy": strided_dy, "profile": prof}
+    return t, res
+
+
+def phase_train(workdir: str):
+    t, res = drive_train(train_cfg(TRAIN_BATCH), TRAIN_LAUNCHES,
+                         BN_DEVICE_KEYS)
+    delta = update_delta_check(workdir)
+    pools = pool_backward_check(t.net)
+    res = dict({"phase": "train", "model": "inception_bn_224",
+                "config": "pallas_fullc fc1, bn_pallas, bn_fuse_relu, f32, "
+                          "TF32 off, sgd momentum 0.9"}, **res)
+    res.update(update_vs_cpu=delta, pool_backward_vs_cpu=pools)
+    res["ok"] = bool(res["counted"] and res["loss_falls"] and delta["ok"]
                      and all(p["ok"] for p in pools))
     emit(res)
     if not res["ok"]:
@@ -1088,14 +1335,37 @@ def phase_train(workdir: str):
     return res
 
 
-def kernels_line(kres, sres, tres, part: str):
+# ------------------------------------------------------------- phase 5
+
+
+def phase_train_kaiming(workdir: str):
+    t, res = drive_train(kaiming_cfg(TRAIN_BATCH), KAIMING_LAUNCHES,
+                         RMP_DEVICE_KEYS)
+    delta = update_delta_check(workdir, kaiming_cfg(4), kaiming_cfg(4, 0),
+                               same_masks=True, tag="kaiming4")
+    pools = pool_backward_check(t.net)
+    res = dict({"phase": "train_kaiming", "model": "kaiming_224",
+                "config": "fused_pools, pallas_pool = 1, dropout 0.5, "
+                          "f32, TF32 off, sgd momentum 0.9"}, **res)
+    res.update(update_vs_cpu=delta, pool_backward_vs_cpu=pools)
+    res["ok"] = bool(res["counted"] and res["loss_falls"] and delta["ok"]
+                     and all(p["ok"] for p in pools))
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("train_kaiming phase failed")
+    return res
+
+
+def kernels_line(kres, sres, tres, kmres, part: str):
     """The ``kernels`` record: every ported kernel with its launches on
     its path's run, its error against its plain version, its times on
     the card and its bound, at the path's shapes."""
     fwd = kres["forward_sum"]
-    bn, mm = kres["bn_apply"], kres["matmul"]
-    prof = tres["profile"]
+    bn, mm, rmp = kres["bn_apply"], kres["matmul"], kres["relu_max_pool"]
+    prof, kprof = tres["profile"], kmres["profile"]
     per_step = "one training step at batch %d" % TRAIN_BATCH
+    per_kstep = "one kaiming-224 training step at batch %d: %d launches" \
+        % (TRAIN_BATCH, rmp["launches_per_step"])
     return {"kernels": [
         dict(EPILOGUE, launches=sres["conv_epilogue_launches"],
              max_abs_err=kres["max_abs_err"], ms=fwd["ms"],
@@ -1129,6 +1399,26 @@ def kernels_line(kres, sres, tres, part: str):
              device_ms=prof["matmul_device_ms"],
              max_rel_err=mm["max_rel_err"],
              per="%s: %d launches" % (per_step, mm["launches_per_step"]),
+             peaks=part),
+        dict(RMP_FWD, launches=kmres["launches"]["relu_max_pool_fwd"],
+             max_abs_err=rmp["fwd_max_abs_err"],
+             ms=rmp["step_sum"]["fwd_ms"],
+             plain_ms=rmp["step_sum"]["fwd_plain_ms"],
+             bound_ms=rmp["step_sum"]["fwd_bound_ms"],
+             bound_by=rmp["fwd_bound_by"], library_ms=None,
+             reference_ms=rmp["step_sum"]["reference_fwd_ms"],
+             reference=rmp["reference"],
+             device_ms=kprof["relu_pool_fwd_device_ms"], per=per_kstep,
+             peaks=part),
+        dict(RMP_BWD, launches=kmres["launches"]["relu_max_pool_bwd"],
+             max_abs_err=rmp["bwd_max_abs_err"],
+             ms=rmp["step_sum"]["bwd_ms"],
+             plain_ms=rmp["step_sum"]["bwd_plain_ms"],
+             bound_ms=rmp["step_sum"]["bwd_bound_ms"],
+             bound_by=rmp["bwd_bound_by"], library_ms=None,
+             reference_ms=rmp["step_sum"]["reference_bwd_ms"],
+             reference=rmp["reference"],
+             device_ms=kprof["relu_pool_bwd_device_ms"], per=per_kstep,
              peaks=part)]}
 
 
@@ -1161,6 +1451,8 @@ def main() -> int:
         sres = phase_serve(workdir)
         phase = "train"
         tres = phase_train(workdir)
+        phase = "train_kaiming"
+        kmres = phase_train_kaiming(workdir)
     except Exception as e:
         import traceback
         traceback.print_exc()
@@ -1169,7 +1461,7 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    emit(kernels_line(kres, sres, tres, part))
+    emit(kernels_line(kres, sres, tres, kmres, part))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,8 @@ snapshot, through ``nnet.trainer.NetTrainer`` and ``nnet.net.FuncNet``,
 with the ``conv_epilogue`` kernel) and the training path
 (``NetTrainer.update`` / ``run_steps`` / ``update_many``, autograd over
 ``FuncNet.loss_fn``, the ``updater`` rules, with the ``bn_apply`` and
-``matmul`` kernels). Config keys whose feature is not ported raise
+``matmul`` kernels, and for kaiming's fused pools the ``relu_max_pool``
+kernels, with dropout). Config keys whose feature is not ported raise
 :class:`~cxxnet_tpu_torch.utils.config.NotPortedError`.
 
 Importing this package imports no JAX, builds no kernel and touches no

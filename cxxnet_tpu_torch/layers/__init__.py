@@ -1,8 +1,8 @@
 """Layer registry: string type -> layer factory (counterpart of
 ``cxxnet_tpu/layers/__init__.py``), restricted to the layer types the
-ported serving and training slices run. Every other type the reference knows raises
-:class:`NotPortedError` naming the ROADMAP item that ports it; a type
-neither package knows raises ``ValueError``.
+ported serving and training slices run. Every other type the reference
+knows raises :class:`NotPortedError` naming the ROADMAP item that ports
+it; a type neither package knows raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -30,6 +30,12 @@ _FACTORY: Dict[str, Callable[..., Layer]] = {
     "conv": lambda cfg, **kw: ConvolutionLayer(cfg),
     "max_pooling": lambda cfg, **kw: PoolingLayer("max", cfg),
     "avg_pooling": lambda cfg, **kw: PoolingLayer("avg", cfg),
+    # relu fused before the pool; with pallas_pool = 1 (or as
+    # pallas_relu_max_pooling) through the relu_max_pool kernels
+    "relu_max_pooling": lambda cfg, **kw: PoolingLayer("max", cfg,
+                                                       pre_relu=True),
+    "pallas_relu_max_pooling": lambda cfg, **kw: PoolingLayer(
+        "max", cfg, pre_relu=True, use_pallas=True),
     "concat": lambda cfg, **kw: ConcatLayer(3, cfg),
     "ch_concat": lambda cfg, **kw: ConcatLayer(1, cfg),
     "split": lambda cfg, n_out=2, **kw: SplitLayer(n_out, cfg),
@@ -40,17 +46,10 @@ _FACTORY: Dict[str, Callable[..., Layer]] = {
 }
 
 # reference layer types not ported yet -> the ROADMAP item porting them
-_NOT_PORTED = {
-    "pallas_relu_max_pooling": Roadmap.RELU_MAX_POOL,
-    "relu_max_pooling": Roadmap.RELU_MAX_POOL,
-    "insanity": Roadmap.KAIMING_TRAINING,
-    "rrelu": Roadmap.KAIMING_TRAINING,
-}
-for _t in ("fixconn", "bias", "sum_pooling", "lrn", "xelu",
-           "insanity_max_pooling", "lp_loss", "l2_loss",
-           "multi_logistic", "prelu", "batch_norm_no_ma", "torch",
-           "maxout"):
-    _NOT_PORTED[_t] = Roadmap.LAYER_ZOO
+_NOT_PORTED = {t: Roadmap.LAYER_ZOO for t in (
+    "insanity", "rrelu", "fixconn", "bias", "sum_pooling", "lrn", "xelu",
+    "insanity_max_pooling", "lp_loss", "l2_loss", "multi_logistic", "prelu",
+    "batch_norm_no_ma", "torch", "maxout")}
 
 
 def create_layer(type_str: str, cfg: Sequence[Tuple[str, str]] = (),

@@ -36,6 +36,29 @@ class Shape3(NamedTuple):
         return self.ch * self.y * self.x
 
 
+class StepKey(NamedTuple):
+    """The randomness of one layer in one training step: the trainer's
+    ``seed``, the global sample step and the layer's connection index.
+    The reference draws from ``fold_in(fold_in(PRNGKey(seed + 1),
+    step), layer)``; the port seeds a ``torch.Generator`` from the same
+    triple, so the same triple gives the same draw on one device (the
+    two frameworks' bits differ)."""
+    seed: int
+    step: int
+    layer: int
+
+    def generator_seed(self) -> int:
+        """A 64-bit seed mixing the triple (splitmix64 per field)."""
+        mask = (1 << 64) - 1
+        h = 0
+        for v in (self.seed + 1, self.step, self.layer):
+            h = (h ^ (v & mask)) + 0x9E3779B97F4A7C15 & mask
+            h = (h ^ (h >> 30)) * 0xBF58476D1CE4E5B9 & mask
+            h = (h ^ (h >> 27)) * 0x94D049BB133111EB & mask
+            h ^= h >> 31
+        return h
+
+
 def array_shape(batch: int, s: Shape3) -> Tuple[int, ...]:
     """Concrete tensor shape for a logical node shape."""
     if s.is_mat:
@@ -76,6 +99,9 @@ class LayerParam:
     # as one pass of the conv_epilogue kernel on the conv output,
     # instead of folding the scale into the weights
     conv_pallas_epilogue: int = 0
+    # route relu_max_pooling through the relu_max_pool kernels where
+    # their gate holds (stride-1 VALID square max pools)
+    pallas_pool: int = 0
     # training batch norm folds normalize + affine into one per-channel
     # scale/shift (the default, as in the reference)
     bn_fold_affine: int = 1
@@ -127,9 +153,8 @@ class LayerParam:
                 raise ValueError("dtype must be float32 or bfloat16")
             if val == "bfloat16":
                 raise NotPortedError("dtype = bfloat16", Roadmap.QUANTIZED)
-        if name == "pallas_pool" and int(val):
-            raise NotPortedError("pallas_pool = %s" % val,
-                                 Roadmap.RELU_MAX_POOL)
+        if name == "pallas_pool":
+            self.pallas_pool = int(val)
         if name == "conv_pallas_epilogue":
             self.conv_pallas_epilogue = int(val)
         if name == "bn_fold_affine":
@@ -200,6 +225,9 @@ class Layer:
     #: layers that reduce over the batch dimension (batch norm) set this
     #: so the net passes them the padded-row mask as a keyword
     needs_mask = False
+    #: stochastic layers (dropout) set this so the net passes them their
+    #: :class:`StepKey` as the keyword ``rng`` in a training forward
+    needs_rng = False
 
     def forward(self, params: Dict[str, torch.Tensor],
                 state: Dict[str, torch.Tensor],

@@ -8,22 +8,34 @@ training, differentiated by autograd:
   ``pallas_kernels.py:543-559``)
 - flatten      — NHWC -> (batch, ch*y*x) in the reference's NCHW order
 - relu/sigmoid/tanh/softplus
-- dropout      — identity at inference (self-loop); its training
-  forward is not ported and raises
+- dropout      — inverted dropout in training, identity at inference
+  (self-loop); the mask's uniform draw comes from
+  :func:`dropout_uniform`
 - concat/ch_concat
 - split
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from ..utils.config import NotPortedError, Roadmap
-from .base import Layer, Shape3, as_mat
+from .base import Layer, Shape3, StepKey, as_mat
 from .kernels import matmul
+
+
+def dropout_uniform(shape: Sequence[int], key: StepKey,
+                    device: torch.device) -> torch.Tensor:
+    """Uniform float32 draws in [0, 1) of ``shape`` on ``device`` for the
+    dropout mask of one layer in one step, from a ``torch.Generator`` on
+    that device seeded by ``key``. The one place dropout's randomness
+    comes from: a parity test replaces it to feed the reference's
+    draws."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(key.generator_seed())
+    return torch.rand(tuple(shape), generator=gen, device=device)
 
 
 class FullConnectLayer(Layer):
@@ -113,9 +125,14 @@ class ActivationLayer(Layer):
 
 
 class DropoutLayer(Layer):
-    """Inverted dropout; identity at inference. Self-loop layer."""
+    """Inverted dropout; identity at inference. Self-loop layer.
+
+    The training forward keeps each element with probability ``pkeep =
+    1 - threshold``: ``x * ((u < pkeep) / pkeep)``, the mask cast to
+    x's dtype before the division, as the reference computes it."""
 
     self_loop = True
+    needs_rng = True
 
     def __init__(self, cfg=()):
         self.threshold = 0.0
@@ -134,11 +151,16 @@ class DropoutLayer(Layer):
         self.out_shapes = [s]
         return self.out_shapes
 
-    def forward(self, params, state, inputs, is_train=False):
-        if is_train:
-            raise NotPortedError("dropout in a training forward",
-                                 Roadmap.KAIMING_TRAINING)
-        return [inputs[0]], state
+    def forward(self, params, state, inputs, is_train=False, rng=None):
+        x = inputs[0]
+        if not is_train or self.threshold == 0.0:
+            return [x], state
+        if rng is None:
+            raise ValueError("dropout needs the step's rng in training")
+        pkeep = 1.0 - self.threshold
+        u = dropout_uniform(x.shape, rng, x.device)
+        mask = (u < pkeep).to(x.dtype) / pkeep
+        return [x * mask], state
 
 
 class ConcatLayer(Layer):

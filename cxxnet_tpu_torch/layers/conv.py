@@ -11,6 +11,12 @@
 - the batch-norm fold (``bn_fold_eval``) either multiplies the weight
   (``conv_pallas_epilogue = 0``) or runs on the conv output as one
   launch of the ``conv_epilogue`` kernel (``conv_pallas_epilogue = 1``).
+- ``relu_max_pooling`` fuses a relu before the max pool; where the
+  reference's gate holds (stride 1, no pad, square window > 1) and
+  ``pallas_pool = 1`` or the layer is ``pallas_relu_max_pooling``, it
+  runs as the relu_max_pool kernels (forward and backward; the
+  backward credits every tied maximum). Otherwise relu, then the pool
+  below (ties to the first maximum, as XLA's select-and-scatter).
 - pooling keeps the reference's ceil-mode output size and border rules
   (``_pool_out_dim``): the base pad is a zero pad, the ceil overhang a
   truncated window (``-inf`` for max), and avg divides by the full
@@ -36,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from .base import Layer, Shape3
-from .kernels import bn_apply, bn_apply_plain, conv_epilogue
+from .kernels import bn_apply, bn_apply_plain, conv_epilogue, relu_max_pool
 
 
 def _conv_out_dim(size: int, pad: int, k: int, stride: int) -> int:
@@ -169,11 +175,28 @@ class ConvolutionLayer(Layer):
         return [torch.relu(y) if relu else y], state
 
 
-class PoolingLayer(Layer):
-    """max / avg pooling with the reference's ceil-mode shape rules."""
+def relu_max_pool_applicable(param) -> bool:
+    """The reference's gate for the fused kernels
+    (``pallas_kernels.relu_max_pool_applicable``): stride-1 VALID
+    square max pools with a real window."""
+    return (param.stride == 1 and param.pad_y == 0 and param.pad_x == 0
+            and param.kernel_height == param.kernel_width
+            and param.kernel_height > 1)
 
-    def __init__(self, mode: str, cfg=()):
+
+class PoolingLayer(Layer):
+    """max / avg pooling with the reference's ceil-mode shape rules.
+
+    ``pre_relu`` fuses a relu before the pool (``relu_max_pooling``);
+    ``use_pallas`` (``pallas_relu_max_pooling``) or the ``pallas_pool``
+    key sends it through the relu_max_pool kernels where their gate
+    holds."""
+
+    def __init__(self, mode: str, cfg=(), pre_relu: bool = False,
+                 use_pallas: bool = False):
         self.mode = mode
+        self.pre_relu = pre_relu
+        self.use_pallas = use_pallas
         super().__init__(cfg)
 
     def infer_shape(self, in_shapes: List[Shape3]) -> List[Shape3]:
@@ -213,7 +236,14 @@ class PoolingLayer(Layer):
         return y.permute(0, 2, 3, 1)
 
     def forward(self, params, state, inputs, is_train=False):
-        return [self._pool(inputs[0])], state
+        x = inputs[0]
+        if self.pre_relu:
+            p = self.param
+            if ((self.use_pallas or p.pallas_pool) and self.mode == "max"
+                    and relu_max_pool_applicable(p)):
+                return [relu_max_pool(x, p.kernel_height)], state
+            x = torch.relu(x)
+        return [self._pool(x)], state
 
 
 class BatchNormLayer(Layer):

@@ -19,7 +19,9 @@ Ported so far:
 - ``bn_apply`` forward and backward (``bn_apply_fwd`` /
   ``bn_apply_bwd``), differentiable as :func:`bn_apply`;
 - ``matmul``, differentiable as :func:`matmul`: the forward and both
-  backward products run through the kernel.
+  backward products run through the kernel;
+- ``relu_max_pool`` forward and backward (``relu_max_pool_fwd`` /
+  ``relu_max_pool_bwd``), differentiable as :func:`relu_max_pool`.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from ..utils.config import NotPortedError, Roadmap
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-KERNEL_SOURCES = ("conv_epilogue", "bn_apply", "matmul")
+KERNEL_SOURCES = ("conv_epilogue", "bn_apply", "matmul", "relu_max_pool")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -136,6 +138,10 @@ _SIGNATURES = {
                  "cxn_bn_apply_bwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
                                       _L, _I, _L, _I, _P]},
     "matmul": {"cxn_matmul": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P]},
+    "relu_max_pool": {
+        "cxn_relu_max_pool_fwd": [_P, _P, _I, _I, _I, _I, _I, _P],
+        "cxn_relu_max_pool_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
+                                  _L, _L, _P]},
 }
 
 
@@ -525,16 +531,171 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _Matmul.apply(x, w)
 
 
+# ------------------------------------------------------- relu_max_pool
+
+
+def relu_max_pool_plain(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``maxpool_{k x k, stride 1, VALID}(max(x, 0))`` over NHWC: the
+    plain version of the relu_max_pool forward kernel, in the reference
+    kernel's order (the (0, 0) shift, then di outer, dj inner) with
+    ``torch.maximum``'s NaN propagation."""
+    r = torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
+    oh, ow = x.shape[1] - k + 1, x.shape[2] - k + 1
+    y = r[:, :oh, :ow]
+    for di in range(k):
+        for dj in range(k):
+            if di or dj:
+                y = torch.maximum(y, r[:, di:di + oh, dj:dj + ow])
+    return y.contiguous()
+
+
+def relu_max_pool_bwd_plain(x: torch.Tensor, y: torch.Tensor,
+                            dy: torch.Tensor, k: int) -> torch.Tensor:
+    """dx of :func:`relu_max_pool_plain` from its input, output and
+    cotangent, as the reference's backward kernel computes it: every
+    input equal to its window's maximum gets the window's cotangent
+    (every tied maximum, not the first only), summed in f32 over the
+    windows in (di, dj) order, then the ``x > 0`` mask."""
+    r = torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device)) \
+        .float()
+    yf, dyf = y.float(), dy.float()
+    oh, ow = y.shape[1], y.shape[2]
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    for di in range(k):
+        for dj in range(k):
+            acc[:, di:di + oh, dj:dj + ow] += torch.where(
+                r[:, di:di + oh, dj:dj + ow] == yf, dyf, zero)
+    return torch.where(x > 0, acc, zero).to(x.dtype)
+
+
+def _check_pool(what: str, x: torch.Tensor, k: int) -> None:
+    if x.dtype == torch.bfloat16:
+        raise NotPortedError("%s on bfloat16 activations" % what,
+                             Roadmap.LOW_PRECISION_TRAINING)
+    if x.dtype != torch.float32:
+        raise TypeError("%s: x must be float32, got %s" % (what, x.dtype))
+    if x.dim() != 4:
+        raise ValueError("%s: x must be NHWC, got shape %s"
+                         % (what, tuple(x.shape)))
+    if k < 1 or k > x.shape[1] or k > x.shape[2]:
+        raise ValueError("%s: window %d does not fit %s"
+                         % (what, k, tuple(x.shape)))
+    if max(x.shape) >= 2 ** 31:
+        raise ValueError("%s: shape %s exceeds the kernel's int extents"
+                         % (what, tuple(x.shape)))
+    if not x.is_contiguous():
+        raise ValueError("%s: x must be contiguous (the kernel reads a "
+                         "dense NHWC buffer)" % what)
+
+
+def relu_max_pool_fwd(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``maxpool_{k x k, stride 1, VALID}(max(x, 0))`` of a contiguous
+    float32 NHWC tensor: one launch of ``cxn_relu_max_pool_fwd``
+    (``csrc/relu_max_pool.cu``) for a CUDA tensor, the plain version for
+    a CPU tensor."""
+    _check_pool("relu_max_pool", x, k)
+    if x.device.type == "cpu":
+        return relu_max_pool_plain(x, k)
+    _require_cuda(x, "relu_max_pool")
+    b, h, w, c = x.shape
+    y = torch.empty((b, h - k + 1, w - k + 1, c), dtype=x.dtype,
+                    device=x.device)
+    if y.numel() == 0:
+        return y
+    lib = _load("relu_max_pool")
+    with torch.cuda.device(x.device):
+        err = lib.cxn_relu_max_pool_fwd(x.data_ptr(), y.data_ptr(), b, h, w,
+                                        c, k, _stream(x))
+    _raise_on(err, "relu_max_pool")
+    relu_max_pool_fwd.launches += 1
+    return y
+
+
+relu_max_pool_fwd.launches = 0
+
+
+def relu_max_pool_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """dx of :func:`relu_max_pool_fwd` from the forward's input ``x``,
+    its output ``y`` (both contiguous) and the cotangent ``dy``, which
+    the kernel reads through its strides (a permuted or expanded view
+    costs no copy): one launch of ``cxn_relu_max_pool_bwd`` for CUDA
+    tensors, the plain version for CPU tensors. Launches whose ``dy``
+    is not a dense NHWC tensor are counted in ``strided_dy``."""
+    _check_pool("relu_max_pool_bwd", x, k)
+    b, h, w, c = x.shape
+    oshape = (b, h - k + 1, w - k + 1, c)
+    for nm, t in (("y", y), ("dy", dy)):
+        if tuple(t.shape) != oshape or t.dtype != x.dtype \
+                or t.device != x.device:
+            raise ValueError("relu_max_pool_bwd: %s must be %s %s on %s, "
+                             "got %s %s on %s"
+                             % (nm, x.dtype, oshape, x.device, t.dtype,
+                                tuple(t.shape), t.device))
+    if not y.is_contiguous():
+        raise ValueError("relu_max_pool_bwd: y must be contiguous")
+    if x.device.type == "cpu":
+        return relu_max_pool_bwd_plain(x, y, dy, k)
+    _require_cuda(x, "relu_max_pool_bwd")
+    dx = torch.empty_like(x)
+    if dx.numel() == 0:
+        return dx
+    lib = _load("relu_max_pool")
+    sb, sh, sw, sc = dy.stride()
+    with torch.cuda.device(x.device):
+        err = lib.cxn_relu_max_pool_bwd(
+            x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(), b, h,
+            w, c, k, sb, sh, sw, sc, _stream(x))
+    _raise_on(err, "relu_max_pool_bwd")
+    relu_max_pool_bwd.launches += 1
+    if not dy.is_contiguous():
+        relu_max_pool_bwd.strided_dy += 1
+    return dx
+
+
+relu_max_pool_bwd.launches = 0
+relu_max_pool_bwd.strided_dy = 0
+
+
+class _ReluMaxPool(torch.autograd.Function):
+    """Counterpart of the reference's ``relu_max_pool`` custom VJP: the
+    forward and the backward are one kernel launch each; the residuals
+    are the forward's input and output, as there."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        x = x.contiguous()
+        y = relu_max_pool_fwd(x, k)
+        ctx.k = k
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, y = ctx.saved_tensors
+        return relu_max_pool_bwd(x, y, dy, ctx.k), None
+
+
+def relu_max_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Fused relu + k x k stride-1 VALID max pool (NHWC),
+    differentiable; the backward credits every tied maximum."""
+    return _ReluMaxPool.apply(x, int(k))
+
+
 # ------------------------------------------------------------ counters
 
 _COUNTED = {"conv_epilogue": conv_epilogue, "bn_apply_fwd": bn_apply_fwd,
-            "bn_apply_bwd": bn_apply_bwd, "matmul": matmul_kernel}
+            "bn_apply_bwd": bn_apply_bwd, "matmul": matmul_kernel,
+            "relu_max_pool_fwd": relu_max_pool_fwd,
+            "relu_max_pool_bwd": relu_max_pool_bwd}
 
 
 def reset_launch_counts() -> None:
     """Zero every kernel wrapper's launch counter."""
     for fn in _COUNTED.values():
         fn.launches = 0
+    relu_max_pool_bwd.strided_dy = 0
 
 
 def launch_counts() -> Dict[str, int]:

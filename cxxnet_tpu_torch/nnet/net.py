@@ -27,6 +27,7 @@ import torch
 
 from ..graph import NetGraph
 from ..layers import Layer, Shape3, create_layer
+from ..layers.base import StepKey
 from ..utils.config import NotPortedError, Roadmap
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -167,7 +168,8 @@ class FuncNet:
     def forward(self, params: Params, state: NetState,
                 data: torch.Tensor, is_train: bool = False,
                 mask: Optional[torch.Tensor] = None,
-                collect_logits: bool = False
+                collect_logits: bool = False,
+                rng: Optional[Tuple[int, int]] = None
                 ) -> Tuple[List[Optional[torch.Tensor]], NetState,
                            Dict[int, torch.Tensor]]:
         """Run all connections in config order.
@@ -176,7 +178,9 @@ class FuncNet:
         the training forward's running-stat updates (``state`` itself
         at eval), and per loss layer index its pre-transform input
         (only with ``collect_logits``). ``mask`` is the padded-row mask
-        (1.0 real, 0.0 padding) or None when every row is real."""
+        (1.0 real, 0.0 padding) or None when every row is real. ``rng``
+        is the step's randomness, ``(seed, step)``: each stochastic
+        layer gets its :class:`StepKey` with its connection index."""
         g = self.graph
         nodes: List[Optional[torch.Tensor]] = [None] * g.num_nodes
         if not data.is_floating_point():
@@ -206,6 +210,9 @@ class FuncNet:
                 loss_inputs[li] = ins[0]
             if layer.needs_mask:
                 outs, s2 = layer.forward(p, s, ins, is_train, mask=mask)
+            elif layer.needs_rng:
+                key = None if rng is None else StepKey(rng[0], rng[1], li)
+                outs, s2 = layer.forward(p, s, ins, is_train, rng=key)
             else:
                 outs, s2 = layer.forward(p, s, ins, is_train)
             if s2:
@@ -217,14 +224,16 @@ class FuncNet:
     def loss_fn(self, params: Params, state: NetState,
                 data: torch.Tensor, labels: torch.Tensor,
                 mask: Optional[torch.Tensor],
-                collect_nodes: Sequence[int] = ()):
+                collect_nodes: Sequence[int] = (),
+                rng: Optional[Tuple[int, int]] = None):
         """Total training loss (sum over loss layers) and (new state,
         the values of ``collect_nodes``). ``labels`` is the (batch,
         label_width) matrix; each loss layer's ``target`` selects its
-        columns through the graph's label fields."""
+        columns through the graph's label fields. ``rng`` is the step's
+        ``(seed, step)`` (see :meth:`forward`)."""
         nodes, new_state, loss_inputs = self.forward(
             params, state, data, is_train=True, mask=mask,
-            collect_logits=True)
+            collect_logits=True, rng=rng)
         slices = {name: (a, b) for name, a, b in self.graph.label_slices()}
         total = torch.zeros((), dtype=torch.float32, device=data.device)
         for li, logit in loss_inputs.items():

@@ -11,6 +11,9 @@ weight get/set.
 A training step is the reference's ``scan_step`` written eagerly:
 autograd over ``FuncNet.loss_fn`` in place of ``jax.value_and_grad``,
 then the updaters; the schedule is evaluated on the host per step.
+Stochastic layers (dropout) draw for the step's ``(seed, global sample
+step)``, so ``update``, ``update_many`` and ``run_steps`` give one batch
+sequence the same masks.
 
 The freeze is the reference's device-resident serve weight tree
 (``serve_weight_residency = 1``, the default): the BN fold vectors are
@@ -363,14 +366,22 @@ class NetTrainer:
                 upd.apply(self.params[lk][tag], g, self.opt_state[lk][tag], hy)
         self.params = params
 
+    def _step_scalar(self) -> int:
+        """The global sample step the next batch's randomness is drawn
+        for: ``update_counter * update_period + sample_counter``, as a
+        uint32, as the reference's ``NetTrainer._step_scalar``."""
+        return (self.update_counter * self.update_period
+                + self.sample_counter) & 0xFFFFFFFF
+
     def _train_step(self, data: torch.Tensor, labels: torch.Tensor,
                     mask: Optional[torch.Tensor], epoch: int,
-                    do_update: bool, collect: bool
+                    do_update: bool, collect: bool, step: int
                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """The reference's ``scan_step``: loss and gradients of one
         batch, then the update (or, under ``update_period > 1``, the f32
-        accumulation that a closing window applies). Returns the loss
-        and, with ``collect``, the metric nodes' values."""
+        accumulation that a closing window applies). ``step`` is the
+        global sample step the layers' randomness is drawn for. Returns
+        the loss and, with ``collect``, the metric nodes' values."""
         trained = [(lk, tag) for lk, tags in self.opt_state.items()
                    for tag, st in tags.items() if st]
         leaves = {lk: dict(sub) for lk, sub in self.params.items()}
@@ -380,7 +391,8 @@ class NetTrainer:
         nodes = tuple(self._metric_nodes) if collect else ()
         with torch.enable_grad():
             loss, (new_state, preds) = self.net.loss_fn(
-                leaves, self.net_state, data, labels, mask, nodes)
+                leaves, self.net_state, data, labels, mask, nodes,
+                rng=(self.seed, step))
             grads = torch.autograd.grad(
                 loss, [leaves[lk][tag] for lk, tag in trained]) \
                 if trained else ()
@@ -413,11 +425,12 @@ class NetTrainer:
         self._check_ready()
         data, labels, mask = self._device_batch(batch)
         epoch = self.update_counter
+        step = self._step_scalar()
         self.sample_counter += 1
         do_update = self.sample_counter >= self.update_period
         collect = bool(self.eval_train and self._metrics.evals)
         self._last_loss, preds = self._train_step(
-            data, labels, mask, epoch, do_update, collect)
+            data, labels, mask, epoch, do_update, collect, step)
         if do_update:
             self.sample_counter = 0
             self.update_counter += 1
@@ -430,8 +443,8 @@ class NetTrainer:
 
     def run_steps(self, batch: DataBatch, n_steps: int) -> None:
         """``n_steps`` training steps on one resident batch, with the
-        schedule advancing per step and ``update_period`` windows
-        closing as in ``update``."""
+        schedule and the step's randomness advancing per step and
+        ``update_period`` windows closing as in ``update``."""
         self._check_ready()
         n = int(n_steps)
         if n <= 0:
@@ -439,11 +452,12 @@ class NetTrainer:
         data, labels, mask = self._device_batch(batch)
         period = self.update_period
         S, U = self.sample_counter, self.update_counter
+        step0 = self._step_scalar()
         for i in range(n):
             epoch = U + (S + i) // period
             self._last_loss, _ = self._train_step(
                 data, labels, mask, epoch, ((S + i + 1) % period) == 0,
-                False)
+                False, (step0 + i) & 0xFFFFFFFF)
         self.update_counter = U + (S + n) // period
         self.sample_counter = (S + n) % period
 

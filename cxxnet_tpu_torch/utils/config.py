@@ -29,7 +29,6 @@ class Roadmap:
     """The ``ROADMAP.md`` items (queue and title) that port what a
     :class:`NotPortedError` reports."""
     CLI = "queue 1, CLI tasks and iterators"
-    KAIMING_TRAINING = "queue 1, kaiming training slice"
     LOW_PRECISION_TRAINING = "queue 1, low-precision training"
     REMAT = "queue 1, rematerialization"
     LAYER_ZOO = "queue 1, rest of the layer zoo"
@@ -37,7 +36,6 @@ class Roadmap:
     QUANTIZED = "queue 1, quantized and low-precision inference"
     BUNDLES = "queue 1, sealed bundles"
     MULTI_GPU = "queue 1, multi-GPU"
-    RELU_MAX_POOL = "queue 2, relu_max_pool"
     CONV_EPILOGUE_INT32 = "queue 2, conv_epilogue int32 input and backward"
     POOL_CONCAT = "queue 2, pool_concat"
 

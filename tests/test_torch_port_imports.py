@@ -94,7 +94,10 @@ def test_kernel_wrapper_on_cpu_tensor_counts_no_launch():
     kernels.conv_epilogue(x, s, torch.zeros(4), True)
     kernels.bn_apply(x, s, torch.zeros(4), True)
     kernels.matmul(x.reshape(6, 12), x.reshape(12, 6))
+    xg = x.clone().requires_grad_(True)
+    kernels.relu_max_pool(xg, 2).sum().backward()
     counts = kernels.launch_counts()
     assert set(counts) == {"conv_epilogue", "bn_apply_fwd", "bn_apply_bwd",
-                           "matmul"}
+                           "matmul", "relu_max_pool_fwd",
+                           "relu_max_pool_bwd"}
     assert all(v == 0 for v in counts.values())

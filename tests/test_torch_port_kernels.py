@@ -241,3 +241,149 @@ def test_matmul_kernel_takes_transposed_views():
         kernels.matmul_kernel(a, torch.randn(4, 5, 2)[:, :, 0])
     with pytest.raises(NotPortedError):
         kernels.matmul_kernel(a.bfloat16(), b.t().bfloat16())
+
+
+# ------------------------------------------------------- relu_max_pool
+#
+# The reference runs its Pallas relu_max_pool in interpret mode; the
+# port's wrapper takes its plain version on the CPU. Tolerances: the
+# forward is exact (maxima of the same values); the backward (jax.grad
+# of sum(y²)) within atol 1e-6 (the f32 sums of tied windows add the
+# same terms in the same order, XLA may fuse 2*y*... differently), and
+# exact on the 0.5-grid tie case; against the reference's H-chunked
+# path, whose overlapping halos add partial sums, within atol 1e-5.
+
+import torch.nn.functional as F  # noqa: E402
+from cxxnet_tpu.layers import pallas_kernels as jax_pk  # noqa: E402
+
+POOL_CASES = [((2, 9, 9, 8), 3, False), ((3, 12, 10, 16), 3, False),
+              ((2, 7, 7, 8), 2, False), ((2, 9, 11, 8), 3, True)]
+POOL_IDS = ["9x9_k3", "12x10_k3", "7x7_k2", "ties_k3"]
+
+
+def _pool_input(shape, ties, seed):
+    x = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+    if ties:
+        # steps of 0.5: positive windows hold tied maxima
+        x = (np.round(x * 2) / 2).astype(np.float32)
+    return x
+
+
+def _port_pool_grad(x, k):
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = kernels.relu_max_pool(xt, k)
+    (g,) = torch.autograd.grad((y ** 2).sum(), [xt])
+    return y.detach().numpy(), g.numpy()
+
+
+@pytest.mark.parametrize("shape,k,ties", POOL_CASES, ids=POOL_IDS)
+def test_relu_max_pool_matches_pallas(shape, k, ties):
+    kernels.reset_launch_counts()
+    x = _pool_input(shape, ties, seed=sum(shape) + k)
+    y, g = _port_pool_grad(x, k)
+    jy = np.asarray(jax_pk.relu_max_pool(jnp.asarray(x), k))
+    jg = np.asarray(jax.grad(
+        lambda a: jnp.sum(jax_pk.relu_max_pool(a, k) ** 2))(jnp.asarray(x)))
+    assert y.shape == (shape[0], shape[1] - k + 1, shape[2] - k + 1,
+                       shape[3])
+    np.testing.assert_array_equal(y, jy)
+    if ties:
+        np.testing.assert_array_equal(g, jg)
+    else:
+        np.testing.assert_allclose(g, jg, rtol=0, atol=1e-6)
+    assert kernels.launch_counts()["relu_max_pool_fwd"] == 0
+    assert kernels.launch_counts()["relu_max_pool_bwd"] == 0
+
+
+def test_relu_max_pool_matches_pallas_chunked(monkeypatch):
+    """The reference's H-chunked halo path (its stems chunk) against the
+    port's one-pass plain versions."""
+    monkeypatch.setattr(jax_pk, "_chunk_rows", lambda *a, **kw: 8)
+    x = _pool_input((2, 30, 13, 8), True, seed=30)
+    y, g = _port_pool_grad(x, 3)
+    jy = np.asarray(jax_pk.relu_max_pool(jnp.asarray(x), 3))
+    jg = np.asarray(jax.grad(
+        lambda a: jnp.sum(jax_pk.relu_max_pool(a, 3) ** 2))(jnp.asarray(x)))
+    np.testing.assert_array_equal(y, jy)
+    np.testing.assert_allclose(g, jg, rtol=0, atol=1e-5)
+
+
+def test_relu_max_pool_credits_every_tie():
+    """On a 0.5 grid the kernel's backward credits every tied maximum,
+    where F.max_pool2d's autograd credits one per window: the two must
+    differ, and the sum of the kernel's dx over a window's ties is the
+    tie count times dy."""
+    x = torch.zeros(1, 3, 3, 1)
+    x[0, 0, 0, 0] = x[0, 2, 2, 0] = 1.5
+    dy = torch.ones(1, 1, 1, 1)
+    y = kernels.relu_max_pool_fwd(x, 3)
+    dx = kernels.relu_max_pool_bwd(x, y, dy, 3)
+    assert float(y) == 1.5
+    assert dx[0, 0, 0, 0] == 1.0 and dx[0, 2, 2, 0] == 1.0
+    assert float(dx.sum()) == 2.0
+    xt = x.clone().requires_grad_(True)
+    yt = F.max_pool2d(torch.relu(xt).permute(0, 3, 1, 2), 3, 1)
+    (g,) = torch.autograd.grad(yt.sum(), [xt])
+    assert float(g.sum()) == 1.0 and not torch.equal(g, dx)
+    xg = _pool_input((2, 9, 11, 8), True, seed=3)
+    _, gk = _port_pool_grad(xg, 3)
+    xt = torch.from_numpy(xg).requires_grad_(True)
+    yt = F.max_pool2d(torch.relu(xt).permute(0, 3, 1, 2), 3, 1)
+    (g1,) = torch.autograd.grad((yt ** 2).sum(), [xt])
+    assert not np.array_equal(gk, g1.numpy())
+
+
+def test_relu_max_pool_bwd_reads_strided_dy():
+    """The cotangent may be a permuted or an expanded view: the wrapper
+    takes it as it is, and the result equals the dense one's."""
+    x = torch.from_numpy(_pool_input((2, 8, 7, 4), True, seed=5))
+    y = kernels.relu_max_pool_fwd(x, 3)
+    dy = torch.randn(2, 4, 6, 5).permute(0, 2, 3, 1)
+    assert not dy.is_contiguous()
+    dx = kernels.relu_max_pool_bwd(x, y, dy, 3)
+    assert torch.equal(dx, kernels.relu_max_pool_bwd_plain(
+        x, y, dy.contiguous(), 3))
+    ones = torch.ones(()).expand(y.shape)
+    assert torch.equal(kernels.relu_max_pool_bwd(x, y, ones, 3),
+                       kernels.relu_max_pool_bwd_plain(
+                           x, y, torch.ones(y.shape), 3))
+
+
+def test_relu_max_pool_propagates_nan():
+    """NaN in a window makes its maximum NaN (torch.maximum, as
+    jnp.maximum), and a NaN input gets no gradient."""
+    x = torch.from_numpy(_pool_input((1, 5, 5, 3), False, seed=6))
+    x[0, 2, 2, 1] = float("nan")
+    y = kernels.relu_max_pool_fwd(x, 3)
+    assert torch.isnan(y[..., 1]).all() and not torch.isnan(y[..., 0]).any()
+    jy = np.asarray(jax_pk.relu_max_pool(jnp.asarray(x.numpy()), 3))
+    np.testing.assert_array_equal(y.numpy(), jy)
+    dx = kernels.relu_max_pool_bwd(x, y, torch.ones(y.shape), 3)
+    assert dx[0, 2, 2, 1] == 0 and not torch.isnan(dx).any()
+
+
+@pytest.mark.parametrize("case", ["bf16", "f64", "3d", "window", "noncontig",
+                                  "y_shape", "dy_dtype"])
+def test_relu_max_pool_wrappers_reject(case):
+    x = torch.zeros(2, 5, 5, 4)
+    y, dy = torch.zeros(2, 3, 3, 4), torch.zeros(2, 3, 3, 4)
+    k, err, fn = 3, ValueError, "fwd"
+    if case == "bf16":
+        x, err = x.bfloat16(), NotPortedError
+    elif case == "f64":
+        x, err = x.double(), TypeError
+    elif case == "3d":
+        x = torch.zeros(2, 5, 4)
+    elif case == "window":
+        k = 6
+    elif case == "noncontig":
+        x = torch.zeros(2, 4, 5, 5).permute(0, 2, 3, 1)
+    elif case == "y_shape":
+        y, fn = torch.zeros(2, 4, 3, 4), "bwd"
+    elif case == "dy_dtype":
+        dy, fn = dy.double(), "bwd"
+    with pytest.raises(err):
+        if fn == "fwd":
+            kernels.relu_max_pool_fwd(x, k)
+        else:
+            kernels.relu_max_pool_bwd(x, y, dy, k)

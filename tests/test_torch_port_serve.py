@@ -249,13 +249,13 @@ def test_port_model_builders_match_jax():
     ([("dtype", "bfloat16")], "quantized"),
     ([("channel_pad", "128")], "CLI remainder"),
     ([("pool_concat_pallas", "1")], "pool_concat"),
-    ([("pallas_pool", "1")], "relu_max_pool"),
+    ([("shard_optimizer", "1")], "multi-GPU"),
     ([("momentum_dtype", "bfloat16")], "low-precision training"),
     ([("remat", "conv")], "rematerialization"),
     ([("grad_sync", "overlap")], "multi-GPU"),
     ([("input_layout", "rowmajor")], "CLI remainder"),
 ], ids=["int8", "fp8", "bf16_serve", "bf16_compute", "channel_pad",
-        "pool_concat", "pallas_pool", "momentum_dtype", "remat",
+        "pool_concat", "shard_optimizer", "momentum_dtype", "remat",
         "grad_sync", "input_layout"])
 def test_unported_keys_raise(ref, extra, item):
     with pytest.raises(NotPortedError, match=item):

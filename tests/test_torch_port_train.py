@@ -34,7 +34,7 @@ from cxxnet_tpu_torch.layers import kernels
 from cxxnet_tpu_torch.models import inception_bn_tiny
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer
 from cxxnet_tpu_torch.updater import create_updater
-from cxxnet_tpu_torch.utils.config import NotPortedError, parse_config
+from cxxnet_tpu_torch.utils.config import parse_config
 from cxxnet_tpu_torch.utils.metric import MetricSet
 
 BATCH, IMAGE, NCLASS = 4, 16, 8
@@ -286,11 +286,25 @@ def test_softmax_loss_value_and_grad_match_jax(masked):
                                atol=1e-7)
 
 
-def test_training_forward_raises_for_dropout():
+def test_training_forward_raises_for_dropout(monkeypatch):
+    """Dropout's training forward raises without the step's rng; with
+    it, it applies the mask drawn through the ``dropout_uniform`` seam
+    (here an injected draw): ``x * ((u < 0.5) / 0.5)``. Eval is the
+    identity."""
+    from cxxnet_tpu_torch.layers import common
+    from cxxnet_tpu_torch.layers.base import StepKey
     layer = create_layer("dropout", [("threshold", "0.5")])
     layer.infer_shape([Shape3(1, 1, 4)])
-    with pytest.raises(NotPortedError, match="kaiming training"):
+    with pytest.raises(ValueError, match="rng"):
         layer.forward({}, {}, [torch.zeros(2, 4)], True)
+    u = torch.tensor([[0.1, 0.7, 0.5, 0.49], [0.9, 0.0, 0.3, 0.6]])
+    seen = []
+    monkeypatch.setattr(common, "dropout_uniform",
+                        lambda shape, key, device: seen.append(key) or u)
+    x = torch.arange(1.0, 9.0).reshape(2, 4)
+    (y,), _ = layer.forward({}, {}, [x], True, rng=StepKey(3, 5, 7))
+    assert torch.equal(y, x * torch.tensor([[2.0, 0, 0, 2], [0, 2, 2, 0]]))
+    assert seen == [StepKey(3, 5, 7)]
     assert layer.forward({}, {}, [torch.ones(2, 4)])[0][0].sum() == 8
 
 
