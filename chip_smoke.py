@@ -24,7 +24,12 @@ the script exits non-zero without a result line):
              (both bit-exact, NaN positions included) at kaiming-224's
              three fused pools at batch 128 on inputs in steps of 0.5
              (tied maxima), with the cotangent also as a permuted view,
-             plus a ragged-channel (C = 3) and a NaN case. Max error,
+             plus a ragged-channel (C = 3) and a NaN case;
+             ``conv_epilogue`` on the int32 accumulator of an int8 conv
+             (values in +-4e7, beyond 2^24) and bf16 -> bf16 at every
+             served shape, int32 also with ragged C and a bf16 output,
+             all bit-exact; its backward (row 5b, through the bn_apply
+             backward kernel) at the stem shape. Max error,
              kernel / plain / library times (CUDA events) and the bound
              from bytes and operations; for relu_max_pool, in place of a
              library call, F.relu + F.max_pool2d and their autograd
@@ -35,7 +40,20 @@ the script exits non-zero without a result line):
              clients and one full-bucket burst; launch counts show the
              path went through the kernels; 4 rows are held against the
              port on the CPU.
-4. train   — Inception-BN-224 with fc1 declared ``pallas_fullc`` and
+4. serve_lowp — the same snapshot calibrated on 8 seeded batches of 128
+             (``Calibrator``), gated (mean |int8 - f32| of the softmax
+             rows within 0.05, top-1 agreement reported), written as an
+             int8 snapshot and served at ``serve_dtype = int8`` through
+             ``ServeSession(device="cuda")`` with the serve phase's
+             drive: 0 failed requests, exactly 69 int32 conv_epilogue
+             launches per forward and none of the other kernels, the
+             bucket-128 forward beside the float32 one, peak memory, a
+             profiled forward by kind, 4 rows against the CPU (atol
+             1e-3, the same top-1 where the CPU's top two differ by more
+             than the tolerance); then ``serve_dtype = bfloat16``: one
+             bucket-128 forward with 69 bf16 conv_epilogue launches and
+             4 rows against the CPU's.
+5. train   — Inception-BN-224 with fc1 declared ``pallas_fullc`` and
              ``bn_pallas = bn_fuse_relu = 1``, seeded weights, batch 128:
              2 warm and 10 timed ``NetTrainer.update`` steps on one
              batch (step time by CUDA events and host clock, img/s,
@@ -52,12 +70,12 @@ the script exits non-zero without a result line):
              pool's backward on the card against the CPU's at batch 8
              (max: every tie credited to the same element; avg: within
              rtol 1e-5).
-5. train_kaiming — kaiming-224 (model J', ``fused_pools``, ``pallas_pool =
+6. train_kaiming — kaiming-224 (model J', ``fused_pools``, ``pallas_pool =
              1``, dropout 0.5 on fc1 and fc2), seeded weights, batch 128:
-             2 warm and 10 timed ``update`` steps as in phase 4; exactly 3
+             2 warm and 10 timed ``update`` steps as in phase 5; exactly 3
              relu_max_pool forward and 3 backward launches per step and
              none of the other kernels; the loss finite and falling; a
-             profiled step; the batch-4 update check of phase 4 with the
+             profiled step; the batch-4 update check of phase 5 with the
              same dropout masks injected on the card and on the CPU (the
              plain path is ``pallas_pool = 0``: relu, then max pooling);
              and the SPP max pools' backward against the CPU's.
@@ -87,6 +105,11 @@ KNOBS = [("bn_fold_eval", "1"), ("bn_fuse_relu", "1"),
 EPILOGUE = {"name": "conv_epilogue", "route": "cuda",
             "source": "cxxnet_tpu_torch/csrc/conv_epilogue.cu",
             "replaces": "cxxnet_tpu/layers/pallas_kernels.py:327"}
+EPILOGUE_INT32 = dict(EPILOGUE, name="conv_epilogue_int32")
+EPILOGUE_BF16 = dict(EPILOGUE, name="conv_epilogue_bf16")
+EPILOGUE_BWD = {"name": "conv_epilogue_bwd", "route": "cuda",
+                "source": "cxxnet_tpu_torch/csrc/bn_apply.cu",
+                "replaces": "cxxnet_tpu/layers/pallas_kernels.py:388"}
 BN_FWD = {"name": "bn_apply_fwd", "route": "cuda",
           "source": "cxxnet_tpu_torch/csrc/bn_apply.cu",
           "replaces": "cxxnet_tpu/layers/pallas_kernels.py:247"}
@@ -109,12 +132,34 @@ TRAIN_KNOBS = [("bn_pallas", "1"), ("bn_fuse_relu", "1")]
 WARM_STEPS, TIMED_STEPS = 2, 10
 # per training step of Inception-BN-224: launches each wrapper must count
 TRAIN_LAUNCHES = {"bn_apply_fwd": 69, "bn_apply_bwd": 69, "matmul": 3,
-                  "conv_epilogue": 0, "relu_max_pool_fwd": 0,
+                  "conv_epilogue": 0, "conv_epilogue_int32": 0,
+                  "conv_epilogue_bf16": 0, "relu_max_pool_fwd": 0,
                   "relu_max_pool_bwd": 0}
 # per training step of kaiming-224 with fused_pools and pallas_pool = 1
 KAIMING_LAUNCHES = {"bn_apply_fwd": 0, "bn_apply_bwd": 0, "matmul": 0,
-                    "conv_epilogue": 0, "relu_max_pool_fwd": 3,
+                    "conv_epilogue": 0, "conv_epilogue_int32": 0,
+                    "conv_epilogue_bf16": 0, "relu_max_pool_fwd": 3,
                     "relu_max_pool_bwd": 3}
+# per bucket forward of the int8-served Inception-BN-224: every conv's
+# int32 accumulator through conv_epilogue; and of the bf16-served one
+INT8_LAUNCHES = dict({k: 0 for k in TRAIN_LAUNCHES}, conv_epilogue=69,
+                     conv_epilogue_int32=69)
+BF16_LAUNCHES = dict({k: 0 for k in TRAIN_LAUNCHES}, conv_epilogue=69,
+                     conv_epilogue_bf16=69)
+# quantization: calibration batches and the parity gate of the
+# reference's task = quantize (mean |int8 - f32| of the softmax rows)
+CALIB_BATCHES = 8
+GATE_EPS = 0.05
+# the card's int8 rows against the port on the CPU (the int8 products
+# are exact on both; an activation within a float32 rounding of a
+# quantization boundary may take the other int8 step)
+INT8_CPU_ATOL = 1e-3
+# the card's bf16 rows against the CPU's: the logits are bf16, and
+# cuDNN's and oneDNN's bf16 convolutions round a sum to different
+# neighbours now and then; three bf16 ulps of a logit below 8 in
+# magnitude (3 * 2^-5) move a softmax entry p by at most ~0.1 p
+BF16_CPU_RTOL, BF16_CPU_ATOL = 0.1, 1e-6
+SERVE_SNAPSHOT = "inception_bn_224.model.npz"
 # channel sums and matmul outputs: error against rtol * sum |terms|
 SUM_RTOL = 1e-5
 # one update at batch 4, per parameter: the card's float64 update
@@ -236,28 +281,42 @@ def epilogue_case(shape, in_dtype, out_dtype, relu: bool, bw: float,
     gen = torch.Generator(device=dev).manual_seed(SEED + sum(shape))
     c = shape[-1]
     n = int(np.prod(shape))
-    in_b = torch.finfo(in_dtype).bits // 8
-    out_b = torch.finfo(out_dtype).bits // 8
+    in_b = torch.empty((), dtype=in_dtype).element_size()
+    out_b = torch.empty((), dtype=out_dtype).element_size()
     nbytes = n * (in_b + out_b) + 8 * c
     # enough distinct input buffers that a run of launches streams from
     # device memory, not from the 50 MB L2
     nbuf = int(min(32, max(1, -(-200e6 // (n * in_b)))))
-    xs = [torch.randn(shape, generator=gen, device=dev).to(in_dtype)
-          for _ in range(nbuf)]
-    scale = torch.rand(c, generator=gen, device=dev) + 0.5
+    if in_dtype == torch.int32:
+        # int8 conv accumulators: |acc| reaches 2304 * 127^2 = 3.7e7,
+        # beyond 2^24, where the float32 conversion rounds; the scale
+        # is a dequant (x_scale * w_scale)
+        xs = [torch.randint(-40_000_000, 40_000_000, shape, generator=gen,
+                            device=dev, dtype=torch.int32)
+              for _ in range(nbuf)]
+        scale = (torch.rand(c, generator=gen, device=dev) + 0.5) * 1e-6
+    else:
+        xs = [torch.randn(shape, generator=gen, device=dev).to(in_dtype)
+              for _ in range(nbuf)]
+        scale = torch.rand(c, generator=gen, device=dev) + 0.5
     shift = torch.randn(c, generator=gen, device=dev)
-    launches0 = kernels.conv_epilogue.launches
+    counts0 = kernels.launch_counts()
     got = kernels.conv_epilogue(xs[0], scale, shift, relu, out_dtype)
     ref = kernels.conv_epilogue_plain(xs[0], scale, shift, relu, out_dtype)
     torch.cuda.synchronize()
     err = float((got.float() - ref.float()).abs().max())
-    # one ulp of the output type at the output's magnitude
-    tol = float(torch.finfo(out_dtype).eps) \
+    exact = bool(torch.equal(got, ref))
+    # one ulp of the output type at the output's magnitude; the int32
+    # accumulator must convert and round exactly as torch does
+    tol = 0.0 if in_dtype == torch.int32 else \
+        float(torch.finfo(out_dtype).eps) \
         * max(1.0, float(ref.float().abs().max()))
     bound_ms = max(nbytes / bw, 3.0 * n / flops) * 1e3
     out = {"shape": list(shape), "in": str(in_dtype)[6:],
            "out": str(out_dtype)[6:], "relu": relu,
-           "max_abs_err": err, "tol": tol, "ok": err <= tol,
+           "max_abs_err": err, "exact": exact, "tol": tol,
+           "ok": exact if in_dtype == torch.int32 else err <= tol,
+           "max_abs_in": float(xs[0].abs().max()),
            "bytes": nbytes, "bound_ms": bound_ms,
            "bound_by": "bytes" if nbytes / bw >= 3.0 * n / flops
            else "operations"}
@@ -274,8 +333,60 @@ def epilogue_case(shape, in_dtype, out_dtype, relu: bool, bw: float,
         out["library_ms"] = cuda_time_ms(
             lambda i: torch.addcmul(shift, xs[i % nbuf], scale), iters)
     # comparison and timing launches are not main-path launches
-    kernels.conv_epilogue.launches = launches0
+    kernels.restore_launch_counts(counts0)
     del xs, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def epilogue_bwd_case(shape, bw: float, flops: float):
+    """Row 5b, conv_epilogue's backward (relu fused, as the forward the
+    path would differentiate), through the wrapper's autograd Function
+    on the card (one launch of the bn_apply backward kernel) against
+    its plain version on the same inputs: dx bit for bit, each channel
+    sum within SUM_RTOL of the sum of its terms' magnitudes."""
+    import torch
+    from cxxnet_tpu_torch.layers import kernels
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5 + sum(shape))
+    c = shape[-1]
+    n = int(np.prod(shape))
+    x = torch.randn(shape, generator=gen, device=dev)
+    dy = torch.randn(shape, generator=gen, device=dev)
+    scale = torch.rand(c, generator=gen, device=dev) + 0.5
+    shift = 0.5 * torch.randn(c, generator=gen, device=dev)
+    counts0 = kernels.launch_counts()
+    leaves = [v.clone().requires_grad_(True) for v in (x, scale, shift)]
+    y = kernels.conv_epilogue(*leaves, True)
+    dx, ds, dt = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    yp = kernels.conv_epilogue_plain(x, scale, shift, True)
+    px, ps, pt = kernels.conv_epilogue_bwd_plain(x, yp, dy, scale, True)
+    axes = tuple(range(len(shape) - 1))
+    dym = torch.where(yp > 0, dy, torch.zeros_like(dy))
+    mag_s, mag_t = (dym * x).abs().sum(axes), dym.abs().sum(axes)
+    torch.cuda.synchronize()
+    es, et = (ds - ps).abs(), (dt - pt).abs()
+    out = {"shape": list(shape), "relu": True,
+           "dx_err": float((dx - px).abs().max()),
+           "sum_err": float(max(es.max(), et.max())),
+           "sum_rel": float(max((es / mag_s.clamp_min(1e-30)).max(),
+                                (et / mag_t.clamp_min(1e-30)).max())),
+           "bn_apply_bwd_launches": kernels.launch_counts()["bn_apply_bwd"]
+           - counts0["bn_apply_bwd"]}
+    out["ok"] = bool(out["dx_err"] == 0.0
+                     and bool((es <= SUM_RTOL * mag_s).all())
+                     and bool((et <= SUM_RTOL * mag_t).all())
+                     and out["bn_apply_bwd_launches"] == 1)
+    del dx, px, dym, yp
+    out["bound_ms"], out["bound_by"] = bound(16 * n + 12 * c, 6 * n, bw,
+                                             flops)
+    out["ms"] = cuda_time_ms(
+        lambda i: torch.autograd.grad(y, leaves, dy, retain_graph=True), 20)
+    out["plain_ms"] = cuda_time_ms(
+        lambda i: kernels.conv_epilogue_bwd_plain(x, y.detach(), dy, scale,
+                                                  True), 20)
+    kernels.restore_launch_counts(counts0)
+    del x, dy, y, leaves
     torch.cuda.empty_cache()
     return out
 
@@ -624,6 +735,39 @@ def phase_kernels(bw: float, flops: float):
     ]
     cases = list(per_shape.values()) + extra
     ok = all(c["ok"] for c in cases)
+    # the int32 accumulator of serve_dtype = int8 and the bf16 path of
+    # serve_dtype = bfloat16, at every served shape; plus ragged C and
+    # int32 -> bf16
+    i32 = torch.int32
+    lowp = {}
+    for name, in_dt, out_dt in (("int32", i32, f32), ("bf16", bf16, bf16)):
+        cs = {sh: epilogue_case(sh, in_dt, out_dt, True, bw, flops)
+              for sh in per_shape}
+        lowp[name] = {
+            "ok": all(c["ok"] for c in cs.values()),
+            "forward_sum": {k: sum(cs[sh][k] for sh in shapes)
+                            for k in ("ms", "plain_ms", "bound_ms",
+                                      "bytes")},
+            "max_abs_err": max(c["max_abs_err"] for c in cs.values()),
+            "bound_by": "bytes" if all(c["bound_by"] == "bytes"
+                                       for c in cs.values())
+            else "operations",
+            "path_cases": [dict(c, count=shapes.count(tuple(c["shape"])))
+                           for c in cs.values()]}
+    int32_extra = [epilogue_case((MAX_BATCH, 28, 28, 67), i32, f32, True,
+                                 bw, flops),
+                   epilogue_case(stem, i32, bf16, True, bw, flops),
+                   epilogue_case(stem, i32, f32, False, bw, flops)]
+    lowp["int32"]["extra_cases"] = int32_extra
+    lowp["int32"]["exact"] = all(c["exact"] for c in
+                                 lowp["int32"]["path_cases"] + int32_extra)
+    lowp["int32"]["ok"] = lowp["int32"]["ok"] and all(
+        c["ok"] for c in int32_extra)
+    lowp["int32"]["max_abs_err"] = max(
+        [lowp["int32"]["max_abs_err"]] + [c["max_abs_err"]
+                                          for c in int32_extra])
+    bwd = epilogue_bwd_case(stem, bw, flops)
+    ok = ok and lowp["int32"]["ok"] and lowp["bf16"]["ok"] and bwd["ok"]
     # the training step's kernels, at its shapes (batch 128)
     tnet = FuncNet(_configured(train_cfg(TRAIN_BATCH)), TRAIN_BATCH)
     bn_shapes = path_bn_shapes(tnet, TRAIN_BATCH)
@@ -661,6 +805,8 @@ def phase_kernels(bw: float, flops: float):
            "path_cases": [dict(c, count=shapes.count(tuple(c["shape"])))
                           for c in per_shape.values()],
            "extra_cases": extra,
+           "int32": lowp["int32"], "bf16": lowp["bf16"],
+           "backward": bwd,
            "bn_apply": {
                "ok": bn_ok, "launches_per_step": len(bn_shapes),
                "distinct_path_shapes": len(bn_cases), "step_sum": bn_step,
@@ -724,10 +870,11 @@ def calibrate_bn(trainer, data) -> None:
         net.bn_fold_eval = True
 
 
-def profile_forward(t, data, nodes, reps: int = 3):
+def profile_forward(t, data, nodes, reps: int = 3, kinds=None):
     """torch.profiler over ``reps`` eval forwards of a resident batch:
-    device time per forward by kernel name, the device's busy and idle
-    share of the window, and the conv_epilogue kernel's device time."""
+    device time per forward by kernel name (and, with ``kinds``, by
+    kind), the device's busy and idle share of the window, and the
+    conv_epilogue kernel's device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     t.pred(data, nodes)
@@ -752,7 +899,17 @@ def profile_forward(t, data, nodes, reps: int = 3):
     busy = sum(v[0] for v in by_name.values())
     epi = [v for k, v in by_name.items() if "epilogue_" in k]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
+    by_kind = {}
+    for name, (ms, cnt) in by_name.items():
+        kind = next((k for k, keys in kinds or () if any(
+            key in name for key in keys)), "other")
+        e = by_kind.setdefault(kind, {"ms": 0.0, "n": 0.0})
+        e["ms"] += ms
+        e["n"] += cnt / reps
     return {"wall_ms": wall, "device_busy_ms": busy,
+            "by_kind": dict(sorted(by_kind.items(),
+                                   key=lambda kv: -kv[1]["ms"]))
+            if kinds else None,
             "idle_share": (1.0 - busy / wall) if busy else None,
             "epilogue_device_ms": sum(v[0] for v in epi) if epi else None,
             "epilogue_launches": sum(v[1] for v in epi) / reps,
@@ -812,11 +969,40 @@ def tail_report(records, t0: float, n: int = 6):
                             [:n]]}
 
 
+def drive_session(sess, pool, rec):
+    """The serving main path: every launch count set to 0, a closed loop
+    of 8 clients x 32 requests x 4 rows and one full-bucket burst in 4
+    requests, the counts read. Returns the loop's stats, the burst's
+    rows, its time, the latency tails, the launch counts and the
+    dispatches."""
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.serve import run_closed_loop
+    eng = sess.engine
+    kernels.reset_launch_counts()
+    base = eng.counters_snapshot()
+    rec.records.clear()
+    t_drive = time.monotonic()
+    loop = run_closed_loop(sess, pool, clients=8, requests=32,
+                           request_rows=4)
+    burst_rows = pool[:MAX_BATCH]
+    t1 = time.perf_counter()
+    futs = [sess.submit(burst_rows[i:i + 32])
+            for i in range(0, MAX_BATCH, 32)]
+    burst = np.concatenate([f.result(timeout=300) for f in futs])
+    burst_s = time.perf_counter() - t1
+    launches = kernels.launch_counts()
+    snap = eng.counters_snapshot()
+    return {"loop": loop, "burst": burst, "burst_s": burst_s,
+            "tails": tail_report(rec.records, t_drive),
+            "launches": launches,
+            "dispatches": snap["dispatches"] - base["dispatches"]}
+
+
 def phase_serve(workdir: str):
     import torch
     from cxxnet_tpu_torch.layers import kernels
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
-    from cxxnet_tpu_torch.serve import ServeSession, run_closed_loop
+    from cxxnet_tpu_torch.serve import ServeSession
     cfg = inception_cfg()
     rng = np.random.RandomState(SEED)
     t0 = time.perf_counter()
@@ -825,7 +1011,7 @@ def phase_serve(workdir: str):
     # realistic running stats: the reference's zero init folds to a
     # ~1e5 scale that overflows through 69 layers
     calibrate_bn(init, init.to_device_batch(images(rng, 32)))
-    path = os.path.join(workdir, "inception_bn_224.model.npz")
+    path = os.path.join(workdir, SERVE_SNAPSHOT)
     init.save_model(path)
     del init
     setup_s = time.perf_counter() - t0
@@ -838,22 +1024,11 @@ def phase_serve(workdir: str):
     pool = images(rng, 2 * MAX_BATCH)
     try:
         # the main path: counts to 0, drive, read
-        kernels.reset_launch_counts()
-        base = eng.counters_snapshot()
-        rec.records.clear()
-        t_drive = time.monotonic()
-        loop = run_closed_loop(sess, pool, clients=8, requests=32,
-                               request_rows=4)
-        burst_rows = pool[:MAX_BATCH]
-        t1 = time.perf_counter()
-        futs = [sess.submit(burst_rows[i:i + 32])
-                for i in range(0, MAX_BATCH, 32)]
-        burst = np.concatenate([f.result(timeout=300) for f in futs])
-        burst_s = time.perf_counter() - t1
-        tails = tail_report(rec.records, t_drive)
-        launches = kernels.conv_epilogue.launches
-        snap = eng.counters_snapshot()
-        dispatches = snap["dispatches"] - base["dispatches"]
+        d = drive_session(sess, pool, rec)
+        loop, burst, burst_s, tails = (d["loop"], d["burst"], d["burst_s"],
+                                       d["tails"])
+        launches = d["launches"]["conv_epilogue"]
+        dispatches = d["dispatches"]
         first4 = sess.predict(pool[:4])
     finally:
         summary = sess.close()
@@ -944,6 +1119,209 @@ def phase_serve(workdir: str):
 
 
 # ------------------------------------------------------------- phase 4
+
+# kernel-name substrings -> the kind of work of a quantized forward
+_SERVE_KINDS = (("conv_epilogue kernel", ("epilogue_",)),
+                ("int8 products (cuBLASLt)", ("gemm", "Gemm", "imma",
+                                              "xmma", "cutlass", "sm90",
+                                              "sm80", "s8")),
+                ("quantize passes (divide, round, clamp)",
+                 ("Div", "round", "clamp", "Clamp")),
+                ("copies (im2col, pads, int8 casts, staging)",
+                 ("copy", "Copy", "Fill", "fill", "pad", "Memcpy",
+                  "Memset")),
+                ("pooling", ("pool",)),
+                ("concat", ("Cat", "cat_")),
+                ("convolutions (cuDNN)", ("conv", "implicit", "cudnn",
+                                          "fft", "winograd",
+                                          "nhwcToNchw", "nchwToNhwc")),
+                ("elementwise (avg-pool adds, softmax, bias)",
+                 ("softmax", "elementwise", "vectorized", "reduce")))
+
+
+def rows_vs_cpu(got, ref, atol, rtol):
+    """The card's softmax rows against the CPU's: max error, whether
+    every entry is within ``atol + rtol * |ref|``, and top-1 agreement
+    on every row whose two largest CPU entries lie further apart than
+    the tolerance (the others may swap by rounding alone)."""
+    tol = atol + rtol * np.abs(ref)
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 2 * tol.max(axis=1)
+    same = got.argmax(1) == ref.argmax(1)
+    return {"max_abs_err": float(np.abs(got - ref).max()),
+            "close": bool(np.all(np.abs(got - ref) <= tol)),
+            "atol": atol, "rtol": rtol,
+            "top1_same": same.tolist(), "top1_decided": decided.tolist(),
+            "top1_ok": bool(np.all(same | ~decided))}
+
+
+def launches_ok(launches, expected, forwards: int) -> bool:
+    """Every launch counter at ``forwards`` times its expected count per
+    forward."""
+    return forwards > 0 and all(launches[k] == n * forwards
+                                for k, n in expected.items())
+
+
+def phase_serve_lowp(workdir: str, kres):
+    """serve_dtype = int8 (and bfloat16) on the serve phase's snapshot:
+    calibration, the parity gate, the int8 snapshot, its serving main
+    path, and a bf16 bucket-128 forward."""
+    import torch
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.nnet.quantize import Calibrator
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve import ServeSession
+    cfg = inception_cfg()
+    f32_path = os.path.join(workdir, SERVE_SNAPSHOT)
+    q_path = os.path.join(workdir, "inception_bn_224.int8.model.npz")
+    rng = np.random.RandomState(SEED + 8)
+
+    # 1-3. calibrate on seeded batches, gate against the float32 rows,
+    # write the int8 snapshot (the reference's task = quantize sequence)
+    t0 = time.perf_counter()
+    t = NetTrainer(cfg, device=DEVICE)
+    t.load_model(f32_path)
+    top = (t.graph.num_nodes - 1,)
+    cal = Calibrator(t)
+    batches = [images(rng, MAX_BATCH) for _ in range(CALIB_BATCHES)]
+    refs = []
+    for x in batches:
+        refs.append(t.pred(t.to_device_batch(x), top)[0].cpu().numpy())
+        cal.observe(DataBatch(x))
+    tables = cal.finish()
+    calib_s = time.perf_counter() - t0
+    counts0 = kernels.launch_counts()
+    dev_batch = t.to_device_batch(batches[0])
+    f32_ms = cuda_time_ms(lambda i: t.pred(dev_batch, top), 10)
+    t.set_quantization(tables, {"dtype": "int8", "batches": len(batches),
+                                "bn_fold_eval": t.net.bn_fold_eval,
+                                "parity_eps": GATE_EPS}, dtype="int8")
+    diffs, agree = [], 0
+    for x, ref in zip(batches, refs):
+        got = t.pred(t.to_device_batch(x), top)[0].cpu().numpy()
+        diffs.append(np.abs(got.astype(np.float64) - ref))
+        agree += int(np.sum(got.argmax(1) == ref.argmax(1)))
+    gate = {"batches": len(batches), "layers": t.quant_report["layers"],
+            "native": t.quant_report["native"], "calib_s": calib_s,
+            "mean_abs": float(np.mean(diffs)),
+            "max_abs": float(np.max(diffs)), "eps": GATE_EPS,
+            "top1_agree": agree / (len(batches) * MAX_BATCH),
+            "f32_max_prob_mean": float(np.mean([r.max(1) for r in refs]))}
+    gate["ok"] = gate["mean_abs"] <= GATE_EPS
+    kernels.restore_launch_counts(counts0)
+    if not gate["ok"]:
+        raise RuntimeError("parity gate failed: %s" % gate)
+    t.save_model(q_path)
+    del t, refs, diffs
+    torch.cuda.empty_cache()
+
+    # 4-5. the int8 snapshot served: the main path
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = Recorder()
+    sess = ServeSession(cfg + [("serve_dtype", "int8")], model_path=q_path,
+                        device=DEVICE, monitor=rec)
+    open_s = time.perf_counter() - t0
+    eng = sess.engine
+    pool = images(rng, 2 * MAX_BATCH)
+    try:
+        d = drive_session(sess, pool, rec)
+        first4 = sess.predict(pool[:4])
+    finally:
+        summary = sess.close()
+    peak = torch.cuda.max_memory_allocated()
+    loop, burst = d["loop"], d["burst"]
+    failed = loop["error"] + loop["busy"] + loop["timeout"] \
+        + summary["errors"] + summary["timeouts"] + summary["rejected"]
+    finite = bool(np.all(np.isfinite(burst)) and np.all(np.isfinite(first4)))
+    counted = launches_ok(d["launches"], INT8_LAUNCHES, d["dispatches"])
+
+    # the bucket-128 forward by CUDA events beside the float32 one, and
+    # a profiled forward
+    t = eng.trainer
+    launches_before = kernels.launch_counts()
+    dev_batch = t.to_device_batch(pool[:MAX_BATCH])
+    int8_ms = cuda_time_ms(lambda i: t.pred(dev_batch, eng.nodes), 10)
+    prof = profile_forward(t, dev_batch, eng.nodes, kinds=_SERVE_KINDS)
+    prof["epilogue_bound_ms"] = kres["int32"]["forward_sum"]["bound_ms"]
+    kernels.restore_launch_counts(launches_before)
+    del dev_batch
+
+    # 7. 4 rows against the port on the CPU from the same snapshot, and
+    # the int8 weights each froze (the fold, then the quantization)
+    cpu = NetTrainer(cfg + [("serve_dtype", "int8")], device="cpu")
+    cpu.load_model(q_path)
+    cpu_int8 = rows_vs_cpu(first4, cpu.extract_feature(
+        DataBatch(pool[:4]), "top"), INT8_CPU_ATOL, 0.0)
+    ctree, gtree = cpu.freeze_serve_weights(), t.freeze_serve_weights()
+    wq = [(gtree[lk]["_wq"].cpu(), sub["_wq"]) for lk, sub in ctree.items()
+          if "_wq" in sub]
+    cpu_int8["int8_weights"] = sum(int(c.numel()) for _, c in wq)
+    cpu_int8["int8_weights_differing"] = sum(int((g != c).sum())
+                                             for g, c in wq)
+    del cpu, ctree, wq
+
+    # 8. serve_dtype = bfloat16: one bucket-128 forward through a session,
+    # then the 4 rows against the CPU's
+    bsess = ServeSession(cfg + [("serve_dtype", "bfloat16")],
+                         model_path=f32_path, device=DEVICE)
+    try:
+        kernels.reset_launch_counts()
+        b128 = bsess.predict(pool[:MAX_BATCH])
+        b_launches = kernels.launch_counts()
+        b4 = bsess.predict(pool[:4])
+        bt = bsess.engine.trainer
+        xb = bt.to_device_batch(pool[:MAX_BATCH]).to(torch.bfloat16)
+        bf16_ms = cuda_time_ms(lambda i: bt.pred(xb, bsess.engine.nodes),
+                               10)
+        bprof = profile_forward(bt, xb, bsess.engine.nodes,
+                                kinds=_SERVE_KINDS)
+        bprof["epilogue_bound_ms"] = kres["bf16"]["forward_sum"]["bound_ms"]
+        del xb
+    finally:
+        bsess.close()
+    kernels.restore_launch_counts(b_launches)
+    cpu = NetTrainer(cfg + [("serve_dtype", "bfloat16")], device="cpu")
+    cpu.load_model(f32_path)
+    cpu_bf16 = rows_vs_cpu(b4, cpu.extract_feature(DataBatch(pool[:4]),
+                                                   "top"),
+                           BF16_CPU_ATOL, BF16_CPU_RTOL)
+    del cpu
+    bf16 = {"launches": b_launches, "expected": BF16_LAUNCHES,
+            "counted": launches_ok(b_launches, BF16_LAUNCHES, 1),
+            "finite": bool(np.all(np.isfinite(b128))),
+            "fwd128_ms": bf16_ms, "img_per_s": MAX_BATCH / bf16_ms * 1e3,
+            "profile": bprof, "cpu": cpu_bf16}
+
+    res = {"phase": "serve_lowp", "model": "inception_bn_224",
+           "serve_dtype": "int8", "buckets": BUCKETS, "gate": gate,
+           "open_s": open_s, "closed_loop": loop,
+           "burst_rows": int(burst.shape[0]), "burst_s": d["burst_s"],
+           "summary": summary, "tails": d["tails"],
+           "failed_requests": failed, "dispatches": d["dispatches"],
+           "launches": d["launches"], "expected_per_forward": INT8_LAUNCHES,
+           "counted": counted,
+           "rows_per_sec": loop["rows_per_sec"],
+           "p50_ms": summary["latency_p50_ms"],
+           "p99_ms": summary["latency_p99_ms"],
+           "fwd128_ms_int8": int8_ms, "fwd128_ms_f32": f32_ms,
+           "img_per_s_int8": MAX_BATCH / int8_ms * 1e3,
+           "img_per_s_f32": MAX_BATCH / f32_ms * 1e3,
+           "peak_mem_gb": peak / 1e9, "profile": prof,
+           "cpu": cpu_int8, "finite": finite, "bf16": bf16}
+    res["ok"] = bool(failed == 0 and finite and counted
+                     and cpu_int8["close"] and cpu_int8["top1_ok"]
+                     and cpu_int8["int8_weights_differing"] == 0
+                     and bf16["counted"] and bf16["finite"]
+                     and cpu_bf16["close"] and cpu_bf16["top1_ok"])
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("serve_lowp phase failed")
+    return res
+
+
+# ------------------------------------------------------------- phase 5
 
 # kernel-name substrings -> the kind of work a training step spends on
 _KINDS = (("host-to-device copies", ("Memcpy HtoD",)),
@@ -1335,7 +1713,7 @@ def phase_train(workdir: str):
     return res
 
 
-# ------------------------------------------------------------- phase 5
+# ------------------------------------------------------------- phase 6
 
 
 def phase_train_kaiming(workdir: str):
@@ -1356,11 +1734,14 @@ def phase_train_kaiming(workdir: str):
     return res
 
 
-def kernels_line(kres, sres, tres, kmres, part: str):
+def kernels_line(kres, sres, lres, tres, kmres, part: str):
     """The ``kernels`` record: every ported kernel with its launches on
     its path's run, its error against its plain version, its times on
     the card and its bound, at the path's shapes."""
     fwd = kres["forward_sum"]
+    i32, b16, bwd = kres["int32"], kres["bf16"], kres["backward"]
+    per_fwd = "one forward at bucket 128: %d launches" \
+        % kres["path_launches_per_forward"]
     bn, mm, rmp = kres["bn_apply"], kres["matmul"], kres["relu_max_pool"]
     prof, kprof = tres["profile"], kmres["profile"]
     per_step = "one training step at batch %d" % TRAIN_BATCH
@@ -1372,8 +1753,29 @@ def kernels_line(kres, sres, tres, kmres, part: str):
              plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
              bound_by=kres["bound_by"], library_ms=None,
              device_ms=sres["profile"]["epilogue_device_ms"],
-             per="one forward at bucket 128: %d launches"
-             % kres["path_launches_per_forward"], peaks=part),
+             per=per_fwd, peaks=part),
+        dict(EPILOGUE_INT32,
+             launches=lres["launches"]["conv_epilogue_int32"],
+             max_abs_err=i32["max_abs_err"], ms=i32["forward_sum"]["ms"],
+             plain_ms=i32["forward_sum"]["plain_ms"],
+             bound_ms=i32["forward_sum"]["bound_ms"],
+             bound_by=i32["bound_by"], library_ms=None,
+             device_ms=lres["profile"]["epilogue_device_ms"],
+             per=per_fwd + " (serve_dtype = int8)", peaks=part),
+        dict(EPILOGUE_BF16,
+             launches=lres["bf16"]["launches"]["conv_epilogue_bf16"],
+             max_abs_err=b16["max_abs_err"], ms=b16["forward_sum"]["ms"],
+             plain_ms=b16["forward_sum"]["plain_ms"],
+             bound_ms=b16["forward_sum"]["bound_ms"],
+             bound_by=b16["bound_by"], library_ms=None,
+             device_ms=lres["bf16"]["profile"]["epilogue_device_ms"],
+             per=per_fwd + " (serve_dtype = bfloat16)", peaks=part),
+        dict(EPILOGUE_BWD, launches=0, max_abs_err=bwd["dx_err"],
+             ms=bwd["ms"], plain_ms=bwd["plain_ms"],
+             bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
+             library_ms=None, sum_max_rel_err=bwd["sum_rel"],
+             per="one backward at the stem shape %s; no path takes it"
+             % bwd["shape"], peaks=part),
         dict(BN_FWD, launches=tres["launches"]["bn_apply_fwd"],
              max_abs_err=bn["fwd_max_abs_err"], ms=bn["step_sum"]["fwd_ms"],
              plain_ms=bn["step_sum"]["fwd_plain_ms"],
@@ -1449,6 +1851,8 @@ def main() -> int:
         kres = phase_kernels(bw, flops)
         phase = "serve"
         sres = phase_serve(workdir)
+        phase = "serve_lowp"
+        lres = phase_serve_lowp(workdir, kres)
         phase = "train"
         tres = phase_train(workdir)
         phase = "train_kaiming"
@@ -1461,7 +1865,7 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    emit(kernels_line(kres, sres, tres, kmres, part))
+    emit(kernels_line(kres, sres, lres, tres, kmres, part))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,13 +4,17 @@
 //     out[i] = cast_out(relu?(float(x[i]) * scale[c] + shift[c])),
 //     c = i mod C,
 //
-// over a contiguous NHWC or (N, C) tensor; x is float32 or bfloat16,
-// out float32 or bfloat16, scale and shift float32 (C,).
+// over a contiguous NHWC or (N, C) tensor; x is float32, bfloat16 or
+// int32, out float32 or bfloat16, scale and shift float32 (C,).
 //
 // Replaces the TPU Pallas kernel cxxnet_tpu/layers/pallas_kernels.py:
-// 327-364 (_conv_epilogue_kernel / _conv_epilogue_call), float input
-// path. On the serve path it applies the batch-norm fold (running-stats
-// scale and shift, plus the fused relu) to every conv output.
+// 327-364 (_conv_epilogue_kernel / _conv_epilogue_call), both of its
+// input kinds. On the float32 and bfloat16 serve paths it applies the
+// batch-norm fold (running-stats scale and shift, plus the fused relu)
+// to every conv output. On the int8 serve path x is the int32
+// accumulator of the int8 convolution and scale the per-channel
+// dequant (activation scale times weight scale, the batch-norm factor
+// already folded into the quantized weight).
 //
 // What bounds it: bytes. Each element is read once and written once and
 // costs two flops, so the kernel is memory bound at any size (0.25
@@ -27,7 +31,12 @@
 //     so the loop does one 64-bit division per thread, not per element;
 //   - the multiply and the add rounded separately (__fmul_rn,
 //     __fadd_rn), the same two roundings as the plain PyTorch version,
-//     so the two agree bit for bit.
+//     so the two agree bit for bit;
+//   - an int32 accumulator converts with __int2float_rn, round to
+//     nearest even, as torch's .to(float32) and XLA's convert do:
+//     accumulators here exceed 2^24 (|acc| <= 2304 * 127^2), where a
+//     truncating conversion would differ. It loads as one 16-byte int4
+//     per 4 elements.
 // No TMA and no fusion into the convolution: that is later work.
 //
 // Plain C interface, loaded with ctypes. The launch goes on the caller's
@@ -45,6 +54,9 @@ constexpr int kBlocksPerSm = 8;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(int32_t v) {
+  return __int2float_rn(v);
 }
 
 template <typename T>
@@ -79,6 +91,13 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, int64_t v,
   const float2 hi = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&q.y));
   a[0] = lo.x; a[1] = lo.y; a[2] = hi.x; a[3] = hi.y;
+}
+
+__device__ __forceinline__ void load4(const int32_t* p, int64_t v,
+                                      float (&a)[4]) {
+  const int4 q = reinterpret_cast<const int4*>(p)[v];
+  a[0] = __int2float_rn(q.x); a[1] = __int2float_rn(q.y);
+  a[2] = __int2float_rn(q.z); a[3] = __int2float_rn(q.w);
 }
 
 __device__ __forceinline__ void store4(float* p, int64_t v,
@@ -191,13 +210,14 @@ void launch_relu(const void* x, const float* scale, const float* shift,
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. n elements, c channels
-// (n % c == 0). Returns a cudaError_t value; 0 is success.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int32 (input only). n
+// elements, c channels (n % c == 0). Returns a cudaError_t value; 0 is
+// success.
 extern "C" int cxn_conv_epilogue(const void* x, const void* scale,
                                  const void* shift, void* y, long long n,
                                  int c, int in_dtype, int out_dtype,
                                  int relu, void* stream) {
-  if (n <= 0 || c <= 0 || n % c != 0 || in_dtype < 0 || in_dtype > 1 ||
+  if (n <= 0 || c <= 0 || n % c != 0 || in_dtype < 0 || in_dtype > 2 ||
       out_dtype < 0 || out_dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -211,8 +231,12 @@ extern "C" int cxn_conv_epilogue(const void* x, const void* scale,
     launch_relu<float, __nv_bfloat16>(x, sc, sh, y, nn, c, relu, s);
   } else if (in_dtype == 1 && out_dtype == 0) {
     launch_relu<__nv_bfloat16, float>(x, sc, sh, y, nn, c, relu, s);
-  } else {
+  } else if (in_dtype == 1) {
     launch_relu<__nv_bfloat16, __nv_bfloat16>(x, sc, sh, y, nn, c, relu, s);
+  } else if (out_dtype == 0) {
+    launch_relu<int32_t, float>(x, sc, sh, y, nn, c, relu, s);
+  } else {
+    launch_relu<int32_t, __nv_bfloat16>(x, sc, sh, y, nn, c, relu, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -152,7 +152,8 @@ class LayerParam:
             if val not in ("float32", "bfloat16"):
                 raise ValueError("dtype must be float32 or bfloat16")
             if val == "bfloat16":
-                raise NotPortedError("dtype = bfloat16", Roadmap.QUANTIZED)
+                raise NotPortedError("dtype = bfloat16",
+                                     Roadmap.LOW_PRECISION_TRAINING)
         if name == "pallas_pool":
             self.pallas_pool = int(val)
         if name == "conv_pallas_epilogue":
@@ -193,6 +194,10 @@ class Layer:
 
     is_loss = False
     self_loop = False           # must be a self-loop connection
+    #: the ``serve_dtype`` spec (:class:`~cxxnet_tpu_torch.nnet.quantize.
+    #: QuantSpec`) that ``quantize.attach`` pins on a conv or fullc
+    #: layer; only their eval forward reads it
+    _quant = None
 
     def __init__(self, cfg: Sequence[Tuple[str, str]] = ()) -> None:
         self.param = LayerParam()

@@ -2,7 +2,9 @@
 ``cxxnet_tpu/layers/common.py``); one forward for evaluation and
 training, differentiated by autograd:
 
-- fullc        — y = x @ W + b, W stored (in, out)
+- fullc        — y = x @ W + b, W stored (in, out); at eval under
+  ``serve_dtype = int8`` an int8 product into int32, dequantized per out
+  channel, under ``bfloat16`` a bf16 product
 - pallas_fullc — the same through the matmul kernel
   (``PallasFullConnectLayer``, counterpart of the reference's in
   ``pallas_kernels.py:543-559``)
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from .base import Layer, Shape3, StepKey, as_mat
 from .kernels import matmul
+from .quant_ops import dot_int8
 
 
 def dropout_uniform(shape: Sequence[int], key: StepKey,
@@ -71,9 +74,30 @@ class FullConnectLayer(Layer):
         return x @ w
 
     def forward(self, params, state, inputs, is_train=False):
-        y = self._matmul(inputs[0], params["wmat"])
+        x = inputs[0]
+        # the serve_dtype spec (nnet/quantize.attach), eval only: int8
+        # contracts the quantized operands into int32 and dequantizes
+        # per out channel; bfloat16 multiplies bf16 operands
+        q = None if is_train else self._quant
+        if q is not None and q.is_affine:
+            dq = params.get("_r_dequant")
+            if dq is None:               # not frozen: quantize per call
+                wq, dq = q.weight_operand(params["wmat"]), q.dequant_vec()
+            else:
+                wq = params["_wq"]
+            xq = q.quantize_x(x)
+            y = dot_int8(xq, wq, self.param.num_hidden) if q.native \
+                else xq @ wq
+            y = y.float() * dq
+            if self.param.no_bias == 0:
+                y = y + params["bias"]
+            return [y], state
+        w = params["wmat"]
+        if q is not None and q.dtype == "bfloat16":
+            x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        y = self._matmul(x, w)
         if self.param.no_bias == 0:
-            y = y + params["bias"]
+            y = y + params["bias"].to(y.dtype)
         return [y], state
 
 

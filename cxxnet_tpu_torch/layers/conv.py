@@ -11,6 +11,13 @@
 - the batch-norm fold (``bn_fold_eval``) either multiplies the weight
   (``conv_pallas_epilogue = 0``) or runs on the conv output as one
   launch of the ``conv_epilogue`` kernel (``conv_pallas_epilogue = 1``).
+- ``serve_dtype = int8`` (eval only): the fold multiplies the weight
+  before it is quantized; the activation quantizes on the device, the
+  int8 product accumulates in int32 (``quant_ops.conv_int8``) and the
+  conv_epilogue kernel applies the per-channel dequant, the folded
+  shift and the relu to the int32 accumulator. ``serve_dtype =
+  bfloat16``: the conv runs on bf16 operands and its epilogue keeps the
+  output bf16.
 - ``relu_max_pooling`` fuses a relu before the max pool; where the
   reference's gate holds (stride 1, no pad, square window > 1) and
   ``pallas_pool = 1`` or the layer is ``pallas_relu_max_pooling``, it
@@ -42,7 +49,9 @@ import torch
 import torch.nn.functional as F
 
 from .base import Layer, Shape3
-from .kernels import bn_apply, bn_apply_plain, conv_epilogue, relu_max_pool
+from .kernels import (bn_apply, bn_apply_plain, conv_epilogue,
+                      conv_epilogue_plain, relu_max_pool)
+from .quant_ops import conv_int8
 
 
 def _conv_out_dim(size: int, pad: int, k: int, stride: int) -> int:
@@ -74,6 +83,9 @@ class ConvolutionLayer(Layer):
       applied by the conv_epilogue kernel, bias already in the shift;
     - ``_r_shift``/``_r_shift_relu``: the frozen weight-side fold, the
       effective shift added after the conv;
+    - ``_wq`` + ``_r_dequant`` (``serve_dtype = int8``): the folded
+      weight quantized once (``QuantSpec.weight_operand``) and the
+      per-channel dequant; the shift then goes to the epilogue;
     - ``_fold_scale``/``_fold_shift`` (+ ``_fold_relu``): the fold as the
       net injects it per forward when the serve weights are not frozen.
     """
@@ -120,6 +132,27 @@ class ConvolutionLayer(Layer):
                      padding=(p.pad_y, p.pad_x), groups=p.num_group)
         return y.permute(0, 2, 3, 1)
 
+    def _conv_quant(self, q, x: torch.Tensor,
+                    wq: torch.Tensor) -> torch.Tensor:
+        """The quantized contraction: x quantized on its device, then
+        the int8 product into int32 (``q.native``), or the grid values
+        in float32 (a grouped conv); ``wq`` is ``q.weight_operand``."""
+        p = self.param
+        xq = q.quantize_x(x)
+        if q.native:
+            return conv_int8(xq, wq, p.num_channel, p.kernel_height,
+                             p.kernel_width, p.stride, p.pad_y, p.pad_x)
+        return self.conv(xq, wq)
+
+    def _epilogue(self, y, scale, shift, relu, out_dtype):
+        """``relu?(float(y) * scale + shift)`` cast to ``out_dtype``: one
+        conv_epilogue launch under ``conv_pallas_epilogue``, else the
+        plain arithmetic."""
+        if self.param.conv_pallas_epilogue:
+            return conv_epilogue(y.contiguous(), scale, shift, relu,
+                                 out_dtype)
+        return conv_epilogue_plain(y, scale, shift, relu, out_dtype)
+
     def forward(self, params, state, inputs, is_train=False):
         p = self.param
         x = inputs[0]
@@ -129,34 +162,52 @@ class ConvolutionLayer(Layer):
             if p.no_bias == 0:
                 y = y + params["bias"]
             return [y], state
-        w = params.get("_oihw")
+        # the serve_dtype spec (nnet/quantize.attach): int8 contracts
+        # quantized operands, bfloat16 runs the conv and its epilogue in
+        # bf16 (the activations stay bf16 between layers)
+        q = self._quant
+        quant = q is not None and q.is_affine
+        bf16 = q is not None and q.dtype == "bfloat16"
+        out_dtype = torch.bfloat16 if bf16 else torch.float32
         shift = params.get("_r_shift")
         relu = False
         if shift is None:
             shift = params.get("_r_shift_relu")
             relu = shift is not None
+        dq = params.get("_r_dequant")
+        if dq is not None:
+            # frozen quantized weight (folded before it was quantized):
+            # the int32 accumulator through the epilogue with the dequant
+            y = self._conv_quant(q, x, params["_wq"])
+            return [self._epilogue(y, dq, shift, relu, out_dtype)], state
+        w = params.get("_oihw")
+        if bf16:
+            x = x.to(torch.bfloat16)
         if shift is not None:
             # frozen weight-side fold: the weight was multiplied once
-            y = self.conv(x, w) + shift
+            y = self.conv(x, w) + shift.to(x.dtype)
             return [torch.relu(y) if relu else y], state
         ep_scale = params.get("_ep_scale")
         if ep_scale is not None:
             # frozen output-side fold: one conv_epilogue launch
             y = self.conv(x, w)
-            return [conv_epilogue(y, ep_scale, params["_ep_shift"],
-                                  "_ep_relu" in params, torch.float32)], \
-                state
+            return [self._epilogue(y, ep_scale, params["_ep_shift"],
+                                   "_ep_relu" in params, out_dtype)], state
         # no frozen fold: the fold (if any) computed by the net for this
-        # forward, the weight converted here unless it was frozen raw
+        # forward, the weight converted (and quantized) here unless it
+        # was frozen raw
         fold_scale = params.get("_fold_scale")
-        fold_in_epilogue = fold_scale is not None \
-            and bool(p.conv_pallas_epilogue)
-        if w is None or (fold_scale is not None and not fold_in_epilogue):
+        fold_in_epilogue = (fold_scale is not None and not quant
+                            and bool(p.conv_pallas_epilogue))
+        if quant or w is None or (fold_scale is not None
+                                  and not fold_in_epilogue):
             w = params["wmat"]
             if fold_scale is not None and not fold_in_epilogue:
                 w = w * fold_scale
-            w = hwio_to_oihw(w)
-        y = self.conv(x, w)
+            w = q.weight_operand(w) if quant else hwio_to_oihw(w)
+            if bf16:
+                w = w.to(torch.bfloat16)
+        y = self._conv_quant(q, x, w) if quant else self.conv(x, w)
         if fold_scale is not None:
             b = params["_fold_shift"]
             if p.no_bias == 0:
@@ -166,12 +217,14 @@ class ConvolutionLayer(Layer):
         else:
             b = None
         relu = fold_scale is not None and "_fold_relu" in params
-        if fold_in_epilogue:
-            shift = b if b is not None else torch.zeros_like(fold_scale)
-            return [conv_epilogue(y, fold_scale, shift, relu,
-                                  torch.float32)], state
+        ep_scale = q.dequant_vec() if quant \
+            else (fold_scale if fold_in_epilogue else None)
+        if ep_scale is not None:
+            shift = b if b is not None else torch.zeros_like(ep_scale)
+            return [self._epilogue(y, ep_scale, shift, relu, out_dtype)], \
+                state
         if b is not None:
-            y = y + b
+            y = y + b.to(y.dtype)
         return [torch.relu(y) if relu else y], state
 
 
@@ -231,9 +284,27 @@ class PoolingLayer(Layer):
             # zero pad, every window divided by kh*kw
             if py or px or ey or ex:
                 x = F.pad(x, (0, 0, px, px + ex, py, py + ey))
+            if x.dtype == torch.bfloat16:
+                return self._bf16_avg(x, kh, kw, st, oy, ox)
             y = F.avg_pool2d(x.permute(0, 3, 1, 2), (kh, kw), st,
                              divisor_override=kh * kw)
         return y.permute(0, 2, 3, 1)
+
+    @staticmethod
+    def _bf16_avg(x, kh, kw, st, oy, ox):
+        """Average pool of a padded bf16 NHWC tensor in the reference's
+        arithmetic: ``reduce_window``'s add in bf16, one rounding per
+        add in window order, then the product with ``1 / (kh * kw)``
+        rounded to bf16 (``F.avg_pool2d`` sums in float32 and divides,
+        which differs in up to half the entries by up to 1.5 %)."""
+        y = None
+        for di in range(kh):
+            for dj in range(kw):
+                v = x[:, di:di + (oy - 1) * st + 1:st,
+                      dj:dj + (ox - 1) * st + 1:st]
+                y = v if y is None else y + v
+        # 1/(kh*kw) rounded to bf16, exact as a Python float
+        return y * float(torch.tensor(1.0 / (kh * kw), dtype=torch.bfloat16))
 
     def forward(self, params, state, inputs, is_train=False):
         x = inputs[0]
@@ -307,9 +378,14 @@ class BatchNormLayer(Layer):
         }
 
     def fold(self, params, state):
-        """Per-channel (scale, shift) of the eval normalization."""
-        scale = params["wmat"] * torch.rsqrt(state["running_var"]
-                                             + self.eps)
+        """Per-channel (scale, shift) of the eval normalization. The
+        factor ``rsqrt(var + eps)`` is taken in float64 and rounded once
+        to float32, so the card folds as the CPU does: CUDA's float32
+        rsqrt is an approximation and PyTorch's CPU one rounds a sqrt
+        first, and under ``serve_dtype = int8`` an ulp in the folded
+        weight can move an int8 weight by one step."""
+        inv = torch.rsqrt((state["running_var"] + self.eps).double())
+        scale = params["wmat"] * inv.to(params["wmat"].dtype)
         return scale, params["bias"] - state["running_exp"] * scale
 
     @staticmethod

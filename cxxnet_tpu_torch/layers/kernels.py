@@ -15,7 +15,9 @@ here has
 
 Ported so far:
 
-- ``conv_epilogue`` (float input, forward);
+- ``conv_epilogue`` on float32, bfloat16 and int32 (an int8
+  convolution's accumulator) input, differentiable in the float case:
+  its backward is the ``bn_apply`` backward kernel;
 - ``bn_apply`` forward and backward (``bn_apply_fwd`` /
   ``bn_apply_bwd``), differentiable as :func:`bn_apply`;
 - ``matmul``, differentiable as :func:`matmul`: the forward and both
@@ -48,6 +50,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# conv_epilogue's input may also be an int32 accumulator
+_EPILOGUE_IN_CODE = {**_DTYPE_CODE, torch.int32: 2}
 
 _lib_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -197,7 +201,8 @@ def conv_epilogue_plain(x: torch.Tensor, scale: torch.Tensor,
                         out_dtype: torch.dtype = torch.float32
                         ) -> torch.Tensor:
     """``relu?(float(x) * scale + shift)`` cast to ``out_dtype``: the
-    plain PyTorch version of the conv_epilogue kernel."""
+    plain PyTorch version of the conv_epilogue kernel. An int32 ``x``
+    converts to float32 rounding to nearest even."""
     y = x.float() * scale + shift
     if relu:
         y = torch.relu(y)
@@ -205,12 +210,9 @@ def conv_epilogue_plain(x: torch.Tensor, scale: torch.Tensor,
 
 
 def _check_epilogue(x, scale, shift, out_dtype) -> None:
-    if x.dtype == torch.int32:
-        raise NotPortedError("conv_epilogue on an int32 accumulator",
-                             Roadmap.CONV_EPILOGUE_INT32)
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError("conv_epilogue: x must be float32 or bfloat16, "
-                        "got %s" % x.dtype)
+    if x.dtype not in _EPILOGUE_IN_CODE:
+        raise TypeError("conv_epilogue: x must be float32, bfloat16 or an "
+                        "int32 accumulator, got %s" % x.dtype)
     if out_dtype not in _DTYPE_CODE:
         raise TypeError("conv_epilogue: out_dtype must be float32 or "
                         "bfloat16, got %s" % out_dtype)
@@ -225,14 +227,8 @@ def _check_epilogue(x, scale, shift, out_dtype) -> None:
                          "kernel reads a dense NHWC buffer)")
 
 
-def conv_epilogue(x: torch.Tensor, scale: torch.Tensor,
-                  shift: torch.Tensor, relu: bool,
-                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``relu?(float(x) * scale + shift)`` per channel (last axis of a
-    contiguous NHWC or (N, C) tensor), cast to ``out_dtype``: one
-    launch of ``csrc/conv_epilogue.cu`` for a CUDA tensor, the plain
-    version for a CPU tensor."""
-    _check_epilogue(x, scale, shift, out_dtype)
+def _epilogue_forward(x, scale, shift, relu, out_dtype) -> torch.Tensor:
+    """The plain version for a CPU tensor, else one kernel launch."""
     if x.device.type == "cpu":
         return conv_epilogue_plain(x, scale, shift, relu, out_dtype)
     _require_cuda(x, "conv_epilogue")
@@ -243,14 +239,84 @@ def conv_epilogue(x: torch.Tensor, scale: torch.Tensor,
     with torch.cuda.device(x.device):
         err = lib.cxn_conv_epilogue(
             x.data_ptr(), scale.data_ptr(), shift.data_ptr(), y.data_ptr(),
-            x.numel(), x.shape[-1], _DTYPE_CODE[x.dtype],
+            x.numel(), x.shape[-1], _EPILOGUE_IN_CODE[x.dtype],
             _DTYPE_CODE[out_dtype], int(bool(relu)), _stream(x))
     _raise_on(err, "conv_epilogue")
     conv_epilogue.launches += 1
+    if x.dtype == torch.int32:
+        conv_epilogue.launches_int32 += 1
+    elif x.dtype == torch.bfloat16:
+        conv_epilogue.launches_bf16 += 1
     return y
 
 
+def conv_epilogue_bwd_plain(x: torch.Tensor, y: torch.Tensor,
+                            dy: torch.Tensor, scale: torch.Tensor,
+                            relu: bool) -> Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+    """(dx, dscale, dshift) of :func:`conv_epilogue` from its input,
+    output and cotangent, as the reference's VJP
+    (``pallas_kernels.py:388-398``) computes them: ``dym = dy * [y >
+    0]``, ``dx = dym * scale`` in x's dtype, f32 channel sums of ``dym *
+    x`` and ``dym``. The same arithmetic as :func:`bn_apply_bwd_plain`."""
+    return bn_apply_bwd_plain(x, y, dy, scale, relu)
+
+
+class _ConvEpilogue(torch.autograd.Function):
+    """Counterpart of the reference's ``conv_epilogue`` custom VJP: the
+    forward is one conv_epilogue launch, the backward one launch of the
+    bn_apply backward kernel, whose (dx, dscale, dshift) are the VJP's
+    (it reads the forward's input, output and the cotangent and does
+    not depend on how scale and shift were made)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, relu, out_dtype):
+        y = _epilogue_forward(x, scale, shift, relu, out_dtype)
+        ctx.relu = relu
+        ctx.save_for_backward(x, scale, y if relu else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, y = ctx.saved_tensors
+        if dy.dtype != x.dtype:
+            raise NotPortedError("conv_epilogue's backward with a %s "
+                                 "output over a %s input"
+                                 % (dy.dtype, x.dtype),
+                                 Roadmap.LOW_PRECISION_TRAINING)
+        if _row_stride(dy) is None:
+            dy = dy.contiguous()
+        dx, dscale, dshift = bn_apply_bwd(x, y, dy, scale, ctx.relu)
+        return dx, dscale, dshift, None, None
+
+
+def conv_epilogue(x: torch.Tensor, scale: torch.Tensor,
+                  shift: torch.Tensor, relu: bool,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``relu?(float(x) * scale + shift)`` per channel (last axis of a
+    contiguous NHWC or (N, C) tensor), cast to ``out_dtype``: one
+    launch of ``csrc/conv_epilogue.cu`` for a CUDA tensor, the plain
+    version for a CPU tensor. ``x`` is float32, bfloat16 or the int32
+    accumulator of an int8 convolution (then ``scale`` is its
+    per-channel dequant). Differentiable in x, scale and shift for a
+    float x; the int32 accumulator flows on the eval path only, so a
+    differentiable call on it raises.
+
+    ``launches`` counts every launch, ``launches_int32`` and
+    ``launches_bf16`` those on an int32 and a bfloat16 input."""
+    _check_epilogue(x, scale, shift, out_dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or shift.requires_grad):
+        if x.dtype == torch.int32:
+            raise TypeError("conv_epilogue: the int32 accumulator flows on "
+                            "the eval path only; it has no gradient")
+        return _ConvEpilogue.apply(x, scale, shift, bool(relu), out_dtype)
+    return _epilogue_forward(x, scale, shift, relu, out_dtype)
+
+
 conv_epilogue.launches = 0
+conv_epilogue.launches_int32 = 0
+conv_epilogue.launches_bf16 = 0
 
 
 # ------------------------------------------------------------ bn_apply
@@ -685,18 +751,31 @@ def relu_max_pool(x: torch.Tensor, k: int) -> torch.Tensor:
 
 # ------------------------------------------------------------ counters
 
-_COUNTED = {"conv_epilogue": conv_epilogue, "bn_apply_fwd": bn_apply_fwd,
-            "bn_apply_bwd": bn_apply_bwd, "matmul": matmul_kernel,
-            "relu_max_pool_fwd": relu_max_pool_fwd,
-            "relu_max_pool_bwd": relu_max_pool_bwd}
+# launch counter name -> (wrapper, attribute)
+_COUNTERS = {"conv_epilogue": (conv_epilogue, "launches"),
+             "conv_epilogue_int32": (conv_epilogue, "launches_int32"),
+             "conv_epilogue_bf16": (conv_epilogue, "launches_bf16"),
+             "bn_apply_fwd": (bn_apply_fwd, "launches"),
+             "bn_apply_bwd": (bn_apply_bwd, "launches"),
+             "matmul": (matmul_kernel, "launches"),
+             "relu_max_pool_fwd": (relu_max_pool_fwd, "launches"),
+             "relu_max_pool_bwd": (relu_max_pool_bwd, "launches")}
 
 
 def reset_launch_counts() -> None:
     """Zero every kernel wrapper's launch counter."""
-    for fn in _COUNTED.values():
-        fn.launches = 0
+    restore_launch_counts({name: 0 for name in _COUNTERS})
     relu_max_pool_bwd.strided_dy = 0
 
 
+def restore_launch_counts(counts: Dict[str, int]) -> None:
+    """Set the counters to ``counts`` (as :func:`launch_counts` gave
+    them), e.g. after launches that checked or timed a kernel."""
+    for name, n in counts.items():
+        fn, attr = _COUNTERS[name]
+        setattr(fn, attr, n)
+
+
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in _COUNTED.items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _COUNTERS.items()}

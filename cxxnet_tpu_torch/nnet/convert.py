@@ -24,8 +24,8 @@ def params_from_numpy(arrays: Dict[str, np.ndarray],
                       device) -> Tuple[Tree, Tree]:
     """``param/...`` and ``state/...`` numpy arrays (a snapshot blob,
     or the JAX package's gathered arrays) -> (params, state) of float32
-    tensors on ``device``. Other keys (``__meta__``, ``opt/``,
-    ``quant/``) are ignored here."""
+    tensors on ``device``. Other keys are ignored here: ``opt/`` is
+    :func:`opt_from_numpy`'s, ``quant/`` ``quantize.tables_from_blob``'s."""
     params: Tree = {}
     state: Tree = {}
     for key, arr in arrays.items():

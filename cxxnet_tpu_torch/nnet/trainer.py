@@ -22,6 +22,13 @@ converted once to PyTorch's OIHW channels-last layout. Under
 ``conv_pallas_epilogue = 1`` the weight stays raw and the fold
 (scale, and the shift with any conv bias folded in) goes to the
 conv_epilogue kernel; otherwise the scale multiplies the weight.
+
+``serve_dtype`` (``nnet/quantize.py``): under ``int8`` the fold
+multiplies the weight, which is then quantized once into the int8
+layout the product reads, and the epilogue gets the per-channel dequant
+with the folded shift; under ``bfloat16`` the weights are cast once.
+Snapshots carry the calibration tables as ``quant/<layer>/<field>``
+arrays and their summary as ``__meta__["quantized"]``.
 """
 
 from __future__ import annotations
@@ -46,23 +53,10 @@ from .checkpoint import read_snapshot, write_snapshot
 from .convert import (OptTree, Tree, opt_from_numpy, params_from_numpy,
                       params_to_numpy)
 from .net import FuncNet
+from .quantize import (QUANT_PREFIX, attach, normalize_serve_dtype,
+                       tables_from_blob)
 
 _RE_METRIC = re.compile(r"^metric(?:\[([^\]]*)\])?$")
-
-SERVE_DTYPES = ("float32", "bfloat16", "int8", "fp8")
-_DTYPE_ALIAS = {"f32": "float32", "bf16": "bfloat16", "float8": "fp8",
-                "float8_e4m3": "fp8"}
-
-
-def normalize_serve_dtype(val: str) -> str:
-    """Canonical ``serve_dtype`` value; only float32 is ported."""
-    v = _DTYPE_ALIAS.get(val, val)
-    if v not in SERVE_DTYPES:
-        raise ConfigError("serve_dtype must be one of %s (got %r)"
-                          % ("|".join(SERVE_DTYPES), val))
-    if v != "float32":
-        raise NotPortedError("serve_dtype = %s" % v, Roadmap.QUANTIZED)
-    return v
 
 
 class NetTrainer:
@@ -81,7 +75,12 @@ class NetTrainer:
         self.update_period = 1
         self.eval_train = 0
         self.save_optimizer = 0
-        self.serve_dtype = "float32"
+        self.serve_dtype = "float32"     # eval/pred compute dtype:
+        #                                  float32 | bfloat16 | int8;
+        #                                  int8 needs calibration tables
+        self.quant_tables: Dict[str, Dict[str, np.ndarray]] = {}
+        self.quant_meta: Dict[str, Any] = {}   # __meta__["quantized"]
+        self.quant_report: Dict[str, Any] = {"active": False}
         self.serve_weight_residency = 1
         self.metric_cfg: List[Tuple[str, str, str]] = []
         self.sample_counter = 0          # within accumulation window
@@ -192,6 +191,10 @@ class NetTrainer:
                     if tag in saved.get(lk, {}):
                         sub[tag] = saved[lk][tag]
         self.update_counter = int(meta.get("update_counter", 0))
+        # calibration ranges load before _post_init, where the
+        # serve_dtype activation reads them
+        self.quant_tables = tables_from_blob(blob)
+        self.quant_meta = dict(meta.get("quantized", {}))
         self._install(params, state)
         self._post_init()
         saved_o = opt_from_numpy(blob, self.device)
@@ -229,6 +232,25 @@ class NetTrainer:
             self._metric_nodes.append(
                 self.net.node_index_by_name(node) if node else top)
         self._label_slices = g.label_slices()
+        self._attach_quant()
+
+    def _attach_quant(self) -> None:
+        """Pin the ``serve_dtype`` specs on the layers (raises for int8
+        without calibration tables); the frozen serve tree is rebuilt."""
+        self.quant_report = attach(self)
+        self._serve_tree = None
+
+    def set_quantization(self, tables, meta,
+                         dtype: Optional[str] = None) -> None:
+        """Install calibration range tables (and optionally switch the
+        serve dtype): the next eval forward runs the quantized graph, and
+        every later snapshot carries the tables as ``quant/`` arrays."""
+        self._check_ready()
+        self.quant_tables = dict(tables)
+        self.quant_meta = dict(meta)
+        if dtype is not None:
+            self.serve_dtype = normalize_serve_dtype(dtype)
+        self._attach_quant()
 
     def _install(self, params: Tree, state: Tree) -> None:
         dev = self.device
@@ -243,10 +265,11 @@ class NetTrainer:
 
     def freeze_serve_weights(self) -> Optional[Tree]:
         """Build (once) the eval weight tree every pred forward reads:
-        per conv the OIHW weight and the BN fold (see the module
-        docstring). None when ``serve_weight_residency = 0``: the
-        forward then folds and converts per call, as the reference's
-        legacy path does."""
+        per conv the BN fold and the weight in the layout its
+        contraction reads, per fullc its int8 or bf16 weight (see the
+        module docstring). None when ``serve_weight_residency = 0``: the
+        forward then folds, quantizes and converts per call, as the
+        reference's legacy path does."""
         self._check_ready()
         if not self.serve_weight_residency:
             return None
@@ -259,28 +282,52 @@ class NetTrainer:
         tree = {lk: dict(sub) for lk, sub in self.params.items()}
         with torch.no_grad():
             for li, info in enumerate(g.layers):
-                if info.type != "conv":
+                if info.type not in ("conv", "fullc") \
+                        or li in shared_primaries:
                     continue
                 lkey = g.layer_key(li)
                 p, t = self.params[lkey], tree[lkey]
                 layer = net.layer_objs[li]
+                q = layer._quant
+                quant = q is not None and q.is_affine
+                bf16 = q is not None and q.dtype == "bfloat16"
                 w = p["wmat"]
-                if (net.bn_fold_eval and li in net.fold_pairs
-                        and li not in shared_primaries):
+                if info.type == "fullc":
+                    if quant:
+                        t["_wq"] = q.weight_operand(w)
+                        t["_r_dequant"] = q.dequant_vec()
+                    elif bf16:
+                        t["wmat"] = w.to(torch.bfloat16)
+                    continue
+                bias = p["bias"] if layer.param.no_bias == 0 else None
+                shift, relu = bias, False
+                if net.bn_fold_eval and li in net.fold_pairs:
                     fe = net.fold_entries(self.params, self.net_state, li)
                     scale, shift = fe["_fold_scale"], fe["_fold_shift"]
-                    if layer.param.no_bias == 0:
-                        shift = shift + p["bias"] * scale
+                    if bias is not None:
+                        shift = shift + bias * scale
                     relu = "_fold_relu" in fe
-                    if layer.param.conv_pallas_epilogue:
+                    if layer.param.conv_pallas_epilogue and not quant:
+                        # the fold applies to the conv output
                         t["_ep_scale"] = scale.contiguous()
                         t["_ep_shift"] = shift.contiguous()
                         if relu:
                             t["_ep_relu"] = fe["_fold_relu"]
                     else:
+                        # the fold multiplies the weight (before it is
+                        # quantized); the shift goes after the conv
                         w = w * scale
                         t["_r_shift_relu" if relu else "_r_shift"] = shift
-                t["_oihw"] = hwio_to_oihw(w)
+                if quant:
+                    dq = q.dequant_vec()
+                    t["_wq"] = q.weight_operand(w)
+                    t["_r_dequant"] = dq
+                    if "_r_shift" not in t and "_r_shift_relu" not in t:
+                        t["_r_shift"] = shift if shift is not None \
+                            else torch.zeros_like(dq)
+                else:
+                    w = hwio_to_oihw(w)
+                    t["_oihw"] = w.to(torch.bfloat16) if bf16 else w
         self._serve_tree = tree
         return tree
 
@@ -550,11 +597,18 @@ class NetTrainer:
         arrays = params_to_numpy(
             self.params, self.net_state,
             self.opt_state if self.save_optimizer else None)
+        # calibration ranges: quant/<layer>/<field>, digest-covered
+        for lkey, tab in self.quant_tables.items():
+            for field, v in tab.items():
+                arrays["%s%s/%s" % (QUANT_PREFIX, lkey, field)] = \
+                    np.asarray(v)
         meta = {
             "update_counter": self.update_counter,
             "structure": self.graph.to_dict(),
             "cfg": [list(p) for p in self.cfg],
         }
+        if self.quant_meta:
+            meta["quantized"] = dict(self.quant_meta)
         return arrays, meta
 
     def save_model(self, path: str) -> None:

@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from ..io.data import inst_array_shape
-from ..nnet.trainer import NetTrainer, normalize_serve_dtype
+from ..nnet.quantize import normalize_serve_dtype
+from ..nnet.trainer import NetTrainer
 from ..utils.config import NotPortedError, Roadmap
 from ..utils.stream import local_path
 from .bucketing import parse_buckets, pick_bucket
@@ -45,15 +46,21 @@ from .bucketing import parse_buckets, pick_bucket
 STAGE_RING_DEPTH = 4
 
 
+def input_dtype_for(serve_dtype: str) -> torch.dtype:
+    """The dtype a ladder stages its rows in for a ``serve_dtype``:
+    bfloat16 stages bf16 (half the host-to-device bytes); int8 graphs
+    quantize on the device, so their input stays float32."""
+    return torch.bfloat16 if serve_dtype == "bfloat16" else torch.float32
+
+
 class _StageSlot:
     """One pinned host staging buffer: the rows written since the last
     zeroing (``high``) and the event behind its last copy."""
 
-    __slots__ = ("host", "view", "high", "ready", "busy")
+    __slots__ = ("host", "high", "ready", "busy")
 
     def __init__(self, host: torch.Tensor):
         self.host = host
-        self.view = host.numpy()
         self.high = 0
         self.ready: Optional[torch.cuda.Event] = None
         self.busy = True                 # created for its first caller
@@ -84,15 +91,14 @@ class InferenceEngine:
     any thread; the device-to-host fetch of the result runs outside it.
     """
 
-    # float32 rows: the only served dtype ported (serve_dtype)
-    input_dtype = np.dtype(np.float32)
-
     def __init__(self, trainer: NetTrainer,
                  buckets: Optional[Sequence[int]] = None,
-                 node: str = ""):
+                 node: str = "", input_dtype: torch.dtype = torch.float32):
         assert trainer._initialized, \
             "InferenceEngine needs an initialized trainer"
         self.trainer = trainer
+        # rows are cast to this dtype as they are copied into staging
+        self.input_dtype = input_dtype
         self.device = trainer.device
         if buckets is None:
             buckets = parse_buckets("auto", trainer.batch_size)
@@ -127,8 +133,7 @@ class InferenceEngine:
         if warm_run:
             inst = self._inst_shape()
             for b in self.buckets:
-                self.dispatch(self.stage(
-                    np.zeros((b,) + inst, self.input_dtype)))
+                self.dispatch(self.stage(np.zeros((b,) + inst, np.float32)))
                 self._warm.add(b)
         with self._lock, self._stage_lock:
             for k in self.counters:
@@ -166,13 +171,14 @@ class InferenceEngine:
                 % (n, self.max_batch))
         slot = self._acquire_slot(bucket, n)
         try:
-            buf = slot.view if slot is not None else np.zeros(
-                (bucket,) + inst, self.input_dtype)
+            host = slot.host if slot is not None else torch.zeros(
+                (bucket,) + inst, dtype=self.input_dtype)
             off = 0
             for p in parts:
-                buf[off:off + p.shape[0]] = p  # casts during the copy
+                # casts during the copy (to bf16: round to nearest even)
+                host[off:off + p.shape[0]].copy_(torch.from_numpy(
+                    np.ascontiguousarray(p)))
                 off += p.shape[0]
-            host = slot.host if slot is not None else torch.from_numpy(buf)
             ready = None
             if self._cuda:
                 with torch.cuda.stream(self._copy_stream):
@@ -215,7 +221,7 @@ class InferenceEngine:
                     self.counters["staging_alloc"] += 1
                     return None
                 host = torch.zeros((bucket,) + self._inst_shape(),
-                                   dtype=torch.float32,
+                                   dtype=self.input_dtype,
                                    pin_memory=True)
                 slot = _StageSlot(host)
                 ring.append(slot)
@@ -228,7 +234,7 @@ class InferenceEngine:
             slot.ready.synchronize()
             slot.ready = None
         if slot.high > n:
-            slot.view[n:slot.high] = 0       # zero the pad tail once
+            slot.host[n:slot.high].zero_()   # zero the pad tail once
         slot.high = n
         return slot
 
@@ -293,14 +299,16 @@ def build_engine(cfg, model_path: str,
                  device=None) -> InferenceEngine:
     """Load a snapshot into a frozen engine on ``device`` (the GPU by
     default). ``cfg`` is the ordered config-pair stream (netconfig +
-    globals); ``buckets`` a ladder or a ``serve_buckets`` spec."""
+    globals, ``serve_dtype`` among them); ``buckets`` a ladder or a
+    ``serve_buckets`` spec."""
     cfg = list(cfg)
     if os.path.isdir(local_path(model_path)):
         raise NotPortedError("a bundle as model_path (%r)" % model_path,
                              Roadmap.BUNDLES)
+    serve_dtype = "float32"
     for k, v in cfg:
         if k == "serve_dtype":
-            normalize_serve_dtype(v)
+            serve_dtype = normalize_serve_dtype(v)
     if not max_batch:
         for k, v in cfg:
             if k == "batch_size":
@@ -311,4 +319,5 @@ def build_engine(cfg, model_path: str,
         buckets = parse_buckets(buckets or "", max_batch)
     trainer = NetTrainer(cfg, device=device)
     trainer.load_model(model_path)
-    return InferenceEngine(trainer, buckets=buckets, node=node)
+    return InferenceEngine(trainer, buckets=buckets, node=node,
+                           input_dtype=input_dtype_for(serve_dtype))

@@ -15,6 +15,10 @@ value`` grammar as the reference:
 - ``serve_timeout_ms`` — default per-request deadline (0 = none)
 - ``serve_node`` — node to serve (default: the top node)
 - ``serve_warm_run`` — run each bucket once at warmup (default 1)
+- ``serve_dtype`` — ``float32`` (default), ``bfloat16`` (bf16 staging,
+  convolutions and activations) or ``int8`` (a snapshot with
+  calibration tables; int8 products into int32, dequantized in the
+  conv_epilogue kernel)
 """
 
 from __future__ import annotations

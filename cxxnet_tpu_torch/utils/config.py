@@ -36,7 +36,6 @@ class Roadmap:
     QUANTIZED = "queue 1, quantized and low-precision inference"
     BUNDLES = "queue 1, sealed bundles"
     MULTI_GPU = "queue 1, multi-GPU"
-    CONV_EPILOGUE_INT32 = "queue 2, conv_epilogue int32 input and backward"
     POOL_CONCAT = "queue 2, pool_concat"
 
 

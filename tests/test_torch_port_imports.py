@@ -97,7 +97,8 @@ def test_kernel_wrapper_on_cpu_tensor_counts_no_launch():
     xg = x.clone().requires_grad_(True)
     kernels.relu_max_pool(xg, 2).sum().backward()
     counts = kernels.launch_counts()
-    assert set(counts) == {"conv_epilogue", "bn_apply_fwd", "bn_apply_bwd",
-                           "matmul", "relu_max_pool_fwd",
+    assert set(counts) == {"conv_epilogue", "conv_epilogue_int32",
+                           "conv_epilogue_bf16", "bn_apply_fwd",
+                           "bn_apply_bwd", "matmul", "relu_max_pool_fwd",
                            "relu_max_pool_bwd"}
     assert all(v == 0 for v in counts.values())

@@ -243,10 +243,10 @@ def test_port_model_builders_match_jax():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ([("serve_dtype", "int8")], "quantized"),
     ([("serve_dtype", "fp8")], "quantized"),
-    ([("serve_dtype", "bfloat16")], "quantized"),
-    ([("dtype", "bfloat16")], "quantized"),
+    ([("serve_dtype", "float8_e4m3")], "quantized"),
+    ([("serve_device_mem_budget", "512")], "quantized"),
+    ([("dtype", "bfloat16")], "low-precision training"),
     ([("channel_pad", "128")], "CLI remainder"),
     ([("pool_concat_pallas", "1")], "pool_concat"),
     ([("shard_optimizer", "1")], "multi-GPU"),
@@ -254,7 +254,8 @@ def test_port_model_builders_match_jax():
     ([("remat", "conv")], "rematerialization"),
     ([("grad_sync", "overlap")], "multi-GPU"),
     ([("input_layout", "rowmajor")], "CLI remainder"),
-], ids=["int8", "fp8", "bf16_serve", "bf16_compute", "channel_pad",
+], ids=["fp8", "fp8_alias", "serve_device_mem_budget", "bf16_compute",
+        "channel_pad",
         "pool_concat", "shard_optimizer", "momentum_dtype", "remat",
         "grad_sync", "input_layout"])
 def test_unported_keys_raise(ref, extra, item):
