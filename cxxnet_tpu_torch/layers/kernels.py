@@ -250,24 +250,17 @@ def _epilogue_forward(x, scale, shift, relu, out_dtype) -> torch.Tensor:
     return y
 
 
-def conv_epilogue_bwd_plain(x: torch.Tensor, y: torch.Tensor,
-                            dy: torch.Tensor, scale: torch.Tensor,
-                            relu: bool) -> Tuple[torch.Tensor, torch.Tensor,
-                                                 torch.Tensor]:
-    """(dx, dscale, dshift) of :func:`conv_epilogue` from its input,
-    output and cotangent, as the reference's VJP
-    (``pallas_kernels.py:388-398``) computes them: ``dym = dy * [y >
-    0]``, ``dx = dym * scale`` in x's dtype, f32 channel sums of ``dym *
-    x`` and ``dym``. The same arithmetic as :func:`bn_apply_bwd_plain`."""
-    return bn_apply_bwd_plain(x, y, dy, scale, relu)
-
-
 class _ConvEpilogue(torch.autograd.Function):
     """Counterpart of the reference's ``conv_epilogue`` custom VJP: the
     forward is one conv_epilogue launch, the backward one launch of the
-    bn_apply backward kernel, whose (dx, dscale, dshift) are the VJP's
-    (it reads the forward's input, output and the cotangent and does
-    not depend on how scale and shift were made)."""
+    bn_apply backward kernel. The reference's VJP
+    (``pallas_kernels.py:388-398``: ``dym = dy * [y > 0]``, ``dx = dym *
+    scale`` in x's dtype, f32 channel sums of ``dym * x`` and ``dym``)
+    is that kernel's arithmetic, and :func:`bn_apply_bwd_plain` its
+    plain version: it reads the forward's input, output and the
+    cotangent and does not depend on how scale and shift were made.
+    ``conv_epilogue.launches_bwd`` counts these launches (each is also
+    one of ``bn_apply_bwd.launches``)."""
 
     @staticmethod
     def forward(ctx, x, scale, shift, relu, out_dtype):
@@ -287,6 +280,8 @@ class _ConvEpilogue(torch.autograd.Function):
         if _row_stride(dy) is None:
             dy = dy.contiguous()
         dx, dscale, dshift = bn_apply_bwd(x, y, dy, scale, ctx.relu)
+        if x.device.type == "cuda":
+            conv_epilogue.launches_bwd += 1
         return dx, dscale, dshift, None, None
 
 
@@ -303,7 +298,8 @@ def conv_epilogue(x: torch.Tensor, scale: torch.Tensor,
     differentiable call on it raises.
 
     ``launches`` counts every launch, ``launches_int32`` and
-    ``launches_bf16`` those on an int32 and a bfloat16 input."""
+    ``launches_bf16`` those on an int32 and a bfloat16 input,
+    ``launches_bwd`` the backward's (see :class:`_ConvEpilogue`)."""
     _check_epilogue(x, scale, shift, out_dtype)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
                                     or shift.requires_grad):
@@ -317,6 +313,7 @@ def conv_epilogue(x: torch.Tensor, scale: torch.Tensor,
 conv_epilogue.launches = 0
 conv_epilogue.launches_int32 = 0
 conv_epilogue.launches_bf16 = 0
+conv_epilogue.launches_bwd = 0
 
 
 # ------------------------------------------------------------ bn_apply
@@ -755,6 +752,7 @@ def relu_max_pool(x: torch.Tensor, k: int) -> torch.Tensor:
 _COUNTERS = {"conv_epilogue": (conv_epilogue, "launches"),
              "conv_epilogue_int32": (conv_epilogue, "launches_int32"),
              "conv_epilogue_bf16": (conv_epilogue, "launches_bf16"),
+             "conv_epilogue_bwd": (conv_epilogue, "launches_bwd"),
              "bn_apply_fwd": (bn_apply_fwd, "launches"),
              "bn_apply_bwd": (bn_apply_bwd, "launches"),
              "matmul": (matmul_kernel, "launches"),

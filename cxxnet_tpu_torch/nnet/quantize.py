@@ -32,7 +32,7 @@ from typing import Any, Dict, List, NamedTuple
 import numpy as np
 import torch
 
-from ..layers.quant_ops import conv_int8, dot_int8, pack_weight
+from ..layers.quant_ops import pack_weight
 from ..utils.config import ConfigError, NotPortedError, Roadmap
 
 # the symmetric int8 grid keeps -128 out, so +/-amax map to +/-127 with
@@ -64,34 +64,6 @@ def normalize_serve_dtype(val: str) -> str:
     if v == "fp8":
         raise NotPortedError("serve_dtype = fp8", Roadmap.QUANTIZED)
     return v
-
-
-_NATIVE_CACHE: Dict[tuple, bool] = {}
-
-
-def backend_native(dtype: str, op: str, device: torch.device) -> bool:
-    """True when the port's int8 contraction (``op`` = 'dot' | 'conv')
-    runs on ``device`` and gives the exact int32 sums; probed once per
-    device with a tiny product. Otherwise the layers contract the
-    quantized grid values in float32: the same values, no speedup."""
-    key = (dtype, op, str(device))
-    if key in _NATIVE_CACHE:
-        return _NATIVE_CACHE[key]
-    ok = False
-    if dtype == "int8":
-        try:
-            if op == "dot":
-                a = torch.ones((8, 8), dtype=torch.int8, device=device)
-                ok = bool((dot_int8(a, pack_weight(a), 8) == 8).all())
-            else:
-                x = torch.ones((1, 4, 4, 8), dtype=torch.int8, device=device)
-                w = torch.ones((3, 3, 8, 8), dtype=torch.int8, device=device)
-                ok = bool((conv_int8(x, pack_weight(w), 8, 3, 3, 1, 0, 0)
-                           == 72).all())
-        except RuntimeError:
-            ok = False                   # unsupported: simulate in f32
-    _NATIVE_CACHE[key] = ok
-    return ok
 
 
 def quantize_tensor(v: torch.Tensor, scale: torch.Tensor, dtype: str,
@@ -297,12 +269,11 @@ def attach(trainer) -> Dict[str, Any]:
                             _AMAX_FLOOR) / qmax)
         w_scale = np.maximum(tab["w_amax"].astype(np.float32),
                              _AMAX_FLOOR) / qmax
-        native = backend_native(dtype, tgt.kind, trainer.device)
-        if (tgt.kind == "conv"
-                and net.layer_objs[tgt.li].param.num_group > 1):
-            # the probe runs ungrouped, as the reference's: a grouped
-            # conv contracts the grid values in float32 (same values)
-            native = False
+        # the int8 product into int32 (layers/quant_ops.py) runs on
+        # every device; a grouped conv contracts the grid values in
+        # float32 (the same values), as the reference's
+        native = not (tgt.kind == "conv"
+                      and net.layer_objs[tgt.li].param.num_group > 1)
         natives.append(native)
         net.layer_objs[tgt.li]._quant = QuantSpec(
             dtype, x_scale=x_scale,

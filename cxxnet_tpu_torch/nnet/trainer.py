@@ -282,8 +282,7 @@ class NetTrainer:
         tree = {lk: dict(sub) for lk, sub in self.params.items()}
         with torch.no_grad():
             for li, info in enumerate(g.layers):
-                if info.type not in ("conv", "fullc") \
-                        or li in shared_primaries:
+                if info.type not in ("conv", "fullc"):
                     continue
                 lkey = g.layer_key(li)
                 p, t = self.params[lkey], tree[lkey]
@@ -292,6 +291,15 @@ class NetTrainer:
                 quant = q is not None and q.is_affine
                 bf16 = q is not None and q.dtype == "bfloat16"
                 w = p["wmat"]
+                if li in shared_primaries:
+                    # every share site runs this layer's object: its
+                    # fold and quantization stay per call (the
+                    # reference's resident plan skips it); the conv
+                    # weight's layout (and bf16 cast) is frozen
+                    if info.type == "conv" and not quant:
+                        w = hwio_to_oihw(w)
+                        t["_oihw"] = w.to(torch.bfloat16) if bf16 else w
+                    continue
                 if info.type == "fullc":
                     if quant:
                         t["_wq"] = q.weight_operand(w)

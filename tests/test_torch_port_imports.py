@@ -92,13 +92,16 @@ def test_kernel_wrapper_on_cpu_tensor_counts_no_launch():
     x = torch.from_numpy(np.ones((2, 3, 3, 4), np.float32))
     s = torch.ones(4)
     kernels.conv_epilogue(x, s, torch.zeros(4), True)
+    xe = x.clone().requires_grad_(True)
+    kernels.conv_epilogue(xe, s, torch.zeros(4), True).sum().backward()
     kernels.bn_apply(x, s, torch.zeros(4), True)
     kernels.matmul(x.reshape(6, 12), x.reshape(12, 6))
     xg = x.clone().requires_grad_(True)
     kernels.relu_max_pool(xg, 2).sum().backward()
     counts = kernels.launch_counts()
     assert set(counts) == {"conv_epilogue", "conv_epilogue_int32",
-                           "conv_epilogue_bf16", "bn_apply_fwd",
+                           "conv_epilogue_bf16", "conv_epilogue_bwd",
+                           "bn_apply_fwd",
                            "bn_apply_bwd", "matmul", "relu_max_pool_fwd",
                            "relu_max_pool_bwd"}
     assert all(v == 0 for v in counts.values())

@@ -295,7 +295,7 @@ def test_conv_epilogue_backward_matches_jax(shape, relu):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-6)
-    px, ps, pt = kernels.conv_epilogue_bwd_plain(
+    px, ps, pt = kernels.bn_apply_bwd_plain(
         xt.detach(), y.detach(), torch.from_numpy(dy), st.detach(), relu)
     for a, b in zip((px, ps, pt), got):
         assert torch.equal(a, b)
@@ -491,3 +491,59 @@ def test_int8_without_tables_raises(ref):
     with pytest.raises(ValueError, match="calibrated snapshot"):
         t.load_model(ref["f32"])
     assert os.path.exists(ref["f32"])
+
+
+SHARED_CONV_CONF = """
+netconfig=start
+layer[0->a] = conv:cvS
+  nchannel = 3
+  kernel_size = 3
+  pad = 1
+layer[a->b] = batch_norm:bn1
+layer[b->c] = relu
+layer[c->d] = share[cvS]
+layer[d->e] = flatten
+layer[e->f] = fullc:fc1
+  nhidden = 4
+layer[f->f] = softmax
+netconfig=end
+input_shape = 3,6,6
+batch_size = 4
+"""
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_shared_conv_freezes_layout_only(tmp_path, dtype):
+    """A shared conv is no quantization target (one weight, two sites)
+    and keeps its fold per call (every share site runs its object), as
+    the reference's resident plan skips it; the frozen tree still holds
+    its OIHW weight, and the rows equal serve_weight_residency = 0's."""
+    rng = np.random.RandomState(3)
+    cfg = parse_config(SHARED_CONV_CONF) + KNOBS
+    x = rng.randn(4, 6, 6, 3).astype(np.float32)
+    t = NetTrainer(cfg, device="cpu")
+    t.init_model()
+    path = str(tmp_path / "m.model.npz")
+    if dtype == "int8":
+        cal = pq.Calibrator(t)
+        cal.observe(DataBatch(x))
+        t.set_quantization(cal.finish(), {"dtype": "int8", "batches": 1},
+                           dtype="int8")
+    t.save_model(path)
+    out = []
+    for res in ("1", "0"):
+        s = NetTrainer(cfg + [("serve_dtype", dtype),
+                              ("serve_weight_residency", res)],
+                       device="cpu")
+        s.load_model(path)
+        out.append(s.extract_feature(DataBatch(x), "top"))
+        if res == "1":
+            assert s.net.layer_objs[0]._quant is None
+            frozen = s.freeze_serve_weights()[s.graph.layer_key(0)]
+            assert sorted(frozen) == ["_oihw", "bias", "wmat"]
+            np.testing.assert_array_equal(
+                frozen["_oihw"].numpy(),
+                s.params[s.graph.layer_key(0)]["wmat"].numpy()
+                .transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(out[0], out[1])
+    assert np.all(np.isfinite(out[0]))
