@@ -29,7 +29,13 @@ the script exits non-zero without a result line):
              (values in +-4e7, beyond 2^24) and bf16 -> bf16 at every
              served shape, int32 also with ragged C and a bf16 output,
              all bit-exact; its backward (row 5b, through the bn_apply
-             backward kernel) at the stem shape. Max error,
+             backward kernel) at the stem shape. The bf16 instantiations
+             of the training kernels (``train_bf16``): bn_apply at every
+             batch-norm shape of the bench-set Inception-BN step
+             (forward and dx the same bits, sums within rtol 1e-5),
+             matmul at fc1's bf16 . bf16, f32 . bf16 and bf16 . f32
+             products (library: torch.mm with out_dtype=float32), and
+             relu_max_pool at kaiming-224's pools (the same bits). Max error,
              kernel / plain / library times (CUDA events) and the bound
              from bytes and operations; for relu_max_pool, in place of a
              library call, F.relu + F.max_pool2d and their autograd
@@ -70,7 +76,20 @@ the script exits non-zero without a result line):
              pool's backward on the card against the CPU's at batch 8
              (max: every tie credited to the same element; avg: within
              rtol 1e-5).
-6. train_kaiming — kaiming-224 (model J', ``fused_pools``, ``pallas_pool =
+6. train_bf16 — phase 5's net at the repo's own mixed precision (bench.py's
+             ``dtype = grad_dtype = momentum_dtype = bfloat16``), batch
+             128: 2 warm and 10 timed steps, exactly 69 + 69 bf16
+             bn_apply and 3 bf16 matmul launches per step and no float32
+             one, the loss finite and falling, a profiled step, the f32
+             step time of phase 5 beside it; then one batch-4 update
+             through the kernels against the card's bf16 plain path (the
+             layers' kernel entry points swapped for Functions over the
+             plain versions, cuDNN deterministic): the loss within rtol
+             1e-5, the whole update within 5e-2 and within a tenth of
+             the distance at which the cuDNN-off plain path lies from
+             the plain path (``BF16_UPDATE_RTOL`` says why not bit for
+             bit).
+7. train_kaiming — kaiming-224 (model J', ``fused_pools``, ``pallas_pool =
              1``, dropout 0.5 on fc1 and fc2), seeded weights, batch 128:
              2 warm and 10 timed ``update`` steps as in phase 5; exactly 3
              relu_max_pool forward and 3 backward launches per step and
@@ -78,7 +97,11 @@ the script exits non-zero without a result line):
              profiled step; the batch-4 update check of phase 5 with the
              same dropout masks injected on the card and on the CPU (the
              plain path is ``pallas_pool = 0``: relu, then max pooling);
-             and the SPP max pools' backward against the CPU's.
+             and the SPP max pools' backward against the CPU's. Then the
+             same at bench.py's kaiming set (``dtype = momentum_dtype =
+             bfloat16``): exactly 3 + 3 bf16 relu_max_pool launches per
+             step, the loss falling, and phase 6's batch-4 check with
+             the same masks.
 
 Then a ``kernels`` line (every ported kernel with its launches, error
 and times), the ``nvidia-smi`` line, and the last line
@@ -87,6 +110,7 @@ and times), the ``nvidia-smi`` line, and the last line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -125,29 +149,45 @@ RMP_FWD = {"name": "relu_max_pool_fwd", "route": "cuda",
 RMP_BWD = {"name": "relu_max_pool_bwd", "route": "cuda",
            "source": "cxxnet_tpu_torch/csrc/relu_max_pool.cu",
            "replaces": "cxxnet_tpu/layers/pallas_kernels.py:107"}
+# the bf16 instantiations of the training kernels (dtype = bfloat16)
+BN_FWD_BF16 = dict(BN_FWD, name="bn_apply_fwd_bf16")
+BN_BWD_BF16 = dict(BN_BWD, name="bn_apply_bwd_bf16")
+MATMUL_BF16 = dict(MATMUL, name="matmul_bf16")
+RMP_FWD_BF16 = dict(RMP_FWD, name="relu_max_pool_fwd_bf16")
+RMP_BWD_BF16 = dict(RMP_BWD, name="relu_max_pool_bwd_bf16")
 NCLASS = 1000
 DEVICE = "cuda"
 TRAIN_BATCH = 128
 TRAIN_KNOBS = [("bn_pallas", "1"), ("bn_fuse_relu", "1")]
+# the repo's mixed-precision training set (bench.py, Inception-BN.conf)
+BENCH_BF16 = [("dtype", "bfloat16"), ("grad_dtype", "bfloat16"),
+              ("momentum_dtype", "bfloat16")]
 WARM_STEPS, TIMED_STEPS = 2, 10
-# per training step of Inception-BN-224: launches each wrapper must count
-TRAIN_LAUNCHES = {"bn_apply_fwd": 69, "bn_apply_bwd": 69, "matmul": 3,
-                  "conv_epilogue": 0, "conv_epilogue_int32": 0,
-                  "conv_epilogue_bf16": 0, "conv_epilogue_bwd": 0,
-                  "relu_max_pool_fwd": 0, "relu_max_pool_bwd": 0}
+# every launch counter (layers/kernels.py launch_counts()); bn_apply,
+# matmul and relu_max_pool count float32 and bf16 launches apart
+NO_LAUNCHES = {k: 0 for k in (
+    "conv_epilogue", "conv_epilogue_int32", "conv_epilogue_bf16",
+    "conv_epilogue_bwd", "bn_apply_fwd", "bn_apply_fwd_bf16",
+    "bn_apply_bwd", "bn_apply_bwd_bf16", "matmul", "matmul_bf16",
+    "relu_max_pool_fwd", "relu_max_pool_fwd_bf16", "relu_max_pool_bwd",
+    "relu_max_pool_bwd_bf16")}
+# per training step of Inception-BN-224: launches each wrapper must
+# count, in float32 and at the bench set
+TRAIN_LAUNCHES = dict(NO_LAUNCHES, bn_apply_fwd=69, bn_apply_bwd=69,
+                      matmul=3)
+TRAIN_BF16_LAUNCHES = dict(NO_LAUNCHES, bn_apply_fwd_bf16=69,
+                           bn_apply_bwd_bf16=69, matmul_bf16=3)
 # per training step of kaiming-224 with fused_pools and pallas_pool = 1
-KAIMING_LAUNCHES = {"bn_apply_fwd": 0, "bn_apply_bwd": 0, "matmul": 0,
-                    "conv_epilogue": 0, "conv_epilogue_int32": 0,
-                    "conv_epilogue_bf16": 0, "conv_epilogue_bwd": 0,
-                    "relu_max_pool_fwd": 3, "relu_max_pool_bwd": 3}
+KAIMING_LAUNCHES = dict(NO_LAUNCHES, relu_max_pool_fwd=3,
+                        relu_max_pool_bwd=3)
+KAIMING_BF16_LAUNCHES = dict(NO_LAUNCHES, relu_max_pool_fwd_bf16=3,
+                             relu_max_pool_bwd_bf16=3)
 # per bucket forward of the float32-served Inception-BN-224 (every
 # folded conv's output through conv_epilogue), of the int8-served one
 # (every conv's int32 accumulator) and of the bf16-served one
-SERVE_LAUNCHES = dict({k: 0 for k in TRAIN_LAUNCHES}, conv_epilogue=69)
-INT8_LAUNCHES = dict({k: 0 for k in TRAIN_LAUNCHES}, conv_epilogue=69,
-                     conv_epilogue_int32=69)
-BF16_LAUNCHES = dict({k: 0 for k in TRAIN_LAUNCHES}, conv_epilogue=69,
-                     conv_epilogue_bf16=69)
+SERVE_LAUNCHES = dict(NO_LAUNCHES, conv_epilogue=69)
+INT8_LAUNCHES = dict(NO_LAUNCHES, conv_epilogue=69, conv_epilogue_int32=69)
+BF16_LAUNCHES = dict(NO_LAUNCHES, conv_epilogue=69, conv_epilogue_bf16=69)
 # quantization: calibration batches and the parity gate of the
 # reference's task = quantize (mean |int8 - f32| of the softmax rows)
 CALIB_BATCHES = 8
@@ -173,6 +213,20 @@ SUM_RTOL = 1e-5
 # against the CPU's, and the kernels against the card's plain path
 UPDATE_RTOL = 1e-3
 LOSS_RTOL = 1e-5
+# the bench-set update at batch 4, kernels against the card's bf16
+# plain path (the same ops, cuDNN deterministic): the channel sums of
+# bn_apply's backward and the matmul's sums run in another order than
+# torch.sum's and cuBLAS's, which moves an f32 gradient by an ulp, and
+# a bf16 cast (the matmul's dx, every bf16 weight's gradient) turns that
+# now and then into a 2^-8 step, which the deeper layers carry on. The
+# bf16 update at initialization is ill-conditioned: the same plain path
+# with cuDNN off (another summation order in every convolution) lies
+# 0.67 from it (on an H100). Held on the whole update (all parameters,
+# relative): within BF16_UPDATE_RTOL, and within BF16_ORDER_SHARE of
+# that cuDNN-off distance (1.66e-2 and 0.025 of it seen); per parameter
+# it is reported
+BF16_UPDATE_RTOL = 5e-2
+BF16_ORDER_SHARE = 0.1
 # serve results held against the port on the CPU (TF32 off on the card)
 SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-4
 
@@ -180,6 +234,10 @@ SERVE_RTOL, SERVE_ATOL = 1e-3, 1e-4
 # outside the tensor cores, by part
 _PEAKS = (("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
           ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12))
+# dense bf16 tensor-core FLOP/s by part (the bound of a bf16 . bf16
+# product)
+_BF16_TC = (("H200", 989e12), ("H100 NVL", 835e12), ("H100 PCIe", 756e12),
+            ("H100", 989e12))
 
 
 def emit(obj) -> None:
@@ -191,6 +249,25 @@ def card_peaks(name: str):
         if key in name:
             return bw, flops, key
     return 3.35e12, 67e12, "H100 SXM (assumed)"
+
+
+def bf16_tc_peak(part: str) -> float:
+    """Dense bf16 tensor-core FLOP/s of the part ``card_peaks`` named."""
+    return next((f for key, f in _BF16_TC if key in part), 989e12)
+
+
+def _dt(name: str):
+    import torch
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def exact(a, b) -> bool:
+    """Bit for bit: the same bits in a bf16 tensor (so -0 differs from
+    +0), equal values (NaN nowhere) in a float32 one."""
+    import torch
+    if a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16:
+        return bool(torch.equal(a.view(torch.int16), b.view(torch.int16)))
+    return bool(torch.equal(a, b))
 
 
 def nvidia_smi_line() -> str:
@@ -424,16 +501,20 @@ def path_bn_shapes(net, batch: int):
 
 
 def path_matmul_products(net, batch: int):
-    """(M, K, N, A transposed, B transposed) of every matmul launch of
-    one training step: per pallas_fullc layer the forward x.w, and the
-    backward dy.w^T and x^T.dy (transposed operands are strided views)."""
+    """(M, K, N, A transposed, B transposed, operand dtypes) of every
+    matmul launch of one training step: per pallas_fullc layer the
+    forward x.w, and the backward dy.w^T and x^T.dy (transposed operands
+    are strided views). Under dtype = bfloat16 x and w are bf16 and dy,
+    the cotangent of the f32 output, is f32."""
     out = []
     for li in range(len(net.graph.layers)):
         if net.graph.effective_type(li) == "pallas_fullc":
             p = net.layer_objs[li].param
             m, k, n = batch, p.num_input_node, p.num_hidden
-            out += [(m, k, n, False, False), (m, n, k, False, True),
-                    (k, m, n, True, False)]
+            op = p.compute_dtype
+            out += [(m, k, n, False, False, (op, op)),
+                    (m, n, k, False, True, ("float32", op)),
+                    (k, m, n, True, False, (op, "float32"))]
     return out
 
 
@@ -444,54 +525,59 @@ def bound(nbytes: float, ops: float, bw: float, flops: float):
         "bytes" if nbytes / bw >= ops / flops else "operations"
 
 
-def bn_case(shape, bw: float, flops: float):
+def bn_case(shape, bw: float, flops: float, dtype: str = "float32"):
     """bn_apply forward and backward (relu fused, as on the path) on the
     card against their plain versions on the same inputs, with times
-    and bounds. Forward and dx must agree bit for bit; each channel sum
-    within SUM_RTOL of the sum of its terms' magnitudes (the f32 sums
-    run in another order than torch.sum's)."""
+    and bounds, on ``dtype`` activations (float32 scale and shift).
+    Forward and dx must agree bit for bit (in bf16 the same bits); each
+    channel sum within SUM_RTOL of the sum of its terms' magnitudes (the
+    f32 sums run in another order than torch.sum's)."""
     import torch
     from cxxnet_tpu_torch.layers import kernels
     dev = torch.device(DEVICE)
+    dt = _dt(dtype)
+    esz = torch.empty((), dtype=dt).element_size()
     gen = torch.Generator(device=dev).manual_seed(SEED + sum(shape))
     c = shape[-1]
     n = int(np.prod(shape))
-    nbuf = int(min(16, max(1, -(-200e6 // (n * 4)))))
-    xs = [torch.randn(shape, generator=gen, device=dev) for _ in range(nbuf)]
-    dys = [torch.randn(shape, generator=gen, device=dev)
+    nbuf = int(min(16, max(1, -(-200e6 // (n * esz)))))
+    xs = [torch.randn(shape, generator=gen, device=dev).to(dt)
+          for _ in range(nbuf)]
+    dys = [torch.randn(shape, generator=gen, device=dev).to(dt)
            for _ in range(nbuf)]
     scale = torch.rand(c, generator=gen, device=dev) + 0.5
     shift = 0.5 * torch.randn(c, generator=gen, device=dev)
     counts0 = kernels.launch_counts()
     y = kernels.bn_apply_fwd(xs[0], scale, shift, True)
     yp = kernels.bn_apply_plain(xs[0], scale, shift, True)
-    dx, ds, dt = kernels.bn_apply_bwd(xs[0], y, dys[0], scale, True)
+    dx, ds, dsh = kernels.bn_apply_bwd(xs[0], y, dys[0], scale, True)
     px, ps, pt = kernels.bn_apply_bwd_plain(xs[0], yp, dys[0], scale, True)
     axes = tuple(range(len(shape) - 1))
     dym = torch.where(yp > 0, dys[0], torch.zeros_like(dys[0]))
-    mag_s = (dym * xs[0]).abs().sum(axes)
-    mag_t = dym.abs().sum(axes)
+    mag_s = (dym * xs[0]).float().abs().sum(axes)
+    mag_t = dym.float().abs().sum(axes)
     torch.cuda.synchronize()
-    es, et = (ds - ps).abs(), (dt - pt).abs()
-    out = {"shape": list(shape),
-           "fwd_err": float((y - yp).abs().max()),
-           "dx_err": float((dx - px).abs().max()),
+    es, et = (ds - ps).abs(), (dsh - pt).abs()
+    out = {"shape": list(shape), "dtype": dtype,
+           "fwd_err": float((y.float() - yp.float()).abs().max()),
+           "dx_err": float((dx.float() - px.float()).abs().max()),
+           "fwd_exact": exact(y, yp), "dx_exact": exact(dx, px),
            "sum_err": float(max(es.max(), et.max())),
            "sum_rel": float(max((es / mag_s.clamp_min(1e-30)).max(),
                                 (et / mag_t.clamp_min(1e-30)).max()))}
-    out["ok"] = bool(out["fwd_err"] == 0.0 and out["dx_err"] == 0.0
+    out["ok"] = bool(out["fwd_exact"] and out["dx_exact"]
                      and bool((es <= SUM_RTOL * mag_s).all())
                      and bool((et <= SUM_RTOL * mag_t).all()))
-    del yp, dx, px, dym, ds, dt, ps, pt
+    del yp, dx, px, dym, ds, dsh, ps, pt
     # forward: read x, write y (+ scale, shift); mul, add, max each
-    out["fwd_bound_ms"], out["fwd_bound_by"] = bound(8 * n + 8 * c, 3 * n,
-                                                     bw, flops)
+    out["fwd_bound_ms"], out["fwd_bound_by"] = bound(
+        2 * esz * n + 8 * c, 3 * n, bw, flops)
     # backward: read x, y, dy, write dx (+ scale, two sums); select,
     # mul, add 0, mul, two adds each
-    out["bwd_bound_ms"], out["bwd_bound_by"] = bound(16 * n + 12 * c, 6 * n,
-                                                     bw, flops)
+    out["bwd_bound_ms"], out["bwd_bound_by"] = bound(
+        4 * esz * n + 12 * c, 6 * n, bw, flops)
     ys = [kernels.bn_apply_fwd(x, scale, shift, True) for x in xs]
-    iters = int(min(200, max(10, 4e9 // (8 * n))))
+    iters = int(min(200, max(10, 4e9 // (2 * esz * n))))
     out["fwd_ms"] = cuda_time_ms(
         lambda i: kernels.bn_apply_fwd(xs[i % nbuf], scale, shift, True),
         iters)
@@ -506,42 +592,68 @@ def bn_case(shape, bw: float, flops: float):
                                              dys[i % nbuf], scale, True),
         iters)
     # comparison and timing launches are not main-path launches
-    kernels.bn_apply_fwd.launches = counts0["bn_apply_fwd"]
-    kernels.bn_apply_bwd.launches = counts0["bn_apply_bwd"]
+    kernels.restore_launch_counts(counts0)
     del xs, dys, ys, y
     torch.cuda.empty_cache()
     return out
 
 
 def matmul_case(m: int, k: int, n: int, ta: bool, tb: bool, bw: float,
-                flops: float):
-    """The matmul kernel on the card against its plain version (and
-    torch.matmul, the library call) for an (M, K) . (K, N) product whose
-    operands may be transposed views; every output within SUM_RTOL of
-    sum_k |a * b|."""
+                flops: float, dtypes=("float32", "float32"),
+                tc_flops: float = 989e12):
+    """The matmul kernel on the card against its plain version for an
+    (M, K) . (K, N) product whose operands may be transposed views, each
+    of its own dtype (``dtypes``); every output within SUM_RTOL of
+    sum_k |a * b|. The library call: torch.matmul on two float32
+    operands; torch.mm(a, b, out_dtype=torch.float32) on two bf16 ones
+    (null, with the reason, where this torch lacks it); none for mixed
+    operands (no one call takes them). The bound's operations run at
+    the bf16 tensor-core rate ``tc_flops`` for a bf16 . bf16 product,
+    at the float32 rate otherwise."""
     import torch
     from cxxnet_tpu_torch.layers import kernels
     dev = torch.device(DEVICE)
+    da, db = _dt(dtypes[0]), _dt(dtypes[1])
     gen = torch.Generator(device=dev).manual_seed(SEED + m + 3 * k + 7 * n)
-    a = torch.randn((k, m) if ta else (m, k), generator=gen, device=dev)
-    b = torch.randn((n, k) if tb else (k, n), generator=gen, device=dev)
+    a = torch.randn((k, m) if ta else (m, k), generator=gen,
+                    device=dev).to(da)
+    b = torch.randn((n, k) if tb else (k, n), generator=gen,
+                    device=dev).to(db)
     A, B = (a.t() if ta else a), (b.t() if tb else b)
     counts0 = kernels.launch_counts()
     got = kernels.matmul_kernel(A, B)
     ref = kernels.matmul_plain(A, B)
-    mag = torch.matmul(A.abs(), B.abs())
+    mag = torch.matmul(A.float().abs(), B.float().abs())
     torch.cuda.synchronize()
     err = (got - ref).abs()
     out = {"mkn": [m, k, n], "a_transposed": ta, "b_transposed": tb,
+           "dtypes": list(dtypes),
            "max_abs_err": float(err.max()),
            "rel_err": float((err / mag.clamp_min(1e-30)).max()),
            "ok": bool((err <= SUM_RTOL * mag).all())}
+    nbytes = a.element_size() * m * k + b.element_size() * k * n + 4 * m * n
+    both_bf16 = da == db == torch.bfloat16
     out["bound_ms"], out["bound_by"] = bound(
-        4 * (m * k + k * n + m * n), 2 * m * n * k, bw, flops)
+        nbytes, 2 * m * n * k, bw, tc_flops if both_bf16 else flops)
     out["ms"] = cuda_time_ms(lambda i: kernels.matmul_kernel(A, B), 50)
     out["plain_ms"] = cuda_time_ms(lambda i: kernels.matmul_plain(A, B), 50)
-    out["library_ms"] = cuda_time_ms(lambda i: torch.matmul(A, B), 50)
-    kernels.matmul_kernel.launches = counts0["matmul"]
+    out["library_ms"] = None
+    if da == db == torch.float32:
+        out["library_ms"] = cuda_time_ms(lambda i: torch.matmul(A, B), 50)
+        out["library"] = "torch.matmul"
+    elif both_bf16:
+        out["library"] = "torch.mm(a, b, out_dtype=torch.float32)"
+        try:
+            torch.mm(A, B, out_dtype=torch.float32)
+        except (TypeError, RuntimeError) as e:
+            out["library_missing"] = "%s: %s" % (type(e).__name__,
+                                                 str(e)[:160])
+        else:
+            out["library_ms"] = cuda_time_ms(
+                lambda i: torch.mm(A, B, out_dtype=torch.float32), 50)
+    else:
+        out["library"] = "none: no one call multiplies mixed dtypes"
+    kernels.restore_launch_counts(counts0)
     return out
 
 
@@ -593,10 +705,11 @@ def max_err(a, b) -> float:
 
 
 def relu_pool_case(shape, k: int, bw: float, flops: float,
-                   nan: bool = False, timed: bool = True):
+                   nan: bool = False, timed: bool = True,
+                   dtype: str = "float32"):
     """relu_max_pool forward and backward on the card against their
-    plain versions on the same inputs, bit for bit: x in steps of 0.5
-    (positive windows hold tied maxima, every one credited), the
+    plain versions on the same ``dtype`` inputs, bit for bit: x in steps
+    of 0.5 (positive windows hold tied maxima, every one credited), the
     backward also with the cotangent as a permuted view (read through
     its strides). With ``timed``: kernel, plain and reference times
     (F.relu + F.max_pool2d, and their autograd backward) and the
@@ -605,16 +718,18 @@ def relu_pool_case(shape, k: int, bw: float, flops: float,
     import torch.nn.functional as F
     from cxxnet_tpu_torch.layers import kernels
     dev = torch.device(DEVICE)
+    dt = _dt(dtype)
+    esz = torch.empty((), dtype=dt).element_size()
     gen = torch.Generator(device=dev).manual_seed(SEED + sum(shape) + k)
     b, h, w, c = shape
     oshape = (b, h - k + 1, w - k + 1, c)
     n_in, n_out = int(np.prod(shape)), int(np.prod(oshape))
-    nbuf = int(min(8, max(1, -(-200e6 // (4 * n_in))))) if timed else 1
-    xs = [torch.round(2 * torch.randn(shape, generator=gen, device=dev)) / 2
-          for _ in range(nbuf)]
+    nbuf = int(min(8, max(1, -(-200e6 // (esz * n_in))))) if timed else 1
+    xs = [(torch.round(2 * torch.randn(shape, generator=gen, device=dev))
+           / 2).to(dt) for _ in range(nbuf)]
     if nan:
         xs[0].view(-1)[::997] = float("nan")
-    dys = [torch.randn(oshape, generator=gen, device=dev)
+    dys = [torch.randn(oshape, generator=gen, device=dev).to(dt)
            for _ in range(nbuf)]
     counts0 = kernels.launch_counts()
     strided0 = kernels.relu_max_pool_bwd.strided_dy
@@ -631,9 +746,10 @@ def relu_pool_case(shape, k: int, bw: float, flops: float,
     credits = sum(int(((r[:, di:di + oshape[1], dj:dj + oshape[2]] == yp)
                        & pos).sum()) for di in range(k) for dj in range(k))
     torch.cuda.synchronize()
-    out = {"shape": list(shape), "k": k, "nan": nan,
-           "fwd_err": max_err(y, yp), "bwd_err": max_err(dx, dxp),
-           "bwd_strided_dy_err": max_err(dxv, dxp),
+    out = {"shape": list(shape), "k": k, "nan": nan, "dtype": dtype,
+           "fwd_err": max_err(y.float(), yp.float()),
+           "bwd_err": max_err(dx.float(), dxp.float()),
+           "bwd_strided_dy_err": max_err(dxv.float(), dxp.float()),
            "fwd_exact": same_bits(y, yp),
            "bwd_exact": same_bits(dx, dxp) and same_bits(dxv, dxp),
            "tie_credits": credits - int(pos.sum()),
@@ -644,11 +760,11 @@ def relu_pool_case(shape, k: int, bw: float, flops: float,
         # forward: read x, write y; k*k maxima per output. backward: read
         # x, y, dy, write dx; k*k compares and adds per input
         out["fwd_bound_ms"], out["fwd_bound_by"] = bound(
-            4 * (n_in + n_out), k * k * n_out, bw, flops)
+            esz * (n_in + n_out), k * k * n_out, bw, flops)
         out["bwd_bound_ms"], out["bwd_bound_by"] = bound(
-            8 * (n_in + n_out), 2 * k * k * n_in, bw, flops)
+            2 * esz * (n_in + n_out), 2 * k * k * n_in, bw, flops)
         ys = [kernels.relu_max_pool_fwd(x, k) for x in xs]
-        iters = int(min(40, max(5, 2e9 // (4 * (n_in + n_out)))))
+        iters = int(min(40, max(5, 2e9 // (esz * (n_in + n_out)))))
         out["fwd_ms"] = cuda_time_ms(
             lambda i: kernels.relu_max_pool_fwd(xs[i % nbuf], k), iters)
         out["fwd_plain_ms"] = cuda_time_ms(
@@ -675,17 +791,16 @@ def relu_pool_case(shape, k: int, bw: float, flops: float,
                                           retain_graph=True), iters)
         del leaves, graphs, dys_nchw
     # comparison and timing launches are not main-path launches
-    kernels.relu_max_pool_fwd.launches = counts0["relu_max_pool_fwd"]
-    kernels.relu_max_pool_bwd.launches = counts0["relu_max_pool_bwd"]
+    kernels.restore_launch_counts(counts0)
     kernels.relu_max_pool_bwd.strided_dy = strided0
     del xs, dys, y
     torch.cuda.empty_cache()
     return out
 
 
-def relu_pool_section(bw: float, flops: float):
+def relu_pool_section(bw: float, flops: float, dtype: str = "float32"):
     """Every relu_max_pool shape of kaiming-224's batch-128 training
-    step, plus a ragged-channel and a NaN case."""
+    step, plus a ragged-channel and a NaN case, on ``dtype``."""
     from cxxnet_tpu_torch.nnet.net import FuncNet
     knet = FuncNet(_configured(kaiming_cfg(TRAIN_BATCH)), TRAIN_BATCH)
     shapes = path_relu_pool_shapes(knet, TRAIN_BATCH)
@@ -693,16 +808,18 @@ def relu_pool_section(bw: float, flops: float):
         raise RuntimeError("expected %d fused pools, the net has %d"
                            % (KAIMING_LAUNCHES["relu_max_pool_fwd"],
                               len(shapes)))
-    path = [relu_pool_case(s[:4], s[4], bw, flops) for s in shapes]
+    path = [relu_pool_case(s[:4], s[4], bw, flops, dtype=dtype)
+            for s in shapes]
     extra = [relu_pool_case((TRAIN_BATCH, 37, 37, 3), 3, bw, flops,
-                            timed=False),
+                            timed=False, dtype=dtype),
              relu_pool_case((16, 18, 18, 256), 3, bw, flops, nan=True,
-                            timed=False),
-             relu_pool_case((8, 9, 9, 12), 2, bw, flops, timed=False)]
+                            timed=False, dtype=dtype),
+             relu_pool_case((8, 9, 9, 12), 2, bw, flops, timed=False,
+                            dtype=dtype)]
     keys = ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "reference_fwd_ms",
             "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "reference_bwd_ms")
     cases = path + extra
-    return {"ok": all(c["ok"] for c in cases),
+    return {"ok": all(c["ok"] for c in cases), "dtype": dtype,
             "launches_per_step": len(path),
             "step_sum": {k: sum(c[k] for c in path) for k in keys},
             "fwd_max_abs_err": max(c["fwd_err"] for c in cases),
@@ -717,7 +834,101 @@ def relu_pool_section(bw: float, flops: float):
             "path_cases": path, "extra_cases": extra}
 
 
-def phase_kernels(bw: float, flops: float):
+def train_cfg_bf16(batch: int):
+    """The Inception-BN training slice at the repo's own mixed
+    precision: bench.py's ``dtype = grad_dtype = momentum_dtype =
+    bfloat16`` (``example/ImageNet/Inception-BN.conf`` trains at
+    ``dtype = bfloat16``)."""
+    return train_cfg(batch) + BENCH_BF16
+
+
+def kaiming_cfg_bf16(batch: int, pallas_pool: int = 1):
+    """kaiming-224 as bench.py's kaiming entry trains it: ``dtype =
+    momentum_dtype = bfloat16``."""
+    return kaiming_cfg(batch, pallas_pool) + [
+        ("dtype", "bfloat16"), ("momentum_dtype", "bfloat16")]
+
+
+def _step_of(cases, keys, counts=None):
+    """Per-step sums of ``keys`` over cases (each weighted by its
+    count); None for a key some case lacks a value of."""
+    out = {}
+    for k in keys:
+        vals = [c[k] for c in cases]
+        out[k] = None if any(v is None for v in vals) else sum(
+            v * (counts[i] if counts else 1) for i, v in enumerate(vals))
+    return out
+
+
+def training_kernel_section(bw: float, flops: float, tc_flops: float,
+                            bf16: bool):
+    """The training kernels on the card against their plain versions,
+    at every shape of their paths: bn_apply at Inception-BN-224's 69
+    batch-norm inputs (batch 128), matmul at fc1's three products,
+    relu_max_pool at kaiming-224's three fused pools; plus a ragged
+    matmul and the relu_max_pool extra cases. With ``bf16`` the bf16
+    instantiations at the bench set: bn_apply on bf16 activations,
+    matmul's bf16 . bf16 forward and f32 . bf16 and bf16 . f32
+    backward products, relu_max_pool on bf16. Forward and dx bit for
+    bit, sums within SUM_RTOL."""
+    from cxxnet_tpu_torch.nnet.net import FuncNet
+    dtype = "bfloat16" if bf16 else "float32"
+    cfg = train_cfg_bf16 if bf16 else train_cfg
+    expected = TRAIN_BF16_LAUNCHES if bf16 else TRAIN_LAUNCHES
+    sfx = "_bf16" if bf16 else ""
+    tnet = FuncNet(_configured(cfg(TRAIN_BATCH)), TRAIN_BATCH)
+    bn_shapes = path_bn_shapes(tnet, TRAIN_BATCH)
+    if len(bn_shapes) != expected["bn_apply_fwd" + sfx]:
+        raise RuntimeError("expected %d batch norms, the net has %d"
+                           % (expected["bn_apply_fwd" + sfx],
+                              len(bn_shapes)))
+    bn_cases = {}
+    for sh in sorted(set(bn_shapes), key=lambda v: -int(np.prod(v))):
+        bn_cases[sh] = bn_case(sh, bw, flops, dtype)
+    cases = list(bn_cases.values())
+    counts = [bn_shapes.count(sh) for sh in bn_cases]
+    bn = {"ok": all(c["ok"] for c in cases),
+          "launches_per_step": len(bn_shapes),
+          "distinct_path_shapes": len(bn_cases),
+          "step_sum": _step_of(cases, ("fwd_ms", "fwd_plain_ms",
+                                       "fwd_bound_ms", "bwd_ms",
+                                       "bwd_plain_ms", "bwd_bound_ms"),
+                               counts),
+          "fwd_max_abs_err": max(c["fwd_err"] for c in cases),
+          "bwd_max_abs_err": max(max(c["dx_err"], c["sum_err"])
+                                 for c in cases),
+          "bwd_sum_max_rel": max(c["sum_rel"] for c in cases),
+          "sum_rtol": SUM_RTOL,
+          "fwd_bound_by": "bytes" if all(c["fwd_bound_by"] == "bytes"
+                                         for c in cases) else "operations",
+          "bwd_bound_by": "bytes" if all(c["bwd_bound_by"] == "bytes"
+                                         for c in cases) else "operations",
+          "cases": [dict(c, count=n) for c, n in zip(cases, counts)]}
+    products = path_matmul_products(tnet, TRAIN_BATCH)
+    if len(products) != expected["matmul" + sfx]:
+        raise RuntimeError("expected %d matmul launches per step, the net "
+                           "has %d" % (expected["matmul" + sfx],
+                                       len(products)))
+    mm_path = [matmul_case(*p[:5], bw, flops, p[5], tc_flops)
+               for p in products]
+    mm_extra = [matmul_case(77, 1000, 129, False, True, bw, flops,
+                            (dtype, dtype), tc_flops)]
+    mm = {"ok": all(c["ok"] for c in mm_path + mm_extra),
+          "launches_per_step": len(products),
+          "step_sum": _step_of(mm_path, ("ms", "plain_ms", "library_ms",
+                                         "bound_ms")),
+          "max_abs_err": max(c["max_abs_err"] for c in mm_path + mm_extra),
+          "max_rel_err": max(c["rel_err"] for c in mm_path + mm_extra),
+          "rtol": SUM_RTOL,
+          "bound_by": "bytes" if all(c["bound_by"] == "bytes"
+                                     for c in mm_path) else "operations",
+          "path_cases": mm_path, "extra_cases": mm_extra}
+    rmp = relu_pool_section(bw, flops, dtype)
+    return {"ok": bn["ok"] and mm["ok"] and rmp["ok"], "bn_apply": bn,
+            "matmul": mm, "relu_max_pool": rmp}
+
+
+def phase_kernels(bw: float, flops: float, tc_flops: float):
     import torch
     from cxxnet_tpu_torch.nnet.net import FuncNet
     net = FuncNet(_configured(inception_cfg()), MAX_BATCH)
@@ -777,32 +988,11 @@ def phase_kernels(bw: float, flops: float):
                                           for c in int32_extra])
     bwd = epilogue_bwd_case(stem, bw, flops)
     ok = ok and lowp["int32"]["ok"] and lowp["bf16"]["ok"] and bwd["ok"]
-    # the training step's kernels, at its shapes (batch 128)
-    tnet = FuncNet(_configured(train_cfg(TRAIN_BATCH)), TRAIN_BATCH)
-    bn_shapes = path_bn_shapes(tnet, TRAIN_BATCH)
-    if len(bn_shapes) != TRAIN_LAUNCHES["bn_apply_fwd"]:
-        raise RuntimeError("expected %d batch norms, the net has %d"
-                           % (TRAIN_LAUNCHES["bn_apply_fwd"],
-                              len(bn_shapes)))
-    bn_cases = {}
-    for s in sorted(set(bn_shapes), key=lambda s: -int(np.prod(s))):
-        bn_cases[s] = bn_case(s, bw, flops)
-    bn_step = {k: sum(bn_cases[s][k] for s in bn_shapes)
-               for k in ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms",
-                         "bwd_ms", "bwd_plain_ms", "bwd_bound_ms")}
-    products = path_matmul_products(tnet, TRAIN_BATCH)
-    if len(products) != TRAIN_LAUNCHES["matmul"]:
-        raise RuntimeError("expected %d matmul launches per step, the net "
-                           "has %d" % (TRAIN_LAUNCHES["matmul"],
-                                       len(products)))
-    mm_path = [matmul_case(*p, bw, flops) for p in products]
-    mm_extra = [matmul_case(77, 1000, 129, False, True, bw, flops)]
-    mm_step = {k: sum(c[k] for c in mm_path)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    bn_ok = all(c["ok"] for c in bn_cases.values())
-    mm_ok = all(c["ok"] for c in mm_path + mm_extra)
-    rmp = relu_pool_section(bw, flops)
-    ok = ok and bn_ok and mm_ok and rmp["ok"]
+    # the training steps' kernels, at their shapes (batch 128), in
+    # float32 and in bf16
+    train = training_kernel_section(bw, flops, tc_flops, bf16=False)
+    train_bf16 = training_kernel_section(bw, flops, tc_flops, bf16=True)
+    ok = ok and train["ok"] and train_bf16["ok"]
     res = {"phase": "kernels", "ok": ok, "kernel": "conv_epilogue",
            "path_launches_per_forward": len(shapes),
            "distinct_path_shapes": len(per_shape),
@@ -816,36 +1006,9 @@ def phase_kernels(bw: float, flops: float):
            "extra_cases": extra,
            "int32": lowp["int32"], "bf16": lowp["bf16"],
            "backward": bwd,
-           "bn_apply": {
-               "ok": bn_ok, "launches_per_step": len(bn_shapes),
-               "distinct_path_shapes": len(bn_cases), "step_sum": bn_step,
-               "fwd_max_abs_err": max(c["fwd_err"]
-                                      for c in bn_cases.values()),
-               "bwd_max_abs_err": max(max(c["dx_err"], c["sum_err"])
-                                      for c in bn_cases.values()),
-               "bwd_sum_max_rel": max(c["sum_rel"]
-                                      for c in bn_cases.values()),
-               "sum_rtol": SUM_RTOL,
-               "fwd_bound_by": "bytes" if all(
-                   c["fwd_bound_by"] == "bytes" for c in bn_cases.values())
-               else "operations",
-               "bwd_bound_by": "bytes" if all(
-                   c["bwd_bound_by"] == "bytes" for c in bn_cases.values())
-               else "operations",
-               "cases": [dict(c, count=bn_shapes.count(tuple(c["shape"])))
-                         for c in bn_cases.values()]},
-           "matmul": {
-               "ok": mm_ok, "launches_per_step": len(products),
-               "step_sum": mm_step,
-               "max_abs_err": max(c["max_abs_err"]
-                                  for c in mm_path + mm_extra),
-               "max_rel_err": max(c["rel_err"] for c in mm_path + mm_extra),
-               "rtol": SUM_RTOL,
-               "bound_by": "bytes" if all(c["bound_by"] == "bytes"
-                                          for c in mm_path)
-               else "operations",
-               "path_cases": mm_path, "extra_cases": mm_extra},
-           "relu_max_pool": rmp}
+           "bn_apply": train["bn_apply"], "matmul": train["matmul"],
+           "relu_max_pool": train["relu_max_pool"],
+           "train_bf16": train_bf16}
     emit(res)
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version")
@@ -1459,6 +1622,28 @@ def inception_plain_cfg(cfg):
             for n, v in cfg if n != "bn_pallas"] + [("bn_pallas", "0")]
 
 
+def update_distances(runs, pairs):
+    """For runs mapping a name to (per-parameter update, ...): the
+    parameter keys, per (a, b) of ``pairs`` the list of ||d_a - d_b|| /
+    ||d_b|| over the keys, and the same over the whole update."""
+    keys = list(runs[pairs[0][1]][0])
+
+    def rel(a, b, k):
+        nb = float(runs[b][0][k].norm())
+        return float((runs[a][0][k] - runs[b][0][k]).norm()) / max(nb, 1e-30)
+
+    def whole(a, b):
+        num = sum(float((runs[a][0][k] - runs[b][0][k]).norm()) ** 2
+                  for k in keys)
+        den = sum(float(runs[b][0][k].norm()) ** 2 for k in keys)
+        return (num / max(den, 1e-60)) ** 0.5
+
+    names = ["%s_vs_%s" % p for p in pairs]
+    return (keys, {n: [rel(a, b, k) for k in keys]
+                   for n, (a, b) in zip(names, pairs)},
+            {n: whole(a, b) for n, (a, b) in zip(names, pairs)})
+
+
 def update_delta_check(workdir: str, cfg=None, plain_cfg=None,
                        same_masks: bool = False, tag: str = "train4"):
     """One update at batch 4 from the same seeded weights and batch,
@@ -1538,23 +1723,11 @@ def update_delta_check(workdir: str, cfg=None, plain_cfg=None,
     finally:
         common.dropout_uniform = uniform
 
-    def rel(a, b, k):
-        nb = float(runs[b][0][k].norm())
-        return float((runs[a][0][k] - runs[b][0][k]).norm()) / max(nb, 1e-30)
-
-    def whole(a, b):
-        num = sum(float((runs[a][0][k] - runs[b][0][k]).norm()) ** 2
-                  for k in runs[b][0])
-        den = sum(float(v.norm()) ** 2 for v in runs[b][0].values())
-        return (num / max(den, 1e-60)) ** 0.5
-
     # (run, reference): the held pairs first, then the reported ones
     held = (("gpu_f64", "cpu_f64"), ("gpu", "gpu_plain"))
     pairs = held + (("gpu", "cpu"), ("cpu", "cpu_f64"), ("gpu", "cpu_f64"),
                     ("gpu_no_cudnn", "cpu_f64"))
-    keys = list(runs["cpu"][0])
-    table = {"%s_vs_%s" % p: [rel(p[0], p[1], k) for k in keys]
-             for p in pairs}
+    keys, table, whole = update_distances(runs, pairs)
     failed = sorted({"%s/%s" % keys[i] for a, b in held
                      for i, r in enumerate(table["%s_vs_%s" % (a, b)])
                      if not r <= UPDATE_RTOL})
@@ -1563,13 +1736,163 @@ def update_delta_check(workdir: str, cfg=None, plain_cfg=None,
                   for k in loss)
     out = {"params": len(keys), "losses": loss, "loss_ok": loss_ok,
            "rtol": UPDATE_RTOL, "held": ["%s_vs_%s" % p for p in held],
-           "whole": {"%s_vs_%s" % p: whole(*p) for p in pairs},
+           "whole": whole,
            "worst": {name: max(v) for name, v in table.items()},
            "failed": failed,
            # [param, then one column per pair in the order of "whole"]
            "rows": [["%s/%s" % k] + [table[n][i] for n in table]
                     for i, k in enumerate(keys)]}
     out["ok"] = bool(loss_ok and not failed)
+    return out
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The training kernels' autograd entry points (``bn_apply``,
+    ``matmul``, ``relu_max_pool``, as the layers call them) swapped for
+    autograd Functions over their plain versions, with the kernels'
+    VJP arithmetic: the card's plain path of the same function, which
+    the wrappers themselves never take on a CUDA tensor."""
+    import torch
+    from cxxnet_tpu_torch.layers import common, conv
+    from cxxnet_tpu_torch.layers import kernels as K
+
+    class PlainBnApply(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, scale, shift, relu):
+            y = K.bn_apply_plain(x, scale, shift, relu)
+            ctx.relu = relu
+            ctx.save_for_backward(x, scale, y)
+            return y
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, scale, y = ctx.saved_tensors
+            return K.bn_apply_bwd_plain(x, y, dy, scale, ctx.relu) + (None,)
+
+    class PlainMatmul(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w):
+            ctx.save_for_backward(x, w)
+            return K.matmul_plain(x, w)
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, w = ctx.saved_tensors
+            return (K.matmul_plain(dy, w.t()).to(x.dtype),
+                    K.matmul_plain(x.t(), dy).to(w.dtype))
+
+    class PlainReluMaxPool(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, k):
+            x = x.contiguous()
+            y = K.relu_max_pool_plain(x, k)
+            ctx.k = k
+            ctx.save_for_backward(x, y)
+            return y
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, y = ctx.saved_tensors
+            return K.relu_max_pool_bwd_plain(x, y, dy, ctx.k), None
+
+    swaps = ((conv, "bn_apply", lambda x, s, t, relu=False:
+              PlainBnApply.apply(x, s, t, bool(relu))),
+             (common, "matmul", PlainMatmul.apply),
+             (conv, "relu_max_pool", lambda x, k:
+              PlainReluMaxPool.apply(x, int(k))))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def bf16_update_check(workdir: str, cfg, expected, tag: str,
+                      same_masks: bool = False):
+    """One update at batch 4 at a bf16 training config, from one seeded
+    snapshot and batch, on the card through the kernels and through
+    their plain versions (:func:`plain_kernels`), with cuDNN
+    deterministic; and, to show what a change of summation order alone
+    does to a bf16 update, the plain path with cuDNN off (im2col and
+    cuBLAS products), reported, not held. Per parameter
+    ||d_a - d_b|| / ||d_b|| with d = w_after - w_before. Held: the loss
+    within LOSS_RTOL, the whole update within BF16_UPDATE_RTOL (reason
+    there) and within BF16_ORDER_SHARE of the cuDNN-off distance, the
+    kernels' launches ``expected``, none on the plain path."""
+    import torch
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.layers import common, kernels
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    init = NetTrainer(cfg, device=DEVICE)
+    init.init_model()
+    path = os.path.join(workdir, "%s.model.npz" % tag)
+    init.save_model(path)
+    del init
+    rng = np.random.RandomState(SEED + 4)
+    batch = DataBatch(images(rng, 4),
+                      rng.randint(0, NCLASS, (4, 1)).astype(np.float32))
+
+    def delta(plain: bool, cudnn: bool = True):
+        t = NetTrainer(cfg, device=DEVICE)
+        t.load_model(path)
+        w0 = {(lk, tg): w.detach().cpu().clone()
+              for lk, sub in t.params.items() for tg, w in sub.items()}
+        before = kernels.launch_counts()
+        cudnn_was = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            with plain_kernels() if plain else contextlib.nullcontext():
+                t.update(batch)
+        finally:
+            torch.backends.cudnn.enabled = cudnn_was
+        after = kernels.launch_counts()
+        kernels.restore_launch_counts(before)
+        return ({k: t.params[k[0]][k[1]].detach().cpu().double()
+                 - w0[k].double() for k in w0}, t.last_loss,
+                {k: after[k] - before[k] for k in after})
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    uniform = common.dropout_uniform
+    if same_masks:
+        common.dropout_uniform = seeded_uniform
+    try:
+        runs = {"kernels": delta(False), "plain": delta(True),
+                "plain_no_cudnn": delta(True, cudnn=False)}
+    finally:
+        torch.backends.cudnn.deterministic = det
+        common.dropout_uniform = uniform
+    keys, table, whole = update_distances(
+        runs, (("kernels", "plain"), ("plain_no_cudnn", "plain")))
+    loss = {k: v[1] for k, v in runs.items()}
+    identical = sum(bool(torch.equal(runs["kernels"][0][k],
+                                     runs["plain"][0][k])) for k in keys)
+    out = {"params": len(keys), "losses": loss,
+           "loss_rel": abs(loss["kernels"] - loss["plain"])
+           / abs(loss["plain"]),
+           "bit_identical_params": identical,
+           "bit_for_bit": identical == len(keys),
+           "rtol": BF16_UPDATE_RTOL, "order_share": BF16_ORDER_SHARE,
+           "held": "kernels_vs_plain (whole), against rtol and against "
+                   "order_share * plain_no_cudnn_vs_plain",
+           "whole": whole,
+           "worst": {n: max(v) for n, v in table.items()},
+           "worst_param": {n: "%s/%s" % keys[int(np.argmax(v))]
+                           for n, v in table.items()},
+           "median": {n: float(np.median(v)) for n, v in table.items()},
+           "launches": {"kernels": runs["kernels"][2],
+                        "plain": runs["plain"][2]},
+           "expected_launches": expected}
+    out["ok"] = bool(out["loss_rel"] <= LOSS_RTOL
+                     and whole["kernels_vs_plain"] <= BF16_UPDATE_RTOL
+                     and whole["kernels_vs_plain"] <= BF16_ORDER_SHARE
+                     * whole["plain_no_cudnn_vs_plain"]
+                     and runs["kernels"][2] == expected
+                     and all(v == 0 for v in runs["plain"][2].values()))
     return out
 
 
@@ -1729,34 +2052,83 @@ def phase_train(workdir: str):
 # ------------------------------------------------------------- phase 6
 
 
+def phase_train_bf16(workdir: str, f32_step_ms: float):
+    """Inception-BN-224 at the bench set (``dtype = grad_dtype =
+    momentum_dtype = bfloat16``), batch 128: the training drive, exactly
+    69 + 69 bf16 bn_apply and 3 bf16 matmul launches per step and no
+    float32 one, then the batch-4 update through the kernels against
+    the card's bf16 plain path."""
+    import torch
+    t, res = drive_train(train_cfg_bf16(TRAIN_BATCH), TRAIN_BF16_LAUNCHES,
+                         BN_DEVICE_KEYS)
+    del t
+    torch.cuda.empty_cache()
+    delta = bf16_update_check(workdir, train_cfg_bf16(4),
+                              TRAIN_BF16_LAUNCHES, "train4_bf16")
+    res = dict({"phase": "train_bf16", "model": "inception_bn_224",
+                "config": "pallas_fullc fc1, bn_pallas, bn_fuse_relu, "
+                          "dtype = grad_dtype = momentum_dtype = "
+                          "bfloat16, sgd momentum 0.9"}, **res)
+    res.update(f32_step_ms=f32_step_ms, update_vs_plain=delta)
+    res["ok"] = bool(res["counted"] and res["loss_falls"] and delta["ok"])
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("train_bf16 phase failed")
+    return res
+
+
+# ------------------------------------------------------------- phase 7
+
+
 def phase_train_kaiming(workdir: str):
+    import torch
     t, res = drive_train(kaiming_cfg(TRAIN_BATCH), KAIMING_LAUNCHES,
                          RMP_DEVICE_KEYS)
     delta = update_delta_check(workdir, kaiming_cfg(4), kaiming_cfg(4, 0),
                                same_masks=True, tag="kaiming4")
     pools = pool_backward_check(t.net)
+    del t
+    torch.cuda.empty_cache()
+    # the same path at bench.py's kaiming set: relu_max_pool in bf16
+    tb, bres = drive_train(kaiming_cfg_bf16(TRAIN_BATCH),
+                           KAIMING_BF16_LAUNCHES, RMP_DEVICE_KEYS)
+    del tb
+    torch.cuda.empty_cache()
+    bdelta = bf16_update_check(workdir, kaiming_cfg_bf16(4),
+                               KAIMING_BF16_LAUNCHES, "kaiming4_bf16",
+                               same_masks=True)
+    bres = dict({"config": "fused_pools, pallas_pool = 1, dropout 0.5, "
+                           "dtype = momentum_dtype = bfloat16"}, **bres)
+    bres.update(update_vs_plain=bdelta)
     res = dict({"phase": "train_kaiming", "model": "kaiming_224",
                 "config": "fused_pools, pallas_pool = 1, dropout 0.5, "
                           "f32, TF32 off, sgd momentum 0.9"}, **res)
-    res.update(update_vs_cpu=delta, pool_backward_vs_cpu=pools)
+    res.update(update_vs_cpu=delta, pool_backward_vs_cpu=pools, bf16=bres)
     res["ok"] = bool(res["counted"] and res["loss_falls"] and delta["ok"]
-                     and all(p["ok"] for p in pools))
+                     and all(p["ok"] for p in pools) and bres["counted"]
+                     and bres["loss_falls"] and bdelta["ok"])
     emit(res)
     if not res["ok"]:
         raise RuntimeError("train_kaiming phase failed")
     return res
 
 
-def kernels_line(kres, sres, lres, tres, kmres, part: str):
-    """The ``kernels`` record: every ported kernel with its launches on
-    its path's run, its error against its plain version, its times on
-    the card and its bound, at the path's shapes."""
+def kernels_line(kres, sres, lres, tres, tbres, kmres, part: str):
+    """The ``kernels`` record: every ported kernel (and bf16
+    instantiation) with its launches on its path's run, its error
+    against its plain version, its times on the card and its bound, at
+    the path's shapes."""
     fwd = kres["forward_sum"]
     i32, b16, bwd = kres["int32"], kres["bf16"], kres["backward"]
     per_fwd = "one forward at bucket 128: %d launches" \
         % kres["path_launches_per_forward"]
     bn, mm, rmp = kres["bn_apply"], kres["matmul"], kres["relu_max_pool"]
     prof, kprof = tres["profile"], kmres["profile"]
+    kb = kres["train_bf16"]
+    bb, bm, br = kb["bn_apply"], kb["matmul"], kb["relu_max_pool"]
+    bprof, kbprof = tbres["profile"], kmres["bf16"]["profile"]
+    per_bstep = "one bench-set (bf16) training step at batch %d: %%d " \
+        "launches" % TRAIN_BATCH
     per_step = "one training step at batch %d" % TRAIN_BATCH
     per_kstep = "one kaiming-224 training step at batch %d: %d launches" \
         % (TRAIN_BATCH, rmp["launches_per_step"])
@@ -1787,14 +2159,15 @@ def kernels_line(kres, sres, lres, tres, kmres, part: str):
             r["conv_epilogue_bwd"] for r in (
                 sres["launches"], lres["launches"],
                 lres["bf16"]["launches"], tres["launches"],
-                kmres["launches"])), max_abs_err=bwd["dx_err"],
+                tbres["launches"], kmres["launches"],
+                kmres["bf16"]["launches"])), max_abs_err=bwd["dx_err"],
              ms=bwd["ms"], plain_ms=bwd["plain_ms"],
              bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
              library_ms=None, sum_max_rel_err=bwd["sum_rel"],
              per="one backward at the stem shape %s; launches: its "
-             "count over the five main-path runs (serve f32, int8, bf16, "
-             "train, train_kaiming), none of which differentiates it"
-             % bwd["shape"], peaks=part),
+             "count over the seven main-path runs (serve f32, int8, bf16, "
+             "train, train_bf16, train_kaiming f32 and bf16), none of "
+             "which differentiates it" % bwd["shape"], peaks=part),
         dict(BN_FWD, launches=tres["launches"]["bn_apply_fwd"],
              max_abs_err=bn["fwd_max_abs_err"], ms=bn["step_sum"]["fwd_ms"],
              plain_ms=bn["step_sum"]["fwd_plain_ms"],
@@ -1840,7 +2213,56 @@ def kernels_line(kres, sres, lres, tres, kmres, part: str):
              reference_ms=rmp["step_sum"]["reference_bwd_ms"],
              reference=rmp["reference"],
              device_ms=kprof["relu_pool_bwd_device_ms"], per=per_kstep,
-             peaks=part)]}
+             peaks=part),
+        dict(BN_FWD_BF16, launches=tbres["launches"]["bn_apply_fwd_bf16"],
+             max_abs_err=bb["fwd_max_abs_err"], ms=bb["step_sum"]["fwd_ms"],
+             plain_ms=bb["step_sum"]["fwd_plain_ms"],
+             bound_ms=bb["step_sum"]["fwd_bound_ms"],
+             bound_by=bb["fwd_bound_by"], library_ms=None,
+             device_ms=bprof["bn_fwd_device_ms"],
+             per=per_bstep % bb["launches_per_step"], peaks=part),
+        dict(BN_BWD_BF16, launches=tbres["launches"]["bn_apply_bwd_bf16"],
+             max_abs_err=bb["bwd_max_abs_err"], ms=bb["step_sum"]["bwd_ms"],
+             plain_ms=bb["step_sum"]["bwd_plain_ms"],
+             bound_ms=bb["step_sum"]["bwd_bound_ms"],
+             bound_by=bb["bwd_bound_by"], library_ms=None,
+             device_ms=bprof["bn_bwd_device_ms"],
+             sum_max_rel_err=bb["bwd_sum_max_rel"],
+             per=per_bstep % bb["launches_per_step"], peaks=part),
+        dict(MATMUL_BF16, launches=tbres["launches"]["matmul_bf16"],
+             max_abs_err=bm["max_abs_err"], ms=bm["step_sum"]["ms"],
+             plain_ms=bm["step_sum"]["plain_ms"],
+             bound_ms=bm["step_sum"]["bound_ms"], bound_by=bm["bound_by"],
+             library_ms=bm["step_sum"]["library_ms"],
+             library_fwd_ms=bm["path_cases"][0]["library_ms"],
+             library=[c["library"] for c in bm["path_cases"]],
+             library_missing=bm["path_cases"][0].get("library_missing"),
+             device_ms=bprof["matmul_device_ms"],
+             max_rel_err=bm["max_rel_err"],
+             per=(per_bstep % bm["launches_per_step"])
+             + " (bf16 . bf16, f32 . bf16, bf16 . f32)", peaks=part),
+        dict(RMP_FWD_BF16,
+             launches=kmres["bf16"]["launches"]["relu_max_pool_fwd_bf16"],
+             max_abs_err=br["fwd_max_abs_err"],
+             ms=br["step_sum"]["fwd_ms"],
+             plain_ms=br["step_sum"]["fwd_plain_ms"],
+             bound_ms=br["step_sum"]["fwd_bound_ms"],
+             bound_by=br["fwd_bound_by"], library_ms=None,
+             reference_ms=br["step_sum"]["reference_fwd_ms"],
+             reference=br["reference"],
+             device_ms=kbprof["relu_pool_fwd_device_ms"],
+             per=per_kstep + " (dtype = bfloat16)", peaks=part),
+        dict(RMP_BWD_BF16,
+             launches=kmres["bf16"]["launches"]["relu_max_pool_bwd_bf16"],
+             max_abs_err=br["bwd_max_abs_err"],
+             ms=br["step_sum"]["bwd_ms"],
+             plain_ms=br["step_sum"]["bwd_plain_ms"],
+             bound_ms=br["step_sum"]["bwd_bound_ms"],
+             bound_by=br["bwd_bound_by"], library_ms=None,
+             reference_ms=br["step_sum"]["reference_bwd_ms"],
+             reference=br["reference"],
+             device_ms=kbprof["relu_pool_bwd_device_ms"],
+             per=per_kstep + " (dtype = bfloat16)", peaks=part)]}
 
 
 def main() -> int:
@@ -1867,13 +2289,15 @@ def main() -> int:
         smi = phase_env()
         bw, flops, part = card_peaks(torch.cuda.get_device_name(0))
         phase = "kernels"
-        kres = phase_kernels(bw, flops)
+        kres = phase_kernels(bw, flops, bf16_tc_peak(part))
         phase = "serve"
         sres = phase_serve(workdir)
         phase = "serve_lowp"
         lres = phase_serve_lowp(workdir, kres)
         phase = "train"
         tres = phase_train(workdir)
+        phase = "train_bf16"
+        tbres = phase_train_bf16(workdir, tres["step_ms"])
         phase = "train_kaiming"
         kmres = phase_train_kaiming(workdir)
     except Exception as e:
@@ -1884,7 +2308,7 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    emit(kernels_line(kres, sres, lres, tres, kmres, part))
+    emit(kernels_line(kres, sres, lres, tres, tbres, kmres, part))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 // bn_apply for NVIDIA Hopper (sm_90a): the folded batch-norm epilogue
-// of the training forward and its backward, float32.
+// of the training forward and its backward, on float32 or bfloat16
+// activations (scale and shift are float32 either way).
 //
 // Forward (cxn_bn_apply_fwd), per channel c = i mod C of a contiguous
 // NHWC or (N, C) tensor:
@@ -14,23 +15,38 @@
 //     dscale[c] = sum_r dym[r,c] * x[r,c]        (f32)
 //     dshift[c] = sum_r dym[r,c]                 (f32)
 //
+// The arithmetic is the activation dtype's, as the reference's kernel
+// applies scale and shift "in the block's compute dtype": in float32
+// the multiply and the add are rounded separately (__fmul_rn,
+// __fadd_rn), as PyTorch rounds them. In bfloat16, scale and shift are
+// first rounded to bf16, and every multiply and add is rounded to bf16
+// (the f32 result of two bf16 operands, then one round to nearest
+// even), as PyTorch's and XLA's bf16 tensor ops round them:
+//
+//     y   = relu?(bf16(bf16(x * bf16(s)) + bf16(t)))
+//     dx  = bf16(bf16(dym * bf16(s)) + 0)
+//     dscale = sum_r f32(bf16(dym * x)),  dshift = sum_r f32(dym)
+//
+// So the kernel and its plain version agree bit for bit in both dtypes
+// (the two channel sums only up to their order).
+//
 // Replaces the TPU Pallas kernel cxxnet_tpu/layers/pallas_kernels.py:
 // 247-291 (_bn_apply_kernel / _bn_apply_call) and its VJP :294-322. The
 // reference's VJP runs the forward kernel again for dx (shift 0) and
 // leaves the two channel sums to XLA; here the backward is ONE pass
 // that reads x, y and dy once and writes dx, with the sums reduced on
-// the way. It does not depend on how scale and shift were made, so
-// conv_epilogue's VJP (pallas_kernels.py:367-400) can call it as is.
+// the way. At float32 it does not depend on how scale and shift were
+// made, so conv_epilogue's float32 VJP (pallas_kernels.py:367-400) can
+// call it as is (its bf16 VJP rounds differently and is not this).
 //
-// What bounds it: bytes. The forward reads x and writes y (8 bytes and
-// 2 flops per element); the backward reads x, y, dy and writes dx (16
-// bytes and 5 flops per element). Both sit far below the ~20 flop/byte
-// at which the card's f32 units become the limit. The design:
-//   - forward: conv_epilogue's grid-stride loop over 16-byte float4
-//     vectors (scalar when C % 4 != 0), scale and shift through the
-//     read-only cache, the multiply and the add rounded separately
-//     (__fmul_rn, __fadd_rn) as PyTorch rounds them, so the kernel and
-//     its plain version agree bit for bit;
+// What bounds it: bytes. The forward reads x and writes y (8 bytes a
+// float32 element, 4 a bfloat16 one, and 2 flops); the backward reads
+// x, y, dy and writes dx (16 or 8 bytes and 5 flops an element). Both
+// sit far below the ~20 flop/byte at which the card's f32 units become
+// the limit. The design:
+//   - forward: conv_epilogue's grid-stride loop over 4-element
+//     vectors (16-byte loads in float32, 8-byte in bf16; scalar when
+//     C % 4 != 0), scale and shift through the read-only cache;
 //   - backward: block (bx, by) owns a contiguous range of rows and a
 //     tile of channel vectors. Each thread keeps one channel vector
 //     fixed and walks rows, so its two partial sums live in registers;
@@ -47,6 +63,7 @@
 // Plain C interface, loaded with ctypes. Launches go on the caller's
 // stream; each entry returns cudaGetLastError() after its launches.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -70,108 +87,160 @@ bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
 }
 
-template <bool kRelu>
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The rounding of one tensor op in the activation dtype T.
+template <typename T>
+struct Arith;
+template <>
+struct Arith<float> {
+  static __device__ __forceinline__ float coef(float s) { return s; }
+  static __device__ __forceinline__ float mul(float a, float b) {
+    return __fmul_rn(a, b);
+  }
+  static __device__ __forceinline__ float add(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+};
+template <>
+struct Arith<__nv_bfloat16> {
+  static __device__ __forceinline__ float coef(float s) {
+    return round_bf16(s);
+  }
+  static __device__ __forceinline__ float mul(float a, float b) {
+    return round_bf16(__fmul_rn(a, b));
+  }
+  static __device__ __forceinline__ float add(float a, float b) {
+    return round_bf16(__fadd_rn(a, b));
+  }
+};
+
+// s and t already through Arith<T>::coef
+template <typename T, bool kRelu>
 __device__ __forceinline__ float apply(float x, float s, float t) {
-  float y = __fadd_rn(__fmul_rn(x, s), t);
+  float y = Arith<T>::add(Arith<T>::mul(x, s), t);
   if (kRelu) y = (y < 0.0f) ? 0.0f : y;   // NaN passes, as in torch.relu
   return y;
 }
 
+// V consecutive elements of a T tensor as floats (V = 4 or 1)
+template <int V>
+__device__ __forceinline__ void loadv(const float* p, float (&a)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    a[0] = q.x; a[1] = q.y; a[2] = q.z; a[3] = q.w;
+  } else {
+    a[0] = *p;
+  }
+}
+template <int V>
+__device__ __forceinline__ void loadv(const __nv_bfloat16* p, float (&a)[V]) {
+  if constexpr (V == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    a[0] = lo.x; a[1] = lo.y; a[2] = hi.x; a[3] = hi.y;
+  } else {
+    a[0] = __bfloat162float(*p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void storev(float* p, const float (&a)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  } else {
+    *p = a[0];
+  }
+}
+// the values are bf16-representable already: the conversion is exact
+template <int V>
+__device__ __forceinline__ void storev(__nv_bfloat16* p, const float (&a)[V]) {
+  if constexpr (V == 4) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(a[0], a[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(a[2], a[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<uint32_t*>(&lo);
+    q.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = q;
+  } else {
+    *p = __float2bfloat16_rn(a[0]);
+  }
+}
+
+// V consecutive float32 per-channel factors through the read-only cache
+template <int V>
+__device__ __forceinline__ void ldg_vec(const float* p, float (&a)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    a[0] = q.x; a[1] = q.y; a[2] = q.z; a[3] = q.w;
+  } else {
+    a[0] = __ldg(p);
+  }
+}
+
 // ---------------------------------------------------------------- forward
 
-template <bool kRelu>
+// nv vectors of V elements; C = V * cv channels
+template <typename T, int V, bool kRelu>
 __global__ void __launch_bounds__(kThreads)
-cxn_bn_fwd_vec4(const float* __restrict__ x, const float* __restrict__ scale,
-                const float* __restrict__ shift, float* __restrict__ y,
-                int64_t n4, int c4) {
+cxn_bn_fwd(const T* __restrict__ x, const float* __restrict__ scale,
+           const float* __restrict__ shift, T* __restrict__ y, int64_t nv,
+           int cv) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int step = static_cast<int>(stride % c4);
+  const int step = static_cast<int>(stride % cv);
   int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  int cv = static_cast<int>(v % c4);
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  const float4* s4 = reinterpret_cast<const float4*>(scale);
-  const float4* t4 = reinterpret_cast<const float4*>(shift);
-  float4* y4 = reinterpret_cast<float4*>(y);
-  for (; v < n4; v += stride) {
-    const float4 s = __ldg(s4 + cv);
-    const float4 t = __ldg(t4 + cv);
-    const float4 a = x4[v];
-    y4[v] = make_float4(apply<kRelu>(a.x, s.x, t.x), apply<kRelu>(a.y, s.y, t.y),
-                        apply<kRelu>(a.z, s.z, t.z), apply<kRelu>(a.w, s.w, t.w));
-    cv += step;
-    if (cv >= c4) cv -= c4;
+  int c = static_cast<int>(v % cv);
+  for (; v < nv; v += stride) {
+    float s[V], t[V], a[V];
+    ldg_vec<V>(scale + c * V, s);
+    ldg_vec<V>(shift + c * V, t);
+    loadv<V>(x + v * V, a);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      a[j] = apply<T, kRelu>(a[j], Arith<T>::coef(s[j]), Arith<T>::coef(t[j]));
+    }
+    storev<V>(y + v * V, a);
+    c += step;
+    if (c >= cv) c -= cv;
   }
 }
 
-template <bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-cxn_bn_fwd_scalar(const float* __restrict__ x, const float* __restrict__ scale,
-                  const float* __restrict__ shift, float* __restrict__ y, int64_t n,
-                  int c) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int step = static_cast<int>(stride % c);
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  int ci = static_cast<int>(i % c);
-  for (; i < n; i += stride) {
-    y[i] = apply<kRelu>(x[i], __ldg(scale + ci), __ldg(shift + ci));
-    ci += step;
-    if (ci >= c) ci -= c;
-  }
-}
-
-template <bool kRelu>
-void launch_fwd(const float* x, const float* scale, const float* shift,
-                float* y, int64_t n, int c, cudaStream_t stream) {
-  const bool vec = (c % 4 == 0) && aligned(x, 16) && aligned(y, 16) &&
-                   aligned(scale, 16) && aligned(shift, 16);
+template <typename T, bool kRelu>
+void launch_fwd(const T* x, const float* scale, const float* shift, T* y,
+                int64_t n, int c, cudaStream_t stream) {
+  const bool vec = (c % 4 == 0) && aligned(x, 4 * sizeof(T)) &&
+                   aligned(y, 4 * sizeof(T)) && aligned(scale, 16) &&
+                   aligned(shift, 16);
   const int64_t work = vec ? n / 4 : n;
   int64_t blocks = (work + kThreads - 1) / kThreads;
   const int64_t cap = static_cast<int64_t>(sm_count()) * kBlocksPerSm;
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   if (vec) {
-    cxn_bn_fwd_vec4<kRelu><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        x, scale, shift, y, work, c / 4);
+    cxn_bn_fwd<T, 4, kRelu><<<static_cast<unsigned>(blocks), kThreads, 0,
+                              stream>>>(x, scale, shift, y, work, c / 4);
   } else {
-    cxn_bn_fwd_scalar<kRelu><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        x, scale, shift, y, work, c);
+    cxn_bn_fwd<T, 1, kRelu><<<static_cast<unsigned>(blocks), kThreads, 0,
+                              stream>>>(x, scale, shift, y, work, c);
   }
 }
 
 // --------------------------------------------------------------- backward
 
-template <int V>
-__device__ __forceinline__ void loadv(const float* p, float (&a)[V]);
-template <>
-__device__ __forceinline__ void loadv<4>(const float* p, float (&a)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  a[0] = q.x; a[1] = q.y; a[2] = q.z; a[3] = q.w;
-}
-template <>
-__device__ __forceinline__ void loadv<1>(const float* p, float (&a)[1]) {
-  a[0] = *p;
-}
-
-template <int V>
-__device__ __forceinline__ void storev(float* p, const float (&a)[V]);
-template <>
-__device__ __forceinline__ void storev<4>(float* p, const float (&a)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
-}
-template <>
-__device__ __forceinline__ void storev<1>(float* p, const float (&a)[1]) {
-  *p = a[0];
-}
-
 // Block (blockIdx.x, blockIdx.y): rows [bx*rows_per_block, ...) and the
 // channel vectors [by*ct, by*ct + tile). Thread tid works on vector
 // tid % tile of the tile and on every rpi-th row from tid / tile.
 // part is (2, gridDim.x, c): the block's dscale row, then its dshift row.
-template <int V, bool kRelu>
+template <typename T, int V, bool kRelu>
 __global__ void __launch_bounds__(kThreads)
-cxn_bn_bwd_partial(const float* __restrict__ x, const float* __restrict__ y,
-                   const float* __restrict__ dy, const float* __restrict__ scale,
-                   float* __restrict__ dx, float* __restrict__ part, int64_t rows,
+cxn_bn_bwd_partial(const T* __restrict__ x, const T* __restrict__ y,
+                   const T* __restrict__ dy, const float* __restrict__ scale,
+                   T* __restrict__ dx, float* __restrict__ part, int64_t rows,
                    int c, int64_t ld_dy, int64_t rows_per_block, int ct) {
   __shared__ float red_s[kThreads][V];
   __shared__ float red_t[kThreads][V];
@@ -192,6 +261,8 @@ cxn_bn_bwd_partial(const float* __restrict__ x, const float* __restrict__ y,
   if (rr < rpi) {
     float s[V];
     loadv<V>(scale + ch, s);
+#pragma unroll
+    for (int j = 0; j < V; ++j) s[j] = Arith<T>::coef(s[j]);
     const int64_t r_end =
         min(rows, (static_cast<int64_t>(blockIdx.x) + 1) * rows_per_block);
     for (int64_t r = static_cast<int64_t>(blockIdx.x) * rows_per_block + rr;
@@ -210,8 +281,8 @@ cxn_bn_bwd_partial(const float* __restrict__ x, const float* __restrict__ y,
       for (int j = 0; j < V; ++j) {
         // dx as the reference computes it: the forward's arithmetic
         // with shift 0 (the + 0 turns -0 into +0, as it does there)
-        o[j] = __fadd_rn(__fmul_rn(dv[j], s[j]), 0.0f);
-        acc_s[j] += __fmul_rn(dv[j], xv[j]);
+        o[j] = Arith<T>::add(Arith<T>::mul(dv[j], s[j]), 0.0f);
+        acc_s[j] += Arith<T>::mul(dv[j], xv[j]);
         acc_t[j] += dv[j];
       }
       storev<V>(dx + off, o);
@@ -280,11 +351,11 @@ cxn_bn_bwd_finish(const float* __restrict__ part, int nbx, int c,
   }
 }
 
-template <int V, bool kRelu>
-void launch_bwd(const float* x, const float* y, const float* dy,
-                const float* scale, float* dx, float* part, int max_blocks,
-                float* dscale, float* dshift, int64_t rows, int c,
-                int64_t ld_dy, cudaStream_t stream) {
+template <typename T, int V, bool kRelu>
+void launch_bwd(const T* x, const T* y, const T* dy, const float* scale,
+                T* dx, float* part, int max_blocks, float* dscale,
+                float* dshift, int64_t rows, int c, int64_t ld_dy,
+                cudaStream_t stream) {
   const int nv = c / V;
   const int ct = nv < kThreads ? nv : kThreads;
   const int tiles = (nv + ct - 1) / ct;
@@ -299,73 +370,101 @@ void launch_bwd(const float* x, const float* y, const float* dy,
   const int64_t rows_per_block = (rows + want - 1) / want;
   const int64_t nbx = (rows + rows_per_block - 1) / rows_per_block;
   dim3 grid(static_cast<unsigned>(nbx), static_cast<unsigned>(tiles));
-  cxn_bn_bwd_partial<V, kRelu><<<grid, kThreads, 0, stream>>>(
+  cxn_bn_bwd_partial<T, V, kRelu><<<grid, kThreads, 0, stream>>>(
       x, y, dy, scale, dx, part, rows, c, ld_dy, rows_per_block, ct);
   cxn_bn_bwd_finish<<<(c + kFinishLanes - 1) / kFinishLanes, kThreads, 0,
                       stream>>>(part, static_cast<int>(nbx), c, dscale,
                                 dshift);
 }
 
+template <typename T>
+void fwd_typed(const void* x, const void* scale, const void* shift, void* y,
+               int64_t n, int c, int relu, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
+  T* yt = static_cast<T*>(y);
+  if (relu) {
+    launch_fwd<T, true>(xt, sc, sh, yt, n, c, s);
+  } else {
+    launch_fwd<T, false>(xt, sc, sh, yt, n, c, s);
+  }
+}
+
+template <typename T>
+void bwd_typed(const void* x, const void* y, const void* dy,
+               const void* scale, void* dx, void* part, int max_blocks,
+               void* dscale, void* dshift, int64_t rows, int c,
+               int64_t ld_dy, int relu, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const T* yt = static_cast<const T*>(y);
+  const T* dt = static_cast<const T*>(dy);
+  const float* sc = static_cast<const float*>(scale);
+  T* dxt = static_cast<T*>(dx);
+  float* pf = static_cast<float*>(part);
+  float* ds = static_cast<float*>(dscale);
+  float* dh = static_cast<float*>(dshift);
+  const uintptr_t va = 4 * sizeof(T);
+  const bool vec = (c % 4 == 0) && (ld_dy % 4 == 0) && aligned(x, va) &&
+                   aligned(dy, va) && aligned(dx, va) && aligned(scale, 16) &&
+                   (!relu || aligned(y, va));
+  if (vec && relu) {
+    launch_bwd<T, 4, true>(xt, yt, dt, sc, dxt, pf, max_blocks, ds, dh, rows,
+                           c, ld_dy, s);
+  } else if (vec) {
+    launch_bwd<T, 4, false>(xt, yt, dt, sc, dxt, pf, max_blocks, ds, dh, rows,
+                            c, ld_dy, s);
+  } else if (relu) {
+    launch_bwd<T, 1, true>(xt, yt, dt, sc, dxt, pf, max_blocks, ds, dh, rows,
+                           c, ld_dy, s);
+  } else {
+    launch_bwd<T, 1, false>(xt, yt, dt, sc, dxt, pf, max_blocks, ds, dh, rows,
+                            c, ld_dy, s);
+  }
+}
+
 }  // namespace
 
-// n elements, c channels (n % c == 0), all float32 and contiguous.
+// n elements, c channels (n % c == 0), contiguous; x and y float32
+// (dtype 0) or bfloat16 (dtype 1), scale and shift float32.
 // Returns a cudaError_t value; 0 is success.
 extern "C" int cxn_bn_apply_fwd(const void* x, const void* scale,
                                 const void* shift, void* y, long long n,
-                                int c, int relu, void* stream) {
-  if (n <= 0 || c <= 0 || n % c != 0) {
+                                int c, int relu, int dtype, void* stream) {
+  if (n <= 0 || c <= 0 || n % c != 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float* xf = static_cast<const float*>(x);
-  const float* sc = static_cast<const float*>(scale);
-  const float* sh = static_cast<const float*>(shift);
-  float* yf = static_cast<float*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (relu) {
-    launch_fwd<true>(xf, sc, sh, yf, n, c, s);
+  if (dtype == 0) {
+    fwd_typed<float>(x, scale, shift, y, n, c, relu, s);
   } else {
-    launch_fwd<false>(xf, sc, sh, yf, n, c, s);
+    fwd_typed<__nv_bfloat16>(x, scale, shift, y, n, c, relu, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// rows x c float32 tensors; x, y and dx contiguous, dy with row stride
-// ld_dy >= c; y may be null when relu == 0. part is a float32 scratch of
-// 2 * max_blocks * c values. dscale and dshift receive c float32 sums.
+// rows x c tensors of one dtype (0 float32, 1 bfloat16); x, y and dx
+// contiguous, dy with row stride ld_dy >= c; y may be null when relu ==
+// 0. scale is float32. part is a float32 scratch of 2 * max_blocks * c
+// values. dscale and dshift receive c float32 sums.
 // Returns a cudaError_t value; 0 is success.
 extern "C" int cxn_bn_apply_bwd(const void* x, const void* y,
                                 const void* dy, const void* scale, void* dx,
                                 void* part, int max_blocks, void* dscale,
                                 void* dshift, long long rows, int c,
-                                long long ld_dy, int relu, void* stream) {
+                                long long ld_dy, int relu, int dtype,
+                                void* stream) {
   if (rows <= 0 || c <= 0 || ld_dy < c || max_blocks < 1 ||
-      (relu && y == nullptr)) {
+      (relu && y == nullptr) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float* xf = static_cast<const float*>(x);
-  const float* yf = static_cast<const float*>(y);
-  const float* df = static_cast<const float*>(dy);
-  const float* sc = static_cast<const float*>(scale);
-  float* dxf = static_cast<float*>(dx);
-  float* pf = static_cast<float*>(part);
-  float* ds = static_cast<float*>(dscale);
-  float* dt = static_cast<float*>(dshift);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = (c % 4 == 0) && (ld_dy % 4 == 0) && aligned(x, 16) &&
-                   aligned(dy, 16) && aligned(dx, 16) && aligned(scale, 16) &&
-                   (!relu || aligned(y, 16));
-  if (vec && relu) {
-    launch_bwd<4, true>(xf, yf, df, sc, dxf, pf, max_blocks, ds, dt, rows, c,
-                        ld_dy, s);
-  } else if (vec) {
-    launch_bwd<4, false>(xf, yf, df, sc, dxf, pf, max_blocks, ds, dt, rows, c,
-                         ld_dy, s);
-  } else if (relu) {
-    launch_bwd<1, true>(xf, yf, df, sc, dxf, pf, max_blocks, ds, dt, rows, c,
-                        ld_dy, s);
+  if (dtype == 0) {
+    bwd_typed<float>(x, y, dy, scale, dx, part, max_blocks, dscale, dshift,
+                     rows, c, ld_dy, relu, s);
   } else {
-    launch_bwd<1, false>(xf, yf, df, sc, dxf, pf, max_blocks, ds, dt, rows, c,
-                         ld_dy, s);
+    bwd_typed<__nv_bfloat16>(x, y, dy, scale, dx, part, max_blocks, dscale,
+                             dshift, rows, c, ld_dy, relu, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,8 @@
 ``cxxnet_tpu/layers/__init__.py``), restricted to the layer types the
 ported serving and training slices run. Every other type the reference
 knows raises :class:`NotPortedError` naming the ROADMAP item that ports
-it; a type neither package knows raises ``ValueError``.
+it; a type neither package knows raises ``ValueError``, and so does
+``maxout``, which the reference registers without an implementation.
 """
 
 from __future__ import annotations
@@ -49,7 +50,10 @@ _FACTORY: Dict[str, Callable[..., Layer]] = {
 _NOT_PORTED = {t: Roadmap.LAYER_ZOO for t in (
     "insanity", "rrelu", "fixconn", "bias", "sum_pooling", "lrn", "xelu",
     "insanity_max_pooling", "lp_loss", "l2_loss", "multi_logistic", "prelu",
-    "batch_norm_no_ma", "torch", "maxout")}
+    "batch_norm_no_ma", "torch")}
+
+# registered in the reference's enum but rejected by its factory
+_VESTIGIAL = ("maxout",)
 
 
 def create_layer(type_str: str, cfg: Sequence[Tuple[str, str]] = (),
@@ -57,6 +61,10 @@ def create_layer(type_str: str, cfg: Sequence[Tuple[str, str]] = (),
     """Create a layer from its config-file type string."""
     if type_str.startswith("pairtest-"):
         raise NotPortedError("layer type %r" % type_str, Roadmap.LAYER_ZOO)
+    if type_str in _VESTIGIAL:
+        raise ValueError(
+            "layer type %r is registered but has no implementation "
+            "(matches reference factory behavior)" % type_str)
     if type_str in _NOT_PORTED:
         raise NotPortedError("layer type %r" % type_str,
                              _NOT_PORTED[type_str])

@@ -18,7 +18,6 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..utils.config import NotPortedError, Roadmap
 
 
 class Shape3(NamedTuple):
@@ -95,6 +94,10 @@ class LayerParam:
     silent: int = 0
     num_input_channel: int = 0
     num_input_node: int = 0
+    # mixed precision (``dtype``): 'bfloat16' casts the conv and fullc
+    # operands to bf16 (with f32 accumulation), so activations ride
+    # bf16 to the loss; weights and BN state stay float32
+    compute_dtype: str = "float32"
     # run the conv's per-channel BN-fold epilogue (scale/shift + relu)
     # as one pass of the conv_epilogue kernel on the conv output,
     # instead of folding the scale into the weights
@@ -151,9 +154,7 @@ class LayerParam:
         if name == "dtype":
             if val not in ("float32", "bfloat16"):
                 raise ValueError("dtype must be float32 or bfloat16")
-            if val == "bfloat16":
-                raise NotPortedError("dtype = bfloat16",
-                                     Roadmap.LOW_PRECISION_TRAINING)
+            self.compute_dtype = val
         if name == "pallas_pool":
             self.pallas_pool = int(val)
         if name == "conv_pallas_epilogue":

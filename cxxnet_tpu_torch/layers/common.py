@@ -4,10 +4,12 @@ training, differentiated by autograd:
 
 - fullc        — y = x @ W + b, W stored (in, out); at eval under
   ``serve_dtype = int8`` an int8 product into int32, dequantized per out
-  channel, under ``bfloat16`` a bf16 product
+  channel; under ``serve_dtype = bfloat16`` or ``dtype = bfloat16`` a
+  product of bf16 operands (bf16 output)
 - pallas_fullc — the same through the matmul kernel
   (``PallasFullConnectLayer``, counterpart of the reference's in
-  ``pallas_kernels.py:543-559``)
+  ``pallas_kernels.py:543-559``), whose output is float32 also on bf16
+  operands
 - flatten      — NHWC -> (batch, ch*y*x) in the reference's NCHW order
 - relu/sigmoid/tanh/softplus
 - dropout      — inverted dropout in training, identity at inference
@@ -93,7 +95,8 @@ class FullConnectLayer(Layer):
                 y = y + params["bias"]
             return [y], state
         w = params["wmat"]
-        if q is not None and q.dtype == "bfloat16":
+        if self.param.compute_dtype == "bfloat16" or (
+                q is not None and q.dtype == "bfloat16"):
             x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
         y = self._matmul(x, w)
         if self.param.no_bias == 0:

@@ -16,8 +16,10 @@
   int8 product accumulates in int32 (``quant_ops.conv_int8``) and the
   conv_epilogue kernel applies the per-channel dequant, the folded
   shift and the relu to the int32 accumulator. ``serve_dtype =
-  bfloat16``: the conv runs on bf16 operands and its epilogue keeps the
-  output bf16.
+  bfloat16`` and ``dtype = bfloat16`` (eval and training): the conv
+  runs on bf16 operands, its output (and its epilogue's) stays bf16,
+  and so the activations ride bf16 through batch norm, relu and the
+  pools to the loss.
 - ``relu_max_pooling`` fuses a relu before the max pool; where the
   reference's gate holds (stride 1, no pad, square window > 1) and
   ``pallas_pool = 1`` or the layer is ``pallas_relu_max_pooling``, it
@@ -38,7 +40,10 @@
   with the masked single-pass batch moments and applies the folded
   scale/shift through the ``bn_apply`` kernel under ``bn_pallas = 1``;
   the gradient through the moments is plain autograd, as it is XLA in
-  the reference.
+  the reference. Under ``dtype = bfloat16`` the moments are taken in
+  f32 from the bf16 input, scale and shift are made in f32, and
+  ``bn_apply`` applies them in bf16; the eval normalize promotes to
+  f32 and casts back (the reference's asymmetry, kept).
 """
 
 from __future__ import annotations
@@ -156,18 +161,25 @@ class ConvolutionLayer(Layer):
     def forward(self, params, state, inputs, is_train=False):
         p = self.param
         x = inputs[0]
+        bf16 = p.compute_dtype == "bfloat16"
         if is_train:
             # no fold: the training forward is conv + bias on the masters
-            y = self.conv(x, hwio_to_oihw(params["wmat"]))
+            # (or their bf16 shadow); under dtype = bfloat16 both
+            # operands and the output are bf16
+            w = params["wmat"]
+            if bf16:
+                x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+            y = self.conv(x, hwio_to_oihw(w))
             if p.no_bias == 0:
-                y = y + params["bias"]
+                y = y + params["bias"].to(y.dtype)
             return [y], state
         # the serve_dtype spec (nnet/quantize.attach): int8 contracts
-        # quantized operands, bfloat16 runs the conv and its epilogue in
-        # bf16 (the activations stay bf16 between layers)
+        # quantized operands, bfloat16 (or dtype = bfloat16) runs the
+        # conv and its epilogue in bf16 (the activations stay bf16
+        # between layers)
         q = self._quant
         quant = q is not None and q.is_affine
-        bf16 = q is not None and q.dtype == "bfloat16"
+        bf16 = bf16 or (q is not None and q.dtype == "bfloat16")
         out_dtype = torch.bfloat16 if bf16 else torch.float32
         shift = params.get("_r_shift")
         relu = False
@@ -181,7 +193,7 @@ class ConvolutionLayer(Layer):
             y = self._conv_quant(q, x, params["_wq"])
             return [self._epilogue(y, dq, shift, relu, out_dtype)], state
         w = params.get("_oihw")
-        if bf16:
+        if bf16 and not quant:
             x = x.to(torch.bfloat16)
         if shift is not None:
             # frozen weight-side fold: the weight was multiplied once
@@ -205,7 +217,7 @@ class ConvolutionLayer(Layer):
             if fold_scale is not None and not fold_in_epilogue:
                 w = w * fold_scale
             w = q.weight_operand(w) if quant else hwio_to_oihw(w)
-            if bf16:
+            if bf16 and not quant:
                 w = w.to(torch.bfloat16)
         y = self._conv_quant(q, x, w) if quant else self.conv(x, w)
         if fold_scale is not None:
@@ -421,8 +433,12 @@ class BatchNormLayer(Layer):
         x = inputs[0]
         slope, bias = params["wmat"], params["bias"]
         if not is_train:
+            # the eval normalize in (at least) f32, cast back to x's
+            # dtype, as the reference's eval path does
             scale, shift = self.fold(params, state)
-            return [bn_apply_plain(x, scale, shift, self.fuse_relu)], state
+            wide = torch.promote_types(x.dtype, scale.dtype)
+            out = (x.to(wide) * scale + shift).to(x.dtype)
+            return [torch.relu(out) if self.fuse_relu else out], state
         mean, var = self._moments(x, mask)
         if self.param.bn_fold_affine:
             scale = slope * torch.rsqrt(var + self.eps)

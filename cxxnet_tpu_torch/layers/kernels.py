@@ -16,14 +16,23 @@ here has
 Ported so far:
 
 - ``conv_epilogue`` on float32, bfloat16 and int32 (an int8
-  convolution's accumulator) input, differentiable in the float case:
-  its backward is the ``bn_apply`` backward kernel;
+  convolution's accumulator) input, differentiable for a float32
+  input: its backward is the ``bn_apply`` backward kernel;
 - ``bn_apply`` forward and backward (``bn_apply_fwd`` /
-  ``bn_apply_bwd``), differentiable as :func:`bn_apply`;
-- ``matmul``, differentiable as :func:`matmul`: the forward and both
-  backward products run through the kernel;
+  ``bn_apply_bwd``) on float32 and bfloat16 activations,
+  differentiable as :func:`bn_apply`;
+- ``matmul`` on float32 and bfloat16 operands (each its own dtype),
+  differentiable as :func:`matmul`: the forward and both backward
+  products run through the kernel;
 - ``relu_max_pool`` forward and backward (``relu_max_pool_fwd`` /
-  ``relu_max_pool_bwd``), differentiable as :func:`relu_max_pool`.
+  ``relu_max_pool_bwd``) on float32 and bfloat16, differentiable as
+  :func:`relu_max_pool`.
+
+The bf16 instantiations compute what the reference's dtype-generic
+Pallas kernels compute under ``dtype = bfloat16``; their plain
+versions, the oracle, round where PyTorch's bf16 tensor ops round.
+``bn_apply``, ``matmul`` and ``relu_max_pool`` count their float32 and
+bfloat16 launches apart: ``launches`` and ``launches_bf16``.
 """
 
 from __future__ import annotations
@@ -138,14 +147,15 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "conv_epilogue": {"cxn_conv_epilogue": [_P, _P, _P, _P, _L, _I, _I, _I,
                                             _I, _P]},
-    "bn_apply": {"cxn_bn_apply_fwd": [_P, _P, _P, _P, _L, _I, _I, _P],
+    "bn_apply": {"cxn_bn_apply_fwd": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
                  "cxn_bn_apply_bwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
-                                      _L, _I, _L, _I, _P]},
-    "matmul": {"cxn_matmul": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P]},
+                                      _L, _I, _L, _I, _I, _P]},
+    "matmul": {"cxn_matmul": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I,
+                              _I, _P]},
     "relu_max_pool": {
-        "cxn_relu_max_pool_fwd": [_P, _P, _I, _I, _I, _I, _I, _P],
+        "cxn_relu_max_pool_fwd": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
         "cxn_relu_max_pool_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
-                                  _L, _L, _P]},
+                                  _L, _L, _I, _P]},
 }
 
 
@@ -174,6 +184,15 @@ def _raise_on(err: int, what: str) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _count(fn, dtype: torch.dtype) -> None:
+    """One launch of ``fn``'s kernel on ``dtype`` data: ``launches``
+    counts the float32 ones, ``launches_bf16`` the bfloat16 ones."""
+    if dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
 def _require_cuda(t: torch.Tensor, what: str) -> None:
@@ -272,11 +291,14 @@ class _ConvEpilogue(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale, y = ctx.saved_tensors
-        if dy.dtype != x.dtype:
+        if dy.dtype != torch.float32 or x.dtype != torch.float32:
+            # the reference's bf16 VJP rounds dx once from f32 and sums
+            # f32(dym) * f32(x): not the bn_apply backward's bf16
+            # arithmetic, so no kernel of the port computes it yet
             raise NotPortedError("conv_epilogue's backward with a %s "
                                  "output over a %s input"
                                  % (dy.dtype, x.dtype),
-                                 Roadmap.LOW_PRECISION_TRAINING)
+                                 Roadmap.EPILOGUE_BF16_VJP)
         if _row_stride(dy) is None:
             dy = dy.contiguous()
         dx, dscale, dshift = bn_apply_bwd(x, y, dy, scale, ctx.relu)
@@ -323,7 +345,9 @@ def bn_apply_plain(x: torch.Tensor, scale: torch.Tensor,
                    shift: torch.Tensor, relu: bool) -> torch.Tensor:
     """``relu?(x * scale + shift)`` per channel in x's dtype: the plain
     version of the bn_apply forward kernel (the reference's
-    ``_bn_apply_kernel`` arithmetic)."""
+    ``_bn_apply_kernel`` arithmetic). On bfloat16, scale and shift are
+    rounded to bf16 and the product and the sum each round to bf16:
+    ``bf16(bf16(x * bf16(s)) + bf16(t))``."""
     y = x * scale.to(x.dtype) + shift.to(x.dtype)
     return torch.relu(y) if relu else y
 
@@ -334,7 +358,10 @@ def bn_apply_bwd_plain(x: torch.Tensor, y: Optional[torch.Tensor],
                                   torch.Tensor]:
     """(dx, dscale, dshift) of ``y = relu?(x * scale + shift)``: the
     plain version of the bn_apply backward kernel, written as the
-    reference's VJP (``pallas_kernels.py:305-322``) computes it."""
+    reference's VJP (``pallas_kernels.py:305-322``) computes it. On
+    bfloat16: ``dx = bf16(bf16(dym * bf16(s)) + 0)`` (the zero shift
+    turns -0 into +0), ``dscale = sum f32(bf16(dym * x))`` and ``dshift
+    = sum f32(dym)``, the sums in f32."""
     dym = torch.where(y > 0, dy, torch.zeros_like(dy)) if relu else dy
     dx = bn_apply_plain(dym, scale, torch.zeros_like(scale), False)
     axes = tuple(range(x.dim() - 1))
@@ -344,11 +371,9 @@ def bn_apply_bwd_plain(x: torch.Tensor, y: Optional[torch.Tensor],
 
 
 def _check_bn(what: str, x: torch.Tensor, scale: torch.Tensor) -> None:
-    if x.dtype == torch.bfloat16:
-        raise NotPortedError("%s on bfloat16 activations" % what,
-                             Roadmap.LOW_PRECISION_TRAINING)
-    if x.dtype != torch.float32:
-        raise TypeError("%s: x must be float32, got %s" % (what, x.dtype))
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError("%s: x must be float32 or bfloat16, got %s"
+                        % (what, x.dtype))
     if x.dim() not in (2, 4) or x.shape[-1] < 1:
         raise ValueError("%s: x must be NHWC or (N, C), got shape %s"
                          % (what, tuple(x.shape)))
@@ -383,9 +408,10 @@ def _row_stride(t: torch.Tensor) -> Optional[int]:
 def bn_apply_fwd(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                  relu: bool) -> torch.Tensor:
     """``relu?(x * scale + shift)`` per channel (last axis of a
-    contiguous float32 NHWC or (N, C) tensor): one launch of
-    ``cxn_bn_apply_fwd`` (``csrc/bn_apply.cu``) for a CUDA tensor, the
-    plain version for a CPU tensor."""
+    contiguous float32 or bfloat16 NHWC or (N, C) tensor; float32 scale
+    and shift) in x's dtype: one launch of ``cxn_bn_apply_fwd``
+    (``csrc/bn_apply.cu``) for a CUDA tensor, the plain version for a
+    CPU tensor."""
     _check_bn("bn_apply", x, scale)
     _check_vec("bn_apply", "shift", shift, x.shape[-1], x.device)
     if x.device.type == "cpu":
@@ -399,13 +425,14 @@ def bn_apply_fwd(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
         err = lib.cxn_bn_apply_fwd(x.data_ptr(), scale.data_ptr(),
                                    shift.data_ptr(), y.data_ptr(),
                                    x.numel(), x.shape[-1], int(bool(relu)),
-                                   _stream(x))
+                                   _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(err, "bn_apply")
-    bn_apply_fwd.launches += 1
+    _count(bn_apply_fwd, x.dtype)
     return y
 
 
 bn_apply_fwd.launches = 0
+bn_apply_fwd.launches_bf16 = 0
 
 _sm_counts: Dict[int, int] = {}
 
@@ -425,9 +452,10 @@ def bn_apply_bwd(x: torch.Tensor, y: Optional[torch.Tensor],
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx, dscale, dshift) of ``y = relu?(x * scale + shift)`` from the
     forward's input ``x``, its output ``y`` (read only under ``relu``)
-    and the cotangent ``dy``: one launch of ``cxn_bn_apply_bwd`` for
-    CUDA tensors, the plain version for CPU tensors. ``dy`` may be a
-    channel slice of a wider tensor."""
+    and the cotangent ``dy``, all of x's dtype (float32 or bfloat16):
+    one launch of ``cxn_bn_apply_bwd`` for CUDA tensors, the plain
+    version for CPU tensors. ``dy`` may be a channel slice of a wider
+    tensor; dscale and dshift are float32."""
     _check_bn("bn_apply_bwd", x, scale)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError("bn_apply_bwd: dy must match x, got %s %s on %s"
@@ -459,13 +487,14 @@ def bn_apply_bwd(x: torch.Tensor, y: Optional[torch.Tensor],
             x.data_ptr(), y.data_ptr() if relu else None, dy.data_ptr(),
             scale.data_ptr(), dx.data_ptr(), part.data_ptr(), max_blocks,
             dscale.data_ptr(), dshift.data_ptr(), x.numel() // c, c, ld,
-            int(bool(relu)), _stream(x))
+            int(bool(relu)), _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(err, "bn_apply_bwd")
-    bn_apply_bwd.launches += 1
+    _count(bn_apply_bwd, x.dtype)
     return dx, dscale, dshift
 
 
 bn_apply_bwd.launches = 0
+bn_apply_bwd.launches_bf16 = 0
 
 
 class _BnApply(torch.autograd.Function):
@@ -504,7 +533,9 @@ def bn_apply(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in float32 (the reference's ``jnp.dot`` with f32
-    accumulation): the plain version of the matmul kernel."""
+    accumulation and output, on float32 or bfloat16 operands): the
+    plain version of the matmul kernel. A bf16 operand converts to
+    float32 exactly."""
     return torch.matmul(a.float(), b.float())
 
 
@@ -522,17 +553,17 @@ def _mat_strides(t: torch.Tensor) -> Optional[Tuple[int, int]]:
 
 
 def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` for float32 (M, K) and (K, N) operands, each read
-    through its strides (row-major or transposed): one launch of
-    ``csrc/matmul.cu`` for CUDA tensors, the plain version for CPU
-    tensors. The output is a contiguous float32 (M, N)."""
+    """``a @ b`` for (M, K) and (K, N) operands, each float32 or
+    bfloat16 and read through its strides (row-major or transposed):
+    one launch of ``csrc/matmul.cu`` for CUDA tensors, the plain version
+    for CPU tensors. The output is a contiguous float32 (M, N). A launch
+    with a bfloat16 operand counts in ``launches_bf16``, one on two
+    float32 operands in ``launches``."""
     for nm, t in (("a", a), ("b", b)):
-        if t.dtype == torch.bfloat16:
-            raise NotPortedError("matmul on bfloat16 operands",
-                                 Roadmap.LOW_PRECISION_TRAINING)
-        if t.dtype != torch.float32 or t.dim() != 2:
-            raise ValueError("matmul: %s must be a 2-D float32 tensor, got "
-                             "%s %s" % (nm, t.dtype, tuple(t.shape)))
+        if t.dtype not in _DTYPE_CODE or t.dim() != 2:
+            raise ValueError("matmul: %s must be a 2-D float32 or bfloat16 "
+                             "tensor, got %s %s"
+                             % (nm, t.dtype, tuple(t.shape)))
         if _mat_strides(t) is None:
             raise ValueError("matmul: %s must have a unit stride, got %s"
                              % (nm, t.stride()))
@@ -556,19 +587,27 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     lib = _load("matmul")
     with torch.cuda.device(a.device):
         err = lib.cxn_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                             m, n, k, sam, sak, sbk, sbn, _stream(a))
+                             m, n, k, sam, sak, sbk, sbn,
+                             _DTYPE_CODE[a.dtype], _DTYPE_CODE[b.dtype],
+                             _stream(a))
     _raise_on(err, "matmul")
-    matmul_kernel.launches += 1
+    _count(matmul_kernel, torch.bfloat16
+           if torch.bfloat16 in (a.dtype, b.dtype) else torch.float32)
     return out
 
 
 matmul_kernel.launches = 0
+matmul_kernel.launches_bf16 = 0
 
 
 class _Matmul(torch.autograd.Function):
     """Counterpart of the reference's ``matmul`` custom VJP: the
     forward and both backward products (``dy·wᵀ``, ``xᵀ·dy``) run
-    through the kernel, the transposes as strided views."""
+    through the kernel, the transposes as strided views. The output and
+    so ``dy`` are float32; dx and dw are cast to their operand's dtype,
+    as the reference casts them (``pallas_kernels.py:79-83``): under
+    bf16 operands the two backward products are f32·bf16 and
+    bf16·f32."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -584,8 +623,10 @@ class _Matmul(torch.autograd.Function):
         x, w = ctx.saved_tensors
         if _mat_strides(dy) is None:
             dy = dy.contiguous()
-        dx = matmul_kernel(dy, w.t()) if ctx.needs_input_grad[0] else None
-        dw = matmul_kernel(x.t(), dy) if ctx.needs_input_grad[1] else None
+        dx = matmul_kernel(dy, w.t()).to(x.dtype) \
+            if ctx.needs_input_grad[0] else None
+        dw = matmul_kernel(x.t(), dy).to(w.dtype) \
+            if ctx.needs_input_grad[1] else None
         return dx, dw
 
 
@@ -618,7 +659,8 @@ def relu_max_pool_bwd_plain(x: torch.Tensor, y: torch.Tensor,
     cotangent, as the reference's backward kernel computes it: every
     input equal to its window's maximum gets the window's cotangent
     (every tied maximum, not the first only), summed in f32 over the
-    windows in (di, dj) order, then the ``x > 0`` mask."""
+    windows in (di, dj) order, then the ``x > 0`` mask, rounded once to
+    x's dtype (bfloat16 compares exactly in f32)."""
     r = torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device)) \
         .float()
     yf, dyf = y.float(), dy.float()
@@ -633,11 +675,9 @@ def relu_max_pool_bwd_plain(x: torch.Tensor, y: torch.Tensor,
 
 
 def _check_pool(what: str, x: torch.Tensor, k: int) -> None:
-    if x.dtype == torch.bfloat16:
-        raise NotPortedError("%s on bfloat16 activations" % what,
-                             Roadmap.LOW_PRECISION_TRAINING)
-    if x.dtype != torch.float32:
-        raise TypeError("%s: x must be float32, got %s" % (what, x.dtype))
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError("%s: x must be float32 or bfloat16, got %s"
+                        % (what, x.dtype))
     if x.dim() != 4:
         raise ValueError("%s: x must be NHWC, got shape %s"
                          % (what, tuple(x.shape)))
@@ -654,9 +694,9 @@ def _check_pool(what: str, x: torch.Tensor, k: int) -> None:
 
 def relu_max_pool_fwd(x: torch.Tensor, k: int) -> torch.Tensor:
     """``maxpool_{k x k, stride 1, VALID}(max(x, 0))`` of a contiguous
-    float32 NHWC tensor: one launch of ``cxn_relu_max_pool_fwd``
-    (``csrc/relu_max_pool.cu``) for a CUDA tensor, the plain version for
-    a CPU tensor."""
+    float32 or bfloat16 NHWC tensor: one launch of
+    ``cxn_relu_max_pool_fwd`` (``csrc/relu_max_pool.cu``) for a CUDA
+    tensor, the plain version for a CPU tensor."""
     _check_pool("relu_max_pool", x, k)
     if x.device.type == "cpu":
         return relu_max_pool_plain(x, k)
@@ -669,13 +709,15 @@ def relu_max_pool_fwd(x: torch.Tensor, k: int) -> torch.Tensor:
     lib = _load("relu_max_pool")
     with torch.cuda.device(x.device):
         err = lib.cxn_relu_max_pool_fwd(x.data_ptr(), y.data_ptr(), b, h, w,
-                                        c, k, _stream(x))
+                                        c, k, _DTYPE_CODE[x.dtype],
+                                        _stream(x))
     _raise_on(err, "relu_max_pool")
-    relu_max_pool_fwd.launches += 1
+    _count(relu_max_pool_fwd, x.dtype)
     return y
 
 
 relu_max_pool_fwd.launches = 0
+relu_max_pool_fwd.launches_bf16 = 0
 
 
 def relu_max_pool_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
@@ -709,15 +751,16 @@ def relu_max_pool_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     with torch.cuda.device(x.device):
         err = lib.cxn_relu_max_pool_bwd(
             x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(), b, h,
-            w, c, k, sb, sh, sw, sc, _stream(x))
+            w, c, k, sb, sh, sw, sc, _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(err, "relu_max_pool_bwd")
-    relu_max_pool_bwd.launches += 1
+    _count(relu_max_pool_bwd, x.dtype)
     if not dy.is_contiguous():
         relu_max_pool_bwd.strided_dy += 1
     return dx
 
 
 relu_max_pool_bwd.launches = 0
+relu_max_pool_bwd.launches_bf16 = 0
 relu_max_pool_bwd.strided_dy = 0
 
 
@@ -748,16 +791,24 @@ def relu_max_pool(x: torch.Tensor, k: int) -> torch.Tensor:
 
 # ------------------------------------------------------------ counters
 
-# launch counter name -> (wrapper, attribute)
+# launch counter name -> (wrapper, attribute). conv_epilogue's
+# ``launches`` counts all its launches (the others subsets of it); the
+# other kernels count float32 launches under their own name and
+# bfloat16 ones under ``<name>_bf16``
 _COUNTERS = {"conv_epilogue": (conv_epilogue, "launches"),
              "conv_epilogue_int32": (conv_epilogue, "launches_int32"),
              "conv_epilogue_bf16": (conv_epilogue, "launches_bf16"),
              "conv_epilogue_bwd": (conv_epilogue, "launches_bwd"),
              "bn_apply_fwd": (bn_apply_fwd, "launches"),
+             "bn_apply_fwd_bf16": (bn_apply_fwd, "launches_bf16"),
              "bn_apply_bwd": (bn_apply_bwd, "launches"),
+             "bn_apply_bwd_bf16": (bn_apply_bwd, "launches_bf16"),
              "matmul": (matmul_kernel, "launches"),
+             "matmul_bf16": (matmul_kernel, "launches_bf16"),
              "relu_max_pool_fwd": (relu_max_pool_fwd, "launches"),
-             "relu_max_pool_bwd": (relu_max_pool_bwd, "launches")}
+             "relu_max_pool_fwd_bf16": (relu_max_pool_fwd, "launches_bf16"),
+             "relu_max_pool_bwd": (relu_max_pool_bwd, "launches"),
+             "relu_max_pool_bwd_bf16": (relu_max_pool_bwd, "launches_bf16")}
 
 
 def reset_launch_counts() -> None:

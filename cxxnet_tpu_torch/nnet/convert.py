@@ -57,7 +57,8 @@ def params_to_numpy(params: Tree, state: Tree,
                     opt_state: Optional[OptTree] = None
                     ) -> Dict[str, np.ndarray]:
     """The inverse: snapshot arrays of a (params, state) pair, and of
-    the optimizer state when given."""
+    the optimizer state when given. A bfloat16 buffer (``momentum_dtype
+    = bfloat16``) is stored as float32, exactly: npz has no bf16."""
     out: Dict[str, np.ndarray] = {}
     for kind, tree in (("param", params), ("state", state)):
         for lkey, sub in tree.items():
@@ -67,6 +68,8 @@ def params_to_numpy(params: Tree, state: Tree,
     for lkey, tags in (opt_state or {}).items():
         for tag, st in tags.items():
             for name, t in st.items():
+                if t.dtype == torch.bfloat16:
+                    t = t.float()
                 out["opt/%s/%s/%s" % (lkey, tag, name)] = \
                     t.detach().cpu().numpy()
     return out

@@ -15,6 +15,15 @@ Stochastic layers (dropout) draw for the step's ``(seed, global sample
 step)``, so ``update``, ``update_many`` and ``run_steps`` give one batch
 sequence the same masks.
 
+Mixed precision, the reference's keys: ``dtype = bfloat16`` runs the
+convs and fullc layers on bf16 operands (``layers``); ``grad_dtype =
+bfloat16`` (which needs it) differentiates against a bf16 shadow of the
+float32 masters, so the cotangents flow in bf16, and the gradients are
+cast back before the update (``update_period > 1`` accumulates them in
+float32); ``momentum_dtype = bfloat16`` stores the sgd/nag momentum in
+bf16 (``updater``). Snapshots store such buffers as float32, and a
+resuming run casts them to its own ``momentum_dtype``.
+
 The freeze is the reference's device-resident serve weight tree
 (``serve_weight_residency = 1``, the default): the BN fold vectors are
 computed once at load, never per dispatch, and each conv weight is
@@ -75,6 +84,7 @@ class NetTrainer:
         self.update_period = 1
         self.eval_train = 0
         self.save_optimizer = 0
+        self.grad_dtype = "float32"      # bfloat16: bf16 cotangents
         self.serve_dtype = "float32"     # eval/pred compute dtype:
         #                                  float32 | bfloat16 | int8;
         #                                  int8 needs calibration tables
@@ -115,9 +125,7 @@ class NetTrainer:
                 if val not in ("float32", "bfloat16"):
                     raise ValueError(
                         "grad_dtype must be float32 or bfloat16")
-                if val == "bfloat16":
-                    raise NotPortedError("grad_dtype = bfloat16",
-                                         Roadmap.LOW_PRECISION_TRAINING)
+                self.grad_dtype = val
             if name == "remat":
                 if val not in ("none", "0", "full", "dots", "conv"):
                     raise ValueError("remat must be none|full|dots|conv")
@@ -202,13 +210,20 @@ class NetTrainer:
             for tag, st in tags.items():
                 for k in st:
                     if k in saved_o.get(lk, {}).get(tag, {}):
-                        st[k] = saved_o[lk][tag][k]
+                        # snapshots store float32; the momentum_dtype of
+                        # the resuming run wins
+                        st[k] = saved_o[lk][tag][k].to(st[k].dtype)
 
     def _post_init(self) -> None:
         """What init_model and load_model share after the weights are
         in place: one updater per (layer, tag) and its state, the metric
         bindings and the label fields."""
         g = self.graph
+        if self.grad_dtype == "bfloat16" and not any(
+                k == "dtype" and v == "bfloat16" for k, v in self.cfg):
+            raise ValueError(
+                "grad_dtype=bfloat16 requires dtype=bfloat16 (layers "
+                "must consume the bf16 weight shadow)")
         self.updaters: Dict[str, Dict[str, Any]] = {}
         for lkey, ptree in self.params.items():
             li = g.layer_name_map[lkey] if lkey in g.layer_name_map \
@@ -289,7 +304,8 @@ class NetTrainer:
                 layer = net.layer_objs[li]
                 q = layer._quant
                 quant = q is not None and q.is_affine
-                bf16 = q is not None and q.dtype == "bfloat16"
+                bf16 = layer.param.compute_dtype == "bfloat16" or (
+                    q is not None and q.dtype == "bfloat16")
                 w = p["wmat"]
                 if li in shared_primaries:
                     # every share site runs this layer's object: its
@@ -436,13 +452,20 @@ class NetTrainer:
         batch, then the update (or, under ``update_period > 1``, the f32
         accumulation that a closing window applies). ``step`` is the
         global sample step the layers' randomness is drawn for. Returns
-        the loss and, with ``collect``, the metric nodes' values."""
+        the loss and, with ``collect``, the metric nodes' values.
+
+        Under ``grad_dtype = bfloat16`` the forward reads a bf16 shadow
+        of every float32 weight, so autograd hands back bf16 gradients;
+        they are cast to the masters' dtype before the update."""
         trained = [(lk, tag) for lk, tags in self.opt_state.items()
                    for tag, st in tags.items() if st]
-        leaves = {lk: dict(sub) for lk, sub in self.params.items()}
+        shadow = self.grad_dtype == "bfloat16"
+        leaves = {lk: {t: v.to(torch.bfloat16)
+                       if shadow and v.dtype == torch.float32 else v
+                       for t, v in sub.items()}
+                  for lk, sub in self.params.items()}
         for lk, tag in trained:
-            leaves[lk][tag] = self.params[lk][tag].detach() \
-                .requires_grad_(True)
+            leaves[lk][tag] = leaves[lk][tag].detach().requires_grad_(True)
         nodes = tuple(self._metric_nodes) if collect else ()
         with torch.enable_grad():
             loss, (new_state, preds) = self.net.loss_fn(
@@ -456,7 +479,8 @@ class NetTrainer:
         self._serve_tree = None          # weights move: the frozen
         #                                  serve tree is stale
         with torch.no_grad():
-            g = dict(zip(trained, grads))
+            g = {k: v.to(self.params[k[0]][k[1]].dtype)
+                 for k, v in zip(trained, grads)}
             if self.update_period == 1:
                 self._apply_updates(g, epoch)
             else:

@@ -8,7 +8,9 @@ resolve as in the reference. The rules are written out by hand:
 ``torch.optim`` implements none of them as the reference does.
 
 - SGD: NaN-zeroing clip, momentum buffer, weight decay inside the
-  momentum term.
+  momentum term. ``momentum_dtype = bfloat16`` stores the sgd/nag
+  buffer in bf16; the update arithmetic stays f32 on the upcast buffer
+  and the new buffer is rounded back (to nearest even).
 - NAG: ``w += (1+mu)*m - mu*m_old``.
 - Adam: the reference's parameterization (decay = 1 - beta), bias
   correction with the integer ``epoch + 1``, and the reference's
@@ -34,6 +36,14 @@ Hyper = Dict[str, float]   # learning_rate, momentum, wd, epoch
 State = Dict[str, torch.Tensor]
 
 
+def _momentum_zeros(w: torch.Tensor, param: UpdaterParam) -> torch.Tensor:
+    """The momentum buffer in its storage dtype: bf16 for a float32
+    weight under ``momentum_dtype = bfloat16``, else w's dtype."""
+    if param.momentum_dtype == "bfloat16" and w.dtype == torch.float32:
+        return torch.zeros_like(w, dtype=torch.bfloat16)
+    return torch.zeros_like(w)
+
+
 def _clip_nan(g: torch.Tensor, bound: float) -> torch.Tensor:
     """NaN -> 0, then clamp to [-bound, bound]."""
     g = torch.where(torch.isnan(g), torch.zeros_like(g), g)
@@ -49,16 +59,16 @@ class SGDUpdater:
     def init_state(self, w: torch.Tensor) -> State:
         if self.param.frozen:
             return {}           # lr_mult=0: no momentum, no state bytes
-        return {"m_w": torch.zeros_like(w)}
+        return {"m_w": _momentum_zeros(w, self.param)}
 
     def apply(self, w: torch.Tensor, g: torch.Tensor, state: State,
               hyper: Hyper) -> Tuple[torch.Tensor, State]:
         p = self.param
         if p.clip_gradient != 0.0:
             g = _clip_nan(g, p.clip_gradient)
-        m_w = state["m_w"] * hyper["momentum"] \
+        m_w = state["m_w"].to(w.dtype) * hyper["momentum"] \
             - hyper["learning_rate"] * (g + hyper["wd"] * w)
-        return w + m_w, {"m_w": m_w}
+        return w + m_w, {"m_w": m_w.to(state["m_w"].dtype)}
 
 
 class NAGUpdater:
@@ -70,17 +80,17 @@ class NAGUpdater:
     def init_state(self, w: torch.Tensor) -> State:
         if self.param.frozen:
             return {}
-        return {"m_w": torch.zeros_like(w)}
+        return {"m_w": _momentum_zeros(w, self.param)}
 
     def apply(self, w, g, state, hyper):
         p = self.param
         if p.clip_gradient != 0.0:
             g = _clip_nan(g, p.clip_gradient)
-        old = state["m_w"]
+        old = state["m_w"].to(w.dtype)
         m_w = old * hyper["momentum"] \
             - hyper["learning_rate"] * (g + hyper["wd"] * w)
         w = w + (1.0 + hyper["momentum"]) * m_w - hyper["momentum"] * old
-        return w, {"m_w": m_w}
+        return w, {"m_w": m_w.to(state["m_w"].dtype)}
 
 
 class AdamUpdater:

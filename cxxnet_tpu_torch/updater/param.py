@@ -21,7 +21,6 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
-from ..utils.config import NotPortedError, Roadmap
 
 
 @dataclass
@@ -50,8 +49,7 @@ class UpdaterParam:
     # adam extras (adam_updater-inl.hpp:24-26: decay = 1 - beta)
     decay1: float = 0.1
     decay2: float = 0.001
-    # storage dtype of the sgd/nag momentum buffer: only float32 is
-    # ported (bfloat16 raises)
+    # storage dtype of the sgd/nag momentum buffer (float32 | bfloat16)
     momentum_dtype: str = "float32"
 
     @property
@@ -120,9 +118,6 @@ class UpdaterParam:
             if val not in ("float32", "bfloat16"):
                 raise ValueError(
                     "momentum_dtype must be float32 or bfloat16")
-            if val == "bfloat16":
-                raise NotPortedError("momentum_dtype = bfloat16",
-                                     Roadmap.LOW_PRECISION_TRAINING)
             self.momentum_dtype = val
         if name == "final_momentum":
             self.final_momentum = float(val)

@@ -29,7 +29,6 @@ class Roadmap:
     """The ``ROADMAP.md`` items (queue and title) that port what a
     :class:`NotPortedError` reports."""
     CLI = "queue 1, CLI tasks and iterators"
-    LOW_PRECISION_TRAINING = "queue 1, low-precision training"
     REMAT = "queue 1, rematerialization"
     LAYER_ZOO = "queue 1, rest of the layer zoo"
     CHECKPOINT_CLI = "queue 1, checkpoint and CLI remainder"
@@ -37,6 +36,7 @@ class Roadmap:
     BUNDLES = "queue 1, sealed bundles"
     MULTI_GPU = "queue 1, multi-GPU"
     POOL_CONCAT = "queue 2, pool_concat"
+    EPILOGUE_BF16_VJP = "queue 2, conv_epilogue's bf16 VJP"
 
 
 class NotPortedError(ConfigError):

@@ -98,10 +98,18 @@ def test_kernel_wrapper_on_cpu_tensor_counts_no_launch():
     kernels.matmul(x.reshape(6, 12), x.reshape(12, 6))
     xg = x.clone().requires_grad_(True)
     kernels.relu_max_pool(xg, 2).sum().backward()
+    # the bf16 instantiations, forward and backward
+    xb = x.bfloat16().requires_grad_(True)
+    kernels.bn_apply(xb, s, torch.zeros(4), True).sum().backward()
+    kernels.relu_max_pool(xb, 2).sum().backward()
+    wb = torch.ones(12, 6, dtype=torch.bfloat16, requires_grad=True)
+    kernels.matmul(xb.reshape(6, 12), wb).sum().backward()
     counts = kernels.launch_counts()
     assert set(counts) == {"conv_epilogue", "conv_epilogue_int32",
                            "conv_epilogue_bf16", "conv_epilogue_bwd",
-                           "bn_apply_fwd",
-                           "bn_apply_bwd", "matmul", "relu_max_pool_fwd",
-                           "relu_max_pool_bwd"}
+                           "bn_apply_fwd", "bn_apply_fwd_bf16",
+                           "bn_apply_bwd", "bn_apply_bwd_bf16", "matmul",
+                           "matmul_bf16", "relu_max_pool_fwd",
+                           "relu_max_pool_fwd_bf16", "relu_max_pool_bwd",
+                           "relu_max_pool_bwd_bf16"}
     assert all(v == 0 for v in counts.values())

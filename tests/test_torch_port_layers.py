@@ -214,3 +214,50 @@ def test_split_matches_jax():
     assert len(py) == 3
     for a, b in zip(jy, py):
         np.testing.assert_array_equal(b, a)
+
+
+def test_vestigial_maxout_raises_the_reference_error():
+    """``maxout`` is registered in the reference without an
+    implementation: both factories raise the same ValueError, which is
+    no NotPortedError (nothing will port it); an unknown type raises
+    ValueError in both too (the reference's tests/test_layers.py:461)."""
+    from cxxnet_tpu_torch.utils.config import NotPortedError
+    with pytest.raises(ValueError) as jerr:
+        jax_create("maxout", [])
+    with pytest.raises(ValueError) as perr:
+        create_layer("maxout", [])
+    assert str(perr.value) == str(jerr.value)
+    assert not isinstance(perr.value, NotPortedError)
+    with pytest.raises(ValueError, match="unknown layer type"):
+        create_layer("nonexistent_layer", [])
+
+
+@pytest.mark.parametrize("fuse_relu", [False, True], ids=["plain", "relu"])
+def test_batch_norm_eval_bf16_matches_jax(fuse_relu):
+    """At eval a bf16 input normalizes in f32 and casts back, as the
+    reference's eval path does (its training path applies scale and
+    shift in bf16 instead): one bf16 ulp of the reference value, as the
+    reference's rsqrt rounds once more than the port's."""
+    rng = np.random.RandomState(4)
+    c = 6
+    x = rng.randn(2, 3, 4, c).astype(np.float32) * 2 + 1
+    st = {"running_exp": rng.randn(c).astype(np.float32),
+          "running_var": (rng.rand(c) + 0.5).astype(np.float32)}
+    cfg = [("init_slope", "1.5"), ("init_bias", "0.2")]
+    jl, pl = jax_create("batch_norm", cfg), create_layer("batch_norm", cfg)
+    jl.infer_shape([JShape3(c, 3, 4)])
+    pl.infer_shape([Shape3(c, 3, 4)])
+    jl.fuse_relu = pl.fuse_relu = fuse_relu
+    xt = torch.from_numpy(x).bfloat16()
+    xj = jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16)
+    jp = {k: jnp.asarray(v) for k, v in jl.init_params(None).items()}
+    (jo,), _ = jl.forward(jp, {k: jnp.asarray(v) for k, v in st.items()},
+                          [xj], False, None)
+    pp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    (po,), _ = pl.forward(pp, {k: torch.from_numpy(v) for k, v in st.items()},
+                          [xt], False)
+    assert po.dtype == torch.bfloat16 and str(jo.dtype) == "bfloat16"
+    ref = np.asarray(jo, np.float32)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126)))
+                  - 7)
+    assert np.all(np.abs(po.float().numpy() - ref) <= ulp)
