@@ -35,11 +35,24 @@ the script exits non-zero without a result line):
              (forward and dx the same bits, sums within rtol 1e-5),
              matmul at fc1's bf16 . bf16, f32 . bf16 and bf16 . f32
              products (library: torch.mm with out_dtype=float32), and
-             relu_max_pool at kaiming-224's pools (the same bits). Max error,
-             kernel / plain / library times (CUDA events) and the bound
-             from bytes and operations; for relu_max_pool, in place of a
-             library call, F.relu + F.max_pool2d and their autograd
-             backward (two calls, and a backward that credits one tie).
+             relu_max_pool at kaiming-224's pools (the same bits). The
+             pool_concat slice: ``pool_concat`` forward and the pool
+             branch's backward at every fused concat of the Inception
+             tower (phase 8) at batch 128, f32 and bf16, the same bits as
+             the plain versions on inputs in steps of 0.5, from
+             channels-last views of the branches and a permuted
+             cotangent, plus ragged widths (k = 5), a NaN and an N(0, 9)
+             avg case; conv_epilogue's bf16 VJP (``cxn_conv_epilogue_bwd``)
+             at the stem shape for (x, y) = (bf16, bf16), (f32, bf16),
+             (bf16, f32): dx the same bits, sums within rtol 1e-5; the
+             bf16 bias gradient (``bias_grad_bf16``, XLA:CPU's summation
+             order) at kaiming-224's 14 bias shapes, the same bits. Max
+             error, kernel / plain / library times (CUDA events) and the
+             bound from bytes and operations; for relu_max_pool, in place
+             of a library call, F.relu + F.max_pool2d and their autograd
+             backward (two calls, and a backward that credits one tie);
+             for pool_concat F.pad + F.max_pool2d / F.avg_pool2d +
+             torch.cat and their backward.
 3. serve   — Inception-BN-224 (1000 classes, random weights from a seed,
              realistic BN running stats) saved as a snapshot, served
              through ``ServeSession(device="cuda")`` to closed-loop
@@ -100,8 +113,24 @@ the script exits non-zero without a result line):
              and the SPP max pools' backward against the CPU's. Then the
              same at bench.py's kaiming set (``dtype = momentum_dtype =
              bfloat16``): exactly 3 + 3 bf16 relu_max_pool launches per
-             step, the loss falling, and phase 6's batch-4 check with
-             the same masks.
+             step and 14 bf16 bias gradients (``bias_grad_bf16``), the
+             loss falling, and phase 6's batch-4 check with the same
+             masks.
+8. tower   — the pool_concat slice: an Inception tower (Inception-BN-224's
+             stem, then t3a / t3b / t3c / t4a at Inception-BN's widths
+             without the pool projections, global avg pool, fc1, 1000
+             classes) with ``pool_concat_pallas = 1``. Trained at batch
+             128 as phase 5 (exactly 26 + 26 bn_apply, 3 matmul and 2 + 2
+             pool_concat launches per step, t3a's avg and t4a's max
+             concat fused; the float64 batch-4 update check, its plain
+             runs through pool_concat's plain version) and at the bench
+             set as phase 6 (26 + 26 bf16 bn_apply, 3 bf16 matmul and 3 + 3
+             bf16 pool_concat, the gate admitting t3b's concat at bf16;
+             the batch-4 check against the card's bf16 plain path); then
+             served at f32 from a snapshot through
+             ``ServeSession(device="cuda")`` with phase 3's drive: 0
+             failed requests, exactly 26 conv_epilogue and 2 pool_concat
+             launches per forward, 4 rows against the CPU.
 
 Then a ``kernels`` line (every ported kernel with its launches, error
 and times), the ``nvidia-smi`` line, and the last line
@@ -155,6 +184,21 @@ BN_BWD_BF16 = dict(BN_BWD, name="bn_apply_bwd_bf16")
 MATMUL_BF16 = dict(MATMUL, name="matmul_bf16")
 RMP_FWD_BF16 = dict(RMP_FWD, name="relu_max_pool_fwd_bf16")
 RMP_BWD_BF16 = dict(RMP_BWD, name="relu_max_pool_bwd_bf16")
+# the last two TPU kernels: pool_concat (forward, and its VJP, XLA code
+# in the reference), and conv_epilogue's VJP on bf16; and the bias
+# gradient under dtype = bfloat16 (XLA's bf16 reduce in the reference)
+PC_FWD = {"name": "pool_concat_fwd", "route": "cuda",
+          "source": "cxxnet_tpu_torch/csrc/pool_concat.cu",
+          "replaces": "cxxnet_tpu/layers/pallas_kernels.py:412"}
+PC_BWD = {"name": "pool_concat_bwd", "route": "cuda",
+          "source": "cxxnet_tpu_torch/csrc/pool_concat.cu",
+          "replaces": "cxxnet_tpu/layers/pallas_kernels.py:494"}
+PC_FWD_BF16 = dict(PC_FWD, name="pool_concat_fwd_bf16")
+PC_BWD_BF16 = dict(PC_BWD, name="pool_concat_bwd_bf16")
+EPILOGUE_BWD_BF16 = dict(EPILOGUE_BWD, name="conv_epilogue_bwd_bf16")
+BIAS_BF16 = {"name": "bias_grad_bf16", "route": "cuda",
+             "source": "cxxnet_tpu_torch/csrc/bias_grad_bf16.cu",
+             "replaces": "cxxnet_tpu/layers/conv.py:258"}
 NCLASS = 1000
 DEVICE = "cuda"
 TRAIN_BATCH = 128
@@ -167,10 +211,12 @@ WARM_STEPS, TIMED_STEPS = 2, 10
 # matmul and relu_max_pool count float32 and bf16 launches apart
 NO_LAUNCHES = {k: 0 for k in (
     "conv_epilogue", "conv_epilogue_int32", "conv_epilogue_bf16",
-    "conv_epilogue_bwd", "bn_apply_fwd", "bn_apply_fwd_bf16",
-    "bn_apply_bwd", "bn_apply_bwd_bf16", "matmul", "matmul_bf16",
-    "relu_max_pool_fwd", "relu_max_pool_fwd_bf16", "relu_max_pool_bwd",
-    "relu_max_pool_bwd_bf16")}
+    "conv_epilogue_bwd", "conv_epilogue_bwd_bf16", "bn_apply_fwd",
+    "bn_apply_fwd_bf16", "bn_apply_bwd", "bn_apply_bwd_bf16", "matmul",
+    "matmul_bf16", "relu_max_pool_fwd", "relu_max_pool_fwd_bf16",
+    "relu_max_pool_bwd", "relu_max_pool_bwd_bf16", "pool_concat_fwd",
+    "pool_concat_fwd_bf16", "pool_concat_bwd", "pool_concat_bwd_bf16",
+    "bias_grad_bf16")}
 # per training step of Inception-BN-224: launches each wrapper must
 # count, in float32 and at the bench set
 TRAIN_LAUNCHES = dict(NO_LAUNCHES, bn_apply_fwd=69, bn_apply_bwd=69,
@@ -180,8 +226,19 @@ TRAIN_BF16_LAUNCHES = dict(NO_LAUNCHES, bn_apply_fwd_bf16=69,
 # per training step of kaiming-224 with fused_pools and pallas_pool = 1
 KAIMING_LAUNCHES = dict(NO_LAUNCHES, relu_max_pool_fwd=3,
                         relu_max_pool_bwd=3)
+# (at dtype = bfloat16 every conv and fullc bias of kaiming's 11 convs
+# and 3 fullc layers sums its gradient in bf16)
 KAIMING_BF16_LAUNCHES = dict(NO_LAUNCHES, relu_max_pool_fwd_bf16=3,
-                             relu_max_pool_bwd_bf16=3)
+                             relu_max_pool_bwd_bf16=3, bias_grad_bf16=14)
+# per training step of the Inception tower (phase 8): 26 batch norms, fc1
+# as pallas_fullc, the fused concats (2 at f32, 3 at the bench set)
+TOWER_LAUNCHES = dict(NO_LAUNCHES, bn_apply_fwd=26, bn_apply_bwd=26,
+                      matmul=3, pool_concat_fwd=2, pool_concat_bwd=2)
+TOWER_BF16_LAUNCHES = dict(NO_LAUNCHES, bn_apply_fwd_bf16=26,
+                           bn_apply_bwd_bf16=26, matmul_bf16=3,
+                           pool_concat_fwd_bf16=3, pool_concat_bwd_bf16=3)
+# per served forward of the tower: every folded conv, the fused concats
+TOWER_SERVE_LAUNCHES = dict(NO_LAUNCHES, conv_epilogue=26, pool_concat_fwd=2)
 # per bucket forward of the float32-served Inception-BN-224 (every
 # folded conv's output through conv_epilogue), of the int8-served one
 # (every conv's int32 accumulator) and of the bf16-served one
@@ -928,6 +985,316 @@ def training_kernel_section(bw: float, flops: float, tc_flops: float,
             "matmul": mm, "relu_max_pool": rmp}
 
 
+def bits_equal(a, b) -> bool:
+    """The same bits where neither is NaN (so -0 differs from +0) and
+    NaN at the same places (a NaN's payload aside)."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return False
+    iv = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    return bool(torch.equal(torch.where(na, zero, a).view(iv),
+                            torch.where(nb, zero, b).view(iv)))
+
+
+def path_concat_shapes(net, batch: int):
+    """(branch widths, pool position, k, mode, H, W, batch) of every
+    fused concat of ``net`` (its pool_concat launches per forward, and
+    per backward)."""
+    out = []
+    for li, (pos, k, mode) in sorted(net.fused_concats.items()):
+        ins = net.layer_objs[li].in_shapes
+        out.append((tuple(s.ch for s in ins), pos, k, mode, ins[0].y,
+                    ins[0].x, batch))
+    return out
+
+
+def pool_concat_case(widths, pos: int, k: int, mode: str, h: int, w: int,
+                     batch: int, bw: float, flops: float,
+                     dtype: str = "float32", nan: bool = False,
+                     grid: bool = True, timed: bool = True):
+    """pool_concat forward and the pool branch's backward on the card
+    against their plain versions on the same inputs, the same bits:
+    inputs in steps of 0.5 (``grid``: tied maxima, exact zeros) or
+    N(0, 9) (avg sums that round), optionally NaN in the pool branch;
+    the forward also from channels-last views of the branches (read
+    through their strides), the backward also from a permuted
+    cotangent. With ``timed``: kernel, plain and reference times (F.pad
+    + F.max_pool2d / F.avg_pool2d + torch.cat, and its autograd
+    backward) and the bounds."""
+    import torch
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch.layers import kernels
+    dev = torch.device(DEVICE)
+    dt = _dt(dtype)
+    esz = torch.empty((), dtype=dt).element_size()
+    gen = torch.Generator(device=dev).manual_seed(SEED + sum(widths) + k + h)
+    ctot, cp = sum(widths), widths[pos]
+    off = sum(widths[:pos])
+    n_out, n_pool = batch * h * w * ctot, batch * h * w * cp
+    nbuf = 2 if timed else 1
+
+    def draw(shape):
+        v = torch.randn(shape, generator=gen, device=dev)
+        return (torch.round(2 * v) / 2 if grid else 3 * v).to(dt)
+    xs = [[draw((batch, h, w, c)) for c in widths] for _ in range(nbuf)]
+    if nan:
+        xs[0][pos].view(-1)[::997] = float("nan")
+    dys = [torch.randn((batch, h, w, ctot), generator=gen, device=dev).to(dt)
+           for _ in range(nbuf)]
+    counts0 = kernels.launch_counts()
+    out = kernels.pool_concat_fwd(xs[0], pos, k, mode)
+    ref = kernels.pool_concat_plain(xs[0], pos, k, mode)
+    views = [x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+             for x in xs[0]]
+    outv = kernels.pool_concat_fwd(views, pos, k, mode)
+    dx = kernels.pool_concat_bwd(xs[0][pos], out, dys[0], off, k, mode)
+    dxp = kernels.pool_concat_bwd_plain(xs[0][pos], ref, dys[0], off, k,
+                                        mode)
+    dyv = dys[0].permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    dxv = kernels.pool_concat_bwd(xs[0][pos], out, dyv, off, k, mode)
+    torch.cuda.synchronize()
+    res = {"widths": list(widths), "pos": pos, "k": k, "mode": mode,
+           "hw": [h, w], "batch": batch, "dtype": dtype, "nan": nan,
+           "grid": grid,
+           "fwd_err": max_err(out.float(), ref.float()),
+           "bwd_err": max_err(dx.float(), dxp.float()),
+           "fwd_exact": bits_equal(out, ref) and bits_equal(outv, ref),
+           "bwd_exact": bits_equal(dx, dxp) and bits_equal(dxv, dxp),
+           "nan_outputs": int(torch.isnan(out).sum())}
+    res["ok"] = res["fwd_exact"] and res["bwd_exact"]
+    del ref, views, outv, dx, dxp, dyv, dxv
+    if timed:
+        # forward: read every branch, write the output; k*k operations
+        # per pooled element. backward: read dy's segment and write dx,
+        # and under max also read x and the output's segment (avg reads
+        # no x); k*k compares (or products) and adds per input element
+        res["fwd_bound_ms"], res["fwd_bound_by"] = bound(
+            2 * esz * n_out, k * k * n_pool, bw, flops)
+        res["bwd_bound_ms"], res["bwd_bound_by"] = bound(
+            esz * n_pool * (4 if mode == "max" else 2), 2 * k * k * n_pool,
+            bw, flops)
+        outs = [kernels.pool_concat_fwd(x, pos, k, mode) for x in xs]
+        iters = 20
+        res["fwd_ms"] = cuda_time_ms(
+            lambda i: kernels.pool_concat_fwd(xs[i % nbuf], pos, k, mode),
+            iters)
+        res["fwd_plain_ms"] = cuda_time_ms(
+            lambda i: kernels.pool_concat_plain(xs[i % nbuf], pos, k, mode),
+            iters)
+        res["bwd_ms"] = cuda_time_ms(
+            lambda i: kernels.pool_concat_bwd(xs[i % nbuf][pos],
+                                              outs[i % nbuf], dys[i % nbuf],
+                                              off, k, mode), iters)
+        res["bwd_plain_ms"] = cuda_time_ms(
+            lambda i: kernels.pool_concat_bwd_plain(
+                xs[i % nbuf][pos], outs[i % nbuf], dys[i % nbuf], off, k,
+                mode), iters)
+        del outs
+        p = k // 2
+        pool = F.max_pool2d if mode == "max" else F.avg_pool2d
+
+        def ref_fwd(bs):
+            xp = F.pad(bs[pos].permute(0, 3, 1, 2), (p, p, p, p))
+            y = pool(xp, k, 1).permute(0, 2, 3, 1)
+            return torch.cat(list(bs[:pos]) + [y] + list(bs[pos + 1:]), 3)
+        res["reference_fwd_ms"] = cuda_time_ms(
+            lambda i: ref_fwd(xs[i % nbuf]), iters)
+        leaves = [[x.clone().requires_grad_(True) for x in b] for b in xs]
+        graphs = [ref_fwd(b) for b in leaves]
+        res["reference_bwd_ms"] = cuda_time_ms(
+            lambda i: torch.autograd.grad(graphs[i % nbuf],
+                                          leaves[i % nbuf], dys[i % nbuf],
+                                          retain_graph=True), iters)
+        del leaves, graphs
+    # comparison and timing launches are not main-path launches
+    kernels.restore_launch_counts(counts0)
+    del xs, dys, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def pool_concat_section(bw: float, flops: float, dtype: str):
+    """pool_concat at every fused concat of the tower's batch-128 step
+    on ``dtype`` (the same shapes serve at f32), plus a ragged case
+    (widths not multiples of 8, k = 5, pool branch in the middle), a
+    NaN case and an N(0, 9) avg case."""
+    from cxxnet_tpu_torch.nnet.net import FuncNet
+    cfg = tower_train_cfg_bf16 if dtype == "bfloat16" else tower_train_cfg
+    tnet = FuncNet(_configured(cfg(TRAIN_BATCH)), TRAIN_BATCH)
+    shapes = path_concat_shapes(tnet, TRAIN_BATCH)
+    if len(shapes) != len(TOWER_FUSED[dtype]):
+        raise RuntimeError("expected %d fused concats, the tower has %d"
+                           % (len(TOWER_FUSED[dtype]), len(shapes)))
+    path = [pool_concat_case(*sh, bw, flops, dtype) for sh in shapes]
+    extra = [pool_concat_case((13, 7, 5, 19), 2, 5, "max", 28, 28, 16, bw,
+                              flops, dtype, timed=False),
+             pool_concat_case((13, 7, 5, 19), 2, 5, "avg", 28, 28, 16, bw,
+                              flops, dtype, timed=False),
+             pool_concat_case((64, 96, 128, 928), 3, 3, "max", 14, 14, 32,
+                              bw, flops, dtype, nan=True, timed=False),
+             pool_concat_case((64, 64, 96, 192), 3, 3, "avg", 28, 28, 16,
+                              bw, flops, dtype, grid=False, timed=False)]
+    keys = ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "reference_fwd_ms",
+            "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "reference_bwd_ms")
+    cases = path + extra
+    return {"ok": all(c["ok"] for c in cases), "dtype": dtype,
+            "launches_per_step": len(path),
+            "step_sum": {k: sum(c[k] for c in path) for k in keys},
+            "fwd_max_abs_err": max(c["fwd_err"] for c in cases),
+            "bwd_max_abs_err": max(c["bwd_err"] for c in cases),
+            "fwd_bound_by": "bytes" if all(c["fwd_bound_by"] == "bytes"
+                                           for c in path) else "operations",
+            "bwd_bound_by": "bytes" if all(c["bwd_bound_by"] == "bytes"
+                                           for c in path) else "operations",
+            "reference": "F.pad + F.max_pool2d / F.avg_pool2d + torch.cat "
+                         "(three calls; no one call computes it)",
+            "path_cases": path, "extra_cases": extra}
+
+
+def epilogue_bwd_bf16_case(shape, xd: str, yd: str, bw: float,
+                           flops: float):
+    """conv_epilogue's VJP with a bf16 x or y (relu fused) on the card:
+    ``cxn_conv_epilogue_bwd`` against its plain version on the same
+    inputs, dx the same bits, each channel sum within SUM_RTOL of the
+    sum of its terms' magnitudes; once through the autograd Function
+    (one launch counted); times and the bound."""
+    import torch
+    from cxxnet_tpu_torch.layers import kernels
+    dev = torch.device(DEVICE)
+    tx, ty = _dt(xd), _dt(yd)
+    ex = torch.empty((), dtype=tx).element_size()
+    ey = torch.empty((), dtype=ty).element_size()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11 + sum(shape))
+    c = shape[-1]
+    n = int(np.prod(shape))
+    x = torch.randn(shape, generator=gen, device=dev).to(tx)
+    dy = torch.randn(shape, generator=gen, device=dev).to(ty)
+    # exact zeros, some negative, in dy: the + 0 of dx shows
+    dy.view(-1)[::101] = -0.0
+    scale = torch.rand(c, generator=gen, device=dev) + 0.5
+    shift = 0.5 * torch.randn(c, generator=gen, device=dev)
+    counts0 = kernels.launch_counts()
+    y = kernels.conv_epilogue(x, scale, shift, True, ty)
+    dx, ds, dt = kernels.conv_epilogue_bwd(x, y, dy, scale, True)
+    px, ps, pt = kernels.conv_epilogue_bwd_plain(x, y, dy, scale, True)
+    leaves = [v.clone().requires_grad_(True) for v in (x, scale, shift)]
+    fy = kernels.conv_epilogue(*leaves, True, ty)
+    before = kernels.launch_counts()["conv_epilogue_bwd_bf16"]
+    gx, _, _ = torch.autograd.grad(fy, leaves, dy)
+    fn_launches = kernels.launch_counts()["conv_epilogue_bwd_bf16"] - before
+    axes = tuple(range(len(shape) - 1))
+    dym = torch.where(y > 0, dy, torch.zeros_like(dy)).float()
+    mag_s, mag_t = (dym * x.float()).abs().sum(axes), dym.abs().sum(axes)
+    torch.cuda.synchronize()
+    es, et = (ds - ps).abs(), (dt - pt).abs()
+    out = {"shape": list(shape), "x": xd, "y": yd, "relu": True,
+           "dx_err": float((dx.float() - px.float()).abs().max()),
+           "dx_exact": bits_equal(dx, px) and bits_equal(gx, px),
+           "sum_err": float(max(es.max(), et.max())),
+           "sum_rel": float(max((es / mag_s.clamp_min(1e-30)).max(),
+                                (et / mag_t.clamp_min(1e-30)).max())),
+           "function_launches": fn_launches}
+    out["ok"] = bool(out["dx_exact"] and bool((es <= SUM_RTOL * mag_s).all())
+                     and bool((et <= SUM_RTOL * mag_t).all())
+                     and fn_launches == 1)
+    del dx, px, gx, dym, fy, leaves
+    # read x, y, dy, write dx (+ scale, two sums); select, mul, add 0,
+    # mul, two adds per element
+    out["bound_ms"], out["bound_by"] = bound(
+        n * (2 * ex + 2 * ey) + 12 * c, 6 * n, bw, flops)
+    out["ms"] = cuda_time_ms(
+        lambda i: kernels.conv_epilogue_bwd(x, y, dy, scale, True), 20)
+    out["plain_ms"] = cuda_time_ms(
+        lambda i: kernels.conv_epilogue_bwd_plain(x, y, dy, scale, True), 20)
+    kernels.restore_launch_counts(counts0)
+    del x, y, dy
+    torch.cuda.empty_cache()
+    return out
+
+
+def path_bias_shapes(net, batch: int):
+    """Shape of every conv or fullc output that adds a bias (one
+    bias_grad_bf16 launch each per bf16 training step)."""
+    shapes = []
+    for li in range(len(net.graph.layers)):
+        t = net.graph.effective_type(li)
+        layer = net.layer_objs[li]
+        if t in ("conv", "fullc") and layer.param.no_bias == 0:
+            s = layer.out_shapes[0]
+            shapes.append((batch, s.x) if s.is_mat
+                          else (batch, s.y, s.x, s.ch))
+    return shapes
+
+
+def bias_grad_case(shape, bw: float, flops: float):
+    """The bf16 bias gradient on the card against its plain version (the
+    same bits), also from a permuted cotangent (4-D); kernel and plain
+    times, torch.sum's (f32 accumulation, one rounding: another
+    function's bits, the yardstick of a reduction), and the bound."""
+    import torch
+    from cxxnet_tpu_torch.layers import kernels
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3 + sum(shape))
+    n, c = int(np.prod(shape)), shape[-1]
+    dy = (3 * torch.randn(shape, generator=gen, device=dev)).to(
+        torch.bfloat16)
+    counts0 = kernels.launch_counts()
+    got = kernels.bias_grad_bf16(dy)
+    ref = kernels.bias_grad_bf16_plain(dy)
+    same = bits_equal(got, ref)
+    if len(shape) == 4:
+        dyv = dy.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        same = same and bits_equal(kernels.bias_grad_bf16(dyv), ref)
+    torch.cuda.synchronize()
+    axes = tuple(range(len(shape) - 1))
+    out = {"shape": list(shape), "exact": same, "ok": same,
+           "max_abs_err": float((got - ref).abs().max()),
+           "passes": len(kernels.xla_bias_sum_plan(
+               ((1, 1) + tuple(shape[:1])) if len(shape) == 2
+               else shape[:3]))}
+    # read dy, write the f32 sums; one add per element
+    out["bound_ms"], out["bound_by"] = bound(2 * n + 4 * c, n, bw, flops)
+    out["ms"] = cuda_time_ms(lambda i: kernels.bias_grad_bf16(dy), 10)
+    # the plain version loops over a window's elements (up to 32^3
+    # launches): one timed call
+    out["plain_ms"] = cuda_time_ms(
+        lambda i: kernels.bias_grad_bf16_plain(dy), 1, warmup=0)
+    out["library_ms"] = cuda_time_ms(lambda i: torch.sum(dy, axes), 10)
+    kernels.restore_launch_counts(counts0)
+    del dy
+    torch.cuda.empty_cache()
+    return out
+
+
+def bias_grad_section(bw: float, flops: float):
+    """The bias gradient at every bias of kaiming-224's bf16 training
+    step (batch 128), weighted by how often each shape occurs."""
+    from cxxnet_tpu_torch.nnet.net import FuncNet
+    knet = FuncNet(_configured(kaiming_cfg_bf16(TRAIN_BATCH)), TRAIN_BATCH)
+    shapes = path_bias_shapes(knet, TRAIN_BATCH)
+    if len(shapes) != KAIMING_BF16_LAUNCHES["bias_grad_bf16"]:
+        raise RuntimeError("expected %d biases, kaiming has %d"
+                           % (KAIMING_BF16_LAUNCHES["bias_grad_bf16"],
+                              len(shapes)))
+    cases = {sh: bias_grad_case(sh, bw, flops)
+             for sh in sorted(set(shapes), key=lambda v: -int(np.prod(v)))}
+    counts = [shapes.count(sh) for sh in cases]
+    vals = list(cases.values())
+    return {"ok": all(c["ok"] for c in vals),
+            "launches_per_step": len(shapes),
+            "step_sum": _step_of(vals, ("ms", "plain_ms", "library_ms",
+                                        "bound_ms"), counts),
+            "max_abs_err": max(c["max_abs_err"] for c in vals),
+            "bound_by": "bytes" if all(c["bound_by"] == "bytes"
+                                       for c in vals) else "operations",
+            "library": "torch.sum over all but the channel (f32 "
+                       "accumulation, one rounding: not the reference's "
+                       "bits)",
+            "cases": [dict(c, count=k) for c, k in zip(vals, counts)]}
+
+
 def phase_kernels(bw: float, flops: float, tc_flops: float):
     import torch
     from cxxnet_tpu_torch.nnet.net import FuncNet
@@ -993,6 +1360,18 @@ def phase_kernels(bw: float, flops: float, tc_flops: float):
     train = training_kernel_section(bw, flops, tc_flops, bf16=False)
     train_bf16 = training_kernel_section(bw, flops, tc_flops, bf16=True)
     ok = ok and train["ok"] and train_bf16["ok"]
+    # the pool_concat slice: the tower's fused concats in both dtypes,
+    # conv_epilogue's bf16 VJP at the stem shape, and kaiming's bf16
+    # bias gradients
+    pc = {dt: pool_concat_section(bw, flops, dt)
+          for dt in ("float32", "bfloat16")}
+    bwd_bf16 = [epilogue_bwd_bf16_case(stem, xd, yd, bw, flops)
+                for xd, yd in (("bfloat16", "bfloat16"),
+                               ("float32", "bfloat16"),
+                               ("bfloat16", "float32"))]
+    bias = bias_grad_section(bw, flops)
+    ok = ok and all(v["ok"] for v in pc.values()) \
+        and all(c["ok"] for c in bwd_bf16) and bias["ok"]
     res = {"phase": "kernels", "ok": ok, "kernel": "conv_epilogue",
            "path_launches_per_forward": len(shapes),
            "distinct_path_shapes": len(per_shape),
@@ -1008,7 +1387,8 @@ def phase_kernels(bw: float, flops: float, tc_flops: float):
            "backward": bwd,
            "bn_apply": train["bn_apply"], "matmul": train["matmul"],
            "relu_max_pool": train["relu_max_pool"],
-           "train_bf16": train_bf16}
+           "train_bf16": train_bf16, "pool_concat": pc,
+           "backward_bf16": bwd_bf16, "bias_grad_bf16": bias}
     emit(res)
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version")
@@ -1504,6 +1884,8 @@ _KINDS = (("host-to-device copies", ("Memcpy HtoD",)),
           ("bn_apply kernels", ("cxn_bn_",)),
           ("matmul kernel", ("cxn_sgemm",)),
           ("relu_max_pool kernels", ("cxn_relu_max_pool",)),
+          ("pool_concat kernels", ("cxn_pool_concat",)),
+          ("bias_grad_bf16 kernel", ("cxn_bias_window",)),
           ("layout transposes", ("nhwcToNchw", "nchwToNhwc")),
           ("reductions (BN moments, BN gradient sums, loss)",
            ("reduce_kernel", "Reduce")),
@@ -1529,7 +1911,11 @@ BN_DEVICE_KEYS = {"bn_fwd_device_ms": "cxn_bn_fwd",
                   "bn_bwd_device_ms": "cxn_bn_bwd",
                   "matmul_device_ms": "cxn_sgemm"}
 RMP_DEVICE_KEYS = {"relu_pool_fwd_device_ms": "cxn_relu_max_pool_fwd",
-                   "relu_pool_bwd_device_ms": "cxn_relu_max_pool_bwd"}
+                   "relu_pool_bwd_device_ms": "cxn_relu_max_pool_bwd",
+                   "bias_grad_device_ms": "cxn_bias_window"}
+TOWER_DEVICE_KEYS = dict(BN_DEVICE_KEYS,
+                         pool_concat_fwd_device_ms="cxn_pool_concat_fwd",
+                         pool_concat_bwd_device_ms="cxn_pool_concat_bwd")
 
 
 def profile_step(t, batch, reps: int = 5, device_keys=BN_DEVICE_KEYS):
@@ -1656,7 +2042,9 @@ def update_delta_check(workdir: str, cfg=None, plain_cfg=None,
     with cuDNN switched off, so the convolutions run as im2col and
     cuBLAS products (``gpu_no_cudnn``). With ``same_masks`` every run
     draws its dropout masks from :func:`seeded_uniform`, so the card
-    and the CPU drop the same units.
+    and the CPU drop the same units. The plain runs also take every
+    kernel entry point through :func:`plain_kernels` (pool_concat's: no
+    plain config reaches its function).
 
     At this state the float32 update of the deep layers is
     ill-conditioned: a change of summation order alone moves it by
@@ -1696,16 +2084,18 @@ def update_delta_check(workdir: str, cfg=None, plain_cfg=None,
               for lk, sub in t.params.items() for tag, w in sub.items()}
         before = torch.backends.cudnn.enabled
         torch.backends.cudnn.enabled = cudnn
+        swapped = plain_kernels() if plain else contextlib.nullcontext()
         try:
-            if f64:
-                # update() ships the batch as float32; the same step on a
-                # float64 copy of it
-                data, labels, mask = t._device_batch(batch)
-                t._last_loss, _ = t._train_step(
-                    data.double(), labels, mask, t.update_counter, True,
-                    False, t._step_scalar())
-            else:
-                t.update(batch)
+            with swapped:
+                if f64:
+                    # update() ships the batch as float32; the same step
+                    # on a float64 copy of it
+                    data, labels, mask = t._device_batch(batch)
+                    t._last_loss, _ = t._train_step(
+                        data.double(), labels, mask, t.update_counter, True,
+                        False, t._step_scalar())
+                else:
+                    t.update(batch)
         finally:
             torch.backends.cudnn.enabled = before
         return ({k: t.params[k[0]][k[1]].detach().cpu().double() - w0[k]
@@ -1749,10 +2139,11 @@ def update_delta_check(workdir: str, cfg=None, plain_cfg=None,
 @contextlib.contextmanager
 def plain_kernels():
     """The training kernels' autograd entry points (``bn_apply``,
-    ``matmul``, ``relu_max_pool``, as the layers call them) swapped for
-    autograd Functions over their plain versions, with the kernels'
-    VJP arithmetic: the card's plain path of the same function, which
-    the wrappers themselves never take on a CUDA tensor."""
+    ``matmul``, ``relu_max_pool``, ``pool_concat``, ``bias_add``, as the
+    layers call them) swapped for autograd Functions over their plain
+    versions, with the kernels' VJP arithmetic: the card's plain path of
+    the same function, which the wrappers themselves never take on a
+    CUDA tensor."""
     import torch
     from cxxnet_tpu_torch.layers import common, conv
     from cxxnet_tpu_torch.layers import kernels as K
@@ -1796,11 +2187,49 @@ def plain_kernels():
             x, y = ctx.saved_tensors
             return K.relu_max_pool_bwd_plain(x, y, dy, ctx.k), None
 
+    class PlainPoolConcat(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, pos, k, mode, *branches):
+            out = K.pool_concat_plain(branches, pos, k, mode)
+            ctx.args = (pos, k, mode, [x.shape[3] for x in branches],
+                        [x.dtype for x in branches])
+            ctx.save_for_backward(branches[pos], out)
+            return out
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, out = ctx.saved_tensors
+            pos, k, mode, widths, dtypes = ctx.args
+            grads, off = [], 0
+            for i, (c, dt) in enumerate(zip(widths, dtypes)):
+                grads.append(K.pool_concat_bwd_plain(x, out, dy, off, k, mode)
+                             if i == pos else dy[..., off:off + c].to(dt))
+                off += c
+            return (None, None, None, *grads)
+
+    class PlainBiasAdd(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, y, bias):
+            ctx.dtype = bias.dtype
+            return y + bias.to(torch.bfloat16)
+
+        @staticmethod
+        def backward(ctx, dy):
+            return dy, K.bias_grad_bf16_plain(dy).to(ctx.dtype)
+
+    def bias_add(y, bias):
+        if y.dtype == torch.bfloat16:
+            return PlainBiasAdd.apply(y, bias)
+        return y + bias.to(y.dtype)
+
     swaps = ((conv, "bn_apply", lambda x, s, t, relu=False:
               PlainBnApply.apply(x, s, t, bool(relu))),
              (common, "matmul", PlainMatmul.apply),
              (conv, "relu_max_pool", lambda x, k:
-              PlainReluMaxPool.apply(x, int(k))))
+              PlainReluMaxPool.apply(x, int(k))),
+             (common, "pool_concat", lambda bs, pos, k, mode:
+              PlainPoolConcat.apply(int(pos), int(k), mode, *bs)),
+             (common, "bias_add", bias_add), (conv, "bias_add", bias_add))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -2113,7 +2542,195 @@ def phase_train_kaiming(workdir: str):
     return res
 
 
-def kernels_line(kres, sres, lres, tres, tbres, kmres, part: str):
+# ------------------------------------------------------------- phase 8
+
+# the Inception tower of the pool_concat slice: Inception-BN-224's stem,
+# then modules at Inception-BN's widths with the pool projections
+# dropped, so that each stride-1 module's pool feeds its concat directly
+# (the pass-through branch of the _inception helper, proj 0):
+# (name, 1x1, 3x3 reduce, 3x3, double-3x3 reduce, double-3x3, pool,
+# proj, stride)
+TOWER_MODULES = (("t3a", 64, 64, 64, 64, 96, "avg", 0, 1),     # i3a's
+                 ("t3b", 64, 64, 96, 64, 96, "max", 0, 1),     # i3b's
+                 ("t3c", 0, 128, 160, 64, 96, "max", 0, 2),    # i3c
+                 ("t4a", 224, 64, 96, 96, 128, "max", 0, 1))   # i4a's
+# the reference's planner fuses these concats (its 6 MiB gate refuses
+# t3b's 30 x 30 x 768 x 4 B map at f32, admits it at 2 B; t3c's pool
+# has stride 2)
+TOWER_FUSED = {"float32": ("t3a", "t4a"),
+               "bfloat16": ("t3a", "t3b", "t4a")}
+TOWER_KNOBS = [("pool_concat_pallas", "1")]
+
+
+def tower_text(batch: int, image_size: int = 224, nclass: int = NCLASS,
+               helpers=None) -> str:
+    """The tower's netconfig: ``inception_bn()``'s stem, TOWER_MODULES
+    through the ``_inception`` helper of ``helpers`` (a module with
+    ``_conv_bn_relu`` and ``_inception``; the port's models.inception by
+    default, so that a test can build the same text with the
+    reference's), then a global avg pool, flatten, ``fullc:fc1`` and
+    softmax; inception_bn()'s training keys. 26 conv and 26 batch_norm
+    layers."""
+    if helpers is None:
+        from cxxnet_tpu_torch.models import inception as helpers
+    L = ["netconfig=start"]
+    helpers._conv_bn_relu(L, "0", "c1", "conv1", 64, 7, 2, 3)
+    L += ["layer[c1->p1] = max_pooling", "  kernel_size = 3",
+          "  stride = 2"]
+    helpers._conv_bn_relu(L, "p1", "c2r", "conv2red", 64, 1)
+    helpers._conv_bn_relu(L, "c2r", "c2", "conv2", 192, 3, 1, 1)
+    L += ["layer[c2->p2] = max_pooling", "  kernel_size = 3",
+          "  stride = 2"]
+    top = "p2"
+    for (nm, n1, n3r, n3, nd3r, nd3, pool, np_, st) in TOWER_MODULES:
+        top = helpers._inception(L, top, nm, n1, n3r, n3, nd3r, nd3, pool,
+                                 np_, st)
+    L += ["layer[%s->gap] = avg_pooling" % top,
+          "  kernel_size = %d" % (image_size // 16), "  stride = 1",
+          "layer[gap->flat] = flatten",
+          "layer[flat->fc] = fullc:fc1",
+          "  nhidden = %d" % nclass,
+          "  init_sigma = 0.01",
+          "layer[fc->fc] = softmax",
+          "netconfig=end",
+          "input_shape = 3,%d,%d" % (image_size, image_size),
+          "batch_size = %d" % batch,
+          "momentum = 0.9",
+          "wmat:lr = 0.01",
+          "wmat:wd = 0.0001",
+          "bias:lr = 0.02",
+          "bias:wd = 0.000",
+          "random_type = xavier",
+          "metric = error"]
+    return "\n".join(L) + "\n"
+
+
+def tower_train_cfg(batch: int):
+    """The tower as the training slices run it (phase 5's keys: fc1 as
+    ``pallas_fullc``, ``bn_pallas = bn_fuse_relu = 1``) with
+    ``pool_concat_pallas = 1``."""
+    from cxxnet_tpu_torch.utils.config import parse_config
+    text = tower_text(batch).replace("fullc:fc1", "pallas_fullc:fc1")
+    return parse_config(text) + TRAIN_KNOBS + TOWER_KNOBS + [
+        ("seed", str(SEED))]
+
+
+def tower_train_cfg_bf16(batch: int):
+    """The tower at the bench set (``dtype = grad_dtype = momentum_dtype
+    = bfloat16``): the gate admits t3b's concat too."""
+    return tower_train_cfg(batch) + BENCH_BF16
+
+
+def phase_tower(workdir: str):
+    """The pool_concat slice through its entry points: the tower trained
+    at f32 and at the bench set, and served at f32 (see the module
+    docstring)."""
+    import torch
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve import ServeSession
+    # f32 training: the drive, the float64 batch-4 update check
+    t, tr = drive_train(tower_train_cfg(TRAIN_BATCH), TOWER_LAUNCHES,
+                        TOWER_DEVICE_KEYS)
+    fused = sorted(t.net.fused_concats.values())
+    del t
+    torch.cuda.empty_cache()
+    # the plain runs keep the concats fused and take pool_concat's plain
+    # version: unfused, the max pools' backward would credit one tied
+    # maximum, not every one (another function; at initialization relu
+    # zeros tie in whole windows)
+    cfg4 = tower_train_cfg(4)
+    tr["update_vs_cpu"] = update_delta_check(
+        workdir, cfg4, inception_plain_cfg(cfg4), tag="tower4")
+    tr["fused"] = fused
+    tr["ok"] = bool(tr["counted"] and tr["loss_falls"]
+                    and tr["update_vs_cpu"]["ok"])
+    # bench-set training: the drive, the batch-4 check against the card's
+    # bf16 plain path
+    tb, br = drive_train(tower_train_cfg_bf16(TRAIN_BATCH),
+                         TOWER_BF16_LAUNCHES, TOWER_DEVICE_KEYS)
+    br["fused"] = sorted(tb.net.fused_concats.values())
+    del tb
+    torch.cuda.empty_cache()
+    br["update_vs_plain"] = bf16_update_check(
+        workdir, tower_train_cfg_bf16(4), TOWER_BF16_LAUNCHES, "tower4_bf16")
+    br["ok"] = bool(br["counted"] and br["loss_falls"]
+                    and br["update_vs_plain"]["ok"])
+    # f32 serving from a snapshot of the tower
+    cfg = tower_serve_cfg()
+    rng = np.random.RandomState(SEED + 8)
+    init = NetTrainer(cfg, device=DEVICE)
+    init.init_model()
+    calibrate_bn(init, init.to_device_batch(images(rng, 32)))
+    path = os.path.join(workdir, "tower_224.model.npz")
+    init.save_model(path)
+    del init
+    rec = Recorder()
+    sess = ServeSession(cfg, model_path=path, device=DEVICE, monitor=rec)
+    pool = images(rng, 2 * MAX_BATCH)
+    try:
+        d = drive_session(sess, pool, rec)
+        first4 = sess.predict(pool[:4])
+        eng = sess.engine
+        t = eng.trainer
+        dev_batch = t.to_device_batch(pool[:MAX_BATCH])
+        counts = kernels.launch_counts()
+        fwd_ms = cuda_time_ms(lambda i: t.pred(dev_batch, eng.nodes), 10)
+        kernels.restore_launch_counts(counts)
+    finally:
+        summary = sess.close()
+    loop = d["loop"]
+    failed = loop["error"] + loop["busy"] + loop["timeout"] \
+        + summary["errors"] + summary["timeouts"] + summary["rejected"]
+    from cxxnet_tpu_torch.io import DataBatch
+    cpu = NetTrainer(cfg, device="cpu")
+    cpu.load_model(path)
+    ref4 = cpu.extract_feature(DataBatch(pool[:4]), "top")
+    kernels.restore_launch_counts(counts)
+    finite = bool(np.all(np.isfinite(d["burst"]))
+                  and np.all(np.isfinite(first4)))
+    sr = {"failed_requests": failed, "dispatches": d["dispatches"],
+          "launches": d["launches"],
+          "expected_per_forward": TOWER_SERVE_LAUNCHES,
+          "closed_loop": loop, "burst_rows": int(d["burst"].shape[0]),
+          "burst_s": d["burst_s"], "tails": d["tails"],
+          "fwd128_ms": fwd_ms, "img_per_s": MAX_BATCH / fwd_ms * 1e3,
+          "cpu": rows_vs_cpu(first4, ref4, SERVE_ATOL, SERVE_RTOL),
+          "finite": finite,
+          "fused": sorted(cpu.net.fused_concats.values())}
+    sr["ok"] = bool(failed == 0 and finite and sr["cpu"]["close"]
+                    and sr["cpu"]["top1_ok"]
+                    and launches_ok(d["launches"], TOWER_SERVE_LAUNCHES,
+                                    d["dispatches"]))
+    res = {"phase": "tower", "model": "inception_tower_224",
+           "config": "inception_bn()'s stem, modules t3a (avg), t3b (max), "
+                     "t3c (stride 2), t4a (max) without pool projections, "
+                     "pool_concat_pallas = 1",
+           "train": dict(tr, config="pallas_fullc fc1, bn_pallas, "
+                         "bn_fuse_relu, f32, TF32 off, sgd momentum 0.9"),
+           "train_bf16": dict(br, config="the same at dtype = grad_dtype = "
+                              "momentum_dtype = bfloat16",
+                              f32_step_ms=tr["step_ms"]),
+           "serve": dict(sr, config="bn_fold_eval, bn_fuse_relu, "
+                         "conv_pallas_epilogue, f32")}
+    res["ok"] = bool(tr["ok"] and br["ok"] and sr["ok"])
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("tower phase failed")
+    return res
+
+
+def tower_serve_cfg():
+    """The tower as phase 3 serves Inception-BN (``bn_fold_eval =
+    bn_fuse_relu = conv_pallas_epilogue = 1``) with ``pool_concat_pallas
+    = 1``."""
+    from cxxnet_tpu_torch.utils.config import parse_config
+    return parse_config(tower_text(MAX_BATCH)) + KNOBS + TOWER_KNOBS + [
+        ("seed", str(SEED)), ("serve_buckets", BUCKETS),
+        ("serve_max_delay_ms", "2")]
+
+
+def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
     """The ``kernels`` record: every ported kernel (and bf16
     instantiation) with its launches on its path's run, its error
     against its plain version, its times on the card and its bound, at
@@ -2132,7 +2749,61 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, part: str):
     per_step = "one training step at batch %d" % TRAIN_BATCH
     per_kstep = "one kaiming-224 training step at batch %d: %d launches" \
         % (TRAIN_BATCH, rmp["launches_per_step"])
-    return {"kernels": [
+    pc, pcb = kres["pool_concat"]["float32"], kres["pool_concat"]["bfloat16"]
+    twt, twb = twres["train"], twres["train_bf16"]
+    per_tstep = "one Inception-tower training step at batch %d: %%d " \
+        "launches" % TRAIN_BATCH
+    bias = kres["bias_grad_bf16"]
+    ebf = kres["backward_bf16"]
+    main_runs = (sres["launches"], lres["launches"],
+                 lres["bf16"]["launches"], tres["launches"],
+                 tbres["launches"], kmres["launches"],
+                 kmres["bf16"]["launches"], twt["launches"],
+                 twb["launches"], twres["serve"]["launches"])
+    pool_rows = []
+    for rec, sec, run, sfx in ((PC_FWD, pc, twt, "fwd"),
+                               (PC_BWD, pc, twt, "bwd"),
+                               (PC_FWD_BF16, pcb, twb, "fwd"),
+                               (PC_BWD_BF16, pcb, twb, "bwd")):
+        pool_rows.append(dict(
+            rec, launches=run["launches"][rec["name"]],
+            max_abs_err=sec["%s_max_abs_err" % sfx],
+            ms=sec["step_sum"]["%s_ms" % sfx],
+            plain_ms=sec["step_sum"]["%s_plain_ms" % sfx],
+            bound_ms=sec["step_sum"]["%s_bound_ms" % sfx],
+            bound_by=sec["%s_bound_by" % sfx], library_ms=None,
+            reference_ms=sec["step_sum"]["reference_%s_ms" % sfx],
+            reference=sec["reference"],
+            device_ms=run["profile"]["pool_concat_%s_device_ms" % sfx],
+            per=per_tstep % sec["launches_per_step"]
+            + (" (dtype = bfloat16)" if sec is pcb else ""), peaks=part))
+    return {"kernels": pool_rows + [
+        dict(EPILOGUE_BWD_BF16,
+             launches=sum(r["conv_epilogue_bwd_bf16"] for r in main_runs),
+             max_abs_err=max(c["dx_err"] for c in ebf),
+             ms=ebf[0]["ms"], plain_ms=ebf[0]["plain_ms"],
+             bound_ms=ebf[0]["bound_ms"], bound_by=ebf[0]["bound_by"],
+             library_ms=None,
+             sum_max_rel_err=max(c["sum_rel"] for c in ebf),
+             by_dtypes=[{k: c[k] for k in ("x", "y", "ms", "plain_ms",
+                                            "bound_ms", "sum_rel")}
+                        for c in ebf],
+             per="one backward at the stem shape %s, x and y bf16 (the "
+             "f32 / bf16 pairs under by_dtypes); launches: its count over "
+             "the ten main-path runs, none of which differentiates it"
+             % ebf[0]["shape"], peaks=part),
+        dict(BIAS_BF16, launches=kmres["bf16"]["launches"]["bias_grad_bf16"],
+             max_abs_err=bias["max_abs_err"], ms=bias["step_sum"]["ms"],
+             plain_ms=bias["step_sum"]["plain_ms"],
+             bound_ms=bias["step_sum"]["bound_ms"],
+             bound_by=bias["bound_by"],
+             library_ms=bias["step_sum"]["library_ms"],
+             library=bias["library"],
+             device_ms=kbprof["bias_grad_device_ms"],
+             per="one kaiming-224 training step at batch %d, dtype = "
+             "bfloat16: %d launches" % (TRAIN_BATCH,
+                                        bias["launches_per_step"]),
+             peaks=part),
         dict(EPILOGUE, launches=sres["conv_epilogue_launches"],
              max_abs_err=kres["max_abs_err"], ms=fwd["ms"],
              plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
@@ -2156,18 +2827,16 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, part: str):
              device_ms=lres["bf16"]["profile"]["epilogue_device_ms"],
              per=per_fwd + " (serve_dtype = bfloat16)", peaks=part),
         dict(EPILOGUE_BWD, launches=sum(
-            r["conv_epilogue_bwd"] for r in (
-                sres["launches"], lres["launches"],
-                lres["bf16"]["launches"], tres["launches"],
-                tbres["launches"], kmres["launches"],
-                kmres["bf16"]["launches"])), max_abs_err=bwd["dx_err"],
+            r["conv_epilogue_bwd"] for r in main_runs),
+             max_abs_err=bwd["dx_err"],
              ms=bwd["ms"], plain_ms=bwd["plain_ms"],
              bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
              library_ms=None, sum_max_rel_err=bwd["sum_rel"],
              per="one backward at the stem shape %s; launches: its "
-             "count over the seven main-path runs (serve f32, int8, bf16, "
-             "train, train_bf16, train_kaiming f32 and bf16), none of "
-             "which differentiates it" % bwd["shape"], peaks=part),
+             "count over the ten main-path runs (serve f32, int8, bf16, "
+             "train, train_bf16, train_kaiming f32 and bf16, tower train "
+             "f32 and bf16, tower serve), none of which differentiates "
+             "it" % bwd["shape"], peaks=part),
         dict(BN_FWD, launches=tres["launches"]["bn_apply_fwd"],
              max_abs_err=bn["fwd_max_abs_err"], ms=bn["step_sum"]["fwd_ms"],
              plain_ms=bn["step_sum"]["fwd_plain_ms"],
@@ -2300,6 +2969,8 @@ def main() -> int:
         tbres = phase_train_bf16(workdir, tres["step_ms"])
         phase = "train_kaiming"
         kmres = phase_train_kaiming(workdir)
+        phase = "tower"
+        twres = phase_tower(workdir)
     except Exception as e:
         import traceback
         traceback.print_exc()
@@ -2308,7 +2979,7 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    emit(kernels_line(kres, sres, lres, tres, tbres, kmres, part))
+    emit(kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

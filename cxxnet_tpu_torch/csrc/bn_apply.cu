@@ -37,7 +37,21 @@
 // that reads x, y and dy once and writes dx, with the sums reduced on
 // the way. At float32 it does not depend on how scale and shift were
 // made, so conv_epilogue's float32 VJP (pallas_kernels.py:367-400) can
-// call it as is (its bf16 VJP rounds differently and is not this).
+// call it as is.
+//
+// conv_epilogue's VJP on bfloat16 (cxn_conv_epilogue_bwd; the
+// reference's _conv_epilogue_vjp_bwd, pallas_kernels.py:388-398) is the
+// same pass with two differences: x and dx may be of another dtype than
+// y and dy ((x, y) in {(bf16, bf16), (f32, bf16), (bf16, f32)}), and
+// the arithmetic is float32 whatever the dtypes, since the reference
+// computes dx with the f32 epilogue kernel and the sums from f32 casts:
+//
+//     dym = y > 0 ? dy : 0            (y and dy in y's dtype)
+//     dx  = round_to_x_dtype(f32(dym) * scale + 0)      (one rounding)
+//     dscale = sum_r f32(dym) * f32(x),  dshift = sum_r f32(dym)  (f32)
+//
+// One template serves both: the activation types of x and of y, and
+// the rounding policy (Arith<T> for bn_apply, Arith<float> here).
 //
 // What bounds it: bytes. The forward reads x and writes y (8 bytes a
 // float32 element, 4 a bfloat16 one, and 2 flops); the backward reads
@@ -157,7 +171,8 @@ __device__ __forceinline__ void storev(float* p, const float (&a)[V]) {
     *p = a[0];
   }
 }
-// the values are bf16-representable already: the conversion is exact
+// round to nearest even: exact for bn_apply's values (bf16 already),
+// the one rounding of dx for conv_epilogue's VJP
 template <int V>
 __device__ __forceinline__ void storev(__nv_bfloat16* p, const float (&a)[V]) {
   if constexpr (V == 4) {
@@ -236,11 +251,13 @@ void launch_fwd(const T* x, const float* scale, const float* shift, T* y,
 // channel vectors [by*ct, by*ct + tile). Thread tid works on vector
 // tid % tile of the tile and on every rpi-th row from tid / tile.
 // part is (2, gridDim.x, c): the block's dscale row, then its dshift row.
-template <typename T, int V, bool kRelu>
+// TX is the type of x and dx, TY of y and dy; A rounds the arithmetic
+// (Arith<T> for bn_apply, Arith<float> for conv_epilogue's VJP).
+template <typename TX, typename TY, typename A, int V, bool kRelu>
 __global__ void __launch_bounds__(kThreads)
-cxn_bn_bwd_partial(const T* __restrict__ x, const T* __restrict__ y,
-                   const T* __restrict__ dy, const float* __restrict__ scale,
-                   T* __restrict__ dx, float* __restrict__ part, int64_t rows,
+cxn_bn_bwd_partial(const TX* __restrict__ x, const TY* __restrict__ y,
+                   const TY* __restrict__ dy, const float* __restrict__ scale,
+                   TX* __restrict__ dx, float* __restrict__ part, int64_t rows,
                    int c, int64_t ld_dy, int64_t rows_per_block, int ct) {
   __shared__ float red_s[kThreads][V];
   __shared__ float red_t[kThreads][V];
@@ -262,7 +279,7 @@ cxn_bn_bwd_partial(const T* __restrict__ x, const T* __restrict__ y,
     float s[V];
     loadv<V>(scale + ch, s);
 #pragma unroll
-    for (int j = 0; j < V; ++j) s[j] = Arith<T>::coef(s[j]);
+    for (int j = 0; j < V; ++j) s[j] = A::coef(s[j]);
     const int64_t r_end =
         min(rows, (static_cast<int64_t>(blockIdx.x) + 1) * rows_per_block);
     for (int64_t r = static_cast<int64_t>(blockIdx.x) * rows_per_block + rr;
@@ -281,8 +298,8 @@ cxn_bn_bwd_partial(const T* __restrict__ x, const T* __restrict__ y,
       for (int j = 0; j < V; ++j) {
         // dx as the reference computes it: the forward's arithmetic
         // with shift 0 (the + 0 turns -0 into +0, as it does there)
-        o[j] = Arith<T>::add(Arith<T>::mul(dv[j], s[j]), 0.0f);
-        acc_s[j] += Arith<T>::mul(dv[j], xv[j]);
+        o[j] = A::add(A::mul(dv[j], s[j]), 0.0f);
+        acc_s[j] += A::mul(dv[j], xv[j]);
         acc_t[j] += dv[j];
       }
       storev<V>(dx + off, o);
@@ -351,9 +368,9 @@ cxn_bn_bwd_finish(const float* __restrict__ part, int nbx, int c,
   }
 }
 
-template <typename T, int V, bool kRelu>
-void launch_bwd(const T* x, const T* y, const T* dy, const float* scale,
-                T* dx, float* part, int max_blocks, float* dscale,
+template <typename TX, typename TY, typename A, int V, bool kRelu>
+void launch_bwd(const TX* x, const TY* y, const TY* dy, const float* scale,
+                TX* dx, float* part, int max_blocks, float* dscale,
                 float* dshift, int64_t rows, int c, int64_t ld_dy,
                 cudaStream_t stream) {
   const int nv = c / V;
@@ -370,7 +387,7 @@ void launch_bwd(const T* x, const T* y, const T* dy, const float* scale,
   const int64_t rows_per_block = (rows + want - 1) / want;
   const int64_t nbx = (rows + rows_per_block - 1) / rows_per_block;
   dim3 grid(static_cast<unsigned>(nbx), static_cast<unsigned>(tiles));
-  cxn_bn_bwd_partial<T, V, kRelu><<<grid, kThreads, 0, stream>>>(
+  cxn_bn_bwd_partial<TX, TY, A, V, kRelu><<<grid, kThreads, 0, stream>>>(
       x, y, dy, scale, dx, part, rows, c, ld_dy, rows_per_block, ct);
   cxn_bn_bwd_finish<<<(c + kFinishLanes - 1) / kFinishLanes, kThreads, 0,
                       stream>>>(part, static_cast<int>(nbx), c, dscale,
@@ -391,35 +408,36 @@ void fwd_typed(const void* x, const void* scale, const void* shift, void* y,
   }
 }
 
-template <typename T>
+template <typename TX, typename TY, typename A>
 void bwd_typed(const void* x, const void* y, const void* dy,
                const void* scale, void* dx, void* part, int max_blocks,
                void* dscale, void* dshift, int64_t rows, int c,
                int64_t ld_dy, int relu, cudaStream_t s) {
-  const T* xt = static_cast<const T*>(x);
-  const T* yt = static_cast<const T*>(y);
-  const T* dt = static_cast<const T*>(dy);
+  const TX* xt = static_cast<const TX*>(x);
+  const TY* yt = static_cast<const TY*>(y);
+  const TY* dt = static_cast<const TY*>(dy);
   const float* sc = static_cast<const float*>(scale);
-  T* dxt = static_cast<T*>(dx);
+  TX* dxt = static_cast<TX*>(dx);
   float* pf = static_cast<float*>(part);
   float* ds = static_cast<float*>(dscale);
   float* dh = static_cast<float*>(dshift);
-  const uintptr_t va = 4 * sizeof(T);
-  const bool vec = (c % 4 == 0) && (ld_dy % 4 == 0) && aligned(x, va) &&
-                   aligned(dy, va) && aligned(dx, va) && aligned(scale, 16) &&
-                   (!relu || aligned(y, va));
+  const uintptr_t vx = 4 * sizeof(TX);
+  const uintptr_t vy = 4 * sizeof(TY);
+  const bool vec = (c % 4 == 0) && (ld_dy % 4 == 0) && aligned(x, vx) &&
+                   aligned(dy, vy) && aligned(dx, vx) && aligned(scale, 16) &&
+                   (!relu || aligned(y, vy));
   if (vec && relu) {
-    launch_bwd<T, 4, true>(xt, yt, dt, sc, dxt, pf, max_blocks, ds, dh, rows,
-                           c, ld_dy, s);
+    launch_bwd<TX, TY, A, 4, true>(xt, yt, dt, sc, dxt, pf, max_blocks, ds,
+                                   dh, rows, c, ld_dy, s);
   } else if (vec) {
-    launch_bwd<T, 4, false>(xt, yt, dt, sc, dxt, pf, max_blocks, ds, dh, rows,
-                            c, ld_dy, s);
+    launch_bwd<TX, TY, A, 4, false>(xt, yt, dt, sc, dxt, pf, max_blocks, ds,
+                                    dh, rows, c, ld_dy, s);
   } else if (relu) {
-    launch_bwd<T, 1, true>(xt, yt, dt, sc, dxt, pf, max_blocks, ds, dh, rows,
-                           c, ld_dy, s);
+    launch_bwd<TX, TY, A, 1, true>(xt, yt, dt, sc, dxt, pf, max_blocks, ds,
+                                   dh, rows, c, ld_dy, s);
   } else {
-    launch_bwd<T, 1, false>(xt, yt, dt, sc, dxt, pf, max_blocks, ds, dh, rows,
-                            c, ld_dy, s);
+    launch_bwd<TX, TY, A, 1, false>(xt, yt, dt, sc, dxt, pf, max_blocks, ds,
+                                    dh, rows, c, ld_dy, s);
   }
 }
 
@@ -460,11 +478,47 @@ extern "C" int cxn_bn_apply_bwd(const void* x, const void* y,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    bwd_typed<float>(x, y, dy, scale, dx, part, max_blocks, dscale, dshift,
-                     rows, c, ld_dy, relu, s);
+    bwd_typed<float, float, Arith<float>>(x, y, dy, scale, dx, part,
+                                          max_blocks, dscale, dshift, rows, c,
+                                          ld_dy, relu, s);
   } else {
-    bwd_typed<__nv_bfloat16>(x, y, dy, scale, dx, part, max_blocks, dscale,
-                             dshift, rows, c, ld_dy, relu, s);
+    using B = __nv_bfloat16;
+    bwd_typed<B, B, Arith<B>>(x, y, dy, scale, dx, part, max_blocks, dscale,
+                              dshift, rows, c, ld_dy, relu, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// conv_epilogue's VJP: as cxn_bn_apply_bwd, with x and dx of x_dtype and
+// y and dy of y_dtype (0 float32, 1 bfloat16) and float32 arithmetic.
+// Returns a cudaError_t value; 0 is success.
+extern "C" int cxn_conv_epilogue_bwd(const void* x, const void* y,
+                                     const void* dy, const void* scale,
+                                     void* dx, void* part, int max_blocks,
+                                     void* dscale, void* dshift,
+                                     long long rows, int c, long long ld_dy,
+                                     int relu, int x_dtype, int y_dtype,
+                                     void* stream) {
+  if (rows <= 0 || c <= 0 || ld_dy < c || max_blocks < 1 ||
+      (relu && y == nullptr) || (x_dtype != 0 && x_dtype != 1) ||
+      (y_dtype != 0 && y_dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using B = __nv_bfloat16;
+  using F = Arith<float>;
+  if (x_dtype == 0 && y_dtype == 0) {
+    bwd_typed<float, float, F>(x, y, dy, scale, dx, part, max_blocks, dscale,
+                               dshift, rows, c, ld_dy, relu, s);
+  } else if (x_dtype == 0) {
+    bwd_typed<float, B, F>(x, y, dy, scale, dx, part, max_blocks, dscale,
+                           dshift, rows, c, ld_dy, relu, s);
+  } else if (y_dtype == 0) {
+    bwd_typed<B, float, F>(x, y, dy, scale, dx, part, max_blocks, dscale,
+                           dshift, rows, c, ld_dy, relu, s);
+  } else {
+    bwd_typed<B, B, F>(x, y, dy, scale, dx, part, max_blocks, dscale, dshift,
+                       rows, c, ld_dy, relu, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,13 +9,16 @@ training, differentiated by autograd:
 - pallas_fullc — the same through the matmul kernel
   (``PallasFullConnectLayer``, counterpart of the reference's in
   ``pallas_kernels.py:543-559``), whose output is float32 also on bf16
-  operands
+  operands. A bias on a bf16 output adds through ``kernels.bias_add``,
+  whose gradient sums in bf16 in the reference's order
 - flatten      — NHWC -> (batch, ch*y*x) in the reference's NCHW order
 - relu/sigmoid/tanh/softplus
 - dropout      — inverted dropout in training, identity at inference
   (self-loop); the mask's uniform draw comes from
   :func:`dropout_uniform`
-- concat/ch_concat
+- concat/ch_concat — under the net's ``pool_concat_pallas`` pass a
+  ch_concat whose pool branch fused into it runs as the pool_concat
+  kernel
 - split
 """
 
@@ -27,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from .base import Layer, Shape3, StepKey, as_mat
-from .kernels import matmul
+from .kernels import bias_add, matmul, pool_concat
 from .quant_ops import dot_int8
 
 
@@ -100,7 +103,7 @@ class FullConnectLayer(Layer):
             x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
         y = self._matmul(x, w)
         if self.param.no_bias == 0:
-            y = y + params["bias"].to(y.dtype)
+            y = bias_add(y, params["bias"])
         return [y], state
 
 
@@ -196,6 +199,9 @@ class ConcatLayer(Layer):
 
     def __init__(self, dim: int, cfg=()):
         self.dim = dim
+        # (position, k, mode) when the net's pool_concat_pallas pass
+        # fuses a pool branch into this concat (nnet/net.py)
+        self.fused_pool = None
         super().__init__(cfg)
 
     def infer_shape(self, in_shapes: List[Shape3]) -> List[Shape3]:
@@ -221,6 +227,11 @@ class ConcatLayer(Layer):
             if self.dim != 3:
                 raise ValueError("ch_concat on matrix nodes is unsupported")
             return [torch.cat(inputs, dim=1)], state
+        if self.fused_pool is not None and self.dim == 1:
+            # the pool branch arrives UN-pooled; the pool_concat kernel
+            # reduces its window while it writes every branch's segment
+            pos, k, mode = self.fused_pool
+            return [pool_concat(inputs, pos, k, mode)], state
         axis = {1: 3, 2: 1, 3: 2}[self.dim]   # NCHW dim -> NHWC axis
         return [torch.cat(inputs, dim=axis)], state
 

@@ -54,7 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from .base import Layer, Shape3
-from .kernels import (bn_apply, bn_apply_plain, conv_epilogue,
+from .kernels import (bias_add, bn_apply, bn_apply_plain, conv_epilogue,
                       conv_epilogue_plain, relu_max_pool)
 from .quant_ops import conv_int8
 
@@ -171,7 +171,7 @@ class ConvolutionLayer(Layer):
                 x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
             y = self.conv(x, hwio_to_oihw(w))
             if p.no_bias == 0:
-                y = y + params["bias"].to(y.dtype)
+                y = bias_add(y, params["bias"])
             return [y], state
         # the serve_dtype spec (nnet/quantize.attach): int8 contracts
         # quantized operands, bfloat16 (or dtype = bfloat16) runs the

@@ -16,8 +16,10 @@ here has
 Ported so far:
 
 - ``conv_epilogue`` on float32, bfloat16 and int32 (an int8
-  convolution's accumulator) input, differentiable for a float32
-  input: its backward is the ``bn_apply`` backward kernel;
+  convolution's accumulator) input, differentiable for a float input:
+  its backward is the ``bn_apply`` backward kernel on float32 x and y,
+  ``conv_epilogue_bwd`` (``cxn_conv_epilogue_bwd``, in
+  ``csrc/bn_apply.cu``) where either is bfloat16;
 - ``bn_apply`` forward and backward (``bn_apply_fwd`` /
   ``bn_apply_bwd``) on float32 and bfloat16 activations,
   differentiable as :func:`bn_apply`;
@@ -26,19 +28,29 @@ Ported so far:
   products run through the kernel;
 - ``relu_max_pool`` forward and backward (``relu_max_pool_fwd`` /
   ``relu_max_pool_bwd``) on float32 and bfloat16, differentiable as
-  :func:`relu_max_pool`.
+  :func:`relu_max_pool`;
+- ``pool_concat`` forward and the pool branch's backward
+  (``pool_concat_fwd`` / ``pool_concat_bwd``) on float32 and bfloat16,
+  differentiable as :func:`pool_concat`, with the reference's fusion
+  gate (:func:`pool_concat_applicable`);
+- ``bias_grad_bf16``, the gradient of a bias added to a bf16 output,
+  summed in bf16 in the reference's XLA:CPU order
+  (:func:`xla_bias_sum_plan`), through :func:`bias_add`. It replaces no
+  Pallas kernel: XLA's reduce.
 
 The bf16 instantiations compute what the reference's dtype-generic
 Pallas kernels compute under ``dtype = bfloat16``; their plain
 versions, the oracle, round where PyTorch's bf16 tensor ops round.
-``bn_apply``, ``matmul`` and ``relu_max_pool`` count their float32 and
-bfloat16 launches apart: ``launches`` and ``launches_bf16``.
+``bn_apply``, ``matmul``, ``relu_max_pool`` and ``pool_concat`` count
+their float32 and bfloat16 launches apart: ``launches`` and
+``launches_bf16``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -47,13 +59,14 @@ import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from ..utils.config import NotPortedError, Roadmap
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-KERNEL_SOURCES = ("conv_epilogue", "bn_apply", "matmul", "relu_max_pool")
+KERNEL_SOURCES = ("conv_epilogue", "bn_apply", "matmul", "relu_max_pool",
+                  "pool_concat", "bias_grad_bf16")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -144,18 +157,28 @@ def _load(name: str) -> ctypes.CDLL:
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "conv_epilogue": {"cxn_conv_epilogue": [_P, _P, _P, _P, _L, _I, _I, _I,
                                             _I, _P]},
     "bn_apply": {"cxn_bn_apply_fwd": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
                  "cxn_bn_apply_bwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
-                                      _L, _I, _L, _I, _I, _P]},
+                                      _L, _I, _L, _I, _I, _P],
+                 "cxn_conv_epilogue_bwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
+                                           _L, _I, _L, _I, _I, _I, _P]},
     "matmul": {"cxn_matmul": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I,
                               _I, _P]},
     "relu_max_pool": {
         "cxn_relu_max_pool_fwd": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
         "cxn_relu_max_pool_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
                                   _L, _L, _I, _P]},
+    "pool_concat": {
+        "cxn_pool_concat_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I,
+                                _I, _I, _P],
+        "cxn_pool_concat_bwd": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                                _F, _P, _I, _I, _I, _I, _P]},
+    "bias_grad_bf16": {"cxn_bias_grad_bf16": [_P, _L, _L, _L, _L, _I, _I, _I,
+                                              _I, _I, _P, _P, _L, _P, _P]},
 }
 
 
@@ -269,17 +292,102 @@ def _epilogue_forward(x, scale, shift, relu, out_dtype) -> torch.Tensor:
     return y
 
 
+def conv_epilogue_bwd_plain(x: torch.Tensor, y: Optional[torch.Tensor],
+                            dy: torch.Tensor, scale: torch.Tensor,
+                            relu: bool) -> Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+    """(dx, dscale, dshift) of ``y = conv_epilogue(x, scale, shift,
+    relu)`` as the reference's VJP computes it
+    (``pallas_kernels.py:388-398``): ``dym = dy * [y > 0]`` in y's
+    dtype; ``dx`` the f32 epilogue of dym with shift 0, ``f32(dym) *
+    scale + 0`` rounded once to x's dtype (the ``+ 0`` turns -0 into
+    +0); ``dscale = sum f32(dym) * f32(x)`` and ``dshift = sum
+    f32(dym)`` in f32. The plain version of ``cxn_conv_epilogue_bwd``."""
+    dym = torch.where(y > 0, dy, torch.zeros_like(dy)) if relu else dy
+    dx = conv_epilogue_plain(dym, scale, torch.zeros_like(scale), False,
+                             x.dtype)
+    axes = tuple(range(x.dim() - 1))
+    dymf = dym.float()
+    return dx, (dymf * x.float()).sum(axes), dymf.sum(axes)
+
+
+def _bwd_scratch(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor, torch.Tensor, int]:
+    """dx, dscale, dshift and the partial-sum scratch of one launch of
+    the bn_apply backward kernel (or its conv_epilogue instantiation),
+    and the number of row blocks the scratch holds."""
+    c = x.shape[-1]
+    max_blocks = _bwd_max_blocks(x.device)
+    return (torch.empty_like(x),
+            torch.empty(c, dtype=torch.float32, device=x.device),
+            torch.empty(c, dtype=torch.float32, device=x.device),
+            torch.empty(2 * max_blocks * c, dtype=torch.float32,
+                        device=x.device), max_blocks)
+
+
+def conv_epilogue_bwd(x: torch.Tensor, y: Optional[torch.Tensor],
+                      dy: torch.Tensor, scale: torch.Tensor, relu: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """conv_epilogue's VJP where x or y is bfloat16 ((x, y) of float32
+    and bfloat16, not both float32): :func:`conv_epilogue_bwd_plain`'s
+    function as one launch of ``cxn_conv_epilogue_bwd``
+    (``csrc/bn_apply.cu``) for CUDA tensors, the plain version for CPU
+    tensors. ``x`` is contiguous; ``y`` (read under ``relu``) contiguous
+    and ``dy`` of y's dtype and shape, ``dy`` possibly a channel slice
+    of a wider tensor. Counted in ``conv_epilogue.launches_bwd_bf16``."""
+    for nm, t in (("x", x), ("dy", dy)):
+        if t.dtype not in _DTYPE_CODE:
+            raise TypeError("conv_epilogue_bwd: %s must be float32 or "
+                            "bfloat16, got %s" % (nm, t.dtype))
+    if x.dtype == dy.dtype == torch.float32:
+        raise TypeError("conv_epilogue_bwd: float32 x and y take the "
+                        "bn_apply backward (bn_apply_bwd)")
+    if x.dim() not in (2, 4) or x.shape[-1] < 1 or not x.is_contiguous():
+        raise ValueError("conv_epilogue_bwd: x must be a contiguous NHWC or "
+                         "(N, C) tensor, got %s" % (tuple(x.shape),))
+    _check_vec("conv_epilogue_bwd", "scale", scale, x.shape[-1], x.device)
+    if dy.shape != x.shape or dy.device != x.device:
+        raise ValueError("conv_epilogue_bwd: dy must be shaped like x and on "
+                         "its device")
+    if relu and (y is None or y.shape != x.shape or y.dtype != dy.dtype
+                 or y.device != x.device or not y.is_contiguous()):
+        raise ValueError("conv_epilogue_bwd: relu needs the forward output "
+                         "y, contiguous, of dy's dtype and x's shape")
+    ld = _row_stride(dy)
+    if ld is None:
+        raise ValueError("conv_epilogue_bwd: dy must have unit channel stride "
+                         "and rows at one stride, got strides %s"
+                         % (dy.stride(),))
+    if x.device.type == "cpu":
+        return conv_epilogue_bwd_plain(x, y, dy, scale, relu)
+    _require_cuda(x, "conv_epilogue_bwd")
+    dx, dscale, dshift, part, max_blocks = _bwd_scratch(x)
+    if x.numel() == 0:
+        return dx, dscale.zero_(), dshift.zero_()
+    c = x.shape[-1]
+    lib = _load("bn_apply")
+    with torch.cuda.device(x.device):
+        err = lib.cxn_conv_epilogue_bwd(
+            x.data_ptr(), y.data_ptr() if relu else None, dy.data_ptr(),
+            scale.data_ptr(), dx.data_ptr(), part.data_ptr(), max_blocks,
+            dscale.data_ptr(), dshift.data_ptr(), x.numel() // c, c, ld,
+            int(bool(relu)), _DTYPE_CODE[x.dtype], _DTYPE_CODE[dy.dtype],
+            _stream(x))
+    _raise_on(err, "conv_epilogue_bwd")
+    conv_epilogue.launches_bwd_bf16 += 1
+    return dx, dscale, dshift
+
+
 class _ConvEpilogue(torch.autograd.Function):
-    """Counterpart of the reference's ``conv_epilogue`` custom VJP: the
-    forward is one conv_epilogue launch, the backward one launch of the
-    bn_apply backward kernel. The reference's VJP
+    """Counterpart of the reference's ``conv_epilogue`` custom VJP
     (``pallas_kernels.py:388-398``: ``dym = dy * [y > 0]``, ``dx = dym *
-    scale`` in x's dtype, f32 channel sums of ``dym * x`` and ``dym``)
-    is that kernel's arithmetic, and :func:`bn_apply_bwd_plain` its
-    plain version: it reads the forward's input, output and the
-    cotangent and does not depend on how scale and shift were made.
-    ``conv_epilogue.launches_bwd`` counts these launches (each is also
-    one of ``bn_apply_bwd.launches``)."""
+    scale`` rounded once to x's dtype, f32 channel sums of ``dym * x``
+    and ``dym``): the forward is one conv_epilogue launch, the backward
+    one launch. On float32 x and y that arithmetic is the bn_apply
+    backward kernel's, which it calls (``conv_epilogue.launches_bwd``
+    counts these launches, each also one of ``bn_apply_bwd.launches``);
+    where x or y is bfloat16 it is ``cxn_conv_epilogue_bwd``
+    (``launches_bwd_bf16``)."""
 
     @staticmethod
     def forward(ctx, x, scale, shift, relu, out_dtype):
@@ -291,19 +399,14 @@ class _ConvEpilogue(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale, y = ctx.saved_tensors
-        if dy.dtype != torch.float32 or x.dtype != torch.float32:
-            # the reference's bf16 VJP rounds dx once from f32 and sums
-            # f32(dym) * f32(x): not the bn_apply backward's bf16
-            # arithmetic, so no kernel of the port computes it yet
-            raise NotPortedError("conv_epilogue's backward with a %s "
-                                 "output over a %s input"
-                                 % (dy.dtype, x.dtype),
-                                 Roadmap.EPILOGUE_BF16_VJP)
         if _row_stride(dy) is None:
             dy = dy.contiguous()
-        dx, dscale, dshift = bn_apply_bwd(x, y, dy, scale, ctx.relu)
-        if x.device.type == "cuda":
-            conv_epilogue.launches_bwd += 1
+        if x.dtype == dy.dtype == torch.float32:
+            dx, dscale, dshift = bn_apply_bwd(x, y, dy, scale, ctx.relu)
+            if x.device.type == "cuda":
+                conv_epilogue.launches_bwd += 1
+        else:
+            dx, dscale, dshift = conv_epilogue_bwd(x, y, dy, scale, ctx.relu)
         return dx, dscale, dshift, None, None
 
 
@@ -321,7 +424,8 @@ def conv_epilogue(x: torch.Tensor, scale: torch.Tensor,
 
     ``launches`` counts every launch, ``launches_int32`` and
     ``launches_bf16`` those on an int32 and a bfloat16 input,
-    ``launches_bwd`` the backward's (see :class:`_ConvEpilogue`)."""
+    ``launches_bwd`` and ``launches_bwd_bf16`` the backward's (see
+    :class:`_ConvEpilogue`)."""
     _check_epilogue(x, scale, shift, out_dtype)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
                                     or shift.requires_grad):
@@ -336,6 +440,7 @@ conv_epilogue.launches = 0
 conv_epilogue.launches_int32 = 0
 conv_epilogue.launches_bf16 = 0
 conv_epilogue.launches_bwd = 0
+conv_epilogue.launches_bwd_bf16 = 0
 
 
 # ------------------------------------------------------------ bn_apply
@@ -472,16 +577,11 @@ def bn_apply_bwd(x: torch.Tensor, y: Optional[torch.Tensor],
     if x.device.type == "cpu":
         return bn_apply_bwd_plain(x, y, dy, scale, relu)
     _require_cuda(x, "bn_apply_bwd")
-    lib = _load("bn_apply")
-    c = x.shape[-1]
-    dx = torch.empty_like(x)
-    dscale = torch.empty(c, dtype=torch.float32, device=x.device)
-    dshift = torch.empty(c, dtype=torch.float32, device=x.device)
+    dx, dscale, dshift, part, max_blocks = _bwd_scratch(x)
     if x.numel() == 0:
         return dx, dscale.zero_(), dshift.zero_()
-    max_blocks = _bwd_max_blocks(x.device)
-    part = torch.empty(2 * max_blocks * c, dtype=torch.float32,
-                       device=x.device)
+    c = x.shape[-1]
+    lib = _load("bn_apply")
     with torch.cuda.device(x.device):
         err = lib.cxn_bn_apply_bwd(
             x.data_ptr(), y.data_ptr() if relu else None, dy.data_ptr(),
@@ -789,6 +889,406 @@ def relu_max_pool(x: torch.Tensor, k: int) -> torch.Tensor:
     return _ReluMaxPool.apply(x, int(k))
 
 
+# --------------------------------------------------------- pool_concat
+
+POOL_CONCAT_MAX_BRANCHES = 8
+_POOL_MODES = {"max": 0, "avg": 1}
+
+
+def _inv_window(k: int, dtype: torch.dtype) -> float:
+    """1 / (k * k) rounded to ``dtype``, as a Python float (exact): the
+    constant the reference multiplies an avg window's sum by in the
+    forward (the output dtype) and each window's cotangent by in the
+    backward (float32)."""
+    return float(torch.tensor(1.0 / (k * k), dtype=dtype))
+
+
+def pool_concat_plain(branches: Sequence[torch.Tensor], pos: int, k: int,
+                      mode: str) -> torch.Tensor:
+    """The channel concat of NHWC ``branches``, each cast to the first's
+    dtype, with branch ``pos`` reduced on the way by a k x k stride-1
+    max or avg window over its zero-padded (pad k // 2) map: the plain
+    version of the pool_concat forward kernel, in the reference
+    kernel's order (``pallas_kernels.py:412-435``: the (0, 0) shift,
+    then di outer, dj inner; ``torch.maximum``'s NaN propagation; avg
+    adds rounded in the dtype, then one product with 1/(k*k) rounded to
+    the dtype)."""
+    dtype = branches[0].dtype
+    xs = [x.to(dtype) for x in branches]
+    p = k // 2
+    h, w = xs[pos].shape[1], xs[pos].shape[2]
+    xp = F.pad(xs[pos], (0, 0, p, p, p, p))
+    y = xp[:, :h, :w]
+    for di in range(k):
+        for dj in range(k):
+            if di or dj:
+                sl = xp[:, di:di + h, dj:dj + w]
+                y = torch.maximum(y, sl) if mode == "max" else y + sl
+    if mode == "avg":
+        y = y * _inv_window(k, dtype)
+    xs[pos] = y
+    return torch.cat(xs, dim=3)
+
+
+def pool_concat_bwd_plain(x: torch.Tensor, out: Optional[torch.Tensor],
+                          dy: torch.Tensor, off: int, k: int,
+                          mode: str) -> torch.Tensor:
+    """The gradient of the pool branch ``x`` of :func:`pool_concat_plain`
+    (its segment starts at channel ``off`` of the output ``out`` and of
+    the cotangent ``dy``), written as the reference's VJP computes it
+    (``pallas_kernels.py:494-524``): an f32 scatter over the padded map
+    in (di, dj) order of, per window, the cotangent where the input
+    equals the window's output (max: every tied maximum; ``out`` is read
+    for that only) or the cotangent times f32 1/(k*k) (avg); cropped
+    and rounded once to x's dtype. (On float64 tensors, a precision
+    witness's plain path, it computes in float64.)"""
+    b, h, w, c = x.shape
+    p = k // 2
+    acc_t = torch.float64 if x.dtype == torch.float64 else torch.float32
+    dyf = dy[..., off:off + c].to(acc_t)
+    acc = torch.zeros((b, h + 2 * p, w + 2 * p, c), dtype=acc_t,
+                      device=x.device)
+    zero = torch.zeros((), dtype=acc_t, device=x.device)
+    if mode == "max":
+        xp = F.pad(x.to(acc_t), (0, 0, p, p, p, p))
+        yf = out[..., off:off + c].to(acc_t)
+    for di in range(k):
+        for dj in range(k):
+            if mode == "max":
+                contrib = torch.where(xp[:, di:di + h, dj:dj + w] == yf, dyf,
+                                      zero)
+            else:
+                contrib = dyf * _inv_window(k, acc_t)
+            acc[:, di:di + h, dj:dj + w] += contrib
+    return acc[:, p:p + h, p:p + w].to(x.dtype)
+
+
+def _check_pool_concat(branches: Sequence[torch.Tensor], pos: int, k: int,
+                       mode: str) -> None:
+    n = len(branches)
+    if not 2 <= n <= POOL_CONCAT_MAX_BRANCHES:
+        raise ValueError("pool_concat: 2 to %d branches, got %d"
+                         % (POOL_CONCAT_MAX_BRANCHES, n))
+    if not 0 <= pos < n:
+        raise ValueError("pool_concat: pool branch %d of %d" % (pos, n))
+    if mode not in _POOL_MODES:
+        raise ValueError("pool_concat: mode must be max or avg, got %r"
+                         % (mode,))
+    if k < 1 or k % 2 == 0:
+        raise ValueError("pool_concat: the window must be odd, got %d" % k)
+    lead = tuple(branches[0].shape[:3])
+    for x in branches:
+        if x.dtype not in _DTYPE_CODE or x.dim() != 4:
+            raise ValueError("pool_concat: branches must be float32 or "
+                             "bfloat16 NHWC tensors, got %s %s"
+                             % (x.dtype, tuple(x.shape)))
+        if tuple(x.shape[:3]) != lead or x.device != branches[0].device:
+            raise ValueError("pool_concat: every branch must be (B, H, W) = "
+                             "%s on %s, got %s on %s"
+                             % (lead, branches[0].device, tuple(x.shape),
+                                x.device))
+    if max(max(x.shape) for x in branches) >= 2 ** 31 \
+            or sum(x.shape[3] for x in branches) >= 2 ** 31:
+        raise ValueError("pool_concat: shapes exceed the kernel's int extents")
+
+
+def pool_concat_fwd(branches: Sequence[torch.Tensor], pos: int, k: int,
+                    mode: str) -> torch.Tensor:
+    """:func:`pool_concat_plain`'s function as one launch of
+    ``cxn_pool_concat_fwd`` (``csrc/pool_concat.cu``) for CUDA tensors,
+    each branch read through its strides (a dense NHWC tensor or a
+    channels-last view: no copy), the plain version for CPU tensors.
+    The output is a dense NHWC tensor of the first branch's dtype."""
+    _check_pool_concat(branches, pos, k, mode)
+    x0 = branches[0]
+    if x0.device.type == "cpu":
+        return pool_concat_plain(branches, pos, k, mode)
+    _require_cuda(x0, "pool_concat")
+    b, h, w = x0.shape[:3]
+    n = len(branches)
+    out = torch.empty((b, h, w, sum(x.shape[3] for x in branches)),
+                      dtype=x0.dtype, device=x0.device)
+    if out.numel() == 0:
+        return out
+    ptrs = (ctypes.c_void_p * n)(*[x.data_ptr() for x in branches])
+    strides = (ctypes.c_longlong * (4 * n))(
+        *[s for x in branches for s in x.stride()])
+    chans = (ctypes.c_int * n)(*[x.shape[3] for x in branches])
+    dtypes = (ctypes.c_int * n)(*[_DTYPE_CODE[x.dtype] for x in branches])
+    lib = _load("pool_concat")
+    with torch.cuda.device(x0.device):
+        err = lib.cxn_pool_concat_fwd(
+            n, ctypes.addressof(ptrs), ctypes.addressof(strides),
+            ctypes.addressof(chans), ctypes.addressof(dtypes), pos, k,
+            _POOL_MODES[mode], _inv_window(k, x0.dtype), out.data_ptr(),
+            _DTYPE_CODE[x0.dtype], b, h, w, _stream(x0))
+    _raise_on(err, "pool_concat")
+    _count(pool_concat_fwd, x0.dtype)
+    return out
+
+
+pool_concat_fwd.launches = 0
+pool_concat_fwd.launches_bf16 = 0
+
+
+def pool_concat_bwd(x: torch.Tensor, out: Optional[torch.Tensor],
+                    dy: torch.Tensor, off: int, k: int,
+                    mode: str) -> torch.Tensor:
+    """The pool branch's gradient (:func:`pool_concat_bwd_plain`) from
+    the branch ``x``, the forward's output ``out`` (read under max only)
+    and the cotangent ``dy`` of the output, all read through their
+    strides (a permuted ``dy`` costs no copy): one launch of
+    ``cxn_pool_concat_bwd`` for CUDA tensors, the plain version for CPU
+    tensors. dx is a dense NHWC tensor of x's dtype. Counted by dy's
+    dtype (the concat's)."""
+    if x.dtype not in _DTYPE_CODE or dy.dtype not in _DTYPE_CODE \
+            or x.dim() != 4 or dy.dim() != 4:
+        raise ValueError("pool_concat_bwd: x and dy must be float32 or "
+                         "bfloat16 NHWC tensors")
+    b, h, w, c = x.shape
+    if tuple(dy.shape[:3]) != (b, h, w) or not 0 <= off <= dy.shape[3] - c \
+            or dy.device != x.device:
+        raise ValueError("pool_concat_bwd: dy %s does not hold x %s at "
+                         "channel %d" % (tuple(dy.shape), tuple(x.shape),
+                                         off))
+    if mode not in _POOL_MODES or k < 1 or k % 2 == 0:
+        raise ValueError("pool_concat_bwd: mode %r, window %d" % (mode, k))
+    if mode == "max" and (out is None or out.shape != dy.shape
+                          or out.dtype != dy.dtype
+                          or out.device != x.device):
+        raise ValueError("pool_concat_bwd: max needs the forward's output, "
+                         "shaped and typed like dy")
+    if x.device.type == "cpu":
+        return pool_concat_bwd_plain(x, out, dy, off, k, mode)
+    _require_cuda(x, "pool_concat_bwd")
+    dx = torch.empty((b, h, w, c), dtype=x.dtype, device=x.device)
+    if dx.numel() == 0:
+        return dx
+    xs = (ctypes.c_longlong * 4)(*x.stride())
+    ds = (ctypes.c_longlong * 4)(*dy.stride())
+    # the output is read under max only
+    os_ = (ctypes.c_longlong * 4)(*(out.stride() if out is not None
+                                    else (0, 0, 0, 0)))
+    lib = _load("pool_concat")
+    with torch.cuda.device(x.device):
+        err = lib.cxn_pool_concat_bwd(
+            x.data_ptr(), _DTYPE_CODE[x.dtype], ctypes.addressof(xs),
+            dy.data_ptr(), out.data_ptr() if out is not None else None,
+            _DTYPE_CODE[dy.dtype], ctypes.addressof(ds), ctypes.addressof(os_),
+            off, k, _POOL_MODES[mode], _inv_window(k, torch.float32),
+            dx.data_ptr(), b, h, w, c, _stream(x))
+    _raise_on(err, "pool_concat_bwd")
+    _count(pool_concat_bwd, dy.dtype)
+    return dx
+
+
+pool_concat_bwd.launches = 0
+pool_concat_bwd.launches_bf16 = 0
+
+
+class _PoolConcat(torch.autograd.Function):
+    """Counterpart of the reference's ``pool_concat`` custom VJP
+    (``pallas_kernels.py:466-527``): the forward is one pool_concat
+    launch; the backward one launch for the pool branch, and for each
+    plain branch its channel slice of dy (a view when the branch's dtype
+    is the concat's, else a cast). The residuals are the pool branch and
+    (max) the forward's output, whose segment is the reference's
+    ``y_pool``."""
+
+    @staticmethod
+    def forward(ctx, pos, k, mode, *branches):
+        out = pool_concat_fwd(branches, pos, k, mode)
+        ctx.pos, ctx.k, ctx.mode = pos, k, mode
+        ctx.widths = [x.shape[3] for x in branches]
+        ctx.dtypes = [x.dtype for x in branches]
+        ctx.save_for_backward(branches[pos],
+                              out if mode == "max" else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, out = ctx.saved_tensors
+        grads, off = [], 0
+        for i, (c, dt) in enumerate(zip(ctx.widths, ctx.dtypes)):
+            if not ctx.needs_input_grad[3 + i]:
+                grads.append(None)
+            elif i == ctx.pos:
+                grads.append(pool_concat_bwd(x, out, dy, off, ctx.k,
+                                             ctx.mode))
+            else:
+                seg = dy[..., off:off + c]
+                grads.append(seg if seg.dtype == dt else seg.to(dt))
+            off += c
+        return (None, None, None, *grads)
+
+
+def pool_concat_applicable(h: int, w: int, total_ch: int, k: int,
+                           itemsize: int) -> bool:
+    """The reference's fusion gate (``pallas_kernels.py:530-540``), kept
+    as it is so that both packages fuse the same concats: an odd window
+    larger than 1, and three copies of the padded (H, W, Ctotal) item
+    (Ctotal rounded up to 128 lanes) within 6 MiB of TPU VMEM."""
+    if k <= 1 or k % 2 == 0:
+        return False
+    lanes = -(-total_ch // 128) * 128
+    per_item = (h + 2 * (k // 2)) * (w + 2 * (k // 2)) * lanes * itemsize
+    return 3 * per_item <= 6 * 1024 * 1024
+
+
+def pool_concat(branches: Sequence[torch.Tensor], pos: int, k: int,
+                mode: str) -> torch.Tensor:
+    """Fused Inception tower tail: ``ch_concat(branches)`` where branch
+    ``pos`` is the UN-pooled input of a k x k stride-1 SAME (zero pad
+    k // 2) max or avg pool, reduced on the way into its channel
+    segment; differentiable (every tied maximum credited, avg spread
+    uniformly). One kernel launch forward and one backward on CUDA
+    tensors (``pool_concat_fwd`` / ``pool_concat_bwd`` count float32
+    and bfloat16 launches apart, by the concat's dtype)."""
+    branches = tuple(branches)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in branches):
+        return _PoolConcat.apply(int(pos), int(k), mode, *branches)
+    return pool_concat_fwd(branches, int(pos), int(k), mode)
+
+
+# ----------------------------------------------------- bias_grad_bf16
+
+# XLA:CPU's tree-reduction rewrite cuts reduced dims above this size
+XLA_REDUCE_WINDOW = 32
+
+
+def xla_bias_sum_plan(dims: Sequence[int]
+                      ) -> Tuple[Tuple[Tuple[int, int, int], ...], ...]:
+    """The passes in which the reference's XLA:CPU build sums a bf16
+    tensor over the reduced dims ``dims`` (read from its optimized HLO):
+    while a reduced dim is larger than 32, a reduce-window pass cuts
+    every such dim, zero-padded to a multiple of 32 (the pad split low
+    = floor(pad / 2)), into windows of 32, and takes each smaller dim
+    whole; a last pass sums what is left. Each pass is, per dim,
+    ``(windows, window size, low pad)``; the last has one window per
+    dim. Every window is summed in row-major order from +0, each add
+    one bf16 rounding."""
+    w = XLA_REDUCE_WINDOW
+    dims = [int(d) for d in dims]
+    passes = []
+    while any(d > w for d in dims):
+        step = tuple((-(-d // w), w, (-(-d // w) * w - d) // 2) if d > w
+                     else (1, d, 0) for d in dims)
+        passes.append(step)
+        dims = [s[0] for s in step]
+    passes.append(tuple((1, d, 0) for d in dims))
+    return tuple(passes)
+
+
+def _as_nbdc(dy: torch.Tensor) -> torch.Tensor:
+    """A bias cotangent as (A, B, D, C): NHWC as it is, (N, C) as
+    (1, 1, N, C) (a reduced dim of size 1 is a window of its own)."""
+    if dy.dim() == 4:
+        return dy
+    if dy.dim() == 2:
+        return dy[None, None]
+    raise ValueError("bias_grad_bf16: dy must be NHWC or (N, C), got shape %s"
+                     % (tuple(dy.shape),))
+
+
+def bias_grad_bf16_plain(dy: torch.Tensor) -> torch.Tensor:
+    """The float32 bias gradient of ``y + bias.to(bfloat16)`` from the
+    bf16 cotangent ``dy`` (NHWC or (N, C)): the bf16 sum over every axis
+    but the channel in XLA:CPU's order (:func:`xla_bias_sum_plan`),
+    converted to float32 — the plain version of the bias_grad_bf16
+    kernel. A bf16 tensor add is an f32 add rounded to bf16, the
+    reference's bf16 add; a zero pad adds +0 to a sum that is never -0,
+    so it is exact."""
+    t = _as_nbdc(dy)
+    for step in xla_bias_sum_plan(t.shape[:3]):
+        pads = []
+        for (n, w, lo), d in zip(reversed(step), reversed(t.shape[:3])):
+            pads += [lo, n * w - d - lo]
+        t = F.pad(t, [0, 0] + pads)
+        (n0, w0, _), (n1, w1, _), (n2, w2, _) = step
+        c = t.shape[3]
+        # (n0, n1, n2, window elements in row-major order, C)
+        t = t.reshape(n0, w0, n1, w1, n2, w2, c) \
+            .permute(0, 2, 4, 1, 3, 5, 6).reshape(n0, n1, n2, -1, c)
+        acc = torch.zeros((n0, n1, n2, c), dtype=torch.bfloat16,
+                          device=t.device)
+        for i in range(t.shape[3]):
+            acc = acc + t[:, :, :, i]
+        t = acc
+    return t.reshape(-1).float()
+
+
+def bias_grad_bf16(dy: torch.Tensor) -> torch.Tensor:
+    """The float32 gradient of a bias added to a bf16 NHWC or (N, C)
+    output, from its bf16 cotangent ``dy`` (read through its strides):
+    the bf16 sum in the reference's order (:func:`bias_grad_bf16_plain`)
+    as one call of ``csrc/bias_grad_bf16.cu`` (one launch per pass of
+    the plan) for a CUDA tensor, the plain version for a CPU one."""
+    if dy.dtype != torch.bfloat16:
+        raise TypeError("bias_grad_bf16: dy must be bfloat16, got %s"
+                        % dy.dtype)
+    t = _as_nbdc(dy)
+    if dy.device.type == "cpu":
+        return bias_grad_bf16_plain(dy)
+    _require_cuda(dy, "bias_grad_bf16")
+    a, b, d, c = t.shape
+    out = torch.empty(c, dtype=torch.float32, device=dy.device)
+    if t.numel() == 0:
+        return out.zero_()
+    if max(t.shape) >= 2 ** 31:
+        raise ValueError("bias_grad_bf16: shape %s exceeds the kernel's int "
+                         "extents" % (tuple(dy.shape),))
+    plan = xla_bias_sum_plan((a, b, d))
+    flat = [v for step in plan
+            for v in [s[0] for s in step] + [s[1] for s in step]
+            + [s[2] for s in step]]
+    # the largest pass's partials, twice (the passes ping-pong)
+    most = max([math.prod(s[0] for s in step) for step in plan[:-1]]
+               or [0]) * c
+    scratch = torch.empty(max(2 * most, 2), dtype=torch.bfloat16,
+                          device=dy.device)
+    plan_arr = (ctypes.c_int * len(flat))(*flat)
+    lib = _load("bias_grad_bf16")
+    with torch.cuda.device(dy.device):
+        err = lib.cxn_bias_grad_bf16(
+            t.data_ptr(), *t.stride(), a, b, d, c, len(plan),
+            ctypes.addressof(plan_arr), scratch.data_ptr(), scratch.numel(),
+            out.data_ptr(), _stream(dy))
+    _raise_on(err, "bias_grad_bf16")
+    bias_grad_bf16.launches += 1
+    return out
+
+
+bias_grad_bf16.launches = 0
+
+
+class _BiasAddBf16(torch.autograd.Function):
+    """``y + bias.to(bfloat16)`` for a bf16 output ``y``, with the
+    reference's gradient: ``dy`` through to y, and to the bias the bf16
+    sum of :func:`bias_grad_bf16`, cast to the bias's dtype (float32 on
+    the masters, bfloat16 on a ``grad_dtype = bfloat16`` shadow)."""
+
+    @staticmethod
+    def forward(ctx, y, bias):
+        ctx.bias_dtype = bias.dtype
+        return y + bias.to(torch.bfloat16)
+
+    @staticmethod
+    def backward(ctx, dy):
+        db = bias_grad_bf16(dy).to(ctx.bias_dtype) \
+            if ctx.needs_input_grad[1] else None
+        return dy, db
+
+
+def bias_add(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """A conv's or fullc's bias add ``y + bias.to(y.dtype)`` over the
+    last axis; on a bf16 ``y`` (``dtype = bfloat16``) through
+    :class:`_BiasAddBf16`, so that the bias gradient sums in bf16 in the
+    reference's order."""
+    if y.dtype == torch.bfloat16:
+        return _BiasAddBf16.apply(y, bias)
+    return y + bias.to(y.dtype)
+
+
 # ------------------------------------------------------------ counters
 
 # launch counter name -> (wrapper, attribute). conv_epilogue's
@@ -799,6 +1299,7 @@ _COUNTERS = {"conv_epilogue": (conv_epilogue, "launches"),
              "conv_epilogue_int32": (conv_epilogue, "launches_int32"),
              "conv_epilogue_bf16": (conv_epilogue, "launches_bf16"),
              "conv_epilogue_bwd": (conv_epilogue, "launches_bwd"),
+             "conv_epilogue_bwd_bf16": (conv_epilogue, "launches_bwd_bf16"),
              "bn_apply_fwd": (bn_apply_fwd, "launches"),
              "bn_apply_fwd_bf16": (bn_apply_fwd, "launches_bf16"),
              "bn_apply_bwd": (bn_apply_bwd, "launches"),
@@ -808,7 +1309,12 @@ _COUNTERS = {"conv_epilogue": (conv_epilogue, "launches"),
              "relu_max_pool_fwd": (relu_max_pool_fwd, "launches"),
              "relu_max_pool_fwd_bf16": (relu_max_pool_fwd, "launches_bf16"),
              "relu_max_pool_bwd": (relu_max_pool_bwd, "launches"),
-             "relu_max_pool_bwd_bf16": (relu_max_pool_bwd, "launches_bf16")}
+             "relu_max_pool_bwd_bf16": (relu_max_pool_bwd, "launches_bf16"),
+             "pool_concat_fwd": (pool_concat_fwd, "launches"),
+             "pool_concat_fwd_bf16": (pool_concat_fwd, "launches_bf16"),
+             "pool_concat_bwd": (pool_concat_bwd, "launches"),
+             "pool_concat_bwd_bf16": (pool_concat_bwd, "launches_bf16"),
+             "bias_grad_bf16": (bias_grad_bf16, "launches")}
 
 
 def reset_launch_counts() -> None:

@@ -13,10 +13,18 @@ Net-level fusion passes of the reference that the port runs:
   the conv (into the weight, or into the conv_epilogue kernel under
   ``conv_pallas_epilogue = 1``); the BN connection becomes identity.
 
-Both change what interior nodes hold (the BN output node carries the
-post-relu value; the conv output node the folded conv+BN value), as in
-the reference. ``pool_concat_pallas`` and ``channel_pad`` are not
-ported and raise.
+- ``pool_concat_pallas = 1``: an Inception-tower ``ch_concat`` one of
+  whose inputs is a stride-1, odd-k, SAME (pad k // 2), non-``pre_relu``
+  max or avg pool consumed by that concat alone runs as one
+  ``pool_concat`` kernel (``layers/kernels.py``), where the reference's
+  gate admits its map (``pool_concat_applicable``, itemsize 2 under
+  ``dtype = bfloat16``); the pool layer passes its input through. In
+  training and at eval.
+
+These change what interior nodes hold (the BN output node carries the
+post-relu value; the conv output node the folded conv+BN value; a
+fused pool's output node its un-pooled input), as in the reference.
+``channel_pad`` is not ported and raises.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ import torch
 from ..graph import NetGraph
 from ..layers import Layer, Shape3, create_layer
 from ..layers.base import StepKey
+from ..layers.conv import PoolingLayer
+from ..layers.kernels import pool_concat_applicable
 from ..utils.config import NotPortedError, Roadmap
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -53,9 +63,6 @@ class FuncNet:
         g = self.graph
         if self._net_flag("channel_pad"):
             raise NotPortedError("channel_pad", Roadmap.CHECKPOINT_CLI)
-        if self._net_flag("pool_concat_pallas"):
-            raise NotPortedError("pool_concat_pallas = 1",
-                                 Roadmap.POOL_CONCAT)
         if g.extra_data_num:
             raise NotPortedError("extra_data_num", Roadmap.CLI)
         self.node_shapes[0] = Shape3(*g.input_shape)
@@ -132,6 +139,58 @@ class FuncNet:
                 if len(cons) == 1 and g.layers[cons[0]].type in BN_TYPES:
                     self.fold_pairs[li] = cons[0]
                     self._fold_bns.add(cons[0])
+        self._pool_passthrough = set()    # pools fused into their concat
+        self.fused_concats: Dict[int, Tuple[int, int, str]] = {}
+        if self._net_flag("pool_concat_pallas"):
+            self._plan_pool_concat(consumers, shared_primaries)
+
+    def _plan_pool_concat(self, consumers, shared_primaries) -> None:
+        """Mark the Inception-tower ch_concat layers whose pool branch
+        fuses (concat li -> (position, k, mode)), under the reference's
+        conditions (``cxxnet_tpu/nnet/net.py:181-225``): the first input
+        in order that comes from a max or avg pooling layer (not
+        ``pre_relu``) with stride 1, a square odd window k > 1 and pad
+        k // 2, whose output only this concat reads and whose map keeps
+        its size, where the gate admits the concat's map; one fused
+        branch per concat, none on a shared layer's primary."""
+        g = self.graph
+        producers: Dict[int, int] = {}
+        for li, info in enumerate(g.layers):
+            for ni in info.nindex_out:
+                producers.setdefault(ni, li)
+        itemsize = 2 if any(n == "dtype" and v == "bfloat16"
+                            for n, v in g.defcfg) else 4
+        for li, info in enumerate(g.layers):
+            if info.type != "ch_concat" or li in shared_primaries:
+                continue
+            out_shape = self.node_shapes[info.nindex_out[0]]
+            for pos, ni in enumerate(info.nindex_in):
+                pli = producers.get(ni)
+                if pli is None or g.layers[pli].type not in (
+                        "max_pooling", "avg_pooling"):
+                    continue
+                pool = self.layer_objs[pli]
+                if not isinstance(pool, PoolingLayer) or pool.pre_relu:
+                    continue
+                pp = pool.param
+                k = pp.kernel_height
+                if (pp.stride != 1 or k != pp.kernel_width or k <= 1
+                        or k % 2 == 0 or pp.pad_y != k // 2
+                        or pp.pad_x != k // 2):
+                    continue
+                if consumers.get(ni, []) != [li]:
+                    continue
+                ins = self.node_shapes[g.layers[pli].nindex_in[0]]
+                outs = self.node_shapes[ni]
+                if (ins.y, ins.x) != (outs.y, outs.x):
+                    continue              # not a SAME-size pool
+                if not pool_concat_applicable(out_shape.y, out_shape.x,
+                                              out_shape.ch, k, itemsize):
+                    continue
+                self.fused_concats[li] = (pos, k, pool.mode)
+                self.layer_objs[li].fused_pool = (pos, k, pool.mode)
+                self._pool_passthrough.add(pli)
+                break                     # one fused branch per concat
 
     def fold_entries(self, params: Params, state: NetState,
                      conv_li: int) -> Dict[str, torch.Tensor]:
@@ -191,8 +250,11 @@ class FuncNet:
         fold_eval = self.bn_fold_eval and not is_train
         for li, info in enumerate(g.layers):
             if li in self._identity_layers \
+                    or li in self._pool_passthrough \
                     or (fold_eval and li in self._fold_bns):
-                # the epilogue already ran fused inside the producer
+                # the epilogue already ran fused inside the producer (relu
+                # inside BN, BN inside the folded conv, the pool inside the
+                # fused concat)
                 v = nodes[info.nindex_in[0]]
                 for ni in info.nindex_out:
                     nodes[ni] = v

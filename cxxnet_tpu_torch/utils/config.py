@@ -35,8 +35,6 @@ class Roadmap:
     QUANTIZED = "queue 1, quantized and low-precision inference"
     BUNDLES = "queue 1, sealed bundles"
     MULTI_GPU = "queue 1, multi-GPU"
-    POOL_CONCAT = "queue 2, pool_concat"
-    EPILOGUE_BF16_VJP = "queue 2, conv_epilogue's bf16 VJP"
 
 
 class NotPortedError(ConfigError):

@@ -32,12 +32,16 @@ its first loss differs in the fourth digit.) Two comparisons:
   convolution backwards that sum in another order, is 1/16 of the
   array). Held:
   losses rtol 1e-6, whole state 1e-4, every array 2e-2, max |Δ| 1e-3.
-  kaiming-tiny: losses within 1.7e-5 (its bf16 products round
-  differently now and then), whole state 7.4e-6, non-bias arrays 1.8e-2
-  and bias arrays 7.4e-2: the reference sums a bf16 bias gradient in
-  bf16 (3.3 % off the exact sum on a 4x50x50 map), the port in f32
-  (ROADMAP queue 3). Held: losses rtol 1e-4, whole state 1e-4,
-  non-bias arrays 5e-2, bias arrays 0.25.
+  kaiming-tiny: losses within 3.5e-5 (its bf16 products round
+  differently now and then), whole state 5.7e-6, non-bias arrays 8.0e-3
+  and bias arrays 3.3e-2 (``param/conv1/bias``). Both packages sum a
+  bf16 bias gradient in bf16 in XLA:CPU's order (``kernels.bias_add``,
+  ``test_torch_port_bf16_grads.py``; before the port did, in f32, the
+  bias arrays lay 7.4e-2 away); the stem's cotangent arrives through
+  convolution backwards that sum in another order, and a bf16 sum over
+  windows of 4x32x32 terms turns a last-bit change of one term into a
+  step of the running sum's ulp. Held: losses rtol 1e-4, whole state
+  1e-4, non-bias and bias arrays 5e-2.
 - free running: three steps each from the one snapshot. bf16 rounding
   differences compound through the steps (the reference's own jit and
   per-op runs diverge as far): measured whole state 3.2e-3 and losses
@@ -270,7 +274,7 @@ NETS = {
                    "bias": 2e-2, "abs": 1e-3, "free_whole": 2e-2,
                    "free_loss": 1e-2}),
     "kaiming": (_kaiming_cfg, 208, 10, 1,
-                {"loss": 1e-4, "whole": 1e-4, "array": 5e-2, "bias": 0.25,
+                {"loss": 1e-4, "whole": 1e-4, "array": 5e-2, "bias": 5e-2,
                  "abs": 1e-3, "free_whole": 2e-3, "free_loss": 1e-3}),
 }
 

@@ -104,12 +104,22 @@ def test_kernel_wrapper_on_cpu_tensor_counts_no_launch():
     kernels.relu_max_pool(xb, 2).sum().backward()
     wb = torch.ones(12, 6, dtype=torch.bfloat16, requires_grad=True)
     kernels.matmul(xb.reshape(6, 12), wb).sum().backward()
+    # conv_epilogue's bf16 VJP, pool_concat in both dtypes, and the bf16
+    # bias gradient
+    kernels.conv_epilogue(xb, s, torch.zeros(4), True,
+                          torch.bfloat16).sum().backward()
+    for xc in (x.clone().requires_grad_(True), xb):
+        kernels.pool_concat([xc, xc], 1, 3, "max").sum().backward()
+    kernels.bias_add(xb, torch.ones(4, requires_grad=True)).sum().backward()
     counts = kernels.launch_counts()
     assert set(counts) == {"conv_epilogue", "conv_epilogue_int32",
                            "conv_epilogue_bf16", "conv_epilogue_bwd",
+                           "conv_epilogue_bwd_bf16",
                            "bn_apply_fwd", "bn_apply_fwd_bf16",
                            "bn_apply_bwd", "bn_apply_bwd_bf16", "matmul",
                            "matmul_bf16", "relu_max_pool_fwd",
                            "relu_max_pool_fwd_bf16", "relu_max_pool_bwd",
-                           "relu_max_pool_bwd_bf16"}
+                           "relu_max_pool_bwd_bf16", "pool_concat_fwd",
+                           "pool_concat_fwd_bf16", "pool_concat_bwd",
+                           "pool_concat_bwd_bf16", "bias_grad_bf16"}
     assert all(v == 0 for v in counts.values())

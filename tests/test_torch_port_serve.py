@@ -248,20 +248,35 @@ def test_port_model_builders_match_jax():
     ([("serve_device_mem_budget", "512")], "quantized"),
     ([("remat", "full")], "rematerialization"),
     ([("channel_pad", "128")], "CLI remainder"),
-    ([("pool_concat_pallas", "1")], "pool_concat"),
     ([("shard_optimizer", "1")], "multi-GPU"),
     ([("update_on_server", "1")], "multi-GPU"),
     ([("remat", "conv")], "rematerialization"),
     ([("grad_sync", "overlap")], "multi-GPU"),
     ([("input_layout", "rowmajor")], "CLI remainder"),
 ], ids=["fp8", "fp8_alias", "serve_device_mem_budget", "remat_full",
-        "channel_pad",
-        "pool_concat", "shard_optimizer", "update_on_server", "remat",
+        "channel_pad", "shard_optimizer", "update_on_server", "remat",
         "grad_sync", "input_layout"])
 def test_unported_keys_raise(ref, extra, item):
     with pytest.raises(NotPortedError, match=item):
         t = NetTrainer(_cfg(extra), device="cpu")
         t.load_model(ref["path"])
+
+
+def test_pool_concat_pallas_builds_and_fuses_on_the_tower():
+    """``pool_concat_pallas = 1`` is ported: the key builds, and on
+    chip_smoke.py's full-width Inception tower (shapes only) two concats
+    fuse, t3a's avg and t4a's max pool passing their inputs through
+    (no forward)."""
+    import chip_smoke
+    t = NetTrainer(parse_config(chip_smoke.tower_text(4))
+                   + [("pool_concat_pallas", "1")], device="cpu")
+    t.init_model()
+    net = t.net
+    assert sorted(m for _, _, m in net.fused_concats.values()) == \
+        ["avg", "max"]
+    assert all(pos == 3 and k == 3 for pos, k, _ in
+               net.fused_concats.values())
+    assert len(net._pool_passthrough) == 2
 
 
 @pytest.fixture(scope="module")
