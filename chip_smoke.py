@@ -20,7 +20,9 @@ the script exits non-zero without a result line):
              rtol 1e-5 of the sum of their terms' magnitudes) at every
              batch-norm shape of the batch-128 training step; ``matmul``
              at fc1's three products and a ragged case (within rtol
-             1e-5 of sum |a*b|); ``relu_max_pool`` forward and backward
+             1e-5 of sum |a*b|), each with the route and split count
+             its plan took (``kernels.matmul_plan``); ``relu_max_pool``
+             forward and backward
              (both bit-exact, NaN positions included) at kaiming-224's
              three fused pools at batch 128 on inputs in steps of 0.5
              (tied maxima), with the cotangent also as a permuted view,
@@ -33,8 +35,12 @@ the script exits non-zero without a result line):
              of the training kernels (``train_bf16``): bn_apply at every
              batch-norm shape of the bench-set Inception-BN step
              (forward and dx the same bits, sums within rtol 1e-5),
-             matmul at fc1's bf16 . bf16, f32 . bf16 and bf16 . f32
-             products (library: torch.mm with out_dtype=float32), and
+             matmul at fc1's bf16 . bf16 (which must take the
+             tensor cores, ``wgmma``), f32 . bf16 and bf16 . f32
+             products (library: torch.mm with out_dtype=float32), a
+             ragged bf16 . bf16 product on the tensor cores (77 x 1000
+             x 136) and one whose 129-wide rows TMA cannot read (the FMA
+             route), and
              relu_max_pool at kaiming-224's pools (the same bits). The
              pool_concat slice: ``pool_concat`` forward and the pool
              branch's backward at every fused concat of the Inception
@@ -48,7 +54,11 @@ the script exits non-zero without a result line):
              bf16 bias gradient (``bias_grad_bf16``, XLA:CPU's summation
              order) at kaiming-224's 14 bias shapes, the same bits. Max
              error, kernel / plain / library times (CUDA events) and the
-             bound from bytes and operations; for relu_max_pool, in place
+             bound from bytes and operations; for matmul, the bn_apply
+             backward and forward and conv_epilogue's VJP also the
+             kernel's (and the library call's) device time per call
+             from the profiler (``device_ms``: back-to-back events
+             around a ~10 us kernel time its Python wrapper); for relu_max_pool, in place
              of a library call, F.relu + F.max_pool2d and their autograd
              backward (two calls, and a backward that credits one tie);
              for pool_concat F.pad + F.max_pool2d / F.avg_pool2d +
@@ -356,6 +366,45 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def device_ms(fns, iters: int):
+    """Mean device time per call of each ``fn(i)`` in ``fns`` (a dict
+    name -> (fn, kernel-name substring)), from torch.profiler's CUDA
+    kernel events over ``iters`` calls of each, in one profile after a
+    warm call: the kernels whose names contain the substring (every
+    kernel the calls launch where it is ""). Back-to-back CUDA events
+    around a ~10 us kernel time the Python wrapper, not the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if DEVICE != "cuda":
+        return {name: None for name in fns}
+    for fn, _ in fns.values():
+        fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn, _ in fns.values():
+            for i in range(iters):
+                fn(i)
+        torch.cuda.synchronize()
+    evts = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for name, (_, sub) in fns.items():
+        out[name] = sum(e.time_range.elapsed_us() for e in evts
+                        if sub in e.name and _owner(e, fns, sub)) \
+            / 1e3 / iters
+    return out
+
+
+def _owner(evt, fns, sub) -> bool:
+    """Whether a kernel event belongs to the entry whose substring is
+    ``sub``: an empty substring takes the kernels no other entry
+    names."""
+    if sub:
+        return True
+    return not any(s and s in evt.name for _, s in fns.values())
+
+
 def inception_cfg():
     from cxxnet_tpu_torch.models import inception_bn
     from cxxnet_tpu_torch.utils.config import parse_config
@@ -528,6 +577,9 @@ def epilogue_bwd_case(shape, bw: float, flops: float):
     out["plain_ms"] = cuda_time_ms(
         lambda i: kernels.bn_apply_bwd_plain(x, y.detach(), dy, scale,
                                              True), 20)
+    out["device_ms"] = device_ms({"bwd": (
+        lambda i: torch.autograd.grad(y, leaves, dy, retain_graph=True),
+        "cxn_bn_bwd")}, 20)["bwd"]
     kernels.restore_launch_counts(counts0)
     del x, dy, y, leaves
     torch.cuda.empty_cache()
@@ -648,6 +700,13 @@ def bn_case(shape, bw: float, flops: float, dtype: str = "float32"):
         lambda i: kernels.bn_apply_bwd_plain(xs[i % nbuf], ys[i % nbuf],
                                              dys[i % nbuf], scale, True),
         iters)
+    dev = device_ms({
+        "fwd": (lambda i: kernels.bn_apply_fwd(xs[i % nbuf], scale, shift,
+                                               True), "cxn_bn_fwd"),
+        "bwd": (lambda i: kernels.bn_apply_bwd(xs[i % nbuf], ys[i % nbuf],
+                                               dys[i % nbuf], scale, True),
+                "cxn_bn_bwd")}, iters)
+    out["fwd_device_ms"], out["bwd_device_ms"] = dev["fwd"], dev["bwd"]
     # comparison and timing launches are not main-path launches
     kernels.restore_launch_counts(counts0)
     del xs, dys, ys, y
@@ -657,7 +716,7 @@ def bn_case(shape, bw: float, flops: float, dtype: str = "float32"):
 
 def matmul_case(m: int, k: int, n: int, ta: bool, tb: bool, bw: float,
                 flops: float, dtypes=("float32", "float32"),
-                tc_flops: float = 989e12):
+                tc_flops: float = 989e12, expect_route=None):
     """The matmul kernel on the card against its plain version for an
     (M, K) . (K, N) product whose operands may be transposed views, each
     of its own dtype (``dtypes``); every output within SUM_RTOL of
@@ -692,11 +751,22 @@ def matmul_case(m: int, k: int, n: int, ta: bool, tb: bool, bw: float,
     both_bf16 = da == db == torch.bfloat16
     out["bound_ms"], out["bound_by"] = bound(
         nbytes, 2 * m * n * k, bw, tc_flops if both_bf16 else flops)
+    plan = kernels.matmul_plan(
+        m, k, n, (kernels._mat_strides(A), kernels._mat_strides(B)),
+        (da, db), aligned=A.data_ptr() % 16 == 0 and B.data_ptr() % 16 == 0)
+    if DEVICE == "cuda" and kernels.matmul_kernel.last_plan != plan:
+        raise RuntimeError("matmul launched another plan than %s" % plan)
+    out["route"], out["splits"] = plan["route"], plan["splits"]
+    out["blocks"] = plan["blocks"]
+    out["ok"] = out["ok"] and (expect_route is None
+                               or plan["route"] == expect_route)
+    out["expect_route"] = expect_route
     out["ms"] = cuda_time_ms(lambda i: kernels.matmul_kernel(A, B), 50)
     out["plain_ms"] = cuda_time_ms(lambda i: kernels.matmul_plain(A, B), 50)
     out["library_ms"] = None
+    lib = None
     if da == db == torch.float32:
-        out["library_ms"] = cuda_time_ms(lambda i: torch.matmul(A, B), 50)
+        lib = lambda i: torch.matmul(A, B)  # noqa: E731
         out["library"] = "torch.matmul"
     elif both_bf16:
         out["library"] = "torch.mm(a, b, out_dtype=torch.float32)"
@@ -706,10 +776,16 @@ def matmul_case(m: int, k: int, n: int, ta: bool, tb: bool, bw: float,
             out["library_missing"] = "%s: %s" % (type(e).__name__,
                                                  str(e)[:160])
         else:
-            out["library_ms"] = cuda_time_ms(
-                lambda i: torch.mm(A, B, out_dtype=torch.float32), 50)
+            lib = lambda i: torch.mm(A, B, out_dtype=torch.float32)  # noqa
     else:
         out["library"] = "none: no one call multiplies mixed dtypes"
+    fns = {"kernel": (lambda i: kernels.matmul_kernel(A, B), "cxn_sgemm")}
+    if lib is not None:
+        out["library_ms"] = cuda_time_ms(lib, 50)
+        fns["library"] = (lib, "")
+    dev = device_ms(fns, 50)
+    out["device_ms"] = dev["kernel"]
+    out["library_device_ms"] = dev.get("library")
     kernels.restore_launch_counts(counts0)
     return out
 
@@ -949,7 +1025,8 @@ def training_kernel_section(bw: float, flops: float, tc_flops: float,
           "distinct_path_shapes": len(bn_cases),
           "step_sum": _step_of(cases, ("fwd_ms", "fwd_plain_ms",
                                        "fwd_bound_ms", "bwd_ms",
-                                       "bwd_plain_ms", "bwd_bound_ms"),
+                                       "bwd_plain_ms", "bwd_bound_ms",
+                                       "fwd_device_ms", "bwd_device_ms"),
                                counts),
           "fwd_max_abs_err": max(c["fwd_err"] for c in cases),
           "bwd_max_abs_err": max(max(c["dx_err"], c["sum_err"])
@@ -966,14 +1043,25 @@ def training_kernel_section(bw: float, flops: float, tc_flops: float,
         raise RuntimeError("expected %d matmul launches per step, the net "
                            "has %d" % (expected["matmul" + sfx],
                                        len(products)))
-    mm_path = [matmul_case(*p[:5], bw, flops, p[5], tc_flops)
-               for p in products]
+    # fc1's bf16 . bf16 forward must take the tensor cores
+    mm_path = [matmul_case(*p[:5], bw, flops, p[5], tc_flops,
+                           "wgmma" if p[5] == ("bfloat16", "bfloat16")
+                           else "fma") for p in products]
     mm_extra = [matmul_case(77, 1000, 129, False, True, bw, flops,
-                            (dtype, dtype), tc_flops)]
+                            (dtype, dtype), tc_flops, "fma")]
+    if bf16:
+        # ragged on the tensor cores (TMA fills the edges with zeros),
+        # and a B whose 129-element rows break TMA's 16-byte stride rule
+        mm_extra += [matmul_case(77, 1000, 136, False, False, bw, flops,
+                                 (dtype, dtype), tc_flops, "wgmma"),
+                     matmul_case(77, 1000, 129, False, False, bw, flops,
+                                 (dtype, dtype), tc_flops, "fma")]
     mm = {"ok": all(c["ok"] for c in mm_path + mm_extra),
           "launches_per_step": len(products),
+          "routes": [[c["route"], c["splits"]] for c in mm_path],
           "step_sum": _step_of(mm_path, ("ms", "plain_ms", "library_ms",
-                                         "bound_ms")),
+                                         "bound_ms", "device_ms",
+                                         "library_device_ms")),
           "max_abs_err": max(c["max_abs_err"] for c in mm_path + mm_extra),
           "max_rel_err": max(c["rel_err"] for c in mm_path + mm_extra),
           "rtol": SUM_RTOL,
@@ -1208,6 +1296,9 @@ def epilogue_bwd_bf16_case(shape, xd: str, yd: str, bw: float,
         lambda i: kernels.conv_epilogue_bwd(x, y, dy, scale, True), 20)
     out["plain_ms"] = cuda_time_ms(
         lambda i: kernels.conv_epilogue_bwd_plain(x, y, dy, scale, True), 20)
+    out["device_ms"] = device_ms({"bwd": (
+        lambda i: kernels.conv_epilogue_bwd(x, y, dy, scale, True),
+        "cxn_bn_bwd")}, 20)["bwd"]
     kernels.restore_launch_counts(counts0)
     del x, y, dy
     torch.cuda.empty_cache()
@@ -2785,9 +2876,10 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
              bound_ms=ebf[0]["bound_ms"], bound_by=ebf[0]["bound_by"],
              library_ms=None,
              sum_max_rel_err=max(c["sum_rel"] for c in ebf),
-             by_dtypes=[{k: c[k] for k in ("x", "y", "ms", "plain_ms",
-                                            "bound_ms", "sum_rel")}
-                        for c in ebf],
+             by_dtypes=[{k: c[k] for k in ("x", "y", "ms", "device_ms",
+                                            "plain_ms", "bound_ms",
+                                            "sum_rel")} for c in ebf],
+             kernel_device_ms=ebf[0]["device_ms"],
              per="one backward at the stem shape %s, x and y bf16 (the "
              "f32 / bf16 pairs under by_dtypes); launches: its count over "
              "the ten main-path runs, none of which differentiates it"
@@ -2832,6 +2924,7 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
              ms=bwd["ms"], plain_ms=bwd["plain_ms"],
              bound_ms=bwd["bound_ms"], bound_by=bwd["bound_by"],
              library_ms=None, sum_max_rel_err=bwd["sum_rel"],
+             kernel_device_ms=bwd["device_ms"],
              per="one backward at the stem shape %s; launches: its "
              "count over the ten main-path runs (serve f32, int8, bf16, "
              "train, train_bf16, train_kaiming f32 and bf16, tower train "
@@ -2851,6 +2944,7 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
              bound_ms=bn["step_sum"]["bwd_bound_ms"],
              bound_by=bn["bwd_bound_by"], library_ms=None,
              device_ms=prof["bn_bwd_device_ms"],
+             kernel_device_ms=bn["step_sum"]["bwd_device_ms"],
              sum_max_rel_err=bn["bwd_sum_max_rel"],
              per="%s: %d launches" % (per_step, bn["launches_per_step"]),
              peaks=part),
@@ -2860,7 +2954,9 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
              bound_ms=mm["step_sum"]["bound_ms"], bound_by=mm["bound_by"],
              library_ms=mm["step_sum"]["library_ms"],
              device_ms=prof["matmul_device_ms"],
-             max_rel_err=mm["max_rel_err"],
+             kernel_device_ms=mm["step_sum"]["device_ms"],
+             library_device_ms=mm["step_sum"]["library_device_ms"],
+             routes=mm["routes"], max_rel_err=mm["max_rel_err"],
              per="%s: %d launches" % (per_step, mm["launches_per_step"]),
              peaks=part),
         dict(RMP_FWD, launches=kmres["launches"]["relu_max_pool_fwd"],
@@ -2896,6 +2992,7 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
              bound_ms=bb["step_sum"]["bwd_bound_ms"],
              bound_by=bb["bwd_bound_by"], library_ms=None,
              device_ms=bprof["bn_bwd_device_ms"],
+             kernel_device_ms=bb["step_sum"]["bwd_device_ms"],
              sum_max_rel_err=bb["bwd_sum_max_rel"],
              per=per_bstep % bb["launches_per_step"], peaks=part),
         dict(MATMUL_BF16, launches=tbres["launches"]["matmul_bf16"],
@@ -2907,7 +3004,10 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
              library=[c["library"] for c in bm["path_cases"]],
              library_missing=bm["path_cases"][0].get("library_missing"),
              device_ms=bprof["matmul_device_ms"],
-             max_rel_err=bm["max_rel_err"],
+             kernel_device_ms=bm["step_sum"]["device_ms"],
+             kernel_fwd_device_ms=bm["path_cases"][0]["device_ms"],
+             library_fwd_device_ms=bm["path_cases"][0]["library_device_ms"],
+             routes=bm["routes"], max_rel_err=bm["max_rel_err"],
              per=(per_bstep % bm["launches_per_step"])
              + " (bf16 . bf16, f32 . bf16, bf16 . f32)", peaks=part),
         dict(RMP_FWD_BF16,

@@ -61,14 +61,25 @@
 //   - forward: conv_epilogue's grid-stride loop over 4-element
 //     vectors (16-byte loads in float32, 8-byte in bf16; scalar when
 //     C % 4 != 0), scale and shift through the read-only cache;
-//   - backward: block (bx, by) owns a contiguous range of rows and a
-//     tile of channel vectors. Each thread keeps one channel vector
-//     fixed and walks rows, so its two partial sums live in registers;
-//     the block adds its threads' sums in a fixed order in shared
-//     memory and writes one (2, C) row of a per-block scratch. A second
-//     small kernel adds the blocks' rows in a fixed order (8 chains
-//     per channel, coalesced across channels). No float atomics: the
-//     sums repeat bit for bit from run to run;
+//   - backward (cxn_bn_bwd): one launch. A host-side plan
+//     (kernels.bn_bwd_plan) picks the vector width V (8 channels in
+//     bf16, 4 in float32: 16-byte loads in both; x and y of two dtypes
+//     take 4; V = 1 for the rest),
+//     a block of ct channel vectors times rpi row groups (up to 256
+//     threads), so that every thread owns a (row group, channel
+//     vector) pair and whole warps where the channel count allows, and
+//     the number of row blocks from bytes: about 1024 resident threads
+//     an SM, few enough that the f32 partial rows stay within 5 % of
+//     the layer's traffic. Each thread keeps one channel vector fixed
+//     and walks its rows four at a time, all twelve loads issued
+//     before the first use, with its two partial sums in registers;
+//     the block adds its threads' sums by a fixed tree in shared
+//     memory and writes one partial row; the last block of each group
+//     of row blocks adds the group's rows in order, and the last group
+//     the group rows, told apart by arrival counters (after
+//     __threadfence) in a persistent per-device buffer that the
+//     finishing blocks reset. No float atomics and no second launch:
+//     the sums repeat bit for bit from run to run;
 //   - dy may be a row-strided view (ld_dy >= C): the gradient that a
 //     channel concat hands back is a slice of a wider tensor, read in
 //     place instead of copied.
@@ -188,11 +199,16 @@ __device__ __forceinline__ void storev(__nv_bfloat16* p, const float (&a)[V]) {
 }
 
 // V consecutive float32 per-channel factors through the read-only cache
+// (V = 1, 4 or 8)
 template <int V>
 __device__ __forceinline__ void ldg_vec(const float* p, float (&a)[V]) {
-  if constexpr (V == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    a[0] = q.x; a[1] = q.y; a[2] = q.z; a[3] = q.w;
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p) + i);
+      a[4 * i] = q.x; a[4 * i + 1] = q.y; a[4 * i + 2] = q.z;
+      a[4 * i + 3] = q.w;
+    }
   } else {
     a[0] = __ldg(p);
   }
@@ -247,27 +263,235 @@ void launch_fwd(const T* x, const float* scale, const float* shift, T* y,
 
 // --------------------------------------------------------------- backward
 
-// Block (blockIdx.x, blockIdx.y): rows [bx*rows_per_block, ...) and the
-// channel vectors [by*ct, by*ct + tile). Thread tid works on vector
-// tid % tile of the tile and on every rpi-th row from tid / tile.
-// part is (2, gridDim.x, c): the block's dscale row, then its dshift row.
+constexpr int kBwdMaxThreads = 256;
+constexpr int kBwdRows = 4;   // rows a thread loads before their first use
+constexpr int kBwdMaxSegs = 8;  // row segments a finishing block adds apart
+
+// V elements of T in registers, as loaded: one 16-byte load for V = 4
+// floats or V = 8 bf16, 8 bytes for V = 4 bf16, one element for V = 1;
+// streamed (ld.global.cs: read once, evict first).
+template <typename T, int V>
+struct Raw;
+template <>
+struct Raw<float, 1> {
+  float r;
+  __device__ __forceinline__ void load(const float* p) { r = __ldcs(p); }
+  __device__ __forceinline__ void get(float (&a)[1]) const { a[0] = r; }
+};
+template <>
+struct Raw<float, 4> {
+  float4 r;
+  __device__ __forceinline__ void load(const float* p) {
+    r = __ldcs(reinterpret_cast<const float4*>(p));
+  }
+  __device__ __forceinline__ void get(float (&a)[4]) const {
+    a[0] = r.x; a[1] = r.y; a[2] = r.z; a[3] = r.w;
+  }
+};
+template <>
+struct Raw<__nv_bfloat16, 1> {
+  unsigned short r;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    r = __ldcs(reinterpret_cast<const unsigned short*>(p));
+  }
+  __device__ __forceinline__ void get(float (&a)[1]) const {
+    a[0] = __uint_as_float(static_cast<uint32_t>(r) << 16);
+  }
+};
+template <>
+struct Raw<__nv_bfloat16, 4> {
+  uint2 r;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    r = __ldcs(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ void get(float (&a)[4]) const {
+    a[0] = __uint_as_float(r.x << 16); a[1] = __uint_as_float(r.x & 0xffff0000u);
+    a[2] = __uint_as_float(r.y << 16); a[3] = __uint_as_float(r.y & 0xffff0000u);
+  }
+};
+template <>
+struct Raw<__nv_bfloat16, 8> {
+  uint4 r;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    r = __ldcs(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void get(float (&a)[8]) const {
+    a[0] = __uint_as_float(r.x << 16); a[1] = __uint_as_float(r.x & 0xffff0000u);
+    a[2] = __uint_as_float(r.y << 16); a[3] = __uint_as_float(r.y & 0xffff0000u);
+    a[4] = __uint_as_float(r.z << 16); a[5] = __uint_as_float(r.z & 0xffff0000u);
+    a[6] = __uint_as_float(r.w << 16); a[7] = __uint_as_float(r.w & 0xffff0000u);
+  }
+};
+
+// dx, streamed (st.global.cs): V = 8 bf16 or V = 4 floats as one
+// 16-byte store, V = 4 bf16 as 8 bytes, V = 1 one element; rounding
+// to nearest even, as storev
+template <int V>
+__device__ __forceinline__ void store_dx(__nv_bfloat16* p, const float (&a)[V]) {
+  if constexpr (V == 1) {
+    *p = __float2bfloat16_rn(a[0]);
+  } else {
+    uint32_t w[V / 2];
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      __nv_bfloat162 h = __floats2bfloat162_rn(a[2 * i], a[2 * i + 1]);
+      w[i] = *reinterpret_cast<uint32_t*>(&h);
+    }
+    if constexpr (V == 8) {
+      __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
+    } else {
+      __stcs(reinterpret_cast<uint2*>(p), make_uint2(w[0], w[1]));
+    }
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_dx(float* p, const float (&a)[V]) {
+  if constexpr (V == 1) {
+    *p = a[0];
+  } else {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(a[0], a[1], a[2], a[3]));
+  }
+}
+
+// V consecutive float32 partial sums (V = 1, 4 or 8), through L2 only:
+// other blocks wrote them
+template <int V>
+__device__ __forceinline__ void ldcg_vec(const float* p, float (&a)[V]) {
+  if constexpr (V == 1) {
+    a[0] = __ldcg(p);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      const float4 q = __ldcg(reinterpret_cast<const float4*>(p) + i);
+      a[4 * i] = q.x; a[4 * i + 1] = q.y; a[4 * i + 2] = q.z; a[4 * i + 3] = q.w;
+    }
+  }
+}
+template <int V>
+__device__ __forceinline__ void st_vec(float* p, const float (&a)[V]) {
+  if constexpr (V == 1) {
+    *p = a[0];
+  } else {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      reinterpret_cast<float4*>(p)[i] =
+          make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+    }
+  }
+}
+
+// Counts the block's arrival on *cnt once every thread's writes are
+// done (the barrier, then one thread's __threadfence before the
+// atomic: the release CUTLASS's semaphore uses). True in the block that
+// arrives `expect`-th, which resets the counter and, after its own
+// fence, sees every other block's writes. Every thread calls it.
+__device__ __forceinline__ bool arrive_last(unsigned int* cnt,
+                                            int expect,
+                                            unsigned int* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const bool last =
+        atomicAdd(cnt, 1u) == static_cast<unsigned int>(expect - 1);
+    if (last) {
+      *cnt = 0;
+      __threadfence();
+    }
+    *flag = last;
+  }
+  __syncthreads();
+  return *flag != 0;
+}
+
+// Sums rows [first, first + count) of the partial rows (2 * c floats
+// each: the dscale part, then the dshift part) for the channel vectors
+// [v0, v0 + width) of this tile, into row `out` (or dscale / dshift
+// when out is null), with every thread of the block: segment g of
+// `segs` adds rows first + g, first + g + segs, ... in order, then the
+// segments are added in order in shared memory (red, blockDim.x * V
+// floats at least). Every thread of the block calls it.
+template <int V>
+__device__ __forceinline__ void add_rows(const float* part, int c, int first,
+                                         int count, int v0, int width,
+                                         float* out, float* dscale,
+                                         float* dshift, float* red) {
+  const int items = 2 * width;
+  const int segs = max(1, min(kBwdMaxSegs,
+                              min(count, static_cast<int>(blockDim.x) / items)));
+  const int lanes = blockDim.x / segs;       // items a pass
+  const int g = threadIdx.x / lanes;
+  const int lane = threadIdx.x % lanes;
+  for (int base = 0; base < items; base += lanes) {
+    const int item = base + lane;
+    const bool mine = item < items && g < segs;
+    const int half = item / width;           // 0: dscale, 1: dshift
+    const int ch = (v0 + item % width) * V;
+    float sum[V];
+    if (mine) {
+      const float* src =
+          part + static_cast<int64_t>(first) * 2 * c + half * c + ch;
+      ldcg_vec<V>(src + static_cast<int64_t>(g) * 2 * c, sum);
+#pragma unroll 4
+      for (int b = g + segs; b < count; b += segs) {
+        float v[V];
+        ldcg_vec<V>(src + static_cast<int64_t>(b) * 2 * c, v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) sum[j] += v[j];
+      }
+    }
+    __syncthreads();                         // red free again
+    if (mine) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) red[(g * lanes + lane) * V + j] = sum[j];
+    }
+    __syncthreads();
+    if (mine && g == 0) {
+      for (int q = 1; q < segs; ++q) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) sum[j] += red[(q * lanes + lane) * V + j];
+      }
+      float* dst = out != nullptr ? out + half * c + ch
+                                  : (half == 0 ? dscale : dshift) + ch;
+      st_vec<V>(dst, sum);
+    }
+  }
+}
+
+// One pass over the (rows, c) tensors: dx, and dscale / dshift reduced
+// on the way. Block (bx, tile) owns rows [bx * rows_per_block, ...) and
+// the channel vectors [tile * ct, tile * ct + ct) (V channels each);
+// its ct * rpi threads map one to each (row group, channel vector), and
+// thread (rr, cv) walks rows rr, rr + rpi, ..., kBwdRows rows at a
+// time with all their loads issued before the first use. The block
+// adds its threads' sums over rr by a fixed tree in shared memory and
+// writes one partial row. Then the partial rows are added in fixed
+// block order without a second launch: the blocks of a group of
+// `group` consecutive row blocks count their arrival (after a
+// __threadfence) on a counter of the group; the last to arrive adds
+// the group's rows in order, resets the counter, and, where there are
+// several groups, writes a group row and counts on the tile's top
+// counter, whose last arrival adds the group rows in order into dscale
+// and dshift. The counters live in a persistent per-device buffer
+// (ngroups + 1 per tile) that is zero between launches.
 // TX is the type of x and dx, TY of y and dy; A rounds the arithmetic
 // (Arith<T> for bn_apply, Arith<float> for conv_epilogue's VJP).
 template <typename TX, typename TY, typename A, int V, bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-cxn_bn_bwd_partial(const TX* __restrict__ x, const TY* __restrict__ y,
-                   const TY* __restrict__ dy, const float* __restrict__ scale,
-                   TX* __restrict__ dx, float* __restrict__ part, int64_t rows,
-                   int c, int64_t ld_dy, int64_t rows_per_block, int ct) {
-  __shared__ float red_s[kThreads][V];
-  __shared__ float red_t[kThreads][V];
+__global__ void __launch_bounds__(kBwdMaxThreads)
+cxn_bn_bwd(const TX* __restrict__ x, const TY* __restrict__ y,
+           const TY* __restrict__ dy, const float* __restrict__ scale,
+           TX* __restrict__ dx, float* __restrict__ part,
+           unsigned int* __restrict__ counters, float* __restrict__ dscale,
+           float* __restrict__ dshift, int64_t rows, int c, int64_t ld_dy,
+           int64_t rows_per_block, int ct, int rpi, int group) {
+  extern __shared__ float red[];             // [blockDim.x][2 V]
+  __shared__ unsigned int is_last;
   const int nv = c / V;
   const int v0 = blockIdx.y * ct;
-  const int tile = min(ct, nv - v0);
-  const int rpi = kThreads / tile;
+  const int width = min(ct, nv - v0);
   const int tid = threadIdx.x;
-  const int cv = tid % tile;
-  const int rr = tid / tile;
+  const int cv = tid % ct;
+  const int rr = tid / ct;
+  const bool active = cv < width;
   const int ch = (v0 + cv) * V;
   float acc_s[V], acc_t[V];
 #pragma unroll
@@ -275,123 +499,191 @@ cxn_bn_bwd_partial(const TX* __restrict__ x, const TY* __restrict__ y,
     acc_s[j] = 0.0f;
     acc_t[j] = 0.0f;
   }
-  if (rr < rpi) {
+  if (active) {
     float s[V];
-    loadv<V>(scale + ch, s);
+    ldg_vec<V>(scale + ch, s);
 #pragma unroll
     for (int j = 0; j < V; ++j) s[j] = A::coef(s[j]);
-    const int64_t r_end =
-        min(rows, (static_cast<int64_t>(blockIdx.x) + 1) * rows_per_block);
-    for (int64_t r = static_cast<int64_t>(blockIdx.x) * rows_per_block + rr;
-         r < r_end; r += rpi) {
-      const int64_t off = r * c + ch;
-      float xv[V], dv[V], o[V];
-      loadv<V>(x + off, xv);
-      loadv<V>(dy + r * ld_dy + ch, dv);
-      if (kRelu) {
-        float yv[V];
-        loadv<V>(y + off, yv);
+    const int64_t r_begin = static_cast<int64_t>(blockIdx.x) * rows_per_block;
+    const int64_t r_end = min(rows, r_begin + rows_per_block);
+    const int64_t step = static_cast<int64_t>(rpi) * kBwdRows;
+    for (int64_t r = r_begin + rr; r < r_end; r += step) {
+      Raw<TX, V> rx[kBwdRows];
+      Raw<TY, V> rd[kBwdRows], ry[kBwdRows];
 #pragma unroll
-        for (int j = 0; j < V; ++j) dv[j] = (yv[j] > 0.0f) ? dv[j] : 0.0f;
+      for (int u = 0; u < kBwdRows; ++u) {
+        // a row past the end loads the last row again, unused: every
+        // load is issued, none depends on another
+        const int64_t row = min(r + u * rpi, r_end - 1);
+        rx[u].load(x + row * c + ch);
+        rd[u].load(dy + row * ld_dy + ch);
+        if (kRelu) ry[u].load(y + row * c + ch);
       }
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        // dx as the reference computes it: the forward's arithmetic
-        // with shift 0 (the + 0 turns -0 into +0, as it does there)
-        o[j] = A::add(A::mul(dv[j], s[j]), 0.0f);
-        acc_s[j] += A::mul(dv[j], xv[j]);
-        acc_t[j] += dv[j];
+      for (int u = 0; u < kBwdRows; ++u) {
+        const int64_t row = r + u * rpi;
+        if (row >= r_end) break;
+        float xv[V], dv[V], o[V];
+        rx[u].get(xv);
+        rd[u].get(dv);
+        if (kRelu) {
+          float yv[V];
+          ry[u].get(yv);
+#pragma unroll
+          for (int j = 0; j < V; ++j) dv[j] = (yv[j] > 0.0f) ? dv[j] : 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          // dx as the reference computes it: the forward's arithmetic
+          // with shift 0 (the + 0 turns -0 into +0, as it does there)
+          o[j] = A::add(A::mul(dv[j], s[j]), 0.0f);
+          acc_s[j] += A::mul(dv[j], xv[j]);
+          acc_t[j] += dv[j];
+        }
+        store_dx<V>(dx + row * c + ch, o);
       }
-      storev<V>(dx + off, o);
     }
   }
+  // the block's sums over rr, by a fixed tree
+  float* mine = red + tid * 2 * V;
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    red_s[tid][j] = acc_s[j];
-    red_t[tid][j] = acc_t[j];
+    mine[j] = acc_s[j];
+    mine[V + j] = acc_t[j];
   }
   __syncthreads();
-  if (rr == 0) {
-    for (int k = 1; k < rpi; ++k) {
+  int half_span = 1;
+  while (half_span < rpi) half_span <<= 1;
+  for (half_span >>= 1; half_span > 0; half_span >>= 1) {
+    if (rr < half_span && rr + half_span < rpi) {
+      const float* other = red + (tid + half_span * ct) * 2 * V;
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        acc_s[j] += red_s[k * tile + cv][j];
-        acc_t[j] += red_t[k * tile + cv][j];
+        acc_s[j] += other[j];
+        acc_t[j] += other[V + j];
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        mine[j] = acc_s[j];
+        mine[V + j] = acc_t[j];
       }
     }
-    const int64_t nbx = gridDim.x;
-    float* ps = part + static_cast<int64_t>(blockIdx.x) * c + ch;
-    float* pt = part + (nbx + blockIdx.x) * c + ch;
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      ps[j] = acc_s[j];
-      pt[j] = acc_t[j];
-    }
+    __syncthreads();
   }
+  const int nbx = gridDim.x;
+  if (nbx == 1) {
+    if (rr == 0 && active) {
+      st_vec<V>(dscale + ch, acc_s);
+      st_vec<V>(dshift + ch, acc_t);
+    }
+    return;
+  }
+  if (rr == 0 && active) {
+    float* row = part + static_cast<int64_t>(blockIdx.x) * 2 * c;
+    st_vec<V>(row + ch, acc_s);
+    st_vec<V>(row + c + ch, acc_t);
+  }
+  const int ngroups = (nbx + group - 1) / group;
+  unsigned int* cnt =
+      counters + static_cast<int64_t>(blockIdx.y) * (ngroups + 1);
+  const int g = blockIdx.x / group;
+  const int gsize = min(group, nbx - g * group);
+  if (!arrive_last(&cnt[g], gsize, &is_last)) return;
+  if (ngroups == 1) {
+    add_rows<V>(part, c, 0, nbx, v0, width, nullptr, dscale, dshift, red);
+    return;
+  }
+  add_rows<V>(part, c, g * group, gsize, v0, width,
+              part + static_cast<int64_t>(nbx + g) * 2 * c, nullptr, nullptr,
+              red);
+  if (!arrive_last(&cnt[ngroups], ngroups, &is_last)) return;
+  add_rows<V>(part, c, nbx, ngroups, v0, width, nullptr, dscale, dshift,
+              red);
 }
 
-// Adds the blocks' partial rows. A block covers 32 channels (one per
-// lane, so each load of a warp is 128 contiguous bytes) with 8 chains
-// per channel: chain k adds the rows of blocks k, k + 8, k + 16, ...
-// in order, and the 8 chain sums are then added in order. The order is
-// fixed by the grid alone, so the result repeats bit for bit.
-constexpr int kFinishLanes = 32;
-constexpr int kFinishChains = kThreads / kFinishLanes;   // 8
-
-__global__ void __launch_bounds__(kThreads)
-cxn_bn_bwd_finish(const float* __restrict__ part, int nbx, int c,
-                  float* __restrict__ dscale, float* __restrict__ dshift) {
-  __shared__ float red_s[kFinishChains][kFinishLanes];
-  __shared__ float red_t[kFinishChains][kFinishLanes];
-  const int lane = threadIdx.x % kFinishLanes;
-  const int chain = threadIdx.x / kFinishLanes;
-  const int ch = blockIdx.x * kFinishLanes + lane;
-  float s = 0.0f, t = 0.0f;
-  if (ch < c) {
-    const int64_t off_t = static_cast<int64_t>(nbx) * c;
-#pragma unroll 4
-    for (int b = chain; b < nbx; b += kFinishChains) {
-      s += part[static_cast<int64_t>(b) * c + ch];
-      t += part[off_t + static_cast<int64_t>(b) * c + ch];
-    }
-  }
-  red_s[chain][lane] = s;
-  red_t[chain][lane] = t;
-  __syncthreads();
-  if (chain == 0 && ch < c) {
-    for (int k = 1; k < kFinishChains; ++k) {
-      s += red_s[k][lane];
-      t += red_t[k][lane];
-    }
-    dscale[ch] = s;
-    dshift[ch] = t;
-  }
-}
-
+// The launch of the host-side plan (kernels.bn_bwd_plan): grid (nbx,
+// ceil(nv / ct)), ct * rpi threads.
 template <typename TX, typename TY, typename A, int V, bool kRelu>
-void launch_bwd(const TX* x, const TY* y, const TY* dy, const float* scale,
-                TX* dx, float* part, int max_blocks, float* dscale,
-                float* dshift, int64_t rows, int c, int64_t ld_dy,
-                cudaStream_t stream) {
+cudaError_t launch_bwd(const TX* x, const TY* y, const TY* dy,
+                       const float* scale, TX* dx, float* part,
+                       unsigned int* counters, float* dscale, float* dshift,
+                       int64_t rows, int c, int64_t ld_dy, int ct, int rpi,
+                       int nbx, int group, cudaStream_t stream) {
   const int nv = c / V;
-  const int ct = nv < kThreads ? nv : kThreads;
   const int tiles = (nv + ct - 1) / ct;
-  const int rpi = kThreads / ct;
-  // enough blocks to fill the card, at least four rows per thread each
-  int64_t want = (rows + 4 * rpi - 1) / (4 * rpi);
-  int64_t cap = static_cast<int64_t>(sm_count()) * kBlocksPerSm / tiles;
-  if (cap > max_blocks) cap = max_blocks;
-  if (cap < 1) cap = 1;
-  if (want > cap) want = cap;
-  if (want < 1) want = 1;
-  const int64_t rows_per_block = (rows + want - 1) / want;
-  const int64_t nbx = (rows + rows_per_block - 1) / rows_per_block;
+  const int64_t rows_per_block = (rows + nbx - 1) / nbx;
+  const int threads = ct * rpi;
+  const size_t smem = static_cast<size_t>(threads) * 2 * V * sizeof(float);
   dim3 grid(static_cast<unsigned>(nbx), static_cast<unsigned>(tiles));
-  cxn_bn_bwd_partial<TX, TY, A, V, kRelu><<<grid, kThreads, 0, stream>>>(
-      x, y, dy, scale, dx, part, rows, c, ld_dy, rows_per_block, ct);
-  cxn_bn_bwd_finish<<<(c + kFinishLanes - 1) / kFinishLanes, kThreads, 0,
-                      stream>>>(part, static_cast<int>(nbx), c, dscale,
-                                dshift);
+  cxn_bn_bwd<TX, TY, A, V, kRelu><<<grid, threads, smem, stream>>>(
+      x, y, dy, scale, dx, part, counters, dscale, dshift, rows, c, ld_dy,
+      rows_per_block, ct, rpi, group);
+  return cudaSuccess;
+}
+
+struct BwdPlan {
+  int v, ct, rpi, nbx, group;
+};
+
+template <typename TX, typename TY, typename A, int V>
+cudaError_t bwd_v(const void* x, const void* y, const void* dy,
+                  const void* scale, void* dx, void* part, void* counters,
+                  void* dscale, void* dshift, int64_t rows, int c,
+                  int64_t ld_dy, int relu, const BwdPlan& p, cudaStream_t s) {
+  const TX* xt = static_cast<const TX*>(x);
+  const TY* yt = static_cast<const TY*>(y);
+  const TY* dt = static_cast<const TY*>(dy);
+  const float* sc = static_cast<const float*>(scale);
+  TX* dxt = static_cast<TX*>(dx);
+  float* pf = static_cast<float*>(part);
+  unsigned int* cn = static_cast<unsigned int*>(counters);
+  float* ds = static_cast<float*>(dscale);
+  float* dh = static_cast<float*>(dshift);
+  if (relu) {
+    return launch_bwd<TX, TY, A, V, true>(xt, yt, dt, sc, dxt, pf, cn, ds, dh,
+                                          rows, c, ld_dy, p.ct, p.rpi, p.nbx,
+                                          p.group, s);
+  }
+  return launch_bwd<TX, TY, A, V, false>(xt, yt, dt, sc, dxt, pf, cn, ds, dh,
+                                         rows, c, ld_dy, p.ct, p.rpi, p.nbx,
+                                         p.group, s);
+}
+
+// checks the plan against the tensors, then launches V's instantiation
+// (V = 8 only where x and y are both bf16)
+template <typename TX, typename TY, typename A>
+cudaError_t bwd_typed(const void* x, const void* y, const void* dy,
+                      const void* scale, void* dx, void* part, void* counters,
+                      void* dscale, void* dshift, int64_t rows, int c,
+                      int64_t ld_dy, int relu, const BwdPlan& p,
+                      cudaStream_t s) {
+  const int v = p.v;
+  const bool v_ok = v == 1 || v == 4 ||
+                    (v == 8 && sizeof(TX) == 2 && sizeof(TY) == 2);
+  if (!v_ok || c % v != 0 || ld_dy % v != 0 || p.ct < 1 || p.rpi < 1 ||
+      p.ct * p.rpi > kBwdMaxThreads || p.nbx < 1 || p.group < 1 ||
+      part == nullptr || counters == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  if (v > 1) {
+    const uintptr_t vx = v * sizeof(TX), vy = v * sizeof(TY);
+    if (!aligned(x, vx) || !aligned(dy, vy) || !aligned(dx, vx) ||
+        !aligned(scale, 16) || !aligned(part, 16) || !aligned(dscale, 16) ||
+        !aligned(dshift, 16) || (relu && !aligned(y, vy))) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (v == 8) {
+    if constexpr (sizeof(TX) == 2 && sizeof(TY) == 2) {
+      return bwd_v<TX, TY, A, 8>(x, y, dy, scale, dx, part, counters, dscale,
+                                 dshift, rows, c, ld_dy, relu, p, s);
+    }
+  } else if (v == 4) {
+    return bwd_v<TX, TY, A, 4>(x, y, dy, scale, dx, part, counters, dscale,
+                               dshift, rows, c, ld_dy, relu, p, s);
+  }
+  return bwd_v<TX, TY, A, 1>(x, y, dy, scale, dx, part, counters, dscale,
+                             dshift, rows, c, ld_dy, relu, p, s);
 }
 
 template <typename T>
@@ -405,39 +697,6 @@ void fwd_typed(const void* x, const void* scale, const void* shift, void* y,
     launch_fwd<T, true>(xt, sc, sh, yt, n, c, s);
   } else {
     launch_fwd<T, false>(xt, sc, sh, yt, n, c, s);
-  }
-}
-
-template <typename TX, typename TY, typename A>
-void bwd_typed(const void* x, const void* y, const void* dy,
-               const void* scale, void* dx, void* part, int max_blocks,
-               void* dscale, void* dshift, int64_t rows, int c,
-               int64_t ld_dy, int relu, cudaStream_t s) {
-  const TX* xt = static_cast<const TX*>(x);
-  const TY* yt = static_cast<const TY*>(y);
-  const TY* dt = static_cast<const TY*>(dy);
-  const float* sc = static_cast<const float*>(scale);
-  TX* dxt = static_cast<TX*>(dx);
-  float* pf = static_cast<float*>(part);
-  float* ds = static_cast<float*>(dscale);
-  float* dh = static_cast<float*>(dshift);
-  const uintptr_t vx = 4 * sizeof(TX);
-  const uintptr_t vy = 4 * sizeof(TY);
-  const bool vec = (c % 4 == 0) && (ld_dy % 4 == 0) && aligned(x, vx) &&
-                   aligned(dy, vy) && aligned(dx, vx) && aligned(scale, 16) &&
-                   (!relu || aligned(y, vy));
-  if (vec && relu) {
-    launch_bwd<TX, TY, A, 4, true>(xt, yt, dt, sc, dxt, pf, max_blocks, ds,
-                                   dh, rows, c, ld_dy, s);
-  } else if (vec) {
-    launch_bwd<TX, TY, A, 4, false>(xt, yt, dt, sc, dxt, pf, max_blocks, ds,
-                                    dh, rows, c, ld_dy, s);
-  } else if (relu) {
-    launch_bwd<TX, TY, A, 1, true>(xt, yt, dt, sc, dxt, pf, max_blocks, ds,
-                                   dh, rows, c, ld_dy, s);
-  } else {
-    launch_bwd<TX, TY, A, 1, false>(xt, yt, dt, sc, dxt, pf, max_blocks, ds,
-                                    dh, rows, c, ld_dy, s);
   }
 }
 
@@ -463,29 +722,40 @@ extern "C" int cxn_bn_apply_fwd(const void* x, const void* scale,
 
 // rows x c tensors of one dtype (0 float32, 1 bfloat16); x, y and dx
 // contiguous, dy with row stride ld_dy >= c; y may be null when relu ==
-// 0. scale is float32. part is a float32 scratch of 2 * max_blocks * c
-// values. dscale and dshift receive c float32 sums.
+// 0. scale is float32. The plan (kernels.bn_bwd_plan): v channels a
+// vector (8, 4 or 1; 8 only for bf16), ct vectors and rpi row groups
+// a
+// block (ct * rpi <= 256 threads), nbx row blocks, summed in groups of
+// `group`. part is a float32 scratch of 2 * c * (nbx + ceil(nbx /
+// group)) values, counters a zeroed uint32 buffer of ceil(c / v / ct) *
+// (ceil(nbx / group) + 1) values that the launch leaves zeroed. dscale
+// and dshift receive c float32 sums.
 // Returns a cudaError_t value; 0 is success.
 extern "C" int cxn_bn_apply_bwd(const void* x, const void* y,
                                 const void* dy, const void* scale, void* dx,
-                                void* part, int max_blocks, void* dscale,
+                                void* part, void* counters, void* dscale,
                                 void* dshift, long long rows, int c,
-                                long long ld_dy, int relu, int dtype,
+                                long long ld_dy, int relu, int dtype, int v,
+                                int ct, int rpi, int nbx, int group,
                                 void* stream) {
-  if (rows <= 0 || c <= 0 || ld_dy < c || max_blocks < 1 ||
-      (relu && y == nullptr) || (dtype != 0 && dtype != 1)) {
+  if (rows <= 0 || c <= 0 || ld_dy < c || (relu && y == nullptr) ||
+      (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdPlan p{v, ct, rpi, nbx, group};
+  cudaError_t err;
   if (dtype == 0) {
-    bwd_typed<float, float, Arith<float>>(x, y, dy, scale, dx, part,
-                                          max_blocks, dscale, dshift, rows, c,
-                                          ld_dy, relu, s);
+    err = bwd_typed<float, float, Arith<float>>(x, y, dy, scale, dx, part,
+                                                counters, dscale, dshift, rows,
+                                                c, ld_dy, relu, p, s);
   } else {
     using B = __nv_bfloat16;
-    bwd_typed<B, B, Arith<B>>(x, y, dy, scale, dx, part, max_blocks, dscale,
-                              dshift, rows, c, ld_dy, relu, s);
+    err = bwd_typed<B, B, Arith<B>>(x, y, dy, scale, dx, part, counters,
+                                    dscale, dshift, rows, c, ld_dy, relu, p,
+                                    s);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -494,31 +764,35 @@ extern "C" int cxn_bn_apply_bwd(const void* x, const void* y,
 // Returns a cudaError_t value; 0 is success.
 extern "C" int cxn_conv_epilogue_bwd(const void* x, const void* y,
                                      const void* dy, const void* scale,
-                                     void* dx, void* part, int max_blocks,
+                                     void* dx, void* part, void* counters,
                                      void* dscale, void* dshift,
                                      long long rows, int c, long long ld_dy,
                                      int relu, int x_dtype, int y_dtype,
-                                     void* stream) {
-  if (rows <= 0 || c <= 0 || ld_dy < c || max_blocks < 1 ||
-      (relu && y == nullptr) || (x_dtype != 0 && x_dtype != 1) ||
-      (y_dtype != 0 && y_dtype != 1)) {
+                                     int v, int ct, int rpi, int nbx,
+                                     int group, void* stream) {
+  if (rows <= 0 || c <= 0 || ld_dy < c || (relu && y == nullptr) ||
+      (x_dtype != 0 && x_dtype != 1) || (y_dtype != 0 && y_dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdPlan p{v, ct, rpi, nbx, group};
   using B = __nv_bfloat16;
   using F = Arith<float>;
+  cudaError_t err;
   if (x_dtype == 0 && y_dtype == 0) {
-    bwd_typed<float, float, F>(x, y, dy, scale, dx, part, max_blocks, dscale,
-                               dshift, rows, c, ld_dy, relu, s);
+    err = bwd_typed<float, float, F>(x, y, dy, scale, dx, part, counters,
+                                     dscale, dshift, rows, c, ld_dy, relu, p,
+                                     s);
   } else if (x_dtype == 0) {
-    bwd_typed<float, B, F>(x, y, dy, scale, dx, part, max_blocks, dscale,
-                           dshift, rows, c, ld_dy, relu, s);
+    err = bwd_typed<float, B, F>(x, y, dy, scale, dx, part, counters, dscale,
+                                 dshift, rows, c, ld_dy, relu, p, s);
   } else if (y_dtype == 0) {
-    bwd_typed<B, float, F>(x, y, dy, scale, dx, part, max_blocks, dscale,
-                           dshift, rows, c, ld_dy, relu, s);
+    err = bwd_typed<B, float, F>(x, y, dy, scale, dx, part, counters, dscale,
+                                 dshift, rows, c, ld_dy, relu, p, s);
   } else {
-    bwd_typed<B, B, F>(x, y, dy, scale, dx, part, max_blocks, dscale, dshift,
-                       rows, c, ld_dy, relu, s);
+    err = bwd_typed<B, B, F>(x, y, dy, scale, dx, part, counters, dscale,
+                             dshift, rows, c, ld_dy, relu, p, s);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,10 +22,12 @@ Ported so far:
   ``csrc/bn_apply.cu``) where either is bfloat16;
 - ``bn_apply`` forward and backward (``bn_apply_fwd`` /
   ``bn_apply_bwd``) on float32 and bfloat16 activations,
-  differentiable as :func:`bn_apply`;
+  differentiable as :func:`bn_apply`; the backward launches as
+  :func:`bn_bwd_plan` lays it out;
 - ``matmul`` on float32 and bfloat16 operands (each its own dtype),
   differentiable as :func:`matmul`: the forward and both backward
-  products run through the kernel;
+  products run through the kernel, along the route and K splits
+  :func:`matmul_plan` picks;
 - ``relu_max_pool`` forward and backward (``relu_max_pool_fwd`` /
   ``relu_max_pool_bwd``) on float32 and bfloat16, differentiable as
   :func:`relu_max_pool`;
@@ -162,12 +164,14 @@ _SIGNATURES = {
     "conv_epilogue": {"cxn_conv_epilogue": [_P, _P, _P, _P, _L, _I, _I, _I,
                                             _I, _P]},
     "bn_apply": {"cxn_bn_apply_fwd": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
-                 "cxn_bn_apply_bwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
-                                      _L, _I, _L, _I, _I, _P],
-                 "cxn_conv_epilogue_bwd": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
-                                           _L, _I, _L, _I, _I, _I, _P]},
+                 "cxn_bn_apply_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _L, _I, _L, _I, _I, _I, _I, _I, _I,
+                                      _I, _P],
+                 "cxn_conv_epilogue_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                           _L, _I, _L, _I, _I, _I, _I, _I,
+                                           _I, _I, _I, _P]},
     "matmul": {"cxn_matmul": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I,
-                              _I, _P]},
+                              _I, _I, _I, _L, _P]},
     "relu_max_pool": {
         "cxn_relu_max_pool_fwd": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
         "cxn_relu_max_pool_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
@@ -311,18 +315,37 @@ def conv_epilogue_bwd_plain(x: torch.Tensor, y: Optional[torch.Tensor],
     return dx, (dymf * x.float()).sum(axes), dymf.sum(axes)
 
 
-def _bwd_scratch(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
-                                           torch.Tensor, torch.Tensor, int]:
-    """dx, dscale, dshift and the partial-sum scratch of one launch of
-    the bn_apply backward kernel (or its conv_epilogue instantiation),
-    and the number of row blocks the scratch holds."""
+def _bwd_launch(entry, x: torch.Tensor, y: Optional[torch.Tensor],
+                dy: torch.Tensor, scale: torch.Tensor, relu: bool, ld: int,
+                codes: Tuple[int, ...], what: str
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of the bn_apply backward kernel (``entry``: its
+    bn_apply or conv_epilogue instantiation) on CUDA tensors, as
+    :func:`bn_bwd_plan` lays it out: dx, dscale, dshift, the partial-sum
+    scratch sized from the plan, and the device's arrival counters."""
     c = x.shape[-1]
-    max_blocks = _bwd_max_blocks(x.device)
-    return (torch.empty_like(x),
-            torch.empty(c, dtype=torch.float32, device=x.device),
-            torch.empty(c, dtype=torch.float32, device=x.device),
-            torch.empty(2 * max_blocks * c, dtype=torch.float32,
-                        device=x.device), max_blocks)
+    dx = torch.empty_like(x)
+    dscale = torch.empty(c, dtype=torch.float32, device=x.device)
+    dshift = torch.empty(c, dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return dx, dscale.zero_(), dshift.zero_()
+    ptrs = [x, dy, dx] + ([y] if relu else [])
+    plan = bn_bwd_plan(x.numel() // c, c, ld, (x.dtype, dy.dtype),
+                       aligned=all(t.data_ptr() % 16 == 0 for t in ptrs),
+                       sms=_sm_count(x.device))
+    part = torch.empty(max(plan["part_floats"], 4), dtype=torch.float32,
+                       device=x.device)
+    counters = _bwd_counters(x.device, plan["counters"])
+    with torch.cuda.device(x.device):
+        err = entry(
+            x.data_ptr(), y.data_ptr() if relu else None, dy.data_ptr(),
+            scale.data_ptr(), dx.data_ptr(), part.data_ptr(),
+            counters.data_ptr(), dscale.data_ptr(), dshift.data_ptr(),
+            x.numel() // c, c, ld, int(bool(relu)), *codes, plan["v"],
+            plan["ct"], plan["rpi"], plan["nbx"], plan["group"],
+            _stream(x))
+    _raise_on(err, what)
+    return dx, dscale, dshift
 
 
 def conv_epilogue_bwd(x: torch.Tensor, y: Optional[torch.Tensor],
@@ -361,21 +384,13 @@ def conv_epilogue_bwd(x: torch.Tensor, y: Optional[torch.Tensor],
     if x.device.type == "cpu":
         return conv_epilogue_bwd_plain(x, y, dy, scale, relu)
     _require_cuda(x, "conv_epilogue_bwd")
-    dx, dscale, dshift, part, max_blocks = _bwd_scratch(x)
-    if x.numel() == 0:
-        return dx, dscale.zero_(), dshift.zero_()
-    c = x.shape[-1]
-    lib = _load("bn_apply")
-    with torch.cuda.device(x.device):
-        err = lib.cxn_conv_epilogue_bwd(
-            x.data_ptr(), y.data_ptr() if relu else None, dy.data_ptr(),
-            scale.data_ptr(), dx.data_ptr(), part.data_ptr(), max_blocks,
-            dscale.data_ptr(), dshift.data_ptr(), x.numel() // c, c, ld,
-            int(bool(relu)), _DTYPE_CODE[x.dtype], _DTYPE_CODE[dy.dtype],
-            _stream(x))
-    _raise_on(err, "conv_epilogue_bwd")
-    conv_epilogue.launches_bwd_bf16 += 1
-    return dx, dscale, dshift
+    out = _bwd_launch(_load("bn_apply").cxn_conv_epilogue_bwd, x, y, dy,
+                      scale, relu, ld,
+                      (_DTYPE_CODE[x.dtype], _DTYPE_CODE[dy.dtype]),
+                      "conv_epilogue_bwd")
+    if x.numel():
+        conv_epilogue.launches_bwd_bf16 += 1
+    return out
 
 
 class _ConvEpilogue(torch.autograd.Function):
@@ -540,16 +555,105 @@ bn_apply_fwd.launches = 0
 bn_apply_fwd.launches_bf16 = 0
 
 _sm_counts: Dict[int, int] = {}
+# per device: the bn_apply backward's arrival counters, zero between
+# launches (each launch's finishing blocks reset theirs)
+_counter_bufs: Dict[int, torch.Tensor] = {}
 
 
-def _bwd_max_blocks(dev: torch.device) -> int:
-    """Row blocks the backward kernel may use: 8 per SM, as its
-    launcher caps them."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+def _dev_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = _dev_index(dev)
     if idx not in _sm_counts:
         _sm_counts[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
-    return 8 * _sm_counts[idx]
+    return _sm_counts[idx]
+
+
+def _bwd_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """The device's persistent, zeroed arrival counters, at least ``n``
+    (allocated once, grown on demand)."""
+    idx = _dev_index(dev)
+    buf = _counter_bufs.get(idx)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _counter_bufs[idx] = buf
+    return buf
+
+
+BN_BWD_MAX_THREADS = 256       # csrc/bn_apply.cu's kBwdMaxThreads
+BN_BWD_ROWS = 4                # rows a thread loads before their first use
+# resident threads an SM the row blocks aim at, per byte an element
+# moves in x, y, dy and dx together (bf16: 8 bytes, 256 threads;
+# float32: 512): fewer, longer blocks measured faster than a full card
+# of short ones
+BN_BWD_SM_THREADS = 32
+BN_BWD_PART_SHARE = 0.05       # partial-sum bytes against the layer's
+
+
+def bn_bwd_plan(rows: int, c: int, ld_dy: int, dtypes, aligned: bool = True,
+                sms: int = 132) -> Dict[str, int]:
+    """The launch of the bn_apply backward kernel (``cxn_bn_bwd``) for a
+    (rows, c) layer whose x and y have ``dtypes`` (torch dtypes or their
+    names), dy at row stride ``ld_dy``, on a card with ``sms`` SMs.
+
+    - ``v``: channels a vector, 16 bytes of bf16 (8) or float32 (4)
+      where c, ld_dy and the bases allow it (x and y of two dtypes: 4,
+      measured faster than 8 there), else 4 or 1;
+    - ``ct`` channel vectors (all ``nv`` of them up to
+      ``BN_BWD_MAX_THREADS``, else ``tiles`` equal tiles) times ``rpi``
+      row groups make the block, one thread for each pair; ``rpi``
+      fills the block in whole warps where that fits;
+    - ``nbx`` row blocks: enough for ``BN_BWD_SM_THREADS`` threads an
+      SM for every byte an element moves (bf16 256, float32 512), at
+      most as many as keep the partial rows' traffic (written
+      and read back, ``16 c`` bytes a row, group rows included) within
+      5 % of the layer's (x, y, dy read, dx written), and no more than
+      give each thread one iteration of ``BN_BWD_ROWS`` rows, unless
+      that leaves SMs without a block;
+    - ``group`` consecutive row blocks are added by their last block,
+      then the ``ngroups`` group rows by the last group;
+    - ``part_floats`` and ``counters``: the scratch and arrival
+      counters the launch needs."""
+    names = [d if isinstance(d, str) else str(d).replace("torch.", "")
+             for d in dtypes]
+    sizes = [2 if n == "bfloat16" else 4 for n in names]
+    v = 8 if sizes == [2, 2] else 4
+    while v > 1 and (c % v or ld_dy % v or not aligned):
+        v //= 2 if v == 8 else 4
+    nv = c // v
+    tiles = -(-nv // BN_BWD_MAX_THREADS)
+    ct = -(-nv // tiles)
+    g = 32 // math.gcd(ct, 32)
+    rpi = max(1, BN_BWD_MAX_THREADS // ct)
+    if ct * g <= BN_BWD_MAX_THREADS:
+        rpi = max(g, rpi // g * g)
+    threads = ct * rpi
+    layer_bytes = rows * c * 2 * sum(sizes)
+    want = -(-sms * BN_BWD_SM_THREADS * 2 * sum(sizes) // (threads * tiles))
+    most = max(min(sms, rows), -(-rows // (rpi * BN_BWD_ROWS)))
+    nbx = max(1, min(want, most))
+
+    def shape(n):
+        per = -(-rows // n)
+        n = -(-rows // per)
+        grp = math.isqrt(n - 1) + 1 if n > 1 else 1
+        return n, grp, -(-n // grp)
+
+    nbx, group, ngroups = shape(nbx)
+    while nbx > 1 and 16 * c * (nbx + ngroups) > \
+            BN_BWD_PART_SHARE * layer_bytes:
+        nbx, group, ngroups = shape(nbx - 1)
+    part_floats = 2 * c * (nbx + ngroups) if nbx > 1 else 0
+    return {"v": v, "nv": nv, "ct": ct, "tiles": tiles, "rpi": rpi,
+            "threads": threads, "nbx": nbx,
+            "group": group, "ngroups": ngroups, "blocks": nbx * tiles,
+            "part_floats": part_floats,
+            "counters": tiles * (ngroups + 1),
+            "layer_bytes": layer_bytes, "part_bytes": 8 * part_floats}
 
 
 def bn_apply_bwd(x: torch.Tensor, y: Optional[torch.Tensor],
@@ -577,20 +681,11 @@ def bn_apply_bwd(x: torch.Tensor, y: Optional[torch.Tensor],
     if x.device.type == "cpu":
         return bn_apply_bwd_plain(x, y, dy, scale, relu)
     _require_cuda(x, "bn_apply_bwd")
-    dx, dscale, dshift, part, max_blocks = _bwd_scratch(x)
-    if x.numel() == 0:
-        return dx, dscale.zero_(), dshift.zero_()
-    c = x.shape[-1]
-    lib = _load("bn_apply")
-    with torch.cuda.device(x.device):
-        err = lib.cxn_bn_apply_bwd(
-            x.data_ptr(), y.data_ptr() if relu else None, dy.data_ptr(),
-            scale.data_ptr(), dx.data_ptr(), part.data_ptr(), max_blocks,
-            dscale.data_ptr(), dshift.data_ptr(), x.numel() // c, c, ld,
-            int(bool(relu)), _DTYPE_CODE[x.dtype], _stream(x))
-    _raise_on(err, "bn_apply_bwd")
-    _count(bn_apply_bwd, x.dtype)
-    return dx, dscale, dshift
+    out = _bwd_launch(_load("bn_apply").cxn_bn_apply_bwd, x, y, dy, scale,
+                      relu, ld, (_DTYPE_CODE[x.dtype],), "bn_apply_bwd")
+    if x.numel():
+        _count(bn_apply_bwd, x.dtype)
+    return out
 
 
 bn_apply_bwd.launches = 0
@@ -652,13 +747,56 @@ def _mat_strides(t: torch.Tensor) -> Optional[Tuple[int, int]]:
     return None
 
 
+MATMUL_ROUTES = {"fma": 0, "wgmma": 1}
+# output tile (M, N) and K slice of each route's block
+MATMUL_TILES = {"fma": (64, 64, 32), "wgmma": (64, 64, 64)}
+# CTAs of a cluster: up to 8 is portable, but an 8-CTA cluster took ~5 us
+# longer to schedule than a 4-CTA one at fc1's shapes on the H100
+MATMUL_MAX_SPLITS = 4
+MATMUL_MIN_BLOCKS = 120          # blocks a product should fill
+
+
+def matmul_plan(m: int, k: int, n: int, strides, dtypes,
+                aligned: bool = True) -> Dict[str, object]:
+    """The launch of ``csrc/matmul.cu`` for an (m, k) . (k, n) product
+    whose operands have ``strides`` ((sam, sak), (sbk, sbn)) and
+    ``dtypes`` (torch dtypes or their names); ``aligned``: both bases
+    16-byte aligned.
+
+    - ``route``: ``"wgmma"`` (the bf16 tensor cores, operands by TMA)
+      for bf16 . bf16 with A k-contiguous and B n-contiguous whose row
+      strides are whole 16-byte units on aligned bases, as TMA needs;
+      ``"fma"`` (float32 FMA units) for every other product;
+    - ``splits``: the CTAs of a cluster that split K, the fewest (up to
+      ``MATMUL_MAX_SPLITS``) that bring the blocks to
+      ``MATMUL_MIN_BLOCKS``, while every split keeps at least two K
+      slices (fc1's forward and ``dy·wᵀ``: 32 tiles in 4 splits);
+    - ``blocks``: output tiles times splits, the launch's grid."""
+    (sam, sak), (sbk, sbn) = strides
+    names = [d if isinstance(d, str) else str(d).replace("torch.", "")
+             for d in dtypes]
+    tc = (names == ["bfloat16", "bfloat16"] and sak == 1 and sbn == 1
+          and aligned and (2 * sam) % 16 == 0 and (2 * sbk) % 16 == 0)
+    route = "wgmma" if tc else "fma"
+    bm, bn, bk = MATMUL_TILES[route]
+    tiles = -(-m // bm) * -(-n // bn)
+    slices = -(-k // bk)
+    splits = 1
+    while (tiles * splits < MATMUL_MIN_BLOCKS
+           and splits < MATMUL_MAX_SPLITS and slices >= 2 * (splits + 1)):
+        splits += 1
+    return {"route": route, "splits": splits, "blocks": tiles * splits,
+            "tiles": tiles, "tile": (bm, bn, bk)}
+
+
 def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for (M, K) and (K, N) operands, each float32 or
     bfloat16 and read through its strides (row-major or transposed):
-    one launch of ``csrc/matmul.cu`` for CUDA tensors, the plain version
-    for CPU tensors. The output is a contiguous float32 (M, N). A launch
-    with a bfloat16 operand counts in ``launches_bf16``, one on two
-    float32 operands in ``launches``."""
+    one launch of ``csrc/matmul.cu`` for CUDA tensors, along the route
+    :func:`matmul_plan` picks, the plain version for CPU tensors. The
+    output is a contiguous float32 (M, N). A launch with a bfloat16
+    operand counts in ``launches_bf16``, one on two float32 operands in
+    ``launches``; ``last_plan`` keeps the last launch's plan."""
     for nm, t in (("a", a), ("b", b)):
         if t.dtype not in _DTYPE_CODE or t.dim() != 2:
             raise ValueError("matmul: %s must be a 2-D float32 or bfloat16 "
@@ -683,20 +821,27 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
-    (sam, sak), (sbk, sbn) = _mat_strides(a), _mat_strides(b)
+    strides = (_mat_strides(a), _mat_strides(b))
+    plan = matmul_plan(m, k, n, strides, (a.dtype, b.dtype),
+                       aligned=a.data_ptr() % 16 == 0
+                       and b.data_ptr() % 16 == 0)
+    (sam, sak), (sbk, sbn) = strides
     lib = _load("matmul")
     with torch.cuda.device(a.device):
         err = lib.cxn_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                              m, n, k, sam, sak, sbk, sbn,
                              _DTYPE_CODE[a.dtype], _DTYPE_CODE[b.dtype],
-                             _stream(a))
+                             MATMUL_ROUTES[plan["route"]], plan["splits"],
+                             plan["blocks"], _stream(a))
     _raise_on(err, "matmul")
+    matmul_kernel.last_plan = plan
     _count(matmul_kernel, torch.bfloat16
            if torch.bfloat16 in (a.dtype, b.dtype) else torch.float32)
     return out
 
 
 matmul_kernel.launches = 0
+matmul_kernel.last_plan = None
 matmul_kernel.launches_bf16 = 0
 
 

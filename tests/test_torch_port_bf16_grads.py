@@ -1,4 +1,4 @@
-"""Two bf16 gradients of the port against the JAX package.
+"""Three bf16 gradients of the port against the JAX package.
 
 **conv_epilogue's VJP with a bf16 input or output**
 (``cxxnet_tpu/layers/pallas_kernels.py:388-398``): ``dym = dy * [y >
@@ -25,6 +25,15 @@ every one of the 4-D shapes.) The reference is compiled with
 ``xla_allow_excess_precision`` off, as ``test_torch_port_bf16.py``
 compiles its steps; with it on its sums were the same bits at these
 shapes.
+
+**The bf16 avg pool's input gradient.** The reference's avg pool is
+``reduce_window`` add in bf16 times ``1 / (kh * kw)``; its VJP scales
+dy by the same bf16 factor and transposes the reduce-window into a
+reduce-window of the padded cotangent. The port's ``_bf16_avg`` adds
+strided window slices; autograd accumulates their gradients. Both add
+each input's window cotangents in the same order (last kernel offset
+first): the same bits at Inception-BN-tiny's three avg pools (batch 4,
+16 px) and at a 3x3 stride-1 pad-1 and a 3x3 stride-2 ceil-mode pool.
 """
 
 import re
@@ -224,3 +233,97 @@ def test_bias_add_keeps_float32_outputs_plain():
     b = torch.randn(6, requires_grad=True)
     (gb,) = torch.autograd.grad(kernels.bias_add(y, b).sum(), [b])
     np.testing.assert_array_equal(gb.numpy(), np.full(6, 4.0, np.float32))
+
+
+# --------------------------------------------- the bf16 avg pool's VJP
+
+def _tiny_avg_pools():
+    """(C, H, W) input and config of every avg pool of Inception-BN-tiny
+    (16 px, batch 4, as ``test_torch_port_bf16.py`` trains it at the
+    bench set): t3a's and t4a's 3x3 stride-1 pad-1 pools and the global
+    pool."""
+    from cxxnet_tpu_torch.graph import NetGraph
+    from cxxnet_tpu_torch.models import inception_bn_tiny
+    from cxxnet_tpu_torch.nnet.net import FuncNet
+    from cxxnet_tpu_torch.utils.config import parse_config
+    g = NetGraph()
+    g.configure(parse_config(inception_bn_tiny(nclass=8, batch_size=4,
+                                               image_size=16))
+                + [("dtype", "bfloat16")])
+    net = FuncNet(g, 4)
+    pools = []
+    for li, info in enumerate(g.layers):
+        if info.type == "avg_pooling":
+            layer = net.layer_objs[li]
+            p, s = layer.param, layer.in_shapes[0]
+            pools.append(((s.ch, s.y, s.x),
+                          [("kernel_size", str(p.kernel_height)),
+                           ("stride", str(p.stride)),
+                           ("pad", str(p.pad_y))]))
+    return pools
+
+
+AVG_POOLS = {
+    "tiny_t3a": None, "tiny_t4a": None, "tiny_gap": None,
+    "3x3_s1_pad1": ((6, 7, 7), [("kernel_size", "3"), ("stride", "1"),
+                                ("pad", "1")]),
+    # ceil mode: 10 -> 5 needs an 11-wide extent
+    "3x3_s2_ceil": ((6, 10, 10), [("kernel_size", "3"), ("stride", "2")]),
+}
+
+
+def test_tiny_avg_pools_are_the_tested_ones():
+    assert _tiny_avg_pools() == [
+        ((16, 8, 8), [("kernel_size", "3"), ("stride", "1"), ("pad", "1")]),
+        ((104, 4, 4), [("kernel_size", "3"), ("stride", "1"), ("pad", "1")]),
+        ((72, 4, 4), [("kernel_size", "4"), ("stride", "1"), ("pad", "0")])]
+
+
+@pytest.mark.parametrize("case", list(AVG_POOLS))
+def test_bf16_avg_pool_vjp_matches_reference_bits(case):
+    """The input gradient of a bf16 avg pool at batch 4: the port's
+    (autograd through ``PoolingLayer._bf16_avg``) against ``jax.vjp``
+    of the reference's ``PoolingLayer._pool`` (``reduce_window`` add,
+    times 1 / (kh * kw)), compiled with excess precision off. The same
+    bits: both add each input's window cotangents in bf16, last window
+    first (the reference's transposed reduce-window walks the padded
+    cotangent forward, which meets the windows covering an input from
+    the last kernel offset down; autograd accumulates the slices'
+    gradients in reverse creation order), and scale dy by the same
+    bf16 1/(kh*kw) first. (Only the gradient is compared: at the ceil
+    case the reference's forward adds its windows in another order,
+    ROADMAP queue 3.)"""
+    from cxxnet_tpu.layers import Shape3 as JShape3
+    from cxxnet_tpu.layers import create_layer as jax_create
+    from cxxnet_tpu_torch.layers import Shape3, create_layer
+    spec = AVG_POOLS[case]
+    if spec is None:
+        spec = dict(zip(["tiny_t3a", "tiny_t4a", "tiny_gap"],
+                        _tiny_avg_pools()))[case]
+    in_shape, cfg = spec
+    j = jax_create("avg_pooling", list(cfg))
+    p = create_layer("avg_pooling", list(cfg))
+    (js,) = j.infer_shape([JShape3(*in_shape)])
+    (ps,) = p.infer_shape([Shape3(*in_shape)])
+    assert tuple(js) == tuple(ps)
+    rng = np.random.RandomState(list(AVG_POOLS).index(case))
+    ch, h, w = in_shape
+    x = torch.from_numpy(rng.randn(4, h, w, ch).astype(np.float32)) \
+        .to(torch.bfloat16)
+    dy = torch.from_numpy(3 * rng.randn(4, ps.y, ps.x, ch)
+                          .astype(np.float32)).to(torch.bfloat16)
+
+    def ref(xv, dyv):
+        out, vjp = jax.vjp(lambda v: j._pool(v), xv)
+        return out, vjp(dyv)[0]
+    compiled = jax.jit(ref).lower(
+        jax.ShapeDtypeStruct(x.shape, jnp.bfloat16),
+        jax.ShapeDtypeStruct(dy.shape, jnp.bfloat16)).compile(
+            compiler_options=NO_EXCESS)
+    jy, jdx = compiled(jnp.asarray(_f32(x)).astype(jnp.bfloat16),
+                       jnp.asarray(_f32(dy)).astype(jnp.bfloat16))
+    xl = x.clone().requires_grad_(True)
+    (py,), _ = p.forward({}, {}, [xl])
+    (pdx,) = torch.autograd.grad(py, [xl], dy)
+    assert pdx.dtype == torch.bfloat16 and py.shape == jy.shape
+    np.testing.assert_array_equal(_f32(pdx), np.asarray(jdx, np.float32))

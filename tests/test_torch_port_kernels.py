@@ -15,6 +15,8 @@ Tolerances:
   reason surfacing through the final round to 8 mantissa bits.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -251,6 +253,145 @@ def test_matmul_kernel_takes_transposed_views():
                                                  b.bfloat16().t()))
     with pytest.raises(ValueError):
         kernels.matmul_kernel(a.half(), b.t())
+
+
+# ------------------------------------------------- the two host plans
+#
+# matmul_plan and bn_bwd_plan decide, in Python, how csrc/matmul.cu and
+# the bn_apply backward launch; the card runs what they say. Checked
+# here at the main path's shapes (Inception-BN-224 at batch 128), with
+# the H100's 132 SMs.
+
+FC1 = (128, 1024, 1000)           # batch, fc1's input, 1000 classes
+# (m, k, n, strides, dtypes) of fc1's three products: x.w, dy.w^T
+# (w^T a k-contiguous view) and x^T.dy (x^T m-contiguous)
+FC1_PRODUCTS = {
+    "forward": (128, 1024, 1000, ((1024, 1), (1000, 1))),
+    "dy_wT": (128, 1000, 1024, ((1000, 1), (1, 1000))),
+    "xT_dy": (1024, 128, 1000, ((1, 1024), (1000, 1))),
+}
+F32, BF16 = "float32", "bfloat16"
+
+
+def test_matmul_plan_takes_the_tensor_cores_for_fc1_bf16_forward():
+    m, k, n, st = FC1_PRODUCTS["forward"]
+    plan = kernels.matmul_plan(m, k, n, st, (torch.bfloat16,
+                                             torch.bfloat16))
+    assert plan["route"] == "wgmma"
+    # ragged M and N stay on the tensor cores: TMA fills the edges
+    assert kernels.matmul_plan(77, 1000, 136, ((1000, 1), (136, 1)),
+                               (BF16, BF16))["route"] == "wgmma"
+
+
+@pytest.mark.parametrize("case", [
+    ("forward", (F32, F32)), ("dy_wT", (F32, F32)), ("xT_dy", (F32, F32)),
+    ("dy_wT", (F32, BF16)), ("xT_dy", (BF16, F32)),
+    # bf16 . bf16 that TMA cannot read: B k-contiguous, A m-contiguous
+    ("dy_wT", (BF16, BF16)), ("xT_dy", (BF16, BF16))],
+    ids=lambda c: "%s-%s" % (c[0], "x".join(c[1])))
+def test_matmul_plan_takes_the_fma_route(case):
+    name, dtypes = case
+    m, k, n, st = FC1_PRODUCTS[name]
+    assert kernels.matmul_plan(m, k, n, st, dtypes)["route"] == "fma"
+
+
+@pytest.mark.parametrize("why", ["row_stride", "a_row_stride", "base"])
+def test_matmul_plan_sends_tma_misaligned_bf16_to_fma(why):
+    """TMA needs row strides of whole 16 bytes and 16-byte-aligned
+    bases: a 129-wide bf16 B (258-byte rows), a 1001-wide A, or a base
+    off the 16-byte grid take the FMA route."""
+    if why == "row_stride":
+        args = (77, 1000, 129, ((1000, 1), (129, 1)))
+    elif why == "a_row_stride":
+        args = (77, 1001, 128, ((1001, 1), (128, 1)))
+    else:
+        args = FC1_PRODUCTS["forward"]
+    plan = kernels.matmul_plan(*args, (BF16, BF16), aligned=why != "base")
+    assert plan["route"] == "fma"
+
+
+@pytest.mark.parametrize("dtypes", [(F32, F32), (BF16, BF16)],
+                         ids=["f32", "bench_set"])
+def test_matmul_plan_splits_fill_the_card(dtypes):
+    """fc1's forward and dy.w^T, 16 or 32 output tiles alone, split K
+    so that each launches at least 120 blocks; every product's cluster
+    stays within the portable 8 CTAs."""
+    for name in ("forward", "dy_wT"):
+        m, k, n, st = FC1_PRODUCTS[name]
+        dts = dtypes if name == "forward" else (F32, dtypes[1])
+        plan = kernels.matmul_plan(m, k, n, st, dts)
+        tm, tn, _ = plan["tile"]
+        assert plan["blocks"] == -(-m // tm) * -(-n // tn) * plan["splits"]
+        assert plan["blocks"] >= 120, (name, plan)
+    for m in (1, 4, 77, 128, 1024, 4096):
+        for k in (1, 16, 1000, 1024, 9216):
+            for n in (1, 10, 129, 1000):
+                for dts in ((F32, F32), (BF16, BF16), (F32, BF16)):
+                    plan = kernels.matmul_plan(m, k, n, ((k, 1), (n, 1)),
+                                               dts)
+                    assert 1 <= plan["splits"] <= 8, (m, k, n, plan)
+
+
+def _inception224_bn_shapes():
+    """(rows, C) of each of Inception-BN-224's 69 batch norms in the
+    batch-128 training step (shapes only)."""
+    from cxxnet_tpu_torch.graph import NetGraph
+    from cxxnet_tpu_torch.models import inception_bn
+    from cxxnet_tpu_torch.nnet.net import FuncNet
+    from cxxnet_tpu_torch.utils.config import parse_config
+    g = NetGraph()
+    g.configure(parse_config(inception_bn(nclass=1000, batch_size=128,
+                                          image_size=224))
+                + [("bn_pallas", "1"), ("bn_fuse_relu", "1")])
+    net = FuncNet(g, 128)
+    shapes = []
+    for li, info in enumerate(g.layers):
+        if info.type in ("batch_norm", "pallas_batch_norm"):
+            s = net.layer_objs[li].out_shapes[0]
+            shapes.append((128 * s.y * s.x, s.ch))
+    return shapes
+
+
+@pytest.mark.parametrize("dtype,v", [(F32, 4), (BF16, 8)],
+                         ids=["f32", "bf16"])
+def test_bn_bwd_plan_at_every_inception_bn_shape(dtype, v):
+    """At every batch norm of the batch-128 step: 16-byte vectors (V = 8
+    bf16, V = 4 float32 channels), every thread of a block owning a
+    (row group, channel vector) pair (whole warps wherever a multiple
+    of the channel vectors that is one fits in 256 threads: 352
+    channels, 44 or 88 vectors, take 220 threads, none idle), and the
+    f32 partial rows' traffic within 5 % of the layer's bytes."""
+    shapes = _inception224_bn_shapes()
+    assert len(shapes) == 69
+    for rows, c in shapes:
+        plan = kernels.bn_bwd_plan(rows, c, c, (dtype, dtype))
+        assert plan["v"] == v, (rows, c, plan)
+        assert plan["tiles"] * plan["ct"] == plan["nv"] == c // v
+        assert plan["threads"] == plan["ct"] * plan["rpi"] <= 256
+        whole = 32 // math.gcd(plan["ct"], 32) * plan["ct"] <= 256
+        assert plan["threads"] % 32 == 0 or not whole, (rows, c, plan)
+        assert plan["part_bytes"] <= 0.05 * plan["layer_bytes"], (rows, c)
+        # a block for about every SM (whole rows a block may leave one
+        # short: 6272 rows make 131 blocks of 48)
+        assert plan["blocks"] >= 130, (rows, c, plan)
+        assert plan["group"] * plan["ngroups"] >= plan["nbx"]
+        assert plan["part_floats"] == 2 * c * (plan["nbx"]
+                                               + plan["ngroups"])
+
+
+def test_bn_bwd_plan_keeps_the_scalar_path_for_the_rest():
+    """A channel count, row stride or base off the vector grid takes
+    narrower vectors: bf16 C = 36 (not a multiple of 8) V = 4; C = 67
+    or a misaligned base V = 1; conv_epilogue's mixed (x, y) dtypes V =
+    4."""
+    assert kernels.bn_bwd_plan(1000, 36, 36, (BF16, BF16))["v"] == 4
+    assert kernels.bn_bwd_plan(1000, 67, 67, (F32, F32))["v"] == 1
+    assert kernels.bn_bwd_plan(1000, 64, 67, (F32, F32))["v"] == 1
+    assert kernels.bn_bwd_plan(1000, 64, 64, (BF16, BF16),
+                               aligned=False)["v"] == 1
+    assert kernels.bn_bwd_plan(1000, 64, 64, (F32, BF16))["v"] == 4
+    tiny = kernels.bn_bwd_plan(3, 8, 8, (F32, F32))
+    assert tiny["nbx"] == 1 and tiny["part_floats"] == 0
 
 
 # ------------------------------------------------------- relu_max_pool
