@@ -22,11 +22,15 @@ the script exits non-zero without a result line):
              at fc1's three products and a ragged case (within rtol
              1e-5 of sum |a*b|), each with the route and split count
              its plan took (``kernels.matmul_plan``); ``relu_max_pool``
-             forward and backward
-             (both bit-exact, NaN positions included) at kaiming-224's
-             three fused pools at batch 128 on inputs in steps of 0.5
+             forward and backward (both bit-exact, signs of zero and
+             NaN positions included) at kaiming-224's three fused
+             pools at batch 128 on inputs in steps of 0.5
              (tied maxima), with the cotangent also as a permuted view,
-             plus a ragged-channel (C = 3) and a NaN case;
+             each launch's route printed (``kernels.relu_max_pool_plan``;
+             the path's pools must slide at 16-byte vectors), plus a
+             ragged-channel (C = 3), a NaN, a ragged strip and column
+             tile, a k = 2, a k = 5 (generic route), C = 72 and C = 68
+             and a misaligned-x (scalar route) case;
              ``conv_epilogue`` on the int32 accumulator of an int8 conv
              (values in +-4e7, beyond 2^24) and bf16 -> bf16 at every
              served shape, int32 also with ragged C and a bf16 output,
@@ -58,7 +62,9 @@ the script exits non-zero without a result line):
              backward and forward and conv_epilogue's VJP also the
              kernel's (and the library call's) device time per call
              from the profiler (``device_ms``: back-to-back events
-             around a ~10 us kernel time its Python wrapper); for relu_max_pool, in place
+             around a ~10 us kernel time its Python wrapper), and for
+             relu_max_pool too (summed over the path: the "kernel
+             section"); for relu_max_pool, in place
              of a library call, F.relu + F.max_pool2d and their autograd
              backward (two calls, and a backward that credits one tie);
              for pool_concat F.pad + F.max_pool2d / F.avg_pool2d +
@@ -818,15 +824,6 @@ def path_relu_pool_shapes(net, batch: int):
     return out
 
 
-def same_bits(a, b) -> bool:
-    """Equal values and NaN at the same places."""
-    import torch
-    na, nb = torch.isnan(a), torch.isnan(b)
-    return bool(torch.equal(na, nb)
-                and torch.equal(torch.where(na, 0.0, a),
-                                torch.where(nb, 0.0, b)))
-
-
 def max_err(a, b) -> float:
     """Largest |a - b| where neither is NaN; inf if NaN places differ."""
     import torch
@@ -837,16 +834,24 @@ def max_err(a, b) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+def _route(plan) -> str:
+    return "%s/v%d" % (plan["route"], plan["v"])
+
+
 def relu_pool_case(shape, k: int, bw: float, flops: float,
                    nan: bool = False, timed: bool = True,
-                   dtype: str = "float32"):
+                   dtype: str = "float32", misalign: bool = False,
+                   expect: str = None):
     """relu_max_pool forward and backward on the card against their
     plain versions on the same ``dtype`` inputs, bit for bit: x in steps
     of 0.5 (positive windows hold tied maxima, every one credited), the
     backward also with the cotangent as a permuted view (read through
-    its strides). With ``timed``: kernel, plain and reference times
-    (F.relu + F.max_pool2d, and their autograd backward) and the
-    bounds."""
+    its strides). ``misalign``: x starts one element past an aligned
+    base. Each launch's route (``relu_max_pool_plan``) is printed, and
+    the dense launches must take ``expect`` (``"slide/v8"`` etc.) where
+    it is given. With ``timed``: kernel, plain and reference times
+    (F.relu + F.max_pool2d, and their autograd backward), the kernels'
+    device time per call from the profiler, and the bounds."""
     import torch
     import torch.nn.functional as F
     from cxxnet_tpu_torch.layers import kernels
@@ -860,6 +865,10 @@ def relu_pool_case(shape, k: int, bw: float, flops: float,
     nbuf = int(min(8, max(1, -(-200e6 // (esz * n_in))))) if timed else 1
     xs = [(torch.round(2 * torch.randn(shape, generator=gen, device=dev))
            / 2).to(dt) for _ in range(nbuf)]
+    if misalign:
+        buf = torch.empty(n_in + 1, dtype=dt, device=dev)
+        buf[1:].copy_(xs[0].view(-1))
+        xs[0] = buf[1:].view(shape)
     if nan:
         xs[0].view(-1)[::997] = float("nan")
     dys = [torch.randn(oshape, generator=gen, device=dev).to(dt)
@@ -867,11 +876,14 @@ def relu_pool_case(shape, k: int, bw: float, flops: float,
     counts0 = kernels.launch_counts()
     strided0 = kernels.relu_max_pool_bwd.strided_dy
     y = kernels.relu_max_pool_fwd(xs[0], k)
+    fplan = kernels.relu_max_pool_fwd.last_plan
     yp = kernels.relu_max_pool_plain(xs[0], k)
     dx = kernels.relu_max_pool_bwd(xs[0], y, dys[0], k)
+    bplan = kernels.relu_max_pool_bwd.last_plan
     dxp = kernels.relu_max_pool_bwd_plain(xs[0], yp, dys[0], k)
     dyv = dys[0].permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     dxv = kernels.relu_max_pool_bwd(xs[0], y, dyv, k)
+    vplan = kernels.relu_max_pool_bwd.last_plan
     # credits beyond one per positive window: how many ties the
     # backward resolved
     r = torch.clamp_min(xs[0], 0)
@@ -880,14 +892,23 @@ def relu_pool_case(shape, k: int, bw: float, flops: float,
                        & pos).sum()) for di in range(k) for dj in range(k))
     torch.cuda.synchronize()
     out = {"shape": list(shape), "k": k, "nan": nan, "dtype": dtype,
+           "misaligned": misalign,
+           "route_fwd": _route(fplan), "route_bwd": _route(bplan),
+           "route_bwd_strided_dy": _route(vplan),
+           "fwd_plan": {key: fplan[key] for key in
+                        ("rows", "tw", "ct", "blocks")},
+           "bwd_plan": {key: bplan[key] for key in
+                        ("rows", "tw", "ct", "blocks")},
+           "expect": expect,
            "fwd_err": max_err(y.float(), yp.float()),
            "bwd_err": max_err(dx.float(), dxp.float()),
            "bwd_strided_dy_err": max_err(dxv.float(), dxp.float()),
-           "fwd_exact": same_bits(y, yp),
-           "bwd_exact": same_bits(dx, dxp) and same_bits(dxv, dxp),
+           "fwd_exact": bits_equal(y, yp),
+           "bwd_exact": bits_equal(dx, dxp) and bits_equal(dxv, dxp),
            "tie_credits": credits - int(pos.sum()),
            "nan_outputs": int(torch.isnan(y).sum())}
-    out["ok"] = out["fwd_exact"] and out["bwd_exact"]
+    out["ok"] = out["fwd_exact"] and out["bwd_exact"] and (
+        expect is None or out["route_fwd"] == out["route_bwd"] == expect)
     del yp, dx, dxp, dyv, dxv, r, pos
     if timed:
         # forward: read x, write y; k*k maxima per output. backward: read
@@ -908,6 +929,14 @@ def relu_pool_case(shape, k: int, bw: float, flops: float,
         out["bwd_plain_ms"] = cuda_time_ms(
             lambda i: kernels.relu_max_pool_bwd_plain(
                 xs[i % nbuf], ys[i % nbuf], dys[i % nbuf], k), iters)
+        dev_ms = device_ms({
+            "fwd": (lambda i: kernels.relu_max_pool_fwd(xs[i % nbuf], k),
+                    "cxn_relu_max_pool_fwd"),
+            "bwd": (lambda i: kernels.relu_max_pool_bwd(
+                xs[i % nbuf], ys[i % nbuf], dys[i % nbuf], k),
+                "cxn_relu_max_pool_bwd")}, iters)
+        out["fwd_device_ms"], out["bwd_device_ms"] = \
+            dev_ms["fwd"], dev_ms["bwd"]
         del ys
 
         def ref_fwd(x):
@@ -933,7 +962,13 @@ def relu_pool_case(shape, k: int, bw: float, flops: float,
 
 def relu_pool_section(bw: float, flops: float, dtype: str = "float32"):
     """Every relu_max_pool shape of kaiming-224's batch-128 training
-    step, plus a ragged-channel and a NaN case, on ``dtype``."""
+    step (each must take the slide route at 16-byte vectors), plus
+    extra cases: a ragged channel count (C = 3), a NaN case, a ragged
+    last strip and column tile, k = 2, k = 5 (the generic route), C =
+    72 and C = 68 (bf16: C = 72 slides 8-wide, C = 68 is no multiple
+    of 8 and takes the generic route 4-wide), and an x one element
+    past an aligned base (the scalar route). The "kernel section" is
+    the profiler's device time per call summed over the path."""
     from cxxnet_tpu_torch.nnet.net import FuncNet
     knet = FuncNet(_configured(kaiming_cfg(TRAIN_BATCH)), TRAIN_BATCH)
     shapes = path_relu_pool_shapes(knet, TRAIN_BATCH)
@@ -941,20 +976,38 @@ def relu_pool_section(bw: float, flops: float, dtype: str = "float32"):
         raise RuntimeError("expected %d fused pools, the net has %d"
                            % (KAIMING_LAUNCHES["relu_max_pool_fwd"],
                               len(shapes)))
-    path = [relu_pool_case(s[:4], s[4], bw, flops, dtype=dtype)
-            for s in shapes]
-    extra = [relu_pool_case((TRAIN_BATCH, 37, 37, 3), 3, bw, flops,
-                            timed=False, dtype=dtype),
-             relu_pool_case((16, 18, 18, 256), 3, bw, flops, nan=True,
-                            timed=False, dtype=dtype),
-             relu_pool_case((8, 9, 9, 12), 2, bw, flops, timed=False,
-                            dtype=dtype)]
+    wide = "slide/v%d" % (8 if dtype == "bfloat16" else 4)
+    path = [relu_pool_case(s[:4], s[4], bw, flops, dtype=dtype,
+                           expect=wide) for s in shapes]
+
+    def extra(shape, k, **kw):
+        return relu_pool_case(shape, k, bw, flops, timed=False,
+                              dtype=dtype, **kw)
+    extras = [extra((TRAIN_BATCH, 37, 37, 3), 3, expect="generic/v1"),
+              extra((16, 18, 18, 256), 3, nan=True, expect=wide),
+              extra((8, 9, 9, 12), 2),
+              extra((4, 23, 29, 64), 3, expect=wide),
+              extra((16, 20, 20, 64), 2, expect=wide),
+              extra((8, 15, 15, 64), 5, expect="generic/v4"),
+              extra((8, 18, 18, 72), 3, expect=wide),
+              extra((8, 18, 18, 68), 3,
+                    expect="generic/v4" if dtype == "bfloat16" else wide),
+              extra((8, 18, 18, 64), 3, misalign=True,
+                    expect="generic/v1")]
     keys = ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "reference_fwd_ms",
-            "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "reference_bwd_ms")
-    cases = path + extra
+            "fwd_device_ms", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
+            "reference_bwd_ms", "bwd_device_ms")
+    cases = path + extras
+    step = {key: (sum(c[key] for c in path)
+                  if all(c[key] is not None for c in path) else None)
+            for key in keys}
     return {"ok": all(c["ok"] for c in cases), "dtype": dtype,
             "launches_per_step": len(path),
-            "step_sum": {k: sum(c[k] for c in path) for k in keys},
+            "step_sum": step,
+            "kernel_section_ms": {"fwd": step["fwd_device_ms"],
+                                  "bwd": step["bwd_device_ms"]},
+            "routes": [[c["route_fwd"], c["route_bwd"],
+                        c["route_bwd_strided_dy"]] for c in cases],
             "fwd_max_abs_err": max(c["fwd_err"] for c in cases),
             "bwd_max_abs_err": max(max(c["bwd_err"], c["bwd_strided_dy_err"])
                                    for c in cases),
@@ -964,7 +1017,7 @@ def relu_pool_section(bw: float, flops: float, dtype: str = "float32"):
                                            for c in path) else "operations",
             "reference": "F.relu + F.max_pool2d (two calls; its backward "
                          "credits one tied maximum per window)",
-            "path_cases": path, "extra_cases": extra}
+            "path_cases": path, "extra_cases": extras}
 
 
 def train_cfg_bf16(batch: int):
@@ -2967,7 +3020,9 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
              bound_by=rmp["fwd_bound_by"], library_ms=None,
              reference_ms=rmp["step_sum"]["reference_fwd_ms"],
              reference=rmp["reference"],
-             device_ms=kprof["relu_pool_fwd_device_ms"], per=per_kstep,
+             device_ms=kprof["relu_pool_fwd_device_ms"],
+             kernel_device_ms=rmp["kernel_section_ms"]["fwd"],
+             routes=[r[0] for r in rmp["routes"]], per=per_kstep,
              peaks=part),
         dict(RMP_BWD, launches=kmres["launches"]["relu_max_pool_bwd"],
              max_abs_err=rmp["bwd_max_abs_err"],
@@ -2977,7 +3032,9 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
              bound_by=rmp["bwd_bound_by"], library_ms=None,
              reference_ms=rmp["step_sum"]["reference_bwd_ms"],
              reference=rmp["reference"],
-             device_ms=kprof["relu_pool_bwd_device_ms"], per=per_kstep,
+             device_ms=kprof["relu_pool_bwd_device_ms"],
+             kernel_device_ms=rmp["kernel_section_ms"]["bwd"],
+             routes=[r[1:] for r in rmp["routes"]], per=per_kstep,
              peaks=part),
         dict(BN_FWD_BF16, launches=tbres["launches"]["bn_apply_fwd_bf16"],
              max_abs_err=bb["fwd_max_abs_err"], ms=bb["step_sum"]["fwd_ms"],
@@ -3020,6 +3077,8 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
              reference_ms=br["step_sum"]["reference_fwd_ms"],
              reference=br["reference"],
              device_ms=kbprof["relu_pool_fwd_device_ms"],
+             kernel_device_ms=br["kernel_section_ms"]["fwd"],
+             routes=[r[0] for r in br["routes"]],
              per=per_kstep + " (dtype = bfloat16)", peaks=part),
         dict(RMP_BWD_BF16,
              launches=kmres["bf16"]["launches"]["relu_max_pool_bwd_bf16"],
@@ -3031,6 +3090,8 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
              reference_ms=br["step_sum"]["reference_bwd_ms"],
              reference=br["reference"],
              device_ms=kbprof["relu_pool_bwd_device_ms"],
+             kernel_device_ms=br["kernel_section_ms"]["bwd"],
+             routes=[r[1:] for r in br["routes"]],
              per=per_kstep + " (dtype = bfloat16)", peaks=part)]}
 
 

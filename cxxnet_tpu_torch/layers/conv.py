@@ -249,6 +249,38 @@ def relu_max_pool_applicable(param) -> bool:
             and param.kernel_height > 1)
 
 
+def xla_window_sum_order(kh: int, kw: int, stride: int, pad: int, w: int,
+                         ox: int) -> List[tuple]:
+    """The order in which the reference's XLA:CPU build adds the kh x kw
+    window of a bf16 avg pool (``reduce_window`` add with low pad
+    ``pad`` on an input ``w`` wide, ``ox`` outputs across), as
+    ``(di, dj)`` offsets.
+
+    XLA:CPU emits the window as a loop nest, row outer and column
+    inner, each element checked against the unpadded input. Before it
+    emits the nest it tries to peel the column loop's last iteration:
+    when the column index enters a bounds check and would no longer
+    after the peel, it adds columns 0..kw-2 of every row first, row by
+    row, then column kw-1 from the top. The column index enters a check
+    when the padded positions it can reach, ``[0, (ox - 1) * stride +
+    kw - 1]``, do not lie inside the input's ``[pad, pad + w - 1]``; a
+    column range of one offset (kw = 2 after the peel) is a constant
+    and enters none. So every kw = 2 pool with a pad or an overhang,
+    and every pad-0 pool whose overhang is one column, adds column by
+    column's last; every other pool adds row-major. Only the columns
+    decide: the rule was read on square windows with equal pads and on
+    windows with kh != kw or pad_y != pad_x (kh and kw 2-4,
+    ``tests/test_torch_port_avg_pool.py``)."""
+    def reaches_out(last: int) -> bool:
+        return not (pad <= 0 and (ox - 1) * stride + last <= pad + w - 1)
+    peel = kw >= 2 and reaches_out(kw - 1) \
+        and (kw == 2 or not reaches_out(kw - 2))
+    if not peel:
+        return [(di, dj) for di in range(kh) for dj in range(kw)]
+    return [(di, dj) for di in range(kh) for dj in range(kw - 1)] \
+        + [(di, kw - 1) for di in range(kh)]
+
+
 class PoolingLayer(Layer):
     """max / avg pooling with the reference's ceil-mode shape rules.
 
@@ -294,27 +326,33 @@ class PoolingLayer(Layer):
             y = F.max_pool2d(x.permute(0, 3, 1, 2), (kh, kw), st)
         else:
             # zero pad, every window divided by kh*kw
+            order = xla_window_sum_order(kh, kw, st, px, x.shape[2], ox)
             if py or px or ey or ex:
                 x = F.pad(x, (0, 0, px, px + ex, py, py + ey))
             if x.dtype == torch.bfloat16:
-                return self._bf16_avg(x, kh, kw, st, oy, ox)
+                return self._bf16_avg(x, kh, kw, st, oy, ox, order)
             y = F.avg_pool2d(x.permute(0, 3, 1, 2), (kh, kw), st,
                              divisor_override=kh * kw)
         return y.permute(0, 2, 3, 1)
 
     @staticmethod
-    def _bf16_avg(x, kh, kw, st, oy, ox):
+    def _bf16_avg(x, kh, kw, st, oy, ox, order):
         """Average pool of a padded bf16 NHWC tensor in the reference's
         arithmetic: ``reduce_window``'s add in bf16, one rounding per
-        add in window order, then the product with ``1 / (kh * kw)``
-        rounded to bf16 (``F.avg_pool2d`` sums in float32 and divides,
-        which differs in up to half the entries by up to 1.5 %)."""
-        y = None
-        for di in range(kh):
-            for dj in range(kw):
-                v = x[:, di:di + (oy - 1) * st + 1:st,
-                      dj:dj + (ox - 1) * st + 1:st]
-                y = v if y is None else y + v
+        add, the window offsets in ``order``
+        (:func:`xla_window_sum_order`), then the product with ``1 / (kh
+        * kw)`` rounded to bf16 (``F.avg_pool2d`` sums in float32 and
+        divides, which differs in up to half the entries by up to 1.5
+        %). The window slices are taken in row-major order whatever
+        the order of the adds, so autograd accumulates their gradients
+        last offset first, as the reference's VJP adds them."""
+        terms = {(di, dj): x[:, di:di + (oy - 1) * st + 1:st,
+                             dj:dj + (ox - 1) * st + 1:st]
+                 for di in range(kh) for dj in range(kw)}
+        # from +0, as reduce_window's init: a window of -0 sums to +0
+        y = terms[order[0]] + 0.0
+        for key in order[1:]:
+            y = y + terms[key]
         # 1/(kh*kw) rounded to bf16, exact as a Python float
         return y * float(torch.tensor(1.0 / (kh * kw), dtype=torch.bfloat16))
 

@@ -30,7 +30,7 @@ Ported so far:
   :func:`matmul_plan` picks;
 - ``relu_max_pool`` forward and backward (``relu_max_pool_fwd`` /
   ``relu_max_pool_bwd``) on float32 and bfloat16, differentiable as
-  :func:`relu_max_pool`;
+  :func:`relu_max_pool`, launched along :func:`relu_max_pool_plan`;
 - ``pool_concat`` forward and the pool branch's backward
   (``pool_concat_fwd`` / ``pool_concat_bwd``) on float32 and bfloat16,
   differentiable as :func:`pool_concat`, with the reference's fusion
@@ -173,9 +173,11 @@ _SIGNATURES = {
     "matmul": {"cxn_matmul": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _I,
                               _I, _I, _I, _L, _P]},
     "relu_max_pool": {
-        "cxn_relu_max_pool_fwd": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "cxn_relu_max_pool_fwd": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _L, _P],
         "cxn_relu_max_pool_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
-                                  _L, _L, _I, _P]},
+                                  _L, _L, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _L, _P]},
     "pool_concat": {
         "cxn_pool_concat_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I,
                                 _I, _I, _P],
@@ -937,11 +939,114 @@ def _check_pool(what: str, x: torch.Tensor, k: int) -> None:
                          "dense NHWC buffer)" % what)
 
 
+RMP_ROUTES = {"generic": 0, "slide": 1}
+RMP_SLIDE_K = (2, 3)             # windows the slide route is built for
+RMP_THREADS = 256                # the generic route's block
+# threads a slide block (at most): the backward's ~117 registers a
+# thread allow ~512 threads an SM, which smaller blocks pack better
+RMP_SLIDE_THREADS = {"fwd": 256, "bwd": 128}
+# rows a slide strip walks (at most; halved to RMP_MIN_ROWS while an SM
+# would get fewer than RMP_SM_BLOCKS blocks)
+RMP_ROWS = {"fwd": 4, "bwd": 8}
+RMP_MIN_ROWS = 4
+RMP_SM_BLOCKS = 8
+# channels a slide vector: 16 bytes
+RMP_VECS = {"float32": 4, "bfloat16": 8}
+RMP_GENERIC_BLOCKS_PER_SM = 16   # the generic grid-stride loop's cap
+
+
+def _alignment(*ts: torch.Tensor) -> int:
+    """The largest of 16, 8, 4, 2, 1 bytes that divides every base."""
+    a = 16
+    for t in ts:
+        while t.data_ptr() % a:
+            a //= 2
+    return a
+
+
+def relu_max_pool_plan(b: int, h: int, w: int, c: int, k: int, dtype,
+                       align: int = 16, dy_strides=None,
+                       sms: int = 132) -> Dict[str, object]:
+    """The launch of a relu_max_pool kernel on a (b, h, w, c) input of
+    ``dtype`` (a torch dtype or its name) with window ``k``, whose
+    tensors' bases share ``align`` bytes of alignment, on a card with
+    ``sms`` SMs: the forward's where ``dy_strides`` is None, else the
+    backward's with the cotangent read through ``dy_strides``.
+
+    - ``route`` ``"slide"`` (k in ``RMP_SLIDE_K``; C a multiple of the
+      16-byte vector ``v``, 16-byte aligned bases; dy with unit channel
+      stride and strides that keep its vectors aligned; h*w*c below
+      2^31): a block of ``ct`` channel vectors by ``tw`` columns (at
+      most ``RMP_SLIDE_THREADS``) walks a strip of ``rows`` rows
+      (output rows forward, input rows backward) down its columns;
+      ``tiles`` column tiles, ``ctiles`` channel tiles and ``strips``
+      strips a map, ``blocks`` in all. ``rows`` halves from ``RMP_ROWS`` (down
+      to ``RMP_MIN_ROWS``) while the launch would give an SM fewer
+      than ``RMP_SM_BLOCKS`` blocks;
+    - else ``"generic"``: one thread per ``v`` = 4 channels (C a
+      multiple of 4, 4-element alignment, unit-stride dy) or per
+      channel, in a grid-stride loop of ``blocks`` blocks of
+      ``RMP_THREADS``, at most ``RMP_GENERIC_BLOCKS_PER_SM`` an SM.
+    The plan is chosen by shape, on the host, and is not a fallback:
+    the kernel refuses a plan its tensors cannot take."""
+    name = dtype if isinstance(dtype, str) else \
+        str(dtype).replace("torch.", "")
+    esz = 2 if name == "bfloat16" else 4
+    oh, ow = h - k + 1, w - k + 1
+    bwd = dy_strides is not None
+    span, height = (w, h) if bwd else (ow, oh)
+
+    def vec_ok(v: int) -> bool:
+        if c % v or align % (v * esz):
+            return False
+        if bwd and v > 1:
+            sb, sh, sw, sc = (int(s) for s in dy_strides)
+            return sc == 1 and sb % v == 0 and sh % v == 0 and sw % v == 0
+        return True
+
+    v = RMP_VECS[name]
+    if k in RMP_SLIDE_K and vec_ok(v) and h * w * c < 2 ** 31:
+        way = "bwd" if bwd else "fwd"
+        most = RMP_SLIDE_THREADS[way]
+        cv = c // v
+        ctiles = -(-cv // most)
+        ct = -(-cv // ctiles)
+        tw = max(1, min(span, most // ct))
+        tiles = -(-span // tw)
+
+        def blocks_for(r):
+            return b * ctiles * tiles * -(-height // r)
+
+        rows = min(RMP_ROWS[way], height)
+        while rows > RMP_MIN_ROWS and \
+                blocks_for(rows) < RMP_SM_BLOCKS * sms:
+            rows = max(RMP_MIN_ROWS, rows // 2)
+        return {"route": "slide", "v": v, "rows": rows, "tw": tw, "ct": ct,
+                "tiles": tiles, "ctiles": ctiles,
+                "strips": -(-height // rows), "blocks": blocks_for(rows),
+                "threads": tw * ct}
+    v = 4 if vec_ok(4) else 1
+    work = b * (h if bwd else oh) * (w if bwd else ow) * (c // v)
+    blocks = max(1, min(-(-work // RMP_THREADS),
+                        RMP_GENERIC_BLOCKS_PER_SM * sms))
+    return {"route": "generic", "v": v, "rows": 0, "tw": 0, "ct": 0,
+            "tiles": 0, "ctiles": 0, "strips": 0, "blocks": blocks,
+            "threads": RMP_THREADS}
+
+
+def _plan_args(plan) -> Tuple:
+    return (RMP_ROUTES[plan["route"]], plan["v"], plan["rows"], plan["tw"],
+            plan["ct"], plan["tiles"], plan["ctiles"], plan["strips"],
+            plan["blocks"])
+
+
 def relu_max_pool_fwd(x: torch.Tensor, k: int) -> torch.Tensor:
     """``maxpool_{k x k, stride 1, VALID}(max(x, 0))`` of a contiguous
     float32 or bfloat16 NHWC tensor: one launch of
-    ``cxn_relu_max_pool_fwd`` (``csrc/relu_max_pool.cu``) for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    ``cxn_relu_max_pool_fwd`` (``csrc/relu_max_pool.cu``) along
+    :func:`relu_max_pool_plan` for a CUDA tensor (the plan in
+    ``relu_max_pool_fwd.last_plan``), the plain version for a CPU
+    tensor."""
     _check_pool("relu_max_pool", x, k)
     if x.device.type == "cpu":
         return relu_max_pool_plain(x, k)
@@ -951,18 +1056,22 @@ def relu_max_pool_fwd(x: torch.Tensor, k: int) -> torch.Tensor:
                     device=x.device)
     if y.numel() == 0:
         return y
+    plan = relu_max_pool_plan(b, h, w, c, k, x.dtype, _alignment(x, y),
+                              sms=_sm_count(x.device))
     lib = _load("relu_max_pool")
     with torch.cuda.device(x.device):
         err = lib.cxn_relu_max_pool_fwd(x.data_ptr(), y.data_ptr(), b, h, w,
                                         c, k, _DTYPE_CODE[x.dtype],
-                                        _stream(x))
+                                        *_plan_args(plan), _stream(x))
     _raise_on(err, "relu_max_pool")
+    relu_max_pool_fwd.last_plan = plan
     _count(relu_max_pool_fwd, x.dtype)
     return y
 
 
 relu_max_pool_fwd.launches = 0
 relu_max_pool_fwd.launches_bf16 = 0
+relu_max_pool_fwd.last_plan = None
 
 
 def relu_max_pool_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
@@ -970,9 +1079,11 @@ def relu_max_pool_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     """dx of :func:`relu_max_pool_fwd` from the forward's input ``x``,
     its output ``y`` (both contiguous) and the cotangent ``dy``, which
     the kernel reads through its strides (a permuted or expanded view
-    costs no copy): one launch of ``cxn_relu_max_pool_bwd`` for CUDA
-    tensors, the plain version for CPU tensors. Launches whose ``dy``
-    is not a dense NHWC tensor are counted in ``strided_dy``."""
+    costs no copy): one launch of ``cxn_relu_max_pool_bwd`` along
+    :func:`relu_max_pool_plan` for CUDA tensors (the plan in
+    ``relu_max_pool_bwd.last_plan``), the plain version for CPU
+    tensors. Launches whose ``dy`` is not a dense NHWC tensor are
+    counted in ``strided_dy``."""
     _check_pool("relu_max_pool_bwd", x, k)
     b, h, w, c = x.shape
     oshape = (b, h - k + 1, w - k + 1, c)
@@ -991,13 +1102,18 @@ def relu_max_pool_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     dx = torch.empty_like(x)
     if dx.numel() == 0:
         return dx
+    strides = dy.stride()
+    plan = relu_max_pool_plan(b, h, w, c, k, x.dtype,
+                              _alignment(x, y, dy, dx), strides,
+                              sms=_sm_count(x.device))
     lib = _load("relu_max_pool")
-    sb, sh, sw, sc = dy.stride()
     with torch.cuda.device(x.device):
         err = lib.cxn_relu_max_pool_bwd(
             x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(), b, h,
-            w, c, k, sb, sh, sw, sc, _DTYPE_CODE[x.dtype], _stream(x))
+            w, c, k, *strides, _DTYPE_CODE[x.dtype], *_plan_args(plan),
+            _stream(x))
     _raise_on(err, "relu_max_pool_bwd")
+    relu_max_pool_bwd.last_plan = plan
     _count(relu_max_pool_bwd, x.dtype)
     if not dy.is_contiguous():
         relu_max_pool_bwd.strided_dy += 1
@@ -1007,6 +1123,7 @@ def relu_max_pool_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
 relu_max_pool_bwd.launches = 0
 relu_max_pool_bwd.launches_bf16 = 0
 relu_max_pool_bwd.strided_dy = 0
+relu_max_pool_bwd.last_plan = None
 
 
 class _ReluMaxPool(torch.autograd.Function):

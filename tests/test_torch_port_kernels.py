@@ -539,3 +539,96 @@ def test_relu_max_pool_wrappers_reject(case):
             kernels.relu_max_pool_fwd(x, k)
         else:
             kernels.relu_max_pool_bwd(x, y, dy, k)
+
+
+# -------------------------------------------------- relu_max_pool_plan
+#
+# relu_max_pool_plan decides, in Python, how csrc/relu_max_pool.cu
+# launches: the slide route (a strip of rows walked down each column)
+# or the generic one. Checked at kaiming-224's three fused pools at
+# batch 128 (k = 3), with the H100's 132 SMs.
+
+KAIMING_POOLS = [(128, 109, 109, 64), (128, 37, 37, 128),
+                 (128, 18, 18, 256)]
+
+
+def _dense_strides(shape):
+    return tuple(torch.empty(shape, device="meta").stride())
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("dtype,v", [(F32, 4), (BF16, 8)])
+def test_relu_max_pool_plan_slides_at_kaiming_path(dtype, v, direction):
+    for b, h, w, c in KAIMING_POOLS:
+        oshape = (b, h - 2, w - 2, c)
+        dys = _dense_strides(oshape) if direction == "bwd" else None
+        plan = kernels.relu_max_pool_plan(b, h, w, c, 3, dtype, 16, dys)
+        span, height = (w, h) if direction == "bwd" else (w - 2, h - 2)
+        assert plan["route"] == "slide" and plan["v"] == v, plan
+        assert plan["blocks"] == (b * plan["tiles"] * plan["ctiles"]
+                                  * plan["strips"]), plan
+        assert plan["blocks"] >= 132, plan
+        assert plan["threads"] == plan["tw"] * plan["ct"] <= 256
+        assert plan["tiles"] * plan["tw"] >= span
+        assert (plan["tiles"] - 1) * plan["tw"] < span
+        assert plan["ctiles"] * plan["ct"] * v >= c
+        assert plan["strips"] * plan["rows"] >= height
+        assert (plan["strips"] - 1) * plan["rows"] < height
+
+
+@pytest.mark.parametrize("case", ["c3", "k5", "misaligned_x",
+                                  "permuted_dy", "bf16_c6"])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_relu_max_pool_plan_takes_the_generic_route(case, dtype):
+    """Ragged C, other windows, misaligned bases and a cotangent whose
+    channels are not contiguous take the generic kernels: per channel,
+    or per 4 channels where C, the bases and dy allow it."""
+    b, h, w, c, k, align = 4, 23, 29, 64, 3, 16
+    dys = _dense_strides((b, h - 2, w - 2, c))
+    v = 4
+    if case == "c3":
+        c, v = 3, 1
+        dys = _dense_strides((b, h - 2, w - 2, c))
+    elif case == "k5":
+        k = 5
+        dys = _dense_strides((b, h - 4, w - 4, c))
+    elif case == "misaligned_x":
+        align, v = 2 if dtype == BF16 else 4, 1
+    elif case == "permuted_dy":
+        dys = (c * 21 * 27, 27, 1, 21 * 27)
+        v = 1
+    elif case == "bf16_c6":
+        c, v = 6, 1
+        dys = _dense_strides((b, h - 2, w - 2, c))
+    for strides in (None, dys):
+        plan = kernels.relu_max_pool_plan(b, h, w, c, k, dtype, align,
+                                          strides)
+        if strides is None and case == "permuted_dy":
+            assert plan["route"] == "slide"
+            continue
+        assert plan["route"] == "generic" and plan["v"] == v, (strides, plan)
+        assert 1 <= plan["blocks"] <= 16 * 132
+
+
+def test_relu_max_pool_plan_vector_widths():
+    """The slide route takes 16-byte vectors: 8 bf16 channels, 4
+    float32. A C or a base that does not allow them takes the generic
+    route, 4 channels a thread. A ragged map still slides, its last
+    strip and column tile short."""
+    def plan(c, dtype, align=16, hw=(23, 29)):
+        h, w = hw
+        return kernels.relu_max_pool_plan(4, h, w, c, 3, dtype, align,
+                                          _dense_strides((4, h - 2, w - 2,
+                                                          c)))
+    assert (plan(72, BF16)["route"], plan(72, BF16)["v"]) == ("slide", 8)
+    assert (plan(68, BF16)["route"], plan(68, BF16)["v"]) == ("generic", 4)
+    assert (plan(72, BF16, align=8)["route"],
+            plan(72, BF16, align=8)["v"]) == ("generic", 4)
+    assert (plan(72, F32)["route"], plan(72, F32)["v"]) == ("slide", 4)
+    assert plan(72, F32, align=8)["route"] == "generic"
+    ragged = plan(64, F32)
+    assert ragged["tiles"] * ragged["tw"] > 29
+    assert ragged["strips"] * ragged["rows"] > 23 or ragged["rows"] == 23
+    wide = plan(2048, F32, hw=(5, 5))
+    assert wide["ctiles"] * wide["ct"] == 512 and wide["tw"] == 1
+    assert wide["ctiles"] > 1 and wide["threads"] <= 256
