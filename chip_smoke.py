@@ -147,9 +147,37 @@ the script exits non-zero without a result line):
              ``ServeSession(device="cuda")`` with phase 3's drive: 0
              failed requests, exactly 26 conv_epilogue and 2 pool_concat
              launches per forward, 4 rows against the CPU.
+9. cli     — the CLI slice through its entry point, ``python -m
+             cxxnet_tpu_torch.main``: ``example/MNIST/MNIST.conf`` as a
+             subprocess from a directory whose data/ links the tracked
+             idx files (24,000 / 2,000 digits), 15 rounds, best
+             test-error below 0.03, its wall time and each round's
+             training rows/s (the gap between two round lines, the test
+             pass included); then ``example/ImageNet/Inception-BN.conf``
+             in process (``LearnTask().run``), only its data paths
+             pointed at seeded raw-tensor imgrec archives (300 train and
+             200 val records of 256x256x3 uint8, labels in 0-999): 2
+             rounds at the conf's batch 128, 224 crop, 1000 classes and
+             ``dtype = bfloat16`` with ``bn_pallas = bn_fuse_relu = 1``
+             (the round lines, every update's loss finite, 0002.model.npz
+             written, exactly 69 + 69 bf16 bn_apply and 1 bias_grad_bf16
+             launches per update and none in the round lines' eval
+             forwards, each update's time and each round's rows/s);
+             ``pred``, ``pred_raw`` and ``extract`` (the pooled features,
+             node ``flat``) over val.rec from that snapshot (a pred block
+             given on the command line) with ``bn_fold_eval =
+             bn_fuse_relu = conv_pallas_epilogue = 1``: 200 classes in
+             0-999, 200 rows summing to 1, 69 bf16 conv_epilogue
+             launches per forward, the first 4 rows and their pooled
+             features against the port on the CPU (bf16 tolerances: the
+             eval path runs in the conf's bf16); ``serve`` with 8 clients x 8
+             requests x 4 rows, 0 failed, 69 per forward; and the MNIST
+             snapshot quantized (``task = quantize``, the 0.05 gate) and
+             served at ``serve_dtype = int8``, 0 failed.
 
 Then a ``kernels`` line (every ported kernel with its launches, error
-and times), the ``nvidia-smi`` line, and the last line
+and times; ``cli_launches``: its count over the cli phase's runs), the
+``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -158,6 +186,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2543,7 +2572,9 @@ def drive_train(cfg, expected, device_keys):
     from cxxnet_tpu_torch.layers import kernels
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
     t0 = time.perf_counter()
-    t = NetTrainer(cfg, device=DEVICE)
+    # the drive times the update alone: no train metrics (the cli phase
+    # collects them, as the CLI does by default)
+    t = NetTrainer(list(cfg) + [("eval_train", "0")], device=DEVICE)
     t.init_model()
     rng = np.random.RandomState(SEED + 1)
     batch = DataBatch(images(rng, TRAIN_BATCH),
@@ -2874,6 +2905,429 @@ def tower_serve_cfg():
         ("serve_max_delay_ms", "2")]
 
 
+# ------------------------------------------------------------- phase 9
+
+# the cli phase: Inception-BN.conf's data from seeded raw-tensor imgrec
+# archives (256x256x3 uint8, labels in 0-999): 2 full batches of 128 and a
+# 44-row tail that round_batch wraps, and a validation archive
+CLI_IMAGE = 256
+CLI_TRAIN_RECORDS, CLI_VAL_RECORDS = 300, 200
+CLI_ROUNDS = 2
+# per update of Inception-BN.conf through the CLI (dtype = bfloat16 alone,
+# bn_pallas = bn_fuse_relu = 1): every batch norm through bf16 bn_apply,
+# and fc1, a plain fullc whose bias adds to a bf16 output, sums its bias
+# gradient in bf16; the eval forwards of the round lines (moving-average
+# batch norm, no fold) launch no kernel
+CLI_TRAIN_LAUNCHES = dict(NO_LAUNCHES, bn_apply_fwd_bf16=69,
+                          bn_apply_bwd_bf16=69, bias_grad_bf16=1)
+# per pred / serve forward under bn_fold_eval = bn_fuse_relu =
+# conv_pallas_epilogue = 1, at the conf's dtype = bfloat16
+CLI_PRED_LAUNCHES = BF16_LAUNCHES
+CLI_SOAK = ["serve_clients=8", "serve_requests=8", "serve_request_rows=4"]
+MNIST_GATE = 0.03
+_ROUND_LINE = re.compile(r"^\[(\d+)\]((?:\t[\w@-]+:\S+)*)$")
+_SERVE_LINE = re.compile(r"^serve: (\d+) ok / (\d+) busy / (\d+) timeout / "
+                         r"(\d+) error requests \((\d+) rows\)")
+
+
+def cli_dev_args():
+    """The CLI runs on the card unless the smoke runs on the CPU (a
+    rehearsal)."""
+    return [] if DEVICE == "cuda" else ["dev=" + DEVICE]
+
+
+def write_cli_archives(workdir: str):
+    """Seeded raw-tensor imgrec archives (decoded with numpy alone)."""
+    from cxxnet_tpu_torch.io import recordio
+    rng = np.random.RandomState(SEED + 9)
+    paths = []
+    for name, n in (("train.rec", CLI_TRAIN_RECORDS),
+                    ("val.rec", CLI_VAL_RECORDS)):
+        path = os.path.join(workdir, name)
+        w = recordio.RecordIOWriter(path)
+        for i in range(n):
+            img = rng.randint(0, 256, (CLI_IMAGE, CLI_IMAGE, 3),
+                              dtype=np.uint8)
+            w.write_record(recordio.pack_raw_tensor_record(
+                i, float(rng.randint(NCLASS)), img))
+        w.close()
+        paths.append(path)
+    return paths
+
+
+def cli_inception_conf(workdir: str, train_rec: str, val_rec: str) -> str:
+    """A copy of example/ImageNet/Inception-BN.conf with only its data
+    paths pointed at the archives."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "example", "ImageNet",
+                           "Inception-BN.conf")) as f:
+        text = f.read()
+    for name, path in (("train.rec", train_rec), ("val.rec", val_rec)):
+        old = "path_imgrec = %s\n" % name
+        assert text.count(old) == 1, old
+        text = text.replace(old, "path_imgrec = %s\n" % path)
+    path = os.path.join(workdir, "Inception-BN.conf")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def run_cli(argv, cwd=None):
+    """One in-process ``LearnTask().run(argv)``: (rc, stdout lines)."""
+    import io
+    from cxxnet_tpu_torch.main import LearnTask
+    buf = io.StringIO()
+    old = os.getcwd()
+    try:
+        if cwd:
+            os.chdir(cwd)
+        with contextlib.redirect_stdout(buf):
+            rc = LearnTask().run(list(argv) + cli_dev_args())
+    finally:
+        os.chdir(old)
+    return rc, buf.getvalue().splitlines()
+
+
+@contextlib.contextmanager
+def tap_trainer(rec):
+    """Record, for every ``NetTrainer`` the CLI builds, each update's
+    launch counts (counter deltas), loss, wall time (to a device sync)
+    and rows, each eval forward's launch counts, and each closed round's
+    throughput; the methods are restored on exit."""
+    import torch
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    names = ("update", "update_many", "pred", "end_round")
+    orig = {n: getattr(NetTrainer, n) for n in names}
+    for key in ("updates", "forwards", "rounds"):
+        rec.setdefault(key, [])
+
+    def delta(before):
+        after = kernels.launch_counts()
+        return {k: after[k] - before[k] for k in after}
+
+    def stepped(fn):
+        def run(self, arg):
+            batches = list(arg) if isinstance(arg, (list, tuple)) \
+                else [arg]
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            fn(self, arg)
+            loss = self.last_loss            # waits for the device
+            torch.cuda.synchronize()
+            rec["updates"].append({
+                "batches": len(batches), "launches": delta(before),
+                "loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                "rows": sum(b.batch_size - b.num_batch_padd
+                            for b in batches)})
+        return run
+
+    def pred(self, data, nodes):
+        before = kernels.launch_counts()
+        out = orig["pred"](self, data, nodes)
+        rec["forwards"].append(delta(before))
+        return out
+
+    def end_round(self):
+        was_open = self._round_t0 is not None
+        orig["end_round"](self)
+        if was_open:
+            rec["rounds"].append({
+                "round": self.round, "examples": self.last_round_examples,
+                "wall_s": self.last_round_wall_s,
+                "rows_per_s": self.last_round_examples_per_sec})
+
+    NetTrainer.update = stepped(orig["update"])
+    NetTrainer.update_many = stepped(orig["update_many"])
+    NetTrainer.pred = pred
+    NetTrainer.end_round = end_round
+    try:
+        yield rec
+    finally:
+        for n in names:
+            setattr(NetTrainer, n, orig[n])
+
+
+def round_lines(lines):
+    """{round: {metric: value}} of the CLI's ``[r]\t<name>-<metric>:v``
+    lines."""
+    out = {}
+    for ln in lines:
+        m = _ROUND_LINE.match(ln)
+        if m:
+            out[int(m.group(1))] = {
+                k: float(v) for k, v in
+                (t.rsplit(":", 1) for t in m.group(2).split("\t") if t)}
+    return out
+
+
+def serve_line(lines):
+    for ln in lines:
+        m = _SERVE_LINE.match(ln)
+        if m:
+            ok, busy, timeout, error, rows = (int(g) for g in m.groups())
+            return {"ok": ok, "failed": busy + timeout + error,
+                    "rows": rows, "line": ln}
+    return None
+
+
+def cli_mnist(workdir: str, here: str):
+    """``python -m cxxnet_tpu_torch.main example/MNIST/MNIST.conf`` as a
+    subprocess from a directory whose data/ links the tracked idx files;
+    each output line is stamped on arrival, so a round's time is the gap
+    between two round lines (its training pass and its test pass)."""
+    d = os.path.join(workdir, "mnist")
+    os.makedirs(d)
+    os.symlink(os.path.join(here, "example", "MNIST", "data"),
+               os.path.join(d, "data"))
+    mdir = os.path.join(d, "models")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH", "")) if p))
+    cmd = [sys.executable, "-m", "cxxnet_tpu_torch.main",
+           os.path.join(here, "example", "MNIST", "MNIST.conf"),
+           "model_dir=" + mdir, "save_model=15"] + cli_dev_args()
+    lines, stamps = [], []
+    t0 = time.perf_counter()
+    with open(os.path.join(d, "stderr.txt"), "w") as err:
+        p = subprocess.Popen(cmd, cwd=d, env=env, stdout=subprocess.PIPE,
+                             stderr=err, text=True)
+        try:
+            for ln in p.stdout:
+                lines.append(ln.rstrip("\n"))
+                stamps.append(time.perf_counter() - t0)
+            rc = p.wait(timeout=600)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(d, "stderr.txt")) as f:
+        tail = f.read()[-2000:]
+    rounds = round_lines(lines)
+    at = {int(_ROUND_LINE.match(ln).group(1)): t
+          for ln, t in zip(lines, stamps) if _ROUND_LINE.match(ln)}
+    ntrain = 24000
+    per_round = [{"round": r, "s": at[r] - at[r - 1],
+                  "train_rows_per_s": ntrain / (at[r] - at[r - 1])}
+                 for r in sorted(at) if r - 1 in at]
+    errs = [v.get("test-error", 1.0) for _, v in sorted(rounds.items())]
+    snap = os.path.join(mdir, "0015.model.npz")
+    res = {"rc": rc, "wall_s": wall_s, "rounds": len(rounds),
+           "test_error": errs, "best_test_error": min(errs) if errs else None,
+           "first_round_s": at.get(1), "per_round": per_round,
+           "snapshot": os.path.exists(snap),
+           "stderr_tail": tail if rc else ""}
+    res["ok"] = bool(rc == 0 and len(rounds) == 15 and errs
+                     and min(errs) < MNIST_GATE and res["snapshot"])
+    # quantize that snapshot (calibration on the train block's
+    # deterministic fallback) and serve it at int8
+    conf = os.path.join(here, "example", "MNIST", "MNIST.conf")
+    qout = os.path.join(mdir, "0015.model.int8.npz")
+    rc_q, qlines = run_cli([conf, "task=quantize", "model_in=" + snap],
+                           cwd=d)
+    qline = next((ln for ln in qlines if ln.startswith("quantize[")), "")
+    m = re.search(r"parity mean\|Δ\| (\S+) max\|Δ\| (\S+) agree (\S+)",
+                  qline)
+    q = {"rc": rc_q, "line": qline, "written": os.path.exists(qout)}
+    if m:
+        q.update(mean_abs=float(m.group(1)), max_abs=float(m.group(2)),
+                 agree=float(m.group(3)))
+    q["ok"] = bool(rc_q == 0 and m and q["mean_abs"] <= GATE_EPS
+                   and q["written"])
+    rc_s, slines = run_cli([conf, "task=serve", "serve_dtype=int8",
+                            "model_in=" + qout] + CLI_SOAK, cwd=d)
+    sv = serve_line(slines) or {}
+    sv["rc"] = rc_s
+    sv["ok"] = bool(rc_s == 0 and sv.get("failed") == 0
+                    and sv.get("ok") == 64)
+    res.update(quantize=q, serve_int8=sv)
+    return res
+
+
+def phase_cli(workdir: str):
+    """The CLI slice through its entry point (see the module docstring):
+    MNIST.conf as a subprocess, then Inception-BN.conf trained, predicted
+    and served in process, then the MNIST snapshot quantized and served
+    at int8."""
+    import torch
+    from cxxnet_tpu_torch.io import DataBatch, create_iterator
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import (parse_cli_overrides,
+                                               parse_config_file)
+    here = os.path.dirname(os.path.abspath(__file__))
+    mnist = cli_mnist(workdir, here)
+    t0 = time.perf_counter()
+    train_rec, val_rec = write_cli_archives(workdir)
+    archives_s = time.perf_counter() - t0
+    conf = cli_inception_conf(workdir, train_rec, val_rec)
+    mdir = os.path.join(workdir, "inception")
+    runs = {}
+
+    def drive(name, argv):
+        rec = {}
+        kernels.reset_launch_counts()            # the main path: from 0
+        t1 = time.perf_counter()
+        with tap_trainer(rec):
+            rc, lines = run_cli(argv)
+        rec.update(rc=rc, lines=lines, wall_s=time.perf_counter() - t1,
+                   launches=kernels.launch_counts())
+        runs[name] = rec
+        return rec
+
+    # train: the conf's own batch 128, 224 crop, 1000 classes and dtype
+    tr = drive("train", [conf, "task=train", "bn_pallas=1",
+                         "bn_fuse_relu=1", "num_round=%d" % CLI_ROUNDS,
+                         "print_step=1", "model_dir=" + mdir])
+    snap = os.path.join(mdir, "%04d.model.npz" % CLI_ROUNDS)
+    ups = tr["updates"]
+    per_round = -(-CLI_TRAIN_RECORDS // TRAIN_BATCH)
+    evals = CLI_ROUNDS * -(-CLI_VAL_RECORDS // TRAIN_BATCH)
+    losses = [u["loss"] for u in ups]
+    step_ms = [u["ms"] for u in ups]
+    lines = round_lines(tr["lines"])
+    # a round's window (start_round to end_round) less its updates: the
+    # time the loop waited on the iterator (decode and augment in the
+    # threadbuffer's thread)
+    for i, rd in enumerate(tr["rounds"]):
+        rd["update_s"] = sum(step_ms[i * per_round:(i + 1) * per_round]) / 1e3
+        rd["data_wait_s"] = rd["wall_s"] - rd["update_s"]
+    train = {
+        "rc": tr["rc"], "wall_s": tr["wall_s"], "archives_s": archives_s,
+        "round_lines": lines, "updates": len(ups), "losses": losses,
+        "finite": bool(np.all(np.isfinite(losses))),
+        "step_ms": step_ms,
+        "steady_step_ms": float(np.median(step_ms[1:])) if len(ups) > 1
+        else None,
+        "rows_per_update": [u["rows"] for u in ups],
+        "rounds": tr["rounds"],
+        "launches": tr["launches"],
+        "launches_per_update": ups[-1]["launches"] if ups else None,
+        "expected_per_update": CLI_TRAIN_LAUNCHES,
+        "eval_forwards": len(tr["forwards"]),
+        "eval_forward_launches": sum(sum(f.values())
+                                     for f in tr["forwards"]),
+        "snapshot": os.path.exists(snap),
+        "progress_lines": sum(ln.startswith("round ")
+                              for ln in tr["lines"])}
+    train["counted"] = bool(
+        len(ups) == CLI_ROUNDS * per_round
+        and all(u["batches"] == 1 and u["launches"] == CLI_TRAIN_LAUNCHES
+                for u in ups)
+        and train["eval_forwards"] == evals
+        and train["eval_forward_launches"] == 0
+        and all(tr["launches"][k] == n * len(ups)
+                for k, n in CLI_TRAIN_LAUNCHES.items()))
+    train["ok"] = bool(tr["rc"] == 0 and train["counted"]
+                       and train["finite"] and train["snapshot"]
+                       and sorted(lines) == list(range(1, CLI_ROUNDS + 1))
+                       and all("train-error" in v and "val-error" in v
+                               for v in lines.values()))
+    # pred / pred_raw / serve from that snapshot over val.rec (a pred
+    # block given on the command line), the eval fold on
+    knobs = ["%s=%s" % kv for kv in KNOBS]
+    block = ["iter=imgrec", "path_imgrec=" + val_rec,
+             "input_shape=3,224,224", "mean_value=123,117,104", "iter=end"]
+    out = {}
+    for task, extra in (("pred", []), ("pred_raw", []),
+                        ("extract", ["extract_node_name=flat"])):
+        out[task] = os.path.join(workdir, task + ".txt")
+        drive(task, [conf, "task=" + task, "model_in=" + snap] + knobs
+              + extra + ["pred=" + out[task]] + block)
+    cls = np.loadtxt(out["pred"], ndmin=1)
+    raw = np.loadtxt(out["pred_raw"], ndmin=2)
+    flat = np.loadtxt(out["extract"], ndmin=2)
+    with open(out["pred_raw"] + ".meta") as f:
+        raw_meta = f.read().strip()
+    # the first 4 rows against the port on the CPU: the same snapshot,
+    # knobs and records; the eval path runs in bf16 (the conf's dtype)
+    cfg = parse_config_file(conf) + parse_cli_overrides(knobs)
+    cpu = NetTrainer(cfg, device="cpu")
+    cpu.load_model(snap)
+    it = create_iterator(parse_cli_overrides(block[:-1]),
+                         [("batch_size", "4")])
+    it.init()
+    try:
+        first4 = next(iter(it))
+    finally:
+        it.close()
+    counts = kernels.launch_counts()
+    ref4 = cpu.extract_feature(DataBatch(first4.data), "top")
+    flat4 = cpu.extract_feature(DataBatch(first4.data), "flat")
+    kernels.restore_launch_counts(counts)
+    del cpu
+    # the pooled features under the rows (a softmax that saturates on the
+    # running statistics of 6 updates hides the net's differences): bf16
+    # tolerances relative to the features' scale
+    scale = float(np.abs(flat4).max())
+    flat_err = np.abs(flat[:4] - flat4)
+    preds = {
+        "pred_rc": runs["pred"]["rc"], "pred_raw_rc": runs["pred_raw"]["rc"],
+        "pred_rows": int(cls.shape[0]),
+        "pred_classes_ok": bool(np.all((cls >= 0) & (cls < NCLASS))
+                                and np.all(cls == np.round(cls))),
+        "pred_raw_shape": list(raw.shape), "pred_raw_meta": raw_meta,
+        "row_sum_max_err": float(np.abs(raw.sum(1) - 1).max()),
+        "pred_is_argmax": bool(np.all(cls == raw.argmax(1))),
+        "distinct_classes": int(len(np.unique(cls))),
+        "eval_dtype": "bfloat16",
+        "cpu": rows_vs_cpu(raw[:4], ref4, BF16_CPU_ATOL, BF16_CPU_RTOL),
+        "flat_shape": list(flat.shape),
+        "flat_cpu": {"max_abs_err": float(flat_err.max()),
+                     "scale": scale,
+                     "max_rel_err": float((flat_err / np.maximum(
+                         np.abs(flat4), 1e-3 * scale)).max()),
+                     "close": bool(np.all(flat_err <= BF16_CPU_RTOL
+                                          * np.abs(flat4) + 1e-3 * scale))},
+        "forwards": {t: len(runs[t]["forwards"]) for t in out},
+        "launches": {t: runs[t]["launches"] for t in out}}
+    preds["counted"] = all(
+        len(runs[t]["forwards"]) == 2
+        and all(f == CLI_PRED_LAUNCHES for f in runs[t]["forwards"])
+        for t in out)
+    preds["ok"] = bool(
+        preds["pred_rc"] == 0 and preds["pred_raw_rc"] == 0
+        and preds["pred_rows"] == CLI_VAL_RECORDS
+        and preds["pred_classes_ok"]
+        and raw.shape == (CLI_VAL_RECORDS, NCLASS)
+        and preds["row_sum_max_err"] < 1e-4 and preds["pred_is_argmax"]
+        and preds["cpu"]["close"] and preds["cpu"]["top1_ok"]
+        and flat.shape == (CLI_VAL_RECORDS, flat4.shape[1])
+        and preds["flat_cpu"]["close"] and preds["counted"])
+    sr = drive("serve", [conf, "task=serve", "model_in=" + snap] + knobs
+               + CLI_SOAK + ["serve_buckets=" + BUCKETS, "pred=serve.txt"]
+               + block)
+    soak = serve_line(sr["lines"]) or {}
+    serve = dict(soak, rc=sr["rc"], wall_s=sr["wall_s"],
+                 forwards=len(sr["forwards"]), launches=sr["launches"],
+                 expected_per_forward=CLI_PRED_LAUNCHES)
+    serve["counted"] = bool(sr["forwards"] and all(
+        f == CLI_PRED_LAUNCHES for f in sr["forwards"]))
+    serve["ok"] = bool(sr["rc"] == 0 and soak.get("failed") == 0
+                       and soak.get("ok") == 64 and serve["counted"])
+    torch.cuda.empty_cache()
+    total = {k: sum(r["launches"][k] for r in runs.values())
+             for k in NO_LAUNCHES}
+    res = {"phase": "cli", "model": "Inception-BN.conf",
+           "config": "example/ImageNet/Inception-BN.conf with its data "
+                     "paths on seeded raw-tensor imgrec archives (%dx%dx3, "
+                     "%d train / %d val records), batch %d, 224 crop, %d "
+                     "classes, dtype = bfloat16; bn_pallas = bn_fuse_relu "
+                     "= 1 for train, bn_fold_eval = bn_fuse_relu = "
+                     "conv_pallas_epilogue = 1 for pred and serve"
+                     % (CLI_IMAGE, CLI_IMAGE, CLI_TRAIN_RECORDS,
+                        CLI_VAL_RECORDS, TRAIN_BATCH, NCLASS),
+           "mnist": mnist, "train": train, "pred": preds, "serve": serve,
+           "launches": total}
+    res["ok"] = bool(mnist["ok"] and mnist["quantize"]["ok"]
+                     and mnist["serve_int8"]["ok"] and train["ok"]
+                     and preds["ok"] and serve["ok"])
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("cli phase failed")
+    return res
+
+
 def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
     """The ``kernels`` record: every ported kernel (and bf16
     instantiation) with its launches on its path's run, its error
@@ -3132,6 +3586,8 @@ def main() -> int:
         kmres = phase_train_kaiming(workdir)
         phase = "tower"
         twres = phase_tower(workdir)
+        phase = "cli"
+        clires = phase_cli(workdir)
     except Exception as e:
         import traceback
         traceback.print_exc()
@@ -3140,7 +3596,12 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    emit(kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part))
+    kl = kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part)
+    for row in kl["kernels"]:
+        # the cli phase's runs (train, pred, pred_raw, serve), each with
+        # the counts set to 0 just before it
+        row["cli_launches"] = clires["launches"][row["name"]]
+    emit(kl)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

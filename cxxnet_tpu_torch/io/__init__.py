@@ -1,5 +1,113 @@
-"""Data records (the iterators are not ported yet)."""
+"""Iterator factory: ordered ``iter = type ...`` config -> iterator chain
+(counterpart of ``cxxnet_tpu/io/__init__.py``).
 
-from .data import DataBatch, batch_mask, inst_array_shape
+The first ``iter=`` names the base source; later ``iter=`` entries stack
+adapters; parameters apply to every iterator in the chain.
 
-__all__ = ["DataBatch", "batch_mask", "inst_array_shape"]
+Sources: mnist (batch level); csv and imgrec (instance level,
+auto-wrapped in a BatchAdapter). Adapters: augment, batch,
+threadbuffer, membuffer. The sources and adapters of the image data
+pipeline item (img, imgbin and its variants, libsvm, attachtxt) raise
+:class:`~cxxnet_tpu_torch.utils.config.NotPortedError`.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+from ..utils.config import NotPortedError, Roadmap
+from .data import (DataBatch, DataInst, IIterator, batch_mask,
+                   inst_array_shape)
+from .iter_augment import AugmentAdapter
+from .iter_batch import BatchAdapter, PrefetchIterator
+from .iter_csv import CSVIterator
+from .iter_imgrec import ImageRecordIterator
+from .iter_mem import MemBufferIterator
+from .iter_mnist import MNISTIterator
+
+# iterator types of the reference that this port does not have yet
+NOT_PORTED_ITERS = ("img", "imgbin", "imgbinx", "imgbinold", "imginst",
+                    "libsvm", "attachtxt")
+
+
+def create_iterator(cfg: Sequence[Tuple[str, str]],
+                    global_cfg: Sequence[Tuple[str, str]] = ()) -> IIterator:
+    """Build an iterator chain from an ordered iterator block.
+
+    cfg starts with one or more ('iter', type) entries interleaved with
+    their parameters, exactly as split_sections emits them. global_cfg
+    (batch_size, input_shape...) is applied to the whole chain first.
+    """
+    it: IIterator = None
+    pending: List[Tuple[str, str]] = list(global_cfg)
+    is_instance_level = False
+
+    def apply_pending(target: IIterator):
+        for name, val in pending:
+            target.set_param(name, val)
+
+    for name, val in cfg:
+        if name == "iter":
+            if val in NOT_PORTED_ITERS:
+                raise NotPortedError("iter = %s" % val,
+                                     Roadmap.IMAGE_PIPELINE)
+            if val == "mnist":
+                assert it is None, "mnist must be the base iterator"
+                it = MNISTIterator()
+                is_instance_level = False
+            elif val == "csv":
+                assert it is None, "csv must be the base iterator"
+                it = CSVIterator()
+                is_instance_level = True
+            elif val == "imgrec":
+                assert it is None, "imgrec must be the base iterator"
+                # image sources get the augmenter inline: crop/mirror/
+                # mean/scale params live in the same block
+                it = AugmentAdapter(ImageRecordIterator())
+                is_instance_level = True
+            elif val == "augment":
+                assert it is not None and is_instance_level, \
+                    "augment stacks on an instance iterator"
+                # image sources already carry an inline augmenter; a
+                # second one would apply scale/mean twice (params forward
+                # through to the base), so reuse it
+                if not isinstance(it, AugmentAdapter):
+                    it = AugmentAdapter(it)
+            elif val == "batch":
+                assert it is not None and is_instance_level
+                it = BatchAdapter(it)
+                is_instance_level = False
+            elif val == "threadbuffer":
+                assert it is not None, "threadbuffer stacks on an iterator"
+                if is_instance_level:
+                    it = BatchAdapter(it)
+                    is_instance_level = False
+                it = PrefetchIterator(it)
+            elif val == "membuffer":
+                assert it is not None, "membuffer stacks on an iterator"
+                if is_instance_level:
+                    it = BatchAdapter(it)
+                    is_instance_level = False
+                it = MemBufferIterator(it)
+            else:
+                raise ValueError("unknown iterator type %r" % val)
+            apply_pending(it)
+        else:
+            if it is None:
+                pending.append((name, val))
+            else:
+                it.set_param(name, val)
+    if it is None:
+        raise ValueError("no iterator configured")
+    if is_instance_level:
+        it = BatchAdapter(it)
+        apply_pending(it)
+        for name, val in cfg:
+            if name != "iter":
+                it.set_param(name, val)
+    return it
+
+
+__all__ = ["DataBatch", "DataInst", "IIterator", "batch_mask",
+           "create_iterator", "inst_array_shape", "BatchAdapter",
+           "PrefetchIterator", "MNISTIterator", "CSVIterator"]

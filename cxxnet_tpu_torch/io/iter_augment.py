@@ -1,0 +1,454 @@
+"""Augmentation adapter, instance level (counterpart of
+``cxxnet_tpu/io/iter_augment.py``):
+
+- output crop to ``input_shape`` (random or fixed crop start, center by
+  default), optional mirror / rand_mirror
+- scale: ``divideby`` / ``scale``
+- mean handling: per-channel ``mean_value`` or a cached mean image
+  (``image_mean`` file, computed over the first epoch and saved as
+  .npy when absent)
+- contrast / illumination jitter
+- affine warp (rotation / shear / aspect / random scale) through
+  cv2.warpAffine when any of those knobs are set, and the crop-resize
+  of ``min_crop_size`` / ``max_crop_size`` through cv2.resize; ``cv2``
+  is imported only there
+
+All work happens host-side on NumPy instances, feeding the device
+pipeline.
+
+Two execution modes:
+
+- **per-instance** (the general path): each instance is transformed by
+  ``_transform`` under its own seeded RNG, a thread pool warping a
+  chunk at a time. Required whenever affine warps, crop-resize
+  (``min_crop_size``/``max_crop_size``) or color jitter are configured.
+- **deferred / vectorized** (the no-affine fast path): when only
+  crop/mirror/mean/scale are in play, a downstream ``BatchAdapter``
+  calls :meth:`enable_deferred` and instances pass through raw; the
+  batch adapter then crops each row straight into its preallocated
+  batch buffer and applies mean/scale as whole-batch array ops — the
+  same math without the per-instance Python dispatch the GIL
+  serializes. Output is bit-identical (each row draws from the same
+  ``_inst_rng(index)`` stream); ``augment_vectorize = 0`` forces the
+  per-instance path.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+import numpy as np
+
+from .data import DataInst, IIterator, shape_from_conf
+from ..utils.config import NotPortedError, Roadmap
+from ..utils.stream import open_stream, stream_exists
+
+
+class AugmentAdapter(IIterator):
+    kRandMagic = 111
+
+    def __init__(self, base: IIterator):
+        self.base = base
+        self.shape = (0, 0, 0)            # (ch, y, x) target
+        self.rand_crop = 0
+        self.crop_y_start = -1
+        self.crop_x_start = -1
+        self.mirror = 0
+        self.rand_mirror = 0
+        self.scale = 1.0
+        self.name_meanimg = ""
+        self.mean_value: Optional[np.ndarray] = None
+        self.max_random_contrast = 0.0
+        self.max_random_illumination = 0.0
+        self.silent = 0
+        # affine knobs (image_augmenter-inl.hpp:13-104)
+        self.max_rotate_angle = 0.0
+        self.max_shear_ratio = 0.0
+        self.max_aspect_ratio = 0.0
+        self.min_random_scale = 1.0
+        self.max_random_scale = 1.0
+        self.min_img_size = 0.0
+        self.max_img_size = 1e10
+        self.min_crop_size = -1
+        self.max_crop_size = -1
+        self.rotate = -1
+        self.rotate_list: List[int] = []
+        self.fill_value = 255
+        self.rng = np.random.RandomState(self.kRandMagic)
+        self.meanimg: Optional[np.ndarray] = None
+        self._seed_base = self.kRandMagic
+        self.nthread = min(8, os.cpu_count() or 4)
+        self._pool = None
+        self._buf: List[DataInst] = []
+        self._bufpos = 0
+        self._chunk = 64
+        # batch-level vectorization (enabled by a downstream
+        # BatchAdapter when the knob set allows deferral)
+        self.vectorize = 1
+        self._deferred = False
+
+    def set_param(self, name: str, val: str) -> None:
+        self.base.set_param(name, val)
+        if name == "input_shape":
+            self.shape = shape_from_conf(val)
+        if name == "seed_data":
+            self.rng = np.random.RandomState(self.kRandMagic + int(val))
+            self._seed_base = self.kRandMagic + int(val)
+        if name == "augment_nthread":
+            self.nthread = int(val)
+        if name == "augment_vectorize":
+            self.vectorize = int(val)
+        if name == "rand_crop":
+            self.rand_crop = int(val)
+        if name == "crop_y_start":
+            self.crop_y_start = int(val)
+        if name == "crop_x_start":
+            self.crop_x_start = int(val)
+        if name == "mirror":
+            self.mirror = int(val)
+        if name == "rand_mirror":
+            self.rand_mirror = int(val)
+        if name == "divideby":
+            self.scale = 1.0 / float(val)
+        if name == "scale":
+            self.scale = float(val)
+        if name == "image_mean":
+            self.name_meanimg = val
+        if name == "mean_value":
+            self.mean_value = np.asarray(
+                [float(t) for t in val.split(",")], np.float32)
+        if name == "max_random_contrast":
+            self.max_random_contrast = float(val)
+        if name == "max_random_illumination":
+            self.max_random_illumination = float(val)
+        if name == "max_rotate_angle":
+            self.max_rotate_angle = float(val)
+        if name == "max_shear_ratio":
+            self.max_shear_ratio = float(val)
+        if name == "max_aspect_ratio":
+            self.max_aspect_ratio = float(val)
+        if name == "min_random_scale":
+            self.min_random_scale = float(val)
+        if name == "max_random_scale":
+            self.max_random_scale = float(val)
+        if name == "min_img_size":
+            self.min_img_size = float(val)
+        if name == "max_img_size":
+            self.max_img_size = float(val)
+        if name == "min_crop_size":
+            self.min_crop_size = int(val)
+        if name == "max_crop_size":
+            self.max_crop_size = int(val)
+        if name == "rotate":
+            self.rotate = int(val)
+        if name == "rotate_list":
+            # reference parses comma-separated ints; accept spaces too
+            self.rotate_list = [int(t) for t in
+                                val.replace(",", " ").split()]
+        if name == "fill_value":
+            self.fill_value = int(val)
+        if name == "silent":
+            self.silent = int(val)
+
+    # -- mean image ------------------------------------------------------
+
+    def _prepare_meanimg(self) -> None:
+        if not self.name_meanimg:
+            return
+        path = self.name_meanimg
+        npy = path if path.endswith(".npy") else path + ".npy"
+        if stream_exists(npy):
+            with open_stream(npy, "rb") as f:
+                self.meanimg = np.load(f)
+            return
+        # compute over one pass (CreateMeanImg semantics)
+        if self.silent == 0:
+            print("AugmentAdapter: computing mean image -> %s" % npy)
+        total, cnt = None, 0
+        self.base.before_first()
+        while self.base.next():
+            d = np.asarray(self.base.value().data, np.float32)
+            total = d.copy() if total is None else total + d
+            cnt += 1
+        # one process: the mean of this stream (the multi-process
+        # reduction of the sums comes with the multi-GPU item)
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            raise NotPortedError("image_mean across %d processes"
+                                 % dist.get_world_size(),
+                                 Roadmap.MULTI_GPU)
+        self.meanimg = total / max(cnt, 1)
+        with open_stream(npy, "wb") as f:
+            np.save(f, self.meanimg)
+
+    def init(self) -> None:
+        self.base.init()
+        self._prepare_meanimg()
+        self.base.before_first()
+
+    def before_first(self) -> None:
+        self.base.before_first()
+        self._buf, self._bufpos = [], 0
+
+    # -- transforms ------------------------------------------------------
+
+    def _inst_rng(self, index: int) -> np.random.RandomState:
+        """Per-instance RNG stream keyed by (seed, instance index):
+        deterministic regardless of decode/augment thread interleaving
+        (the serial rand_r of the reference cannot survive a parallel
+        pipeline)."""
+        return np.random.RandomState(
+            (self._seed_base * 2654435761 + index * 97 + 13) % (2**31))
+
+    def _need_affine(self) -> bool:
+        return (self.max_rotate_angle > 0 or self.max_shear_ratio > 0
+                or self.rotate >= 0 or bool(self.rotate_list)
+                or self.max_aspect_ratio > 0
+                or self.min_random_scale != 1.0
+                or self.max_random_scale != 1.0)
+
+    def _affine(self, img: np.ndarray,
+                rng: np.random.RandomState) -> np.ndarray:
+        """Combined rotate/shear/scale/aspect warp, reproducing the
+        reference's single-matrix parameterization (Process,
+        image_augmenter-inl.hpp:75-120): the canvas rescales to
+        scale*(w,h) clamped to [min_img_size, max_img_size], aspect
+        ratio reshapes the content by hs=2s/(1+r), ws=r*hs."""
+        if not self._need_affine():
+            return img
+        import cv2
+        if self.rotate >= 0:
+            angle = float(self.rotate)
+        elif self.rotate_list:
+            angle = float(self.rotate_list[
+                rng.randint(len(self.rotate_list))])
+        else:
+            angle = rng.uniform(-self.max_rotate_angle,
+                                self.max_rotate_angle)
+        shear = rng.uniform(-self.max_shear_ratio,
+                            self.max_shear_ratio)
+        scale = rng.uniform(self.min_random_scale,
+                            self.max_random_scale)
+        ratio = 1.0 + rng.uniform(-self.max_aspect_ratio,
+                                  self.max_aspect_ratio)
+        hs = 2.0 * scale / (1.0 + ratio)
+        ws = ratio * hs
+        h, w = img.shape[:2]
+        rad = np.deg2rad(angle)
+        a, b = np.cos(rad), np.sin(rad)
+        new_w = max(self.min_img_size, min(self.max_img_size, scale * w))
+        new_h = max(self.min_img_size, min(self.max_img_size, scale * h))
+        new_w, new_h = int(round(new_w)), int(round(new_h))
+        m = np.array([[hs * a - shear * b * ws, hs * b + shear * a * ws, 0],
+                      [-b * ws, a * ws, 0]], np.float32)
+        # center the warped content on the new canvas
+        m[0, 2] = (new_w - (m[0, 0] * w + m[0, 1] * h)) / 2.0
+        m[1, 2] = (new_h - (m[1, 0] * w + m[1, 1] * h)) / 2.0
+        return cv2.warpAffine(
+            img, m, (new_w, new_h), flags=cv2.INTER_LINEAR,
+            borderMode=cv2.BORDER_CONSTANT,
+            borderValue=(self.fill_value,) * 3)    # preserves dtype
+
+    def _crop_start(self, rng: np.random.RandomState, h: int, w: int,
+                    ty: int, tx: int):
+        """Crop origin for the plain (non-resize) crop — ONE definition
+        of the coordinate logic and RNG draw order, shared by the
+        per-instance path and the vectorized batch path so they cannot
+        drift apart."""
+        if h < ty or w < tx:
+            raise ValueError(
+                "augment: input %dx%d smaller than target crop %dx%d"
+                % (h, w, ty, tx))
+        if self.rand_crop:
+            ys = rng.randint(h - ty + 1)
+            xs = rng.randint(w - tx + 1)
+        elif self.crop_y_start >= 0 or self.crop_x_start >= 0:
+            ys = max(self.crop_y_start, 0)
+            xs = max(self.crop_x_start, 0)
+        else:
+            ys, xs = (h - ty) // 2, (w - tx) // 2
+        return ys, xs
+
+    def _mirror_draw(self, rng: np.random.RandomState) -> bool:
+        """Mirror decision (shared draw order with the batch path)."""
+        return bool(self.mirror or (self.rand_mirror and rng.randint(2)))
+
+    def _crop(self, img: np.ndarray,
+              rng: np.random.RandomState) -> np.ndarray:
+        _, ty, tx = self.shape
+        import_cv2 = None
+        if self.min_crop_size > 0 and self.max_crop_size > 0:
+            # random crop size in [min,max], then resize to the target
+            # (Inception-style scale augmentation; the reference parses
+            # these knobs in image_augmenter-inl.hpp:47-48)
+            import cv2 as import_cv2
+            h, w = img.shape[:2]
+            hi = min(self.max_crop_size, h, w)
+            lo = min(self.min_crop_size, hi)
+            c = int(rng.randint(lo, hi + 1))
+            ys = rng.randint(h - c + 1) if self.rand_crop \
+                else (h - c) // 2
+            xs = rng.randint(w - c + 1) if self.rand_crop \
+                else (w - c) // 2
+            patch = img[ys:ys + c, xs:xs + c]
+            return import_cv2.resize(patch, (tx, ty),
+                                     interpolation=import_cv2.INTER_LINEAR)
+        h, w = img.shape[:2]
+        ys, xs = self._crop_start(rng, h, w, ty, tx)
+        return img[ys:ys + ty, xs:xs + tx]
+
+    def _is_float_work(self) -> bool:
+        """True when any knob forces float math (mean/scale/jitter);
+        otherwise uint8 input stays uint8 through crop/mirror/warp so
+        the batch ships to the device at 1/4 the bytes (device-side
+        normalization: the net casts uint8 pixels on the device)."""
+        return (self.scale != 1.0 or self.meanimg is not None
+                or self.mean_value is not None
+                or self.max_random_contrast > 0
+                or self.max_random_illumination > 0)
+
+    def _transform(self, data: np.ndarray,
+                   rng: np.random.RandomState) -> np.ndarray:
+        if data.ndim != 3:
+            return np.asarray(data, np.float32) * self.scale
+        keep_u8 = data.dtype == np.uint8 and not self._is_float_work()
+        img = data if keep_u8 else np.asarray(data, np.float32)
+        img = self._affine(img, rng)
+        img = self._crop(img, rng)
+        if self._mirror_draw(rng):
+            img = img[:, ::-1]
+        if keep_u8:
+            return np.ascontiguousarray(img)
+        img = np.asarray(img, np.float32)
+        if self.meanimg is not None and self.meanimg.shape == img.shape:
+            img = img - self.meanimg
+        elif self.mean_value is not None:
+            img = img - self.mean_value
+        if self.max_random_contrast > 0 or self.max_random_illumination > 0:
+            c = 1.0 + rng.uniform(-self.max_random_contrast,
+                                  self.max_random_contrast)
+            i = rng.uniform(-self.max_random_illumination,
+                            self.max_random_illumination)
+            img = img * c + i
+        return np.ascontiguousarray(img * self.scale, np.float32)
+
+    def _transform_inst(self, inst: DataInst) -> DataInst:
+        return DataInst(index=inst.index,
+                        data=self._transform(np.asarray(inst.data),
+                                             self._inst_rng(inst.index)),
+                        label=inst.label,
+                        extra_data=inst.extra_data)
+
+    # -- batch-level vectorized fast path --------------------------------
+
+    def can_defer(self) -> bool:
+        """True when _transform reduces to exactly what
+        assemble_deferred implements — plain crop (_crop_start) +
+        mirror (_mirror_draw) + mean/scale. The three exclusions below
+        are the three points where _transform does MORE: _affine warps
+        (gated by _need_affine), the crop-resize branch of _crop
+        (min/max_crop_size), and the contrast/illumination jitter tail.
+        Anyone adding a knob to _transform must either implement it in
+        assemble_deferred or add its gate here."""
+        return (bool(self.vectorize)
+                and not self._need_affine()
+                and not (self.min_crop_size > 0 and self.max_crop_size > 0)
+                and self.max_random_contrast == 0
+                and self.max_random_illumination == 0)
+
+    def enable_deferred(self) -> bool:
+        """Called by a downstream BatchAdapter after init: when the fast
+        path applies, instances pass through untransformed and the batch
+        adapter calls assemble_deferred() on the assembled buffer —
+        whole-batch NumPy ops instead of a GIL-bound per-instance pool.
+        Returns whether deferral is active."""
+        self._deferred = self.can_defer()
+        return self._deferred
+
+    def deferred_row_spec(self, inst: DataInst):
+        """(row_shape, dtype) a deferred batch buffer needs for this
+        instance stream — the post-crop shape and the same dtype rule
+        as _transform (uint8 survives only without float work)."""
+        data = np.asarray(inst.data)
+        if data.ndim != 3:
+            return data.shape, np.dtype(np.float32)
+        _, ty, tx = self.shape
+        keep_u8 = data.dtype == np.uint8 and not self._is_float_work()
+        return ((ty, tx, data.shape[2]),
+                np.dtype(np.uint8) if keep_u8 else np.dtype(np.float32))
+
+    def assemble_deferred(self, buf: np.ndarray,
+                          insts: List[DataInst]) -> None:
+        """Crop/mirror each instance into its row of ``buf`` (one
+        strided copy per row — the zero-copy assembly), then apply the
+        float work (mean/scale) as whole-batch array ops. Bit-identical
+        to the per-instance path: each row draws from the same
+        _inst_rng(index) stream in the same order, and the elementwise
+        float ops run in the same sequence."""
+        _, ty, tx = self.shape
+        for i, inst in enumerate(insts):
+            data = np.asarray(inst.data)
+            if data.ndim != 3:
+                buf[i] = data
+                continue
+            rng = self._inst_rng(inst.index)
+            h, w = data.shape[:2]
+            ys, xs = self._crop_start(rng, h, w, ty, tx)
+            view = data[ys:ys + ty, xs:xs + tx]
+            if self._mirror_draw(rng):
+                view = view[:, ::-1]
+            buf[i] = view
+        if buf.dtype == np.uint8 or buf.ndim < 2:
+            return
+        if buf.ndim == 4:
+            if self.meanimg is not None \
+                    and self.meanimg.shape == buf.shape[1:]:
+                buf -= self.meanimg
+            elif self.mean_value is not None:
+                buf -= self.mean_value
+        if self.scale != 1.0:
+            buf *= np.float32(self.scale)
+
+    def next(self) -> bool:
+        if self._deferred:
+            # pass-through: the downstream BatchAdapter owns the
+            # transform (assemble_deferred on the whole batch)
+            if not self.base.next():
+                return False
+            self._out = self.base.value()
+            return True
+        # chunked parallel transform: the reference augments inside its
+        # OpenMP decode loop (iter_image_recordio-inl.hpp:214-250); here
+        # a pool warps a chunk at a time
+        while self._bufpos >= len(self._buf):
+            chunk = []
+            while len(chunk) < self._chunk and self.base.next():
+                chunk.append(self.base.value())
+            if not chunk:
+                return False
+            if self._pool is None and self.nthread > 1:
+                from concurrent.futures import ThreadPoolExecutor
+                self._pool = ThreadPoolExecutor(max_workers=self.nthread)
+            if self._pool is not None and len(chunk) > 1:
+                self._buf = list(self._pool.map(self._transform_inst,
+                                                chunk))
+            else:
+                self._buf = [self._transform_inst(i) for i in chunk]
+            self._bufpos = 0
+        self._out = self._buf[self._bufpos]
+        self._bufpos += 1
+        return True
+
+    def value(self) -> DataInst:
+        return self._out
+
+    def close(self) -> None:
+        if self._pool is not None:
+            # cancel queued warp work too: a mid-chunk shutdown must not
+            # leave transforms running against buffers the caller is
+            # about to free (py3.9+ cancel_futures)
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
+        self.base.close()

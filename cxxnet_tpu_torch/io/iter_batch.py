@@ -1,0 +1,626 @@
+"""Instance -> batch adapter and background prefetch (counterpart of
+``cxxnet_tpu/io/iter_batch.py``).
+
+- BatchAdapter: fixed-size batches; ``round_batch=1`` wraps the tail
+  around to the epoch start and reports the wrapped count as
+  ``num_batch_padd`` (metrics/loss skip those rows); ``round_batch=0``
+  emits a zero-padded final batch, also masked via ``num_batch_padd``.
+  ``test_skipread`` re-serves the first batch to measure pure compute.
+
+  Assembly is zero-copy against a ring of preallocated page-aligned
+  batch buffers: instance rows are written (or, with a deferred
+  augmenter, cropped) straight into a reusable buffer. Buffer ownership
+  travels with the batch (``DataBatch.release``): a consumer returns a
+  buffer for reuse once nothing reads it any more; consumers that never
+  release fall back to allocate-per-batch — reuse is an optimization,
+  never a correctness hazard.
+
+- PrefetchIterator: the ``threadbuffer`` adapter — a background thread
+  producing batches into a bounded condition-variable queue so host IO
+  overlaps device compute. A transform attached with ``set_transform``
+  runs in the producer thread; the host ring buffer of a transformed
+  batch is handed back only when the transform's result holds its own
+  copy (a tensor on the GPU, copied synchronously from pageable
+  memory), never when it aliases the host memory (``torch.from_numpy``
+  on the CPU).
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+
+from .data import DataBatch, DataInst, IIterator
+from .iter_augment import AugmentAdapter
+
+_PAGE = 4096
+
+
+def _aligned_empty(shape, dtype) -> np.ndarray:
+    """Page-aligned uninitialized array. NumPy has no alignment knob, so
+    carve an aligned view out of an oversized byte allocation — decode
+    threads and DMA engines both prefer page boundaries."""
+    dtype = np.dtype(dtype)
+    nbytes = int(np.prod(shape)) * dtype.itemsize
+    raw = np.empty(nbytes + _PAGE, np.uint8)
+    off = (-raw.ctypes.data) % _PAGE
+    return raw[off:off + nbytes].view(dtype).reshape(shape)
+
+
+class _BatchBuf:
+    """One preallocated (data, label, index) buffer set."""
+
+    __slots__ = ("spec", "data", "label", "index", "leased")
+
+    def __init__(self, spec):
+        data_shape, data_dtype, label_shape = spec
+        self.spec = spec
+        self.data = _aligned_empty(data_shape, data_dtype)
+        self.label = _aligned_empty(label_shape, np.float32)
+        self.index = np.empty((data_shape[0],), np.uint32)
+        self.leased = False
+
+
+class _BufferRing:
+    """Free-list of reusable batch buffers.
+
+    acquire() prefers a free buffer and allocates fresh when none is
+    available (unbounded degradation to allocate-per-batch); release()
+    returns a buffer, keeping at most ``max_free`` around. Thread-safe:
+    the prefetch producer releases while the adapter acquires.
+    """
+
+    def __init__(self, max_free: int = 16):
+        self._lock = threading.Lock()
+        self._free: List[_BatchBuf] = []
+        self._spec = None
+        self.max_free = max_free
+        self.allocated = 0
+        self.reused = 0
+        self._snap_alloc = 0
+        self._snap_reuse = 0
+
+    def acquire(self, spec) -> _BatchBuf:
+        with self._lock:
+            if spec != self._spec:
+                # shape/dtype change: retire the old generation
+                self._free.clear()
+                self._spec = spec
+            if self._free:
+                buf = self._free.pop()
+                self.reused += 1
+            else:
+                buf = _BatchBuf(spec)
+                self.allocated += 1
+            buf.leased = True
+            return buf
+
+    def release(self, buf: _BatchBuf) -> None:
+        with self._lock:
+            if not buf.leased:
+                return                   # idempotent double-release
+            buf.leased = False
+            if buf.spec == self._spec and len(self._free) < self.max_free:
+                self._free.append(buf)
+
+    def snapshot(self) -> dict:
+        """Counters since the previous snapshot (per-round telemetry)."""
+        with self._lock:
+            alloc = self.allocated - self._snap_alloc
+            reuse = self.reused - self._snap_reuse
+            self._snap_alloc = self.allocated
+            self._snap_reuse = self.reused
+        return {"allocated": alloc, "reused": reuse,
+                "batches": alloc + reuse}
+
+
+class BatchAdapter(IIterator):
+    def __init__(self, base: IIterator):
+        self.base = base
+        self.batch_size = 0
+        self.round_batch = 1
+        self.test_skipread = 0
+        self.label_width = 1
+        self._head: Optional[DataBatch] = None
+        self._out: Optional[DataBatch] = None
+        self._epoch_done = False
+        self._ring = _BufferRing()
+        self._aug: Optional[AugmentAdapter] = None
+
+    def set_param(self, name: str, val: str) -> None:
+        self.base.set_param(name, val)
+        if name == "batch_size":
+            self.batch_size = int(val)
+        if name == "round_batch":
+            self.round_batch = int(val)
+        if name == "test_skipread":
+            self.test_skipread = int(val)
+        if name == "label_width":
+            self.label_width = int(val)
+        if name == "batch_buffer_keep":
+            self._ring.max_free = int(val)
+
+    def _find_augmenter(self) -> Optional[AugmentAdapter]:
+        node = self.base
+        while node is not None:
+            if isinstance(node, AugmentAdapter):
+                return node
+            node = getattr(node, "base", None)
+        return None
+
+    def init(self) -> None:
+        assert self.batch_size > 0, "batch adapter: batch_size not set"
+        self.base.init()
+        # defer the no-affine augmentation to batch level: crops write
+        # straight into the ring buffer, mean/scale run as whole-batch
+        # ops (see iter_augment.AugmentAdapter.enable_deferred)
+        aug = self._find_augmenter()
+        self._aug = aug if aug is not None and aug.enable_deferred() \
+            else None
+        self.base.before_first()
+
+    def before_first(self) -> None:
+        if self.test_skipread and self._head is not None:
+            return                      # keep serving the cached batch
+        # normalized reset: EVERY path that re-reads the base clears the
+        # epoch flag — including test_skipread runs whose first epoch
+        # never produced a batch (_head still None), which previously
+        # depended on next()'s flag state
+        self._epoch_done = False
+        self.base.before_first()
+
+    def _collect(self, n: int) -> List[DataInst]:
+        out = []
+        while len(out) < n and self.base.next():
+            out.append(self.base.value())
+        return out
+
+    def _buf_spec(self, inst: DataInst):
+        """Ring-buffer spec for this instance stream: row shape/dtype
+        (post-crop under a deferred augmenter) + label shape."""
+        n = self.batch_size
+        lw = np.asarray(inst.label, np.float32).reshape(-1).shape[0]
+        if self._aug is not None:
+            row_shape, row_dtype = self._aug.deferred_row_spec(inst)
+        else:
+            d = np.asarray(inst.data)
+            row_shape, row_dtype = d.shape, d.dtype
+        return ((n,) + tuple(row_shape), row_dtype, (n, lw))
+
+    def _assemble(self, insts: List[DataInst], npadd: int) -> DataBatch:
+        buf = self._ring.acquire(self._buf_spec(insts[0]))
+        data, label, index = buf.data, buf.label, buf.index
+        if self._aug is not None:
+            self._aug.assemble_deferred(data, insts)
+        else:
+            for i, inst in enumerate(insts):
+                data[i] = inst.data
+        for i, inst in enumerate(insts):
+            label[i] = np.asarray(inst.label, np.float32).reshape(-1)
+            index[i] = inst.index
+        extra: List[np.ndarray] = []
+        if insts[0].extra_data:
+            for k in range(len(insts[0].extra_data)):
+                extra.append(np.stack([i.extra_data[k] for i in insts]))
+        return DataBatch(data=data, label=label, inst_index=index,
+                         num_batch_padd=npadd, extra_data=extra,
+                         release=lambda b=buf: self._ring.release(b))
+
+    def ring_snapshot(self) -> dict:
+        return self._ring.snapshot()
+
+    def next(self) -> bool:
+        if self.test_skipread and self._head is not None:
+            self._out = self._head
+            return True
+        if self._epoch_done:
+            return False
+        insts = self._collect(self.batch_size)
+        if not insts:
+            return False
+        nreal = len(insts)
+        npadd = self.batch_size - nreal     # wrapped/zero rows are padding
+        nzero = 0                           # zero-filler rows (tail of insts)
+        if npadd > 0:
+            # a short collect means the underlying epoch is exhausted;
+            # the (possibly wrapped) batch we emit now is the last one
+            self._epoch_done = True
+            if self.round_batch:
+                # wrap around to epoch start
+                self.base.before_first()
+                insts.extend(self._collect(npadd))
+            if len(insts) < self.batch_size:
+                # still short (dataset smaller than batch): zero-pad
+                nzero = self.batch_size - len(insts)
+                pad_inst = insts[-1]
+                while len(insts) < self.batch_size:
+                    insts.append(DataInst(
+                        index=pad_inst.index,
+                        data=np.zeros_like(pad_inst.data),
+                        label=np.zeros_like(
+                            np.asarray(pad_inst.label, np.float32)),
+                        extra_data=[np.zeros_like(e)
+                                    for e in pad_inst.extra_data]))
+        self._out = self._assemble(insts, npadd)
+        if nzero and self._aug is not None:
+            # parity with the per-instance path, which pads with zeros
+            # AFTER the transform: the deferred whole-batch mean/scale
+            # must not leak (-mean*scale) into the filler rows
+            self._out.data[self.batch_size - nzero:] = 0
+        if self.test_skipread and self._head is None:
+            self._head = self._out
+            # the cached batch is re-served forever: consume its lease
+            # so a downstream release can never hand its storage back
+            # to the ring for refill
+            self._head.release = None
+        return True
+
+    def value(self) -> DataBatch:
+        return self._out
+
+
+class _Failure:
+    """Producer-thread exception carrier (re-raised in the consumer)."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class _CondQueue:
+    """Bounded FIFO with condition-variable wakeups.
+
+    Replaces the 50 ms polling put loop: a producer blocked on a full
+    queue and a consumer blocked on an empty one are woken exactly when
+    space/items appear or when the owner interrupts (restart/close), so
+    hand-off latency is scheduler-bound instead of poll-bound — and the
+    capacity can be resized live (``prefetch_capacity`` after init).
+    """
+
+    def __init__(self, capacity: int):
+        self._cond = threading.Condition()
+        self._items: collections.deque = collections.deque()
+        self._cap = max(1, int(capacity))
+
+    def set_capacity(self, n: int) -> None:
+        with self._cond:
+            self._cap = max(1, int(n))
+            self._cond.notify_all()
+
+    def put(self, item, cancelled: Callable[[], bool]) -> bool:
+        """Blocking bounded put; returns False when ``cancelled`` fires
+        (restart/close) instead of delivering."""
+        with self._cond:
+            while len(self._items) >= self._cap:
+                if cancelled():
+                    return False
+                self._cond.wait()
+            if cancelled():
+                return False
+            self._items.append(item)
+            self._cond.notify_all()
+            return True
+
+    def force_put(self, item) -> None:
+        """Unbounded append (failure delivery must never block)."""
+        with self._cond:
+            self._items.append(item)
+            self._cond.notify_all()
+
+    def get(self):
+        with self._cond:
+            while not self._items:
+                self._cond.wait()
+            item = self._items.popleft()
+            self._cond.notify_all()
+            return item
+
+    def drain(self) -> list:
+        """Clear the queue, returning the discarded items (the caller
+        must inspect them for failure carriers — dropping one silently
+        would leave the consumer blocked on a dead producer)."""
+        with self._cond:
+            items = list(self._items)
+            self._items.clear()
+            self._cond.notify_all()
+        return items
+
+    def wake(self) -> None:
+        with self._cond:
+            self._cond.notify_all()
+
+
+def _batch_aliases(raw, staged) -> bool:
+    """Does the staged (transformed) batch still reference the raw
+    batch's host memory? A CPU tensor made by ``torch.from_numpy``
+    aliases the ring buffer, so handing the buffer back for refill
+    would overwrite a batch still sitting in the prefetch queue.
+    Conservative: any doubt (unknown types) counts as aliasing and the
+    buffer is simply never reused."""
+    if not isinstance(raw, DataBatch) or not isinstance(staged, DataBatch):
+        return True
+    import torch
+    for host, dev in ((raw.data, staged.data),
+                      (raw.label, staged.label)):
+        if not isinstance(host, np.ndarray):
+            continue
+        if isinstance(dev, torch.Tensor):
+            if dev.device.type != "cuda" and np.shares_memory(
+                    dev.detach().numpy(), host):
+                return True
+        elif isinstance(dev, np.ndarray):
+            if np.shares_memory(dev, host):
+                return True
+        else:
+            return True
+    return False
+
+
+class PrefetchIterator(IIterator):
+    """Background-thread prefetch of a batch iterator.
+
+    Restart protocol: every queued item carries the epoch number it was
+    produced under; ``before_first`` bumps the target epoch, so a stale
+    batch the producer was already blocked on delivering (the classic
+    double-buffer reset race) is discarded by the consumer instead of
+    being served as the first batch of the new epoch. The same tag
+    guards transformed batches.
+
+    A transform attached with ``set_transform`` runs on each batch in
+    the producer thread and must return once it has read the host
+    arrays (a synchronous copy does); the host ring buffer is then
+    handed back for refill when the result holds its own copy.
+    """
+
+    def __init__(self, base: IIterator, capacity: int = 4):
+        self.base = base
+        self.capacity = capacity
+        self._q: Optional[_CondQueue] = None
+        self._thread: Optional[threading.Thread] = None
+        self._out: Optional[DataBatch] = None
+        self._restart = threading.Event()
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._epoch = 0                 # consumer's target epoch
+        self._transform = None          # applied in the producer
+        self.wait_hist = None           # monitor LatencyHistogram
+        self._failed: Optional[_Failure] = None
+        # None until probed on the first staged batch: may the host
+        # ring buffer be released once the transform returned? False
+        # when its result aliases host memory (a CPU tensor) —
+        # releasing there would corrupt queued batches
+        self._release_safe: Optional[bool] = None
+        # per-round H2D / wait counters (pipeline telemetry)
+        self._h2d_s = 0.0
+        self._h2d_batches = 0
+        self._consumer_wait_s = 0.0
+
+    def set_param(self, name: str, val: str) -> None:
+        self.base.set_param(name, val)
+        if name in ("prefetch_capacity", "buffer_size"):
+            self.capacity = int(val)
+            if self._q is not None:
+                # live resize: the bound applies from the next put
+                self._q.set_capacity(self.capacity)
+
+    def set_transform(self, fn) -> None:
+        """Apply fn to each batch in the producer thread (a host->device
+        copy there overlaps device compute). fn must have read the host
+        arrays when it returns."""
+        self._transform = fn
+
+    def enable_wait_stats(self):
+        """Attach a latency histogram over consumer-side batch-fetch
+        waits (time blocked on the prefetch queue — the direct measure
+        of 'is the input pipeline keeping up'). Only attached when the
+        monitor is active, so the unmonitored path never pays the
+        per-batch clock reads. Returns the histogram; the caller
+        snapshots/resets it at round boundaries."""
+        from ..monitor import LatencyHistogram
+        self.wait_hist = LatencyHistogram()
+        return self.wait_hist
+
+    def init(self) -> None:
+        self.base.init()
+        self._q = _CondQueue(self.capacity)
+        self._thread = threading.Thread(target=self._producer, daemon=True)
+        self._thread.start()
+
+    # -- producer --------------------------------------------------------
+
+    def _cancelled(self) -> bool:
+        return self._stop.is_set() or self._restart.is_set()
+
+    def _put(self, item) -> bool:
+        return self._q.put(item, self._cancelled)
+
+    def _producer(self) -> None:
+        while not self._stop.is_set():
+            self._restart.wait()
+            if self._stop.is_set():
+                return
+            self._restart.clear()
+            with self._lock:
+                epoch = self._epoch
+            try:
+                self.base.before_first()
+                self._run_epoch(epoch)
+            except Exception as e:      # deliver instead of hanging the
+                #                         consumer on a dead producer
+                self._q.force_put((epoch, _Failure(e)))
+                return
+
+    def _run_epoch(self, epoch: int) -> None:
+        while not self._cancelled():
+            if not self.base.next():
+                self._put((epoch, None))            # epoch end sentinel
+                return
+            raw = staged = self.base.value()
+            if self._transform is not None:
+                t0 = time.perf_counter()
+                staged = self._transform(raw)
+                dt = time.perf_counter() - t0
+                with self._lock:
+                    self._h2d_s += dt
+                    self._h2d_batches += 1
+                self._release_raw(raw, staged)
+            if not self._put((epoch, staged)):
+                return
+
+    def _release_raw(self, raw, staged) -> None:
+        """Hand raw's ring buffer back ONLY when the staged batch holds
+        its own copy. Probed once (first staged batch): a CPU tensor
+        aliases the buffer, and releasing an aliased buffer lets the
+        ring refill memory a queued batch still reads (silent
+        duplicated/reordered training data)."""
+        if staged is raw or getattr(raw, "release", None) is None:
+            return
+        if self._release_safe is None:
+            self._release_safe = not _batch_aliases(raw, staged)
+        if self._release_safe:
+            raw.release()
+
+    # -- consumer --------------------------------------------------------
+
+    def before_first(self) -> None:
+        assert self._q is not None, "prefetch iterator: not initialized"
+        if self._failed is not None:
+            raise RuntimeError("prefetch producer died") \
+                from self._failed.exc
+        with self._lock:
+            self._epoch += 1
+        # draining is an optimization (epoch tags already protect
+        # correctness); it frees queue slots so the producer can move
+        # on. A drained failure carrier must still be kept: it is the
+        # only evidence the producer thread is dead
+        for _, item in self._q.drain():
+            if isinstance(item, _Failure):
+                self._failed = item
+            elif isinstance(item, DataBatch) and item.release is not None:
+                # never-consumed host batch: recycle its ring buffer
+                item.release()
+        if self._failed is not None:
+            raise RuntimeError("prefetch producer died") \
+                from self._failed.exc
+        self._restart.set()
+        self._q.wake()                  # wake a producer blocked in put
+
+    def next(self) -> bool:
+        if self._failed is not None:
+            # the failure carrier was already consumed; blocking on the
+            # queue again would hang forever (producer thread is gone)
+            raise RuntimeError("prefetch producer died") \
+                from self._failed.exc
+        t0 = time.perf_counter() if self.wait_hist is not None else 0.0
+        while True:
+            epoch, item = self._q.get()
+            if isinstance(item, _Failure):
+                self._failed = item
+                raise RuntimeError("prefetch producer died") \
+                    from item.exc
+            with self._lock:
+                if epoch != self._epoch:
+                    continue            # stale batch from a prior epoch
+            if item is None:
+                # end-of-epoch sentinel: not a batch fetch — recording
+                # its wait would add one spurious (and often dominant)
+                # observation per round
+                return False
+            if self.wait_hist is not None:
+                wait = time.perf_counter() - t0
+                self.wait_hist.observe(wait)
+                with self._lock:
+                    self._consumer_wait_s += wait
+            self._out = item
+            return True
+
+    def value(self) -> DataBatch:
+        return self._out
+
+    def h2d_snapshot(self) -> dict:
+        """Per-round H2D/wait counters (reset on read)."""
+        with self._lock:
+            out = {"h2d_ms": self._h2d_s * 1e3,
+                   "h2d_batches": self._h2d_batches,
+                   "consumer_wait_ms": self._consumer_wait_s * 1e3,
+                   "wait_measured": self.wait_hist is not None}
+            self._h2d_s, self._h2d_batches = 0.0, 0
+            self._consumer_wait_s = 0.0
+        return out
+
+    def close(self) -> None:
+        self._stop.set()
+        self._restart.set()
+        if self._q is not None:
+            self._q.wake()
+        if self._thread is not None and self._thread.is_alive():
+            self._thread.join(timeout=2.0)
+        self.base.close()
+
+
+def enable_chain_wait_stats(it):
+    """Attach a batch-fetch wait histogram to the outermost
+    PrefetchIterator in an iterator chain (walking ``.base`` like
+    pipeline_snapshot, so an adapter stacked above the threadbuffer —
+    e.g. membuffer — doesn't silently lose the io_wait record).
+    Returns the histogram, or None when the chain has no prefetch."""
+    node = it
+    while node is not None:
+        if isinstance(node, PrefetchIterator):
+            return node.enable_wait_stats()
+        node = getattr(node, "base", None)
+    return None
+
+
+def pipeline_snapshot(it) -> Optional[dict]:
+    """Collect (and reset) per-round pipeline counters from an iterator
+    chain: buffer reuse from BatchAdapter rings, H2D staging time and
+    consumer waits from PrefetchIterators. Returns None when the chain
+    has neither (nothing to report).
+
+    ``h2d_overlap_ratio`` is the share of H2D staging time hidden
+    behind device compute, measured conservatively: any time the
+    consumer spent blocked on the prefetch queue counts as unhidden
+    (even when the real bottleneck was decode, not transfer)."""
+    found = False
+    alloc = reuse = batches = 0
+    h2d_ms = 0.0
+    h2d_batches = 0
+    wait_ms = 0.0
+    wait_measured = False
+    node = it
+    while node is not None:
+        if isinstance(node, BatchAdapter):
+            found = True
+            s = node.ring_snapshot()
+            alloc += s["allocated"]
+            reuse += s["reused"]
+            batches += s["batches"]
+        if isinstance(node, PrefetchIterator):
+            found = True
+            s = node.h2d_snapshot()
+            h2d_ms += s["h2d_ms"]
+            h2d_batches += s["h2d_batches"]
+            wait_ms += s["consumer_wait_ms"]
+            wait_measured = wait_measured or s["wait_measured"]
+        node = getattr(node, "base", None)
+    if not found:
+        return None
+    total = alloc + reuse
+    if h2d_ms <= 0:
+        overlap = 1.0                   # nothing to hide
+    elif not wait_measured:
+        overlap = 0.0                   # no wait evidence: claim nothing
+    else:
+        overlap = max(0.0, min(1.0, 1.0 - wait_ms / h2d_ms))
+    return {"batches": batches,
+            "buffers_allocated": alloc,
+            "buffers_reused": reuse,
+            "buffer_reuse_rate": (reuse / total) if total else 0.0,
+            "h2d_ms": round(h2d_ms, 3),
+            "h2d_batches": h2d_batches,
+            "consumer_wait_ms": round(wait_ms, 3),
+            "h2d_overlap_ratio": round(overlap, 4)}

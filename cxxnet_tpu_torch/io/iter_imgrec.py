@@ -1,0 +1,223 @@
+"""RecordIO image iterator (counterpart of
+``cxxnet_tpu/io/iter_imgrec.py``): the ImageNet input path.
+
+Reads image records from a .rec archive and decodes them in a thread
+pool (a chunk at a time):
+
+- ``path_imgrec`` archive (or comma list of part files)
+- ``part_index`` / ``num_parts``: byte-range splits of one archive, or
+  whole part files round-robin; an initialized ``torch.distributed``
+  world larger than 1 without them raises (``io.data.resolve_data_shard``)
+- ``path_imglist``: optional list file remapping image_id -> label(s)
+  without repacking
+- ``shuffle``: shuffles each decode chunk
+- raw-tensor records (``recordio.RAW_TENSOR_FLAG``) decode with numpy
+  alone; JPEG records import ``cv2`` where they are decoded
+
+``shard_kind = batch`` (the multi-host batch-block map) raises
+:class:`NotPortedError`. Emits DataInst (float32 NHWC in [0,255], or
+uint8 under ``decode_uint8``); the factory stacks augment/batch
+adapters on top.
+"""
+
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from .data import DataInst, IIterator, resolve_data_shard
+from .recordio import (RAW_TENSOR_FLAG, RecordIOReader,
+                       parse_image_record, record_flag,
+                       unpack_raw_tensor_record)
+from ..utils.config import NotPortedError, Roadmap
+from ..utils.stream import open_stream
+
+
+class ImageRecordIterator(IIterator):
+    def __init__(self):
+        self.path_imgrec = ""
+        self.path_imglist = ""
+        self.label_width = 1
+        self.silent = 0
+        self.dist_num_parts = 1
+        self.dist_part_index = 0
+        self.nthread = max(4, os.cpu_count() or 4)
+        self.shuffle = 0
+        self.seed = 0
+        self.decode_uint8 = 0
+        self._label_map: Optional[Dict[int, np.ndarray]] = None
+        self._readers: List = []
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._buf: List[DataInst] = []
+        self._bufpos = 0
+        self._chunk = 256
+
+    def set_param(self, name: str, val: str) -> None:
+        if name in ("path_imgrec", "image_rec"):
+            self.path_imgrec = val
+        if name == "path_imglist":
+            self.path_imglist = val
+        if name == "label_width":
+            self.label_width = int(val)
+        if name == "silent":
+            self.silent = int(val)
+        if name == "num_parts":
+            self.dist_num_parts = int(val)
+        if name == "part_index":
+            self.dist_part_index = int(val)
+        if name == "shard_kind":
+            if val not in ("stride", "batch"):
+                raise ValueError(
+                    "shard_kind must be stride or batch, got %r" % val)
+            if val == "batch":
+                raise NotPortedError("imgrec shard_kind = batch",
+                                     Roadmap.IMAGE_PIPELINE)
+        if name == "nthread":
+            self.nthread = int(val)
+        if name == "shuffle":
+            self.shuffle = int(val)
+        if name == "seed_data":
+            self.seed = int(val)
+        if name == "decode_uint8":
+            # keep pixels uint8 through the host pipeline; the net
+            # casts to its compute dtype (4x less host->device traffic)
+            self.decode_uint8 = int(val)
+
+    # -- init ------------------------------------------------------------
+
+    def _read_imglist(self) -> None:
+        self._label_map = {}
+        with open_stream(self.path_imglist, "r") as f:
+            for line in f:
+                # bound the split so an image path containing spaces
+                # stays ONE trailing token
+                toks = line.split(None, 1 + self.label_width)
+                if not toks:
+                    continue
+                idx = int(float(toks[0]))
+                # labels are the numeric prefix (rows end with the image
+                # path); short rows zero-pad to label_width
+                vals = []
+                for t in toks[1:1 + self.label_width]:
+                    try:
+                        vals.append(float(t))
+                    except ValueError:
+                        # the trailing path token ends the numeric
+                        # prefix; a non-numeric token BEFORE it is a
+                        # malformed row
+                        if t is not toks[-1] and self.silent == 0:
+                            print("imglist: non-numeric label %r "
+                                  "in row %r" % (t, line.strip()))
+                        break
+                lab = np.zeros((self.label_width,), np.float32)
+                lab[:len(vals)] = vals
+                self._label_map[idx] = lab
+
+    def init(self) -> None:
+        assert self.path_imgrec, "imgrec: must set path_imgrec"
+        self.dist_part_index, self.dist_num_parts = resolve_data_shard(
+            self.dist_part_index, self.dist_num_parts)
+        paths = [p for p in self.path_imgrec.split(",") if p]
+        self._readers = []
+        if len(paths) == 1:
+            self._readers.append(RecordIOReader(
+                paths[0], self.dist_part_index, self.dist_num_parts))
+        else:
+            # multiple part files: shard whole files round-robin
+            for i, p in enumerate(paths):
+                if i % self.dist_num_parts == self.dist_part_index:
+                    self._readers.append(RecordIOReader(p, 0, 1))
+        if self.path_imglist:
+            self._read_imglist()
+        self._pool = ThreadPoolExecutor(max_workers=self.nthread)
+        self._rng = np.random.RandomState(self.seed)
+        if self.silent == 0:
+            print("ImageRecordIterator: %s part %d/%d"
+                  % (self.path_imgrec, self.dist_part_index,
+                     self.dist_num_parts))
+        self.before_first()
+
+    def before_first(self) -> None:
+        for r in self._readers:
+            r.reset()
+        self._cur_reader = 0
+        self._buf, self._bufpos = [], 0
+
+    # -- decode ----------------------------------------------------------
+
+    def _decode(self, rec: bytes) -> Optional[DataInst]:
+        if record_flag(rec) == RAW_TENSOR_FLAG:
+            # pre-decoded uint8 tensor record: no jpeg in the loop
+            index, label, data = unpack_raw_tensor_record(rec)
+            if not self.decode_uint8:
+                data = data.astype(np.float32)
+            return self._with_label(index, label, data)
+        import cv2
+        index, label, labels, payload = parse_image_record(rec)
+        img = cv2.imdecode(np.frombuffer(payload, np.uint8),
+                           cv2.IMREAD_COLOR)
+        if img is None:
+            return None
+        data = img[:, :, ::-1]                        # BGR -> RGB
+        if not self.decode_uint8:
+            data = data.astype(np.float32)
+        return self._with_label(index, label, data, labels)
+
+    def _with_label(self, index: int, label: float,
+                    data: np.ndarray,
+                    labels: Optional[np.ndarray] = None) -> DataInst:
+        # an imglist remap overrides whatever the archive carries, then
+        # archive-packed label vectors, then the header's single label
+        # broadcast to label_width
+        lab = None
+        if self._label_map is not None:
+            lab = self._label_map.get(index)
+        if lab is None and labels is not None:
+            lab = np.zeros((self.label_width,), np.float32)
+            n = min(self.label_width, labels.size)
+            lab[:n] = labels[:n]
+        if lab is None:
+            lab = np.full((self.label_width,), label, np.float32)
+        return DataInst(index=index, data=data, label=lab)
+
+    def _fill(self) -> bool:
+        recs: List[bytes] = []
+        while len(recs) < self._chunk and \
+                self._cur_reader < len(self._readers):
+            r = self._readers[self._cur_reader].next_record()
+            if r is None:
+                self._cur_reader += 1
+                continue
+            recs.append(r)
+        if not recs:
+            return False
+        insts = list(self._pool.map(self._decode, recs))
+        insts = [i for i in insts if i is not None]
+        if self.shuffle:
+            self._rng.shuffle(insts)
+        self._buf, self._bufpos = insts, 0
+        # progress was made even if every record in this chunk failed to
+        # decode; next() loops to the following chunk
+        return True
+
+    def next(self) -> bool:
+        while self._bufpos >= len(self._buf):
+            if not self._fill():
+                return False
+        self._out = self._buf[self._bufpos]
+        self._bufpos += 1
+        return True
+
+    def value(self) -> DataInst:
+        return self._out
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
+        for r in self._readers:
+            r.close()
+        self._readers = []

@@ -1,0 +1,356 @@
+"""RecordIO access (counterpart of ``cxxnet_tpu/io/recordio.py``): a
+ctypes binding to the native library ``lib/libcxxnet_io.so`` (built by
+``make``), with a pure-Python implementation of the same
+(dmlc-compatible) format where the library is not built.
+
+See src/io/recordio.{h,cc} for the format; both implementations read
+and write the same bytes. The library is looked up, and loaded, at the
+first reader or writer, not when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import struct
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+
+from ..utils.stream import local_path, open_stream, uri_scheme
+
+KMAGIC = 0xCED7230A
+_MAGIC_BYTES = struct.pack("<I", KMAGIC)
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_LIB_PATHS = [
+    os.path.join(_REPO_ROOT, "lib", "libcxxnet_io.so"),
+    os.path.join(os.path.dirname(__file__), "libcxxnet_io.so"),
+]
+
+# [library or None] once looked up
+_loaded: list = []
+
+
+def _native():
+    """The native library, loaded at first use; None where it is not
+    built (or does not load)."""
+    if not _loaded:
+        lib = None
+        for p in _LIB_PATHS:
+            if not os.path.exists(p):
+                continue
+            try:
+                lib = ctypes.CDLL(p)
+            except OSError:
+                continue
+            lib.CXNRecordIOWriterCreate.restype = ctypes.c_void_p
+            lib.CXNRecordIOWriterCreate.argtypes = [ctypes.c_char_p]
+            lib.CXNRecordIOWriterAppend.argtypes = [
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64]
+            lib.CXNRecordIOWriterFree.argtypes = [ctypes.c_void_p]
+            lib.CXNRecordIOReaderCreate.restype = ctypes.c_void_p
+            lib.CXNRecordIOReaderCreate.argtypes = [
+                ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+            lib.CXNRecordIOReaderNext.restype = ctypes.c_void_p
+            lib.CXNRecordIOReaderNext.argtypes = [
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64)]
+            lib.CXNRecordIOReaderReset.argtypes = [ctypes.c_void_p]
+            lib.CXNRecordIOReaderFree.argtypes = [ctypes.c_void_p]
+            break
+        _loaded.append(lib)
+    return _loaded[0]
+
+
+def native_available() -> bool:
+    return _native() is not None
+
+
+# ------------------------------------------------------------ writers
+
+class _PyWriter:
+    def __init__(self, path: str):
+        self._f = open_stream(path, "wb")
+
+    def write_record(self, data: bytes) -> None:
+        n = len(data)
+        nword = (n + 3) // 4
+        padded = data + b"\x00" * (nword * 4 - n)
+        # split at aligned magic occurrences
+        splits = np.flatnonzero(
+            np.frombuffer(padded, "<u4") == KMAGIC).tolist()
+        if not splits:
+            self._f.write(_MAGIC_BYTES)
+            self._f.write(struct.pack("<I", n))
+            self._f.write(padded)
+            return
+        begin = 0
+        for k in range(len(splits) + 1):
+            endw = splits[k] if k < len(splits) else nword
+            if k == 0:
+                cflag = 1
+            elif k == len(splits):
+                cflag = 3
+            else:
+                cflag = 2
+            if k == len(splits):
+                tail_bytes = n - begin * 4
+                self._f.write(_MAGIC_BYTES)
+                self._f.write(struct.pack("<I", (cflag << 29) | tail_bytes))
+                nw = (tail_bytes + 3) // 4
+                self._f.write(padded[begin * 4:begin * 4 + nw * 4])
+            else:
+                chunk = padded[begin * 4:endw * 4]
+                self._f.write(_MAGIC_BYTES)
+                self._f.write(struct.pack("<I", (cflag << 29) | len(chunk)))
+                self._f.write(chunk)
+            begin = endw + 1
+
+    def close(self) -> None:
+        self._f.close()
+
+
+class _NativeWriter:
+    def __init__(self, path: str):
+        self._lib = _native()
+        self._h = self._lib.CXNRecordIOWriterCreate(path.encode())
+        if not self._h:
+            raise IOError("cannot create recordio file %r" % path)
+
+    def write_record(self, data: bytes) -> None:
+        if self._lib.CXNRecordIOWriterAppend(self._h, data,
+                                             len(data)) != 0:
+            raise IOError("recordio write failed (disk full?)")
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.CXNRecordIOWriterFree(self._h)
+            self._h = None
+
+
+def RecordIOWriter(path: str, force_python: bool = False):
+    # remote URIs go through the Python writer (open_stream); the
+    # native C writer fopen()s local paths only
+    if not force_python and uri_scheme(path) == "" \
+            and _native() is not None:
+        p = local_path(path)
+        d = os.path.dirname(p)
+        if d and not os.path.isdir(d):   # match open_stream's mkdir
+            os.makedirs(d, exist_ok=True)
+        return _NativeWriter(p)
+    return _PyWriter(path)
+
+
+# ------------------------------------------------------------ readers
+
+class _PyReader:
+    def __init__(self, path: str, part_index: int = 0,
+                 num_parts: int = 1):
+        self._f = open_stream(path, "rb")
+        self._f.seek(0, 2)
+        fsize = self._f.tell()
+        if num_parts <= 1:
+            self.begin, self.end = 0, fsize
+        else:
+            b = fsize * part_index // num_parts
+            e = fsize * (part_index + 1) // num_parts
+            self.begin = (b + 3) & ~3
+            self.end = min((e + 3) & ~3, fsize)
+        self.reset()
+
+    def reset(self) -> None:
+        self._f.seek(self.begin)
+        self.pos = self.begin
+        if self.begin == 0:
+            return
+        while self.pos + 8 <= self.end:
+            w = self._f.read(4)
+            if len(w) < 4:
+                return
+            self.pos += 4
+            if w == _MAGIC_BYTES:
+                probe = self._f.read(4)
+                if len(probe) < 4:
+                    return
+                flag = struct.unpack("<I", probe)[0] >> 29
+                if flag in (0, 1):
+                    self._f.seek(self.pos - 4)
+                    self.pos -= 4
+                    return
+                self._f.seek(self.pos)
+
+    def next_record(self) -> Optional[bytes]:
+        if self.pos >= self.end:
+            return None
+        out = b""
+        in_multi = False
+        while True:
+            head = self._f.read(8)
+            if len(head) < 8:
+                return None
+            self.pos += 8
+            magic, lrec = struct.unpack("<II", head)
+            if magic != KMAGIC:
+                return None
+            cflag, ln = lrec >> 29, lrec & ((1 << 29) - 1)
+            nword = (ln + 3) // 4
+            chunk = self._f.read(nword * 4)
+            if len(chunk) < nword * 4:
+                return None                  # truncated archive
+            self.pos += nword * 4
+            if in_multi and cflag != 1:
+                out += _MAGIC_BYTES
+            out += chunk[:ln]
+            if cflag in (0, 3):
+                return out
+            in_multi = True
+
+    def __iter__(self) -> Iterator[bytes]:
+        self.reset()
+        while True:
+            r = self.next_record()
+            if r is None:
+                return
+            yield r
+
+    def close(self) -> None:
+        self._f.close()
+
+
+class _NativeReader:
+    def __init__(self, path: str, part_index: int = 0,
+                 num_parts: int = 1):
+        self._lib = _native()
+        self._h = self._lib.CXNRecordIOReaderCreate(
+            path.encode(), part_index, num_parts)
+        if not self._h:
+            raise IOError("cannot open recordio file %r" % path)
+
+    def next_record(self) -> Optional[bytes]:
+        size = ctypes.c_uint64()
+        ptr = self._lib.CXNRecordIOReaderNext(self._h, ctypes.byref(size))
+        if not ptr:
+            return None
+        # size 0 is a legitimate empty record, not EOF (EOF is NULL)
+        return ctypes.string_at(ptr, size.value)
+
+    def reset(self) -> None:
+        self._lib.CXNRecordIOReaderReset(self._h)
+
+    def __iter__(self) -> Iterator[bytes]:
+        self.reset()
+        while True:
+            r = self.next_record()
+            if r is None:
+                return
+            yield r
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.CXNRecordIOReaderFree(self._h)
+            self._h = None
+
+
+def RecordIOReader(path: str, part_index: int = 0, num_parts: int = 1,
+                   force_python: bool = False):
+    if not force_python and uri_scheme(path) == "" \
+            and _native() is not None:
+        return _NativeReader(local_path(path), part_index, num_parts)
+    return _PyReader(path, part_index, num_parts)
+
+
+# ------------------------------------------------------- image records
+
+# C layout of ImageRecHeader {uint32 flag; float label; uint64 id[2]}:
+# (flag,label) fill the first 8 bytes, ids start aligned at 8 — 24 bytes
+_HDR = struct.Struct("<IfQQ")
+
+
+# multi-label records: the header's extension flag carries the label
+# width ('ML' tag in the high 16 bits, width in the low 16); labels
+# 2..N are packed as f32 right after the 24-byte header, before the
+# image payload. The reference reserves header.flag "for future
+# extension purposes" (src/io/image_recordio.h:17-20) but never packs
+# extra labels — its im2rec only validates label_width in the list
+# (tools/im2rec.cc:83-87); here the archive itself carries them so
+# multi-label flows need no list file at read time.
+MULTI_LABEL_TAG = 0x4D4C0000            # 'ML' << 16
+_ML_MASK = 0xFFFF0000
+
+
+def multi_label_width(flag: int) -> int:
+    """label count encoded in a record flag (0 if not a multi-label
+    record)."""
+    if (flag & _ML_MASK) == MULTI_LABEL_TAG:
+        return flag & 0xFFFF
+    return 0
+
+
+def pack_image_record(index: int, label, img_bytes: bytes,
+                      flag: int = 0) -> bytes:
+    lab = np.atleast_1d(np.asarray(label, np.float32))
+    if not 1 <= lab.size <= 0xFFFF:
+        raise ValueError("label count out of range: %d" % lab.size)
+    if lab.size > 1:
+        assert flag == 0, "multi-label packs its own flag"
+        flag = MULTI_LABEL_TAG | lab.size
+        # extra labels little-endian like the '<'-prefixed header, so
+        # archives stay portable across host byte orders
+        return (_HDR.pack(flag, float(lab[0]), index, 0)
+                + lab[1:].astype("<f4").tobytes() + img_bytes)
+    return _HDR.pack(flag, float(lab[0]), index, 0) + img_bytes
+
+
+def parse_image_record(rec: bytes):
+    """-> (index, label0, label_vec | None, payload) in ONE header
+    parse (the hot decode path calls this per image)."""
+    flag, label, id0, _ = _HDR.unpack_from(rec, 0)
+    w = multi_label_width(flag)
+    if w == 0:
+        return int(id0), float(label), None, rec[_HDR.size:]
+    extra = np.frombuffer(rec, "<f4", w - 1, _HDR.size)
+    labels = np.concatenate([[np.float32(label)], extra]).astype(
+        np.float32)
+    return int(id0), float(label), labels, rec[_HDR.size + 4 * (w - 1):]
+
+
+def unpack_image_record(rec: bytes) -> Tuple[int, float, bytes]:
+    index, label, _, payload = parse_image_record(rec)
+    return index, label, payload
+
+
+def unpack_image_labels(rec: bytes) -> Optional[np.ndarray]:
+    """Full label vector of a multi-label record; None otherwise."""
+    return parse_image_record(rec)[2]
+
+
+def record_flag(rec: bytes) -> int:
+    return _HDR.unpack_from(rec, 0)[0]
+
+
+# flag value marking a raw uint8 HWC tensor payload (decode-free input
+# records: the pre-decoded path of debug_perf.md's test_io methodology)
+RAW_TENSOR_FLAG = 0x52415754            # 'RAWT'
+
+_RAW_SHAPE = struct.Struct("<HHH")
+
+
+def pack_raw_tensor_record(index: int, label: float,
+                           arr) -> bytes:
+    """Pack a raw uint8 HWC image tensor (no jpeg encode/decode)."""
+    a = np.ascontiguousarray(arr, np.uint8)
+    assert a.ndim == 3, "raw tensor records are HWC uint8"
+    return (_HDR.pack(RAW_TENSOR_FLAG, label, index, 0)
+            + _RAW_SHAPE.pack(*a.shape) + a.tobytes())
+
+
+def unpack_raw_tensor_record(rec: bytes):
+    """-> (index, label, uint8 HWC array); only for RAW_TENSOR_FLAG
+    records."""
+    flag, label, id0, _ = _HDR.unpack_from(rec, 0)
+    assert flag == RAW_TENSOR_FLAG
+    h, w, c = _RAW_SHAPE.unpack_from(rec, _HDR.size)
+    off = _HDR.size + _RAW_SHAPE.size
+    arr = np.frombuffer(rec, np.uint8, h * w * c, off).reshape(h, w, c)
+    return int(id0), float(label), arr

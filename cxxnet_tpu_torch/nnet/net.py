@@ -64,7 +64,7 @@ class FuncNet:
         if self._net_flag("channel_pad"):
             raise NotPortedError("channel_pad", Roadmap.CHECKPOINT_CLI)
         if g.extra_data_num:
-            raise NotPortedError("extra_data_num", Roadmap.CLI)
+            raise NotPortedError("extra_data_num", Roadmap.IMAGE_PIPELINE)
         self.node_shapes[0] = Shape3(*g.input_shape)
         for li, info in enumerate(g.layers):
             pli = g.param_layer_index(li)

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import os
 import re
+import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -82,7 +83,7 @@ class NetTrainer:
         self.batch_size = 0
         self.seed = 0
         self.update_period = 1
-        self.eval_train = 0
+        self.eval_train = 1
         self.save_optimizer = 0
         self.grad_dtype = "float32"      # bfloat16: bf16 cotangents
         self.serve_dtype = "float32"     # eval/pred compute dtype:
@@ -102,6 +103,17 @@ class NetTrainer:
         self._last_loss: Optional[torch.Tensor] = None
         self._serve_tree: Optional[Tree] = None
         self._initialized = False
+        # progress counters (the CLI's round lines and
+        # counters_snapshot): update calls (an update_many window counts
+        # once), real (non-padded) rows, and the open round's window
+        self.round = 0
+        self._steps_total = 0
+        self._examples_total = 0
+        self._round_examples = 0
+        self._round_t0: Optional[float] = None   # set by start_round
+        self.last_round_examples_per_sec = 0.0   # of the closed round
+        self.last_round_examples = 0
+        self.last_round_wall_s = 0.0
 
     # -- config ----------------------------------------------------------
 
@@ -498,9 +510,46 @@ class NetTrainer:
         if not self._initialized:
             raise RuntimeError("call init_model/load_model first")
 
+    def start_round(self, r: int) -> None:
+        """Open round ``r``'s counter window (closing the previous one)."""
+        self.end_round()
+        self.round = r
+        self._round_t0 = time.perf_counter()
+        self._round_examples = 0
+
+    def end_round(self) -> None:
+        """Close the current round's counter window (idempotent): sets
+        the ``last_round_*`` fields."""
+        if self._round_t0 is None:
+            return
+        dt = time.perf_counter() - self._round_t0
+        if dt > 0:
+            self.last_round_examples_per_sec = self._round_examples / dt
+        self.last_round_examples = self._round_examples
+        self.last_round_wall_s = dt
+        self._round_t0 = None
+
+    def counters_snapshot(self) -> Dict[str, float]:
+        """Progress so far, without a device sync: update dispatches,
+        real examples consumed, and the throughput of the last closed
+        round."""
+        return {"steps": self._steps_total,
+                "examples": self._examples_total,
+                "last_round_examples_per_sec":
+                    self.last_round_examples_per_sec}
+
+    def _count_examples(self, examples: int) -> None:
+        self._steps_total += 1
+        self._examples_total += examples
+        self._round_examples += examples
+
     def update(self, batch: DataBatch) -> None:
         """One training step on a host batch (its padded tail excluded
         from the BN moments and the loss)."""
+        self._update(batch)
+        self._count_examples(batch.batch_size - batch.num_batch_padd)
+
+    def _update(self, batch: DataBatch) -> None:
         self._check_ready()
         data, labels, mask = self._device_batch(batch)
         epoch = self.update_counter
@@ -543,9 +592,11 @@ class NetTrainer:
     def update_many(self, batches: Sequence[DataBatch]) -> None:
         """Train on K batches; the same as K ``update`` calls (the
         reference fuses them into one dispatch, which eager PyTorch has
-        no use for)."""
+        no use for), counted as one dispatch."""
         for b in batches:
-            self.update(b)
+            self._update(b)
+        self._count_examples(sum(b.batch_size - b.num_batch_padd
+                                 for b in batches))
 
     @property
     def last_loss(self) -> float:

@@ -19,6 +19,9 @@ value`` grammar as the reference:
   convolutions and activations) or ``int8`` (a snapshot with
   calibration tables; int8 products into int32, dequantized in the
   conv_epilogue kernel)
+- ``serve_clients`` / ``serve_requests`` / ``serve_request_rows`` —
+  the CLI soak drive (``task = serve``): N closed-loop clients each
+  issuing M requests of K rows
 """
 
 from __future__ import annotations
@@ -44,6 +47,9 @@ class ServeConfig:
         self.timeout_ms = 0.0
         self.node = ""
         self.warm_run = 1
+        self.clients = 8
+        self.requests = 32
+        self.request_rows = 1
         batch_size = 0
         for name, val in cfg:
             if name == "batch_size":
@@ -62,6 +68,12 @@ class ServeConfig:
                 self.node = val
             if name == "serve_warm_run":
                 self.warm_run = int(val)
+            if name == "serve_clients":
+                self.clients = int(val)
+            if name == "serve_requests":
+                self.requests = int(val)
+            if name == "serve_request_rows":
+                self.request_rows = int(val)
         if not self.max_batch:
             self.max_batch = batch_size
         if not self.max_batch:

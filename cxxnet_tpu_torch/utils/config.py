@@ -16,7 +16,7 @@ yet, naming the ``ROADMAP.md`` item that will port it.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 ConfigPairs = List[Tuple[str, str]]
 
@@ -28,13 +28,16 @@ class ConfigError(ValueError):
 class Roadmap:
     """The ``ROADMAP.md`` items (queue and title) that port what a
     :class:`NotPortedError` reports."""
-    CLI = "queue 1, CLI tasks and iterators"
     REMAT = "queue 1, rematerialization"
     LAYER_ZOO = "queue 1, rest of the layer zoo"
     CHECKPOINT_CLI = "queue 1, checkpoint and CLI remainder"
+    IMAGE_PIPELINE = "queue 1, image data pipeline"
+    TELEMETRY = "queue 1, telemetry"
     QUANTIZED = "queue 1, quantized and low-precision inference"
     BUNDLES = "queue 1, sealed bundles"
     MULTI_GPU = "queue 1, multi-GPU"
+    FLEET = "queue 1, fleet and the continual loop"
+    RETRIEVAL = "queue 1, retrieval"
 
 
 class NotPortedError(ConfigError):
@@ -102,3 +105,57 @@ def parse_config_file(path: str) -> ConfigPairs:
     from .stream import open_stream
     with open_stream(path, "r") as f:
         return parse_config(f.read())
+
+
+def parse_cli_overrides(args: List[str]) -> ConfigPairs:
+    """Parse CLI ``key=value`` override arguments."""
+    pairs: ConfigPairs = []
+    for a in args:
+        if "=" not in a:
+            raise ConfigError("CLI override must be key=value, got %r" % a)
+        k, v = a.split("=", 1)
+        pairs.append((k.strip(), v.strip().strip('"')))
+    return pairs
+
+
+def split_sections(pairs: ConfigPairs) -> Tuple[List[Dict], ConfigPairs]:
+    """Route ordered pairs into (iterator blocks, global pairs).
+
+    Parameters between ``iter = <type>`` and ``iter = end`` belong to the
+    data-source block most recently opened by a ``data = <name>`` /
+    ``eval = <name>`` / ``pred = <val>`` marker. Everything else
+    (including the netconfig block, which the net-graph parser routes
+    itself) is global.
+
+    Returns (blocks, global_pairs) where each block is a dict with keys
+    ``kind`` ('data'|'eval'|'pred'), ``name``, and ``cfg`` (ordered pairs,
+    starting with the chained ``iter`` entries).
+    """
+    blocks = []
+    global_pairs: ConfigPairs = []
+    cur = None          # pending data/eval/pred marker
+    in_iter = False
+    for name, val in pairs:
+        if name in ("data", "eval", "pred") and not in_iter:
+            cur = {"kind": name, "name": val, "cfg": []}
+            continue
+        if name == "iter":
+            if val == "end":
+                in_iter = False
+                if cur is not None:
+                    blocks.append(cur)
+                    cur = None
+                continue
+            in_iter = True
+            if cur is None:
+                # iterator block with no marker: treated as anonymous data
+                cur = {"kind": "data", "name": "", "cfg": []}
+            cur["cfg"].append((name, val))
+            continue
+        if in_iter and cur is not None:
+            cur["cfg"].append((name, val))
+        else:
+            global_pairs.append((name, val))
+    if in_iter:
+        raise ConfigError("iterator block not closed with 'iter = end'")
+    return blocks, global_pairs

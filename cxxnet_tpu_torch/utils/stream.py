@@ -49,3 +49,12 @@ def read_stream_bytes(uri: str) -> bytes:
     """The full contents of a local path."""
     with open_stream(uri, "rb") as f:
         return f.read()
+
+
+def stream_exists(uri: str) -> bool:
+    """Whether a local path exists."""
+    scheme = uri_scheme(uri)
+    if scheme:
+        raise NotPortedError("%s:// streams" % scheme,
+                             Roadmap.CHECKPOINT_CLI)
+    return os.path.exists(local_path(uri))

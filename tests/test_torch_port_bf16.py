@@ -289,13 +289,27 @@ def _whole_rel(a, b):
     return (num / sum(float(np.sum(b[k] ** 2)) for k in b)) ** 0.5
 
 
+def _conf_cfg():
+    """Inception-BN-tiny at example/ImageNet/Inception-BN.conf's own
+    precision: ``dtype = bfloat16`` alone (float32 gradients and
+    momentum), fc1 a plain fullc, whose bias gradient sums in bf16."""
+    return [(n, "fullc:fc1" if v == "pallas_fullc:fc1" else v)
+            for n, v in _inception_tiny_cfg([("dtype", "bfloat16")])]
+
+
+CONF_NET = (_conf_cfg, 16, 8, 0, NETS["inception"][4])
+
+
 @pytest.fixture(scope="module", params=sorted(NETS))
 def run(request, tmp_path_factory):
     """The reference (per-op rounding) and the port from one reference
     snapshot, three steps: the port free running, and the port re-loaded
     from the reference's state before each step."""
-    name = request.param
-    make_cfg, size, ncls, pad, tol = NETS[name]
+    return _run_net(request.param, NETS[request.param], tmp_path_factory)
+
+
+def _run_net(name, net, tmp_path_factory):
+    make_cfg, size, ncls, pad, tol = net
     d = tmp_path_factory.mktemp("port_bf16_" + name)
     jt = JaxTrainer(make_cfg())
     jt.init_model()
@@ -331,6 +345,10 @@ def run(request, tmp_path_factory):
 
 
 def test_bf16_step_for_step_matches_reference(run):
+    _check_step_for_step(run)
+
+
+def _check_step_for_step(run):
     tol = run["tol"]
     for i, st in enumerate(run["steps"]):
         np.testing.assert_allclose(st["synced_loss"], st["ref_loss"],
@@ -350,12 +368,32 @@ def test_bf16_step_for_step_matches_reference(run):
 
 
 def test_bf16_three_free_steps_stay_near_reference(run):
+    _check_free(run)
+
+
+def _check_free(run):
     tol = run["tol"]
     np.testing.assert_allclose([s["free_loss"] for s in run["steps"]],
                                [s["ref_loss"] for s in run["steps"]],
                                rtol=tol["free_loss"])
     got, ref = _state(run["free"]), run["steps"][-1]["ref"]
     assert _whole_rel(got, ref) <= tol["free_whole"]
+
+
+def test_conf_precision_matches_reference(tmp_path_factory):
+    """Inception-BN-tiny at Inception-BN.conf's precision (``dtype =
+    bfloat16`` alone: float32 gradients and momentum, a plain fullc fc1
+    whose bias gradient sums in bf16), step for step and free running,
+    within the bench set's tolerances (measured on the CPU: losses
+    equal, whole state 5.0e-5, worst array 7.2e-3, max |Δ| 1.2e-4; free
+    running 2.5e-3)."""
+    run = _run_net("conf", CONF_NET, tmp_path_factory)
+    _check_step_for_step(run)
+    _check_free(run)
+    t = run["free"]
+    ms = [st["m_w"] for tags in t.opt_state.values()
+          for st in tags.values() if st]
+    assert ms and all(m.dtype == torch.float32 for m in ms)
 
 
 def test_bf16_training_keeps_masters_f32_and_momentum_bf16(run):
