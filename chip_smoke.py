@@ -56,7 +56,8 @@ the script exits non-zero without a result line):
              at the stem shape for (x, y) = (bf16, bf16), (f32, bf16),
              (bf16, f32): dx the same bits, sums within rtol 1e-5; the
              bf16 bias gradient (``bias_grad_bf16``, XLA:CPU's summation
-             order) at kaiming-224's 14 bias shapes, the same bits. Max
+             order) at kaiming-224's 14 bias shapes and at AlexNet.conf's
+             8 (batch 256), the same bits. Max
              error, kernel / plain / library times (CUDA events) and the
              bound from bytes and operations; for matmul, the bn_apply
              backward and forward and conv_epilogue's VJP also the
@@ -175,8 +176,34 @@ the script exits non-zero without a result line):
              snapshot quantized (``task = quantize``, the 0.05 gate) and
              served at ``serve_dtype = int8``, 0 failed.
 
+10. alexnet — the layer-zoo slice: ``example/ImageNet/AlexNet.conf`` in
+             process through the CLI (``LearnTask().run``), only its data
+             paths, ``num_round`` and ``model_dir`` set from outside, on
+             seeded raw-tensor imgrec archives (512 train and 256 val
+             records of 256x256x3 uint8, labels in 0-999): 2 rounds at
+             the conf's batch 256, 227 crop, 1000 classes, grouped convs,
+             two LRNs and ``dtype = bfloat16`` (the round lines, every
+             update's loss finite, 0002.model.npz written, exactly 8
+             bias_grad_bf16 launches per update and no other, none in the
+             round lines' eval forwards, each update's time and each
+             round's rows/s with its ``data_wait_s``); one profiled step
+             of the conf's net (device time by kind) and each LRN's
+             forward + backward device time at its shape; ``pred``,
+             ``pred_raw`` and ``extract`` (fc7's features) over val.rec
+             from the snapshot: 256 classes in 0-999, the first 4 rows
+             and features against the port on the CPU (the cli phase's
+             bf16 tolerances); one batch-4 bf16 update through the kernel
+             against the card's plain path (``bf16_update_check``, the
+             same dropout masks); and the zoo net (``zoo_text``: every
+             layer type of the slice, batch 8, 32 px): one float32 update
+             on the card against the CPU port per parameter
+             (``update_delta_check``, the stochastic layers' draws from
+             ``seeded_uniform`` on both), and the pairtest's max_diff.
+
 Then a ``kernels`` line (every ported kernel with its launches, error
-and times; ``cli_launches``: its count over the cli phase's runs), the
+and times; ``cli_launches`` and ``alexnet_launches``: its count over
+the cli phase's runs and the alexnet phase's training run; the
+bias_grad_bf16 row also with AlexNet's per-update sums), the
 ``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1441,16 +1468,20 @@ def bias_grad_case(shape, bw: float, flops: float):
     return out
 
 
-def bias_grad_section(bw: float, flops: float):
-    """The bias gradient at every bias of kaiming-224's bf16 training
-    step (batch 128), weighted by how often each shape occurs."""
+def bias_grad_section(bw: float, flops: float, cfg=None,
+                      batch: int = TRAIN_BATCH,
+                      expected: int = KAIMING_BF16_LAUNCHES["bias_grad_bf16"]):
+    """The bias gradient at every bias of a bf16 training step
+    (kaiming-224's at batch 128 unless ``cfg`` names another net),
+    weighted by how often each shape occurs."""
     from cxxnet_tpu_torch.nnet.net import FuncNet
-    knet = FuncNet(_configured(kaiming_cfg_bf16(TRAIN_BATCH)), TRAIN_BATCH)
-    shapes = path_bias_shapes(knet, TRAIN_BATCH)
-    if len(shapes) != KAIMING_BF16_LAUNCHES["bias_grad_bf16"]:
-        raise RuntimeError("expected %d biases, kaiming has %d"
-                           % (KAIMING_BF16_LAUNCHES["bias_grad_bf16"],
-                              len(shapes)))
+    if cfg is None:
+        cfg = kaiming_cfg_bf16(TRAIN_BATCH)
+    knet = FuncNet(_configured(cfg), batch)
+    shapes = path_bias_shapes(knet, batch)
+    if len(shapes) != expected:
+        raise RuntimeError("expected %d biases, the net has %d"
+                           % (expected, len(shapes)))
     cases = {sh: bias_grad_case(sh, bw, flops)
              for sh in sorted(set(shapes), key=lambda v: -int(np.prod(v)))}
     counts = [shapes.count(sh) for sh in cases]
@@ -1543,8 +1574,12 @@ def phase_kernels(bw: float, flops: float, tc_flops: float):
                                ("float32", "bfloat16"),
                                ("bfloat16", "float32"))]
     bias = bias_grad_section(bw, flops)
+    # the layer-zoo slice: AlexNet.conf's 8 biases at its batch 256
+    bias_alex = bias_grad_section(bw, flops, alexnet_cfg(ALEX_BATCH),
+                                  ALEX_BATCH, ALEX_LAUNCHES["bias_grad_bf16"])
     ok = ok and all(v["ok"] for v in pc.values()) \
-        and all(c["ok"] for c in bwd_bf16) and bias["ok"]
+        and all(c["ok"] for c in bwd_bf16) and bias["ok"] \
+        and bias_alex["ok"]
     res = {"phase": "kernels", "ok": ok, "kernel": "conv_epilogue",
            "path_launches_per_forward": len(shapes),
            "distinct_path_shapes": len(per_shape),
@@ -1561,7 +1596,8 @@ def phase_kernels(bw: float, flops: float, tc_flops: float):
            "bn_apply": train["bn_apply"], "matmul": train["matmul"],
            "relu_max_pool": train["relu_max_pool"],
            "train_bf16": train_bf16, "pool_concat": pc,
-           "backward_bf16": bwd_bf16, "bias_grad_bf16": bias}
+           "backward_bf16": bwd_bf16, "bias_grad_bf16": bias,
+           "bias_grad_bf16_alexnet": bias_alex}
     emit(res)
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version")
@@ -2204,7 +2240,8 @@ def update_distances(runs, pairs):
 
 
 def update_delta_check(workdir: str, cfg=None, plain_cfg=None,
-                       same_masks: bool = False, tag: str = "train4"):
+                       same_masks: bool = False, tag: str = "train4",
+                       batch=None):
     """One update at batch 4 from the same seeded weights and batch,
     compared per parameter as ||d_a - d_b|| / ||d_b|| with d = w_after -
     w_before. Runs: the card through the kernels (``gpu``) and through
@@ -2244,9 +2281,10 @@ def update_delta_check(workdir: str, cfg=None, plain_cfg=None,
         paths[name] = os.path.join(workdir, "%s_%s.model.npz" % (tag, name))
         init.save_model(paths[name])
         del init
-    rng = np.random.RandomState(SEED + 4)
-    batch = DataBatch(images(rng, 4),
-                      rng.randint(0, NCLASS, (4, 1)).astype(np.float32))
+    if batch is None:
+        rng = np.random.RandomState(SEED + 4)
+        batch = DataBatch(images(rng, 4),
+                          rng.randint(0, NCLASS, (4, 1)).astype(np.float32))
 
     def delta(dev, plain=False, f64=False, cudnn=True):
         t = NetTrainer(plain_cfg if plain else cfg, device=dev)
@@ -2414,7 +2452,7 @@ def plain_kernels():
 
 
 def bf16_update_check(workdir: str, cfg, expected, tag: str,
-                      same_masks: bool = False):
+                      same_masks: bool = False, batch=None):
     """One update at batch 4 at a bf16 training config, from one seeded
     snapshot and batch, on the card through the kernels and through
     their plain versions (:func:`plain_kernels`), with cuDNN
@@ -2434,9 +2472,10 @@ def bf16_update_check(workdir: str, cfg, expected, tag: str,
     path = os.path.join(workdir, "%s.model.npz" % tag)
     init.save_model(path)
     del init
-    rng = np.random.RandomState(SEED + 4)
-    batch = DataBatch(images(rng, 4),
-                      rng.randint(0, NCLASS, (4, 1)).astype(np.float32))
+    if batch is None:
+        rng = np.random.RandomState(SEED + 4)
+        batch = DataBatch(images(rng, 4),
+                          rng.randint(0, NCLASS, (4, 1)).astype(np.float32))
 
     def delta(plain: bool, cudnn: bool = True):
         t = NetTrainer(cfg, device=DEVICE)
@@ -2936,13 +2975,15 @@ def cli_dev_args():
     return [] if DEVICE == "cuda" else ["dev=" + DEVICE]
 
 
-def write_cli_archives(workdir: str):
-    """Seeded raw-tensor imgrec archives (decoded with numpy alone)."""
+def write_cli_archives(workdir: str,
+                       specs=(("train.rec", CLI_TRAIN_RECORDS),
+                              ("val.rec", CLI_VAL_RECORDS))):
+    """Seeded raw-tensor imgrec archives (decoded with numpy alone), one
+    per (file name, records) of ``specs``."""
     from cxxnet_tpu_torch.io import recordio
     rng = np.random.RandomState(SEED + 9)
     paths = []
-    for name, n in (("train.rec", CLI_TRAIN_RECORDS),
-                    ("val.rec", CLI_VAL_RECORDS)):
+    for name, n in specs:
         path = os.path.join(workdir, name)
         w = recordio.RecordIOWriter(path)
         for i in range(n):
@@ -2955,18 +2996,18 @@ def write_cli_archives(workdir: str):
     return paths
 
 
-def cli_inception_conf(workdir: str, train_rec: str, val_rec: str) -> str:
-    """A copy of example/ImageNet/Inception-BN.conf with only its data
-    paths pointed at the archives."""
+def shipped_conf(workdir: str, name: str, train_rec: str,
+                 val_rec: str) -> str:
+    """A copy of example/ImageNet/<name> with only its data paths
+    pointed at the archives."""
     here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, "example", "ImageNet",
-                           "Inception-BN.conf")) as f:
+    with open(os.path.join(here, "example", "ImageNet", name)) as f:
         text = f.read()
-    for name, path in (("train.rec", train_rec), ("val.rec", val_rec)):
-        old = "path_imgrec = %s\n" % name
+    for rec, path in (("train.rec", train_rec), ("val.rec", val_rec)):
+        old = "path_imgrec = %s\n" % rec
         assert text.count(old) == 1, old
         text = text.replace(old, "path_imgrec = %s\n" % path)
-    path = os.path.join(workdir, "Inception-BN.conf")
+    path = os.path.join(workdir, name)
     with open(path, "w") as f:
         f.write(text)
     return path
@@ -3022,9 +3063,9 @@ def tap_trainer(rec):
                             for b in batches)})
         return run
 
-    def pred(self, data, nodes):
+    def pred(self, data, nodes, mask=None):
         before = kernels.launch_counts()
-        out = orig["pred"](self, data, nodes)
+        out = orig["pred"](self, data, nodes, mask)
         rec["forwards"].append(delta(before))
         return out
 
@@ -3160,7 +3201,7 @@ def phase_cli(workdir: str):
     t0 = time.perf_counter()
     train_rec, val_rec = write_cli_archives(workdir)
     archives_s = time.perf_counter() - t0
-    conf = cli_inception_conf(workdir, train_rec, val_rec)
+    conf = shipped_conf(workdir, "Inception-BN.conf", train_rec, val_rec)
     mdir = os.path.join(workdir, "inception")
     runs = {}
 
@@ -3325,6 +3366,362 @@ def phase_cli(workdir: str):
     emit(res)
     if not res["ok"]:
         raise RuntimeError("cli phase failed")
+    return res
+
+
+# ------------------------------------------------------------ phase 10
+
+# the layer-zoo slice: example/ImageNet/AlexNet.conf through the CLI, its
+# data on seeded raw-tensor imgrec archives (256x256x3 uint8, labels in
+# 0-999): two full batches of 256 a round, and one validation batch
+ALEX_TRAIN_RECORDS, ALEX_VAL_RECORDS = 512, 256
+ALEX_BATCH, ALEX_ROUNDS = 256, 2
+# per update of AlexNet.conf (dtype = bfloat16 alone): every conv and
+# fullc bias (conv1-5, fc6-8) adds to a bf16 output, so its gradient sums
+# in bf16 through bias_grad_bf16; no other kernel is on the path, and
+# the round lines' eval forwards launch nothing
+ALEX_LAUNCHES = dict(NO_LAUNCHES, bias_grad_bf16=8)
+# the bias gradient's device time in a profiled AlexNet step (the LRNs'
+# elementwise kernels are timed apart, lrn_cost)
+ALEX_DEVICE_KEYS = {"bias_grad_device_ms": "cxn_bias_window"}
+# the zoo net's update on the card against the CPU's, per parameter
+ZOO_BATCH, ZOO_IMAGE = 8, 32
+
+
+def write_fixconn(path: str, nrow: int, ncol: int, seed: int = SEED) -> str:
+    """A seeded fixconn weight file: every third entry of an (nrow, ncol)
+    matrix, as ``nrow ncol nnz`` and ``row col value`` lines."""
+    rng = np.random.RandomState(seed + 10)
+    w = rng.randn(nrow, ncol) / np.sqrt(ncol)
+    nz = [(r, c, w[r, c]) for r in range(nrow) for c in range(ncol)
+          if (r + c) % 3 == 0]
+    with open(path, "w") as f:
+        f.write("%d %d %d\n" % (nrow, ncol, len(nz)))
+        f.write("\n".join("%d %d %.6f" % t for t in nz) + "\n")
+    return path
+
+
+def zoo_text(batch: int, image: int, fixconn_path: str) -> str:
+    """A small net that holds every layer type of the zoo slice:
+    batch_norm_no_ma, prelu (with training noise), insanity_max_pooling,
+    a pairtest-conv-torch, xelu, sum_pooling, lrn, bias, insanity (its
+    bounds annealing from the first step), fixconn, and two loss heads on
+    two label fields: multi_logistic on ``tags`` (6 columns of 0 / 1) and
+    l2_loss on ``reg`` (4 columns). The conv before the batch norm has
+    no bias: the norm removes it, and its gradient would be rounding
+    noise that no two devices share."""
+    return """label_vec[0,6) = tags
+label_vec[6,10) = reg
+netconfig=start
+layer[0->1] = conv:c1
+  kernel_size = 3
+  pad = 1
+  nchannel = 8
+  no_bias = 1
+layer[1->2] = batch_norm_no_ma:bn1
+layer[2->3] = prelu:pr1
+  random = 0.1
+layer[3->4] = insanity_max_pooling:ip1
+  kernel_size = 2
+  stride = 2
+  keep = 0.6
+layer[4->5] = pairtest-conv-torch:pt1
+  kernel_size = 3
+  pad = 1
+  nchannel = 8
+layer[5->6] = xelu:xe1
+layer[6->7] = sum_pooling:sp1
+  kernel_size = 2
+  stride = 2
+layer[7->8] = lrn:lrn1
+  local_size = 3
+  alpha = 0.01
+layer[8->9] = flatten:fl1
+layer[9->10] = fullc:fc1
+  nhidden = 32
+layer[10->10] = bias:b1
+layer[10->11] = insanity:in1
+  lb = 3
+  ub = 8
+  calm_start = -1
+  calm_end = 4
+layer[11->12] = fixconn:fx1
+  nhidden = 24
+  fixconn_weight = %s
+layer[12->13] = fullc:fc2
+  nhidden = 6
+layer[13->13] = multi_logistic:ml1
+  target = tags
+layer[12->14] = fullc:fc3
+  nhidden = 4
+layer[14->14] = l2_loss:l2
+  target = reg
+netconfig=end
+input_shape = 3,%d,%d
+batch_size = %d
+momentum = 0.9
+wmat:lr = 0.005
+bias:lr = 0.005
+random_type = xavier
+""" % (fixconn_path, image, image, batch)
+
+
+def zoo_batch(rng, n: int, image: int = ZOO_IMAGE):
+    """Seeded inputs and the zoo net's (n, 10) labels: 6 tag columns of
+    0 / 1, then 4 regression targets."""
+    from cxxnet_tpu_torch.io import DataBatch
+    x = rng.randn(n, image, image, 3).astype(np.float32)
+    label = np.hstack([(rng.rand(n, 6) > 0.5), rng.randn(n, 4)]) \
+        .astype(np.float32)
+    return DataBatch(x, label)
+
+
+def alexnet_cfg(batch: int):
+    """The trainer keys of example/ImageNet/AlexNet.conf (its global
+    section: the net, dtype = bfloat16 and its training keys) at
+    ``batch``, seeded."""
+    from cxxnet_tpu_torch.utils.config import (parse_config_file,
+                                               split_sections)
+    here = os.path.dirname(os.path.abspath(__file__))
+    _, cfg = split_sections(parse_config_file(
+        os.path.join(here, "example", "ImageNet", "AlexNet.conf")))
+    return cfg + [("batch_size", str(batch)), ("seed", str(SEED))]
+
+
+def alexnet_batch(rng, n: int):
+    """Seeded 227x227 inputs (the conf's crop, mean-subtracted scale) and
+    labels in 0-999."""
+    from cxxnet_tpu_torch.io import DataBatch
+    x = 60 * rng.randn(n, 227, 227, 3).astype(np.float32)
+    return DataBatch(x, rng.randint(0, NCLASS, (n, 1)).astype(np.float32))
+
+
+def lrn_cost(layer, batch: int, bw: float):
+    """Device time of one LRN layer's forward and backward at the path's
+    shape (bf16, batch ``batch``), from the profiler (every kernel the
+    two launch), and its bound at the card's memory rate ``bw``: read x
+    and dy, write y and dx (bf16)."""
+    import torch
+    s = layer.in_shapes[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    x = (20 * torch.randn((batch, s.y, s.x, s.ch), generator=gen,
+                          device=DEVICE)).to(torch.bfloat16) \
+        .requires_grad_(True)
+    dy = torch.randn((batch, s.y, s.x, s.ch), generator=gen,
+                     device=DEVICE).to(torch.bfloat16)
+
+    def fwd_bwd(i):
+        (y,), _ = layer.forward({}, {}, [x], True)
+        torch.autograd.grad(y, [x], dy)
+
+    ms = device_ms({"lrn": (fwd_bwd, "")}, 10)["lrn"]
+    n = x.numel()
+    return {"shape": [batch, s.y, s.x, s.ch], "device_ms": ms,
+            "bound_ms": 4 * 2 * n / bw * 1e3}
+
+
+def zoo_check(workdir: str):
+    """The zoo net (``zoo_text``, every layer type of the slice) at batch
+    8, 32 px: one float32 update on the card against the CPU port per
+    parameter (``update_delta_check``, the draws of every stochastic
+    layer from ``seeded_uniform`` on both devices), then one more card
+    update whose pairtest ``max_diff`` and insanity state are reported."""
+    import torch
+    from cxxnet_tpu_torch.layers import common
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import parse_config
+    fx = write_fixconn(os.path.join(workdir, "zoo_fixconn.txt"), 24, 32)
+    cfg = parse_config(zoo_text(ZOO_BATCH, ZOO_IMAGE, fx)) + [
+        ("seed", str(SEED))]
+    batch = zoo_batch(np.random.RandomState(SEED + 4), ZOO_BATCH)
+    delta = update_delta_check(workdir, cfg, cfg, same_masks=True,
+                               tag="zoo", batch=batch)
+    t = NetTrainer(cfg, device=DEVICE)
+    t.init_model()
+    uniform = common.dropout_uniform
+    common.dropout_uniform = seeded_uniform
+    try:
+        t.update(batch)
+    finally:
+        common.dropout_uniform = uniform
+    st = {lk: {k: float(v) for k, v in sub.items() if v.dim() == 0}
+          for lk, sub in t.net_state.items()}
+    del t
+    torch.cuda.empty_cache()
+    delta.update(batch=ZOO_BATCH, image=ZOO_IMAGE,
+                 layer_types=sorted({ln.split("=")[1].split(":")[0].strip()
+                                     for ln in zoo_text(1, 1, fx)
+                                     .splitlines()
+                                     if ln.startswith("layer[")}),
+                 state_after_one_update=st,
+                 pairtest_max_diff=st["pt1"]["pairtest:max_diff"])
+    return delta
+
+
+def phase_alexnet(workdir: str, bw: float):
+    """The layer-zoo slice (see the module docstring): AlexNet.conf
+    through the CLI, trained, predicted and checked; then the zoo net."""
+    import torch
+    from cxxnet_tpu_torch.io import DataBatch, create_iterator
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import (parse_cli_overrides,
+                                               parse_config_file)
+    t0 = time.perf_counter()
+    train_rec, val_rec = write_cli_archives(
+        workdir, (("alex_train.rec", ALEX_TRAIN_RECORDS),
+                  ("alex_val.rec", ALEX_VAL_RECORDS)))
+    archives_s = time.perf_counter() - t0
+    conf = shipped_conf(workdir, "AlexNet.conf", train_rec, val_rec)
+    mdir = os.path.join(workdir, "alexnet")
+    runs = {}
+
+    def drive(name, argv):
+        rec = {}
+        kernels.reset_launch_counts()            # the main path: from 0
+        t1 = time.perf_counter()
+        with tap_trainer(rec):
+            rc, lines = run_cli(argv)
+        rec.update(rc=rc, lines=lines, wall_s=time.perf_counter() - t1,
+                   launches=kernels.launch_counts())
+        runs[name] = rec
+        return rec
+
+    # train: the conf as shipped (batch 256, 227 crop, 1000 classes,
+    # dtype = bfloat16); only the data paths, the rounds and model_dir
+    # are set from outside
+    tr = drive("train", [conf, "task=train", "num_round=%d" % ALEX_ROUNDS,
+                         "print_step=1", "model_dir=" + mdir])
+    snap = os.path.join(mdir, "%04d.model.npz" % ALEX_ROUNDS)
+    ups = tr["updates"]
+    per_round = -(-ALEX_TRAIN_RECORDS // ALEX_BATCH)
+    evals = ALEX_ROUNDS * -(-ALEX_VAL_RECORDS // ALEX_BATCH)
+    losses = [u["loss"] for u in ups]
+    step_ms = [u["ms"] for u in ups]
+    lines = round_lines(tr["lines"])
+    for i, rd in enumerate(tr["rounds"]):
+        rd["update_s"] = sum(step_ms[i * per_round:(i + 1) * per_round]) / 1e3
+        rd["data_wait_s"] = rd["wall_s"] - rd["update_s"]
+    train = {
+        "rc": tr["rc"], "wall_s": tr["wall_s"], "archives_s": archives_s,
+        "round_lines": lines, "updates": len(ups), "losses": losses,
+        "finite": bool(np.all(np.isfinite(losses))), "step_ms": step_ms,
+        "rows_per_update": [u["rows"] for u in ups],
+        "rounds": tr["rounds"], "launches": tr["launches"],
+        "launches_per_update": [u["launches"] for u in ups],
+        "expected_per_update": ALEX_LAUNCHES,
+        "eval_forwards": len(tr["forwards"]),
+        "eval_forward_launches": sum(sum(f.values())
+                                     for f in tr["forwards"]),
+        "snapshot": os.path.exists(snap),
+        "stdout_tail": tr["lines"][-6:]}
+    train["counted"] = bool(
+        len(ups) == ALEX_ROUNDS * per_round
+        and all(u["batches"] == 1 and u["launches"] == ALEX_LAUNCHES
+                for u in ups)
+        and train["eval_forwards"] == evals
+        and train["eval_forward_launches"] == 0
+        and all(tr["launches"][k] == n * len(ups)
+                for k, n in ALEX_LAUNCHES.items()))
+    train["ok"] = bool(tr["rc"] == 0 and train["counted"]
+                       and train["finite"] and train["snapshot"]
+                       and sorted(lines) == list(range(1, ALEX_ROUNDS + 1))
+                       and all("train-error" in v and "val-error" in v
+                               for v in lines.values()))
+    # one step of the conf's net at its batch, profiled (a seeded
+    # trainer from the same keys), and the LRNs' own device time
+    t = NetTrainer(alexnet_cfg(ALEX_BATCH) + [("eval_train", "0")],
+                   device=DEVICE)
+    t.init_model()
+    b = alexnet_batch(np.random.RandomState(SEED + 13), ALEX_BATCH)
+    t.update(b)
+    prof = profile_step(t, b, reps=3, device_keys=ALEX_DEVICE_KEYS)
+    lrns = [lrn_cost(t.net.layer_objs[li], ALEX_BATCH, bw)
+            for li, info in enumerate(t.net.graph.layers)
+            if info.type == "lrn"]
+    lrn_ms = sum(c["device_ms"] for c in lrns)
+    prof.update(lrn=lrns, lrn_device_ms=lrn_ms,
+                lrn_share_of_busy=lrn_ms / prof["device_busy_ms"])
+    del t
+    torch.cuda.empty_cache()
+    # pred / pred_raw / extract (fc7's features, node top[-1]) over the
+    # val archive from the round-2 snapshot (a pred block on the command
+    # line); the first 4 rows against the port on the CPU
+    block = ["iter=imgrec", "path_imgrec=" + val_rec,
+             "input_shape=3,227,227", "mean_value=123,117,104", "iter=end"]
+    out = {}
+    for task, extra in (("pred", []), ("pred_raw", []),
+                        ("extract", ["extract_node_name=top[-1]"])):
+        out[task] = os.path.join(workdir, "alex_%s.txt" % task)
+        drive(task, [conf, "task=" + task, "model_in=" + snap] + extra
+              + ["pred=" + out[task]] + block)
+    cls = np.loadtxt(out["pred"], ndmin=1)
+    raw = np.loadtxt(out["pred_raw"], ndmin=2)
+    feat = np.loadtxt(out["extract"], ndmin=2)
+    cpu = NetTrainer(parse_config_file(conf), device="cpu")
+    cpu.load_model(snap)
+    it = create_iterator(parse_cli_overrides(block[:-1]),
+                         [("batch_size", "4")])
+    it.init()
+    try:
+        first4 = next(iter(it))
+    finally:
+        it.close()
+    counts = kernels.launch_counts()
+    ref4 = cpu.extract_feature(DataBatch(first4.data), "top")
+    feat4 = cpu.extract_feature(DataBatch(first4.data), "top[-1]")
+    kernels.restore_launch_counts(counts)
+    del cpu
+    scale = float(np.abs(feat4).max())
+    ferr = np.abs(feat[:4] - feat4)
+    preds = {
+        "rcs": {k: runs[k]["rc"] for k in out},
+        "pred_rows": int(cls.shape[0]),
+        "pred_classes_ok": bool(np.all((cls >= 0) & (cls < NCLASS))
+                                and np.all(cls == np.round(cls))),
+        "pred_raw_shape": list(raw.shape),
+        "pred_is_argmax": bool(np.all(cls == raw.argmax(1))),
+        "distinct_classes": int(len(np.unique(cls))),
+        "eval_dtype": "bfloat16",
+        "cpu": rows_vs_cpu(raw[:4], ref4, BF16_CPU_ATOL, BF16_CPU_RTOL),
+        "fc7_cpu": {"max_abs_err": float(ferr.max()), "scale": scale,
+                    "close": bool(np.all(ferr <= BF16_CPU_RTOL
+                                         * np.abs(feat4) + 1e-3 * scale))},
+        "forwards": {k: len(runs[k]["forwards"]) for k in out},
+        "launches": {k: runs[k]["launches"] for k in out}}
+    preds["counted"] = all(
+        len(runs[k]["forwards"]) == 1
+        and all(sum(f.values()) == 0 for f in runs[k]["forwards"])
+        for k in out)
+    preds["ok"] = bool(
+        all(rc == 0 for rc in preds["rcs"].values())
+        and preds["pred_rows"] == ALEX_VAL_RECORDS
+        and preds["pred_classes_ok"] and preds["pred_is_argmax"]
+        and raw.shape == (ALEX_VAL_RECORDS, NCLASS)
+        and preds["cpu"]["close"] and preds["cpu"]["top1_ok"]
+        and feat.shape == (ALEX_VAL_RECORDS, 4096)
+        and preds["fc7_cpu"]["close"] and preds["counted"])
+    # one batch-4 bf16 update through the kernel against the card's plain
+    # path (the same dropout masks on both)
+    bdelta = bf16_update_check(
+        workdir, alexnet_cfg(4), ALEX_LAUNCHES, "alexnet4", same_masks=True,
+        batch=alexnet_batch(np.random.RandomState(SEED + 4), 4))
+    zoo = zoo_check(workdir)
+    res = {"phase": "alexnet", "model": "AlexNet.conf",
+           "config": "example/ImageNet/AlexNet.conf with its data paths on "
+                     "seeded raw-tensor imgrec archives (%dx%dx3, %d train / "
+                     "%d val records), batch %d, 227 crop, %d classes, "
+                     "dtype = bfloat16, %d rounds"
+                     % (CLI_IMAGE, CLI_IMAGE, ALEX_TRAIN_RECORDS,
+                        ALEX_VAL_RECORDS, ALEX_BATCH, NCLASS, ALEX_ROUNDS),
+           "train": train, "profile": prof, "pred": preds,
+           "update_vs_plain": bdelta, "zoo": zoo,
+           "launches": runs["train"]["launches"]}
+    res["ok"] = bool(train["ok"] and preds["ok"] and bdelta["ok"]
+                     and zoo["ok"])
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("alexnet phase failed")
     return res
 
 
@@ -3588,6 +3985,8 @@ def main() -> int:
         twres = phase_tower(workdir)
         phase = "cli"
         clires = phase_cli(workdir)
+        phase = "alexnet"
+        alexres = phase_alexnet(workdir, bw)
     except Exception as e:
         import traceback
         traceback.print_exc()
@@ -3599,8 +3998,26 @@ def main() -> int:
     kl = kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part)
     for row in kl["kernels"]:
         # the cli phase's runs (train, pred, pred_raw, serve), each with
-        # the counts set to 0 just before it
+        # the counts set to 0 just before it, and the alexnet phase's
+        # training run
         row["cli_launches"] = clires["launches"][row["name"]]
+        row["alexnet_launches"] = alexres["launches"][row["name"]]
+        if row["name"] == BIAS_BF16["name"]:
+            ab = kres["bias_grad_bf16_alexnet"]
+            row["alexnet"] = {
+                "per": "one AlexNet.conf update at batch %d: %d launches"
+                       % (ALEX_BATCH, ab["launches_per_step"]),
+                "max_abs_err": ab["max_abs_err"],
+                "ms": ab["step_sum"]["ms"],
+                "plain_ms": ab["step_sum"]["plain_ms"],
+                "bound_ms": ab["step_sum"]["bound_ms"],
+                "bound_by": ab["bound_by"],
+                "library_ms": ab["step_sum"]["library_ms"],
+                "device_ms": alexres["profile"]["bias_grad_device_ms"],
+                "cases": [{k: c[k] for k in ("shape", "count", "ms",
+                                             "plain_ms", "bound_ms",
+                                             "library_ms", "exact")}
+                          for c in ab["cases"]]}
     emit(kl)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -50,12 +50,14 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import common
 from .base import Layer, Shape3
 from .kernels import (bias_add, bn_apply, bn_apply_plain, conv_epilogue,
-                      conv_epilogue_plain, relu_max_pool)
+                      conv_epilogue_plain, relu_max_pool, scale_mul)
 from .quant_ops import conv_int8
 
 
@@ -282,7 +284,8 @@ def xla_window_sum_order(kh: int, kw: int, stride: int, pad: int, w: int,
 
 
 class PoolingLayer(Layer):
-    """max / avg pooling with the reference's ceil-mode shape rules.
+    """max / sum / avg pooling with the reference's ceil-mode shape
+    rules.
 
     ``pre_relu`` fuses a relu before the pool (``relu_max_pooling``);
     ``use_pallas`` (``pallas_relu_max_pooling``) or the ``pallas_pool``
@@ -325,24 +328,26 @@ class PoolingLayer(Layer):
                 x = F.pad(x, (0, 0, 0, ex, 0, ey), value=float("-inf"))
             y = F.max_pool2d(x.permute(0, 3, 1, 2), (kh, kw), st)
         else:
-            # zero pad, every window divided by kh*kw
+            # zero pad; avg divides every window by kh*kw, sum does not
+            avg = self.mode == "avg"
             order = xla_window_sum_order(kh, kw, st, px, x.shape[2], ox)
             if py or px or ey or ex:
                 x = F.pad(x, (0, 0, px, px + ex, py, py + ey))
             if x.dtype == torch.bfloat16:
-                return self._bf16_avg(x, kh, kw, st, oy, ox, order)
+                return self._bf16_window_sum(x, kh, kw, st, oy, ox, order,
+                                             avg)
             y = F.avg_pool2d(x.permute(0, 3, 1, 2), (kh, kw), st,
-                             divisor_override=kh * kw)
+                             divisor_override=kh * kw if avg else 1)
         return y.permute(0, 2, 3, 1)
 
     @staticmethod
-    def _bf16_avg(x, kh, kw, st, oy, ox, order):
-        """Average pool of a padded bf16 NHWC tensor in the reference's
-        arithmetic: ``reduce_window``'s add in bf16, one rounding per
-        add, the window offsets in ``order``
-        (:func:`xla_window_sum_order`), then the product with ``1 / (kh
-        * kw)`` rounded to bf16 (``F.avg_pool2d`` sums in float32 and
-        divides, which differs in up to half the entries by up to 1.5
+    def _bf16_window_sum(x, kh, kw, st, oy, ox, order, avg):
+        """Sum (or, with ``avg``, average) pool of a padded bf16 NHWC
+        tensor in the reference's arithmetic: ``reduce_window``'s add in
+        bf16, one rounding per add, the window offsets in ``order``
+        (:func:`xla_window_sum_order`), then for avg the product with ``1
+        / (kh * kw)`` rounded to bf16 (``F.avg_pool2d`` sums in float32
+        and divides, which differs in up to half the entries by up to 1.5
         %). The window slices are taken in row-major order whatever
         the order of the adds, so autograd accumulates their gradients
         last offset first, as the reference's VJP adds them."""
@@ -353,6 +358,8 @@ class PoolingLayer(Layer):
         y = terms[order[0]] + 0.0
         for key in order[1:]:
             y = y + terms[key]
+        if not avg:
+            return y
         # 1/(kh*kw) rounded to bf16, exact as a Python float
         return y * float(torch.tensor(1.0 / (kh * kw), dtype=torch.bfloat16))
 
@@ -367,25 +374,139 @@ class PoolingLayer(Layer):
         return [self._pool(x)], state
 
 
+class InsanityPoolingLayer(PoolingLayer):
+    """Stochastic-displacement max pooling (``insanity_max_pooling``):
+    in training each input pixel is replaced by its neighbour above,
+    below, left or right (clamped at the edges) with probability (1 -
+    keep) / 4 each, from one uniform draw per element
+    (``common.dropout_uniform``), then the ceil-mode pool runs over the
+    displaced map; inference is the plain pool. A pad is refused in
+    training, as the reference refuses it."""
+
+    needs_rng = True
+
+    def __init__(self, mode: str, cfg=()):
+        self.p_keep = 1.0
+        super().__init__(mode, cfg)
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == "keep":
+            self.p_keep = float(val)
+
+    def forward(self, params, state, inputs, is_train=False, rng=None):
+        x = inputs[0]
+        if not is_train:
+            return [self._pool(x)], state
+        if self.param.pad_y or self.param.pad_x:
+            raise ValueError("insanity pooling: pad unsupported in training "
+                             "(matches reference behavior)")
+        if rng is None:
+            raise ValueError("insanity pooling needs the step's rng in "
+                             "training")
+        flag = common.dropout_uniform(x.shape, rng, x.device)
+        k = self.p_keep
+        delta = (1.0 - k) / 4.0
+        # the shifted copies with edge clamping, in the reference's order
+        up = torch.cat([x[:, :1], x[:, :-1]], dim=1)
+        down = torch.cat([x[:, 1:], x[:, -1:]], dim=1)
+        left = torch.cat([x[:, :, :1], x[:, :, :-1]], dim=2)
+        right = torch.cat([x[:, :, 1:], x[:, :, -1:]], dim=2)
+        # thresholds rounded to float32, as the reference compares them
+        t0, t1, t2, t3 = (float(np.float32(k + i * delta)) for i in range(4))
+        displaced = torch.where(
+            flag < t0, x,
+            torch.where(flag < t1, up,
+                        torch.where(flag < t2, down,
+                                    torch.where(flag < t3, left, right))))
+        return [self._pool(displaced)], state
+
+
+class LRNLayer(Layer):
+    """Local response normalization across channels (``lrn``):
+    ``x * (knorm + alpha / nsize * sum(x^2 over the window))^-beta``,
+    the window ``[c - h, c + h]`` (h = nsize // 2) clipped at the edges.
+
+    The arithmetic is the reference's, step by step: x² (cast to bf16
+    under ``dtype = bfloat16``), zero-padded by h on both sides of the
+    channel axis, then the 2h+1 shifted slices added in slice order (in
+    bf16 under bf16, one rounding per add), cast to float32, times
+    ``alpha / nsize`` plus ``knorm``; at ``beta = 0.75`` the factor is
+    ``rsqrt(n) * rsqrt(sqrt(n))``, otherwise ``pow(n, -beta)``; the
+    factor is cast to x's dtype and multiplies x. Autograd
+    differentiates it; the shifted slices' cotangents accumulate last
+    slice first, as the reference's VJP adds them. (The reference's
+    float32 ``rsqrt`` is XLA:CPU's hardware estimate refined by two
+    Newton steps, and its multiply-adds fuse; the port's float32 result
+    lies within a few ulps of it.)"""
+
+    def __init__(self, cfg=()):
+        self.nsize = 3
+        self.alpha = 0.001
+        self.beta = 0.75
+        self.knorm = 1.0
+        super().__init__(cfg)
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == "local_size":
+            self.nsize = int(val)
+        if name == "alpha":
+            self.alpha = float(val)
+        if name == "beta":
+            self.beta = float(val)
+        if name == "knorm":
+            self.knorm = float(val)
+
+    def infer_shape(self, in_shapes: List[Shape3]) -> List[Shape3]:
+        s = self._expect_one(in_shapes)
+        self.in_shapes = [s]
+        self.out_shapes = [s]
+        return self.out_shapes
+
+    def forward(self, params, state, inputs, is_train=False):
+        x = inputs[0]
+        sq = x * x
+        h = self.nsize // 2
+        if self.param.compute_dtype == "bfloat16":
+            sq = sq.to(torch.bfloat16)
+        pad = F.pad(sq, (h, h))
+        c = x.shape[-1]
+        norm = pad[..., 0:c]
+        for i in range(1, 2 * h + 1):
+            norm = norm + pad[..., i:i + c]
+        wide = torch.promote_types(norm.dtype, torch.float32)
+        norm = norm.to(wide) * (self.alpha / self.nsize) + self.knorm
+        if self.beta == 0.75:
+            scale = torch.rsqrt(norm) * torch.rsqrt(torch.sqrt(norm))
+        else:
+            scale = torch.pow(norm, -self.beta)
+        return [x * scale.to(x.dtype)], state
+
+
 class BatchNormLayer(Layer):
-    """Batch normalization with moving averages (``batch_norm``; with
-    ``use_pallas``, ``pallas_batch_norm``). Per channel on spatial
-    nodes, per feature on matrix nodes; eps default 1e-10, running
-    average momentum 0.9.
+    """Batch normalization, both of the reference's variants: with
+    moving averages (``batch_norm``; with ``use_pallas``,
+    ``pallas_batch_norm``) and without (``batch_norm_no_ma``,
+    ``moving_avg = False``). Per channel on spatial nodes, per feature
+    on matrix nodes; eps default 1e-10, running average momentum 0.9.
 
     Training normalizes with the batch moments, padded tail rows
     excluded through the mask, and updates the running stats; eval
-    normalizes with the running stats."""
+    normalizes with the running stats, or, without moving averages
+    (which keep no state), with the masked moments of the batch it is
+    given (the reference's behaviour)."""
 
     needs_mask = True
 
-    def __init__(self, cfg=(), use_pallas: bool = False):
+    def __init__(self, cfg=(), use_pallas: bool = False,
+                 moving_avg: bool = True):
         self.init_slope = 1.0
         self.init_bias = 0.0
         self.eps = 1e-10
         self.bn_momentum = 0.9
         self.channel = 0
-        self.moving_avg = True
+        self.moving_avg = moving_avg
         self.use_pallas = use_pallas
         # set by the net's bn_fuse_relu pass: the relu consuming this
         # BN's output runs inside this layer
@@ -421,6 +542,8 @@ class BatchNormLayer(Layer):
         }
 
     def init_state(self) -> Dict[str, torch.Tensor]:
+        if not self.moving_avg:
+            return {}
         # the reference initializes running stats to zero
         return {
             "running_exp": torch.zeros(self.channel, dtype=torch.float32),
@@ -428,15 +551,20 @@ class BatchNormLayer(Layer):
         }
 
     def fold(self, params, state):
-        """Per-channel (scale, shift) of the eval normalization. The
+        """Per-channel (scale, shift) of the eval normalization from the
+        running stats (see :meth:`_fold`)."""
+        return self._fold(params, state["running_exp"], state["running_var"])
+
+    def _fold(self, params, mean, var):
+        """(scale, shift) of a normalization by ``mean`` and ``var``. The
         factor ``rsqrt(var + eps)`` is taken in float64 and rounded once
         to float32, so the card folds as the CPU does: CUDA's float32
         rsqrt is an approximation and PyTorch's CPU one rounds a sqrt
         first, and under ``serve_dtype = int8`` an ulp in the folded
         weight can move an int8 weight by one step."""
-        inv = torch.rsqrt((state["running_var"] + self.eps).double())
+        inv = torch.rsqrt((var + self.eps).double())
         scale = params["wmat"] * inv.to(params["wmat"].dtype)
-        return scale, params["bias"] - state["running_exp"] * scale
+        return scale, params["bias"] - mean * scale
 
     @staticmethod
     def _moments(x: torch.Tensor, mask: Optional[torch.Tensor]):
@@ -462,10 +590,16 @@ class BatchNormLayer(Layer):
 
     def _apply(self, x, scale, shift):
         """The folded per-channel epilogue (+ fused relu), through the
-        bn_apply kernel under ``bn_pallas``."""
+        bn_apply kernel under ``bn_pallas``. Without it, a bf16 x takes
+        ``x * bf16(scale) + bf16(shift)`` in bf16 with the reference's
+        gradients of scale and shift: bf16 sums in XLA:CPU's order
+        (``kernels.scale_mul``, ``kernels.bias_add``)."""
         if self.use_pallas:
             return bn_apply(x, scale, shift, self.fuse_relu)
-        return bn_apply_plain(x, scale, shift, self.fuse_relu)
+        if x.dtype != torch.bfloat16:
+            return bn_apply_plain(x, scale, shift, self.fuse_relu)
+        y = bias_add(scale_mul(x, scale), shift)
+        return torch.relu(y) if self.fuse_relu else y
 
     def forward(self, params, state, inputs, is_train=False, mask=None):
         x = inputs[0]
@@ -473,7 +607,10 @@ class BatchNormLayer(Layer):
         if not is_train:
             # the eval normalize in (at least) f32, cast back to x's
             # dtype, as the reference's eval path does
-            scale, shift = self.fold(params, state)
+            if self.moving_avg:
+                scale, shift = self.fold(params, state)
+            else:
+                scale, shift = self._fold(params, *self._moments(x, mask))
             wide = torch.promote_types(x.dtype, scale.dtype)
             out = (x.to(wide) * scale + shift).to(x.dtype)
             return [torch.relu(out) if self.fuse_relu else out], state
@@ -487,6 +624,8 @@ class BatchNormLayer(Layer):
             out = (xhat * slope + bias).to(x.dtype)
             if self.fuse_relu:
                 out = torch.relu(out)
+        if not self.moving_avg:
+            return [out], state
         m = self.bn_momentum
         with torch.no_grad():
             state = dict(

@@ -1551,6 +1551,37 @@ def bias_add(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return y + bias.to(y.dtype)
 
 
+class _ScaleMulBf16(torch.autograd.Function):
+    """``x * scale.to(bfloat16)`` for a bf16 ``x``, with the reference's
+    gradient: ``dy * bf16(scale)`` to x, and to the scale the bf16 sum
+    of ``bf16(dy * x)`` in XLA:CPU's order (:func:`bias_grad_bf16`),
+    cast to the scale's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        s = scale.to(torch.bfloat16)
+        ctx.scale_dtype = scale.dtype
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, s = ctx.saved_tensors
+        ds = bias_grad_bf16(dy * x).to(ctx.scale_dtype) \
+            if ctx.needs_input_grad[1] else None
+        return dy * s, ds
+
+
+def scale_mul(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """A per-channel scale ``x * scale.to(x.dtype)`` over the last axis
+    (the plain batch-norm apply); on a bf16 ``x`` through
+    :class:`_ScaleMulBf16`, so that the scale's gradient sums in bf16 in
+    the reference's order, as :func:`bias_add`'s does."""
+    if x.dtype == torch.bfloat16:
+        return _ScaleMulBf16.apply(x, scale)
+    return x * scale.to(x.dtype)
+
+
 # ------------------------------------------------------------ counters
 
 # launch counter name -> (wrapper, attribute). conv_epilogue's

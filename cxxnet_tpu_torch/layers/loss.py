@@ -2,8 +2,9 @@
 
 A loss layer is a self-loop layer with two faces:
 
-- ``forward``: the prediction transform (softmax probabilities) that
-  predict and extract observe;
+- ``forward``: the prediction transform (softmax probabilities,
+  identity for ``lp_loss`` / ``l2_loss``, elementwise sigmoid for
+  ``multi_logistic``) that predict and extract observe;
 - ``loss_value``: a scalar whose gradient with respect to the
   *pre-transform* input is the reference gradient, scaled by
   ``grad_scale / batch_size`` (the trainer divides by
@@ -75,3 +76,55 @@ class SoftmaxLayer(LossLayer):
         if mask is not None:
             ce = ce * mask
         return self._scale() * ce.sum()
+
+
+class LpLossLayer(LossLayer):
+    """Lp regression loss against a dense label block (``lp_loss``,
+    ``l2_loss``; p default 2): ``scale * sum |x - label|^p``, whose
+    gradient is the reference's ``p * |x - l|^(p-1) * sign(x - l) *
+    scale``."""
+
+    def __init__(self, cfg=()):
+        self.p = 2.0
+        super().__init__(cfg)
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == "p":
+            self.p = float(val)
+
+    def forward(self, params, state, inputs, is_train=False):
+        return [inputs[0].float()], state
+
+    def loss_value(self, logit, label, mask):
+        d = torch.abs(logit.float() - label)
+        if self.p == 2.0:
+            lp = d * d
+        elif self.p == 1.0:
+            lp = d
+        else:
+            lp = torch.pow(d, self.p)
+        row = lp.sum(-1)
+        if mask is not None:
+            row = row * mask
+        return self._scale() * row.sum()
+
+
+class MultiLogisticLayer(LossLayer):
+    """Elementwise sigmoid + binary cross-entropy per output
+    (``multi_logistic``, multi-label); the gradient is the reference's
+    ``sigmoid(x) - label``."""
+
+    def forward(self, params, state, inputs, is_train=False):
+        return [torch.sigmoid(inputs[0].float())], state
+
+    def loss_value(self, logit, label, mask):
+        logit = logit.float()
+        # BCE with logits, in the reference's stable form; maximum splits
+        # the gradient at 0 as jnp.maximum does
+        bce = torch.maximum(logit, torch.zeros_like(logit)) \
+            - logit * label + torch.log1p(torch.exp(-torch.abs(logit)))
+        row = bce.sum(-1)
+        if mask is not None:
+            row = row * mask
+        return self._scale() * row.sum()

@@ -42,7 +42,7 @@ import numpy as np
 
 from .device import resolve_device
 from .io import create_iterator
-from .io.data import DataBatch
+from .io.data import DataBatch, batch_mask
 from .nnet.checkpoint import write_snapshot
 from .nnet.trainer import NetTrainer
 from .utils.config import (NotPortedError, Roadmap, parse_cli_overrides,
@@ -461,7 +461,8 @@ class LearnTask:
         top = (trainer.graph.num_nodes - 1,)
 
         def rows(nb):
-            (val,) = trainer.pred(trainer.to_device_batch(nb.data), top)
+            (val,) = trainer.pred(trainer.to_device_batch(nb.data), top,
+                                  batch_mask(nb))
             nvalid = nb.batch_size - nb.num_batch_padd
             out = val[:nvalid].cpu().numpy()
             return out.reshape(out.shape[0], -1)

@@ -2,7 +2,10 @@
 
 Both packages keep weights in the same logical layouts (conv HWIO,
 fullc ``(in, out)``, per-channel vectors 1-D) under the snapshot keys
-``param/<layer>/<tag>`` and ``state/<layer>/<name>``, and optimizer
+``param/<layer>/<tag>`` and ``state/<layer>/<name>`` (every layer's
+tags and names, e.g. prelu's slope ``bias``, a pairtest layer's
+``slave:*`` and ``pairtest:max_diff``, insanity's ``lb``, ``ub`` and
+int32 ``step``), and optimizer
 state (``save_optimizer = 1``) in the layout of its weight under
 ``opt/<layer>/<tag>/<name>``, so the arrays cross unchanged;
 PyTorch's own layouts (OIHW channels-last conv weights) are derived
@@ -23,9 +26,12 @@ OptTree = Dict[str, Dict[str, Dict[str, torch.Tensor]]]
 def params_from_numpy(arrays: Dict[str, np.ndarray],
                       device) -> Tuple[Tree, Tree]:
     """``param/...`` and ``state/...`` numpy arrays (a snapshot blob,
-    or the JAX package's gathered arrays) -> (params, state) of float32
-    tensors on ``device``. Other keys are ignored here: ``opt/`` is
-    :func:`opt_from_numpy`'s, ``quant/`` ``quantize.tables_from_blob``'s."""
+    or the JAX package's gathered arrays) -> (params, state) of tensors
+    on ``device``: float32, and int32 for an integer array (insanity's
+    ``step``). Other keys are ignored here: ``opt/`` is
+    :func:`opt_from_numpy`'s, ``quant/`` ``quantize.tables_from_blob``'s.
+    A tag may hold a ``:`` (a pairtest layer's ``slave:wmat``,
+    ``pairtest:max_diff``)."""
     params: Tree = {}
     state: Tree = {}
     for key, arr in arrays.items():
@@ -33,7 +39,9 @@ def params_from_numpy(arrays: Dict[str, np.ndarray],
         if kind not in ("param", "state"):
             continue
         lkey, _, tag = rest.rpartition("/")
-        t = torch.from_numpy(np.array(arr, np.float32, copy=True))
+        dt = np.int32 if np.issubdtype(np.asarray(arr).dtype, np.integer) \
+            else np.float32
+        t = torch.from_numpy(np.array(arr, dt, copy=True))
         (params if kind == "param" else state).setdefault(
             lkey, {})[tag] = t.to(device)
     return params, state

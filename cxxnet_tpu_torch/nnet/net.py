@@ -6,8 +6,9 @@ there is no hand-written backward pass outside the kernels' own.
 Net-level fusion passes of the reference that the port runs:
 
 - ``bn_fuse_relu = 1``: a relu that is the sole consumer of a
-  batch-norm output runs inside the BN layer; the relu connection
-  becomes identity. It holds in training too.
+  batch-norm output (``batch_norm_no_ma`` too) runs inside the BN
+  layer; the relu connection becomes identity. It holds in training
+  too.
 - ``bn_fold_eval = 1`` (eval only): a moving-average batch_norm that solely
   consumes a conv's output folds its running-stats scale/shift into
   the conv (into the weight, or into the conv_epilogue kernel under
@@ -125,7 +126,8 @@ class FuncNet:
                                if info.type == "share")
         if self._net_flag("bn_fuse_relu"):
             for li, info in enumerate(g.layers):
-                if info.type not in BN_TYPES or li in shared_primaries:
+                if info.type not in BN_TYPES + ("batch_norm_no_ma",) \
+                        or li in shared_primaries:
                     continue
                 cons = consumers.get(info.nindex_out[0], [])
                 if len(cons) == 1 and g.layers[cons[0]].type == "relu":
@@ -270,13 +272,13 @@ class FuncNet:
             ins = [nodes[ni] for ni in info.nindex_in]
             if collect_logits and layer.is_loss:
                 loss_inputs[li] = ins[0]
+            kw = {}
             if layer.needs_mask:
-                outs, s2 = layer.forward(p, s, ins, is_train, mask=mask)
-            elif layer.needs_rng:
-                key = None if rng is None else StepKey(rng[0], rng[1], li)
-                outs, s2 = layer.forward(p, s, ins, is_train, rng=key)
-            else:
-                outs, s2 = layer.forward(p, s, ins, is_train)
+                kw["mask"] = mask
+            if layer.needs_rng:
+                kw["rng"] = None if rng is None \
+                    else StepKey(rng[0], rng[1], li)
+            outs, s2 = layer.forward(p, s, ins, is_train, **kw)
             if s2:
                 new_state[pkey] = s2
             for ni, v in zip(info.nindex_out, outs):

@@ -371,13 +371,18 @@ class NetTrainer:
         tree = self.freeze_serve_weights()
         return self.params if tree is None else tree
 
-    def pred(self, data: torch.Tensor,
-             nodes_wanted: Sequence[int]) -> List[torch.Tensor]:
+    def pred(self, data: torch.Tensor, nodes_wanted: Sequence[int],
+             mask: Optional[np.ndarray] = None) -> List[torch.Tensor]:
         """Eval forward of a device batch; float32 values of the wanted
-        nodes, on the device."""
+        nodes, on the device. ``mask`` (``batch_mask``) keeps a padded
+        tail out of the batch moments that ``batch_norm_no_ma``
+        normalizes with at eval."""
         params = self._pred_operands()
+        if mask is not None:
+            mask = torch.from_numpy(mask).to(data.device)
         with torch.inference_mode():
-            nodes, _, _ = self.net.forward(params, self.net_state, data)
+            nodes, _, _ = self.net.forward(params, self.net_state, data,
+                                           mask=mask)
             return [nodes[i].float() for i in nodes_wanted]
 
     def to_device_batch(self, x) -> torch.Tensor:
@@ -400,7 +405,8 @@ class NetTrainer:
     def predict(self, batch: DataBatch) -> np.ndarray:
         """argmax class (or raw scalar) per row of the top node."""
         top = self.graph.num_nodes - 1
-        (val,) = self.pred(self.to_device_batch(batch.data), (top,))
+        (val,) = self.pred(self.to_device_batch(batch.data), (top,),
+                           batch_mask(batch))
         nvalid = batch.batch_size - batch.num_batch_padd
         out = val[:nvalid].cpu().numpy()
         return self.rows_to_prediction(out)
@@ -408,7 +414,8 @@ class NetTrainer:
     def extract_feature(self, batch: DataBatch, node: str) -> np.ndarray:
         """The node's value for the valid rows, in its natural shape."""
         ni = self.net.node_index_by_name(node)
-        (val,) = self.pred(self.to_device_batch(batch.data), (ni,))
+        (val,) = self.pred(self.to_device_batch(batch.data), (ni,),
+                           batch_mask(batch))
         nvalid = batch.batch_size - batch.num_batch_padd
         return val[:nvalid].cpu().numpy()
 
@@ -625,7 +632,7 @@ class NetTrainer:
         self._metrics.clear()
         for batch in data_iter:
             vals = self.pred(self.to_device_batch(batch.data),
-                             self._metric_nodes)
+                             self._metric_nodes, batch_mask(batch))
             nvalid = batch.batch_size - batch.num_batch_padd
             self._metrics.add_eval(
                 [v[:nvalid].cpu().numpy() for v in vals],

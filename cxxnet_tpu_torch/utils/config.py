@@ -29,7 +29,6 @@ class Roadmap:
     """The ``ROADMAP.md`` items (queue and title) that port what a
     :class:`NotPortedError` reports."""
     REMAT = "queue 1, rematerialization"
-    LAYER_ZOO = "queue 1, rest of the layer zoo"
     CHECKPOINT_CLI = "queue 1, checkpoint and CLI remainder"
     IMAGE_PIPELINE = "queue 1, image data pipeline"
     TELEMETRY = "queue 1, telemetry"

@@ -3,7 +3,7 @@
 The reference's avg pool (``cxxnet_tpu/layers/conv.py``,
 ``PoolingLayer._pool``) is ``reduce_window`` add in bf16, one rounding
 per add, times ``1 / (kh * kw)``; XLA:CPU picks the order of the adds.
-The port's ``PoolingLayer._bf16_avg`` adds the window slices in the
+The port's ``PoolingLayer._bf16_window_sum`` adds the window slices in the
 order :func:`cxxnet_tpu_torch.layers.conv.xla_window_sum_order` gives:
 row-major, or the last window column added last when XLA peels it off
 (every k = 2 pool with a pad or an overhang, and every pad-0 pool whose

@@ -29,13 +29,14 @@ shapes.
 **The bf16 avg pool's input gradient.** The reference's avg pool is
 ``reduce_window`` add in bf16 times ``1 / (kh * kw)``; its VJP scales
 dy by the same bf16 factor and transposes the reduce-window into a
-reduce-window of the padded cotangent. The port's ``_bf16_avg`` adds
+reduce-window of the padded cotangent. The port's ``_bf16_window_sum`` adds
 strided window slices; autograd accumulates their gradients. Both add
 each input's window cotangents in the same order (last kernel offset
 first): the same bits at Inception-BN-tiny's three avg pools (batch 4,
 16 px) and at a 3x3 stride-1 pad-1 and a 3x3 stride-2 ceil-mode pool.
 """
 
+import os
 import re
 
 import jax
@@ -210,16 +211,42 @@ def _kaiming224_bias_shapes():
     return sorted(shapes)
 
 
+def _alexnet_bias_shapes():
+    """The output shape of every conv and fullc bias of AlexNet.conf's
+    bf16 training step at its batch 256 (shapes only): 8 biases."""
+    from cxxnet_tpu_torch.graph import NetGraph
+    from cxxnet_tpu_torch.nnet.net import FuncNet
+    from cxxnet_tpu_torch.utils.config import parse_config_file
+    g = NetGraph()
+    g.configure(parse_config_file(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "example", "ImageNet", "AlexNet.conf")))
+    net = FuncNet(g, 256)
+    shapes = []
+    for li, layer in enumerate(net.layer_objs):
+        if g.effective_type(li) in ("conv", "fullc") \
+                and layer.param.no_bias == 0:
+            s = layer.out_shapes[0]
+            shapes.append((256, s.x) if s.is_mat else (256, s.y, s.x, s.ch))
+    return shapes
+
+
 def test_xla_bias_sum_plan_reads_the_hlo_rule():
     """The plan's windows and pads are those of the reduce-windows in
     the reference's optimized HLO, at every bias shape of kaiming-224's
-    bf16 step (batch 128) and of the bit tests above (a dim of 32 or
-    less is one whole window; the low side takes floor(pad / 2)). The
-    last pass, a plain reduce of what the windows leave, is pinned by
-    the bit tests."""
+    bf16 step (batch 128), of AlexNet.conf's (batch 256; conv1's 55x55
+    maps pad to 64 and its batch is cut into 8 windows) and of the bit
+    tests above (a dim of 32 or less is one whole window; the low side
+    takes floor(pad / 2)). Compiled only, nothing runs. The last pass, a
+    plain reduce of what the windows leave, is pinned by the bit
+    tests."""
     kshapes = _kaiming224_bias_shapes()
     assert len(kshapes) == 9 and (128, 109, 109, 64) in kshapes
-    for shape in kshapes + SHAPES:
+    ashapes = _alexnet_bias_shapes()
+    assert len(ashapes) == 8 and ashapes[0] == (256, 55, 55, 96)
+    assert kernels.xla_bias_sum_plan(ashapes[0][:3])[0] == (
+        (8, 32, 0), (2, 32, 4), (2, 32, 4))
+    for shape in kshapes + sorted(set(ashapes)) + SHAPES:
         lead = (1, 1)[:4 - len(shape)]
         plan = kernels.xla_bias_sum_plan(lead + tuple(shape[:-1]))
         got = [step[len(lead):] for step in plan[:-1]]
@@ -282,7 +309,7 @@ def test_tiny_avg_pools_are_the_tested_ones():
 @pytest.mark.parametrize("case", list(AVG_POOLS))
 def test_bf16_avg_pool_vjp_matches_reference_bits(case):
     """The input gradient of a bf16 avg pool at batch 4: the port's
-    (autograd through ``PoolingLayer._bf16_avg``) against ``jax.vjp``
+    (autograd through ``PoolingLayer._bf16_window_sum``) against ``jax.vjp``
     of the reference's ``PoolingLayer._pool`` (``reduce_window`` add,
     times 1 / (kh * kw)), compiled with excess precision off. The same
     bits: both add each input's window cotangents in bf16, last window
