@@ -57,7 +57,21 @@ the script exits non-zero without a result line):
              (bf16, f32): dx the same bits, sums within rtol 1e-5; the
              bf16 bias gradient (``bias_grad_bf16``, XLA:CPU's summation
              order) at kaiming-224's 14 bias shapes and at AlexNet.conf's
-             8 (batch 256), the same bits. Max
+             8 (batch 256), the same bits, each pass's route and channel
+             group printed (``kernels.bias_grad_plan``), with the chain
+             floor (``chain_bound_ms``: the plan's longest-window adds
+             times one dependent add's latency, which ``bf16_add_probe``
+             measures with a one-warp chain of ``add.rn.bf16x2`` after
+             holding that add to PyTorch's f32-add-then-round on
+             ``bf16_edge_classes``: the same bits) beside the bytes
+             bound; and at edge-class cotangents (subnormal and
+             signed-zero sums; inf, NaN and overflowing sums), an odd C,
+             C = 100, fullc shapes (one of three passes) and a
+             misaligned cotangent, the same bits. pool_concat's forward
+             also from channel slices whose bases are off 16 bytes and
+             from branches of both dtypes (the pool branch of either),
+             each launch's routes printed (``kernels.pool_concat_plan``:
+             the tower's concats take 16-byte vectors). Max
              error, kernel / plain / library times (CUDA events) and the
              bound from bytes and operations; for matmul, the bn_apply
              backward and forward and conv_epilogue's VJP also the
@@ -1210,20 +1224,27 @@ def path_concat_shapes(net, batch: int):
 def pool_concat_case(widths, pos: int, k: int, mode: str, h: int, w: int,
                      batch: int, bw: float, flops: float,
                      dtype: str = "float32", nan: bool = False,
-                     grid: bool = True, timed: bool = True):
+                     grid: bool = True, timed: bool = True, dtypes=None,
+                     lead: int = 0):
     """pool_concat forward and the pool branch's backward on the card
     against their plain versions on the same inputs, the same bits:
     inputs in steps of 0.5 (``grid``: tied maxima, exact zeros) or
     N(0, 9) (avg sums that round), optionally NaN in the pool branch;
     the forward also from channels-last views of the branches (read
     through their strides), the backward also from a permuted
-    cotangent. With ``timed``: kernel, plain and reference times (F.pad
-    + F.max_pool2d / F.avg_pool2d + torch.cat, and its autograd
-    backward) and the bounds."""
+    cotangent. ``dtypes`` gives each branch its own dtype (the concat's
+    is the first's); ``lead`` > 0 makes every branch the channel slice
+    [lead, lead + C) of a wider tensor (a base off 16 bytes). The
+    forward's plan routes are printed (``kernels.pool_concat_plan``).
+    With ``timed``: kernel, plain and reference times (F.pad +
+    F.max_pool2d / F.avg_pool2d + torch.cat, and its autograd backward),
+    the forward's profiled device time, and the bounds."""
     import torch
     import torch.nn.functional as F
     from cxxnet_tpu_torch.layers import kernels
     dev = torch.device(DEVICE)
+    dtypes = list(dtypes or [dtype] * len(widths))
+    dtype = dtypes[0]
     dt = _dt(dtype)
     esz = torch.empty((), dtype=dt).element_size()
     gen = torch.Generator(device=dev).manual_seed(SEED + sum(widths) + k + h)
@@ -1232,16 +1253,20 @@ def pool_concat_case(widths, pos: int, k: int, mode: str, h: int, w: int,
     n_out, n_pool = batch * h * w * ctot, batch * h * w * cp
     nbuf = 2 if timed else 1
 
-    def draw(shape):
-        v = torch.randn(shape, generator=gen, device=dev)
-        return (torch.round(2 * v) / 2 if grid else 3 * v).to(dt)
-    xs = [[draw((batch, h, w, c)) for c in widths] for _ in range(nbuf)]
+    def draw(shape, bdt):
+        wide = shape[:3] + (shape[3] + 2 * lead,)
+        v = torch.randn(wide, generator=gen, device=dev)
+        v = (torch.round(2 * v) / 2 if grid else 3 * v).to(_dt(bdt))
+        return v[..., lead:lead + shape[3]] if lead else v
+    xs = [[draw((batch, h, w, c), bdt) for c, bdt in zip(widths, dtypes)]
+          for _ in range(nbuf)]
     if nan:
         xs[0][pos].view(-1)[::997] = float("nan")
     dys = [torch.randn((batch, h, w, ctot), generator=gen, device=dev).to(dt)
            for _ in range(nbuf)]
     counts0 = kernels.launch_counts()
     out = kernels.pool_concat_fwd(xs[0], pos, k, mode)
+    plan = kernels.pool_concat_fwd.last_plan
     ref = kernels.pool_concat_plain(xs[0], pos, k, mode)
     views = [x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
              for x in xs[0]]
@@ -1254,7 +1279,10 @@ def pool_concat_case(widths, pos: int, k: int, mode: str, h: int, w: int,
     torch.cuda.synchronize()
     res = {"widths": list(widths), "pos": pos, "k": k, "mode": mode,
            "hw": [h, w], "batch": batch, "dtype": dtype, "nan": nan,
-           "grid": grid,
+           "grid": grid, "dtypes": dtypes, "lead": lead,
+           "routes": plan["routes"],
+           "tile": [plan["tr"], plan["tw"], plan["cc"]],
+           "blocks": plan["blocks"],
            "fwd_err": max_err(out.float(), ref.float()),
            "bwd_err": max_err(dx.float(), dxp.float()),
            "fwd_exact": bits_equal(out, ref) and bits_equal(outv, ref),
@@ -1277,6 +1305,10 @@ def pool_concat_case(widths, pos: int, k: int, mode: str, h: int, w: int,
         res["fwd_ms"] = cuda_time_ms(
             lambda i: kernels.pool_concat_fwd(xs[i % nbuf], pos, k, mode),
             iters)
+        res["fwd_device_ms"] = device_ms(
+            {"k": (lambda i: kernels.pool_concat_fwd(xs[i % nbuf], pos, k,
+                                                     mode),
+                   "cxn_pool_concat_fwd")}, iters)["k"]
         res["fwd_plain_ms"] = cuda_time_ms(
             lambda i: kernels.pool_concat_plain(xs[i % nbuf], pos, k, mode),
             iters)
@@ -1316,7 +1348,10 @@ def pool_concat_section(bw: float, flops: float, dtype: str):
     """pool_concat at every fused concat of the tower's batch-128 step
     on ``dtype`` (the same shapes serve at f32), plus a ragged case
     (widths not multiples of 8, k = 5, pool branch in the middle), a
-    NaN case and an N(0, 9) avg case."""
+    NaN case, an N(0, 9) avg case, unaligned and mixed-dtype branches,
+    and the widest window the reference's gate admits on a 2 x 2 map
+    (in bf16 a one-pixel tile's halo past 96 KiB of shared memory)."""
+    from cxxnet_tpu_torch.layers import kernels
     from cxxnet_tpu_torch.nnet.net import FuncNet
     cfg = tower_train_cfg_bf16 if dtype == "bfloat16" else tower_train_cfg
     tnet = FuncNet(_configured(cfg(TRAIN_BATCH)), TRAIN_BATCH)
@@ -1325,6 +1360,7 @@ def pool_concat_section(bw: float, flops: float, dtype: str):
         raise RuntimeError("expected %d fused concats, the tower has %d"
                            % (len(TOWER_FUSED[dtype]), len(shapes)))
     path = [pool_concat_case(*sh, bw, flops, dtype) for sh in shapes]
+    other = "float32" if dtype == "bfloat16" else "bfloat16"
     extra = [pool_concat_case((13, 7, 5, 19), 2, 5, "max", 28, 28, 16, bw,
                               flops, dtype, timed=False),
              pool_concat_case((13, 7, 5, 19), 2, 5, "avg", 28, 28, 16, bw,
@@ -1332,9 +1368,27 @@ def pool_concat_section(bw: float, flops: float, dtype: str):
              pool_concat_case((64, 96, 128, 928), 3, 3, "max", 14, 14, 32,
                               bw, flops, dtype, nan=True, timed=False),
              pool_concat_case((64, 64, 96, 192), 3, 3, "avg", 28, 28, 16,
-                              bw, flops, dtype, grid=False, timed=False)]
-    keys = ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms", "reference_fwd_ms",
-            "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "reference_bwd_ms")
+                              bw, flops, dtype, grid=False, timed=False),
+             # every branch a channel slice whose base is off 16 bytes
+             # (the scalar route), and branches of both dtypes, the pool
+             # branch of the other one (staged with a cast)
+             pool_concat_case((64, 64, 96, 192), 3, 3, "max", 28, 28, 16,
+                              bw, flops, dtype, lead=2, timed=False),
+             pool_concat_case((64, 64, 96, 192), 2, 3, "avg", 28, 28, 16,
+                              bw, flops, dtype, grid=False, timed=False,
+                              dtypes=[dtype, other, dtype, other]),
+             pool_concat_case((64, 64, 96, 192), 1, 3, "max", 14, 14, 16,
+                              bw, flops, dtype, timed=False,
+                              dtypes=[dtype, other, dtype, other])]
+    esz = 2 if dtype == "bfloat16" else 4
+    wide = max(k for k in range(3, 201, 2)
+               if kernels.pool_concat_applicable(2, 2, 16, k, esz))
+    extra += [pool_concat_case((8, 8), 1, wide, mode, 2, 2, 2, bw, flops,
+                               dtype, grid=mode == "max", timed=False)
+              for mode in ("max", "avg")]
+    keys = ("fwd_ms", "fwd_device_ms", "fwd_plain_ms", "fwd_bound_ms",
+            "reference_fwd_ms", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
+            "reference_bwd_ms")
     cases = path + extra
     return {"ok": all(c["ok"] for c in cases), "dtype": dtype,
             "launches_per_step": len(path),
@@ -1347,6 +1401,7 @@ def pool_concat_section(bw: float, flops: float, dtype: str):
                                            for c in path) else "operations",
             "reference": "F.pad + F.max_pool2d / F.avg_pool2d + torch.cat "
                          "(three calls; no one call computes it)",
+            "fwd_routes": [c["routes"] for c in cases],
             "path_cases": path, "extra_cases": extra}
 
 
@@ -1428,20 +1483,171 @@ def path_bias_shapes(net, batch: int):
     return shapes
 
 
-def bias_grad_case(shape, bw: float, flops: float):
+def bf16_edge_classes(seed: int = SEED, n: int = 20000):
+    """Pairs (a, b) of bf16 bit patterns (numpy uint16 arrays) by class,
+    on which the bias gradient's native bf16 add must equal an f32 add
+    rounded to bf16: ``random``, ``n`` seeded patterns (NaN and inf
+    included); ``subnormal``, subnormals with subnormals and with the
+    smallest normals; ``signed_zero``, x + -x, the four +-0 pairs and 0
+    plus a subnormal; ``gap``, exponents 8, 16, 17, 24 and 31-40 apart
+    (halfway and near-halfway cases at 8); ``inf``, +-inf with each other
+    and with finite values; ``largest``, the largest finite values with
+    large ones (sums that overflow)."""
+    rng = np.random.RandomState(seed)
+    m = 1000
+
+    def word(sign, exp, man):
+        return (np.asarray(sign) << 15) | (np.asarray(exp) << 7) \
+            | np.asarray(man)
+
+    def sgn():
+        return rng.randint(0, 2, m)
+
+    def man():
+        return rng.randint(0, 128, m)
+    out = {"random": ([rng.randint(0, 1 << 16, n)],
+                      [rng.randint(0, 1 << 16, n)]),
+           "subnormal": ([word(sgn(), 0, man()), word(sgn(), 0, man())],
+                         [word(sgn(), 0, man()),
+                          word(sgn(), rng.randint(1, 3, m), man())])}
+    z = np.array([0x0000, 0x8000], dtype=np.int64)
+    x = word(sgn(), rng.randint(0, 255, m), man())
+    out["signed_zero"] = ([np.repeat(z, 2), x, np.repeat(z, m // 2)],
+                          [np.tile(z, 2), x ^ 0x8000, word(sgn(), 0, man())])
+    ga, gb = [], []
+    for gap in (8, 16, 17, 24) + tuple(range(31, 41)):
+        ea = rng.randint(gap + 1, 255, m)
+        ga.append(word(sgn(), ea, man()))
+        gb.append(word(sgn(), ea - gap, man()))
+        if gap == 8:
+            ga.append(word(sgn(), ea, man()))
+            gb.append(word(sgn(), ea - gap, rng.choice([0, 1, 127], m)))
+    out["gap"] = (ga, gb)
+    inf = np.array([0x7f80, 0xff80], dtype=np.int64)
+    out["inf"] = ([np.repeat(inf, 2), np.repeat(inf, m // 2)],
+                  [np.tile(inf, 2), word(sgn(), rng.randint(0, 255, m),
+                                         man())])
+    out["largest"] = ([word(sgn(), 254, rng.randint(120, 128, m))],
+                      [word(sgn(), rng.randint(240, 255, m), man())])
+    return {k: (np.concatenate(a).astype(np.uint16),
+                np.concatenate(b).astype(np.uint16))
+            for k, (a, b) in out.items()}
+
+
+def bf16_edge_pairs(seed: int = SEED, n: int = 20000):
+    """Every class of :func:`bf16_edge_classes` in one pair of arrays."""
+    cls = bf16_edge_classes(seed, n).values()
+    return np.concatenate([a for a, _ in cls]), \
+        np.concatenate([b for _, b in cls])
+
+
+def bf16_add_probe(n: int = 1 << 20):
+    """The bias gradient's add (``add.rn.bf16x2``, through
+    ``kernels.bf16_add_pairs``) against PyTorch's bf16 add (an f32 add
+    rounded to bf16) on :func:`bf16_edge_pairs`, the same bits (NaN's
+    payload apart); and the latency of one dependent add, from one
+    warp's chains of n and 2n adds (``kernels.bf16_add_chain``): CUDA
+    events around each (ns per add from their difference), and the SM
+    cycles ``clock64`` counts over the 2n chain, beside the SM clock
+    ``nvidia-smi`` reads after it."""
+    import torch
+    from cxxnet_tpu_torch.layers import kernels
+    dev = torch.device(DEVICE)
+    ua, ub = bf16_edge_pairs()
+    if len(ua) % 2:
+        ua, ub = ua[:-1], ub[:-1]
+
+    def as_bf16(u):
+        return torch.from_numpy(u.astype(np.int16)).view(
+            torch.bfloat16).to(dev)
+    a, b = as_bf16(ua), as_bf16(ub)
+    got = kernels.bf16_add_pairs(a, b)
+    ref = a + b
+    zero_signs = bool(torch.equal(
+        got[ref == 0].view(torch.int16), ref[ref == 0].view(torch.int16)))
+    res = {"pairs": int(a.numel()), "exact": bits_equal(got, ref),
+           "zero_signs_kept": zero_signs,
+           "subnormal_sums": int(((ref != 0) & (ref.abs() < 2.0 ** -126))
+                                 .sum())}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    x = torch.randn(128, generator=gen, device=dev).to(torch.bfloat16)
+    times = {}
+    for chain in (n, 2 * n):
+        times[chain] = cuda_time_ms(lambda i: kernels.bf16_add_chain(x, chain),
+                                    3, warmup=1)
+    _, cycles = kernels.bf16_add_chain(x, 2 * n)
+    res["chain_adds"] = [n, 2 * n]
+    res["chain_ms"] = [times[n], times[2 * n]]
+    res["ns_per_add"] = (times[2 * n] - times[n]) * 1e6 / n
+    res["cycles_per_add"] = float(cycles.item()) / (2 * n)
+    res["sm_clock"] = nvidia_smi_query("clocks.sm")
+    res["ok"] = res["exact"] and zero_signs and res["ns_per_add"] > 0
+    return res
+
+
+def nvidia_smi_query(field: str) -> str:
+    exe = shutil.which("nvidia-smi")
+    if exe is None:
+        return "not measured"
+    out = subprocess.run([exe, "--query-gpu=" + field,
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
+        else "not measured"
+
+
+def bias_edge_dy(shape, kind: str):
+    """A bf16 cotangent of ``shape`` drawn from the edge classes:
+    ``"tiny"`` subnormals, signed zeros and the smallest normals (the
+    sums stay subnormal or small); ``"mixed"`` finite values of both
+    signs from the subnormals up to 2^33 (sums that absorb their terms
+    or round at a tie), with channel 0 sprinkled with +-inf, channel 1
+    with NaN, channel 2 holding the largest finite values (sums that
+    overflow) and channel 3 signed zeros only."""
+    import torch
+    rng = np.random.RandomState(SEED + 17 + len(kind))
+    n = int(np.prod(shape))
+    sign = rng.randint(0, 2, n) << 15
+    if kind == "tiny":
+        bits = sign | (rng.randint(0, 2, n) << 7) | rng.randint(0, 128, n)
+    else:
+        bits = sign | (rng.randint(0, 160, n) << 7) | rng.randint(0, 128, n)
+        bits = bits.reshape(-1, shape[-1])
+        rows = bits.shape[0]
+        pick = rng.rand(rows) < 0.01
+        bits[pick, 0] = rng.choice([0x7f80, 0xff80], int(pick.sum()))
+        pick = rng.rand(rows) < 0.01
+        bits[pick, 1] = 0x7fc0
+        bits[:, 2] = (bits[:, 2] & 0x8000) | 0x7f7f
+        bits[:, 3] &= 0x8000
+    t = torch.from_numpy(np.asarray(bits).astype(np.uint16).astype(np.int16))
+    return t.view(torch.bfloat16).reshape(shape).to(DEVICE)
+
+
+def bias_grad_case(shape, bw: float, flops: float, ns_per_add=None,
+                   dy=None, tag: str = "", timed: bool = True,
+                   route=None):
     """The bf16 bias gradient on the card against its plain version (the
-    same bits), also from a permuted cotangent (4-D); kernel and plain
+    same bits), also from a permuted cotangent (4-D); the route of each
+    pass (``kernels.bias_grad_plan``). With ``timed``: kernel and plain
     times, torch.sum's (f32 accumulation, one rounding: another
-    function's bits, the yardstick of a reduction), and the bound."""
+    function's bits, the yardstick of a reduction), the bytes bound, and
+    the chain floor: the plan's longest-window adds times one dependent
+    add's ``ns_per_add`` (``bf16_add_probe``); torch.sum's time both by
+    events and by the profiler, as the kernel's. ``dy`` replaces the
+    N(0, 9) cotangent (an edge-class or strided one); ``route``, where
+    given, is the route the first pass must take."""
     import torch
     from cxxnet_tpu_torch.layers import kernels
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3 + sum(shape))
     n, c = int(np.prod(shape)), shape[-1]
-    dy = (3 * torch.randn(shape, generator=gen, device=dev)).to(
-        torch.bfloat16)
+    if dy is None:
+        dy = (3 * torch.randn(shape, generator=gen, device=dev)).to(
+            torch.bfloat16)
     counts0 = kernels.launch_counts()
     got = kernels.bias_grad_bf16(dy)
+    plan = kernels.bias_grad_bf16.last_plan
     ref = kernels.bias_grad_bf16_plain(dy)
     same = bits_equal(got, ref)
     if len(shape) == 4:
@@ -1449,19 +1655,33 @@ def bias_grad_case(shape, bw: float, flops: float):
         same = same and bits_equal(kernels.bias_grad_bf16(dyv), ref)
     torch.cuda.synchronize()
     axes = tuple(range(len(shape) - 1))
-    out = {"shape": list(shape), "exact": same, "ok": same,
-           "max_abs_err": float((got - ref).abs().max()),
-           "passes": len(kernels.xla_bias_sum_plan(
-               ((1, 1) + tuple(shape[:1])) if len(shape) == 2
-               else shape[:3]))}
-    # read dy, write the f32 sums; one add per element
-    out["bound_ms"], out["bound_by"] = bound(2 * n + 4 * c, n, bw, flops)
-    out["ms"] = cuda_time_ms(lambda i: kernels.bias_grad_bf16(dy), 10)
-    # the plain version loops over a window's elements (up to 32^3
-    # launches): one timed call
-    out["plain_ms"] = cuda_time_ms(
-        lambda i: kernels.bias_grad_bf16_plain(dy), 1, warmup=0)
-    out["library_ms"] = cuda_time_ms(lambda i: torch.sum(dy, axes), 10)
+    fin = torch.isfinite(got) & torch.isfinite(ref)
+    out = {"shape": list(shape), "tag": tag, "exact": same, "ok": same,
+           "max_abs_err": float((got - ref)[fin].abs().max())
+           if bool(fin.any()) else 0.0,
+           "nonfinite": int((~torch.isfinite(ref)).sum()),
+           "passes": len(plan["passes"]), "routes": plan["routes"],
+           "groups": plan["groups"], "chain": plan["chain"]}
+    if route is not None and plan["routes"][0] != route:
+        out["ok"] = False
+        out["error"] = "first pass took %s, not %s" % (plan["routes"][0],
+                                                       route)
+    if timed:
+        # read dy, write the f32 sums; one add per element
+        out["bound_ms"], out["bound_by"] = bound(2 * n + 4 * c, n, bw, flops)
+        out["chain_bound_ms"] = plan["chain"] * ns_per_add * 1e-6 \
+            if ns_per_add else None
+        out["ms"] = cuda_time_ms(lambda i: kernels.bias_grad_bf16(dy), 10)
+        dev = device_ms(
+            {"k": (lambda i: kernels.bias_grad_bf16(dy), "cxn_bias"),
+             "library": (lambda i: torch.sum(dy, axes), "")}, 10)
+        out["device_ms"] = dev["k"]
+        out["library_device_ms"] = dev["library"]
+        # the plain version loops over a window's elements (up to 32^3
+        # launches): one timed call
+        out["plain_ms"] = cuda_time_ms(
+            lambda i: kernels.bias_grad_bf16_plain(dy), 1, warmup=0)
+        out["library_ms"] = cuda_time_ms(lambda i: torch.sum(dy, axes), 10)
     kernels.restore_launch_counts(counts0)
     del dy
     torch.cuda.empty_cache()
@@ -1470,7 +1690,8 @@ def bias_grad_case(shape, bw: float, flops: float):
 
 def bias_grad_section(bw: float, flops: float, cfg=None,
                       batch: int = TRAIN_BATCH,
-                      expected: int = KAIMING_BF16_LAUNCHES["bias_grad_bf16"]):
+                      expected: int = KAIMING_BF16_LAUNCHES["bias_grad_bf16"],
+                      ns_per_add=None):
     """The bias gradient at every bias of a bf16 training step
     (kaiming-224's at batch 128 unless ``cfg`` names another net),
     weighted by how often each shape occurs."""
@@ -1482,14 +1703,18 @@ def bias_grad_section(bw: float, flops: float, cfg=None,
     if len(shapes) != expected:
         raise RuntimeError("expected %d biases, the net has %d"
                            % (expected, len(shapes)))
-    cases = {sh: bias_grad_case(sh, bw, flops)
+    cases = {sh: bias_grad_case(sh, bw, flops, ns_per_add)
              for sh in sorted(set(shapes), key=lambda v: -int(np.prod(v)))}
     counts = [shapes.count(sh) for sh in cases]
     vals = list(cases.values())
     return {"ok": all(c["ok"] for c in vals),
             "launches_per_step": len(shapes),
-            "step_sum": _step_of(vals, ("ms", "plain_ms", "library_ms",
-                                        "bound_ms"), counts),
+            "step_sum": _step_of(vals, ("ms", "device_ms", "plain_ms",
+                                        "library_ms", "library_device_ms",
+                                        "bound_ms", "chain_bound_ms"),
+                                 counts),
+            "chain_per_step": sum(c["chain"] * k
+                                  for c, k in zip(vals, counts)),
             "max_abs_err": max(c["max_abs_err"] for c in vals),
             "bound_by": "bytes" if all(c["bound_by"] == "bytes"
                                        for c in vals) else "operations",
@@ -1497,6 +1722,56 @@ def bias_grad_section(bw: float, flops: float, cfg=None,
                        "accumulation, one rounding: not the reference's "
                        "bits)",
             "cases": [dict(c, count=k) for c, k in zip(vals, counts)]}
+
+
+def bias_grad_extra(bw: float, flops: float):
+    """The bias gradient where the redesign's routes and the add's edges
+    are: edge-class cotangents (subnormal and signed-zero sums; every
+    class, inf and NaN among them) over padded windows, an odd C and a
+    C % 8 != 0 (the direct route), fullc (N, C) shapes (one of three
+    passes), a cotangent whose base is not 16-byte aligned, and ring
+    windows whose lines (or planes) are shorter than the copier's
+    cursor step, dense and batch-strided; the same bits as the plain
+    version."""
+    import torch
+    big = torch.randn((64, 14, 14, 66), device=DEVICE).to(torch.bfloat16)
+    # every other item of a batch: a batch stride twice the item's
+    tall = torch.randn((128, 27, 27, 64), device=DEVICE).to(torch.bfloat16)
+    flat = torch.randn((128, 1, 4, 64), device=DEVICE).to(torch.bfloat16)
+    cases = [bias_grad_case((64, 33, 35, 64), bw, flops, tag="edge_tiny",
+                            dy=bias_edge_dy((64, 33, 35, 64), "tiny"),
+                            timed=False),
+             bias_grad_case((64, 33, 35, 64), bw, flops, tag="edge_mixed",
+                            dy=bias_edge_dy((64, 33, 35, 64), "mixed"),
+                            timed=False),
+             bias_grad_case((64, 14, 14, 77), bw, flops, tag="odd_c",
+                            timed=False),
+             bias_grad_case((128, 7, 7, 100), bw, flops, tag="c_100",
+                            timed=False),
+             bias_grad_case((256, 4096), bw, flops, tag="fullc",
+                            timed=False),
+             bias_grad_case((3000, 100), bw, flops, tag="fullc_3_passes",
+                            timed=False),
+             bias_grad_case((128, 10), bw, flops, tag="fullc_c10",
+                            timed=False),
+             bias_grad_case((64, 14, 14, 64), bw, flops, tag="unaligned",
+                            dy=big[..., 1:65], timed=False),
+             # 32 channels a block, a cursor step of 8 rows over lines
+             # of 4 (windows of 25 x 4 rows); 16 channels, 16 rows over
+             # lines of 8; planes of 4 rows under a step of 8
+             bias_grad_case((8, 50, 4, 64), bw, flops, tag="ring_short_lines",
+                            timed=False, route="ring"),
+             bias_grad_case((128, 45, 8, 64), bw, flops,
+                            tag="ring_short_lines_g16", timed=False,
+                            route="ring"),
+             bias_grad_case((64, 27, 27, 64), bw, flops,
+                            tag="ring_batch_strided", dy=tall[::2],
+                            timed=False, route="ring"),
+             bias_grad_case((64, 1, 4, 64), bw, flops,
+                            tag="ring_short_planes_strided", dy=flat[::2],
+                            timed=False, route="ring")]
+    del big, tall, flat
+    return {"ok": all(c["ok"] for c in cases), "cases": cases}
 
 
 def phase_kernels(bw: float, flops: float, tc_flops: float):
@@ -1573,13 +1848,18 @@ def phase_kernels(bw: float, flops: float, tc_flops: float):
                 for xd, yd in (("bfloat16", "bfloat16"),
                                ("float32", "bfloat16"),
                                ("bfloat16", "float32"))]
-    bias = bias_grad_section(bw, flops)
+    # the bias gradient's add on the card, and its latency (the chain
+    # floor's unit)
+    probe = bf16_add_probe()
+    bias = bias_grad_section(bw, flops, ns_per_add=probe["ns_per_add"])
     # the layer-zoo slice: AlexNet.conf's 8 biases at its batch 256
     bias_alex = bias_grad_section(bw, flops, alexnet_cfg(ALEX_BATCH),
-                                  ALEX_BATCH, ALEX_LAUNCHES["bias_grad_bf16"])
+                                  ALEX_BATCH, ALEX_LAUNCHES["bias_grad_bf16"],
+                                  ns_per_add=probe["ns_per_add"])
+    bias_extra = bias_grad_extra(bw, flops)
     ok = ok and all(v["ok"] for v in pc.values()) \
         and all(c["ok"] for c in bwd_bf16) and bias["ok"] \
-        and bias_alex["ok"]
+        and bias_alex["ok"] and probe["ok"] and bias_extra["ok"]
     res = {"phase": "kernels", "ok": ok, "kernel": "conv_epilogue",
            "path_launches_per_forward": len(shapes),
            "distinct_path_shapes": len(per_shape),
@@ -1597,7 +1877,8 @@ def phase_kernels(bw: float, flops: float, tc_flops: float):
            "relu_max_pool": train["relu_max_pool"],
            "train_bf16": train_bf16, "pool_concat": pc,
            "backward_bf16": bwd_bf16, "bias_grad_bf16": bias,
-           "bias_grad_bf16_alexnet": bias_alex}
+           "bias_grad_bf16_alexnet": bias_alex, "bf16_add": probe,
+           "bias_grad_bf16_extra": bias_extra}
     emit(res)
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version")
@@ -3770,6 +4051,8 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
             reference_ms=sec["step_sum"]["reference_%s_ms" % sfx],
             reference=sec["reference"],
             device_ms=run["profile"]["pool_concat_%s_device_ms" % sfx],
+            kernel_device_ms=sec["step_sum"].get("%s_device_ms" % sfx),
+            routes=sec["fwd_routes"] if sfx == "fwd" else None,
             per=per_tstep % sec["launches_per_step"]
             + (" (dtype = bfloat16)" if sec is pcb else ""), peaks=part))
     return {"kernels": pool_rows + [
@@ -3794,7 +4077,15 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
              bound_ms=bias["step_sum"]["bound_ms"],
              bound_by=bias["bound_by"],
              library_ms=bias["step_sum"]["library_ms"],
+             library_device_ms=bias["step_sum"]["library_device_ms"],
              library=bias["library"],
+             chain_bound_ms=bias["step_sum"]["chain_bound_ms"],
+             chain_adds=bias["chain_per_step"],
+             add_ns=kres["bf16_add"]["ns_per_add"],
+             add_cycles=kres["bf16_add"]["cycles_per_add"],
+             kernel_device_ms=bias["step_sum"]["device_ms"],
+             routes=[[c["shape"], c["routes"], c["groups"]]
+                     for c in bias["cases"]],
              device_ms=kbprof["bias_grad_device_ms"],
              per="one kaiming-224 training step at batch %d, dtype = "
              "bfloat16: %d launches" % (TRAIN_BATCH,
@@ -4013,10 +4304,17 @@ def main() -> int:
                 "bound_ms": ab["step_sum"]["bound_ms"],
                 "bound_by": ab["bound_by"],
                 "library_ms": ab["step_sum"]["library_ms"],
+                "library_device_ms": ab["step_sum"]["library_device_ms"],
+                "chain_bound_ms": ab["step_sum"]["chain_bound_ms"],
+                "chain_adds": ab["chain_per_step"],
+                "kernel_device_ms": ab["step_sum"]["device_ms"],
                 "device_ms": alexres["profile"]["bias_grad_device_ms"],
                 "cases": [{k: c[k] for k in ("shape", "count", "ms",
-                                             "plain_ms", "bound_ms",
-                                             "library_ms", "exact")}
+                                             "device_ms", "plain_ms",
+                                             "bound_ms", "chain_bound_ms",
+                                             "library_ms",
+                                             "library_device_ms", "routes",
+                                             "groups", "exact")}
                           for c in ab["cases"]]}
     emit(kl)
     print(smi, flush=True)

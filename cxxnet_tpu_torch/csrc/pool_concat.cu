@@ -53,17 +53,35 @@
 // the output once (8 bytes per float32 output element, 4 in bf16; k*k
 // operations per pool element); the backward reads x, the output
 // segment and dy's segment and writes dx (16 bytes per f32 element,
-// k*k compares and adds). The design: blocks stride over the output
-// (forward) or input (backward) pixels and a block's threads over the
-// pixel's channels, branch by branch, so a warp's loads and stores are
-// contiguous in every dense tensor, no division runs per element and a
-// branch's parameters are loaded once per pixel; a 3 x 3 window (every
-// Inception module's) is unrolled, so its nine loads are in flight
-// together; 64-bit offsets; the k*k re-reads of neighbouring windows hit
-// L1/L2. It stays latency-bound (few loads in flight per thread): 5-10x
-// its bound at the tower's shapes on an H100. Several pixels or vector
-// loads per thread, and shared-memory tiling of the window, are later
-// work.
+// k*k compares and adds).
+//
+// The forward's design (cxn_pool_concat_fwd_tile, tiled as
+// layers/kernels.py pool_concat_plan chooses): a block takes a tile of
+// output pixels (up to 8 rows x 32 columns of one image) and one job,
+// 128 bytes of channels of one branch, so a launch has images x tiles x
+// jobs blocks and every branch's copy and the pool's window run side by
+// side. It is templated on the output dtype T and on "every branch is
+// T" (the tower's case; a branch of the other dtype is read through its
+// dtype and cast, in the same kernel). Where a branch's dtype is T, its
+// channel stride 1, and its other strides, width, output offset and
+// bases allow it, a thread moves 16 bytes (4 f32 or 8 bf16 channels);
+// otherwise it moves one element. A plain branch is a straight copy,
+// four vectors a thread in flight. The pool branch's job stages its
+// (rows + k - 1) x (cols + k - 1) halo of those channels into shared
+// memory once (16-byte cp.async, zero-filled where the window leaves
+// the map), then reads the k*k taps there, so each input element leaves
+// L2 about (rows + k - 1)(cols + k - 1) / (rows cols) times instead of
+// k*k. On the vector route the taps combine word by word (Words<T>:
+// max.NaN, in bf16 two channels an instruction; f32 adds, or bf16 adds
+// two channels an instruction, each rounded once to bf16, which is the
+// f32 add rounded to bf16), and the avg's product is taken in f32 and
+// rounded to T, as on the scalar route, so the bits do not depend on
+// the route. 64-bit offsets.
+//
+// The backward is the first design: blocks stride over the input
+// pixels and a block's threads over the pixel's channels; a 3 x 3
+// window is unrolled; it stays latency-bound (few loads in flight per
+// thread).
 //
 // Plain C interface, loaded with ctypes. Launches go on the caller's
 // stream; each entry returns cudaGetLastError() after its launch.
@@ -74,7 +92,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;      // the backward's block
+constexpr int kFwdThreads = 256;   // the forward's block
+constexpr int kFwdMinBlocks = 6;   // forward blocks an SM (register cap)
+constexpr int kCopyVecs = 4;       // a plain copy's vectors in flight
 constexpr int kBlocksPerSm = 16;
 constexpr int kMaxBranches = 8;
 
@@ -108,6 +129,11 @@ __device__ __forceinline__ float max_nan(float m, float a) {
   if (m != m) return m;
   if (a != a) return a;
   return fmaxf(m, a);
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 // one element of a float32 (dtype 0) or bfloat16 (dtype 1) tensor
@@ -148,74 +174,297 @@ struct Arith<__nv_bfloat16> {
   }
 };
 
+// ---------------------------------------------------------------- forward
+
+// Tiling of a launch, from layers/kernels.py pool_concat_plan: a block
+// takes tile (tr output rows x tw output cols) of one image and one
+// job, cc channels of one branch (blockIdx.x = image * tiles + tile,
+// blockIdx.y = job; branch q owns jobs [jobs[q], jobs[q + 1])).
+struct Tiling {
+  int tr, tw, cc, rtiles, ctiles;
+};
+
 struct Branches {
   const void* ptr[kMaxBranches];
   int64_t s[kMaxBranches][4];   // element strides (b, h, w, c)
   int off[kMaxBranches + 1];    // channel offsets; off[n] = total
   int dtype[kMaxBranches];      // 0 float32, 1 bfloat16
+  int vec[kMaxBranches];        // 1: the 16-byte route
+  int jobs[kMaxBranches + 1];   // job offsets; jobs[n] = total
   int n;
 };
 
-// ---------------------------------------------------------------- forward
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  // bytes 0 fills the 16 bytes with zeros (the pad), reading nothing
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
 
-// Block-strided over the B*H*W output pixels; per pixel the block walks
-// the branches in turn (each branch's pointer, strides and dtype are
-// block-uniform and loaded once per pixel) and its threads walk the
-// branch's channels, so a warp's stores and its loads from every dense
-// branch are contiguous.
-// K > 0 fixes the window at compile time (its k*k loads unrolled and in
-// flight together); K = 0 reads it from k.
+// a 16-byte vector of T as f32 values (exact), and back (v holds T
+// values, so the packing is exact too)
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& q, float* f);
+template <>
+__device__ __forceinline__ void unpack<float>(const uint4& q, float* f) {
+  f[0] = __uint_as_float(q.x);
+  f[1] = __uint_as_float(q.y);
+  f[2] = __uint_as_float(q.z);
+  f[3] = __uint_as_float(q.w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& q,
+                                                      float* f) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+template <typename T>
+__device__ __forceinline__ uint4 pack(const float* f);
+template <>
+__device__ __forceinline__ uint4 pack<float>(const float* f) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+template <>
+__device__ __forceinline__ uint4 pack<__nv_bfloat16>(const float* f) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[i] = (__float_as_uint(f[2 * i]) >> 16) |
+           (__float_as_uint(f[2 * i + 1]) & 0xffff0000u);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The window's steps on a 16-byte vector of T, word by word: float32 in
+// f32, bf16 two to an instruction. max.NaN gives NaN where either is
+// NaN and +0 over -0 (torch.maximum's result; the card's check holds
+// the bits); add.rn.bf16x2 rounds each half once, which is the f32 add
+// rounded to bf16 (double rounding through f32 is innocuous for a sum
+// of two bf16 values: the bias gradient's argument).
+template <typename T>
+struct Words;
+template <>
+struct Words<float> {
+  static __device__ __forceinline__ uint32_t max1(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("max.NaN.f32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static __device__ __forceinline__ uint4 max(const uint4& a, const uint4& b) {
+    return make_uint4(max1(a.x, b.x), max1(a.y, b.y), max1(a.z, b.z),
+                      max1(a.w, b.w));
+  }
+  static __device__ __forceinline__ uint32_t add1(uint32_t a, uint32_t b) {
+    return __float_as_uint(__fadd_rn(__uint_as_float(a), __uint_as_float(b)));
+  }
+  static __device__ __forceinline__ uint4 add(const uint4& a, const uint4& b) {
+    return make_uint4(add1(a.x, b.x), add1(a.y, b.y), add1(a.z, b.z),
+                      add1(a.w, b.w));
+  }
+};
+template <>
+struct Words<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t max1(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static __device__ __forceinline__ uint4 max(const uint4& a, const uint4& b) {
+    return make_uint4(max1(a.x, b.x), max1(a.y, b.y), max1(a.z, b.z),
+                      max1(a.w, b.w));
+  }
+  static __device__ __forceinline__ uint32_t add1(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+  }
+  static __device__ __forceinline__ uint4 add(const uint4& a, const uint4& b) {
+    return make_uint4(add1(a.x, b.x), add1(a.y, b.y), add1(a.z, b.z),
+                      add1(a.w, b.w));
+  }
+};
+
+// one element of a branch as T: read as T where every branch is T
+// (kSame), else through the branch's dtype (block-uniform), rounded as
+// the plain version's x.to(T) rounds it
+template <typename T, bool kSame>
+__device__ __forceinline__ float load_cast(const void* p, int64_t off,
+                                           int dtype) {
+  if (kSame) {
+    return Arith<T>::cast(load_as_f32(p, off, sizeof(T) == 4 ? 0 : 1));
+  }
+  return Arith<T>::cast(load_as_f32(p, off, dtype));
+}
+
+// the tap (0,0) of a window, then the rest in row-major order, over the
+// f32 values of T elements at `at` (elements) in the halo, pitch `hp`
+// elements a halo row and `cp` a halo pixel
 template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-cxn_pool_concat_fwd_k(const __grid_constant__ Branches br, int pos, int k_rt,
-                      int avg, float inv, T* __restrict__ out, int npix,
-                      int h, int w) {
+__device__ __forceinline__ float window(const T* at, int k, int hp, int cp,
+                                        int avg, float inv) {
   using A = Arith<T>;
+  float y = to_f32(at[0]);
+#pragma unroll
+  for (int di = 0; di < (K > 0 ? K : k); ++di) {
+#pragma unroll
+    for (int dj = 0; dj < (K > 0 ? K : k); ++dj) {
+      if (di == 0 && dj == 0) continue;
+      const float v = to_f32(at[di * hp + dj * cp]);
+      y = avg ? A::add(y, v) : max_nan(y, v);
+    }
+  }
+  return avg ? A::mul(y, inv) : y;
+}
+
+// Block (image, tile, job). A plain branch's job copies its channels of
+// the tile's pixels: 16-byte vectors where the branch takes the vector
+// route (its dtype is T; unit channel stride; strides, width, output
+// offset and bases 16-byte aligned), else element by element with a
+// cast. The pool branch's job stages the tile's (tr + k - 1) x
+// (tw + k - 1) halo of its cc channels into shared memory as T (16-byte
+// cp.async with zero fill for the pad on the vector route; loads and a
+// cast otherwise), then every output reads its k*k taps from there and
+// writes 16 bytes (or one element) of the output.
+template <typename T, bool kSame, int K>
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
+cxn_pool_concat_fwd_tile(const __grid_constant__ Branches br, int pos,
+                         int k_rt, int avg, float inv, T* __restrict__ out,
+                         int h, int w, Tiling tl) {
+  using A = Arith<T>;
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* halo = reinterpret_cast<T*>(smem);
   const int k = K > 0 ? K : k_rt;
-  const int ctot = br.off[br.n];
   const int p = k / 2;
-  for (int pix = blockIdx.x; pix < npix; pix += gridDim.x) {
-    const int j = pix % w;
-    const int i = (pix / w) % h;
-    const int64_t b = pix / (w * h);
-    T* orow = out + static_cast<int64_t>(pix) * ctot;
-    for (int q = 0; q < br.n; ++q) {
-      const void* xp = br.ptr[q];
-      const int64_t s1 = br.s[q][1], s2 = br.s[q][2], s3 = br.s[q][3];
-      const int64_t base = b * br.s[q][0];
-      const int dt = br.dtype[q];
-      const int off = br.off[q];
-      const int cq = br.off[q + 1] - off;
-      if (q != pos) {
-        const int64_t at = base + i * s1 + j * s2;
-        for (int c = threadIdx.x; c < cq; c += blockDim.x) {
-          A::store(orow + off + c, A::cast(load_as_f32(xp, at + c * s3, dt)));
-        }
-        continue;
-      }
-      for (int c = threadIdx.x; c < cq; c += blockDim.x) {
-        const int64_t at = base + c * s3;
-        float y = 0.0f;
+  const int64_t ctot = br.off[br.n];
+  const int tiles = tl.rtiles * tl.ctiles;
+  const int tile = blockIdx.x % tiles;
+  const int64_t img = blockIdx.x / tiles;
+  const int i0 = (tile / tl.ctiles) * tl.tr;
+  const int j0 = (tile % tl.ctiles) * tl.tw;
+  const int rows = min(tl.tr, h - i0);
+  const int cols = min(tl.tw, w - j0);
+  const int job = blockIdx.y;
+  int q = 0;
+  while (job >= br.jobs[q + 1]) ++q;
+  const int c0 = (job - br.jobs[q]) * tl.cc;
+  const int cw = min(tl.cc, br.off[q + 1] - br.off[q] - c0);
+  const int64_t s1 = br.s[q][1], s2 = br.s[q][2];
+  const void* xp = br.ptr[q];
+  const int dt = br.dtype[q];
+  const bool vec = br.vec[q] != 0;
+  // the branch at (img, 0, 0, c0) and the output at the tile's origin
+  const int64_t xb = img * br.s[q][0] + c0 * br.s[q][3];
+  T* ob = out + ((img * h + i0) * w + j0) * ctot + br.off[q] + c0;
+  const int64_t orow = static_cast<int64_t>(w) * ctot;
+
+  if (q != pos) {
+    if (vec) {
+      // kCopyVecs vectors a thread in flight before the first store
+      const T* x = static_cast<const T*>(xp) + xb;
+      const int nv = cw / V;
+      const int total = rows * cols * nv;
+      for (int e0 = threadIdx.x; e0 < total; e0 += kCopyVecs * kFwdThreads) {
+        uint4 val[kCopyVecs];
+        T* dst[kCopyVecs];
 #pragma unroll
-        for (int di = 0; di < k; ++di) {
-          const int ii = i + di - p;
-          const bool row_in = ii >= 0 && ii < h;
-#pragma unroll
-          for (int dj = 0; dj < k; ++dj) {
-            const int jj = j + dj - p;
-            const float v = (row_in && jj >= 0 && jj < w)
-                ? A::cast(load_as_f32(xp, at + ii * s1 + jj * s2, dt))
-                : 0.0f;
-            if (di == 0 && dj == 0) {
-              y = v;
-            } else {
-              y = avg ? A::add(y, v) : max_nan(y, v);
-            }
+        for (int u = 0; u < kCopyVecs; ++u) {
+          const int e = e0 + u * kFwdThreads;
+          dst[u] = nullptr;
+          if (e < total) {
+            const int v = e % nv, pix = e / nv;
+            const int r = pix / cols, c = pix % cols;
+            val[u] = __ldg(reinterpret_cast<const uint4*>(
+                x + (i0 + r) * s1 + (j0 + c) * s2 + v * V));
+            dst[u] = ob + r * orow + c * ctot + v * V;
           }
         }
-        if (avg) y = A::mul(y, inv);
-        A::store(orow + off + c, y);
+#pragma unroll
+        for (int u = 0; u < kCopyVecs; ++u) {
+          if (dst[u] != nullptr) *reinterpret_cast<uint4*>(dst[u]) = val[u];
+        }
       }
+    } else {
+      const int64_t s3 = br.s[q][3];
+      for (int e = threadIdx.x; e < rows * cols * cw; e += kFwdThreads) {
+        const int ch = e % cw, pix = e / cw;
+        const int r = pix / cols, c = pix % cols;
+        A::store(ob + r * orow + c * ctot + ch,
+                 load_cast<T, kSame>(xp, xb + (i0 + r) * s1 + (j0 + c) * s2 +
+                                             ch * s3, dt));
+      }
+    }
+    return;
+  }
+
+  // the pool branch: stage the halo, pixel pitch cc elements
+  const int hr = rows + k - 1, hc = cols + k - 1;
+  const int cp = tl.cc;
+  if (vec) {
+    const T* x = static_cast<const T*>(xp) + xb;
+    const int nv = cw / V;
+    for (int e = threadIdx.x; e < hr * hc * nv; e += kFwdThreads) {
+      const int v = e % nv, hpix = e / nv;
+      const int ii = i0 + hpix / hc - p, jj = j0 + hpix % hc - p;
+      const bool in = ii >= 0 && ii < h && jj >= 0 && jj < w;
+      cp_async16(halo + hpix * cp + v * V,
+                 in ? x + ii * s1 + jj * s2 + v * V : x, in ? 16 : 0);
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+  } else {
+    const int64_t s3 = br.s[q][3];
+    for (int e = threadIdx.x; e < hr * hc * cw; e += kFwdThreads) {
+      const int ch = e % cw, hpix = e / cw;
+      const int ii = i0 + hpix / hc - p, jj = j0 + hpix % hc - p;
+      float v = 0.0f;
+      if (ii >= 0 && ii < h && jj >= 0 && jj < w) {
+        v = load_cast<T, kSame>(xp, xb + ii * s1 + jj * s2 + ch * s3, dt);
+      }
+      A::store(halo + hpix * cp + ch, v);
+    }
+  }
+  __syncthreads();
+  const int hp = hc * cp;   // a halo row, elements
+  if (vec) {
+    const int nv = cw / V;
+    for (int e = threadIdx.x; e < rows * cols * nv; e += kFwdThreads) {
+      const int v = e % nv, pix = e / nv;
+      const int r = pix / cols, c = pix % cols;
+      const T* at = halo + r * hp + c * cp + v * V;
+      uint4 y = *reinterpret_cast<const uint4*>(at);
+#pragma unroll
+      for (int di = 0; di < (K > 0 ? K : k); ++di) {
+#pragma unroll
+        for (int dj = 0; dj < (K > 0 ? K : k); ++dj) {
+          if (di == 0 && dj == 0) continue;
+          const uint4 t =
+              *reinterpret_cast<const uint4*>(at + di * hp + dj * cp);
+          y = avg ? Words<T>::add(y, t) : Words<T>::max(y, t);
+        }
+      }
+      if (avg) {
+        float f[V];
+        unpack<T>(y, f);
+#pragma unroll
+        for (int u = 0; u < V; ++u) f[u] = A::mul(f[u], inv);
+        y = pack<T>(f);
+      }
+      *reinterpret_cast<uint4*>(ob + r * orow + c * ctot + v * V) = y;
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols * cw; e += kFwdThreads) {
+      const int ch = e % cw, pix = e / cw;
+      const int r = pix / cols, c = pix % cols;
+      A::store(ob + r * orow + c * ctot + ch,
+               window<T, K>(halo + r * hp + c * cp + ch, k, hp, cp, avg,
+                            inv));
     }
   }
 }
@@ -273,18 +522,21 @@ cxn_pool_concat_bwd_k(const void* __restrict__ x, int x_dtype, int64_t xs0,
 }
 
 // the window every Inception module uses (3) unrolled, any other odd k
-// at run time
-template <typename T>
-void fwd_launch(const Branches& br, int pos, int k, int mode, float inv,
-                void* out, int np, int h, int w, cudaStream_t s) {
+// at run time; kSame where every branch is of the output's dtype
+template <typename T, bool kSame>
+cudaError_t fwd_launch(const Branches& br, int pos, int k, int mode,
+                       float inv, void* out, int h, int w, const Tiling& tl,
+                       dim3 grid, int smem, cudaStream_t s) {
   T* o = static_cast<T*>(out);
-  if (k == 3) {
-    cxn_pool_concat_fwd_k<T, 3><<<grid_for(np), kThreads, 0, s>>>(
-        br, pos, k, mode, inv, o, np, h, w);
-  } else {
-    cxn_pool_concat_fwd_k<T, 0><<<grid_for(np), kThreads, 0, s>>>(
-        br, pos, k, mode, inv, o, np, h, w);
+  auto kern = k == 3 ? cxn_pool_concat_fwd_tile<T, kSame, 3>
+                     : cxn_pool_concat_fwd_tile<T, kSame, 0>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
   }
+  kern<<<grid, kFwdThreads, smem, s>>>(br, pos, k, mode, inv, o, h, w, tl);
+  return cudaSuccess;
 }
 
 template <typename TX>
@@ -310,24 +562,32 @@ void bwd_launch(const void* x, int x_dtype, const long long* xs,
 }  // namespace
 
 // n branches (2..8): ptrs[q], strides[4q..4q+3] (elements), channels[q],
-// dtypes[q] (0 float32, 1 bfloat16). out: dense (b, h, w, sum channels)
-// of out_dtype. pos: the pool branch; k odd >= 3; mode 0 max, 1 avg;
-// inv: 1/(k*k) in out_dtype (avg). Returns a cudaError_t value; 0 is
+// dtypes[q] (0 float32, 1 bfloat16), vec[q] (1: the 16-byte route).
+// out: dense (b, h, w, sum channels) of out_dtype. pos: the pool branch;
+// k odd >= 1; mode 0 max, 1 avg; inv: 1/(k*k) in out_dtype (avg). tr,
+// tw, cc: the tile (output rows, cols) and the channels a job, as
+// layers/kernels.py pool_concat_plan chooses them; a vector route the
+// branch cannot take is refused. Returns a cudaError_t value; 0 is
 // success.
 extern "C" int cxn_pool_concat_fwd(int n, const void* const* ptrs,
                                    const long long* strides,
                                    const int* channels, const int* dtypes,
-                                   int pos, int k, int mode, float inv,
-                                   void* out, int out_dtype, int b, int h,
-                                   int w, void* stream) {
+                                   const int* vec, int pos, int k, int mode,
+                                   float inv, void* out, int out_dtype, int b,
+                                   int h, int w, int tr, int tw, int cc,
+                                   void* stream) {
   if (n < 2 || n > kMaxBranches || pos < 0 || pos >= n || k < 1 ||
       k % 2 == 0 || (mode != 0 && mode != 1) || b <= 0 || h <= 0 || w <= 0 ||
-      (out_dtype != 0 && out_dtype != 1)) {
+      (out_dtype != 0 && out_dtype != 1) || tr < 1 || tw < 1 || cc < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int esz = out_dtype == 0 ? 4 : 2;
+  const int v = 16 / esz;
   Branches br;
   br.n = n;
   br.off[0] = 0;
+  br.jobs[0] = 0;
+  bool same = true;
   for (int q = 0; q < n; ++q) {
     if (channels[q] <= 0 || (dtypes[q] != 0 && dtypes[q] != 1)) {
       return static_cast<int>(cudaErrorInvalidValue);
@@ -335,19 +595,52 @@ extern "C" int cxn_pool_concat_fwd(int n, const void* const* ptrs,
     br.ptr[q] = ptrs[q];
     for (int d = 0; d < 4; ++d) br.s[q][d] = strides[4 * q + d];
     br.dtype[q] = dtypes[q];
+    br.vec[q] = vec[q] != 0;
     br.off[q + 1] = br.off[q] + channels[q];
+    br.jobs[q + 1] = br.jobs[q] + (channels[q] + cc - 1) / cc;
+    same = same && dtypes[q] == out_dtype;
   }
-  const int64_t npix = static_cast<int64_t>(b) * h * w;
-  if (npix >= (int64_t{1} << 31)) {
+  for (int q = 0; q < n; ++q) {
+    const int64_t* st = br.s[q];
+    if (br.vec[q] &&
+        (dtypes[q] != out_dtype || st[3] != 1 || st[0] % v || st[1] % v ||
+         st[2] % v || channels[q] % v || br.off[q] % v || br.off[n] % v ||
+         cc % v || reinterpret_cast<uintptr_t>(ptrs[q]) % 16 ||
+         reinterpret_cast<uintptr_t>(out) % 16)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  Tiling tl;
+  tl.tr = tr;
+  tl.tw = tw;
+  tl.cc = cc;
+  tl.rtiles = (h + tr - 1) / tr;
+  tl.ctiles = (w + tw - 1) / tw;
+  const int64_t blocks = static_cast<int64_t>(b) * tl.rtiles * tl.ctiles;
+  const int64_t smem =
+      static_cast<int64_t>(tr + k - 1) * (tw + k - 1) * cc * esz;
+  if (blocks >= (int64_t{1} << 31) || br.jobs[n] >= 65536 ||
+      smem > 227 * 1024 ||
+      static_cast<int64_t>(b) * h * w >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int np = static_cast<int>(npix);
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(br.jobs[n]));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int sm = static_cast<int>(smem);
+  cudaError_t e;
   if (out_dtype == 0) {
-    fwd_launch<float>(br, pos, k, mode, inv, out, np, h, w, s);
+    e = same ? fwd_launch<float, true>(br, pos, k, mode, inv, out, h, w, tl,
+                                       grid, sm, s)
+             : fwd_launch<float, false>(br, pos, k, mode, inv, out, h, w, tl,
+                                        grid, sm, s);
   } else {
-    fwd_launch<__nv_bfloat16>(br, pos, k, mode, inv, out, np, h, w, s);
+    e = same ? fwd_launch<__nv_bfloat16, true>(br, pos, k, mode, inv, out, h,
+                                               w, tl, grid, sm, s)
+             : fwd_launch<__nv_bfloat16, false>(br, pos, k, mode, inv, out,
+                                                h, w, tl, grid, sm, s);
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

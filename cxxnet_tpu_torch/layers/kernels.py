@@ -51,6 +51,7 @@ their float32 and bfloat16 launches apart: ``launches`` and
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -179,12 +180,14 @@ _SIGNATURES = {
                                   _L, _L, _I, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _L, _P]},
     "pool_concat": {
-        "cxn_pool_concat_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I,
-                                _I, _I, _P],
+        "cxn_pool_concat_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _P],
         "cxn_pool_concat_bwd": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                                 _F, _P, _I, _I, _I, _I, _P]},
     "bias_grad_bf16": {"cxn_bias_grad_bf16": [_P, _L, _L, _L, _L, _I, _I, _I,
-                                              _I, _I, _P, _P, _L, _P, _P]},
+                                              _I, _I, _P, _P, _L, _P, _P],
+                       "cxn_bf16_add_pairs": [_P, _P, _P, _L, _P],
+                       "cxn_bf16_add_chain": [_P, _I, _P, _P, _P]},
 }
 
 
@@ -1155,6 +1158,18 @@ def relu_max_pool(x: torch.Tensor, k: int) -> torch.Tensor:
 
 POOL_CONCAT_MAX_BRANCHES = 8
 _POOL_MODES = {"max": 0, "avg": 1}
+# the forward's tiles (csrc/pool_concat.cu cxn_pool_concat_fwd_tile): at
+# most this many output rows and columns a block, and a job's channels
+# as bytes of the output dtype; the halo a block stages in shared memory
+# stays within PC_MAX_SMEM bytes where a tile can, and a one-pixel tile
+# of one vector's channels may take up to PC_SMEM_LIMIT (a block's most
+# on sm_90: every window the reference's gate admits fits)
+PC_TILE_ROWS = 8
+PC_TILE_COLS = 32
+PC_JOB_BYTES = 128
+PC_MAX_SMEM = 96 * 1024
+PC_SMEM_LIMIT = 227 * 1024
+_DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
 def _inv_window(k: int, dtype: torch.dtype) -> float:
@@ -1254,13 +1269,103 @@ def _check_pool_concat(branches: Sequence[torch.Tensor], pos: int, k: int,
         raise ValueError("pool_concat: shapes exceed the kernel's int extents")
 
 
+def _dim_strides(t: torch.Tensor) -> Tuple[int, ...]:
+    """t's element strides, 0 along a dim of size 1 (never stepped)."""
+    return tuple(0 if n == 1 else st for n, st in zip(t.shape, t.stride()))
+
+
+def pool_concat_plan(widths: Sequence[int], dtypes, strides, aligns,
+                     out_dtype, pos: int, k: int, b: int, h: int, w: int,
+                     out_align: int = 16) -> Dict[str, object]:
+    """The launch of the pool_concat forward on branches of channel
+    ``widths`` and ``dtypes`` (torch dtypes or their names), read
+    through element ``strides`` (4 each; 0 along a dim of size 1) from
+    bases of ``aligns`` bytes of alignment, into a dense (b, h, w,
+    sum(widths)) output of ``out_dtype`` whose base has ``out_align``:
+
+    - ``routes``, per branch ``"vec"`` (its dtype is the output's, unit
+      channel stride, its other strides, its width and its offset in the
+      output multiples of the 16-byte vector ``v``, as is the output's
+      width, and 16-byte aligned bases: 16-byte loads and stores, and
+      for the pool branch a cp.async-staged halo) or ``"scalar"`` (one
+      element a thread, cast to the output dtype);
+    - the tile, ``tr`` x ``tw`` output pixels (at most PC_TILE_ROWS x
+      PC_TILE_COLS, evened out over the map) and ``cc`` channels a job
+      (PC_JOB_BYTES of the output dtype), halved (columns, then rows,
+      then channels down to ``v``) while the halo, ``smem`` bytes,
+      exceeds PC_MAX_SMEM (a one-pixel tile of ``v`` channels may take
+      up to PC_SMEM_LIMIT: a window up to k = 119); ``jobs`` per branch
+      and the grid (``blocks``);
+    - ``args``: the branches' strides, widths, dtype codes and routes as
+      the kernel's entry takes them (ctypes arrays).
+    Chosen on the host from shapes, strides and alignment; not a
+    fallback: the kernel refuses a vector route its tensors cannot
+    take. Memoized: the result is shared, not to be changed."""
+    def name(dt):
+        return dt if isinstance(dt, str) else str(dt).replace("torch.", "")
+    return _pool_concat_plan(
+        tuple(int(c) for c in widths), tuple(name(d) for d in dtypes),
+        tuple(tuple(int(x) for x in st) for st in strides),
+        tuple(int(a) for a in aligns), name(out_dtype), int(pos), int(k),
+        int(b), int(h), int(w), int(out_align))
+
+
+@functools.lru_cache(maxsize=1024)
+def _pool_concat_plan(widths, dtypes, strides, aligns, out, pos, k, b, h, w,
+                      out_align) -> Dict[str, object]:
+    """:func:`pool_concat_plan` on hashable arguments, memoized."""
+    esz = 2 if out == "bfloat16" else 4
+    v = 16 // esz
+    ctot = sum(widths)
+    routes, off = [], 0
+    for c, dt, st, al in zip(widths, dtypes, strides, aligns):
+        vec = dt == out and st[3] == 1 and c % v == 0 \
+            and off % v == 0 and ctot % v == 0 and al % 16 == 0 \
+            and out_align % 16 == 0 and all(x % v == 0 for x in st[:3])
+        routes.append("vec" if vec else "scalar")
+        off += c
+
+    def even(n, most):
+        return -(-n // -(-n // most))
+    tr, tw, cc = even(h, PC_TILE_ROWS), even(w, PC_TILE_COLS), \
+        PC_JOB_BYTES // esz
+
+    def smem():
+        return (tr + k - 1) * (tw + k - 1) * cc * esz
+    while smem() > PC_MAX_SMEM and (tw > 1 or tr > 1 or cc > v):
+        if tw > 1:
+            tw = -(-tw // 2)
+        elif tr > 1:
+            tr = -(-tr // 2)
+        else:
+            cc //= 2
+    if smem() > PC_SMEM_LIMIT:
+        raise ValueError("pool_concat: a %d x %d window does not fit the "
+                         "kernel's shared memory" % (k, k))
+    jobs = [-(-c // cc) for c in widths]
+    rtiles, ctiles = -(-h // tr), -(-w // tw)
+    if sum(jobs) >= 65536 or b * rtiles * ctiles >= 2 ** 31:
+        raise ValueError("pool_concat: shapes exceed the kernel's grid")
+    n = len(widths)
+    args = ((ctypes.c_longlong * (4 * n))(*[x for st in strides for x in st]),
+            (ctypes.c_int * n)(*widths),
+            (ctypes.c_int * n)(*[int(dt == "bfloat16") for dt in dtypes]),
+            (ctypes.c_int * n)(*[r == "vec" for r in routes]))
+    return {"routes": routes, "v": v, "tr": tr, "tw": tw, "cc": cc,
+            "rtiles": rtiles, "ctiles": ctiles, "jobs": jobs,
+            "blocks": b * rtiles * ctiles * sum(jobs), "smem": smem(),
+            "args": args}
+
+
 def pool_concat_fwd(branches: Sequence[torch.Tensor], pos: int, k: int,
                     mode: str) -> torch.Tensor:
     """:func:`pool_concat_plain`'s function as one launch of
-    ``cxn_pool_concat_fwd`` (``csrc/pool_concat.cu``) for CUDA tensors,
-    each branch read through its strides (a dense NHWC tensor or a
-    channels-last view: no copy), the plain version for CPU tensors.
-    The output is a dense NHWC tensor of the first branch's dtype."""
+    ``cxn_pool_concat_fwd`` (``csrc/pool_concat.cu``) along
+    :func:`pool_concat_plan` (the plan in ``pool_concat_fwd.last_plan``)
+    for CUDA tensors, each branch read through its strides (a dense NHWC
+    tensor or a channels-last view: no copy), the plain version for CPU
+    tensors. The output is a dense NHWC tensor of the first branch's
+    dtype."""
     _check_pool_concat(branches, pos, k, mode)
     x0 = branches[0]
     if x0.device.type == "cpu":
@@ -1272,25 +1377,31 @@ def pool_concat_fwd(branches: Sequence[torch.Tensor], pos: int, k: int,
                       dtype=x0.dtype, device=x0.device)
     if out.numel() == 0:
         return out
+    plan = _pool_concat_plan(
+        tuple(x.shape[3] for x in branches),
+        tuple(_DTYPE_NAME[x.dtype] for x in branches),
+        tuple(_dim_strides(x) for x in branches),
+        tuple(_alignment(x) for x in branches), _DTYPE_NAME[x0.dtype], pos,
+        k, b, h, w, _alignment(out))
     ptrs = (ctypes.c_void_p * n)(*[x.data_ptr() for x in branches])
-    strides = (ctypes.c_longlong * (4 * n))(
-        *[s for x in branches for s in x.stride()])
-    chans = (ctypes.c_int * n)(*[x.shape[3] for x in branches])
-    dtypes = (ctypes.c_int * n)(*[_DTYPE_CODE[x.dtype] for x in branches])
+    c_strides, chans, dtypes, vec = plan["args"]
     lib = _load("pool_concat")
     with torch.cuda.device(x0.device):
         err = lib.cxn_pool_concat_fwd(
-            n, ctypes.addressof(ptrs), ctypes.addressof(strides),
-            ctypes.addressof(chans), ctypes.addressof(dtypes), pos, k,
-            _POOL_MODES[mode], _inv_window(k, x0.dtype), out.data_ptr(),
-            _DTYPE_CODE[x0.dtype], b, h, w, _stream(x0))
+            n, ctypes.addressof(ptrs), ctypes.addressof(c_strides),
+            ctypes.addressof(chans), ctypes.addressof(dtypes),
+            ctypes.addressof(vec), pos, k, _POOL_MODES[mode],
+            _inv_window(k, x0.dtype), out.data_ptr(), _DTYPE_CODE[x0.dtype],
+            b, h, w, plan["tr"], plan["tw"], plan["cc"], _stream(x0))
     _raise_on(err, "pool_concat")
     _count(pool_concat_fwd, x0.dtype)
+    pool_concat_fwd.last_plan = plan
     return out
 
 
 pool_concat_fwd.launches = 0
 pool_concat_fwd.launches_bf16 = 0
+pool_concat_fwd.last_plan = None
 
 
 def pool_concat_bwd(x: torch.Tensor, out: Optional[torch.Tensor],
@@ -1479,12 +1590,87 @@ def bias_grad_bf16_plain(dy: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).float()
 
 
+BIAS_ROUTES = {"direct": 0, "ring": 1}
+# the ring route's channel groups, widest first; a group of G channels
+# steps its copy cursor 256 / G rows at a time along the last reduced
+# dim, which must hold at least half that many
+BIAS_RING_GROUPS = (64, 32, 16)
+
+
+def _window_extent(n: int, w: int, lo: int, d: int) -> int:
+    """The most real (unpadded) elements one of ``n`` windows of size
+    ``w`` holds over a dim of size ``d`` padded ``lo`` below."""
+    return max(min(d, (i + 1) * w - lo) - max(0, i * w - lo)
+               for i in range(n))
+
+
+def bias_grad_plan(shape: Sequence[int], strides: Sequence[int],
+                   align: int = 16, sms: int = 132) -> Dict[str, object]:
+    """The launches of ``csrc/bias_grad_bf16.cu`` on an (A, B, D, C) bf16
+    cotangent read through element ``strides`` (a dim of size 1 may
+    carry stride 0) from a base of ``align`` bytes of alignment, on a
+    card with ``sms`` SMs: ``passes``, :func:`xla_bias_sum_plan`'s;
+    ``routes``, per pass ``"ring"`` (unit channel stride, every other
+    stride and C a multiple of 8 elements, a 16-byte aligned base: one
+    warp copies a (window, channel group) into a shared-memory ring,
+    another sums it) or ``"direct"`` (register batches, any strides);
+    every pass after the first reads the dense partials (n0, n1, n2, C);
+    ``groups``, per pass the ring's channels a block: the widest of
+    BIAS_RING_GROUPS whose cursor step (256 / G rows) the last reduced
+    dim holds at least half of and whose blocks (windows x groups) fill
+    ``sms``, else the narrowest such (no such group: the direct route,
+    group 0); ``chain``, the longest window of each pass in real
+    elements, summed over the passes: the dependent bf16 adds that
+    bound the sum (its floor is ``chain`` times one add's latency);
+    ``args``, the passes as the kernel's entry takes them (a ctypes int
+    array), and ``scratch``, the bf16 elements its partials ping-pong
+    in. Memoized: the result is shared, not to be changed."""
+    return _bias_grad_plan(tuple(int(v) for v in shape),
+                           tuple(int(v) for v in strides), int(align),
+                           int(sms))
+
+
+@functools.lru_cache(maxsize=1024)
+def _bias_grad_plan(shape: Tuple[int, ...], strides: Tuple[int, ...],
+                    align: int, sms: int) -> Dict[str, object]:
+    """:func:`bias_grad_plan` on hashable arguments, memoized."""
+    a, b, d, c = shape
+    passes = xla_bias_sum_plan((a, b, d))
+    st, al = strides, align
+    dims = (a, b, d)
+    routes, groups, chain = [], [], 0
+    for step in passes:
+        windows = math.prod(s[0] for s in step)
+        fits = [g for g in BIAS_RING_GROUPS if dims[2] >= 128 // g]
+        ring = st[3] == 1 and all(v % 8 == 0 for v in st[:3]) \
+            and c % 8 == 0 and al % 16 == 0 and bool(fits)
+        g = next((g for g in fits if windows * -(-c // g) >= sms),
+                 fits[-1]) if ring else 0
+        routes.append("ring" if ring else "direct")
+        groups.append(g)
+        chain += math.prod(_window_extent(n, w, lo, dd)
+                           for (n, w, lo), dd in zip(step, dims))
+        dims = tuple(s[0] for s in step)
+        st, al = (dims[1] * dims[2] * c, dims[2] * c, c, 1), 16
+    flat = [v for step, route, g in zip(passes, routes, groups)
+            for v in [s[0] for s in step] + [s[1] for s in step]
+            + [s[2] for s in step] + [BIAS_ROUTES[route], g]]
+    # the largest pass's partials, twice (the passes ping-pong)
+    most = max([math.prod(s[0] for s in step) for step in passes[:-1]]
+               or [0]) * c
+    return {"passes": passes, "routes": routes, "groups": groups,
+            "chain": chain, "args": (ctypes.c_int * len(flat))(*flat),
+            "scratch": max(2 * most, 2)}
+
+
 def bias_grad_bf16(dy: torch.Tensor) -> torch.Tensor:
     """The float32 gradient of a bias added to a bf16 NHWC or (N, C)
     output, from its bf16 cotangent ``dy`` (read through its strides):
     the bf16 sum in the reference's order (:func:`bias_grad_bf16_plain`)
     as one call of ``csrc/bias_grad_bf16.cu`` (one launch per pass of
-    the plan) for a CUDA tensor, the plain version for a CPU one."""
+    :func:`bias_grad_plan`, the plan in ``bias_grad_bf16.last_plan``)
+    for a CUDA tensor, the plain version for a CPU
+    one."""
     if dy.dtype != torch.bfloat16:
         raise TypeError("bias_grad_bf16: dy must be bfloat16, got %s"
                         % dy.dtype)
@@ -1499,28 +1685,71 @@ def bias_grad_bf16(dy: torch.Tensor) -> torch.Tensor:
     if max(t.shape) >= 2 ** 31:
         raise ValueError("bias_grad_bf16: shape %s exceeds the kernel's int "
                          "extents" % (tuple(dy.shape),))
-    plan = xla_bias_sum_plan((a, b, d))
-    flat = [v for step in plan
-            for v in [s[0] for s in step] + [s[1] for s in step]
-            + [s[2] for s in step]]
-    # the largest pass's partials, twice (the passes ping-pong)
-    most = max([math.prod(s[0] for s in step) for step in plan[:-1]]
-               or [0]) * c
-    scratch = torch.empty(max(2 * most, 2), dtype=torch.bfloat16,
+    # a dim of size 1 is never stepped along: its stride does not matter
+    strides = tuple(0 if n == 1 else s for n, s in zip(t.shape, t.stride()))
+    plan = _bias_grad_plan(tuple(t.shape), strides, _alignment(t),
+                           _sm_count(dy.device))
+    scratch = torch.empty(plan["scratch"], dtype=torch.bfloat16,
                           device=dy.device)
-    plan_arr = (ctypes.c_int * len(flat))(*flat)
     lib = _load("bias_grad_bf16")
     with torch.cuda.device(dy.device):
         err = lib.cxn_bias_grad_bf16(
-            t.data_ptr(), *t.stride(), a, b, d, c, len(plan),
-            ctypes.addressof(plan_arr), scratch.data_ptr(), scratch.numel(),
-            out.data_ptr(), _stream(dy))
+            t.data_ptr(), *strides, a, b, d, c, len(plan["passes"]),
+            ctypes.addressof(plan["args"]), scratch.data_ptr(),
+            scratch.numel(), out.data_ptr(), _stream(dy))
     _raise_on(err, "bias_grad_bf16")
     bias_grad_bf16.launches += 1
+    bias_grad_bf16.last_plan = plan
     return out
 
 
 bias_grad_bf16.launches = 0
+bias_grad_bf16.last_plan = None
+
+
+def bf16_add_pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a + b`` of two contiguous CUDA bf16 tensors of one even size as
+    ``add.rn.bf16x2`` computes it (``cxn_bf16_add_pairs``, the add of
+    :func:`bias_grad_bf16`'s chains): a measurement entry that holds the
+    instruction against PyTorch's f32-add-then-round. No training path
+    calls it; it counts nothing."""
+    _require_cuda(a, "bf16_add_pairs")
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 \
+            or a.shape != b.shape or a.numel() % 2 or a.numel() == 0 \
+            or not (a.is_contiguous() and b.is_contiguous()) \
+            or b.device != a.device:
+        raise ValueError("bf16_add_pairs: two contiguous bf16 tensors of "
+                         "one even size on one device")
+    out = torch.empty_like(a)
+    lib = _load("bias_grad_bf16")
+    with torch.cuda.device(a.device):
+        err = lib.cxn_bf16_add_pairs(a.data_ptr(), b.data_ptr(),
+                                     out.data_ptr(), a.numel() // 2,
+                                     _stream(a))
+    _raise_on(err, "bf16_add_pairs")
+    return out
+
+
+def bf16_add_chain(x: torch.Tensor, n: int) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """One warp's chain of ``n`` dependent ``add.rn.bf16x2`` on a CUDA
+    bf16 tensor of 128 values (``cxn_bf16_add_chain``): each lane adds
+    word 32 + lane to word lane, ``n`` times. Returns the 64 sums and an
+    int64 tensor of the SM cycles the chain took. A measurement entry
+    (the latency behind :func:`bias_grad_plan`'s chain floor); it
+    counts nothing."""
+    _require_cuda(x, "bf16_add_chain")
+    if x.dtype != torch.bfloat16 or x.numel() != 128 \
+            or not x.is_contiguous() or n < 1:
+        raise ValueError("bf16_add_chain: 128 contiguous bf16 values, n >= 1")
+    out = torch.empty(64, dtype=torch.bfloat16, device=x.device)
+    cycles = torch.zeros(1, dtype=torch.int64, device=x.device)
+    lib = _load("bias_grad_bf16")
+    with torch.cuda.device(x.device):
+        err = lib.cxn_bf16_add_chain(x.data_ptr(), int(n), out.data_ptr(),
+                                     cycles.data_ptr(), _stream(x))
+    _raise_on(err, "bf16_add_chain")
+    return out, cycles
 
 
 class _BiasAddBf16(torch.autograd.Function):
@@ -1614,7 +1843,7 @@ def reset_launch_counts() -> None:
     """Zero every kernel wrapper's launch counter."""
     restore_launch_counts({name: 0 for name in _COUNTERS})
     relu_max_pool_bwd.strided_dy = 0
-
+    
 
 def restore_launch_counts(counts: Dict[str, int]) -> None:
     """Set the counters to ``counts`` (as :func:`launch_counts` gave
