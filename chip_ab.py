@@ -15,11 +15,13 @@ change, change, parent) so that a drift of the card shows. Per root:
 - ``bias_grad_bf16`` at AlexNet.conf's 8 bias shapes (batch 256) and
   kaiming bf16's 14 (batch 128), and ``torch.sum`` over the same
   cotangents (f32 accumulation: another function's bits, the library
-  yardstick); ``pool_concat_fwd`` at the tower's fused concats, f32 and
-  bf16. Each summed over a step's shapes: device ms (torch.profiler's
-  kernel events, the same for the kernel and the library call), event
-  ms (CUDA events around back-to-back calls) and host ms (the Python
-  time of a call, from perf_counter around calls that only queue work);
+  yardstick); ``pool_concat_fwd`` and ``pool_concat_bwd`` (the pool
+  branch's gradient from a dense cotangent) at the tower's fused
+  concats, f32 and bf16. Each summed over a step's shapes: device ms
+  (torch.profiler's kernel events, the same for the kernel and the
+  library call), event ms (CUDA events around back-to-back calls) and
+  host ms (the Python time of a call, from perf_counter around calls
+  that only queue work);
 - ``--steps``: chip_smoke.py's tower, kaiming and AlexNet.conf phases,
   whose step times it prints;
 - ``--check``: where ROOT's chip_smoke.py has them, its
@@ -130,8 +132,13 @@ def _concat(c, kernels, dtype: str):
         xs = [(torch.round(2 * torch.randn((b, h, w, ch), generator=gen,
                                            device="cuda")) / 2).to(dt)
               for ch in widths]
-        fns.append({"kernel": lambda xs=xs, p=pos, k=k, m=mode:
-                    kernels.pool_concat_fwd(xs, p, k, m)})
+        out = kernels.pool_concat_fwd(xs, pos, k, mode)
+        dy = torch.randn(out.shape, generator=gen, device="cuda").to(dt)
+        fns.append({"fwd": lambda xs=xs, p=pos, k=k, m=mode:
+                    kernels.pool_concat_fwd(xs, p, k, m),
+                    "bwd": lambda x=xs[pos], o=out, dy=dy,
+                    off=sum(widths[:pos]), k=k, m=mode:
+                    kernels.pool_concat_bwd(x, o, dy, off, k, m)})
     res = _timed(fns, [1] * len(fns))
     res["launches_per_step"] = len(shapes)
     return res
@@ -169,8 +176,12 @@ def run_one(root: str, steps: bool, check: bool) -> dict:
         out["check"] = {
             "bias_extra": [[x["tag"], x["ok"], x["routes"]]
                            for x in ex["cases"]],
-            "concat_extra": [[x["widths"], x["k"], x["mode"], x["dtype"],
-                              x["ok"]] for s in pc for x in s["extra_cases"]],
+            "concat_extra": [[x["widths"], x["k"], x["mode"], x["hw"],
+                              x["dtypes"], x["ok"], x.get("bwd_plan")]
+                             for s in pc for x in s["extra_cases"]],
+            "concat_path": [[x["widths"], x["mode"], x["dtype"], x["ok"],
+                             x.get("bwd_plan")]
+                            for s in pc for x in s["path_cases"]],
             "ok": ex["ok"] and all(s["ok"] for s in pc)}
         ok = out["check"]["ok"]
     if steps:

@@ -71,7 +71,11 @@ the script exits non-zero without a result line):
              also from channel slices whose bases are off 16 bytes and
              from branches of both dtypes (the pool branch of either),
              each launch's routes printed (``kernels.pool_concat_plan``:
-             the tower's concats take 16-byte vectors). Max
+             the tower's concats take 16-byte vectors); the backward's
+             plan (``kernels.pool_concat_bwd_plan``: route, tile, staged
+             bytes) and profiled device time beside the forward's, also
+             at maps smaller than a tile, a partial last channel job
+             and border ties with the pad's zero, both modes. Max
              error, kernel / plain / library times (CUDA events) and the
              bound from bytes and operations; for matmul, the bn_apply
              backward and forward and conv_epilogue's VJP also the
@@ -157,7 +161,10 @@ the script exits non-zero without a result line):
              runs through pool_concat's plain version) and at the bench
              set as phase 6 (26 + 26 bf16 bn_apply, 3 bf16 matmul and 3 + 3
              bf16 pool_concat, the gate admitting t3b's concat at bf16;
-             the batch-4 check against the card's bf16 plain path); then
+             the batch-4 check against the card's bf16 plain path); each
+             drive prints the route of every pool_concat backward launch
+             of one more update and fails unless all take 16-byte
+             vectors; then
              served at f32 from a snapshot through
              ``ServeSession(device="cuda")`` with phase 3's drive: 0
              failed requests, exactly 26 conv_epilogue and 2 pool_concat
@@ -1225,20 +1232,25 @@ def pool_concat_case(widths, pos: int, k: int, mode: str, h: int, w: int,
                      batch: int, bw: float, flops: float,
                      dtype: str = "float32", nan: bool = False,
                      grid: bool = True, timed: bool = True, dtypes=None,
-                     lead: int = 0):
+                     lead: int = 0, nonpos: bool = False):
     """pool_concat forward and the pool branch's backward on the card
     against their plain versions on the same inputs, the same bits:
     inputs in steps of 0.5 (``grid``: tied maxima, exact zeros) or
-    N(0, 9) (avg sums that round), optionally NaN in the pool branch;
-    the forward also from channels-last views of the branches (read
-    through their strides), the backward also from a permuted
-    cotangent. ``dtypes`` gives each branch its own dtype (the concat's
-    is the first's); ``lead`` > 0 makes every branch the channel slice
-    [lead, lead + C) of a wider tensor (a base off 16 bytes). The
-    forward's plan routes are printed (``kernels.pool_concat_plan``).
-    With ``timed``: kernel, plain and reference times (F.pad +
-    F.max_pool2d / F.avg_pool2d + torch.cat, and its autograd backward),
-    the forward's profiled device time, and the bounds."""
+    N(0, 9) (avg sums that round), optionally NaN in the pool branch,
+    or (``nonpos``) a pool branch of values <= 0 on the 0.5 grid, so
+    that the border windows' maximum is the pad's zero and the inputs
+    equal to it tie with the pad; the forward also from channels-last
+    views of the branches (read through their strides), the backward
+    also from a permuted cotangent. ``dtypes`` gives each branch its
+    own dtype (the concat's is the first's); ``lead`` > 0 makes every
+    branch the channel slice [lead, lead + C) of a wider tensor (a base
+    off 16 bytes). The plans' routes are recorded (the forward's per
+    branch, ``kernels.pool_concat_plan``; the backward's from a dense and
+    from the permuted cotangent, its tile, staged bytes, blocks and
+    threads, ``kernels.pool_concat_bwd_plan``). With ``timed``: kernel,
+    plain and reference times (F.pad + F.max_pool2d / F.avg_pool2d +
+    torch.cat, and its autograd backward), both kernels' profiled device
+    times, and the bounds."""
     import torch
     import torch.nn.functional as F
     from cxxnet_tpu_torch.layers import kernels
@@ -1260,6 +1272,8 @@ def pool_concat_case(widths, pos: int, k: int, mode: str, h: int, w: int,
         return v[..., lead:lead + shape[3]] if lead else v
     xs = [[draw((batch, h, w, c), bdt) for c, bdt in zip(widths, dtypes)]
           for _ in range(nbuf)]
+    if nonpos:
+        xs[0][pos].copy_(-xs[0][pos].abs())
     if nan:
         xs[0][pos].view(-1)[::997] = float("nan")
     dys = [torch.randn((batch, h, w, ctot), generator=gen, device=dev).to(dt)
@@ -1272,6 +1286,7 @@ def pool_concat_case(widths, pos: int, k: int, mode: str, h: int, w: int,
              for x in xs[0]]
     outv = kernels.pool_concat_fwd(views, pos, k, mode)
     dx = kernels.pool_concat_bwd(xs[0][pos], out, dys[0], off, k, mode)
+    bplan = kernels.pool_concat_bwd.last_plan
     dxp = kernels.pool_concat_bwd_plain(xs[0][pos], ref, dys[0], off, k,
                                         mode)
     dyv = dys[0].permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
@@ -1279,10 +1294,13 @@ def pool_concat_case(widths, pos: int, k: int, mode: str, h: int, w: int,
     torch.cuda.synchronize()
     res = {"widths": list(widths), "pos": pos, "k": k, "mode": mode,
            "hw": [h, w], "batch": batch, "dtype": dtype, "nan": nan,
-           "grid": grid, "dtypes": dtypes, "lead": lead,
+           "grid": grid, "dtypes": dtypes, "lead": lead, "nonpos": nonpos,
            "routes": plan["routes"],
            "tile": [plan["tr"], plan["tw"], plan["cc"]],
            "blocks": plan["blocks"],
+           "bwd_plan": bwd_plan_record(bplan),
+           "bwd_route_permuted_dy":
+               kernels.pool_concat_bwd.last_plan["route"],
            "fwd_err": max_err(out.float(), ref.float()),
            "bwd_err": max_err(dx.float(), dxp.float()),
            "fwd_exact": bits_equal(out, ref) and bits_equal(outv, ref),
@@ -1316,6 +1334,10 @@ def pool_concat_case(widths, pos: int, k: int, mode: str, h: int, w: int,
             lambda i: kernels.pool_concat_bwd(xs[i % nbuf][pos],
                                               outs[i % nbuf], dys[i % nbuf],
                                               off, k, mode), iters)
+        res["bwd_device_ms"] = device_ms(
+            {"k": (lambda i: kernels.pool_concat_bwd(
+                xs[i % nbuf][pos], outs[i % nbuf], dys[i % nbuf], off, k,
+                mode), "cxn_pool_concat_bwd")}, iters)["k"]
         res["bwd_plain_ms"] = cuda_time_ms(
             lambda i: kernels.pool_concat_bwd_plain(
                 xs[i % nbuf][pos], outs[i % nbuf], dys[i % nbuf], off, k,
@@ -1344,13 +1366,27 @@ def pool_concat_case(widths, pos: int, k: int, mode: str, h: int, w: int,
     return res
 
 
+def bwd_plan_record(plan):
+    """What a pool_concat backward launch ran: route, tile (input rows,
+    cols, channels a job), what a block stages and its bytes, blocks,
+    threads, the halo's re-read factor and dy's strides."""
+    return {"route": plan["route"],
+            "tile": [plan["tr"], plan["tw"], plan["cc"]],
+            "staged": plan["staged"], "smem": plan["smem"],
+            "blocks": plan["blocks"], "threads": plan["threads"],
+            "reread": plan["reread"], "dy_strides": plan["dy_strides"]}
+
+
 def pool_concat_section(bw: float, flops: float, dtype: str):
     """pool_concat at every fused concat of the tower's batch-128 step
     on ``dtype`` (the same shapes serve at f32), plus a ragged case
     (widths not multiples of 8, k = 5, pool branch in the middle), a
     NaN case, an N(0, 9) avg case, unaligned and mixed-dtype branches,
-    and the widest window the reference's gate admits on a 2 x 2 map
-    (in bf16 a one-pixel tile's halo past 96 KiB of shared memory)."""
+    the widest window the reference's gate admits on a 2 x 2 map (in
+    bf16 a one-pixel tile's halo past 96 KiB of shared memory), maps
+    smaller than a tile (k 3 and 5, the window wider than the map), a
+    pool branch whose last job is a partial one on the vector route,
+    and border ties with the pad's zero, in both modes."""
     from cxxnet_tpu_torch.layers import kernels
     from cxxnet_tpu_torch.nnet.net import FuncNet
     cfg = tower_train_cfg_bf16 if dtype == "bfloat16" else tower_train_cfg
@@ -1386,9 +1422,20 @@ def pool_concat_section(bw: float, flops: float, dtype: str):
     extra += [pool_concat_case((8, 8), 1, wide, mode, 2, 2, 2, bw, flops,
                                dtype, grid=mode == "max", timed=False)
               for mode in ("max", "avg")]
+    # a map smaller than one tile, the window at and past its size; a
+    # pool branch of 40 channels (a partial last job on the vector
+    # route); pool branches <= 0, so that border inputs tie with the pad
+    for mode in ("max", "avg"):
+        extra += [pool_concat_case((16, 32), 1, kk, mode, 3, 5, 4, bw, flops,
+                                   dtype, timed=False) for kk in (3, 5)]
+        extra += [pool_concat_case((32, 40, 24), 1, 3, mode, 28, 28, 8, bw,
+                                   flops, dtype, timed=False),
+                  pool_concat_case((64, 96, 128, 928), 3, 3, mode, 14, 14, 8,
+                                   bw, flops, dtype, timed=False,
+                                   nonpos=True)]
     keys = ("fwd_ms", "fwd_device_ms", "fwd_plain_ms", "fwd_bound_ms",
-            "reference_fwd_ms", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
-            "reference_bwd_ms")
+            "reference_fwd_ms", "bwd_ms", "bwd_device_ms", "bwd_plain_ms",
+            "bwd_bound_ms", "reference_bwd_ms")
     cases = path + extra
     return {"ok": all(c["ok"] for c in cases), "dtype": dtype,
             "launches_per_step": len(path),
@@ -1402,6 +1449,8 @@ def pool_concat_section(bw: float, flops: float, dtype: str):
             "reference": "F.pad + F.max_pool2d / F.avg_pool2d + torch.cat "
                          "(three calls; no one call computes it)",
             "fwd_routes": [c["routes"] for c in cases],
+            "bwd_routes": [[c["bwd_plan"]["route"],
+                            c["bwd_route_permuted_dy"]] for c in cases],
             "path_cases": path, "extra_cases": extra}
 
 
@@ -2881,12 +2930,13 @@ def pool_backward_check(net, batch: int = 8):
     return out
 
 
-def drive_train(cfg, expected, device_keys):
+def drive_train(cfg, expected, device_keys, probe=None):
     """The training main path at batch TRAIN_BATCH: a seeded trainer
     from ``cfg``, 2 warm and 10 timed ``update`` steps on one batch
     (CUDA events and host clock), every step's launches against
     ``expected`` (counts set to 0 just before, read just after), the
-    losses, peak memory and a profiled step. Returns (trainer, result)."""
+    losses, peak memory and a profiled step; then ``probe(trainer,
+    batch)``, if given, under ``probe``. Returns (trainer, result)."""
     import torch
     from cxxnet_tpu_torch.io import DataBatch
     from cxxnet_tpu_torch.layers import kernels
@@ -2953,7 +3003,33 @@ def drive_train(cfg, expected, device_keys):
            "launches": launches, "launches_per_step": per_step[-1],
            "expected_per_step": expected, "counted": counted,
            "relu_pool_bwd_strided_dy": strided_dy, "profile": prof}
+    if probe is not None:
+        res["probe"] = probe(t, batch)
     return t, res
+
+
+def tower_bwd_routes(t, batch):
+    """The plan of every pool_concat backward launch of one more update
+    (``kernels.pool_concat_bwd_plan``, recorded as the wrapper asks for
+    it; launch counts restored: not a main-path run), each printed."""
+    from cxxnet_tpu_torch.layers import kernels
+    plans, inner = [], kernels._pool_concat_bwd_plan
+
+    def record(*args):
+        plans.append(inner(*args))
+        return plans[-1]
+    counts = kernels.launch_counts()
+    kernels._pool_concat_bwd_plan = record
+    try:
+        t.update(batch)
+    finally:
+        kernels._pool_concat_bwd_plan = inner
+        kernels.restore_launch_counts(counts)
+    recs = [bwd_plan_record(p) for p in plans]
+    for i, r in enumerate(recs):
+        print("tower pool_concat backward %d: route %s, tile %s, dy strides "
+              "%s" % (i, r["route"], r["tile"], r["dy_strides"]), flush=True)
+    return recs
 
 
 def phase_train(workdir: str):
@@ -3116,6 +3192,15 @@ def tower_train_cfg_bf16(batch: int):
     return tower_train_cfg(batch) + BENCH_BF16
 
 
+def vec_routes(recs, expected) -> bool:
+    """Every pool_concat backward launch of an update took the vector
+    route, as many as ``expected`` counts a step (on the CPU, where no
+    kernel launches, none)."""
+    n = sum(v for k, v in expected.items() if k.startswith("pool_concat_bwd"))
+    return DEVICE == "cpu" and not recs or (
+        len(recs) == n and all(r["route"] == "vec" for r in recs))
+
+
 def phase_tower(workdir: str):
     """The pool_concat slice through its entry points: the tower trained
     at f32 and at the bench set, and served at f32 (see the module
@@ -3126,7 +3211,7 @@ def phase_tower(workdir: str):
     from cxxnet_tpu_torch.serve import ServeSession
     # f32 training: the drive, the float64 batch-4 update check
     t, tr = drive_train(tower_train_cfg(TRAIN_BATCH), TOWER_LAUNCHES,
-                        TOWER_DEVICE_KEYS)
+                        TOWER_DEVICE_KEYS, probe=tower_bwd_routes)
     fused = sorted(t.net.fused_concats.values())
     del t
     torch.cuda.empty_cache()
@@ -3138,19 +3223,24 @@ def phase_tower(workdir: str):
     tr["update_vs_cpu"] = update_delta_check(
         workdir, cfg4, inception_plain_cfg(cfg4), tag="tower4")
     tr["fused"] = fused
+    tr["bwd_routes"] = tr.pop("probe")
+    tr["bwd_vec"] = vec_routes(tr["bwd_routes"], TOWER_LAUNCHES)
     tr["ok"] = bool(tr["counted"] and tr["loss_falls"]
-                    and tr["update_vs_cpu"]["ok"])
+                    and tr["update_vs_cpu"]["ok"] and tr["bwd_vec"])
     # bench-set training: the drive, the batch-4 check against the card's
     # bf16 plain path
     tb, br = drive_train(tower_train_cfg_bf16(TRAIN_BATCH),
-                         TOWER_BF16_LAUNCHES, TOWER_DEVICE_KEYS)
+                         TOWER_BF16_LAUNCHES, TOWER_DEVICE_KEYS,
+                         probe=tower_bwd_routes)
     br["fused"] = sorted(tb.net.fused_concats.values())
+    br["bwd_routes"] = br.pop("probe")
+    br["bwd_vec"] = vec_routes(br["bwd_routes"], TOWER_BF16_LAUNCHES)
     del tb
     torch.cuda.empty_cache()
     br["update_vs_plain"] = bf16_update_check(
         workdir, tower_train_cfg_bf16(4), TOWER_BF16_LAUNCHES, "tower4_bf16")
     br["ok"] = bool(br["counted"] and br["loss_falls"]
-                    and br["update_vs_plain"]["ok"])
+                    and br["update_vs_plain"]["ok"] and br["bwd_vec"])
     # f32 serving from a snapshot of the tower
     cfg = tower_serve_cfg()
     rng = np.random.RandomState(SEED + 8)
@@ -4051,8 +4141,12 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
             reference_ms=sec["step_sum"]["reference_%s_ms" % sfx],
             reference=sec["reference"],
             device_ms=run["profile"]["pool_concat_%s_device_ms" % sfx],
-            kernel_device_ms=sec["step_sum"].get("%s_device_ms" % sfx),
-            routes=sec["fwd_routes"] if sfx == "fwd" else None,
+            kernel_device_ms=sec["step_sum"]["%s_device_ms" % sfx],
+            bound_share=sec["step_sum"]["%s_bound_ms" % sfx]
+            / sec["step_sum"]["%s_device_ms" % sfx],
+            routes=sec["%s_routes" % sfx],
+            main_path_routes=[r["route"] for r in run["bwd_routes"]]
+            if sfx == "bwd" else None,
             per=per_tstep % sec["launches_per_step"]
             + (" (dtype = bfloat16)" if sec is pcb else ""), peaks=part))
     return {"kernels": pool_rows + [

@@ -53,7 +53,7 @@
 // the output once (8 bytes per float32 output element, 4 in bf16; k*k
 // operations per pool element); the backward reads x, the output
 // segment and dy's segment and writes dx (16 bytes per f32 element,
-// k*k compares and adds).
+// k*k compares and adds; under avg dy and dx alone, 8 bytes).
 //
 // The forward's design (cxn_pool_concat_fwd_tile, tiled as
 // layers/kernels.py pool_concat_plan chooses): a block takes a tile of
@@ -78,10 +78,27 @@
 // rounded to T, as on the scalar route, so the bits do not depend on
 // the route. 64-bit offsets.
 //
-// The backward is the first design: blocks stride over the input
-// pixels and a block's threads over the pixel's channels; a 3 x 3
-// window is unrolled; it stays latency-bound (few loads in flight per
-// thread).
+// The backward's design (cxn_pool_concat_bwd_tile, tiled as
+// layers/kernels.py pool_concat_bwd_plan chooses): a block takes a tile
+// of input pixels (up to 8 rows x 32 columns of one image) and one job,
+// 128 bytes of the pool branch's channels (64 where what a block stages
+// would crowd an SM's shared memory). It stages the outputs whose
+// windows cover the tile, clipped to the map, into shared memory once:
+// dy's segment, and under max out's segment and the tile's x (16-byte
+// cp.async), so each dy and out element leaves L2 about min(rows + k - 1,
+// H) min(cols + k - 1, W) / (rows cols) times instead of k*k. A thread
+// then takes one input pixel and 16 bytes of channels (4 f32 or 8 bf16),
+// walks its taps in the reference's order from shared memory with one
+// f32 accumulator a channel (in bf16 under max the compare takes two
+// channels an instruction and masks the cotangent), and stores dx with
+// one 16-byte store. What bounds it besides bytes: the taps' shared
+// memory reads and f32 adds, 9 a channel for a 3 x 3 window, run after
+// the block's copies; blocks of one SM overlap one another's. Where
+// a tensor cannot take 16-byte vectors (another dtype for x, a channel
+// stride other than 1, strides, offset or bases off the vector), the
+// scalar route runs the same tiles one element a thread, read through
+// its dtype. Clipping the halo keeps every window the reference's 6 MiB
+// gate admits within a block's shared memory.
 //
 // Plain C interface, loaded with ctypes. Launches go on the caller's
 // stream; each entry returns cudaGetLastError() after its launch.
@@ -92,32 +109,12 @@
 
 namespace {
 
-constexpr int kThreads = 128;      // the backward's block
 constexpr int kFwdThreads = 256;   // the forward's block
 constexpr int kFwdMinBlocks = 6;   // forward blocks an SM (register cap)
 constexpr int kCopyVecs = 4;       // a plain copy's vectors in flight
-constexpr int kBlocksPerSm = 16;
+constexpr int kBwdThreads = 256;   // the backward's largest block
+constexpr int kBwdMinBlocks = 3;   // backward blocks an SM (register cap)
 constexpr int kMaxBranches = 8;
-
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (count <= 0) count = 1;
-  }
-  return count;
-}
-
-// one block per pixel, at most kBlocksPerSm per SM (the blocks stride)
-unsigned grid_for(int64_t npix) {
-  int64_t blocks = npix;
-  const int64_t cap = static_cast<int64_t>(sm_count()) * kBlocksPerSm;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  return static_cast<unsigned>(blocks);
-}
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -471,52 +468,207 @@ cxn_pool_concat_fwd_tile(const __grid_constant__ Branches br, int pos,
 
 // --------------------------------------------------------------- backward
 
-// The pool branch's input (B, H, W, C) into dense dx of dtype TX, laid
-// out as the forward: block-strided over pixels, threads over channels.
-// x read through strides xs; dy and out (the forward's output, for the
-// max residual) through theirs, both of y_dtype.
-template <typename TX, int K>
-__global__ void __launch_bounds__(kThreads)
-cxn_pool_concat_bwd_k(const void* __restrict__ x, int x_dtype, int64_t xs0,
-                      int64_t xs1, int64_t xs2, int64_t xs3,
-                      const void* __restrict__ dy, const void* __restrict__ out,
-                      int y_dtype, int64_t ds0, int64_t ds1, int64_t ds2,
-                      int64_t ds3, int64_t os0, int64_t os1, int64_t os2,
-                      int64_t os3, int off, int k_rt, int avg, float inv,
-                      TX* __restrict__ dx, int npix, int h, int w, int c) {
-  const int k = K > 0 ? K : k_rt;
+// A backward launch, from layers/kernels.py pool_concat_bwd_plan: block
+// (image * tiles + tile, job) takes a tile of tr x tw input pixels of one
+// image and cc channels of the pool branch. dy and out are read at
+// channel off + c of their (b, h, w, ctot) element strides ds / os; x
+// through xs; dx is dense (b, h, w, c). hr x hc: the largest clipped halo
+// of a tile, which sets where each staged tensor starts.
+struct BwdArgs {
+  const void* x;
+  const void* dy;
+  const void* out;
+  void* dx;
+  int64_t xs[4], ds[4], os[4];
+  int off, c, h, w, k, avg;
+  float inv;
+  int tr, tw, cc, rtiles, ctiles, hr, hc;
+};
+
+// Where x equals out, two bf16 channels an instruction: each half all
+// ones or zero. set.eq on bf16x2 gives f32 =='s answer on the widened
+// values (+0 equals -0, a NaN equals nothing, no flush of subnormals).
+__device__ __forceinline__ uint32_t eq_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("set.eq.u32.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Block (image, tile, job). Stage the outputs whose windows cover the
+// tile, clipped to the map: rows [max(0, i0 - p), min(h - 1, i0 + rows - 1
+// + p)], the same for columns; dy's segment, and under max out's segment
+// too, cc channels a pixel, pitch cc elements (on the vector route with
+// 16-byte cp.async, and under max the tile's x beside them; otherwise
+// element by element through the strides, as TY). Then a thread takes
+// one input pixel and one 16-byte vector of channels (or one channel on
+// the scalar route) and walks the taps (di, dj) in row-major order whose
+// output o = (i + p - di, j + p - dj) lies in the map, exactly the staged
+// ones: one f32 accumulator a channel from +0, adding dy where f32(x) ==
+// f32(out) (max; f32 ==, so a NaN on either side credits nothing and +0
+// equals -0), or the product dy * inv rounded before the add (avg;
+// __fmul_rn then __fadd_rn, no contraction). A tap that is skipped
+// adds nothing, which is the reference's adding +0: the accumulator
+// starts at +0 and under round-to-nearest never becomes -0, so +0 is the
+// identity. So in bf16 under max every staged tap is added, its
+// uncredited channels masked to +0 (eq_bf16x2). dx = the accumulator
+// rounded once to TX.
+template <typename TY, typename TX, bool kVec, int K>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+cxn_pool_concat_bwd_tile(const __grid_constant__ BwdArgs a) {
+  constexpr int V = 16 / sizeof(TY);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int k = K > 0 ? K : a.k;
   const int p = k / 2;
-  for (int pix = blockIdx.x; pix < npix; pix += gridDim.x) {
-    const int j = pix % w;
-    const int i = (pix / w) % h;
-    const int64_t b = pix / (w * h);
-    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-      const int64_t dbase = b * ds0 + (off + ch) * ds3;
-      const int64_t obase = b * os0 + (off + ch) * os3;
-      const float xv = avg ? 0.0f
-                           : load_as_f32(x, b * xs0 + i * xs1 + j * xs2 +
-                                                ch * xs3, x_dtype);
-      float acc = 0.0f;
+  const bool avg = a.avg != 0;
+  const int tiles = a.rtiles * a.ctiles;
+  const int tile = blockIdx.x % tiles;
+  const int64_t img = blockIdx.x / tiles;
+  const int i0 = (tile / a.ctiles) * a.tr;
+  const int j0 = (tile % a.ctiles) * a.tw;
+  const int rows = min(a.tr, a.h - i0);
+  const int cols = min(a.tw, a.w - j0);
+  const int c0 = blockIdx.y * a.cc;
+  const int cw = min(a.cc, a.c - c0);
+  const int oi0 = max(0, i0 - p), oj0 = max(0, j0 - p);
+  const int hr = min(a.h - 1, i0 + rows - 1 + p) - oi0 + 1;
+  const int hc = min(a.w - 1, j0 + cols - 1 + p) - oj0 + 1;
+  const int cp = a.cc;                       // a staged pixel, elements
+  TY* sdy = reinterpret_cast<TY*>(smem);
+  TY* sout = sdy + a.hr * a.hc * cp;         // max only
+  TY* sx = sout + a.hr * a.hc * cp;          // max on the vector route
+  // dy and out at (img, oi0, oj0, off + c0); x at (img, i0, j0, c0)
+  const int64_t db = img * a.ds[0] + oi0 * a.ds[1] + oj0 * a.ds[2] +
+                     (a.off + c0) * a.ds[3];
+  const int64_t ob = img * a.os[0] + oi0 * a.os[1] + oj0 * a.os[2] +
+                     (a.off + c0) * a.os[3];
+  const int64_t xb = img * a.xs[0] + i0 * a.xs[1] + j0 * a.xs[2] +
+                     c0 * a.xs[3];
+  TX* dxb = static_cast<TX*>(a.dx) +
+             ((img * a.h + i0) * a.w + j0) * a.c + c0;
+  const int64_t drow = static_cast<int64_t>(a.w) * a.c;
+
+  if constexpr (kVec) {
+    const TY* dy = static_cast<const TY*>(a.dy) + db;
+    const TY* out = static_cast<const TY*>(a.out) + ob;
+    const int nv = cw / V;
+    for (int e = threadIdx.x; e < hr * hc * nv; e += blockDim.x) {
+      const int v = e % nv, hp = e / nv;
+      const int r = hp / hc, c = hp % hc;
+      cp_async16(sdy + hp * cp + v * V, dy + r * a.ds[1] + c * a.ds[2] + v * V,
+                 16);
+      if (!avg) {
+        cp_async16(sout + hp * cp + v * V,
+                   out + r * a.os[1] + c * a.os[2] + v * V, 16);
+      }
+    }
+    if (!avg) {
+      const TY* x = static_cast<const TY*>(a.x) + xb;
+      for (int e = threadIdx.x; e < rows * cols * nv; e += blockDim.x) {
+        const int v = e % nv, pix = e / nv;
+        const int r = pix / cols, c = pix % cols;
+        cp_async16(sx + pix * cp + v * V,
+                   x + r * a.xs[1] + c * a.xs[2] + v * V, 16);
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+  } else {
+    const TY* dy = static_cast<const TY*>(a.dy);
+    const TY* out = static_cast<const TY*>(a.out);
+    for (int e = threadIdx.x; e < hr * hc * cw; e += blockDim.x) {
+      const int ch = e % cw, hp = e / cw;
+      const int r = hp / hc, c = hp % hc;
+      sdy[hp * cp + ch] = dy[db + r * a.ds[1] + c * a.ds[2] + ch * a.ds[3]];
+      if (!avg) {
+        sout[hp * cp + ch] =
+            out[ob + r * a.os[1] + c * a.os[2] + ch * a.os[3]];
+      }
+    }
+  }
+  __syncthreads();
+
+  const int hrow = hc * cp;                  // a staged row, elements
+  const int br = i0 + p - oi0, bc = j0 + p - oj0;   // tap (0,0) of (0,0)
+  if constexpr (kVec) {
+    const int nv = cw / V;
+    for (int e = threadIdx.x; e < rows * cols * nv; e += blockDim.x) {
+      const int v = e % nv, pix = e / nv;
+      const int r = pix / cols, c = pix % cols;
+      float acc[V], xv[V];
 #pragma unroll
-      for (int di = 0; di < k; ++di) {
-        const int oi = i + p - di;
-        if (oi < 0 || oi >= h) continue;
+      for (int u = 0; u < V; ++u) acc[u] = 0.0f;
+      const uint4 xq = avg ? make_uint4(0, 0, 0, 0)
+                           : *reinterpret_cast<const uint4*>(sx + pix * cp +
+                                                             v * V);
+      unpack<TY>(xq, xv);
+      // the taps in the map: staged rows r + br - di in [0, hr), columns
+      // c + bc - dj in [0, hc)
+      const int di0 = max(0, r + br - hr + 1), di1 = min(k - 1, r + br);
+      const int dj0 = max(0, c + bc - hc + 1), dj1 = min(k - 1, c + bc);
+      const int at = (r + br) * hrow + (c + bc) * cp + v * V;
 #pragma unroll
-        for (int dj = 0; dj < k; ++dj) {
-          const int oj = j + p - dj;
-          if (oj < 0 || oj >= w) continue;
-          const float g =
-              load_as_f32(dy, dbase + oi * ds1 + oj * ds2, y_dtype);
+      for (int di = 0; di < (K > 0 ? K : k); ++di) {
+        if (di < di0 || di > di1) continue;
+#pragma unroll
+        for (int dj = 0; dj < (K > 0 ? K : k); ++dj) {
+          if (dj < dj0 || dj > dj1) continue;
+          const int o = at - di * hrow - dj * cp;
+          const uint4 gq = *reinterpret_cast<const uint4*>(sdy + o);
+          float g[V];
           if (avg) {
-            acc += __fmul_rn(g, inv);
-          } else if (xv == load_as_f32(out, obase + oi * os1 + oj * os2,
-                                       y_dtype)) {
-            acc += g;
+            unpack<TY>(gq, g);
+#pragma unroll
+            for (int u = 0; u < V; ++u) {
+              acc[u] = __fadd_rn(acc[u], __fmul_rn(g[u], a.inv));
+            }
+          } else if constexpr (sizeof(TY) == 2) {
+            // dy's bits where x == out, two channels a word, +0 elsewhere
+            const uint4 yq = *reinterpret_cast<const uint4*>(sout + o);
+            const uint4 cq = make_uint4(gq.x & eq_bf16x2(xq.x, yq.x),
+                                        gq.y & eq_bf16x2(xq.y, yq.y),
+                                        gq.z & eq_bf16x2(xq.z, yq.z),
+                                        gq.w & eq_bf16x2(xq.w, yq.w));
+            unpack<TY>(cq, g);
+#pragma unroll
+            for (int u = 0; u < V; ++u) acc[u] = __fadd_rn(acc[u], g[u]);
+          } else {
+            float y[V];
+            unpack<TY>(gq, g);
+            unpack<TY>(*reinterpret_cast<const uint4*>(sout + o), y);
+#pragma unroll
+            for (int u = 0; u < V; ++u) {
+              if (xv[u] == y[u]) acc[u] = __fadd_rn(acc[u], g[u]);
+            }
           }
         }
       }
-      Arith<TX>::store(dx + static_cast<int64_t>(pix) * c + ch,
-                       Arith<TX>::cast(acc));
+#pragma unroll
+      for (int u = 0; u < V; ++u) acc[u] = Arith<TX>::cast(acc[u]);
+      *reinterpret_cast<uint4*>(dxb + r * drow + c * a.c + v * V) =
+          pack<TX>(acc);
+    }
+  } else {
+    const TX* x = static_cast<const TX*>(a.x) + xb;
+    for (int e = threadIdx.x; e < rows * cols * cw; e += blockDim.x) {
+      const int ch = e % cw, pix = e / cw;
+      const int r = pix / cols, c = pix % cols;
+      const float xv =
+          avg ? 0.0f : to_f32(x[r * a.xs[1] + c * a.xs[2] + ch * a.xs[3]]);
+      const int di0 = max(0, r + br - hr + 1), di1 = min(k - 1, r + br);
+      const int dj0 = max(0, c + bc - hc + 1), dj1 = min(k - 1, c + bc);
+      const int at = (r + br) * hrow + (c + bc) * cp + ch;
+      float acc = 0.0f;
+      for (int di = di0; di <= di1; ++di) {
+        for (int dj = dj0; dj <= dj1; ++dj) {
+          const int o = at - di * hrow - dj * cp;
+          const float g = to_f32(sdy[o]);
+          if (avg) {
+            acc = __fadd_rn(acc, __fmul_rn(g, a.inv));
+          } else if (xv == to_f32(sout[o])) {
+            acc = __fadd_rn(acc, g);
+          }
+        }
+      }
+      Arith<TX>::store(dxb + r * drow + c * a.c + ch, Arith<TX>::cast(acc));
     }
   }
 }
@@ -539,24 +691,25 @@ cudaError_t fwd_launch(const Branches& br, int pos, int k, int mode,
   return cudaSuccess;
 }
 
-template <typename TX>
-void bwd_launch(const void* x, int x_dtype, const long long* xs,
-                const void* dy, const void* out, int y_dtype,
-                const long long* ds, const long long* os, int off, int k,
-                int mode, float inv, void* dx, int np, int h, int w, int c,
-                cudaStream_t s) {
-  TX* d = static_cast<TX*>(dx);
-  if (k == 3) {
-    cxn_pool_concat_bwd_k<TX, 3><<<grid_for(np), kThreads, 0, s>>>(
-        x, x_dtype, xs[0], xs[1], xs[2], xs[3], dy, out, y_dtype, ds[0],
-        ds[1], ds[2], ds[3], os[0], os[1], os[2], os[3], off, k, mode, inv,
-        d, np, h, w, c);
-  } else {
-    cxn_pool_concat_bwd_k<TX, 0><<<grid_for(np), kThreads, 0, s>>>(
-        x, x_dtype, xs[0], xs[1], xs[2], xs[3], dy, out, y_dtype, ds[0],
-        ds[1], ds[2], ds[3], os[0], os[1], os[2], os[3], off, k, mode, inv,
-        d, np, h, w, c);
+// the vector route on one dtype, or the scalar route on any pair; the
+// vector route's window of 3 unrolled
+template <typename TY, typename TX>
+cudaError_t bwd_launch(const BwdArgs& a, bool vec, dim3 grid, int threads,
+                       int smem, cudaStream_t s) {
+  void (*kern)(BwdArgs) = cxn_pool_concat_bwd_tile<TY, TX, false, 0>;
+  if constexpr (sizeof(TY) == sizeof(TX)) {
+    if (vec) {
+      kern = a.k == 3 ? cxn_pool_concat_bwd_tile<TY, TX, true, 3>
+                      : cxn_pool_concat_bwd_tile<TY, TX, true, 0>;
+    }
   }
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<grid, threads, smem, s>>>(a);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -646,34 +799,95 @@ extern "C" int cxn_pool_concat_fwd(int n, const void* const* ptrs,
 
 // The pool branch's gradient. x: (b, h, w, c) of x_dtype through strides
 // xs; dy and out: (b, h, w, ctot) of y_dtype through strides ds and os
-// (out and os are read under max only), the pool segment at channel off; dx: dense (b, h, w, c) of x_dtype.
-// k odd >= 1; mode 0 max, 1 avg; inv: float32 1/(k*k) (avg). Returns a
-// cudaError_t value; 0 is success.
+// (out and os are read under max only), the pool segment at channel off;
+// dx: dense (b, h, w, c) of x_dtype. k odd >= 1; mode 0 max, 1 avg; inv:
+// float32 1/(k*k) (avg). vec (1: the 16-byte route), tr, tw, cc and
+// threads as layers/kernels.py pool_concat_bwd_plan chooses them; a
+// vector route the tensors cannot take is refused. Returns a cudaError_t
+// value; 0 is success.
 extern "C" int cxn_pool_concat_bwd(const void* x, int x_dtype,
                                    const long long* xs,
                                    const void* dy, const void* out,
                                    int y_dtype, const long long* ds,
                                    const long long* os, int off, int k,
                                    int mode, float inv, void* dx, int b,
-                                   int h, int w, int c, void* stream) {
+                                   int h, int w, int c, int vec, int tr,
+                                   int tw, int cc, int threads,
+                                   void* stream) {
   if (b <= 0 || h <= 0 || w <= 0 || c <= 0 || off < 0 || k < 1 ||
       k % 2 == 0 || (mode != 0 && mode != 1) ||
       (x_dtype != 0 && x_dtype != 1) || (y_dtype != 0 && y_dtype != 1) ||
-      (mode == 0 && out == nullptr)) {
+      (mode == 0 && out == nullptr) || tr < 1 || tw < 1 || cc < 1 ||
+      threads < 32 || threads > kBwdThreads || threads % 32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t npix = static_cast<int64_t>(b) * h * w;
-  if (npix >= (int64_t{1} << 31)) {
+  const bool avg = mode == 1;
+  const int esz = y_dtype == 0 ? 4 : 2;
+  const int v = 16 / esz;
+  if (vec) {
+    // dy's segment; under max also x and out's segment (avg reads no x)
+    const long long* st[3] = {ds, xs, os};
+    bool ok = x_dtype == y_dtype && c % v == 0 && cc % v == 0 &&
+              off % v == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+              reinterpret_cast<uintptr_t>(dx) % 16 == 0 &&
+              (avg || (reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0));
+    for (int t = 0; t < (avg ? 1 : 3); ++t) {
+      ok = ok && st[t][3] == 1 && st[t][0] % v == 0 && st[t][1] % v == 0 &&
+           st[t][2] % v == 0;
+    }
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  BwdArgs a;
+  a.x = x;
+  a.dy = dy;
+  a.out = out;
+  a.dx = dx;
+  for (int d = 0; d < 4; ++d) {
+    a.xs[d] = xs[d];
+    a.ds[d] = ds[d];
+    a.os[d] = avg ? 0 : os[d];
+  }
+  a.off = off;
+  a.c = c;
+  a.h = h;
+  a.w = w;
+  a.k = k;
+  a.avg = avg;
+  a.inv = inv;
+  a.tr = tr;
+  a.tw = tw;
+  a.cc = cc;
+  a.rtiles = (h + tr - 1) / tr;
+  a.ctiles = (w + tw - 1) / tw;
+  a.hr = min(tr + k - 1, h);
+  a.hc = min(tw + k - 1, w);
+  const int64_t blocks = static_cast<int64_t>(b) * a.rtiles * a.ctiles;
+  const int64_t jobs = (c + cc - 1) / cc;
+  // dy's halo, out's under max, and x's tile under max on the vector route
+  const int64_t staged = static_cast<int64_t>(a.hr) * a.hc * (avg ? 1 : 2) +
+                         (vec && !avg ? static_cast<int64_t>(tr) * tw : 0);
+  const int64_t smem = staged * cc * esz;
+  if (blocks >= (int64_t{1} << 31) || jobs >= 65536 || smem > 227 * 1024 ||
+      static_cast<int64_t>(b) * h * w >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int np = static_cast<int>(npix);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(jobs));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0) {
-    bwd_launch<float>(x, x_dtype, xs, dy, out, y_dtype, ds, os, off, k, mode,
-                      inv, dx, np, h, w, c, s);
+  const int sm = static_cast<int>(smem);
+  cudaError_t e;
+  if (y_dtype == 0) {
+    e = x_dtype == 0
+            ? bwd_launch<float, float>(a, vec != 0, grid, threads, sm, s)
+            : bwd_launch<float, __nv_bfloat16>(a, vec != 0, grid, threads,
+                                               sm, s);
   } else {
-    bwd_launch<__nv_bfloat16>(x, x_dtype, xs, dy, out, y_dtype, ds, os, off,
-                              k, mode, inv, dx, np, h, w, c, s);
+    e = x_dtype == 0
+            ? bwd_launch<__nv_bfloat16, float>(a, vec != 0, grid, threads,
+                                               sm, s)
+            : bwd_launch<__nv_bfloat16, __nv_bfloat16>(a, vec != 0, grid,
+                                                       threads, sm, s);
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -183,7 +183,8 @@ _SIGNATURES = {
         "cxn_pool_concat_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _P],
         "cxn_pool_concat_bwd": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                                _F, _P, _I, _I, _I, _I, _P]},
+                                _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _P]},
     "bias_grad_bf16": {"cxn_bias_grad_bf16": [_P, _L, _L, _L, _L, _I, _I, _I,
                                               _I, _I, _P, _P, _L, _P, _P],
                        "cxn_bf16_add_pairs": [_P, _P, _P, _L, _P],
@@ -1158,10 +1159,12 @@ def relu_max_pool(x: torch.Tensor, k: int) -> torch.Tensor:
 
 POOL_CONCAT_MAX_BRANCHES = 8
 _POOL_MODES = {"max": 0, "avg": 1}
-# the forward's tiles (csrc/pool_concat.cu cxn_pool_concat_fwd_tile): at
-# most this many output rows and columns a block, and a job's channels
-# as bytes of the output dtype; the halo a block stages in shared memory
-# stays within PC_MAX_SMEM bytes where a tile can, and a one-pixel tile
+# the tiles of the forward and the backward (csrc/pool_concat.cu
+# cxn_pool_concat_fwd_tile, cxn_pool_concat_bwd_tile): at most this many
+# output (input) rows and columns a block, and a job's channels as bytes
+# of the output (dy's) dtype; what a forward block stages in shared
+# memory stays within PC_MAX_SMEM bytes where a tile can (a backward
+# block within PC_BWD_STAGE), and a one-pixel tile
 # of one vector's channels may take up to PC_SMEM_LIMIT (a block's most
 # on sm_90: every window the reference's gate admits fits)
 PC_TILE_ROWS = 8
@@ -1169,6 +1172,11 @@ PC_TILE_COLS = 32
 PC_JOB_BYTES = 128
 PC_MAX_SMEM = 96 * 1024
 PC_SMEM_LIMIT = 227 * 1024
+PC_BWD_THREADS = 256   # the backward's largest block (csrc kBwdThreads)
+# what a backward block stages (dy's halo, the output's and x's tile under
+# max) stays within PC_BWD_STAGE bytes where a tile can: several blocks
+# must share an SM for the copies of one to overlap the taps of another
+PC_BWD_STAGE = 48 * 1024
 _DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
@@ -1274,6 +1282,11 @@ def _dim_strides(t: torch.Tensor) -> Tuple[int, ...]:
     return tuple(0 if n == 1 else st for n, st in zip(t.shape, t.stride()))
 
 
+def _even(n: int, most: int) -> int:
+    """The most even split of n into pieces of at most ``most``."""
+    return -(-n // -(-n // most))
+
+
 def pool_concat_plan(widths: Sequence[int], dtypes, strides, aligns,
                      out_dtype, pos: int, k: int, b: int, h: int, w: int,
                      out_align: int = 16) -> Dict[str, object]:
@@ -1325,9 +1338,7 @@ def _pool_concat_plan(widths, dtypes, strides, aligns, out, pos, k, b, h, w,
         routes.append("vec" if vec else "scalar")
         off += c
 
-    def even(n, most):
-        return -(-n // -(-n // most))
-    tr, tw, cc = even(h, PC_TILE_ROWS), even(w, PC_TILE_COLS), \
+    tr, tw, cc = _even(h, PC_TILE_ROWS), _even(w, PC_TILE_COLS), \
         PC_JOB_BYTES // esz
 
     def smem():
@@ -1404,6 +1415,110 @@ pool_concat_fwd.launches_bf16 = 0
 pool_concat_fwd.last_plan = None
 
 
+def pool_concat_bwd_plan(b: int, h: int, w: int, c: int, off: int, k: int,
+                         mode: str, dtypes, strides, aligns
+                         ) -> Dict[str, object]:
+    """The launch of the pool_concat backward for a pool branch x of
+    shape (b, h, w, c) whose segment starts at channel ``off`` of dy and
+    of the forward's output: ``dtypes`` (x's, dy's; the output has
+    dy's) as torch dtypes or their names, ``strides`` (x's, dy's, the
+    output's; element strides, 0 along a dim of size 1) and ``aligns``
+    (their bases' bytes of alignment); x and the output are not read
+    under avg, and their strides may then be None:
+
+    - ``route`` ``"vec"`` (x of dy's dtype, c and off multiples of the
+      16-byte vector ``v``, and every tensor read (dy; under max also x
+      and the output) with unit channel stride, its other strides
+      multiples of ``v`` and a 16-byte aligned base: cp.async staging,
+      16-byte loads and stores) or ``"scalar"`` (one element a thread,
+      each read through its dtype);
+    - the tile, ``tr`` x ``tw`` input pixels (at most PC_TILE_ROWS x
+      PC_TILE_COLS, evened out over the map) and ``cc`` channels a job
+      (PC_JOB_BYTES of dy's dtype), a block's work. What it stages is
+      dy's halo of the tile clipped to the map (``halo``, min(tr + k -
+      1, h) x min(tw + k - 1, w) pixels), under max the output's too and
+      on the vector route x's tile (``staged``); while that exceeds
+      PC_BWD_STAGE bytes the job halves down to 64 bytes, then the
+      columns, the rows and the job down to ``v``; ``smem``: its bytes,
+      at most PC_SMEM_LIMIT (every window the reference's gate admits
+      fits); ``reread``: staged halo pixels over tile pixels of a full
+      tile;
+    - ``jobs``, ``blocks`` (images x tiles x jobs, the grid) and
+      ``threads`` (at most PC_BWD_THREADS, evened over a block's work:
+      one input pixel and one vector, or one channel, a thread);
+    - ``args``: the strides as the kernel's entry takes them.
+    Chosen on the host from shapes, strides and alignment; not a
+    fallback: the kernel refuses a vector route its tensors cannot
+    take. Memoized: the result is shared, not to be changed."""
+    def name(dt):
+        return dt if isinstance(dt, str) else str(dt).replace("torch.", "")
+    avg = mode == "avg"
+    sx, sd, so = strides
+    ax, ad, ao = aligns
+    return _pool_concat_bwd_plan(
+        int(b), int(h), int(w), int(c), int(off), int(k), mode,
+        (name(dtypes[0]), name(dtypes[1])),
+        tuple(None if st is None or (avg and i != 1)
+              else tuple(int(v) for v in st)
+              for i, st in enumerate((sx, sd, so))),
+        (0 if avg else int(ax), int(ad), 0 if avg else int(ao)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _pool_concat_bwd_plan(b, h, w, c, off, k, mode, dtypes, strides,
+                          aligns) -> Dict[str, object]:
+    """:func:`pool_concat_bwd_plan` on hashable arguments, memoized."""
+    if mode not in _POOL_MODES or k < 1 or k % 2 == 0:
+        raise ValueError("pool_concat_bwd: mode %r, window %d" % (mode, k))
+    avg = mode == "avg"
+    esz = 2 if dtypes[1] == "bfloat16" else 4
+    v = 16 // esz
+    read = [1] if avg else [1, 0, 2]     # dy; under max x and the output
+    vec = dtypes[0] == dtypes[1] and c % v == 0 and off % v == 0 and all(
+        strides[i][3] == 1 and all(x % v == 0 for x in strides[i][:3])
+        and aligns[i] % 16 == 0 for i in read)
+    tr, tw, cc = _even(h, PC_TILE_ROWS), _even(w, PC_TILE_COLS), \
+        PC_JOB_BYTES // esz
+
+    def stage():
+        halo = min(tr + k - 1, h) * min(tw + k - 1, w)
+        return (halo * (1 if avg else 2)
+                + (tr * tw if vec and not avg else 0)) * cc * esz
+    while stage() > PC_BWD_STAGE and (tw > 1 or tr > 1 or cc > v):
+        if cc * esz > 64:
+            cc //= 2
+        elif tw > 1:
+            tw = -(-tw // 2)
+        elif tr > 1:
+            tr = -(-tr // 2)
+        else:
+            cc //= 2
+    if stage() > PC_SMEM_LIMIT:
+        raise ValueError("pool_concat_bwd: a %d x %d window does not fit "
+                         "the kernel's shared memory" % (k, k))
+    jobs = -(-c // cc)
+    rtiles, ctiles = -(-h // tr), -(-w // tw)
+    if jobs >= 65536 or b * rtiles * ctiles >= 2 ** 31 \
+            or b * h * w >= 2 ** 31:
+        raise ValueError("pool_concat_bwd: shapes exceed the kernel's grid")
+    # a block's work items, in as few rounds of whole warps as the block
+    # allows, spread evenly over the rounds
+    items = tr * tw * (cc // v if vec else cc)
+    rounds = -(-items // PC_BWD_THREADS)
+    threads = -(-items // (rounds * 32)) * 32
+    halo = (min(tr + k - 1, h), min(tw + k - 1, w))
+    zeros = (0, 0, 0, 0)
+    args = tuple((ctypes.c_longlong * 4)(*(st if st is not None else zeros))
+                 for st in strides)
+    return {"route": "vec" if vec else "scalar", "v": v, "tr": tr, "tw": tw,
+            "cc": cc, "rtiles": rtiles, "ctiles": ctiles, "jobs": jobs,
+            "blocks": b * rtiles * ctiles * jobs, "threads": threads,
+            "halo": halo, "staged": ["dy"] + ([] if avg else ["out"])
+            + (["x"] if vec and not avg else []), "smem": stage(),
+            "reread": halo[0] * halo[1] / (tr * tw),
+            "dy_strides": strides[1], "args": args}
+
+
 def pool_concat_bwd(x: torch.Tensor, out: Optional[torch.Tensor],
                     dy: torch.Tensor, off: int, k: int,
                     mode: str) -> torch.Tensor:
@@ -1411,9 +1526,10 @@ def pool_concat_bwd(x: torch.Tensor, out: Optional[torch.Tensor],
     the branch ``x``, the forward's output ``out`` (read under max only)
     and the cotangent ``dy`` of the output, all read through their
     strides (a permuted ``dy`` costs no copy): one launch of
-    ``cxn_pool_concat_bwd`` for CUDA tensors, the plain version for CPU
-    tensors. dx is a dense NHWC tensor of x's dtype. Counted by dy's
-    dtype (the concat's)."""
+    ``cxn_pool_concat_bwd`` along :func:`pool_concat_bwd_plan` for CUDA
+    tensors (the plan in ``pool_concat_bwd.last_plan``), the plain
+    version for CPU tensors. dx is a dense NHWC tensor of x's dtype.
+    Counted by dy's dtype (the concat's)."""
     if x.dtype not in _DTYPE_CODE or dy.dtype not in _DTYPE_CODE \
             or x.dim() != 4 or dy.dim() != 4:
         raise ValueError("pool_concat_bwd: x and dy must be float32 or "
@@ -1437,26 +1553,34 @@ def pool_concat_bwd(x: torch.Tensor, out: Optional[torch.Tensor],
     dx = torch.empty((b, h, w, c), dtype=x.dtype, device=x.device)
     if dx.numel() == 0:
         return dx
-    xs = (ctypes.c_longlong * 4)(*x.stride())
-    ds = (ctypes.c_longlong * 4)(*dy.stride())
-    # the output is read under max only
-    os_ = (ctypes.c_longlong * 4)(*(out.stride() if out is not None
-                                    else (0, 0, 0, 0)))
+    # x and the output are read under max only
+    use_out = out if mode == "max" else None
+    plan = _pool_concat_bwd_plan(
+        b, h, w, c, off, k, mode, (_DTYPE_NAME[x.dtype], _DTYPE_NAME[dy.dtype]),
+        (None, _dim_strides(dy), None) if use_out is None else
+        (_dim_strides(x), _dim_strides(dy), _dim_strides(use_out)),
+        (0, _alignment(dy), 0) if use_out is None else
+        (_alignment(x), _alignment(dy), _alignment(use_out)))
+    xs, ds, os_ = plan["args"]
     lib = _load("pool_concat")
     with torch.cuda.device(x.device):
         err = lib.cxn_pool_concat_bwd(
             x.data_ptr(), _DTYPE_CODE[x.dtype], ctypes.addressof(xs),
-            dy.data_ptr(), out.data_ptr() if out is not None else None,
+            dy.data_ptr(),
+            use_out.data_ptr() if use_out is not None else None,
             _DTYPE_CODE[dy.dtype], ctypes.addressof(ds), ctypes.addressof(os_),
             off, k, _POOL_MODES[mode], _inv_window(k, torch.float32),
-            dx.data_ptr(), b, h, w, c, _stream(x))
+            dx.data_ptr(), b, h, w, c, plan["route"] == "vec", plan["tr"],
+            plan["tw"], plan["cc"], plan["threads"], _stream(x))
     _raise_on(err, "pool_concat_bwd")
     _count(pool_concat_bwd, dy.dtype)
+    pool_concat_bwd.last_plan = plan
     return dx
 
 
 pool_concat_bwd.launches = 0
 pool_concat_bwd.launches_bf16 = 0
+pool_concat_bwd.last_plan = None
 
 
 class _PoolConcat(torch.autograd.Function):
