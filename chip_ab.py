@@ -2,7 +2,7 @@
 """Two checkouts of the port on one card, in turns: the redesigned
 kernels' times and the main paths' step times of each.
 
-    python3 chip_ab.py [--steps] [--check] ROOT [ROOT ...]
+    python3 chip_ab.py [--steps] [--check] [--pipeline] ROOT [ROOT ...]
 
 Each ROOT is a checkout of this repo ("." for this one; a parent commit
 unpacked with ``git archive`` into a gitignored directory). The roots
@@ -26,7 +26,19 @@ change, change, parent) so that a drift of the card shows. Per root:
   whose step times it prints;
 - ``--check``: where ROOT's chip_smoke.py has them, its
   ``bias_grad_extra`` and ``pool_concat_section`` cases (the same bits
-  as the plain versions).
+  as the plain versions);
+- ``--pipeline``: the CLI's training of ``Inception-BN.conf`` (batch
+  128, ``bn_pallas = bn_fuse_relu = 1``) and ``AlexNet.conf`` (batch
+  256) as shipped, through ROOT's ``python -m cxxnet_tpu_torch.main`` in
+  process, on seeded raw-tensor imgrec archives of 768 and 1,536 records
+  (six batches a round), 3 rounds each: per round rows/s, the update
+  seconds and the rest of the round's window (``data_wait_s``), each
+  update's time (host clock to a device sync), the time ``update``
+  spends getting its batch onto the card (``_device_batch``, to a
+  device sync: the pageable copy where the batch arrives on the host,
+  the wait on a staged batch's copy where it arrives staged) and, where
+  ROOT stages in the prefetch thread, that thread's copy time a batch;
+  in place of the kernel timings above.
 
 Prints the card (``nvidia-smi``) and one JSON line per root, also
 written to ``chiprun_out/ab/<i>.json``; exits 1 if a run failed. Needs
@@ -144,12 +156,76 @@ def _concat(c, kernels, dtype: str):
     return res
 
 
+PIPELINE = (("Inception-BN.conf", 768, 200, ["bn_pallas=1",
+                                              "bn_fuse_relu=1"]),
+            ("AlexNet.conf", 1536, 256, []))
+PIPELINE_ROUNDS = 3
+
+
+def _pipeline(c, wd: str) -> dict:
+    """The CLI's training runs of ``PIPELINE`` through ROOT's
+    chip_smoke helpers (``write_cli_archives``, ``shipped_conf``,
+    ``tap_trainer``, ``run_cli``)."""
+    import torch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    out = {}
+    for name, ntrain, nval, keys in PIPELINE:
+        tag = name.split(".")[0]
+        t0 = time.perf_counter()
+        tr, va = c.write_cli_archives(wd, (("%s_t.rec" % tag, ntrain),
+                                           ("%s_v.rec" % tag, nval)))
+        archives_s = time.perf_counter() - t0
+        conf = c.shipped_conf(wd, name, tr, va)
+        rec, put_ms = {}, []
+        orig = NetTrainer._device_batch
+
+        def timed(self, batch, orig=orig):
+            t1 = time.perf_counter()
+            res = orig(self, batch)
+            torch.cuda.synchronize()
+            put_ms.append((time.perf_counter() - t1) * 1e3)
+            return res
+
+        NetTrainer._device_batch = timed
+        try:
+            with c.tap_trainer(rec):
+                rc, lines = c.run_cli(
+                    [conf, "task=train", "num_round=%d" % PIPELINE_ROUNDS,
+                     "print_step=0", "save_model=0",
+                     "model_dir=" + os.path.join(wd, tag)] + keys)
+        finally:
+            NetTrainer._device_batch = orig
+        ms = [u["ms"] for u in rec["updates"]]
+        per = -(-ntrain // (128 if tag.startswith("Inception") else 256))
+        rounds = []
+        for i, rd in enumerate(rec["rounds"]):
+            upd = sum(ms[i * per:(i + 1) * per]) / 1e3
+            r = {"rows_per_s": rd["rows_per_s"], "wall_s": rd["wall_s"],
+                 "update_s": upd, "data_wait_s": rd["wall_s"] - upd}
+            if rd.get("h2d_batches"):
+                r["prefetch_h2d_ms_per_batch"] = \
+                    rd["h2d_ms"] / rd["h2d_batches"]
+            rounds.append(r)
+        out[tag] = {"rc": rc, "archives_s": archives_s, "rounds": rounds,
+                    "updates_ms": ms, "first_update_ms": ms[0] if ms
+                    else None, "update_median_ms": _median(ms[1:]),
+                    "device_batch_ms": put_ms,
+                    "device_batch_median_ms": _median(put_ms[1:]),
+                    "staged": sum(u.get("staged", False)
+                                  for u in rec["updates"])}
+        for path in (tr, va):
+            os.remove(path)
+        torch.cuda.empty_cache()
+    return out
+
+
 def _median(v):
     v = sorted(v)
     return v[len(v) // 2] if v else None
 
 
-def run_one(root: str, steps: bool, check: bool) -> dict:
+def run_one(root: str, steps: bool, check: bool,
+            pipeline: bool = False) -> dict:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     os.chdir(root)
@@ -161,13 +237,18 @@ def run_one(root: str, steps: bool, check: bool) -> dict:
     resolve_device("cuda")
     t0 = time.perf_counter()
     kernels.build_kernels()
-    out = {"root": root, "build_s": time.perf_counter() - t0,
-           "bias_alexnet": _bias(c, kernels, c.alexnet_cfg(c.ALEX_BATCH),
-                                 c.ALEX_BATCH),
-           "bias_kaiming": _bias(c, kernels, c.kaiming_cfg_bf16(128), 128),
-           "concat_float32": _concat(c, kernels, "float32"),
-           "concat_bfloat16": _concat(c, kernels, "bfloat16")}
+    out = {"root": root, "build_s": time.perf_counter() - t0}
+    if not pipeline:
+        out.update(
+            bias_alexnet=_bias(c, kernels, c.alexnet_cfg(c.ALEX_BATCH),
+                               c.ALEX_BATCH),
+            bias_kaiming=_bias(c, kernels, c.kaiming_cfg_bf16(128), 128),
+            concat_float32=_concat(c, kernels, "float32"),
+            concat_bfloat16=_concat(c, kernels, "bfloat16"))
     ok = True
+    if pipeline:
+        out["pipeline"] = _pipeline(c, tempfile.mkdtemp(prefix="chip_ab_"))
+        ok = all(r["rc"] == 0 for r in out["pipeline"].values())
     bw, flops, _ = c.card_peaks(torch.cuda.get_device_name(0))
     if check and hasattr(c, "bias_grad_extra"):
         ex = c.bias_grad_extra(bw, flops)
@@ -206,9 +287,10 @@ def run_one(root: str, steps: bool, check: bool) -> dict:
 
 def main(argv) -> int:
     steps, check = "--steps" in argv, "--check" in argv
+    pipeline = "--pipeline" in argv
     roots = [a for a in argv if not a.startswith("--")]
     if "--one" in argv:
-        res = run_one(roots[0], steps, check)
+        res = run_one(roots[0], steps, check, pipeline)
         print("AB " + json.dumps(res), flush=True)
         return 0 if res["ok"] else 1
     if not roots:

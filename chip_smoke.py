@@ -177,14 +177,24 @@ the script exits non-zero without a result line):
              training rows/s (the gap between two round lines, the test
              pass included); then ``example/ImageNet/Inception-BN.conf``
              in process (``LearnTask().run``), only its data paths
-             pointed at seeded raw-tensor imgrec archives (300 train and
+             pointed at seeded raw-tensor imgrec archives (768 train and
              200 val records of 256x256x3 uint8, labels in 0-999): 2
-             rounds at the conf's batch 128, 224 crop, 1000 classes and
-             ``dtype = bfloat16`` with ``bn_pallas = bn_fuse_relu = 1``
-             (the round lines, every update's loss finite, 0002.model.npz
-             written, exactly 69 + 69 bf16 bn_apply and 1 bias_grad_bf16
-             launches per update and none in the round lines' eval
-             forwards, each update's time and each round's rows/s);
+             rounds of 6 batches at the conf's batch 128, 224 crop, 1000
+             classes and ``dtype = bfloat16`` with ``bn_pallas =
+             bn_fuse_relu = 1``, every batch staged on the card in the
+             prefetch thread from the pinned ring (the round lines, every
+             update's loss finite, 0002.model.npz written, exactly 69 +
+             69 bf16 bn_apply and 1 bias_grad_bf16 launches per update
+             and none in the round lines' eval forwards, each update's
+             time, each round's rows/s, ``data_wait_s`` and the prefetch
+             thread's copy time a batch); ``staging_check``: the first 4
+             staged batches of an AlexNet.conf-keyed chain copied back
+             equal the same chain's host batches bit for bit (data,
+             labels, inst_index), and a batch-4 update from a staged
+             batch gives the host batch's parameters; ``extra_input_check``:
+             a net with ``extra_data_num = 1`` trained 2 rounds through
+             the CLI from an imgrec, attachtxt, threadbuffer chain, every
+             update from a staged batch with its extra input;
              ``pred``, ``pred_raw`` and ``extract`` (the pooled features,
              node ``flat``) over val.rec from that snapshot (a pred block
              given on the command line) with ``bn_fold_eval =
@@ -200,14 +210,16 @@ the script exits non-zero without a result line):
 10. alexnet — the layer-zoo slice: ``example/ImageNet/AlexNet.conf`` in
              process through the CLI (``LearnTask().run``), only its data
              paths, ``num_round`` and ``model_dir`` set from outside, on
-             seeded raw-tensor imgrec archives (512 train and 256 val
-             records of 256x256x3 uint8, labels in 0-999): 2 rounds at
-             the conf's batch 256, 227 crop, 1000 classes, grouped convs,
-             two LRNs and ``dtype = bfloat16`` (the round lines, every
-             update's loss finite, 0002.model.npz written, exactly 8
-             bias_grad_bf16 launches per update and no other, none in the
-             round lines' eval forwards, each update's time and each
-             round's rows/s with its ``data_wait_s``); one profiled step
+             seeded raw-tensor imgrec archives (1,536 train and 256 val
+             records of 256x256x3 uint8, labels in 0-999): 2 rounds of 6
+             batches at the conf's batch 256, 227 crop, 1000 classes,
+             grouped convs, two LRNs and ``dtype = bfloat16``, staged as
+             in the cli phase (the round lines, every update's loss
+             finite, 0002.model.npz written, exactly 8 bias_grad_bf16
+             launches per update and no other, none in the round lines'
+             eval forwards, each update's time and each round's rows/s
+             with its ``data_wait_s`` and copy time); one profiled step
+             from a host batch and one from a staged batch
              of the conf's net (device time by kind) and each LRN's
              forward + backward device time at its shape; ``pred``,
              ``pred_raw`` and ``extract`` (fc7's features) over val.rec
@@ -2631,7 +2643,7 @@ def update_delta_check(workdir: str, cfg=None, plain_cfg=None,
                 if f64:
                     # update() ships the batch as float32; the same step
                     # on a float64 copy of it
-                    data, labels, mask = t._device_batch(batch)
+                    data, labels, mask, _ = t._device_batch(batch)
                     t._last_loss, _ = t._train_step(
                         data.double(), labels, mask, t.update_counter, True,
                         False, t._step_scalar())
@@ -3318,10 +3330,10 @@ def tower_serve_cfg():
 # ------------------------------------------------------------- phase 9
 
 # the cli phase: Inception-BN.conf's data from seeded raw-tensor imgrec
-# archives (256x256x3 uint8, labels in 0-999): 2 full batches of 128 and a
-# 44-row tail that round_batch wraps, and a validation archive
+# archives (256x256x3 uint8, labels in 0-999): 6 full batches of 128 a
+# round (rounds reach a steady state), and a validation archive
 CLI_IMAGE = 256
-CLI_TRAIN_RECORDS, CLI_VAL_RECORDS = 300, 200
+CLI_TRAIN_RECORDS, CLI_VAL_RECORDS = 768, 200
 CLI_ROUNDS = 2
 # per update of Inception-BN.conf through the CLI (dtype = bfloat16 alone,
 # bn_pallas = bn_fuse_relu = 1): every batch norm through bf16 bn_apply,
@@ -3407,12 +3419,22 @@ def tap_trainer(rec):
     and rows, each eval forward's launch counts, and each closed round's
     throughput; the methods are restored on exit."""
     import torch
+    from cxxnet_tpu_torch.io.iter_batch import PrefetchIterator
     from cxxnet_tpu_torch.layers import kernels
     from cxxnet_tpu_torch.nnet.trainer import NetTrainer
     names = ("update", "update_many", "pred", "end_round")
     orig = {n: getattr(NetTrainer, n) for n in names}
+    orig_transform = PrefetchIterator.set_transform
+    fetchers = []
     for key in ("updates", "forwards", "rounds"):
         rec.setdefault(key, [])
+
+    def set_transform(self, fn, pin_memory=False):
+        fetchers.append(self)            # a chain the CLI stages
+        return orig_transform(self, fn, pin_memory)
+
+    def on_card(t):
+        return isinstance(t, torch.Tensor) and t.device.type == DEVICE
 
     def delta(before):
         after = kernels.launch_counts()
@@ -3431,12 +3453,18 @@ def tap_trainer(rec):
                 "batches": len(batches), "launches": delta(before),
                 "loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
                 "rows": sum(b.batch_size - b.num_batch_padd
-                            for b in batches)})
+                            for b in batches),
+                # the batches arrived staged on the card (data, labels
+                # and every extra input)
+                "staged": all(on_card(b.data) and on_card(b.label)
+                              and all(on_card(e) for e in b.extra_data)
+                              for b in batches),
+                "extra_inputs": len(batches[0].extra_data)})
         return run
 
-    def pred(self, data, nodes, mask=None):
+    def pred(self, data, nodes, mask=None, extra=()):
         before = kernels.launch_counts()
-        out = orig["pred"](self, data, nodes, mask)
+        out = orig["pred"](self, data, nodes, mask, extra)
         rec["forwards"].append(delta(before))
         return out
 
@@ -3444,20 +3472,56 @@ def tap_trainer(rec):
         was_open = self._round_t0 is not None
         orig["end_round"](self)
         if was_open:
+            # the prefetch thread's copies this round: each batch's
+            # copy calls and the wait for its ready event (reset on read)
+            h2d = [f.h2d_snapshot() for f in fetchers]
             rec["rounds"].append({
                 "round": self.round, "examples": self.last_round_examples,
                 "wall_s": self.last_round_wall_s,
-                "rows_per_s": self.last_round_examples_per_sec})
+                "rows_per_s": self.last_round_examples_per_sec,
+                "h2d_batches": sum(h["h2d_batches"] for h in h2d),
+                "h2d_ms": sum(h["h2d_ms"] for h in h2d),
+                "staging": dict(self.staging)})
 
     NetTrainer.update = stepped(orig["update"])
     NetTrainer.update_many = stepped(orig["update_many"])
     NetTrainer.pred = pred
     NetTrainer.end_round = end_round
+    PrefetchIterator.set_transform = set_transform
     try:
         yield rec
     finally:
         for n in names:
             setattr(NetTrainer, n, orig[n])
+        PrefetchIterator.set_transform = orig_transform
+
+
+def round_report(rec, per_round: int):
+    """The CLI training run's rounds (``tap_trainer``): each round's
+    rows/s, its update seconds and the rest of its window
+    (``data_wait_s``: the loop waiting on the iterator), the prefetch
+    thread's copy time per staged batch, and how many batches were staged
+    from the pinned ring; the updates' median (the first apart)."""
+    step_ms = [u["ms"] for u in rec["updates"]]
+    rounds = []
+    for i, rd in enumerate(rec["rounds"]):
+        upd = sum(step_ms[i * per_round:(i + 1) * per_round]) / 1e3
+        rounds.append({
+            "round": rd["round"], "rows_per_s": rd["rows_per_s"],
+            "wall_s": rd["wall_s"], "update_s": upd,
+            "data_wait_s": rd["wall_s"] - upd,
+            "h2d_batches": rd["h2d_batches"],
+            "h2d_ms_per_batch": rd["h2d_ms"] / rd["h2d_batches"]
+            if rd["h2d_batches"] else None})
+    staging = rec["rounds"][-1]["staging"] if rec["rounds"] else {}
+    return {"rounds": rounds, "first_update_ms": step_ms[0]
+            if step_ms else None,
+            "update_median_ms": float(np.median(step_ms[1:]))
+            if len(step_ms) > 1 else None,
+            "staged_updates": sum(u["staged"] for u in rec["updates"]),
+            "staging": staging,
+            "pinned_ring": bool(staging.get("batches"))
+            and staging.get("pinned") == staging.get("batches")}
 
 
 def round_lines(lines):
@@ -3556,6 +3620,162 @@ def cli_mnist(workdir: str, here: str):
     return res
 
 
+def staging_check(rec_path: str, nbatch: int = 4):
+    """The staging on the card, held bit for bit: the first ``nbatch``
+    batches of a threadbuffer chain over ``rec_path`` (AlexNet.conf's
+    train keys at batch 4: imgrec, 227 rand_crop, rand_mirror,
+    mean_value) staged by ``NetTrainer.device_put_batch`` from the
+    pinned ring, copied back to the host, against the same chain's
+    batches read with no transform, in the same process (data, labels,
+    inst_index, padding); and one batch-4 AlexNet.conf update from the
+    first staged batch against one from its host batch, from one seed,
+    cuDNN deterministic: the same parameters."""
+    import torch
+    from cxxnet_tpu_torch.io import DataBatch, create_iterator
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    pairs = [("iter", "imgrec"), ("path_imgrec", rec_path),
+             ("input_shape", "3,227,227"), ("rand_crop", "1"),
+             ("rand_mirror", "1"), ("mean_value", "123,117,104"),
+             ("silent", "1"), ("iter", "threadbuffer")]
+
+    def first(trainer):
+        it = create_iterator(pairs, [("batch_size", "4")])
+        it.init()
+        out = []
+        try:
+            if trainer is not None:
+                it.set_transform(trainer.device_put_batch,
+                                 pin_memory=DEVICE == "cuda")
+            for b in it:
+                out.append(b if trainer is not None else DataBatch(
+                    np.array(b.data), np.array(b.label),
+                    np.array(b.inst_index), b.num_batch_padd))
+                if len(out) == nbatch:
+                    break
+        finally:
+            it.close()
+        return out
+
+    stager = NetTrainer(alexnet_cfg(4), device=DEVICE)
+    host, staged = first(None), first(stager)
+    same = []
+    for h, d in zip(host, staged):
+        stager._await(d)
+        same.append({
+            "data": exact(torch.from_numpy(h.data), d.data.cpu()),
+            "label": exact(torch.from_numpy(h.label), d.label.cpu())
+            and np.array_equal(h.label, d.host_label),
+            "inst_index": np.array_equal(h.inst_index, d.inst_index),
+            "padd": h.num_batch_padd == d.num_batch_padd,
+            "on_card": d.data.device.type == DEVICE})
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    params = []
+    try:
+        for stage in (False, True):
+            t = NetTrainer(alexnet_cfg(4) + [("eval_train", "0")],
+                           device=DEVICE)
+            t.init_model()
+            t.update(t.device_put_batch(host[0]) if stage else host[0])
+            params.append({(lk, tag): w.detach().cpu()
+                           for lk, sub in t.params.items()
+                           for tag, w in sub.items()})
+            del t
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = before
+    differing = [("%s/%s" % k) for k in params[0]
+                 if not exact(params[0][k], params[1][k])]
+    res = {"batches": len(staged), "per_batch": same,
+           "staging": dict(stager.staging),
+           "update_params_differing": differing}
+    res["ok"] = bool(len(staged) == len(host) == nbatch
+                     and all(all(c.values()) for c in same)
+                     and not differing
+                     and stager.staging["batches"] >= nbatch
+                     and (stager.staging["pinned"]
+                          == stager.staging["batches"]
+                          or DEVICE != "cuda"))
+    return res
+
+
+EXTRA_TEXT = """data = train
+iter = imgrec
+  path_imgrec = %(rec)s
+  input_shape = 3,32,32
+  rand_crop = 1
+  mean_value = 123,117,104
+  scale = 0.0078125
+  silent = 1
+iter = attachtxt
+  filename = %(att)s
+iter = threadbuffer
+iter = end
+extra_data_num = 1
+extra_data_shape[0] = 1,1,%(dim)d
+netconfig = start
+layer[in->c1] = conv:c1
+  kernel_size = 5
+  stride = 2
+  nchannel = 16
+layer[c1->c1] = relu
+layer[c1->p1] = max_pooling
+  kernel_size = 3
+  stride = 2
+layer[p1->f] = flatten
+layer[f,in_1->h] = concat
+layer[h->fc1] = fullc:fc1
+  nhidden = 64
+layer[fc1->fc1] = relu
+layer[fc1->o] = fullc:fc2
+  nhidden = %(nclass)d
+layer[o->o] = softmax
+netconfig = end
+input_shape = 3,32,32
+batch_size = 32
+eta = 0.05
+momentum = 0.9
+metric = error
+"""
+
+
+def extra_input_check(workdir: str, rec_path: str, dim: int = 8):
+    """A net with an extra input (``extra_data_num = 1``: the image's
+    conv features concatenated with an ``attachtxt`` row a record) trained
+    2 rounds through the CLI on the card, its chain imgrec, attachtxt,
+    threadbuffer: every update from a batch staged on the card, the
+    extra input included, its loss finite."""
+    rng = np.random.RandomState(SEED + 21)
+    att = os.path.join(workdir, "extra.txt")
+    with open(att, "w") as f:
+        f.write("%d\n" % dim)
+        for i in range(CLI_VAL_RECORDS):
+            f.write(" ".join([str(i)] + ["%.5f" % v for v in
+                                         rng.randn(dim)]) + "\n")
+    conf = os.path.join(workdir, "extra.conf")
+    with open(conf, "w") as f:
+        f.write(EXTRA_TEXT % {"rec": rec_path, "att": att, "dim": dim,
+                              "nclass": NCLASS})
+    rec = {}
+    with tap_trainer(rec):
+        rc, lines = run_cli([conf, "num_round=2", "print_step=0",
+                             "model_dir=" + os.path.join(workdir, "extra")])
+    ups = rec["updates"]
+    losses = [u["loss"] for u in ups]
+    res = {"rc": rc, "updates": len(ups), "losses": losses,
+           "staged_updates": sum(u["staged"] for u in ups),
+           "extra_inputs": sorted(set(u["extra_inputs"] for u in ups)),
+           "staging": rec["rounds"][-1]["staging"] if rec["rounds"] else {},
+           "round_lines": round_lines(lines)}
+    res["ok"] = bool(rc == 0 and len(ups) == 2 * -(-CLI_VAL_RECORDS // 32)
+                     and res["staged_updates"] == len(ups)
+                     and res["extra_inputs"] == [1]
+                     and np.all(np.isfinite(losses)))
+    return res
+
+
 def phase_cli(workdir: str):
     """The CLI slice through its entry point (see the module docstring):
     MNIST.conf as a subprocess, then Inception-BN.conf trained, predicted
@@ -3599,20 +3819,20 @@ def phase_cli(workdir: str):
     step_ms = [u["ms"] for u in ups]
     lines = round_lines(tr["lines"])
     # a round's window (start_round to end_round) less its updates: the
-    # time the loop waited on the iterator (decode and augment in the
-    # threadbuffer's thread)
-    for i, rd in enumerate(tr["rounds"]):
-        rd["update_s"] = sum(step_ms[i * per_round:(i + 1) * per_round]) / 1e3
-        rd["data_wait_s"] = rd["wall_s"] - rd["update_s"]
+    # time the loop waited on the iterator (decode, augment and the copy
+    # in the threadbuffer's thread)
+    rep = round_report(tr, per_round)
     train = {
         "rc": tr["rc"], "wall_s": tr["wall_s"], "archives_s": archives_s,
         "round_lines": lines, "updates": len(ups), "losses": losses,
         "finite": bool(np.all(np.isfinite(losses))),
         "step_ms": step_ms,
-        "steady_step_ms": float(np.median(step_ms[1:])) if len(ups) > 1
-        else None,
+        "steady_step_ms": rep["update_median_ms"],
+        "first_update_ms": rep["first_update_ms"],
         "rows_per_update": [u["rows"] for u in ups],
-        "rounds": tr["rounds"],
+        "rounds": rep["rounds"], "staging": rep["staging"],
+        "pinned_ring": rep["pinned_ring"],
+        "staged_updates": rep["staged_updates"],
         "launches": tr["launches"],
         "launches_per_update": ups[-1]["launches"] if ups else None,
         "expected_per_update": CLI_TRAIN_LAUNCHES,
@@ -3634,7 +3854,14 @@ def phase_cli(workdir: str):
                        and train["finite"] and train["snapshot"]
                        and sorted(lines) == list(range(1, CLI_ROUNDS + 1))
                        and all("train-error" in v and "val-error" in v
-                               for v in lines.values()))
+                               for v in lines.values())
+                       and train["staged_updates"] == len(ups)
+                       and (train["pinned_ring"] or DEVICE != "cuda"))
+    # the staged batches against the host ones, and a staged update
+    # against a host one; an extra_data_num net trained from an
+    # attachtxt chain
+    staging = staging_check(train_rec)
+    extra_input = extra_input_check(workdir, val_rec)
     # pred / pred_raw / serve from that snapshot over val.rec (a pred
     # block given on the command line), the eval fold on
     knobs = ["%s=%s" % kv for kv in KNOBS]
@@ -3729,10 +3956,12 @@ def phase_cli(workdir: str):
                      "conv_pallas_epilogue = 1 for pred and serve"
                      % (CLI_IMAGE, CLI_IMAGE, CLI_TRAIN_RECORDS,
                         CLI_VAL_RECORDS, TRAIN_BATCH, NCLASS),
-           "mnist": mnist, "train": train, "pred": preds, "serve": serve,
+           "mnist": mnist, "train": train, "staging_check": staging,
+           "extra_input": extra_input, "pred": preds, "serve": serve,
            "launches": total}
     res["ok"] = bool(mnist["ok"] and mnist["quantize"]["ok"]
                      and mnist["serve_int8"]["ok"] and train["ok"]
+                     and staging["ok"] and extra_input["ok"]
                      and preds["ok"] and serve["ok"])
     emit(res)
     if not res["ok"]:
@@ -3744,8 +3973,8 @@ def phase_cli(workdir: str):
 
 # the layer-zoo slice: example/ImageNet/AlexNet.conf through the CLI, its
 # data on seeded raw-tensor imgrec archives (256x256x3 uint8, labels in
-# 0-999): two full batches of 256 a round, and one validation batch
-ALEX_TRAIN_RECORDS, ALEX_VAL_RECORDS = 512, 256
+# 0-999): six full batches of 256 a round, and one validation batch
+ALEX_TRAIN_RECORDS, ALEX_VAL_RECORDS = 1536, 256
 ALEX_BATCH, ALEX_ROUNDS = 256, 2
 # per update of AlexNet.conf (dtype = bfloat16 alone): every conv and
 # fullc bias (conv1-5, fc6-8) adds to a bf16 output, so its gradient sums
@@ -3970,15 +4199,18 @@ def phase_alexnet(workdir: str, bw: float):
     losses = [u["loss"] for u in ups]
     step_ms = [u["ms"] for u in ups]
     lines = round_lines(tr["lines"])
-    for i, rd in enumerate(tr["rounds"]):
-        rd["update_s"] = sum(step_ms[i * per_round:(i + 1) * per_round]) / 1e3
-        rd["data_wait_s"] = rd["wall_s"] - rd["update_s"]
+    rep = round_report(tr, per_round)
     train = {
         "rc": tr["rc"], "wall_s": tr["wall_s"], "archives_s": archives_s,
         "round_lines": lines, "updates": len(ups), "losses": losses,
         "finite": bool(np.all(np.isfinite(losses))), "step_ms": step_ms,
+        "first_update_ms": rep["first_update_ms"],
+        "update_median_ms": rep["update_median_ms"],
         "rows_per_update": [u["rows"] for u in ups],
-        "rounds": tr["rounds"], "launches": tr["launches"],
+        "rounds": rep["rounds"], "staging": rep["staging"],
+        "pinned_ring": rep["pinned_ring"],
+        "staged_updates": rep["staged_updates"],
+        "launches": tr["launches"],
         "launches_per_update": [u["launches"] for u in ups],
         "expected_per_update": ALEX_LAUNCHES,
         "eval_forwards": len(tr["forwards"]),
@@ -3998,7 +4230,9 @@ def phase_alexnet(workdir: str, bw: float):
                        and train["finite"] and train["snapshot"]
                        and sorted(lines) == list(range(1, ALEX_ROUNDS + 1))
                        and all("train-error" in v and "val-error" in v
-                               for v in lines.values()))
+                               for v in lines.values())
+                       and train["staged_updates"] == len(ups)
+                       and (train["pinned_ring"] or DEVICE != "cuda"))
     # one step of the conf's net at its batch, profiled (a seeded
     # trainer from the same keys), and the LRNs' own device time
     t = NetTrainer(alexnet_cfg(ALEX_BATCH) + [("eval_train", "0")],
@@ -4007,6 +4241,9 @@ def phase_alexnet(workdir: str, bw: float):
     b = alexnet_batch(np.random.RandomState(SEED + 13), ALEX_BATCH)
     t.update(b)
     prof = profile_step(t, b, reps=3, device_keys=ALEX_DEVICE_KEYS)
+    # the update as the CLI now runs it: its batch staged beforehand
+    staged_prof = profile_step(t, t.device_put_batch(b), reps=3,
+                               device_keys=ALEX_DEVICE_KEYS)
     lrns = [lrn_cost(t.net.layer_objs[li], ALEX_BATCH, bw)
             for li, info in enumerate(t.net.graph.layers)
             if info.type == "lrn"]
@@ -4085,7 +4322,10 @@ def phase_alexnet(workdir: str, bw: float):
                      "dtype = bfloat16, %d rounds"
                      % (CLI_IMAGE, CLI_IMAGE, ALEX_TRAIN_RECORDS,
                         ALEX_VAL_RECORDS, ALEX_BATCH, NCLASS, ALEX_ROUNDS),
-           "train": train, "profile": prof, "pred": preds,
+           "train": train, "profile": prof,
+           "profile_staged": {k: staged_prof[k] for k in (
+               "wall_ms", "device_busy_ms", "idle_share", "spread",
+               "by_kind")}, "pred": preds,
            "update_vs_plain": bdelta, "zoo": zoo,
            "launches": runs["train"]["launches"]}
     res["ok"] = bool(train["ok"] and preds["ok"] and bdelta["ok"]

@@ -4,30 +4,28 @@
 The first ``iter=`` names the base source; later ``iter=`` entries stack
 adapters; parameters apply to every iterator in the chain.
 
-Sources: mnist (batch level); csv and imgrec (instance level,
-auto-wrapped in a BatchAdapter). Adapters: augment, batch,
-threadbuffer, membuffer. The sources and adapters of the image data
-pipeline item (img, imgbin and its variants, libsvm, attachtxt) raise
-:class:`~cxxnet_tpu_torch.utils.config.NotPortedError`.
+Sources: mnist (batch level); csv, libsvm, img, imgrec and imgbin
+(with its names imgbinx, imgbinold and imginst) at instance level,
+auto-wrapped in a BatchAdapter. Adapters: augment, batch,
+threadbuffer, membuffer, attachtxt.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
-from ..utils.config import NotPortedError, Roadmap
 from .data import (DataBatch, DataInst, IIterator, batch_mask,
                    inst_array_shape)
+from .iter_attach import AttachTxtIterator
 from .iter_augment import AugmentAdapter
 from .iter_batch import BatchAdapter, PrefetchIterator
 from .iter_csv import CSVIterator
+from .iter_img import ImageIterator
+from .iter_imgbin import ImageBinIterator
 from .iter_imgrec import ImageRecordIterator
+from .iter_libsvm import LibSVMIterator
 from .iter_mem import MemBufferIterator
 from .iter_mnist import MNISTIterator
-
-# iterator types of the reference that this port does not have yet
-NOT_PORTED_ITERS = ("img", "imgbin", "imgbinx", "imgbinold", "imginst",
-                    "libsvm", "attachtxt")
 
 
 def create_iterator(cfg: Sequence[Tuple[str, str]],
@@ -48,9 +46,6 @@ def create_iterator(cfg: Sequence[Tuple[str, str]],
 
     for name, val in cfg:
         if name == "iter":
-            if val in NOT_PORTED_ITERS:
-                raise NotPortedError("iter = %s" % val,
-                                     Roadmap.IMAGE_PIPELINE)
             if val == "mnist":
                 assert it is None, "mnist must be the base iterator"
                 it = MNISTIterator()
@@ -59,11 +54,19 @@ def create_iterator(cfg: Sequence[Tuple[str, str]],
                 assert it is None, "csv must be the base iterator"
                 it = CSVIterator()
                 is_instance_level = True
-            elif val == "imgrec":
-                assert it is None, "imgrec must be the base iterator"
+            elif val == "libsvm":
+                assert it is None, "libsvm must be the base iterator"
+                it = LibSVMIterator()
+                is_instance_level = True
+            elif val in ("img", "imgrec", "imgbin", "imgbinx",
+                         "imgbinold", "imginst"):
+                assert it is None, "%s must be the base iterator" % val
                 # image sources get the augmenter inline: crop/mirror/
                 # mean/scale params live in the same block
-                it = AugmentAdapter(ImageRecordIterator())
+                base = ImageIterator() if val == "img" else \
+                    ImageRecordIterator() if val == "imgrec" else \
+                    ImageBinIterator()
+                it = AugmentAdapter(base)
                 is_instance_level = True
             elif val == "augment":
                 assert it is not None and is_instance_level, \
@@ -89,6 +92,12 @@ def create_iterator(cfg: Sequence[Tuple[str, str]],
                     it = BatchAdapter(it)
                     is_instance_level = False
                 it = MemBufferIterator(it)
+            elif val == "attachtxt":
+                assert it is not None, "attachtxt stacks on an iterator"
+                if is_instance_level:
+                    it = BatchAdapter(it)
+                    is_instance_level = False
+                it = AttachTxtIterator(it)
             else:
                 raise ValueError("unknown iterator type %r" % val)
             apply_pending(it)

@@ -13,16 +13,20 @@
   travels with the batch (``DataBatch.release``): a consumer returns a
   buffer for reuse once nothing reads it any more; consumers that never
   release fall back to allocate-per-batch — reuse is an optimization,
-  never a correctness hazard.
+  never a correctness hazard. When the chain feeds a CUDA device the
+  ring's buffers are pinned (``set_transform(..., pin_memory=True)``):
+  allocated once each from PyTorch's pinned host allocator and viewed
+  as numpy, so the host-to-device copy reads them by DMA, without a
+  staging copy.
 
 - PrefetchIterator: the ``threadbuffer`` adapter — a background thread
   producing batches into a bounded condition-variable queue so host IO
   overlaps device compute. A transform attached with ``set_transform``
-  runs in the producer thread; the host ring buffer of a transformed
-  batch is handed back only when the transform's result holds its own
-  copy (a tensor on the GPU, copied synchronously from pageable
-  memory), never when it aliases the host memory (``torch.from_numpy``
-  on the CPU).
+  (``NetTrainer.device_put_batch``: an asynchronous copy on a copy
+  stream) runs in the producer thread, which then waits for the staged
+  batch's ``ready`` event: only once the copy has read the host ring
+  buffer is that buffer handed back for refill, and never when the
+  result aliases the host memory.
 """
 
 from __future__ import annotations
@@ -40,27 +44,35 @@ from .iter_augment import AugmentAdapter
 _PAGE = 4096
 
 
-def _aligned_empty(shape, dtype) -> np.ndarray:
+def _aligned_empty(shape, dtype, pinned: bool = False) -> np.ndarray:
     """Page-aligned uninitialized array. NumPy has no alignment knob, so
     carve an aligned view out of an oversized byte allocation — decode
-    threads and DMA engines both prefer page boundaries."""
+    threads and DMA engines both prefer page boundaries. ``pinned``
+    takes the bytes from PyTorch's pinned (page-locked, page-aligned)
+    host allocator instead; the array keeps that tensor alive."""
     dtype = np.dtype(dtype)
     nbytes = int(np.prod(shape)) * dtype.itemsize
+    if pinned:
+        import torch
+        raw = torch.empty((nbytes,), dtype=torch.uint8,
+                          pin_memory=True).numpy()
+        return raw.view(dtype).reshape(shape)
     raw = np.empty(nbytes + _PAGE, np.uint8)
     off = (-raw.ctypes.data) % _PAGE
     return raw[off:off + nbytes].view(dtype).reshape(shape)
 
 
 class _BatchBuf:
-    """One preallocated (data, label, index) buffer set."""
+    """One preallocated (data, label, index) buffer set; ``key`` is its
+    (spec, pinned) generation."""
 
-    __slots__ = ("spec", "data", "label", "index", "leased")
+    __slots__ = ("key", "data", "label", "index", "leased")
 
-    def __init__(self, spec):
+    def __init__(self, spec, pinned: bool):
         data_shape, data_dtype, label_shape = spec
-        self.spec = spec
-        self.data = _aligned_empty(data_shape, data_dtype)
-        self.label = _aligned_empty(label_shape, np.float32)
+        self.key = (spec, pinned)
+        self.data = _aligned_empty(data_shape, data_dtype, pinned)
+        self.label = _aligned_empty(label_shape, np.float32, pinned)
         self.index = np.empty((data_shape[0],), np.uint32)
         self.leased = False
 
@@ -72,12 +84,15 @@ class _BufferRing:
     available (unbounded degradation to allocate-per-batch); release()
     returns a buffer, keeping at most ``max_free`` around. Thread-safe:
     the prefetch producer releases while the adapter acquires.
+    ``pin_memory`` allocates pinned buffers; changing it, or the spec,
+    retires the buffers of the old generation.
     """
 
     def __init__(self, max_free: int = 16):
         self._lock = threading.Lock()
         self._free: List[_BatchBuf] = []
-        self._spec = None
+        self._key = None
+        self.pin_memory = False
         self.max_free = max_free
         self.allocated = 0
         self.reused = 0
@@ -86,15 +101,16 @@ class _BufferRing:
 
     def acquire(self, spec) -> _BatchBuf:
         with self._lock:
-            if spec != self._spec:
-                # shape/dtype change: retire the old generation
+            key = (spec, self.pin_memory)
+            if key != self._key:
+                # shape/dtype/pinning change: retire the old generation
                 self._free.clear()
-                self._spec = spec
+                self._key = key
             if self._free:
                 buf = self._free.pop()
                 self.reused += 1
             else:
-                buf = _BatchBuf(spec)
+                buf = _BatchBuf(spec, self.pin_memory)
                 self.allocated += 1
             buf.leased = True
             return buf
@@ -104,7 +120,7 @@ class _BufferRing:
             if not buf.leased:
                 return                   # idempotent double-release
             buf.leased = False
-            if buf.spec == self._spec and len(self._free) < self.max_free:
+            if buf.key == self._key and len(self._free) < self.max_free:
                 self._free.append(buf)
 
     def snapshot(self) -> dict:
@@ -115,7 +131,7 @@ class _BufferRing:
             self._snap_alloc = self.allocated
             self._snap_reuse = self.reused
         return {"allocated": alloc, "reused": reuse,
-                "batches": alloc + reuse}
+                "batches": alloc + reuse, "pinned": self.pin_memory}
 
 
 class BatchAdapter(IIterator):
@@ -212,6 +228,11 @@ class BatchAdapter(IIterator):
 
     def ring_snapshot(self) -> dict:
         return self._ring.snapshot()
+
+    def set_pin_memory(self, pinned: bool) -> None:
+        """Allocate the ring's buffers pinned from now on (a chain that
+        feeds a CUDA device)."""
+        self._ring.pin_memory = bool(pinned)
 
     def next(self) -> bool:
         if self.test_skipread and self._head is not None:
@@ -359,6 +380,13 @@ def _batch_aliases(raw, staged) -> bool:
     return False
 
 
+def _block_batch_ready(item) -> None:
+    """Wait for a staged batch's copies (its ``ready`` event)."""
+    ready = getattr(item, "ready", None)
+    if ready is not None:
+        ready.synchronize()
+
+
 class PrefetchIterator(IIterator):
     """Background-thread prefetch of a batch iterator.
 
@@ -370,9 +398,11 @@ class PrefetchIterator(IIterator):
     guards transformed batches.
 
     A transform attached with ``set_transform`` runs on each batch in
-    the producer thread and must return once it has read the host
-    arrays (a synchronous copy does); the host ring buffer is then
-    handed back for refill when the result holds its own copy.
+    the producer thread; where its result carries a ``ready`` event
+    (an asynchronous copy), the producer synchronizes it before the
+    host ring buffer is handed back for refill, and only when the
+    result holds its own copy. A staged batch dropped by a restart has
+    had its buffer handed back already, and its copy has completed.
     """
 
     def __init__(self, base: IIterator, capacity: int = 4):
@@ -406,11 +436,18 @@ class PrefetchIterator(IIterator):
                 # live resize: the bound applies from the next put
                 self._q.set_capacity(self.capacity)
 
-    def set_transform(self, fn) -> None:
+    def set_transform(self, fn, pin_memory: bool = False) -> None:
         """Apply fn to each batch in the producer thread (a host->device
-        copy there overlaps device compute). fn must have read the host
-        arrays when it returns."""
+        copy there overlaps device compute). fn has read the host arrays
+        when it returns, or once its result's ``ready`` event has
+        completed. ``pin_memory`` pins the ring buffers of every
+        BatchAdapter below (a chain that feeds a CUDA device)."""
         self._transform = fn
+        node = self.base
+        while node is not None:
+            if isinstance(node, BatchAdapter):
+                node.set_pin_memory(pin_memory)
+            node = getattr(node, "base", None)
 
     def enable_wait_stats(self):
         """Attach a latency histogram over consumer-side batch-fetch
@@ -462,6 +499,8 @@ class PrefetchIterator(IIterator):
             if self._transform is not None:
                 t0 = time.perf_counter()
                 staged = self._transform(raw)
+                # the copy has read the host buffer only once done
+                _block_batch_ready(staged)
                 dt = time.perf_counter() - t0
                 with self._lock:
                     self._h2d_s += dt
@@ -472,10 +511,11 @@ class PrefetchIterator(IIterator):
 
     def _release_raw(self, raw, staged) -> None:
         """Hand raw's ring buffer back ONLY when the staged batch holds
-        its own copy. Probed once (first staged batch): a CPU tensor
-        aliases the buffer, and releasing an aliased buffer lets the
-        ring refill memory a queued batch still reads (silent
-        duplicated/reordered training data)."""
+        its own copy, whose copy has completed (``_block_batch_ready``
+        came first). Probed once (first staged batch): a CPU tensor
+        made by ``torch.from_numpy`` aliases the buffer, and releasing
+        an aliased buffer lets the ring refill memory a queued batch
+        still reads (silent duplicated/reordered training data)."""
         if staged is raw or getattr(raw, "release", None) is None:
             return
         if self._release_safe is None:

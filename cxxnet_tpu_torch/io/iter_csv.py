@@ -2,8 +2,10 @@
 
 Row format: label_width labels, then ch*y*x features, comma-separated.
 Yields DataInst; compose with BatchAdapter for batches. Rows shard by
-stride over ``part_index`` / ``num_parts``; ``shard_kind = batch``
-(the multi-host batch-block map) raises :class:`NotPortedError`.
+stride over ``part_index`` / ``num_parts``, or under ``shard_kind =
+batch`` (``shard_global_batch``, ``shard_start_record``) by the
+batch-block map of ``io/shard.py``, whose slices concatenated in rank
+order give the unsharded order.
 """
 
 from __future__ import annotations
@@ -14,7 +16,6 @@ import numpy as np
 
 from .data import (DataInst, IIterator, inst_array_shape,
                    resolve_data_shard, shape_from_conf)
-from ..utils.config import NotPortedError, Roadmap
 from ..utils.stream import open_stream
 
 
@@ -27,10 +28,18 @@ class CSVIterator(IIterator):
         self.shape = (0, 0, 0)
         self.part_index = 0
         self.num_parts = 1
+        self.shard_kind = "stride"
+        self.shard_global_batch = 0
+        self.shard_start_record = 0
         self.rows: Optional[np.ndarray] = None
         self.indices: Optional[np.ndarray] = None
         self.idx = 0
         self.out: Optional[DataInst] = None
+        # batch-kind shard state: every row, and the index view of the
+        # passes after the resumed one
+        self._all_rows: Optional[np.ndarray] = None
+        self._steady_idx: Optional[np.ndarray] = None
+        self._pass_ended = False
 
     def set_param(self, name: str, val: str) -> None:
         if name == "filename":
@@ -51,9 +60,11 @@ class CSVIterator(IIterator):
             if val not in ("stride", "batch"):
                 raise ValueError(
                     "shard_kind must be stride or batch, got %r" % val)
-            if val == "batch":
-                raise NotPortedError("shard_kind = batch",
-                                     Roadmap.MULTI_GPU)
+            self.shard_kind = val
+        if name == "shard_global_batch":
+            self.shard_global_batch = int(val)
+        if name == "shard_start_record":
+            self.shard_start_record = int(val)
 
     def init(self) -> None:
         skip = 1 if self.has_header else 0
@@ -65,19 +76,46 @@ class CSVIterator(IIterator):
             raise ValueError(
                 "CSVIterator: row width %d != label_width %d + features %d"
                 % (self.rows.shape[1], self.label_width, nfeat))
-        # disjoint strided shard per distributed rank
-        pi, nparts = resolve_data_shard(self.part_index, self.num_parts)
-        self.indices = np.arange(self.rows.shape[0])[pi::nparts]
-        self.rows = self.rows[pi::nparts]
+        if self.shard_kind == "batch":
+            # this part's slice of every global batch; the
+            # shard_start_record offset applies to the first pass only
+            from .shard import plan_from_params
+            assert self.shard_global_batch > 0, \
+                "shard_kind=batch requires shard_global_batch"
+            plan = plan_from_params(self.part_index, self.num_parts,
+                                    self.shard_global_batch,
+                                    self.shard_start_record)
+            self._all_rows = self.rows
+            n = self._all_rows.shape[0]
+            self._steady_idx = np.asarray(
+                plan.steady().owned_indices(n), np.int64)
+            self.indices = np.asarray(plan.owned_indices(n), np.int64) \
+                if plan.start_record else self._steady_idx
+            self.rows = self._all_rows[self.indices]
+        else:
+            # disjoint strided shard per distributed rank
+            pi, nparts = resolve_data_shard(self.part_index,
+                                            self.num_parts)
+            self.indices = np.arange(self.rows.shape[0])[pi::nparts]
+            self.rows = self.rows[pi::nparts]
         if self.silent == 0:
             print("CSVIterator:filename=%s" % self.filename)
         self.idx = 0
 
     def before_first(self) -> None:
+        # a reset after any consumption ends the resumed pass (later
+        # epochs read the whole shard); resets before it keep the offset
+        if (self._all_rows is not None
+                and (self._pass_ended or self.idx > 0)
+                and self.indices is not self._steady_idx):
+            self.indices = self._steady_idx
+            self.rows = self._all_rows[self.indices]
         self.idx = 0
+        self._pass_ended = False
 
     def next(self) -> bool:
         if self.rows is None or self.idx >= self.rows.shape[0]:
+            self._pass_ended = True
             return False
         row = self.rows[self.idx]
         label = row[:self.label_width]

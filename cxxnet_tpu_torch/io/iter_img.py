@@ -1,0 +1,102 @@
+"""Image-list instance iterator, ``iter = img`` (counterpart of
+``cxxnet_tpu/io/iter_img.py``).
+
+Each row of ``image_list`` is ``<index> <label...> <path>``; the image
+is read (``cv2``, imported where an image is decoded) relative to
+``image_root`` and emitted as float32 NHWC RGB in [0, 255] (scaling is
+the augmenter's). ``shuffle`` permutes the order each epoch from
+``seed_data``, which advances by one an epoch; ``part_index`` /
+``num_parts`` take a strided shard of the rows.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+import numpy as np
+
+from .data import DataInst, IIterator, resolve_data_shard
+from ..utils.stream import open_stream
+
+
+class ImageIterator(IIterator):
+    def __init__(self):
+        self.image_list = ""
+        self.image_root = ""
+        self.label_width = 1
+        self.shuffle = 0
+        self.silent = 0
+        self.seed = 0
+        self.part_index = 0
+        self.num_parts = 1
+        self.rows: List[tuple] = []
+        self.order: Optional[np.ndarray] = None
+        self.idx = 0
+        self.out: Optional[DataInst] = None
+
+    def set_param(self, name: str, val: str) -> None:
+        if name == "image_list":
+            self.image_list = val
+        if name == "image_root":
+            self.image_root = val
+        if name == "label_width":
+            self.label_width = int(val)
+        if name == "shuffle":
+            self.shuffle = int(val)
+        if name == "silent":
+            self.silent = int(val)
+        if name == "seed_data":
+            self.seed = int(val)
+        if name == "part_index":
+            self.part_index = int(val)
+        if name == "num_parts":
+            self.num_parts = int(val)
+
+    def init(self) -> None:
+        self.rows = []
+        with open_stream(self.image_list, "r") as f:
+            for line in f:
+                toks = line.split()
+                if not toks:
+                    continue
+                label = np.asarray([float(t)
+                                    for t in toks[1:1 + self.label_width]],
+                                   np.float32)
+                self.rows.append((int(float(toks[0])), label,
+                                  toks[1 + self.label_width]))
+        pi, nparts = resolve_data_shard(self.part_index, self.num_parts)
+        if nparts > 1:
+            self.rows = self.rows[pi::nparts]
+        self.order = np.arange(len(self.rows))
+        if self.silent == 0:
+            print("ImageIterator: %d images from %s"
+                  % (len(self.rows), self.image_list))
+        self.before_first()
+
+    def before_first(self) -> None:
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed)
+            self.seed += 1
+            rng.shuffle(self.order)
+        self.idx = 0
+
+    def _load(self, path: str) -> np.ndarray:
+        import cv2
+        full = os.path.join(self.image_root, path) if self.image_root \
+            else path
+        img = cv2.imread(full, cv2.IMREAD_COLOR)
+        if img is None:
+            raise IOError("cannot decode image %r" % full)
+        return img[:, :, ::-1].astype(np.float32)     # BGR -> RGB
+
+    def next(self) -> bool:
+        if self.idx >= len(self.rows):
+            return False
+        index, label, path = self.rows[self.order[self.idx]]
+        self.out = DataInst(index=index, data=self._load(path), label=label)
+        self.idx += 1
+        return True
+
+    def value(self) -> DataInst:
+        return self.out

@@ -1,0 +1,200 @@
+"""imgbin: instance iterator over legacy BinaryPage archives
+(counterpart of ``cxxnet_tpu/io/iter_imgbin.py``).
+
+One iterator serves the config names ``imgbin``, ``imgbinx``,
+``imgbinold`` and ``imginst``: they differed only in how they
+threaded. Decoding runs in a thread pool a chunk at a time, and batch
+prefetch is the ``threadbuffer`` adapter's.
+
+The archive holds only image bytes; indices and labels come from the
+``image_list`` file (``index label... path`` rows, in pack order).
+``image_bin`` may be a space-separated list of shard files, each with
+its own list file; ``part_index`` / ``num_parts`` split the shards
+round-robin. ``image_conf_prefix`` (a ``%d`` pattern) with
+``image_conf_ids`` (``lb-ub``) names the shards ``<prefix % i>.lst`` /
+``.bin`` and gives each part a contiguous chunk of the ids. Images that
+do not decode are dropped. ``cv2`` is imported where a JPEG is decoded.
+"""
+
+from __future__ import annotations
+
+import re
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from .binpage import iter_objects
+from .data import DataInst, IIterator, resolve_data_shard
+from ..utils.stream import open_stream
+
+
+def _decode(args: Tuple[int, np.ndarray, bytes]) -> Optional[DataInst]:
+    import cv2
+    index, label, raw = args
+    img = cv2.imdecode(np.frombuffer(raw, np.uint8), cv2.IMREAD_COLOR)
+    if img is None:
+        return None
+    return DataInst(index=index, data=img[:, :, ::-1].astype(np.float32),
+                    label=label)
+
+
+class ImageBinIterator(IIterator):
+    def __init__(self):
+        self.image_list: List[str] = []
+        self.image_bin: List[str] = []
+        self.image_conf_prefix = ""
+        self.image_conf_ids = ""
+        self._conf_expanded = False
+        self._conf_sharded = False
+        self.label_width = 1
+        self.silent = 0
+        self.part_index = 0
+        self.num_parts = 1
+        self.nthread = 4
+        self._chunk = 64
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._gen = None
+        self._buf: List[DataInst] = []
+        self._bufpos = 0
+        self._out: Optional[DataInst] = None
+
+    def set_param(self, name: str, val: str) -> None:
+        if name == "image_list":
+            self.image_list = val.split()
+        if name == "image_bin":
+            self.image_bin = val.split()
+        if name == "image_conf_prefix":
+            self.image_conf_prefix = val
+        if name == "image_conf_ids":
+            self.image_conf_ids = val
+        if name == "label_width":
+            self.label_width = int(val)
+        if name == "silent":
+            self.silent = int(val)
+        if name in ("part_index", "dist_worker_rank"):
+            self.part_index = int(val)
+        if name in ("num_parts", "dist_num_worker"):
+            self.num_parts = int(val)
+        if name == "nthread":
+            self.nthread = int(val)
+
+    def _my_shards(self) -> List[Tuple[str, str]]:
+        assert len(self.image_list) == len(self.image_bin), \
+            "imgbin: need one image_list per image_bin shard"
+        pairs = list(zip(self.image_list, self.image_bin))
+        if self._conf_sharded or self.num_parts <= 1:
+            return pairs                 # already this part's
+        assert 0 <= self.part_index < self.num_parts, \
+            "imgbin: part_index %d out of range for num_parts %d " \
+            "(ranks are 0-based)" % (self.part_index, self.num_parts)
+        assert len(pairs) >= self.num_parts, \
+            "imgbin: fewer shard files than workers"
+        return pairs[self.part_index::self.num_parts]
+
+    def _expand_image_conf(self) -> None:
+        """image_conf_prefix + image_conf_ids -> per-id .lst / .bin
+        shard pairs; a part reads a contiguous, balanced chunk of the
+        ids."""
+        if not self.image_conf_prefix:
+            return
+        if self._conf_expanded:          # re-init: rebuild from scratch
+            self.image_list, self.image_bin = [], []
+        assert not self.image_list and not self.image_bin, \
+            "set either image_conf_prefix or image_bin/image_list"
+        self._conf_expanded = True
+        m = re.match(r"^(\d+)-(\d+)$", self.image_conf_ids)
+        assert m, "image_conf_ids only support range, like 1-100"
+        lb, ub = int(m.group(1)), int(m.group(2))
+        pi, nparts = resolve_data_shard(self.part_index, self.num_parts)
+        if nparts > 1:
+            assert 0 <= pi < nparts, \
+                "imgbin: part_index %d out of range for num_parts %d " \
+                "(ranks are 0-based)" % (pi, nparts)
+            n = ub + 1 - lb
+            begin = lb + n * pi // nparts
+            end = lb + n * (pi + 1) // nparts
+            assert begin < end, \
+                "imgbin: too many workers to divide image_conf_ids"
+            lb, ub = begin, end - 1
+            self._conf_sharded = True    # the id split is the shard
+        for i in range(lb, ub + 1):
+            base = self.image_conf_prefix % i
+            self.image_list.append(base + ".lst")
+            self.image_bin.append(base + ".bin")
+
+    def init(self) -> None:
+        self._conf_sharded = False
+        self._expand_image_conf()
+        assert self.image_bin, "imgbin: image_bin must be set"
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+        self._pool = ThreadPoolExecutor(max_workers=self.nthread)
+        if not self._conf_sharded and len(self.image_bin) > 1:
+            # a single explicit bin file is read whole by every part
+            self.part_index, self.num_parts = resolve_data_shard(
+                self.part_index, self.num_parts)
+        self._shards = self._my_shards()
+        # the list files are parsed once, not per epoch
+        self._shard_rows = [self._read_list(lst)
+                            for lst, _ in self._shards]
+        if self.silent == 0:
+            print("ImageBinIterator: %d shard(s), part %d/%d"
+                  % (len(self._shards), self.part_index, self.num_parts))
+        self.before_first()
+
+    def _read_list(self, path: str) -> List[Tuple[int, np.ndarray]]:
+        rows = []
+        with open_stream(path, "r") as f:
+            for line in f:
+                toks = line.split()
+                if not toks:
+                    continue
+                rows.append((int(float(toks[0])),
+                             np.asarray([float(t) for t in
+                                         toks[1:1 + self.label_width]],
+                                        np.float32)))
+        return rows
+
+    def _records(self):
+        """(index, label, image bytes) across this part's shards."""
+        for (lst, binf), rows in zip(self._shards, self._shard_rows):
+            for i, raw in enumerate(iter_objects(binf)):
+                if i >= len(rows):
+                    raise IOError(
+                        "imgbin: %s has more objects than rows in %s"
+                        % (binf, lst))
+                yield (rows[i][0], rows[i][1], raw)
+
+    def before_first(self) -> None:
+        self._gen = self._records()
+        self._buf, self._bufpos = [], 0
+
+    def _fill(self) -> bool:
+        chunk = []
+        for rec in self._gen:
+            chunk.append(rec)
+            if len(chunk) >= self._chunk:
+                break
+        if not chunk:
+            return False
+        self._buf = [i for i in self._pool.map(_decode, chunk)
+                     if i is not None]
+        self._bufpos = 0
+        return True
+
+    def next(self) -> bool:
+        while self._bufpos >= len(self._buf):
+            if not self._fill():
+                return False
+        self._out = self._buf[self._bufpos]
+        self._bufpos += 1
+        return True
+
+    def value(self) -> DataInst:
+        return self._out
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None

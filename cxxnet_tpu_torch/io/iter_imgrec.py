@@ -11,11 +11,14 @@ pool (a chunk at a time):
 - ``path_imglist``: optional list file remapping image_id -> label(s)
   without repacking
 - ``shuffle``: shuffles each decode chunk
+- ``shard_kind = batch`` (``shard_global_batch``,
+  ``shard_start_record``): the batch-block record map of ``io/shard.py``;
+  every record header is scanned, and only this part's records are
+  decoded
 - raw-tensor records (``recordio.RAW_TENSOR_FLAG``) decode with numpy
   alone; JPEG records import ``cv2`` where they are decoded
 
-``shard_kind = batch`` (the multi-host batch-block map) raises
-:class:`NotPortedError`. Emits DataInst (float32 NHWC in [0,255], or
+Emits DataInst (float32 NHWC in [0,255], or
 uint8 under ``decode_uint8``); the factory stacks augment/batch
 adapters on top.
 """
@@ -32,7 +35,6 @@ from .data import DataInst, IIterator, resolve_data_shard
 from .recordio import (RAW_TENSOR_FLAG, RecordIOReader,
                        parse_image_record, record_flag,
                        unpack_raw_tensor_record)
-from ..utils.config import NotPortedError, Roadmap
 from ..utils.stream import open_stream
 
 
@@ -44,6 +46,14 @@ class ImageRecordIterator(IIterator):
         self.silent = 0
         self.dist_num_parts = 1
         self.dist_part_index = 0
+        # shard_kind = stride keeps the byte-range split; batch applies
+        # the batch-block record map (io/shard.py)
+        self.shard_kind = "stride"
+        self.shard_global_batch = 0
+        self.shard_start_record = 0
+        self._shard_plan = None
+        self._rec_seq = 0
+        self._pass_ended = False
         self.nthread = max(4, os.cpu_count() or 4)
         self.shuffle = 0
         self.seed = 0
@@ -72,9 +82,11 @@ class ImageRecordIterator(IIterator):
             if val not in ("stride", "batch"):
                 raise ValueError(
                     "shard_kind must be stride or batch, got %r" % val)
-            if val == "batch":
-                raise NotPortedError("imgrec shard_kind = batch",
-                                     Roadmap.IMAGE_PIPELINE)
+            self.shard_kind = val
+        if name == "shard_global_batch":
+            self.shard_global_batch = int(val)
+        if name == "shard_start_record":
+            self.shard_start_record = int(val)
         if name == "nthread":
             self.nthread = int(val)
         if name == "shuffle":
@@ -122,7 +134,19 @@ class ImageRecordIterator(IIterator):
             self.dist_part_index, self.dist_num_parts)
         paths = [p for p in self.path_imgrec.split(",") if p]
         self._readers = []
-        if len(paths) == 1:
+        if self.shard_kind == "batch":
+            # every reader scans its whole archive in record order and
+            # _fill skips the decode of records other parts own: exact
+            # record ownership, which byte ranges cannot express
+            from .shard import plan_from_params
+            assert self.shard_global_batch > 0, \
+                "shard_kind=batch requires shard_global_batch"
+            self._shard_plan = plan_from_params(
+                self.dist_part_index, self.dist_num_parts,
+                self.shard_global_batch, self.shard_start_record)
+            for p in paths:
+                self._readers.append(RecordIOReader(p, 0, 1))
+        elif len(paths) == 1:
             self._readers.append(RecordIOReader(
                 paths[0], self.dist_part_index, self.dist_num_parts))
         else:
@@ -141,6 +165,14 @@ class ImageRecordIterator(IIterator):
         self.before_first()
 
     def before_first(self) -> None:
+        # a reset after any consumption ends the resumed pass: the
+        # shard_start_record offset applies to the first pass only;
+        # resets before consumption (init, the epoch start) keep it
+        if self._shard_plan is not None \
+                and (self._pass_ended or self._rec_seq > 0):
+            self._shard_plan = self._shard_plan.steady()
+        self._pass_ended = False
+        self._rec_seq = 0
         for r in self._readers:
             r.reset()
         self._cur_reader = 0
@@ -191,6 +223,11 @@ class ImageRecordIterator(IIterator):
             if r is None:
                 self._cur_reader += 1
                 continue
+            if self._shard_plan is not None:
+                owned = self._shard_plan.owns(self._rec_seq)
+                self._rec_seq += 1
+                if not owned:
+                    continue             # another part's record
             recs.append(r)
         if not recs:
             return False
@@ -206,6 +243,7 @@ class ImageRecordIterator(IIterator):
     def next(self) -> bool:
         while self._bufpos >= len(self._buf):
             if not self._fill():
+                self._pass_ended = True
                 return False
         self._out = self._buf[self._bufpos]
         self._bufpos += 1

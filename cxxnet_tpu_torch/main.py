@@ -342,10 +342,13 @@ class LearnTask:
 
     def _task_train(self, trainer, itr_train, eval_iters) -> int:
         assert itr_train is not None, "train requires a data block"
-        # batches reach update() as host arrays and are copied there,
-        # synchronously from pageable memory, so no ring buffer is
-        # handed back while a copy still reads it (staging in the
-        # prefetch thread is the image data pipeline item)
+        if hasattr(itr_train, "set_transform"):
+            # threadbuffer chains stage each batch on the device in the
+            # prefetch thread (from a pinned ring on CUDA), overlapped
+            # with the updates
+            itr_train.set_transform(
+                trainer.device_put_batch,
+                pin_memory=trainer.device.type == "cuda")
         k = self.dispatch_period
         start = time.time()
 

@@ -64,9 +64,9 @@ class FuncNet:
         g = self.graph
         if self._net_flag("channel_pad"):
             raise NotPortedError("channel_pad", Roadmap.CHECKPOINT_CLI)
-        if g.extra_data_num:
-            raise NotPortedError("extra_data_num", Roadmap.IMAGE_PIPELINE)
         self.node_shapes[0] = Shape3(*g.input_shape)
+        for i in range(g.extra_data_num):
+            self.node_shapes[1 + i] = Shape3(*g.extra_shape[i])
         for li, info in enumerate(g.layers):
             pli = g.param_layer_index(li)
             if info.type == "share":
@@ -230,10 +230,12 @@ class FuncNet:
                 data: torch.Tensor, is_train: bool = False,
                 mask: Optional[torch.Tensor] = None,
                 collect_logits: bool = False,
-                rng: Optional[Tuple[int, int]] = None
+                rng: Optional[Tuple[int, int]] = None,
+                extra: Sequence[torch.Tensor] = ()
                 ) -> Tuple[List[Optional[torch.Tensor]], NetState,
                            Dict[int, torch.Tensor]]:
-        """Run all connections in config order.
+        """Run all connections in config order; ``extra`` holds the
+        values of the extra input nodes ``1 .. extra_data_num``.
 
         Returns (node values, new state, loss inputs): the state after
         the training forward's running-stat updates (``state`` itself
@@ -247,6 +249,8 @@ class FuncNet:
         if not data.is_floating_point():
             data = data.float()          # uint8 pixels normalize here
         nodes[0] = data
+        for i in range(g.extra_data_num):
+            nodes[1 + i] = extra[i]
         new_state: NetState = dict(state)
         loss_inputs: Dict[int, torch.Tensor] = {}
         fold_eval = self.bn_fold_eval and not is_train
@@ -289,15 +293,17 @@ class FuncNet:
                 data: torch.Tensor, labels: torch.Tensor,
                 mask: Optional[torch.Tensor],
                 collect_nodes: Sequence[int] = (),
-                rng: Optional[Tuple[int, int]] = None):
+                rng: Optional[Tuple[int, int]] = None,
+                extra: Sequence[torch.Tensor] = ()):
         """Total training loss (sum over loss layers) and (new state,
         the values of ``collect_nodes``). ``labels`` is the (batch,
         label_width) matrix; each loss layer's ``target`` selects its
         columns through the graph's label fields. ``rng`` is the step's
-        ``(seed, step)`` (see :meth:`forward`)."""
+        ``(seed, step)`` and ``extra`` the extra inputs (see
+        :meth:`forward`)."""
         nodes, new_state, loss_inputs = self.forward(
             params, state, data, is_train=True, mask=mask,
-            collect_logits=True, rng=rng)
+            collect_logits=True, rng=rng, extra=extra)
         slices = {name: (a, b) for name, a, b in self.graph.label_slices()}
         total = torch.zeros((), dtype=torch.float32, device=data.device)
         for li, logit in loss_inputs.items():

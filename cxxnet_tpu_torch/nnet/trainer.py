@@ -44,7 +44,9 @@ from __future__ import annotations
 
 import os
 import re
+import threading
 import time
+from dataclasses import dataclass
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -67,6 +69,30 @@ from .quantize import (QUANT_PREFIX, attach, normalize_serve_dtype,
                        tables_from_blob)
 
 _RE_METRIC = re.compile(r"^metric(?:\[([^\]]*)\])?$")
+_RAW_DTYPES = (torch.uint8, torch.bfloat16)
+
+
+@dataclass
+class DeviceBatch(DataBatch):
+    """A batch whose ``data``, ``label`` and ``extra_data`` are tensors
+    on the trainer's device (``NetTrainer.device_put_batch``).
+    ``host_label`` is a private host copy of the labels (the train and
+    eval metrics read them on the host), ``mask`` the padded-row mask on
+    the device (None when every row is real) and ``ready`` the CUDA
+    event recorded after the copies on the trainer's copy stream (None
+    on the CPU)."""
+    host_label: Optional[np.ndarray] = None
+    mask: Optional[torch.Tensor] = None
+    ready: Any = None
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """Rows as a tensor of the dtype they ship in: uint8 pixels and
+    bf16 rows raw (the net normalizes them), everything else float32.
+    Aliases ``a`` where no cast or compaction is needed."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    return a if a.dtype in _RAW_DTYPES else a.float()
 
 
 class NetTrainer:
@@ -114,6 +140,12 @@ class NetTrainer:
         self.last_round_examples_per_sec = 0.0   # of the closed round
         self.last_round_examples = 0
         self.last_round_wall_s = 0.0
+        # device_put_batch: its copy stream (made at first use) and
+        # counts of the batches it staged and of those whose data it
+        # read straight from pinned memory
+        self._copy_stream = None
+        self._stream_lock = threading.Lock()
+        self.staging = {"batches": 0, "pinned": 0}
 
     # -- config ----------------------------------------------------------
 
@@ -372,26 +404,109 @@ class NetTrainer:
         return self.params if tree is None else tree
 
     def pred(self, data: torch.Tensor, nodes_wanted: Sequence[int],
-             mask: Optional[np.ndarray] = None) -> List[torch.Tensor]:
+             mask=None, extra: Sequence[torch.Tensor] = ()
+             ) -> List[torch.Tensor]:
         """Eval forward of a device batch; float32 values of the wanted
-        nodes, on the device. ``mask`` (``batch_mask``) keeps a padded
-        tail out of the batch moments that ``batch_norm_no_ma``
-        normalizes with at eval."""
+        nodes, on the device. ``mask`` (``batch_mask``, host or device)
+        keeps a padded tail out of the batch moments that
+        ``batch_norm_no_ma`` normalizes with at eval; ``extra`` holds
+        the extra input nodes' values."""
         params = self._pred_operands()
         if mask is not None:
-            mask = torch.from_numpy(mask).to(data.device)
+            mask = torch.as_tensor(mask).to(data.device)
         with torch.inference_mode():
             nodes, _, _ = self.net.forward(params, self.net_state, data,
-                                           mask=mask)
+                                           mask=mask, extra=extra)
             return [nodes[i].float() for i in nodes_wanted]
 
     def to_device_batch(self, x) -> torch.Tensor:
-        """Host rows -> a device tensor: uint8 pixels ship raw (the net
-        normalizes them), everything else as float32."""
-        a = np.asarray(x)
-        if a.dtype != np.uint8:
-            a = a.astype(np.float32, copy=False)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """Rows -> a tensor on the device: uint8 pixels and bf16 rows
+        ship raw (the net normalizes them), everything else as float32;
+        a tensor already there is taken as it is."""
+        return _host_tensor(x).to(self.device)
+
+    def device_put_batch(self, batch: DataBatch) -> DeviceBatch:
+        """Stage a host batch on the device: the transform the CLI hands
+        ``PrefetchIterator.set_transform``, so the copy runs in the
+        prefetch thread, overlapped with compute.
+
+        On CUDA, ``data``, ``label``, the mask and each ``extra_data``
+        are copied with ``non_blocking=True`` on the trainer's own copy
+        stream, from pinned memory: straight from a pinned ring buffer,
+        else through a pinned copy (PyTorch's caching host allocator
+        keeps that alive until its copy is done). The returned batch's
+        ``ready`` event follows the copies; the consumer's stream waits
+        on it (``_await``). The host arrays may be reused once ``ready``
+        has completed. On the CPU the tensors are private copies."""
+        host_label = None if batch.label is None \
+            else np.array(batch.label, np.float32)
+        rows = [batch.data, batch.label, batch_mask(batch)] \
+            + list(batch.extra_data)
+        rows = [None if a is None else _host_tensor(a) for a in rows]
+        ready = None
+        if self.device.type == "cuda":
+            with self._stream_lock:
+                if self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream(self.device)
+            pinned = rows[0].is_pinned()
+            out = []
+            with torch.cuda.stream(self._copy_stream):
+                for t in rows:
+                    if t is not None and not t.is_pinned():
+                        t = t.pin_memory()
+                    out.append(None if t is None else
+                               t.to(self.device, non_blocking=True))
+                ready = torch.cuda.Event()
+                ready.record(self._copy_stream)
+        else:
+            pinned = False
+            out = [None if t is None else t.clone() for t in rows]
+        self.staging["batches"] += 1
+        self.staging["pinned"] += int(pinned)
+        return DeviceBatch(
+            data=out[0], label=out[1],
+            # copies: the source may be a ring buffer handed back for
+            # refill while this batch waits in the queue
+            inst_index=None if batch.inst_index is None
+            else np.array(batch.inst_index),
+            num_batch_padd=batch.num_batch_padd, extra_data=out[3:],
+            host_label=host_label, mask=out[2], ready=ready)
+
+    def _await(self, batch: DeviceBatch) -> None:
+        """Order the current stream after a staged batch's copies, and
+        keep the allocator from handing their memory to the copy stream
+        before the current stream's work on them is done."""
+        if batch.ready is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(batch.ready)
+        for t in [batch.data, batch.label, batch.mask] \
+                + list(batch.extra_data):
+            if t is not None and t.device.type == "cuda":
+                t.record_stream(cur)
+
+    def _inputs(self, batch: DataBatch):
+        """(data, mask, extra) of a batch on the device; a staged batch
+        (``DeviceBatch``) is taken as it is, after its copies."""
+        if isinstance(batch, DeviceBatch):
+            self._await(batch)
+            mask = batch.mask
+        else:
+            mask = batch_mask(batch)
+            mask = None if mask is None \
+                else torch.from_numpy(mask).to(self.device)
+        return (self.to_device_batch(batch.data), mask,
+                tuple(self.to_device_batch(e) for e in batch.extra_data))
+
+    @staticmethod
+    def _host_label(batch: DataBatch) -> np.ndarray:
+        """The labels as float32 numpy, for the metrics."""
+        host = getattr(batch, "host_label", None)
+        if host is not None:
+            return host
+        if isinstance(batch.label, torch.Tensor):
+            return batch.label.float().cpu().numpy()
+        return np.asarray(batch.label, np.float32)
 
     @staticmethod
     def rows_to_prediction(m: np.ndarray) -> np.ndarray:
@@ -405,8 +520,8 @@ class NetTrainer:
     def predict(self, batch: DataBatch) -> np.ndarray:
         """argmax class (or raw scalar) per row of the top node."""
         top = self.graph.num_nodes - 1
-        (val,) = self.pred(self.to_device_batch(batch.data), (top,),
-                           batch_mask(batch))
+        data, mask, extra = self._inputs(batch)
+        (val,) = self.pred(data, (top,), mask, extra)
         nvalid = batch.batch_size - batch.num_batch_padd
         out = val[:nvalid].cpu().numpy()
         return self.rows_to_prediction(out)
@@ -414,23 +529,21 @@ class NetTrainer:
     def extract_feature(self, batch: DataBatch, node: str) -> np.ndarray:
         """The node's value for the valid rows, in its natural shape."""
         ni = self.net.node_index_by_name(node)
-        (val,) = self.pred(self.to_device_batch(batch.data), (ni,),
-                           batch_mask(batch))
+        data, mask, extra = self._inputs(batch)
+        (val,) = self.pred(data, (ni,), mask, extra)
         nvalid = batch.batch_size - batch.num_batch_padd
         return val[:nvalid].cpu().numpy()
 
     # -- training --------------------------------------------------------
 
     def _device_batch(self, batch: DataBatch):
-        """(data, labels, mask) of a batch on the device; the mask is
-        None when every row is real."""
+        """(data, labels, mask, extra) of a batch on the device; the mask
+        is None when every row is real."""
         if batch.label is None:
             raise ValueError("a training batch needs labels")
-        labels = torch.from_numpy(np.ascontiguousarray(
-            np.asarray(batch.label, np.float32))).to(self.device)
-        m = batch_mask(batch)
-        mask = None if m is None else torch.from_numpy(m).to(self.device)
-        return self.to_device_batch(batch.data), labels, mask
+        data, mask, extra = self._inputs(batch)
+        labels = _host_tensor(batch.label).float().to(self.device)
+        return data, labels, mask, extra
 
     def _label_fields(self, label: np.ndarray, nvalid: int):
         return {name: label[:nvalid, a:b]
@@ -465,13 +578,15 @@ class NetTrainer:
 
     def _train_step(self, data: torch.Tensor, labels: torch.Tensor,
                     mask: Optional[torch.Tensor], epoch: int,
-                    do_update: bool, collect: bool, step: int
+                    do_update: bool, collect: bool, step: int,
+                    extra: Sequence[torch.Tensor] = ()
                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """The reference's ``scan_step``: loss and gradients of one
         batch, then the update (or, under ``update_period > 1``, the f32
         accumulation that a closing window applies). ``step`` is the
-        global sample step the layers' randomness is drawn for. Returns
-        the loss and, with ``collect``, the metric nodes' values.
+        global sample step the layers' randomness is drawn for; ``extra``
+        the extra input nodes' values. Returns the loss and, with
+        ``collect``, the metric nodes' values.
 
         Under ``grad_dtype = bfloat16`` the forward reads a bf16 shadow
         of every float32 weight, so autograd hands back bf16 gradients;
@@ -489,7 +604,7 @@ class NetTrainer:
         with torch.enable_grad():
             loss, (new_state, preds) = self.net.loss_fn(
                 leaves, self.net_state, data, labels, mask, nodes,
-                rng=(self.seed, step))
+                rng=(self.seed, step), extra=extra)
             grads = torch.autograd.grad(
                 loss, [leaves[lk][tag] for lk, tag in trained]) \
                 if trained else ()
@@ -551,21 +666,21 @@ class NetTrainer:
         self._round_examples += examples
 
     def update(self, batch: DataBatch) -> None:
-        """One training step on a host batch (its padded tail excluded
-        from the BN moments and the loss)."""
+        """One training step on a host or staged batch (its padded tail
+        excluded from the BN moments and the loss)."""
         self._update(batch)
         self._count_examples(batch.batch_size - batch.num_batch_padd)
 
     def _update(self, batch: DataBatch) -> None:
         self._check_ready()
-        data, labels, mask = self._device_batch(batch)
+        data, labels, mask, extra = self._device_batch(batch)
         epoch = self.update_counter
         step = self._step_scalar()
         self.sample_counter += 1
         do_update = self.sample_counter >= self.update_period
         collect = bool(self.eval_train and self._metrics.evals)
         self._last_loss, preds = self._train_step(
-            data, labels, mask, epoch, do_update, collect, step)
+            data, labels, mask, epoch, do_update, collect, step, extra)
         if do_update:
             self.sample_counter = 0
             self.update_counter += 1
@@ -573,8 +688,7 @@ class NetTrainer:
             nvalid = batch.batch_size - batch.num_batch_padd
             self._train_metrics.add_eval(
                 [p[:nvalid].cpu().numpy() for p in preds],
-                self._label_fields(np.asarray(batch.label, np.float32),
-                                   nvalid))
+                self._label_fields(self._host_label(batch), nvalid))
 
     def run_steps(self, batch: DataBatch, n_steps: int) -> None:
         """``n_steps`` training steps on one resident batch, with the
@@ -584,7 +698,7 @@ class NetTrainer:
         n = int(n_steps)
         if n <= 0:
             return
-        data, labels, mask = self._device_batch(batch)
+        data, labels, mask, extra = self._device_batch(batch)
         period = self.update_period
         S, U = self.sample_counter, self.update_counter
         step0 = self._step_scalar()
@@ -592,14 +706,15 @@ class NetTrainer:
             epoch = U + (S + i) // period
             self._last_loss, _ = self._train_step(
                 data, labels, mask, epoch, ((S + i + 1) % period) == 0,
-                False, (step0 + i) & 0xFFFFFFFF)
+                False, (step0 + i) & 0xFFFFFFFF, extra)
         self.update_counter = U + (S + n) // period
         self.sample_counter = (S + n) % period
 
     def update_many(self, batches: Sequence[DataBatch]) -> None:
         """Train on K batches; the same as K ``update`` calls (the
         reference fuses them into one dispatch, which eager PyTorch has
-        no use for), counted as one dispatch."""
+        no use for), counted as one dispatch. Staged batches stay on the
+        device."""
         for b in batches:
             self._update(b)
         self._count_examples(sum(b.batch_size - b.num_batch_padd
@@ -631,13 +746,12 @@ class NetTrainer:
             return "", {}
         self._metrics.clear()
         for batch in data_iter:
-            vals = self.pred(self.to_device_batch(batch.data),
-                             self._metric_nodes, batch_mask(batch))
+            data, mask, extra = self._inputs(batch)
+            vals = self.pred(data, self._metric_nodes, mask, extra)
             nvalid = batch.batch_size - batch.num_batch_padd
             self._metrics.add_eval(
                 [v[:nvalid].cpu().numpy() for v in vals],
-                self._label_fields(np.asarray(batch.label, np.float32),
-                                   nvalid))
+                self._label_fields(self._host_label(batch), nvalid))
         res = self._metrics.results()
         return MetricSet.format_line(name, res), \
             {t: float(v) for t, v in res}

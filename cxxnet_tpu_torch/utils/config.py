@@ -30,7 +30,6 @@ class Roadmap:
     :class:`NotPortedError` reports."""
     REMAT = "queue 1, rematerialization"
     CHECKPOINT_CLI = "queue 1, checkpoint and CLI remainder"
-    IMAGE_PIPELINE = "queue 1, image data pipeline"
     TELEMETRY = "queue 1, telemetry"
     QUANTIZED = "queue 1, quantized and low-precision inference"
     BUNDLES = "queue 1, sealed bundles"

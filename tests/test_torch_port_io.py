@@ -17,7 +17,6 @@ from cxxnet_tpu.io import create_iterator as ref_create_iterator
 from cxxnet_tpu.io import recordio as ref_recordio
 from cxxnet_tpu_torch.io import create_iterator
 from cxxnet_tpu_torch.io import recordio
-from cxxnet_tpu_torch.utils.config import NotPortedError, Roadmap
 
 N_CSV = 53          # ragged against batch 10
 N_MNIST = 250       # ragged against batch 32: the tail is dropped
@@ -235,23 +234,70 @@ def test_recordio_readers_agree(files, tmp_path):
         assert a.read() == b.read()
 
 
+@pytest.fixture(scope="module")
+def image_files(tmp_path_factory):
+    """Seeded JPEGs with their list, one BinaryPage shard, a libsvm
+    file and an attachtxt file (tests/test_torch_port_image_io.py)."""
+    import test_torch_port_image_io as tio
+    d = tmp_path_factory.mktemp("image")
+    f = tio.make_image_files(d, shards=1)
+    f["svm"] = tio.write_libsvm(str(d / "rows.svm"))
+    f["att"] = tio.write_attach(str(d / "extra.txt"), range(0, N_CSV, 2))
+    return f
+
+
+def _kind_block(files, image_files, kind):
+    import test_torch_port_image_io as tio
+    if kind == "img":
+        return tio.img_block(image_files, *AUG)
+    if kind == "libsvm":
+        return [("iter", "libsvm"), ("filename", image_files["svm"]),
+                ("input_shape", "1,1,12"), ("silent", "1")]
+    if kind == "attachtxt":
+        return csv_block(files) + [("iter", kind),
+                                   ("filename", image_files["att"])]
+    return tio.imgbin_block(image_files, kind, *AUG)
+
+
 @pytest.mark.parametrize("kind", ["img", "imgbin", "imgbinx", "imgbinold",
                                   "imginst", "libsvm", "attachtxt"])
-def test_unported_iterator_raises(files, kind):
-    block = ([("iter", kind)] if kind != "attachtxt"
-             else csv_block(files) + [("iter", kind)])
-    with pytest.raises(NotPortedError) as e:
-        create_iterator(block, [("batch_size", "8")])
-    assert e.value.roadmap_item == Roadmap.IMAGE_PIPELINE
+def test_iterator_kind_matches_reference(files, image_files, kind):
+    """Every iterator type of the image data pipeline builds in the
+    port's factory and gives the reference's batches, extra_data
+    included, over two epochs."""
+    import test_torch_port_image_io as tio
+    ref, port = tio.run_both(_kind_block(files, image_files, kind),
+                             [("batch_size", "8")])
+    tio.assert_same_batches(ref, port)
+    if kind == "attachtxt":
+        assert port[0][4][0].shape == (8, 3)
 
 
-@pytest.mark.parametrize("make,item", [
-    (lambda f: rec_block(f, ("shard_kind", "batch")), Roadmap.IMAGE_PIPELINE),
-    (lambda f: csv_block(f, ("shard_kind", "batch")), Roadmap.MULTI_GPU)])
-def test_batch_shard_kind_raises(files, make, item):
-    with pytest.raises(NotPortedError) as e:
-        create_iterator(make(files), [("batch_size", "8")])
-    assert e.value.roadmap_item == item
+@pytest.mark.parametrize("make", [
+    lambda f: rec_block(f, ("decode_uint8", "1")), csv_block],
+    ids=["imgrec", "csv"])
+def test_batch_shard_kind_matches_unsharded(files, make):
+    """shard_kind = batch over 2 ranks (global batch 8): each rank's
+    batches are the reference's, and the ranks' slices of every global
+    batch, concatenated in rank order, give the unsharded record order
+    (37 records for imgrec, 53 for csv)."""
+    import test_torch_port_image_io as tio
+    n = N_REC if make is not csv_block else N_CSV
+    ranks = {}
+    for mk in (ref_create_iterator, create_iterator):
+        ranks[mk] = [tio._indices(make(files) + [
+            ("round_batch", "0"), ("shard_kind", "batch"),
+            ("shard_global_batch", "8"), ("part_index", str(r)),
+            ("num_parts", "2")], mk, 4, n=1) for r in range(2)]
+    for a, b in zip(ranks[ref_create_iterator], ranks[create_iterator]):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(y, x)
+    port = ranks[create_iterator]
+    order = np.concatenate([np.concatenate([r[k] for r in port
+                                            if k < len(r)])
+                            for k in range(len(port[0]))])
+    np.testing.assert_array_equal(order, np.arange(n))
 
 
 def test_pipeline_wait_stats_match_reference(files):

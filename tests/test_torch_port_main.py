@@ -299,12 +299,6 @@ NOT_PORTED = [("task=" + t, item) for t, item in NOT_PORTED_TASKS.items()] + [
     ("dist_num_hosts=2", Roadmap.MULTI_GPU),
     ("dist_host_rank=0", Roadmap.MULTI_GPU),
     ("dist_dryrun_hosts=2", Roadmap.MULTI_GPU),
-    ("iter=img", Roadmap.IMAGE_PIPELINE),
-    ("iter=imginst", Roadmap.IMAGE_PIPELINE),
-    ("iter=imgbin", Roadmap.IMAGE_PIPELINE),
-    ("iter=libsvm", Roadmap.IMAGE_PIPELINE),
-    ("iter=attachtxt", Roadmap.IMAGE_PIPELINE),
-    ("extra_data_num=1", Roadmap.IMAGE_PIPELINE),
     ("model_dir=memory://m", Roadmap.CHECKPOINT_CLI),
     ("sigterm", Roadmap.CHECKPOINT_CLI),
 ]
@@ -314,25 +308,14 @@ NOT_PORTED = [("task=" + t, item) for t, item in NOT_PORTED_TASKS.items()] + [
                                                         NOT_PORTED])
 def test_unported_raises_naming_its_item(tmp_path, monkeypatch, what,
                                          item):
-    """Each task, key and iterator type the port does not have raises
-    NotPortedError naming its ROADMAP item; none is ignored."""
+    """Each task and key the port does not have raises NotPortedError
+    naming its ROADMAP item; none is ignored."""
     rng = np.random.RandomState(1)
     _csv(str(tmp_path / "train.csv"), 40, rng)
     _csv(str(tmp_path / "test.csv"), 20, rng)
     conf = CSV_CONF
     args = ["dev=cpu", "model_dir=m"]
-    if what.startswith("iter="):
-        conf = conf.replace("iter = csv\n  filename = train.csv",
-                            "iter = csv\n  filename = train.csv\n"
-                            "iter = %s" % what[5:]
-                            if what == "iter=attachtxt" else
-                            "iter = %s\n  filename = train.csv"
-                            % what[5:], 1)
-    elif what == "extra_data_num=1":
-        conf = conf.replace("netconfig = start",
-                            "extra_data_num = 1\nextra_data_shape[0] = "
-                            "1,1,2\nnetconfig = start")
-    elif what == "sigterm":
+    if what == "sigterm":
         from cxxnet_tpu_torch.nnet.trainer import NetTrainer
 
         def update(self, batch):
@@ -349,6 +332,104 @@ def test_unported_raises_naming_its_item(tmp_path, monkeypatch, what,
         run_cli(LearnTask, ["c.conf"] + args)
     assert e.value.roadmap_item == item
     assert signal.getsignal(signal.SIGTERM) is before
+
+
+IMAGE_NET = """netconfig = start
+layer[0->1] = flatten
+layer[1->2] = fullc:fc1
+  nhidden = 8
+layer[2->2] = softmax
+netconfig = end
+batch_size = 4
+input_shape = %s
+"""
+EXTRA_NET = """extra_data_num = 1
+extra_data_shape[0] = 1,1,3
+netconfig = start
+layer[in,in_1->h] = concat
+layer[h->f1] = fullc:fc1
+  nhidden = 8
+layer[f1->f1] = relu
+layer[f1->o] = fullc:fc2
+  nhidden = 4
+layer[o->o] = softmax
+netconfig = end
+batch_size = 20
+input_shape = 1,1,10
+"""
+
+
+def _image_conf(what, f):
+    """The conf of one image-pipeline case: its data block and net."""
+    d = f["dir"]
+    if what in ("iter=img", "iter=imginst", "iter=imgbin"):
+        kind = what[5:]
+        src = ("  image_list = %s\n  image_root = %s\n" % (
+            os.path.join(d, "img.lst"), os.path.join(d, "imgs"))
+            if kind == "img" else
+            "  image_list = %s\n  image_bin = %s\n" % (
+                os.path.join(d, "part0.lst"), os.path.join(d, "part0.bin")))
+        return ("data = train\niter = %s\n%s  rand_crop = 1\n"
+                "  rand_mirror = 1\n  mean_value = 123,117,104\n"
+                "  silent = 1\niter = threadbuffer\niter = end\n"
+                % (kind, src)) + IMAGE_NET % "3,16,16"
+    if what == "iter=libsvm":
+        return ("data = train\niter = libsvm\n  filename = %s\n"
+                "  input_shape = 1,1,12\n  silent = 1\niter = end\n"
+                % f["svm"]) + IMAGE_NET % "1,1,12"
+    att = "iter = attachtxt\n  filename = %s\n" % f["att"]
+    conf = CSV_CONF.replace("  silent = 1\niter = end\neval",
+                            "  silent = 1\n%siter = end\neval" % att, 1)
+    conf = conf.replace("  silent = 1\niter = end\nnetconfig",
+                        "  silent = 1\n%siter = end\nnetconfig" % att, 1)
+    if what == "extra_data_num=1":
+        conf = conf[:conf.index("netconfig = start")] + EXTRA_NET \
+            + conf[conf.index("netconfig = end") + len("netconfig = end"):]
+    return conf
+
+
+@pytest.mark.parametrize("what", ["iter=img", "iter=imginst",
+                                  "iter=imgbin", "iter=libsvm",
+                                  "iter=attachtxt", "extra_data_num=1"])
+def test_image_pipeline_cli_matches_reference(tmp_path, monkeypatch,
+                                              what):
+    """Each iterator type and key of the image data pipeline runs through
+    the port's CLI: ``task = pred`` from one reference snapshot writes
+    the reference's file (the pred block of the CSV conf, else the train
+    block's deterministic fallback). The reference draws its initial
+    weights from numpy here (``test_torch_port_image_io.numpy_init``)."""
+    import test_torch_port_image_io as tio
+    from cxxnet_tpu.layers.base import LayerParam
+    from cxxnet_tpu.nnet.trainer import NetTrainer as RefTrainer
+    from cxxnet_tpu.utils.config import parse_config_file
+    monkeypatch.setattr(LayerParam, "rand_init_weight", tio.numpy_init)
+    rng = np.random.RandomState(1)
+    _csv(str(tmp_path / "train.csv"), 40, rng)
+    _csv(str(tmp_path / "test.csv"), 20, rng)
+    f = tio.make_image_files(tmp_path, shards=1) \
+        if what in ("iter=imginst", "iter=imgbin") else \
+        {"dir": str(tmp_path), "rows": tio.write_jpegs(str(tmp_path))}
+    tio.write_list(str(tmp_path / "img.lst"), f["rows"], 1)
+    f["svm"] = tio.write_libsvm(str(tmp_path / "rows.svm"))
+    f["att"] = tio.write_attach(str(tmp_path / "extra.txt"), range(0, 40, 3))
+    with open(str(tmp_path / "c.conf"), "w") as fh:
+        fh.write(_image_conf(what, f))
+    monkeypatch.chdir(tmp_path)
+    t = RefTrainer(parse_config_file("c.conf"))
+    t.init_model()
+    t.save_model("s0.model.npz")
+    out = {}
+    for pkg, cls in (("ref", RefTask), ("port", LearnTask)):
+        rc, text = run_cli(cls, ["c.conf", "dev=cpu", "task=pred",
+                                 "model_in=s0.model.npz",
+                                 "pred=%s.txt" % pkg])
+        assert rc == 0, text
+        with open("%s.txt" % pkg) as fh:
+            out[pkg] = fh.read()
+    assert out["port"] == out["ref"]
+    assert len(out["ref"].splitlines()) == {
+        "iter=img": tio.N_IMG, "iter=imginst": tio.N_IMG,
+        "iter=imgbin": tio.N_IMG, "iter=libsvm": 23}.get(what, 20)
 
 
 def test_no_gpu_without_dev_cpu_raises(tmp_path, monkeypatch):
