@@ -232,11 +232,56 @@ the script exits non-zero without a result line):
              on the card against the CPU port per parameter
              (``update_delta_check``, the stochastic layers' draws from
              ``seeded_uniform`` on both), and the pairtest's max_diff.
+11. checkpoint — the checkpoint and CLI slice: Inception-BN.conf through
+             the CLI on the cli phase's archives (six batches of 128 a
+             round, bf16, ``bn_pallas = bn_fuse_relu = 1``) under the
+             reference's checkpoint defaults (``checkpoint_async = 1``):
+             trained in a subprocess (``preempt_child``: the CLI's
+             ``main`` with its launches counted from 0 and printed at
+             exit; ``print_step = 1``, one update a dispatch) and sent
+             SIGTERM with ``os.kill`` after the second round's third
+             progress line: exit code 75, every update's launches those
+             below and none outside its updates and evals, the
+             model_dir holding only the emergency ``0001.model.npz``
+             (counter = rounds completed; no ``.tmp``), verified, its
+             ``update_counter`` the updates the progress lines counted,
+             and the seconds from the signal to the exit; ``continue =
+             1`` in process: rounds 2-3, the parameters before its first
+             update the emergency snapshot's bit for bit; the newest
+             snapshot truncated: ``continue = 1`` quarantines it
+             (``0003.model.npz.quarantined``) and re-runs round 3;
+             ``keep_snapshots = 2`` over 3 rounds leaves 2; a
+             ``fault://`` model_dir whose ``.ok`` manifest fails leaves a
+             payload that resume does not see (it starts at round 1);
+             the training thread's time inside ``CheckpointManager.save``
+             at the conf's snapshot bytes, async against sync (gather,
+             serialize, write, fsync; printed, no bound); ``task =
+             finetune`` from the resumed snapshot with fc1 remapped to
+             10 classes (an archive with labels below 10): every carried
+             layer the source's bits before the first update, fc1 fresh,
+             then ``task = pred`` on its snapshot (the eval fold on);
+             ``channel_pad = 128`` (``pad_update_check``): padded
+             channels exactly 0 in a training forward and their
+             cotangents exactly 0; one float32 update from the snapshot
+             (cuDNN deterministic), padded and not, through the kernels
+             and through their plain versions, and the unpadded plain
+             path with cuDNN off as the order control: the padded
+             kernels within ``PAD_KERNEL_RTOL`` and ``PAD_ORDER_SHARE``
+             of the control from the padded plain path, the padding's
+             own effect within ``PAD_ORDER_FACTOR`` of the control, and
+             in float64 on the plain path within ``PAD_UPDATE_RTOL``,
+             with no launch; ``precompile = 1``: two bf16 updates
+             with and without it the same bits (cuDNN deterministic),
+             round 0's first update time with and without. Every run
+             launches exactly 69 + 69 bf16 bn_apply and 1 bias_grad_bf16
+             per update (69 + 69 f32 bn_apply per float32 update, padded
+             or not) and 69 bf16 conv_epilogue per pred forward.
 
 Then a ``kernels`` line (every ported kernel with its launches, error
-and times; ``cli_launches`` and ``alexnet_launches``: its count over
-the cli phase's runs and the alexnet phase's training run; the
-bias_grad_bf16 row also with AlexNet's per-update sums), the
+and times; ``cli_launches``, ``alexnet_launches`` and
+``checkpoint_launches``: its count over the cli phase's runs, the
+alexnet phase's training run and the checkpoint phase's runs, the
+preempted subprocess included; the bias_grad_bf16 row also with AlexNet's per-update sums), the
 ``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -4336,6 +4381,648 @@ def phase_alexnet(workdir: str, bw: float):
     return res
 
 
+# ------------------------------------------------------------ phase 11
+
+# the checkpoint and CLI slice: Inception-BN.conf through the CLI under the
+# reference's checkpoint defaults (checkpoint_async = 1), preempted by
+# SIGTERM, resumed, quarantined, finetuned; its rounds are the cli phase's
+# six batches of 128
+CKPT_SIGNAL_AFTER = 3          # updates of the second round before SIGTERM
+CKPT_FT_CLASSES = 10           # the finetuned head (fc1) width
+CKPT_FT_RECORDS = 256          # finetune archive: two batches, labels < 10
+CKPT_UPDATES = 2               # channel_pad / precompile kernel updates
+CKPT_CROP = 224                # Inception-BN.conf's input crop
+CKPT_PAD = 128                 # channel_pad: full 128-lane alignment
+# channel_pad = 128 against the unpadded net, float32, one update of
+# Inception-BN-224 from one snapshot on one batch (cuDNN deterministic),
+# as ||d_a - d_b|| / ||d_b|| over the whole logical update. The padded
+# convolutions and batch-norm sums run at other widths, so cuDNN and the
+# reductions sum in another order, and the float32 update of this net
+# is ill-conditioned (update_delta_check): no float32 run is held to
+# another within a fixed 1e-3. Held: (a) the padded net through the
+# kernels against the padded net through their plain versions (the
+# kernels at the padded widths, the same convolutions) within
+# PAD_KERNEL_RTOL and within PAD_ORDER_SHARE of the order control, the
+# unpadded plain path with cuDNN off (every convolution summed in
+# another order); (b) the padding's own effect on the plain path within
+# PAD_ORDER_FACTOR of that control; (c) the padded plain update in
+# float64 (batch 16) within PAD_UPDATE_RTOL of the unpadded one, which
+# takes about nine digits off any change of order and leaves a fault of
+# the padding as large as it is.
+PAD_KERNEL_RTOL = 5e-2
+PAD_ORDER_SHARE = 0.5
+PAD_ORDER_FACTOR = 2.0
+PAD_UPDATE_RTOL = 1e-6
+PAD_F64_BATCH = 16
+CKPT_F32_LAUNCHES = dict(NO_LAUNCHES, bn_apply_fwd=69, bn_apply_bwd=69)
+_PROGRESS = re.compile(r"^round +(\d+):\[ *(\d+)\]")
+
+
+@contextlib.contextmanager
+def first_update_params(rec):
+    """Keep, in ``rec["params"]``, host copies of the parameters of the
+    first ``NetTrainer`` update of the block, taken just before it."""
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    orig = {n: getattr(NetTrainer, n) for n in ("update", "update_many")}
+
+    def wrap(fn):
+        def run(self, arg):
+            if "params" not in rec:
+                rec["params"] = {
+                    "param/%s/%s" % (lk, tag): v.detach().cpu().numpy()
+                    for lk, sub in self.params.items()
+                    for tag, v in sub.items()}
+            return fn(self, arg)
+        return run
+
+    for n, fn in orig.items():
+        setattr(NetTrainer, n, wrap(fn))
+    try:
+        yield rec
+    finally:
+        for n, fn in orig.items():
+            setattr(NetTrainer, n, fn)
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype \
+        and a.tobytes() == b.tobytes()
+
+
+PREEMPT_TAG = "preempt_child "
+
+
+def preempt_child(argv) -> int:
+    """The preempted run's process (:func:`preempt_run` starts it):
+    ``cxxnet_tpu_torch.main.main(argv)`` with the launch counts set to 0
+    just before it and every update and eval forward tapped
+    (:func:`tap_trainer`); on every exit path one ``PREEMPT_TAG`` line
+    with each update's and each forward's launches and the process's
+    total."""
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.main import main as cli_main
+    rec, rc = {}, 1
+    kernels.reset_launch_counts()
+    try:
+        with tap_trainer(rec):
+            rc = cli_main(list(argv))
+    finally:
+        print(PREEMPT_TAG + json.dumps({
+            "updates": [u["launches"] for u in rec.get("updates", [])],
+            "forwards": rec.get("forwards", []),
+            "total": kernels.launch_counts()}), flush=True)
+    return rc
+
+
+def preempt_run(conf: str, mdir: str, workdir: str):
+    """The conf trained in a subprocess (:func:`preempt_child`;
+    print_step = 1, one update a dispatch, the reference's checkpoint
+    defaults); SIGTERM with ``os.kill`` once the second round's
+    ``CKPT_SIGNAL_AFTER``-th progress line is read. Returns rc, the
+    updates the progress lines counted, the seconds from the signal to
+    the exit, the child's launches and the output's tail."""
+    import signal
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH", "")) if p))
+    cmd = [sys.executable, "-c", "import sys, chip_smoke; "
+           "sys.exit(chip_smoke.preempt_child(sys.argv[1:]))", conf,
+           "bn_pallas=1", "bn_fuse_relu=1", "num_round=4", "print_step=1",
+           "dispatch_period=1", "model_dir=" + mdir] + cli_dev_args()
+    lines, t_sig, t_exit = [], None, None
+    errp = os.path.join(workdir, "preempt_stderr.txt")
+    t0 = time.perf_counter()
+    with open(errp, "w") as err:
+        p = subprocess.Popen(cmd, cwd=workdir, env=env,
+                             stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            for ln in p.stdout:
+                lines.append(ln.rstrip("\n"))
+                m = _PROGRESS.match(ln)
+                if (t_sig is None and m and int(m.group(1)) == 1
+                        and int(m.group(2)) == CKPT_SIGNAL_AFTER):
+                    t_sig = time.perf_counter()
+                    os.kill(p.pid, signal.SIGTERM)
+            rc = p.wait(timeout=300)
+            t_exit = time.perf_counter()
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    with open(errp) as f:
+        tail = f.read()[-2000:]
+    child = next((json.loads(ln[len(PREEMPT_TAG):]) for ln in lines
+                  if ln.startswith(PREEMPT_TAG)), None)
+    return {"rc": rc, "wall_s": time.perf_counter() - t0, "child": child,
+            "updates": sum(bool(_PROGRESS.match(ln)) for ln in lines),
+            "signal_to_exit_s": None if t_sig is None else t_exit - t_sig,
+            "preempt_line": next((ln for ln in lines
+                                  if ln.startswith("preempted by")), ""),
+            "stderr_tail": tail if rc != 75 else ""}
+
+
+def finetune_conf(workdir: str, rec_path: str) -> str:
+    """Inception-BN.conf with fc1 at ``CKPT_FT_CLASSES`` outputs and both
+    data blocks on ``rec_path`` (labels below that width)."""
+    conf = shipped_conf(workdir, "Inception-BN.conf", rec_path, rec_path)
+    with open(conf) as f:
+        text = f.read()
+    old = "layer[flat->fc] = fullc:fc1\n  nhidden = %d\n" % NCLASS
+    assert text.count(old) == 1, old
+    text = text.replace(old, "layer[flat->fc] = fullc:fc1\n  nhidden = "
+                        "%d\n" % CKPT_FT_CLASSES)
+    path = os.path.join(workdir, "Inception-BN-ft.conf")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def write_ft_archive(workdir: str) -> str:
+    from cxxnet_tpu_torch.io import recordio
+    rng = np.random.RandomState(SEED + 11)
+    path = os.path.join(workdir, "ft.rec")
+    w = recordio.RecordIOWriter(path)
+    for i in range(CKPT_FT_RECORDS):
+        img = rng.randint(0, 256, (CLI_IMAGE, CLI_IMAGE, 3), dtype=np.uint8)
+        w.write_record(recordio.pack_raw_tensor_record(
+            i, float(rng.randint(CKPT_FT_CLASSES)), img))
+    w.close()
+    return path
+
+
+def pad_zero_check(t, data, labels):
+    """Every padded channel of every node of one training forward holds
+    exactly 0, and the loss's cotangent there is exactly 0."""
+    import torch
+    from cxxnet_tpu_torch.nnet.layout import is_padded
+    net = t.net
+    padded = [ni for ni, lay in enumerate(net.node_layouts)
+              if is_padded(lay)]
+    params = {lk: {k: v.detach().requires_grad_(v.is_floating_point())
+                   for k, v in sub.items()} for lk, sub in t.params.items()}
+    nonzero = grad_nonzero = 0
+    with torch.enable_grad():
+        nodes, _, logits = net.forward(params, t.net_state, data, True,
+                                       collect_logits=True)
+        for ni in padded:
+            if nodes[ni].requires_grad:
+                nodes[ni].retain_grad()
+        loss = sum(net.layer_objs[li].loss_value(v, labels, None)
+                   for li, v in logits.items())
+        loss.backward()
+    for ni in padded:
+        off = 0
+        for valid, pad in net.node_layouts[ni]:
+            gap = slice(off + valid, off + valid + pad)
+            nonzero += int(torch.count_nonzero(nodes[ni][..., gap]))
+            g = nodes[ni].grad
+            if g is not None:
+                grad_nonzero += int(torch.count_nonzero(g[..., gap]))
+            off += valid + pad
+    return {"padded_nodes": len(padded), "nonzero": nonzero,
+            "grad_nonzero": grad_nonzero,
+            "ok": bool(padded and nonzero == 0 and grad_nonzero == 0)}
+
+
+def keyed_updates(cfg, snap, batch, precompile=False):
+    """A trainer from ``snap`` under ``cfg``, ``CKPT_UPDATES``
+    updates on one batch; its parameters on the host, each update's
+    launches and time (the first is round 0's first update), and the
+    precompile seconds."""
+    import torch
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    t = NetTrainer(cfg, device=DEVICE)
+    t.load_model(snap)
+    pre_s = None
+    if precompile:
+        t0 = time.perf_counter()
+        t.precompile()
+        pre_s = time.perf_counter() - t0
+    ups = []
+    for _ in range(CKPT_UPDATES):
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        t.update(batch)
+        loss = t.last_loss
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        ups.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                    "launches": {k: after[k] - before[k] for k in after}})
+    params = {"%s/%s" % (lk, tag): v.detach().double().cpu()
+              for lk, sub in t.params.items() for tag, v in sub.items()}
+    return t, params, ups, pre_s
+
+
+def pad_update_check(cfg, snap, x, y):
+    """``channel_pad = CKPT_PAD`` against the unpadded net (the tolerance
+    notes above ``PAD_KERNEL_RTOL``). float32 runs from ``snap`` on one
+    batch, cuDNN deterministic: the kernels and their plain versions
+    (:func:`plain_kernels`), each padded and unpadded, and the unpadded
+    plain path with cuDNN off; d = w_after - w_before of one update over
+    the logical parameters. The kernel runs take a second update on the
+    same batch for its time and check every update's launches
+    (``CKPT_F32_LAUNCHES``); the plain runs must launch nothing. The
+    padded kernel run's trainer also goes through :func:`pad_zero_check`
+    (its launches, a check's, are held to one update's and set back).
+    Then one update in float64 on the plain path (batch
+    ``PAD_F64_BATCH``), padded against unpadded, no launch."""
+    import torch
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    f32 = [("dtype", "float32")]
+    pad = [("channel_pad", str(CKPT_PAD))]
+    batch = DataBatch(data=x.to(DEVICE), label=y.to(DEVICE))
+    out = {}
+
+    def launched(fn):
+        before = kernels.launch_counts()
+        fn()
+        after = kernels.launch_counts()
+        return {k: after[k] - before[k] for k in after}
+
+    def run(extra, plain=False, cudnn=True):
+        t = NetTrainer(list(cfg) + f32 + extra, device=DEVICE)
+        t.load_model(snap)
+        w0 = {(lk, tg): w.detach().double().cpu()
+              for lk, sub in t.params.items() for tg, w in sub.items()}
+        cudnn_was = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = cudnn
+        rec = {"ms": [], "launches": []}
+        try:
+            with plain_kernels() if plain else contextlib.nullcontext():
+                for i in range(1 if plain else CKPT_UPDATES):
+                    t0 = time.perf_counter()
+                    rec["launches"].append(launched(lambda: t.update(batch)))
+                    loss = t.last_loss
+                    torch.cuda.synchronize()
+                    rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                    if i == 0:
+                        rec["loss"] = loss
+                        d = {k: t.params[k[0]][k[1]].detach().double()
+                             .cpu() - w0[k] for k in w0}
+        finally:
+            torch.backends.cudnn.enabled = cudnn_was
+        if extra and not plain:
+            counts = kernels.launch_counts()
+            zero = {}
+            rec["check_launches"] = launched(lambda: zero.update(
+                pad_zero_check(t, x[:4].to(DEVICE), y[:4].to(DEVICE))))
+            kernels.restore_launch_counts(counts)
+            out["zeros"] = zero
+            out["layout"] = dict(t.net.layout_summary)
+        del t
+        torch.cuda.empty_cache()
+        return d, rec
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {"pad_kernels": run(pad), "pad_plain": run(pad, plain=True),
+                "kernels": run([]), "plain": run([], plain=True),
+                "plain_no_cudnn": run([], plain=True, cudnn=False)}
+    finally:
+        torch.backends.cudnn.deterministic = det
+    keys, table, whole = update_distances(runs, (
+        ("pad_kernels", "pad_plain"), ("kernels", "plain"),
+        ("pad_plain", "plain"), ("pad_kernels", "kernels"),
+        ("plain_no_cudnn", "plain")))
+    control = whole["plain_no_cudnn_vs_plain"]
+    recs = {n: r[1] for n, r in runs.items()}
+    kernel_runs = ("pad_kernels", "kernels")
+    out.update(
+        params=len(keys), whole=whole,
+        worst={n: max(v) for n, v in table.items()},
+        worst_param={n: "%s/%s" % keys[int(np.argmax(v))]
+                     for n, v in table.items()},
+        losses={n: r["loss"] for n, r in recs.items()},
+        loss_rel=abs(recs["pad_kernels"]["loss"] - recs["pad_plain"]["loss"])
+        / abs(recs["pad_plain"]["loss"]),
+        update_ms={n: recs[n]["ms"] for n in kernel_runs},
+        launches={n: recs[n]["launches"] for n in recs},
+        counted=all(u == CKPT_F32_LAUNCHES for n in kernel_runs
+                    for u in recs[n]["launches"]),
+        plain_launch_free=all(not any(u.values()) for n in recs
+                              if n not in kernel_runs
+                              for u in recs[n]["launches"]),
+        check_launches_one_update=(recs["pad_kernels"]["check_launches"]
+                                   == CKPT_F32_LAUNCHES),
+        rtol=PAD_KERNEL_RTOL, order_share=PAD_ORDER_SHARE,
+        order_factor=PAD_ORDER_FACTOR,
+        held=["loss_rel <= LOSS_RTOL",
+              "pad_kernels_vs_pad_plain <= rtol and <= order_share * "
+              "plain_no_cudnn_vs_plain",
+              "pad_plain_vs_plain <= order_factor * "
+              "plain_no_cudnn_vs_plain",
+              "f64_update_rel_dist <= f64_rtol"])
+
+    def f64_update(extra):
+        t = NetTrainer(inception_plain_cfg(cfg) + f32 + extra,
+                       device=DEVICE)
+        t.load_model(snap)
+        _as_float64(t)
+        w0 = {(lk, tg): w.detach().cpu().clone()
+              for lk, sub in t.params.items() for tg, w in sub.items()}
+        data, labels, mask, _ = t._device_batch(DataBatch(
+            data=x[:PAD_F64_BATCH].to(DEVICE),
+            label=y[:PAD_F64_BATCH].to(DEVICE)))
+        n = launched(lambda: t._train_step(
+            data.double(), labels, mask, t.update_counter, True, False,
+            t._step_scalar()))
+        d = {k: t.params[k[0]][k[1]].detach().cpu() - w0[k] for k in w0}
+        del t
+        torch.cuda.empty_cache()
+        return d, n
+
+    f64 = {"plain": f64_update([]), "pad_plain": f64_update(pad)}
+    _, _, f64_whole = update_distances(
+        {n: (d, None) for n, (d, _) in f64.items()},
+        (("pad_plain", "plain"),))
+    out.update(
+        f64_update_rel_dist=f64_whole["pad_plain_vs_plain"],
+        f64_batch=PAD_F64_BATCH, f64_rtol=PAD_UPDATE_RTOL,
+        f64_launch_free=all(not any(n.values()) for _, n in f64.values()),
+        finite=bool(np.all(np.isfinite(list(out["losses"].values())))))
+    out["ok"] = bool(
+        out["layout"]["layers_padded"] > 0 and out["zeros"]["ok"]
+        and out["check_launches_one_update"] and out["counted"]
+        and out["plain_launch_free"] and out["f64_launch_free"]
+        and out["finite"] and out["loss_rel"] <= LOSS_RTOL
+        and whole["pad_kernels_vs_pad_plain"] <= PAD_KERNEL_RTOL
+        and whole["pad_kernels_vs_pad_plain"] <= PAD_ORDER_SHARE * control
+        and whole["pad_plain_vs_plain"] <= PAD_ORDER_FACTOR * control
+        and out["f64_update_rel_dist"] <= PAD_UPDATE_RTOL)
+    return out
+
+
+def phase_checkpoint(workdir: str):
+    """The checkpoint and CLI slice (see the module docstring)."""
+    import torch
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.main import EXIT_PREEMPTED
+    from cxxnet_tpu_torch.nnet.checkpoint import (CheckpointManager,
+                                                  read_snapshot,
+                                                  scan_snapshots,
+                                                  verify_snapshot)
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import (parse_cli_overrides,
+                                               parse_config_file)
+    from cxxnet_tpu_torch.utils.faultfs import FaultFS
+    train_rec = os.path.join(workdir, "train.rec")
+    val_rec = os.path.join(workdir, "val.rec")
+    if not (os.path.exists(train_rec) and os.path.exists(val_rec)):
+        train_rec, val_rec = write_cli_archives(workdir)
+    conf = shipped_conf(workdir, "Inception-BN.conf", train_rec, val_rec)
+    train_knobs = ["bn_pallas=1", "bn_fuse_relu=1"]
+    per_round = -(-CLI_TRAIN_RECORDS // TRAIN_BATCH)
+    runs = {}
+    total = dict(NO_LAUNCHES)
+
+    def drive(name, argv, first=False):
+        rec = {}
+        kernels.reset_launch_counts()            # each run from 0
+        t1 = time.perf_counter()
+        with tap_trainer(rec):
+            if first:
+                with first_update_params(rec):
+                    rc, lines = run_cli(argv)
+            else:
+                rc, lines = run_cli(argv)
+        rec.update(rc=rc, lines=lines, wall_s=time.perf_counter() - t1,
+                   launches=kernels.launch_counts())
+        for k in total:
+            total[k] += rec["launches"][k]
+        runs[name] = rec
+        return rec
+
+    def counted(rec, expected=CLI_TRAIN_LAUNCHES):
+        return bool(rec["updates"] and all(
+            u["launches"] == expected for u in rec["updates"]))
+
+    # 1. preemption: a subprocess, SIGTERM after the second round's third
+    # update line; rc 75, the emergency snapshot under counter 1
+    mdir = os.path.join(workdir, "ckpt")
+    pre = preempt_run(conf, mdir, workdir)
+    # the child's launches: every update at CLI_TRAIN_LAUNCHES, one per
+    # progress line, and nothing launched outside its updates and evals
+    child = pre.pop("child") or {"updates": [], "forwards": [],
+                                 "total": dict(NO_LAUNCHES)}
+    ups, fwds = child["updates"], child["forwards"]
+    pre["launches"] = {
+        "updates": len(ups), "forwards": len(fwds),
+        "per_update": all(u == CLI_TRAIN_LAUNCHES for u in ups),
+        "total": child["total"],
+        "total_is_updates_and_forwards": child["total"] == {
+            k: sum(u[k] for u in ups + fwds) for k in child["total"]}}
+    for k in total:
+        total[k] += child["total"][k]
+    names = sorted(os.listdir(mdir)) if os.path.isdir(mdir) else []
+    emerg = os.path.join(mdir, "0001.model.npz")
+    ver = verify_snapshot(emerg)
+    _, emeta = read_snapshot(emerg) if ver["ok"] else (None, {})
+    pre.update(files=names, verified=ver["ok"],
+               update_counter=emeta.get("update_counter"),
+               expected_updates=per_round + CKPT_SIGNAL_AFTER)
+    pre["ok"] = bool(
+        pre["rc"] == EXIT_PREEMPTED and names == ["0001.model.npz"]
+        and ver["ok"] and pre["update_counter"] == pre["updates"]
+        and pre["updates"] >= per_round + CKPT_SIGNAL_AFTER
+        and pre["preempt_line"].endswith("0001.model.npz")
+        and pre["launches"]["updates"] == pre["updates"]
+        and pre["launches"]["per_update"]
+        and pre["launches"]["total_is_updates_and_forwards"])
+    emerg_blob = {}
+    if ver["ok"]:
+        blob, _ = read_snapshot(emerg)
+        emerg_blob = {k: v for k, v in blob.items() if k.startswith("param/")}
+    # 2. resume in process: round 2 from its start, the parameters
+    # before the first update the emergency snapshot's, bit for bit
+    rs = drive("resume", [conf, "continue=1", "num_round=3",
+                          "model_dir=" + mdir] + train_knobs, first=True)
+    got = rs.get("params", {})
+    resume = {
+        "rc": rs["rc"], "wall_s": rs["wall_s"],
+        "round_lines": sorted(round_lines(rs["lines"])),
+        "updates": len(rs["updates"]),
+        "params_bit_exact": bool(emerg_blob) and sorted(got) == sorted(
+            emerg_blob) and all(same_bits(got[k], emerg_blob[k])
+                                for k in emerg_blob),
+        "counted": counted(rs),
+        "finite": bool(np.all(np.isfinite([u["loss"]
+                                            for u in rs["updates"]])))}
+    resume["ok"] = bool(rs["rc"] == 0 and resume["round_lines"] == [2, 3]
+                        and resume["updates"] == 2 * per_round
+                        and resume["params_bit_exact"]
+                        and resume["counted"] and resume["finite"])
+    # 3. quarantine, retention and a fault:// model_dir
+    newest = os.path.join(mdir, "0003.model.npz")
+    with open(newest, "rb") as f:
+        head = f.read()
+    with open(newest, "wb") as f:
+        f.write(head[:len(head) // 2])
+    qr = drive("quarantine", [conf, "continue=1", "num_round=3",
+                              "model_dir=" + mdir] + train_knobs)
+    qnames = sorted(os.listdir(mdir))
+    quarantine = {"rc": qr["rc"], "files": qnames,
+                  "round_lines": sorted(round_lines(qr["lines"])),
+                  "counted": counted(qr)}
+    quarantine["ok"] = bool(
+        qr["rc"] == 0 and "0003.model.npz.quarantined" in qnames
+        and quarantine["round_lines"] == [3] and quarantine["counted"]
+        and verify_snapshot(newest)["ok"])
+    kdir = os.path.join(workdir, "keep")
+    kp = drive("keep", [conf, "num_round=3", "keep_snapshots=2",
+                        "model_dir=" + kdir] + train_knobs)
+    keep = {"rc": kp["rc"], "files": sorted(os.listdir(kdir)),
+            "counted": counted(kp)}
+    keep["ok"] = bool(kp["rc"] == 0 and keep["counted"] and keep["files"]
+                      == ["0002.model.npz", "0003.model.npz"])
+    fs = FaultFS("fault").install()
+    try:
+        fs.fail_write_substr = ".ok"
+        f1 = drive("fault", [conf, "num_round=1", "model_dir=fault://ck"]
+                   + train_knobs)
+        payload = "fault://ck/0001.model.npz" in fs.store
+        invisible = scan_snapshots("fault://ck") == []
+        fs.clear_faults()
+        f2 = drive("fault_resume", [conf, "num_round=1", "continue=1",
+                                    "model_dir=fault://ck"] + train_knobs)
+        fault = {"rc": [f1["rc"], f2["rc"]], "payload_written": payload,
+                 "uncommitted_invisible": invisible,
+                 "resume_round_lines": sorted(round_lines(f2["lines"])),
+                 "committed_after": [c for c, _ in
+                                     scan_snapshots("fault://ck")],
+                 "counted": counted(f1) and counted(f2)}
+        fault["ok"] = bool(fault["rc"] == [0, 0] and payload and invisible
+                           and fault["resume_round_lines"] == [1]
+                           and fault["committed_after"] == [1]
+                           and fault["counted"])
+    finally:
+        fs.uninstall()
+    # 4. the training thread's time inside save(), async against sync,
+    # at Inception-BN.conf's snapshot bytes
+    cfg = parse_config_file(conf) + parse_cli_overrides(train_knobs)
+    snap = os.path.join(mdir, "0003.model.npz")
+    t = NetTrainer(cfg, device=DEVICE)
+    t.load_model(snap)
+    saves = {}
+    for mode, async_ in (("async", True), ("sync", False)):
+        ck = CheckpointManager(
+            t, lambda c, m=mode: os.path.join(workdir, "save_" + m,
+                                              "%04d.model.npz" % c),
+            async_=async_)
+        ms = []
+        for c in (1, 2, 3):
+            ck.save(c)
+            ms.append(dict(ck.last_save))
+            ck.wait()
+        ck.close()
+        saves[mode] = {"save_ms": [m["save_ms"] for m in ms],
+                       "gather_ms": [m["gather_ms"] for m in ms],
+                       "commit": {k: ck.last_commit.get(k) for k in (
+                           "bytes", "serialize_ms", "write_ms", "fsync_ms",
+                           "status")}}
+    saves["ok"] = all(saves[m]["commit"]["status"] == "ok"
+                      for m in ("async", "sync"))
+    del t
+    torch.cuda.empty_cache()
+    # 5. finetune from step 2's snapshot with fc1 remapped to 10 classes;
+    # the carried layers the source's bits, fc1 fresh; then pred
+    ft_rec = write_ft_archive(workdir)
+    ftconf = finetune_conf(workdir, ft_rec)
+    fdir = os.path.join(workdir, "ft")
+    src, _ = read_snapshot(snap)
+    fr = drive("finetune", [ftconf, "task=finetune", "model_in=" + snap,
+                            "finetune_remap=fc1", "num_round=1",
+                            "model_dir=" + fdir] + train_knobs, first=True)
+    got = fr.get("params", {})
+    carried = [k for k in got if not k.startswith("param/fc1/")]
+    ft_counts = dict(CLI_TRAIN_LAUNCHES)
+    fts = os.path.join(fdir, "0001.model.npz")
+    knobs = ["%s=%s" % kv for kv in KNOBS]
+    pred_out = os.path.join(workdir, "ft_pred.txt")
+    pr = drive("finetune_pred", [ftconf, "task=pred", "model_in=" + fts]
+               + knobs + ["pred=" + pred_out])
+    cls = np.loadtxt(pred_out, ndmin=1) if pr["rc"] == 0 else np.zeros(0)
+    finetune = {
+        "rc": fr["rc"], "updates": len(fr["updates"]),
+        "carried_bit_exact": bool(carried) and all(
+            same_bits(got[k], src[k]) for k in carried),
+        "carried": len(carried),
+        "fc1_shape": list(got.get("param/fc1/wmat", np.zeros(0)).shape),
+        "fc1_fresh": "param/fc1/wmat" in got and got[
+            "param/fc1/wmat"].shape != src["param/fc1/wmat"].shape,
+        "counted": counted(fr, ft_counts),
+        "snapshot": verify_snapshot(fts)["ok"],
+        "pred_rc": pr["rc"], "pred_rows": int(cls.shape[0]),
+        "pred_classes_ok": bool(cls.size and np.all(
+            (cls >= 0) & (cls < CKPT_FT_CLASSES))),
+        "pred_forwards": len(pr["forwards"]),
+        "pred_counted": bool(pr["forwards"]) and all(
+            f == CLI_PRED_LAUNCHES for f in pr["forwards"])}
+    finetune["ok"] = bool(
+        fr["rc"] == 0 and finetune["carried_bit_exact"]
+        and finetune["fc1_fresh"] and finetune["counted"]
+        and finetune["snapshot"] and pr["rc"] == 0
+        and finetune["pred_rows"] == CKPT_FT_RECORDS
+        and finetune["pred_classes_ok"] and finetune["pred_counted"])
+    # 6. channel_pad = 128 and precompile = 1 from one snapshot on one
+    # batch: float32 (the pad check) and the conf's bf16 (precompile)
+    rng = np.random.RandomState(SEED + 12)
+    x = torch.from_numpy(rng.randn(TRAIN_BATCH, CKPT_CROP, CKPT_CROP, 3)
+                         .astype(np.float32) * 50)
+    y = torch.from_numpy(rng.randint(0, NCLASS, (TRAIN_BATCH, 1))
+                         .astype(np.float32))
+    batch = DataBatch(data=x.to(DEVICE), label=y.to(DEVICE))
+    kernels.reset_launch_counts()
+    pad = pad_update_check(cfg, snap, x, y)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ta, a_p, a_u, _ = keyed_updates(cfg, snap, batch)
+        del ta
+        torch.cuda.empty_cache()
+        tb, b_p, b_u, pre_s = keyed_updates(cfg, snap, batch,
+                                            precompile=True)
+        del tb
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    prec = {"precompile_s": pre_s,
+            "first_update_ms": a_u[0]["ms"],
+            "first_update_ms_precompiled": b_u[0]["ms"],
+            "second_update_ms": [a_u[1]["ms"], b_u[1]["ms"]],
+            "bit_exact": sorted(a_p) == sorted(b_p) and all(
+                torch.equal(a_p[k], b_p[k]) for k in a_p),
+            "counted": all(u["launches"] == CLI_TRAIN_LAUNCHES
+                           for u in a_u + b_u)}
+    prec["ok"] = bool(prec["bit_exact"] and prec["counted"])
+    for k in total:
+        total[k] += kernels.launch_counts()[k]
+    res = {"phase": "checkpoint", "model": "Inception-BN.conf",
+           "config": "example/ImageNet/Inception-BN.conf on the cli "
+                     "phase's archives (%d train records: %d batches of "
+                     "%d a round), 224 crop, %d classes, dtype = bfloat16, "
+                     "bn_pallas = bn_fuse_relu = 1, the reference's "
+                     "checkpoint defaults (checkpoint_async = 1)"
+                     % (CLI_TRAIN_RECORDS, per_round, TRAIN_BATCH, NCLASS),
+           "preempt": pre, "resume": resume, "quarantine": quarantine,
+           "keep_snapshots": keep, "fault": fault, "save": saves,
+           "finetune": finetune, "channel_pad": pad, "precompile": prec,
+           "run_wall_s": {n: r["wall_s"] for n, r in runs.items()},
+           "launches": total}
+    res["ok"] = bool(pre["ok"] and resume["ok"] and quarantine["ok"]
+                     and keep["ok"] and fault["ok"] and saves["ok"]
+                     and finetune["ok"] and pad["ok"] and prec["ok"])
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("checkpoint phase failed")
+    return res
+
+
 def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
     """The ``kernels`` record: every ported kernel (and bf16
     instantiation) with its launches on its path's run, its error
@@ -4612,6 +5299,8 @@ def main() -> int:
         clires = phase_cli(workdir)
         phase = "alexnet"
         alexres = phase_alexnet(workdir, bw)
+        phase = "checkpoint"
+        ckres = phase_checkpoint(workdir)
     except Exception as e:
         import traceback
         traceback.print_exc()
@@ -4623,10 +5312,14 @@ def main() -> int:
     kl = kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part)
     for row in kl["kernels"]:
         # the cli phase's runs (train, pred, pred_raw, serve), each with
-        # the counts set to 0 just before it, and the alexnet phase's
+        # the counts set to 0 just before it, the alexnet phase's
         # training run
         row["cli_launches"] = clires["launches"][row["name"]]
         row["alexnet_launches"] = alexres["launches"][row["name"]]
+        # the checkpoint phase's runs (the preempted subprocess, resume,
+        # quarantine, retention, fault://, finetune and its pred, the
+        # channel_pad and precompile updates), each from 0
+        row["checkpoint_launches"] = ckres["launches"][row["name"]]
         if row["name"] == BIAS_BF16["name"]:
             ab = kres["bias_grad_bf16_alexnet"]
             row["alexnet"] = {

@@ -13,8 +13,10 @@ with the ``conv_epilogue`` kernel) and the training path
 ``FuncNet.loss_fn``, the ``updater`` rules, with the ``bn_apply`` and
 ``matmul`` kernels, and for kaiming's fused pools the ``relu_max_pool``
 kernels, with dropout), the CLI (``python -m cxxnet_tpu_torch.main``)
-over the ported iterators, and every layer type of the reference
-(``layers.known_layer_type``). Config keys whose feature is not ported
+over the ported iterators with its checkpoints (``nnet.checkpoint``:
+async commits, resume with quarantine, remote streams, the preemption
+snapshot), ``task = finetune`` and ``channel_pad``, and every layer
+type of the reference (``layers.known_layer_type``). Config keys whose feature is not ported
 raise :class:`~cxxnet_tpu_torch.utils.config.NotPortedError`.
 
 Importing this package imports no JAX, builds no kernel and touches no

@@ -44,6 +44,13 @@
   f32 from the bf16 input, scale and shift are made in f32, and
   ``bn_apply`` applies them in bf16; the eval normalize promotes to
   f32 and casts back (the reference's asymmetry, kept).
+- ``channel_pad`` (``nnet/layout.py`` annotates the layers): a conv
+  scatters zero weight rows into a padded input's gaps
+  (``_in_layout``) and appends zero weight columns and zero bias
+  entries for an aligned output (``_out_pad``); batch norm
+  (``_layout``) pads slope and bias (and, at eval, the folded scale
+  and shift) with zeros, so a padded channel comes out exactly 0, and
+  keeps its running statistics logical.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..nnet.layout import pad_channel_vec, take_valid
 from . import common
 from .base import Layer, Shape3
 from .kernels import (bias_add, bn_apply, bn_apply_plain, conv_epilogue,
@@ -132,6 +140,32 @@ class ConvolutionLayer(Layer):
                                      dtype=torch.float32)
         return out
 
+    # channel_pad annotations (nnet/layout.py): the padded input's
+    # segment map, and the zero channels appended to the output
+    _in_layout = None
+    _out_pad = 0
+
+    def _physical_weight(self, w: torch.Tensor) -> torch.Tensor:
+        """The HWIO weight with zero rows in a padded input's gaps and
+        zero columns for the output padding: provably-zero extensions
+        of the same contraction."""
+        if self._in_layout is not None:
+            parts, off = [], 0
+            for valid, pad in self._in_layout:
+                parts.append(w[:, :, off:off + valid, :])
+                if pad:
+                    parts.append(w.new_zeros(w.shape[:2]
+                                             + (pad, w.shape[3])))
+                off += valid
+            w = torch.cat(parts, dim=2)
+        if self._out_pad:
+            w = F.pad(w, (0, self._out_pad))
+        return w
+
+    def _physical_bias(self, b: torch.Tensor) -> torch.Tensor:
+        """A per-out-channel vector with zeros for the output padding."""
+        return F.pad(b, (0, self._out_pad)) if self._out_pad else b
+
     def conv(self, x: torch.Tensor, w_oihw: torch.Tensor) -> torch.Tensor:
         """NHWC in, NHWC out, through one F.conv2d on NCHW views."""
         p = self.param
@@ -171,9 +205,9 @@ class ConvolutionLayer(Layer):
             w = params["wmat"]
             if bf16:
                 x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
-            y = self.conv(x, hwio_to_oihw(w))
+            y = self.conv(x, hwio_to_oihw(self._physical_weight(w)))
             if p.no_bias == 0:
-                y = bias_add(y, params["bias"])
+                y = bias_add(y, self._physical_bias(params["bias"]))
             return [y], state
         # the serve_dtype spec (nnet/quantize.attach): int8 contracts
         # quantized operands, bfloat16 (or dtype = bfloat16) runs the
@@ -212,13 +246,15 @@ class ConvolutionLayer(Layer):
         # was frozen raw
         fold_scale = params.get("_fold_scale")
         fold_in_epilogue = (fold_scale is not None and not quant
-                            and bool(p.conv_pallas_epilogue))
+                            and bool(p.conv_pallas_epilogue)
+                            and not self._out_pad)
         if quant or w is None or (fold_scale is not None
                                   and not fold_in_epilogue):
             w = params["wmat"]
             if fold_scale is not None and not fold_in_epilogue:
                 w = w * fold_scale
-            w = q.weight_operand(w) if quant else hwio_to_oihw(w)
+            w = q.weight_operand(w) if quant \
+                else hwio_to_oihw(self._physical_weight(w))
             if bf16 and not quant:
                 w = w.to(torch.bfloat16)
         y = self._conv_quant(q, x, w) if quant else self.conv(x, w)
@@ -238,7 +274,7 @@ class ConvolutionLayer(Layer):
             return [self._epilogue(y, ep_scale, shift, relu, out_dtype)], \
                 state
         if b is not None:
-            y = y + b.to(y.dtype)
+            y = y + self._physical_bias(b).to(y.dtype)
         return [torch.relu(y) if relu else y], state
 
 
@@ -511,6 +547,8 @@ class BatchNormLayer(Layer):
         # set by the net's bn_fuse_relu pass: the relu consuming this
         # BN's output runs inside this layer
         self.fuse_relu = False
+        # set by the channel_pad pass: the input's (valid, pad) segments
+        self._layout = None
         super().__init__(cfg)
 
     def set_param(self, name, val):
@@ -604,13 +642,26 @@ class BatchNormLayer(Layer):
     def forward(self, params, state, inputs, is_train=False, mask=None):
         x = inputs[0]
         slope, bias = params["wmat"], params["bias"]
+        layout = self._layout
+        if layout is not None:
+            # zeros in the pad gaps: a padded channel comes out 0*x + 0
+            # and its cotangent vanishes
+            slope = pad_channel_vec(slope, layout)
+            bias = pad_channel_vec(bias, layout)
         if not is_train:
             # the eval normalize in (at least) f32, cast back to x's
             # dtype, as the reference's eval path does
             if self.moving_avg:
                 scale, shift = self.fold(params, state)
             else:
-                scale, shift = self._fold(params, *self._moments(x, mask))
+                mean, var = self._moments(x, mask)
+                if layout is not None:
+                    mean, var = take_valid(mean, layout), \
+                        take_valid(var, layout)
+                scale, shift = self._fold(params, mean, var)
+            if layout is not None:
+                scale = pad_channel_vec(scale, layout)
+                shift = pad_channel_vec(shift, layout)
             wide = torch.promote_types(x.dtype, scale.dtype)
             out = (x.to(wide) * scale + shift).to(x.dtype)
             return [torch.relu(out) if self.fuse_relu else out], state
@@ -627,6 +678,8 @@ class BatchNormLayer(Layer):
         if not self.moving_avg:
             return [out], state
         m = self.bn_momentum
+        if layout is not None:           # the state stays logical
+            mean, var = take_valid(mean, layout), take_valid(var, layout)
         with torch.no_grad():
             state = dict(
                 state,

@@ -2,13 +2,39 @@
 ``cxxnet_tpu/main.py``).
 
 A config file plus ``key=value`` CLI overrides drives the tasks
-``train`` / ``pred`` / ``pred_raw`` / ``extract`` (``extract_feature``)
-/ ``get_weight`` / ``serve`` / ``quantize``, and ``test_io = 1`` runs
-the data pipeline without the net. Snapshots are written as
-``<model_dir>/<round:04d>.model.npz``, synchronously; a ``model_in``
-named that way sets the round a train run starts from. The printed
+``train`` / ``finetune`` / ``pred`` / ``pred_raw`` / ``extract``
+(``extract_feature``) / ``get_weight`` / ``serve`` / ``quantize``, and
+``test_io = 1`` runs the data pipeline without the net. The printed
 lines keep the reference's format (``[r]\\ttrain-error:...``, the
 ``round %8d:[%8d]`` progress line, ``updating end, ...``).
+
+Checkpoints, as the reference keeps them:
+
+- snapshots are ``<model_dir>/<round:04d>.model.npz`` (``model_dir`` may
+  be a ``scheme://`` URI: ``utils/stream.py``), committed atomically
+  with a content digest by ``nnet/checkpoint.py``'s
+  ``CheckpointManager``: on a background writer under
+  ``checkpoint_async = 1`` (the default; the training thread pays the
+  device-to-host gather), inline under 0; ``checkpoint_fsync = 0``
+  skips the fsyncs; ``keep_snapshots = K`` keeps the newest K; a
+  failed commit warns and training goes on;
+- ``continue = 1`` resumes from the newest snapshot that verifies,
+  quarantining corrupt ones (``<name>.quarantined``); a ``model_in``
+  named ``NNNN.model.npz`` sets the round a train run starts from;
+- ``task = finetune`` initializes the configured net and carries the
+  layers of ``model_in`` by name and shape; ``finetune_remap = a,b``
+  keeps those layers fresh, and any other changed shape raises
+  ``FinetuneShapeError`` unless ``finetune_strict = 0``; a resumed
+  finetune loads its own snapshot;
+- SIGTERM or SIGINT during training sets a flag that the loop reads at
+  every dispatch boundary and before each round: the run drains its
+  writer, commits an emergency snapshot under the number of completed
+  rounds, and exits with ``EXIT_PREEMPTED`` (75); ``continue = 1``
+  then re-runs the interrupted round from its start with the mid-round
+  weights;
+- ``stream_retry = N`` retries transient remote reads; ``precompile =
+  1`` builds the net's kernels and runs one step and one eval forward
+  on a zero batch before round 0 (``NetTrainer.precompile``).
 
 ``dev`` unset, or naming an accelerator (``gpu``, ``cuda``, ``tpu``),
 runs on the GPU and raises when there is none; ``dev = cpu`` runs on
@@ -16,14 +42,10 @@ the CPU.
 
 What this port does not have yet raises
 :class:`~cxxnet_tpu_torch.utils.config.NotPortedError` naming its
-``ROADMAP.md`` item: the tasks ``finetune``, ``export``,
-``build_index``, ``serve_fleet``, ``fleet``, ``fleet_balancer`` and
-``continual``; the keys ``continue = 1``, ``keep_snapshots > 0``,
-``checkpoint_async = 1``, ``checkpoint_fsync = 0``, ``stream_retry >
-0``, a remote ``model_dir``, ``precompile = 1``, ``test_on_server = 1``, ``monitor =
-stdout|jsonl``, ``monitor_trace_dir`` and every ``dist_*`` key; and a
-SIGTERM during training, which ends the run through that error in
-place of the reference's emergency snapshot.
+``ROADMAP.md`` item: the tasks ``export``, ``build_index``,
+``serve_fleet``, ``fleet``, ``fleet_balancer`` and ``continual``; the
+keys ``test_on_server = 1``, ``monitor = stdout|jsonl``,
+``monitor_trace_dir`` and every ``dist_*`` key.
 
 Usage: python -m cxxnet_tpu_torch.main config.conf [key=value ...]
 """
@@ -43,13 +65,19 @@ import numpy as np
 from .device import resolve_device
 from .io import create_iterator
 from .io.data import DataBatch, batch_mask
-from .nnet.checkpoint import write_snapshot
+from .monitor import reset_warnings, warn_once
+from .nnet.checkpoint import (CheckpointManager, find_latest_valid,
+                              write_snapshot)
 from .nnet.trainer import NetTrainer
 from .utils.config import (NotPortedError, Roadmap, parse_cli_overrides,
                            parse_config_file, split_sections)
-from .utils.stream import open_stream, uri_scheme
+from .utils.stream import open_stream, set_stream_retry, uri_scheme
 
 _MODEL_RE = re.compile(r"^(\d{4})\.model\.npz$")
+
+# exit code of a preempted run: SIGTERM/SIGINT arrived and the emergency
+# snapshot committed. EX_TEMPFAIL: schedulers read it as "re-queue me"
+EXIT_PREEMPTED = 75
 
 # tasks that read data through the pred iterator (or its fallback);
 # quantize rides here too — calibration wants the deterministic eval
@@ -75,7 +103,6 @@ _PRED_NEUTRAL = (
 
 # tasks of the reference this port does not have yet, by ROADMAP item
 NOT_PORTED_TASKS: Dict[str, str] = {
-    "finetune": Roadmap.CHECKPOINT_CLI,
     "export": Roadmap.BUNDLES,
     "build_index": Roadmap.RETRIEVAL,
     "serve_fleet": Roadmap.FLEET,
@@ -90,26 +117,12 @@ def _not_ported_key(name: str, val: str) -> Optional[str]:
     port does not have yet, or None."""
     if name.startswith("dist_"):
         return Roadmap.MULTI_GPU
-    if name == "model_dir" and uri_scheme(val):
-        return Roadmap.CHECKPOINT_CLI
     if name == "test_on_server" and int(val):
         return Roadmap.MULTI_GPU
     if name in ("monitor", "monitor_trace_dir") \
             and val not in ("", "none"):
         return Roadmap.TELEMETRY
-    if (name in ("continue", "keep_snapshots", "stream_retry",
-                 "precompile", "checkpoint_async") and int(val)) \
-            or (name == "checkpoint_fsync" and not int(val)):
-        return Roadmap.CHECKPOINT_CLI
     return None
-
-
-def _warn_once(seen: set, code: str, message: str) -> None:
-    """One stderr line per warning code and run."""
-    if code not in seen:
-        seen.add(code)
-        sys.stderr.write("[cxxnet_tpu_torch] warning %s: %s\n"
-                         % (code, message))
 
 
 class LearnTask:
@@ -120,6 +133,7 @@ class LearnTask:
         self.save_period = 1
         self.model_dir = "./models"
         self.model_in = ""
+        self.continue_training = 0
         self.print_step = 100
         self.silent = 0
         self.task_eval_train = 1
@@ -140,7 +154,23 @@ class LearnTask:
         self.quantize_batches = 8
         self.quantize_parity_eps = 0.05
         self.quantize_out = ""
-        self._warned: set = set()
+        # precompile = 1: build the kernels and run the step once on a
+        # zero batch before round 0 (NetTrainer.precompile)
+        self.precompile = 0
+        # checkpoints (nnet/checkpoint.py): a background commit thread,
+        # durable fsync, retention, remote-read retries
+        self.checkpoint_async = 1
+        self.checkpoint_fsync = 1
+        self.keep_snapshots = 0          # 0 = keep every snapshot
+        self.stream_retry = 0
+        # finetune: layers re-initialized fresh (the new head); any
+        # other changed shape raises unless finetune_strict = 0
+        self.finetune_remap: Tuple[str, ...] = ()
+        self.finetune_strict = 1
+        self._resume_found = False
+        # set by the SIGTERM/SIGINT handler; read at the train loop's
+        # next dispatch boundary
+        self._preempt_signum: Optional[int] = None
 
     # -- config ----------------------------------------------------------
 
@@ -160,6 +190,8 @@ class LearnTask:
             self.model_dir = val
         if name == "model_in":
             self.model_in = val
+        if name == "continue":
+            self.continue_training = int(val)
         if name == "print_step":
             self.print_step = int(val)
         if name == "silent":
@@ -197,6 +229,21 @@ class LearnTask:
             self.quantize_parity_eps = float(val)
         if name == "quantize_out":
             self.quantize_out = val
+        if name == "precompile":
+            self.precompile = int(val)
+        if name == "checkpoint_async":
+            self.checkpoint_async = int(val)
+        if name == "checkpoint_fsync":
+            self.checkpoint_fsync = int(val)
+        if name == "keep_snapshots":
+            self.keep_snapshots = int(val)
+        if name == "stream_retry":
+            self.stream_retry = int(val)
+        if name == "finetune_remap":
+            self.finetune_remap = tuple(
+                t.strip() for t in val.split(",") if t.strip())
+        if name == "finetune_strict":
+            self.finetune_strict = int(val)
 
     def _torch_device(self) -> str:
         """``dev = cpu`` runs on the CPU; unset or any accelerator name
@@ -206,7 +253,27 @@ class LearnTask:
     # -- model files -----------------------------------------------------
 
     def _model_path(self, counter: int) -> str:
+        if uri_scheme(self.model_dir):
+            return "%s/%04d.model.npz" % (self.model_dir.rstrip("/"),
+                                          counter)
         return os.path.join(self.model_dir, "%04d.model.npz" % counter)
+
+    def _sync_latest_model(self) -> Optional[str]:
+        """The newest snapshot of model_dir that verifies (local or
+        remote); corrupt candidates are quarantined with a warning.
+        Sets the round to start from."""
+        rep = find_latest_valid(self.model_dir)
+        if rep.path is None:
+            if rep.quarantined:
+                warn_once(
+                    "resume_no_valid_snapshot",
+                    "continue=1: model_dir %r holds %d snapshot(s) but "
+                    "none verifies — quarantined %s and starting from "
+                    "round 0" % (self.model_dir, rep.scanned,
+                                 ", ".join(rep.quarantined)))
+            return None
+        self.start_counter = rep.counter + 1
+        return rep.path
 
     # -- run -------------------------------------------------------------
 
@@ -215,6 +282,7 @@ class LearnTask:
             print("Usage: python -m cxxnet_tpu_torch.main config.conf "
                   "[key=value ...]")
             return 1
+        reset_warnings()                 # each code warns once a run
         for env in ("CXXNET_COORDINATOR", "CXXNET_NUM_CPU_DEVICES"):
             if os.environ.get(env):
                 raise NotPortedError("the %s launch" % env,
@@ -235,16 +303,25 @@ class LearnTask:
         # the device first: no GPU and no dev = cpu raises before any
         # file is read
         dev = resolve_device(self._torch_device())
+        # opt-in retries of transient remote reads; 0 (the default)
+        # fails fast
+        set_stream_retry(self.stream_retry)
 
         # iterators (closed on exit: prefetch threads / decode pools);
         # hoisted above the try so the finally can always iterate it
         all_iters: List[object] = []
         try:
             # model_in via filename convention infers the start counter
+            # (finetune starts a fresh numbering)
             if self.model_in and self.task == "train":
                 m = _MODEL_RE.match(os.path.basename(self.model_in))
                 if m:
                     self.start_counter = int(m.group(1)) + 1
+            if self.continue_training:
+                latest = self._sync_latest_model()
+                self._resume_found = latest is not None
+                if latest is not None:
+                    self.model_in = latest
 
             itr_train = None
             eval_iters: List[Tuple[str, object]] = []
@@ -262,8 +339,8 @@ class LearnTask:
                     if b["kind"] != "data":
                         continue
                     b["cfg"] = list(b["cfg"]) + list(_PRED_NEUTRAL)
-                    _warn_once(
-                        self._warned, "pred_fallback_train_iter",
+                    warn_once(
+                        "pred_fallback_train_iter",
                         "task=%s has no 'pred =' iterator block; "
                         "falling back to the train data block %r with "
                         "shuffle/augmentation disabled" %
@@ -292,11 +369,20 @@ class LearnTask:
                                            dev)
 
             trainer = NetTrainer(cfg, device=dev)
-            if self.task == "train":
-                if self.model_in:
+            if self.task in ("train", "finetune"):
+                if self.model_in and (self.task == "train"
+                                      or self._resume_found):
+                    # a plain verified load, a resumed finetune too: its
+                    # own snapshots carry the remapped structure, and a
+                    # re-remap would re-initialize the trained head
                     trainer.load_model(self.model_in)
                 else:
                     trainer.init_model()
+                    if self.task == "finetune":
+                        assert self.model_in, "finetune requires model_in"
+                        trainer.finetune_from(
+                            self.model_in, remap=self.finetune_remap,
+                            strict=bool(self.finetune_strict))
                 return self._task_train(trainer, itr_train, eval_iters)
 
             assert self.model_in, "task %s requires model_in" % self.task
@@ -333,12 +419,53 @@ class LearnTask:
               % (n, dt, n / max(dt, 1e-9)))
         return 0
 
-    # -- train -----------------------------------------------------------
+    # -- preemption ------------------------------------------------------
+
+    def _install_preempt_handlers(self):
+        """Turn SIGTERM and SIGINT (the preemption notice) into a flag
+        the train loop reads at its next dispatch boundary: an emergency
+        snapshot beats dying mid-write. Only the main thread can own
+        signal handlers; elsewhere the process keeps its own."""
+        if threading.current_thread() is not threading.main_thread():
+            return []
+        installed = []
+
+        def _on_signal(signum, frame):
+            self._preempt_signum = signum
+
+        for s in (signal.SIGTERM, signal.SIGINT):
+            try:
+                installed.append((s, signal.signal(s, _on_signal)))
+            except (ValueError, OSError) as e:
+                warn_once(
+                    "preempt_handler_unavailable",
+                    "cannot install handler for signal %s (%s); "
+                    "preemption will not trigger an emergency "
+                    "snapshot" % (s, e))
+        return installed
 
     @staticmethod
-    def _on_sigterm(signum, frame):
-        raise NotPortedError("the SIGTERM emergency snapshot",
-                             Roadmap.CHECKPOINT_CLI)
+    def _restore_handlers(installed) -> None:
+        for s, old in installed:
+            try:
+                signal.signal(s, old)
+            except (ValueError, OSError, TypeError):
+                pass    # best effort on the exit path
+
+    def _preempt_exit(self, ckpt, round_idx: int) -> int:
+        """The emergency snapshot at the current dispatch boundary,
+        committed inline after the writer drains, under ``round_idx``
+        (the rounds completed): resume re-runs the interrupted round
+        from its start with the mid-round weights."""
+        signum = int(self._preempt_signum or 0)
+        if self.silent == 0:
+            print("preempted by signal %d: emergency snapshot "
+                  "%04d.model.npz" % (signum, round_idx), flush=True)
+        ckpt.save(round_idx, emergency=True)
+        ckpt.close()
+        return EXIT_PREEMPTED
+
+    # -- train -----------------------------------------------------------
 
     def _task_train(self, trainer, itr_train, eval_iters) -> int:
         assert itr_train is not None, "train requires a data block"
@@ -350,21 +477,29 @@ class LearnTask:
                 trainer.device_put_batch,
                 pin_memory=trainer.device.type == "cuda")
         k = self.dispatch_period
+        ckpt = CheckpointManager(
+            trainer, self._model_path, model_dir=self.model_dir,
+            async_=bool(self.checkpoint_async),
+            fsync=bool(self.checkpoint_fsync), keep=self.keep_snapshots)
+        if self.precompile:
+            trainer.precompile()
         start = time.time()
 
         def _progress(r, nbatch):
             if (self.print_step and nbatch % self.print_step < k
                     and self.silent == 0):
                 print("round %8d:[%8d] %ld sec elapsed"
-                      % (r, nbatch, int(time.time() - start)))
+                      % (r, nbatch, int(time.time() - start)), flush=True)
 
-        # a SIGTERM raises (no emergency snapshot yet); only the main
-        # thread can own signal handlers
-        old_handler = None
-        if threading.current_thread() is threading.main_thread():
-            old_handler = signal.signal(signal.SIGTERM, self._on_sigterm)
+        # installed inside the try, so every exit path restores the
+        # process's handlers
+        handlers = []
         try:
+            handlers = self._install_preempt_handlers()
             for r in range(self.start_counter - 1, self.num_round):
+                # r rounds have completed
+                if self._preempt_signum is not None:
+                    return self._preempt_exit(ckpt, r)
                 trainer.start_round(r)
                 nbatch = 0
                 window = []
@@ -380,6 +515,8 @@ class LearnTask:
                         nbatch += len(window)
                         window = []
                     _progress(r, nbatch)
+                    if self._preempt_signum is not None:
+                        return self._preempt_exit(ckpt, r)
                 for batch in window:    # round tail: per-batch
                     trainer.update(batch)
                     nbatch += 1
@@ -391,12 +528,14 @@ class LearnTask:
                 for name, it in eval_iters:
                     line += trainer.evaluate(it, name)
                 if self.silent == 0:
-                    print(line)
+                    print(line, flush=True)
                 if self.save_period and (r + 1) % self.save_period == 0:
-                    trainer.save_model(self._model_path(r + 1))
+                    # on the background writer under checkpoint_async
+                    ckpt.save(r + 1)
         finally:
-            if old_handler is not None:
-                signal.signal(signal.SIGTERM, old_handler)
+            # the last commit is durable before the exit code says so
+            ckpt.close()
+            self._restore_handlers(handlers)
         if self.silent == 0:
             print("updating end, %ld sec in all"
                   % int(time.time() - start))

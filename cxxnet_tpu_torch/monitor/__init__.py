@@ -1,13 +1,39 @@
-"""Telemetry pieces the serve batcher needs (copies from
+"""Telemetry pieces the port needs (copies from
 ``cxxnet_tpu/monitor/__init__.py``): the O(1) latency histogram and the
-fail-safe emitter. The monitor, its sinks and the record schema come
-with the telemetry item."""
+fail-safe emitter of the serve batcher, and ``warn_once`` (with
+``reset_warnings``, which the CLI calls as each run starts). The monitor,
+its sinks and the record schema come with the telemetry item."""
 
 from __future__ import annotations
 
 import sys
 import threading
 from typing import Any
+
+_warned: set = set()
+_warned_lock = threading.Lock()
+
+
+def warn_once(code: str, message: str) -> None:
+    """One stderr line per warning ``code`` and run (``reset_warnings``
+    starts a run; without it, per process). Never raises:
+    it is called from fallback and cleanup paths (a checkpoint writer
+    thread among them)."""
+    with _warned_lock:
+        if code in _warned:
+            return
+        _warned.add(code)
+    try:
+        sys.stderr.write("[cxxnet_tpu_torch] warning %s: %s\n"
+                         % (code, message))
+    except (OSError, ValueError):
+        pass    # a closed stderr must not turn a warning into a crash
+
+
+def reset_warnings() -> None:
+    """Start a new run: every code warns once again."""
+    with _warned_lock:
+        _warned.clear()
 
 
 class LatencyHistogram:

@@ -66,18 +66,23 @@ def params_to_numpy(params: Tree, state: Tree,
                     ) -> Dict[str, np.ndarray]:
     """The inverse: snapshot arrays of a (params, state) pair, and of
     the optimizer state when given. A bfloat16 buffer (``momentum_dtype
-    = bfloat16``) is stored as float32, exactly: npz has no bf16."""
+    = bfloat16``) is stored as float32, exactly: npz has no bf16. Each
+    array is a private host copy (one device-to-host copy on the GPU; a
+    copy, not a view, on the CPU), so a background snapshot writer may
+    read it while later updates run."""
     out: Dict[str, np.ndarray] = {}
     for kind, tree in (("param", params), ("state", state)):
         for lkey, sub in tree.items():
             for tag, t in sub.items():
-                out["%s/%s/%s" % (kind, lkey, tag)] = \
-                    t.detach().cpu().numpy()
+                out["%s/%s/%s" % (kind, lkey, tag)] = _host_copy(t)
     for lkey, tags in (opt_state or {}).items():
         for tag, st in tags.items():
             for name, t in st.items():
                 if t.dtype == torch.bfloat16:
                     t = t.float()
-                out["opt/%s/%s/%s" % (lkey, tag, name)] = \
-                    t.detach().cpu().numpy()
+                out["opt/%s/%s/%s" % (lkey, tag, name)] = _host_copy(t)
     return out
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", copy=True).numpy()

@@ -1,0 +1,187 @@
+"""Channel-alignment planning: the ``channel_pad`` graph pass
+(counterpart of ``cxxnet_tpu/nnet/layout.py``).
+
+The pass pads narrow channel counts up to multiples of ``channel_pad =
+Q`` where the padding provably costs no arithmetic change:
+
+- padding originates at conv outputs: zero weight columns give exactly
+  zero extra channels;
+- it propagates through layers that keep the zero-channel invariant
+  (batch norm with zero-padded slope and bias, relu, spatial pooling,
+  dropout, split) and through ``ch_concat``, which joins the physical
+  (padded) branches and records the segment map;
+- it ends at consumers that absorb it (a conv scatters zero weight rows
+  into the pad gaps) or at barriers (flatten, LRN, losses, anything not
+  listed), where the valid channels are sliced back out.
+
+Every padded channel is exactly zero in the forward pass and receives
+an exactly-zero cotangent in the backward pass; padded weight rows and
+columns are zeros made per call, never parameters. A node's *layout* is
+a tuple of ``(valid, pad)`` segments along the channel axis; a plain
+node is ``((C, 0),)``. ``channel_pad_max_overhead = R`` (default 0.5)
+never pads a dim by more than R times its logical channels.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+
+# (valid, pad) segments along the channel axis
+Layout = Tuple[Tuple[int, int], ...]
+
+
+def plain(c: int) -> Layout:
+    return ((c, 0),)
+
+
+def logical_channels(layout: Layout) -> int:
+    return sum(v for v, _ in layout)
+
+
+def physical_channels(layout: Layout) -> int:
+    return sum(v + p for v, p in layout)
+
+
+def is_padded(layout: Optional[Layout]) -> bool:
+    return layout is not None and any(p for _, p in layout)
+
+
+def pad_channel_vec(v: torch.Tensor, layout: Layout,
+                    fill: float = 0.0) -> torch.Tensor:
+    """Scatter a logical per-channel vector into physical positions,
+    filling the pad gaps (slope/bias/scale vectors; last axis)."""
+    if not is_padded(layout):
+        return v
+    parts = []
+    off = 0
+    for valid, pad in layout:
+        parts.append(v[..., off:off + valid])
+        if pad:
+            parts.append(torch.full(v.shape[:-1] + (pad,), fill,
+                                    dtype=v.dtype, device=v.device))
+        off += valid
+    return torch.cat(parts, dim=-1)
+
+
+def take_valid(x: torch.Tensor, layout: Layout) -> torch.Tensor:
+    """Slice the valid channels back out of a physical array (last
+    axis) — the de-pad at barriers and extraction points."""
+    if not is_padded(layout):
+        return x
+    parts = []
+    off = 0
+    for valid, pad in layout:
+        parts.append(x[..., off:off + valid])
+        off += valid + pad
+    return torch.cat(parts, dim=-1)
+
+
+# layer types that preserve the zero-channel invariant and operate
+# per-channel, so a padded input passes through untouched
+_PROPAGATE = ("relu", "max_pooling", "avg_pooling", "sum_pooling",
+              "relu_max_pooling", "pallas_relu_max_pooling", "dropout",
+              "split")
+_BN = ("batch_norm", "batch_norm_no_ma", "pallas_batch_norm")
+
+
+def _round_up(c: int, q: int) -> int:
+    return (c + q - 1) // q * q
+
+
+def plan_channel_layouts(net) -> None:
+    """Annotate a FuncNet with per-node channel layouts and per-layer
+    padding decisions. Runs at build time (after shape inference and
+    the fusion passes); with channel_pad = 0 every node is plain and no
+    layer behaviour changes."""
+    g = net.graph
+    q = net._net_flag("channel_pad")
+    max_overhead = 0.5
+    for n, v in g.defcfg:
+        if n == "channel_pad_max_overhead":
+            max_overhead = float(v)
+    layouts: List[Optional[Layout]] = [None] * g.num_nodes
+    for ni, s in enumerate(net.node_shapes):
+        if s is not None:
+            layouts[ni] = plain(s.x if s.is_mat else s.ch)
+    net._depad_layers = set()
+    layers_padded = 0
+    padded_channels = 0
+
+    # layers whose parameters are shared elsewhere must stay unpadded:
+    # the shared object would carry one site's annotations to the other
+    shared_primaries = set(info.primary_layer_index
+                           for info in g.layers if info.type == "share")
+
+    def out_layout(c: int) -> Layout:
+        if q <= 0 or c % q == 0:
+            return plain(c)
+        cp = _round_up(c, q)
+        if (cp - c) > max_overhead * c:
+            return plain(c)
+        return ((c, cp - c),)
+
+    for li, info in enumerate(g.layers):
+        layer = net.layer_objs[li]
+        ltype = info.type
+        in_lays = [layouts[ni] for ni in info.nindex_in]
+        spatial_in = [ni for ni in info.nindex_in
+                      if net.node_shapes[ni] is not None
+                      and not net.node_shapes[ni].is_mat]
+        if q <= 0:
+            continue
+        if (ltype == "conv" and li not in shared_primaries
+                and layer.param.num_group == 1):
+            # conv absorbs any input padding (zero weight rows) and may
+            # originate aligned output (zero weight columns)
+            lay_in = in_lays[0]
+            ol = out_layout(layer.param.num_channel)
+            layer._in_layout = lay_in if is_padded(lay_in) else None
+            layer._out_pad = physical_channels(ol) \
+                - layer.param.num_channel
+            layouts[info.nindex_out[0]] = ol
+            if layer._out_pad or layer._in_layout:
+                layers_padded += 1
+                padded_channels += layer._out_pad
+        elif ltype in _BN and li not in shared_primaries:
+            lay = in_lays[0]
+            if is_padded(lay):
+                layer._layout = lay
+            for ni in info.nindex_out:
+                layouts[ni] = lay
+        elif ltype in _PROPAGATE:
+            lay = in_lays[0]
+            for ni in info.nindex_out:
+                layouts[ni] = lay
+        elif ltype == "ch_concat" and all(
+                l is not None for l in in_lays) and spatial_in:
+            # alignment-aware concat: join the physical branches and
+            # carry the merged segment map downstream
+            merged: List[Tuple[int, int]] = []
+            for l in in_lays:
+                merged.extend(l)
+            out_l = tuple(merged)
+            if not is_padded(out_l):      # all-plain branches collapse
+                out_l = plain(logical_channels(out_l))
+            for ni in info.nindex_out:
+                layouts[ni] = out_l
+        else:
+            # barrier: this layer gets logical inputs (valid channels
+            # sliced out) and produces plain outputs — including
+            # self-loop connections, whose node becomes logical again
+            if any(is_padded(layouts[ni]) for ni in info.nindex_in):
+                net._depad_layers.add(li)
+            for ni in info.nindex_out:
+                s = net.node_shapes[ni]
+                if s is not None:
+                    layouts[ni] = plain(s.x if s.is_mat else s.ch)
+
+    net.node_layouts = layouts
+    net.layout_summary = {
+        "channel_pad": q,
+        "max_overhead": max_overhead,
+        "layers_padded": layers_padded,
+        "padded_channels": padded_channels,
+        "depad_barriers": len(net._depad_layers),
+    }

@@ -25,7 +25,13 @@ Net-level fusion passes of the reference that the port runs:
 These change what interior nodes hold (the BN output node carries the
 post-relu value; the conv output node the folded conv+BN value; a
 fused pool's output node its un-pooled input), as in the reference.
-``channel_pad`` is not ported and raises.
+
+- ``channel_pad = Q`` (``nnet/layout.py``): convs emit channel counts
+  padded up to multiples of Q with exactly-zero extra channels, which
+  batch norm, relu, the pools, dropout, split and ``ch_concat`` carry;
+  barriers (and every node a caller reads: metrics, extraction, the
+  loss's collected nodes) see the valid channels only. It turns
+  ``pool_concat_pallas`` off, as the reference does.
 """
 
 from __future__ import annotations
@@ -37,9 +43,10 @@ import torch
 from ..graph import NetGraph
 from ..layers import Layer, Shape3, create_layer
 from ..layers.base import StepKey
-from ..layers.conv import PoolingLayer
+from ..layers.common import PallasFullConnectLayer
+from ..layers.conv import BatchNormLayer, ConvolutionLayer, PoolingLayer
 from ..layers.kernels import pool_concat_applicable
-from ..utils.config import NotPortedError, Roadmap
+from .layout import is_padded, plan_channel_layouts, take_valid
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 NetState = Dict[str, Dict[str, torch.Tensor]]
@@ -62,8 +69,6 @@ class FuncNet:
 
     def _build(self) -> None:
         g = self.graph
-        if self._net_flag("channel_pad"):
-            raise NotPortedError("channel_pad", Roadmap.CHECKPOINT_CLI)
         self.node_shapes[0] = Shape3(*g.input_shape)
         for i in range(g.extra_data_num):
             self.node_shapes[1 + i] = Shape3(*g.extra_shape[i])
@@ -103,6 +108,7 @@ class FuncNet:
                             % (ni, prev, s))
                 self.node_shapes[ni] = s
         self._fusion_passes()
+        plan_channel_layouts(self)
 
     def _net_flag(self, name: str, default: int = 0) -> int:
         """Net-level knob from the global (default) layer config."""
@@ -143,7 +149,9 @@ class FuncNet:
                     self._fold_bns.add(cons[0])
         self._pool_passthrough = set()    # pools fused into their concat
         self.fused_concats: Dict[int, Tuple[int, int, str]] = {}
-        if self._net_flag("pool_concat_pallas"):
+        # under channel_pad the alignment pass owns the concat layout
+        if (self._net_flag("pool_concat_pallas")
+                and not self._net_flag("channel_pad")):
             self._plan_pool_concat(consumers, shared_primaries)
 
     def _plan_pool_concat(self, consumers, shared_primaries) -> None:
@@ -273,7 +281,12 @@ class FuncNet:
                     and not any(k in p for k in FROZEN_FOLD_KEYS):
                 p = dict(p)
                 p.update(self.fold_entries(params, state, li))
-            ins = [nodes[ni] for ni in info.nindex_in]
+            if li in self._depad_layers:
+                # layout barrier: this layer sees logical channels
+                ins = [self.depad_node(ni, nodes[ni])
+                       for ni in info.nindex_in]
+            else:
+                ins = [nodes[ni] for ni in info.nindex_in]
             if collect_logits and layer.is_loss:
                 loss_inputs[li] = ins[0]
             kw = {}
@@ -313,7 +326,38 @@ class FuncNet:
                                  % layer.target)
             a, b = slices[layer.target]
             total = total + layer.loss_value(logit, labels[:, a:b], mask)
-        return total, (new_state, [nodes[ni] for ni in collect_nodes])
+        return total, (new_state, [self.depad_node(ni, nodes[ni])
+                                   for ni in collect_nodes])
+
+    def depad_node(self, ni: int, v):
+        """A node value sliced back to its logical channels (itself for
+        a plain node): metrics, extraction and barriers read these."""
+        lay = self.node_layouts[ni]
+        if v is None or not is_padded(lay):
+            return v
+        return take_valid(v, lay)
+
+    def kernel_sources(self) -> List[str]:
+        """The ``csrc/`` kernel sources this net's layers may launch, in
+        training or at eval (``layers/kernels.py`` ``KERNEL_SOURCES``)."""
+        out = set()
+        for li, layer in enumerate(self.layer_objs):
+            p = layer.param
+            if isinstance(layer, BatchNormLayer) and layer.use_pallas:
+                out.add("bn_apply")
+            if isinstance(layer, ConvolutionLayer) \
+                    and p.conv_pallas_epilogue:
+                out.add("conv_epilogue")
+            if isinstance(layer, PoolingLayer) and layer.pre_relu \
+                    and (layer.use_pallas or p.pallas_pool):
+                out.add("relu_max_pool")
+            if isinstance(layer, PallasFullConnectLayer):
+                out.add("matmul")
+            if p.compute_dtype == "bfloat16":
+                out.add("bias_grad_bf16")
+        if self.fused_concats:
+            out.add("pool_concat")
+        return sorted(out)
 
     def analytic_flops_per_example(self) -> float:
         """Analytic forward FLOPs per example (2*MACs over the conv and

@@ -134,7 +134,8 @@ class QuantTarget(NamedTuple):
 def quantizable(net) -> List[QuantTarget]:
     """The net's quantizable contractions: conv / fullc layers that own
     their params (shared primaries are excluded: one weight serving two
-    sites would need two activation scales)."""
+    sites would need two activation scales) and carry no channel_pad
+    annotation (serving graphs run unpadded)."""
     g = net.graph
     shared_primaries = set(info.primary_layer_index
                            for info in g.layers if info.type == "share")
@@ -142,6 +143,10 @@ def quantizable(net) -> List[QuantTarget]:
     for li, info in enumerate(g.layers):
         kind = _QUANT_TYPES.get(info.type)
         if kind is None or li in shared_primaries:
+            continue
+        layer = net.layer_objs[li]
+        if (getattr(layer, "_in_layout", None) is not None
+                or getattr(layer, "_out_pad", 0)):
             continue
         out.append(QuantTarget(li, g.layer_key(li), info.nindex_in[0],
                                kind))
@@ -189,7 +194,8 @@ class Calibrator:
                                        t.to_device_batch(batch.data))
             vecs = []
             for tgt in self.targets:
-                v = vals[tgt.in_node].float()
+                v = t.net.depad_node(tgt.in_node,
+                                     vals[tgt.in_node]).float()
                 vecs.append(v.abs().amax(dim=tuple(range(v.dim() - 1))))
         for tgt, v in zip(self.targets, vecs):
             a = v.cpu().numpy()

@@ -5,8 +5,9 @@ too, under ``save_optimizer = 1``), training (``update``,
 ``run_steps``, ``update_many`` with ``update_period`` accumulation,
 one updater per (layer, tag), train and eval metrics), the one-time
 freeze of the eval weights (``freeze_serve_weights``), the eval forward
-behind ``predict`` / ``extract_feature``, and the reference-layout
-weight get/set.
+behind ``predict`` / ``extract_feature``, the reference-layout
+weight get/set, the finetune carry (``finetune_from``,
+``copy_model_from``, ``load_weights_inplace``) and ``precompile``.
 
 A training step is the reference's ``scan_step`` written eagerly:
 autograd over ``FuncNet.loss_fn`` in place of ``jax.value_and_grad``,
@@ -56,6 +57,7 @@ from ..device import resolve_device
 from ..graph import NetGraph
 from ..io.data import DataBatch, batch_mask
 from ..layers.conv import hwio_to_oihw
+from ..monitor import warn_once
 from ..updater import create_updater
 from ..utils.config import (ConfigError, ConfigPairs, NotPortedError,
                             Roadmap)
@@ -70,6 +72,25 @@ from .quantize import (QUANT_PREFIX, attach, normalize_serve_dtype,
 
 _RE_METRIC = re.compile(r"^metric(?:\[([^\]]*)\])?$")
 _RAW_DTYPES = (torch.uint8, torch.bfloat16)
+
+
+class FinetuneShapeError(ValueError):
+    """A finetune source holds a parameter whose shape no longer matches
+    the configured net, and the layer is not listed in
+    ``finetune_remap``; ``layer`` and ``tag`` name the group."""
+
+    def __init__(self, layer: str, tag: str, saved_shape, new_shape):
+        self.layer = layer
+        self.tag = tag
+        self.saved_shape = tuple(saved_shape)
+        self.new_shape = tuple(new_shape)
+        super().__init__(
+            "finetune: layer %r param %r changed shape %s -> %s but is "
+            "not listed in finetune_remap — declare it "
+            "(finetune_remap = %s) for a fresh re-init, or fix the net "
+            "config (finetune_strict = 0 restores the silent "
+            "skip-and-reinit behavior)"
+            % (layer, tag, tuple(saved_shape), tuple(new_shape), layer))
 
 
 @dataclass
@@ -119,6 +140,10 @@ class NetTrainer:
         self.quant_meta: Dict[str, Any] = {}   # __meta__["quantized"]
         self.quant_report: Dict[str, Any] = {"active": False}
         self.serve_weight_residency = 1
+        self.silent = 0
+        # precompile(): the input dtype of its zero batch (uint8 for
+        # raw-pixel pipelines)
+        self.precompile_dtype = "float32"
         self.metric_cfg: List[Tuple[str, str, str]] = []
         self.sample_counter = 0          # within accumulation window
         self.update_counter = 0          # applied updates (schedule epoch)
@@ -201,9 +226,26 @@ class NetTrainer:
             if name == "serve_device_mem_budget" and float(val):
                 raise NotPortedError("serve_device_mem_budget",
                                      Roadmap.QUANTIZED)
-            if name == "input_layout" and val != "none":
-                raise NotPortedError("input_layout = %s" % val,
-                                     Roadmap.CHECKPOINT_CLI)
+            if name == "silent":
+                self.silent = int(val)
+            if name == "precompile_dtype":
+                if val not in ("float32", "uint8"):
+                    raise ValueError(
+                        "precompile_dtype must be float32 or uint8")
+                self.precompile_dtype = val
+            if name == "input_layout":
+                if val not in ("none", "rowmajor"):
+                    raise ValueError(
+                        "input_layout must be none or rowmajor")
+                if val == "rowmajor":
+                    # a TPU device-layout pin; CUDA tensors of the port
+                    # are row-major (NHWC) already, so the batch runs
+                    # as it is, as the reference does where its backend
+                    # cannot pin
+                    warn_once("input_layout_unsupported",
+                              "input_layout=rowmajor pins a TPU device "
+                              "layout; the CUDA batch is already "
+                              "row-major (NHWC), inputs stay unpinned")
 
     # -- model lifecycle -------------------------------------------------
 
@@ -346,6 +388,11 @@ class NetTrainer:
                 lkey = g.layer_key(li)
                 p, t = self.params[lkey], tree[lkey]
                 layer = net.layer_objs[li]
+                if getattr(layer, "_in_layout", None) is not None \
+                        or getattr(layer, "_out_pad", 0):
+                    # channel_pad layers keep the per-call path (a
+                    # training knob; serving graphs run unpadded)
+                    continue
                 q = layer._quant
                 quant = q is not None and q.is_affine
                 bf16 = layer.param.compute_dtype == "bfloat16" or (
@@ -417,7 +464,8 @@ class NetTrainer:
         with torch.inference_mode():
             nodes, _, _ = self.net.forward(params, self.net_state, data,
                                            mask=mask, extra=extra)
-            return [nodes[i].float() for i in nodes_wanted]
+            return [self.net.depad_node(i, nodes[i]).float()
+                    for i in nodes_wanted]
 
     def to_device_batch(self, x) -> torch.Tensor:
         """Rows -> a tensor on the device: uint8 pixels and bf16 rows
@@ -797,7 +845,10 @@ class NetTrainer:
 
     def gather_snapshot(self) -> Tuple[Dict[str, np.ndarray], Dict]:
         """Everything a snapshot holds, as host arrays, and its meta;
-        the optimizer state under ``save_optimizer = 1``."""
+        the optimizer state under ``save_optimizer = 1``. The arrays are
+        private copies (``params_to_numpy``): a background writer may
+        digest them while later updates run. This is the part of a
+        snapshot the training thread pays."""
         arrays = params_to_numpy(
             self.params, self.net_state,
             self.opt_state if self.save_optimizer else None)
@@ -805,7 +856,7 @@ class NetTrainer:
         for lkey, tab in self.quant_tables.items():
             for field, v in tab.items():
                 arrays["%s%s/%s" % (QUANT_PREFIX, lkey, field)] = \
-                    np.asarray(v)
+                    np.array(v)
         meta = {
             "update_counter": self.update_counter,
             "structure": self.graph.to_dict(),
@@ -816,6 +867,181 @@ class NetTrainer:
         return arrays, meta
 
     def save_model(self, path: str) -> None:
-        """Verified snapshot, atomically committed."""
+        """Verified snapshot, atomically committed; raises on a failed
+        write (the CLI's ``CheckpointManager`` warns instead)."""
         arrays, meta = self.gather_snapshot()
         write_snapshot(path, arrays, meta)
+
+    # -- finetune --------------------------------------------------------
+
+    def finetune_from(self, path: str, remap: Sequence[str] = (),
+                      strict: bool = True) -> Dict[str, Any]:
+        """The ``task = finetune`` bootstrap: carry weights from a
+        verified snapshot into this freshly initialized net, by layer
+        name with exact shapes; the layers named in ``remap`` keep their
+        fresh init and fresh state (a new-label-count head). A layer
+        whose saved shape differs and that is not in ``remap`` raises
+        :class:`FinetuneShapeError` (``strict=False``: it is skipped and
+        keeps its fresh init). Returns the carry accounting."""
+        self._check_ready()
+        blob, meta = read_snapshot(path)
+        remap_set = set(remap)
+        unknown = remap_set - set(self.params.keys())
+        if unknown:
+            raise ValueError(
+                "finetune_remap names unknown param layer(s) %s; "
+                "known: %s" % (sorted(unknown), sorted(self.params)))
+        carried = self._carry_from_blob(blob, remap_set, strict)
+        fresh = sorted(remap_set)
+        frozen = sorted(set(
+            lk for lk, tags in self.updaters.items()
+            for tag, upd in tags.items() if upd.param.lr_mult == 0.0))
+        rec = {
+            "source": path,
+            "source_digest": str(meta.get("content_digest", "")),
+            "carried": len(carried), "remapped": len(fresh),
+            "fresh": sorted(set(self.params) - set(carried) - remap_set),
+            "carried_layers": carried, "remapped_layers": fresh,
+            "frozen_groups": frozen,
+        }
+        if self.silent == 0:
+            print("finetune_from %s: carried %s; remapped %s%s"
+                  % (path, ", ".join(carried) or "<none>",
+                     ", ".join(fresh) or "<none>",
+                     ("; frozen %s" % ", ".join(frozen)) if frozen
+                     else ""))
+        return rec
+
+    def _carry_from_blob(self, blob, remap_set, strict: bool
+                         ) -> List[str]:
+        """The one name-and-shape carry loop behind ``finetune_from``,
+        ``copy_model_from`` and ``load_weights_inplace`` (params and net
+        state); returns the carried layer keys."""
+        carried = []
+        for lk, pt in self.params.items():
+            if lk in remap_set:
+                continue                 # declared remap: fresh init
+            hit = {}
+            for tag in pt:
+                k = "param/%s/%s" % (lk, tag)
+                if k not in blob:
+                    continue
+                if blob[k].shape != tuple(pt[tag].shape):
+                    if strict:
+                        raise FinetuneShapeError(
+                            lk, tag, blob[k].shape, pt[tag].shape)
+                    continue             # skip, keep the fresh init
+                hit[tag] = self._blob_tensor(blob[k], pt[tag])
+            if hit:
+                self.params[lk] = dict(pt, **hit)
+                carried.append(lk)
+        for lk, st in self.net_state.items():
+            if lk in remap_set:
+                continue                 # remapped layers keep fresh state
+            new = dict(st)
+            for kk in st:
+                k = "state/%s/%s" % (lk, kk)
+                if k in blob and blob[k].shape == tuple(st[kk].shape):
+                    new[kk] = self._blob_tensor(blob[k], st[kk])
+            self.net_state[lk] = new
+        self._serve_tree = None          # the frozen serve tree is stale
+        return carried
+
+    def _blob_tensor(self, a: np.ndarray, like: torch.Tensor
+                     ) -> torch.Tensor:
+        """A snapshot array as a private tensor of ``like``'s dtype on
+        the trainer's device."""
+        return torch.from_numpy(np.array(a, copy=True)).to(
+            device=self.device, dtype=like.dtype)
+
+    def load_weights_inplace(self, path: str) -> None:
+        """Refresh params, net state and ``update_counter`` from a
+        verified snapshot without rebuilding the net: every array must
+        match a live leaf's shape exactly."""
+        self._check_ready()
+        blob, meta = read_snapshot(path)
+        try:
+            self._carry_from_blob(blob, set(), strict=True)
+        except FinetuneShapeError as e:
+            raise ValueError(
+                "load_weights_inplace: %s:%s shape %s does not match the "
+                "live net's %s — in-place reload requires an identical "
+                "structure (use load_model for a structural change)"
+                % (e.layer, e.tag, e.saved_shape, e.new_shape)) from None
+        self.update_counter = int(meta.get("update_counter",
+                                           self.update_counter))
+
+    def copy_model_from(self, path: str) -> None:
+        """Copy the weights of the layers whose names match with the
+        same shapes, silently skipping the rest (the reference's
+        finetune carry). Call after ``init_model``."""
+        self._check_ready()
+        blob, _ = read_snapshot(path)
+        copied = self._carry_from_blob(blob, set(), strict=False)
+        if self.silent == 0 and copied:
+            print("copy_model_from: copied layers %s" % ", ".join(copied))
+
+    # -- precompile ------------------------------------------------------
+
+    def precompile(self) -> List[str]:
+        """Pay the first-use costs before round 0: build (or load) every
+        hand kernel the configured net launches, then run one training
+        step and one eval forward on a zero batch of the run's static
+        shapes (``precompile_dtype``), so cuDNN's algorithm choice and
+        the allocator's first growth happen here. Parameters, optimizer
+        state, BN statistics, counters, metrics and random generators
+        are left exactly as they were: precompile changes when a cost is
+        paid, never a result. (The reference's ``window`` picks which
+        update_many program to lower; eager PyTorch has none.) The zero
+        batch's kernel launches count as any launch does.
+        Returns the kernel sources built."""
+        self._check_ready()
+        from ..io.data import inst_array_shape
+        from ..layers import kernels
+        names = self.net.kernel_sources() \
+            if self.device.type == "cuda" else []
+        if names:
+            kernels.build_kernels(names)
+            for n in names:
+                kernels._load(n)
+        # the step replaces tensors and never writes one in place, but
+        # it does assign into the optimizer-state and accumulator dicts:
+        # keep copies of those
+        saved = (self.params,
+                 {lk: dict(tags) for lk, tags in self.opt_state.items()},
+                 self.net_state,
+                 None if self.grad_acc is None else dict(self.grad_acc),
+                 self.sample_counter, self.update_counter,
+                 self._last_loss, self._serve_tree, torch.get_rng_state())
+        cuda_rng = torch.cuda.get_rng_state(self.device) \
+            if self.device.type == "cuda" else None
+        g = self.graph
+        try:
+            data = torch.zeros(
+                (self.batch_size,) + inst_array_shape(g.input_shape),
+                dtype=torch.uint8 if self.precompile_dtype == "uint8"
+                else torch.float32, device=self.device)
+            lw = max((b for _, _a, b in self._label_slices), default=1)
+            labels = torch.zeros((self.batch_size, lw),
+                                 dtype=torch.float32, device=self.device)
+            extra = tuple(
+                torch.zeros((self.batch_size,) + inst_array_shape(s),
+                            device=self.device)
+                for s in g.extra_shape[:g.extra_data_num])
+            self._train_step(data, labels, None, self.update_counter,
+                             True, False, self._step_scalar(), extra)
+            (self.params, self.opt_state, self.net_state, self.grad_acc,
+             self.sample_counter, self.update_counter, self._last_loss,
+             self._serve_tree, _) = saved
+            if self._metric_nodes:
+                self.pred(data, self._metric_nodes, None, extra)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            (self.params, self.opt_state, self.net_state, self.grad_acc,
+             self.sample_counter, self.update_counter, self._last_loss,
+             self._serve_tree, rng) = saved
+            torch.set_rng_state(rng)
+            if cuda_rng is not None:
+                torch.cuda.set_rng_state(cuda_rng, self.device)
+        return list(names)

@@ -285,12 +285,6 @@ def test_serve_soak_has_no_failures(env):
 
 
 NOT_PORTED = [("task=" + t, item) for t, item in NOT_PORTED_TASKS.items()] + [
-    ("continue=1", Roadmap.CHECKPOINT_CLI),
-    ("keep_snapshots=2", Roadmap.CHECKPOINT_CLI),
-    ("checkpoint_async=1", Roadmap.CHECKPOINT_CLI),
-    ("checkpoint_fsync=0", Roadmap.CHECKPOINT_CLI),
-    ("stream_retry=2", Roadmap.CHECKPOINT_CLI),
-    ("precompile=1", Roadmap.CHECKPOINT_CLI),
     ("monitor=stdout", Roadmap.TELEMETRY),
     ("monitor=jsonl", Roadmap.TELEMETRY),
     ("monitor_trace_dir=trace", Roadmap.TELEMETRY),
@@ -299,8 +293,6 @@ NOT_PORTED = [("task=" + t, item) for t, item in NOT_PORTED_TASKS.items()] + [
     ("dist_num_hosts=2", Roadmap.MULTI_GPU),
     ("dist_host_rank=0", Roadmap.MULTI_GPU),
     ("dist_dryrun_hosts=2", Roadmap.MULTI_GPU),
-    ("model_dir=memory://m", Roadmap.CHECKPOINT_CLI),
-    ("sigterm", Roadmap.CHECKPOINT_CLI),
 ]
 
 
@@ -315,22 +307,66 @@ def test_unported_raises_naming_its_item(tmp_path, monkeypatch, what,
     _csv(str(tmp_path / "test.csv"), 20, rng)
     conf = CSV_CONF
     args = ["dev=cpu", "model_dir=m"]
-    if what == "sigterm":
-        from cxxnet_tpu_torch.nnet.trainer import NetTrainer
-
-        def update(self, batch):
-            signal.raise_signal(signal.SIGTERM)
-        monkeypatch.setattr(NetTrainer, "update", update)
-        monkeypatch.setattr(NetTrainer, "update_many", update)
-    else:
-        args.append(what)
+    args.append(what)
     with open(str(tmp_path / "c.conf"), "w") as f:
         f.write(conf)
     monkeypatch.chdir(tmp_path)
-    before = signal.getsignal(signal.SIGTERM)
     with pytest.raises(NotPortedError) as e:
         run_cli(LearnTask, ["c.conf"] + args)
     assert e.value.roadmap_item == item
+
+
+# the checkpoint and CLI keys that raised NotPortedError before they were
+# ported: each now runs (the fault matrix is tests/test_torch_port_
+# checkpoint.py; finetune is tests/test_torch_port_finetune.py)
+PORTED = ["continue=1", "keep_snapshots=2", "checkpoint_async=1",
+          "checkpoint_fsync=0", "stream_retry=2", "precompile=1",
+          "model_dir=memory://m", "sigterm", "task=finetune"]
+
+
+@pytest.mark.parametrize("what", PORTED)
+def test_checkpoint_cli_keys_run(tmp_path, monkeypatch, what):
+    """Each key of the checkpoint and CLI slice trains two rounds and
+    leaves verified snapshots; a SIGTERM ends the run with the emergency
+    snapshot and exit code 75, the process's handler restored."""
+    from cxxnet_tpu_torch.main import EXIT_PREEMPTED
+    from cxxnet_tpu_torch.nnet.checkpoint import (scan_snapshots,
+                                                  verify_snapshot)
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    rng = np.random.RandomState(1)
+    _csv(str(tmp_path / "train.csv"), 40, rng)
+    _csv(str(tmp_path / "test.csv"), 20, rng)
+    with open(str(tmp_path / "c.conf"), "w") as f:
+        f.write(CSV_CONF)
+    monkeypatch.chdir(tmp_path)
+    args = ["c.conf", "dev=cpu", "model_dir=m", "num_round=2"]
+    before = signal.getsignal(signal.SIGTERM)
+    if what == "sigterm":
+        orig = NetTrainer.update
+
+        def update(self, batch):
+            orig(self, batch)
+            signal.raise_signal(signal.SIGTERM)
+        monkeypatch.setattr(NetTrainer, "update", update)
+        rc, out = run_cli(LearnTask, args + ["dispatch_period=1"])
+        assert rc == EXIT_PREEMPTED
+        assert "preempted by signal" in out
+        assert signal.getsignal(signal.SIGTERM) is before
+        assert [c for c, _ in scan_snapshots("m")] == [0]
+        return
+    if what == "task=finetune":
+        assert run_cli(LearnTask, args)[0] == 0
+        args += ["model_in=m/0002.model.npz", "model_dir=ft"]
+    if what == "model_dir=memory://m":
+        pytest.importorskip("fsspec")
+    rc, out = run_cli(LearnTask, args + [what])
+    assert rc == 0, out
+    mdir = what.split("=", 1)[1] if what.startswith("model_dir") \
+        else ("ft" if what == "task=finetune" else "m")
+    found = scan_snapshots(mdir)
+    assert [c for c, _ in found] == [2, 1]
+    for _, name in found:
+        assert verify_snapshot("%s/%s" % (mdir, name))["ok"]
     assert signal.getsignal(signal.SIGTERM) is before
 
 

@@ -50,7 +50,7 @@ from cxxnet_tpu_torch.models import inception as port_inception
 from cxxnet_tpu_torch.nnet.net import FuncNet
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer
 from cxxnet_tpu_torch.serve import ServeSession
-from cxxnet_tpu_torch.utils.config import NotPortedError, parse_config
+from cxxnet_tpu_torch.utils.config import parse_config
 from test_torch_port_bf16 import _PerOpRounding, _state, _whole_rel
 
 BENCH = [("dtype", "bfloat16"), ("grad_dtype", "bfloat16"),
@@ -236,16 +236,22 @@ def test_pool_concat_gates_match_reference(case, tmp_path):
 
 def test_pool_concat_gate_refusals_raise_as_in_reference():
     """A VALID pool changes the branch's size, so the concat refuses
-    the net in both packages; channel_pad, which the reference's planner
-    defers to, is not ported and raises."""
+    the net in both packages; under channel_pad, which the reference's
+    planner defers to, no concat fuses in either package."""
     valid = parse_config(GATE_BASE % ("1", "0"))
     with pytest.raises(Exception):
         JaxTrainer(jax_parse(GATE_BASE % ("1", "0"))).init_model()
     with pytest.raises(ValueError, match="concat"):
         NetTrainer(valid, device="cpu").init_model()
-    with pytest.raises(NotPortedError, match="channel_pad"):
-        NetTrainer(parse_config(SAME) + [("channel_pad", "128")],
-                   device="cpu").init_model()
+    padded = NetTrainer(parse_config(SAME) + [("channel_pad", "128")],
+                        device="cpu")
+    padded.init_model()
+    from cxxnet_tpu.graph import NetGraph as JaxGraph
+    from cxxnet_tpu.nnet.net import FuncNet as JaxNet
+    jg = JaxGraph()
+    jg.configure(jax_parse(SAME) + [("channel_pad", "128")])
+    assert padded.net.fused_concats == JaxNet(jg, jg.batch_size)._pool_concat \
+        == {}
 
 
 def test_pool_concat_applicable_matches_reference():

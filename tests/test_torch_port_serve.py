@@ -247,19 +247,33 @@ def test_port_model_builders_match_jax():
     ([("serve_dtype", "float8_e4m3")], "quantized"),
     ([("serve_device_mem_budget", "512")], "quantized"),
     ([("remat", "full")], "rematerialization"),
-    ([("channel_pad", "128")], "CLI remainder"),
     ([("shard_optimizer", "1")], "multi-GPU"),
     ([("update_on_server", "1")], "multi-GPU"),
     ([("remat", "conv")], "rematerialization"),
     ([("grad_sync", "overlap")], "multi-GPU"),
-    ([("input_layout", "rowmajor")], "CLI remainder"),
 ], ids=["fp8", "fp8_alias", "serve_device_mem_budget", "remat_full",
-        "channel_pad", "shard_optimizer", "update_on_server", "remat",
-        "grad_sync", "input_layout"])
+        "shard_optimizer", "update_on_server", "remat", "grad_sync"])
 def test_unported_keys_raise(ref, extra, item):
     with pytest.raises(NotPortedError, match=item):
         t = NetTrainer(_cfg(extra), device="cpu")
         t.load_model(ref["path"])
+
+
+@pytest.mark.parametrize("extra", [
+    [("channel_pad", "12")], [("input_layout", "rowmajor")],
+], ids=["channel_pad", "input_layout"])
+def test_checkpoint_slice_keys_serve_the_reference_rows(ref, extra):
+    """``channel_pad`` and ``input_layout``, once refused, load the
+    reference's snapshot and give its eval rows (channel_pad = 12 pads
+    this net's convs; the eval forward reads logical channels)."""
+    t = NetTrainer(_cfg(extra), device="cpu")
+    t.load_model(ref["path"])
+    if extra[0][0] == "channel_pad":
+        assert t.net.layout_summary["layers_padded"] > 0
+    (got,) = t.pred(torch.from_numpy(ref["x"]),
+                    (t.graph.num_nodes - 1,))
+    np.testing.assert_allclose(got.numpy(), ref["probs"], rtol=1e-4,
+                               atol=1e-6)
 
 
 def test_pool_concat_pallas_builds_and_fuses_on_the_tower():
@@ -336,14 +350,14 @@ def test_grad_dtype_without_bf16_compute_raises(ref):
 
 def test_unported_layer_type_and_bundle_raise(ref, tmp_path):
     """No layer type of the reference is unported any more (``lrn``,
-    once the example, builds); an unported net key and a sealed bundle
-    still raise NotPortedError."""
+    once the example, builds), nor the net key ``channel_pad``; a sealed
+    bundle still raises NotPortedError."""
     text = ("netconfig=start\nlayer[0->1] = lrn\n"
             "netconfig=end\ninput_shape = 3,8,8\nbatch_size = 2\n")
     NetTrainer(parse_config(text), device="cpu").init_model()
-    with pytest.raises(NotPortedError, match="channel_pad"):
-        NetTrainer(parse_config(text + "channel_pad = 1\n"),
-                   device="cpu").init_model()
+    t = NetTrainer(parse_config(text + "channel_pad = 1\n"), device="cpu")
+    t.init_model()
+    assert t.net.layout_summary["channel_pad"] == 1
     bundle = tmp_path / "0001.model.bundle"
     os.makedirs(bundle)
     with pytest.raises(NotPortedError, match="sealed bundles"):
