@@ -187,7 +187,18 @@ the script exits non-zero without a result line):
              69 bf16 bn_apply and 1 bias_grad_bf16 launches per update
              and none in the round lines' eval forwards, each update's
              time, each round's rows/s, ``data_wait_s`` and the prefetch
-             thread's copy time a batch); ``staging_check``: the first 4
+             thread's copy time a batch), under ``monitor = jsonl`` with
+             round 1 traced (``monitor_trace_dir``): the stream passes
+             the port's ``validate_records``, holds the reference's
+             record kinds in its loop's order (``train_kinds``), one
+             ``step`` record per update in step order, each round's
+             summed ``data_wait_ms`` within ``WAIT_SHARE`` of the round
+             (+ ``WAIT_SLACK_S``) of the phase's own ``data_wait_s`` and
+             its ``pipeline`` copy time a batch within ``H2D_SHARE``
+             (+ ``H2D_SLACK_MS``) of the tap's; the trace written, its
+             size, its bn_apply kernels and its top device operations;
+             a ``step`` record's host cost (``monitor_emit_us``);
+             ``staging_check``: the first 4
              staged batches of an AlexNet.conf-keyed chain copied back
              equal the same chain's host batches bit for bit (data,
              labels, inst_index), and a batch-4 update from a staged
@@ -203,7 +214,8 @@ the script exits non-zero without a result line):
              launches per forward, the first 4 rows and their pooled
              features against the port on the CPU (bf16 tolerances: the
              eval path runs in the conf's bf16); ``serve`` with 8 clients x 8
-             requests x 4 rows, 0 failed, 69 per forward; and the MNIST
+             requests x 4 rows, 0 failed, 69 per forward, its stream's
+             ``serve_summary`` with 0 failures; and the MNIST
              snapshot quantized (``task = quantize``, the 0.05 gate) and
              served at ``serve_dtype = int8``, 0 failed.
 
@@ -240,7 +252,10 @@ the script exits non-zero without a result line):
              ``main`` with its launches counted from 0 and printed at
              exit; ``print_step = 1``, one update a dispatch) and sent
              SIGTERM with ``os.kill`` after the second round's third
-             progress line: exit code 75, every update's launches those
+             progress line: exit code 75, its ``monitor = jsonl`` stream
+             valid, one ``step`` per update, ending with the emergency
+             ``checkpoint`` record and ``preempt``; every update's
+             launches those
              below and none outside its updates and evals, the
              model_dir holding only the emergency ``0001.model.npz``
              (counter = rounds completed; no ``.tmp``), verified, its
@@ -276,12 +291,28 @@ the script exits non-zero without a result line):
              launches exactly 69 + 69 bf16 bn_apply and 1 bias_grad_bf16
              per update (69 + 69 f32 bn_apply per float32 update, padded
              or not) and 69 bf16 conv_epilogue per pred forward.
+12. wrapper — the Python API (``cxxnet_tpu_torch.wrapper``):
+             ``Net(dev="gpu")`` from Inception-BN.conf's netconfig and
+             globals (batch 128, 3x224x224, bf16; ``bn_pallas`` and the
+             eval fold set through ``set_param``, ``monitor = jsonl``):
+             3 updates on seeded NCHW float32 arrays, each exactly 69 +
+             69 bf16 bn_apply and 1 bias_grad_bf16 launches, and its
+             time; ``evaluate`` over val.rec (a finite metric);
+             ``predict`` of 4 rows with 69 bf16 conv_epilogue launches,
+             the same bits as ``NetTrainer.predict`` on the card from
+             the net's snapshot, and its top-1 and ``extract``'s softmax
+             rows and pooled features against the port on the CPU from
+             that snapshot (the cli phase's bf16 tolerances); the
+             snapshot loaded into a second ``Net`` gives every
+             ``get_weight`` the same bits; the stream one ``step`` an
+             update.
 
 Then a ``kernels`` line (every ported kernel with its launches, error
-and times; ``cli_launches``, ``alexnet_launches`` and
-``checkpoint_launches``: its count over the cli phase's runs, the
-alexnet phase's training run and the checkpoint phase's runs, the
-preempted subprocess included; the bias_grad_bf16 row also with AlexNet's per-update sums), the
+and times; ``cli_launches``, ``alexnet_launches``,
+``checkpoint_launches`` and ``wrapper_launches``: its count over the
+cli phase's runs, the alexnet phase's training run, the checkpoint
+phase's runs (the preempted subprocess included) and the wrapper
+phase's main path; the bias_grad_bf16 row also with AlexNet's per-update sums), the
 ``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -2074,24 +2105,19 @@ def images(rng, n: int) -> np.ndarray:
         + 2 * rng.randn(n, 1, 1, 3).astype(np.float32)
 
 
-class Recorder:
-    """In-memory telemetry sink for the serve batcher's records."""
-
-    enabled = True
-
-    def __init__(self):
-        self.records = []
-
-    def emit(self, kind: str, **fields) -> None:
-        self.records.append(dict(fields, kind=kind, t=time.monotonic()))
+def recorder():
+    """The serve phases' telemetry: the port's monitor over an in-memory
+    sink (``rec.sink.records``)."""
+    from cxxnet_tpu_torch.monitor import MemorySink, Monitor
+    return Monitor(MemorySink())
 
 
 def tail_report(records, t0: float, n: int = 6):
     """Exact request-latency percentiles of a drive (with how many
     samples lie beyond each), and its slowest requests and batches with
-    when they happened (seconds after ``t0``)."""
-    reqs = [r for r in records if r["kind"] == "serve_request"]
-    bats = [r for r in records if r["kind"] == "serve_batch"]
+    when they happened (seconds after ``t0``, the records' clock)."""
+    reqs = [r for r in records if r["event"] == "serve_request"]
+    bats = [r for r in records if r["event"] == "serve_batch"]
     slow = sorted(reqs, key=lambda r: -r["latency_ms"])[:n]
     dev = sorted(r["device_ms"] for r in bats)
     lat = np.array([r["latency_ms"] for r in reqs])
@@ -2128,8 +2154,8 @@ def drive_session(sess, pool, rec):
     eng = sess.engine
     kernels.reset_launch_counts()
     base = eng.counters_snapshot()
-    rec.records.clear()
-    t_drive = time.monotonic()
+    rec.sink.clear()
+    t_drive = time.time()
     loop = run_closed_loop(sess, pool, clients=8, requests=32,
                            request_rows=4)
     burst_rows = pool[:MAX_BATCH]
@@ -2141,7 +2167,7 @@ def drive_session(sess, pool, rec):
     launches = kernels.launch_counts()
     snap = eng.counters_snapshot()
     return {"loop": loop, "burst": burst, "burst_s": burst_s,
-            "tails": tail_report(rec.records, t_drive),
+            "tails": tail_report(rec.sink.records, t_drive),
             "launches": launches,
             "dispatches": snap["dispatches"] - base["dispatches"]}
 
@@ -2165,7 +2191,7 @@ def phase_serve(workdir: str):
     setup_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    rec = Recorder()
+    rec = recorder()
     sess = ServeSession(cfg, model_path=path, device="cuda", monitor=rec)
     open_s = time.perf_counter() - t0
     eng = sess.engine
@@ -2371,7 +2397,7 @@ def phase_serve_lowp(workdir: str, kres):
     # 4-5. the int8 snapshot served: the main path
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rec = Recorder()
+    rec = recorder()
     sess = ServeSession(cfg + [("serve_dtype", "int8")], model_path=q_path,
                         device=DEVICE, monitor=rec)
     open_s = time.perf_counter() - t0
@@ -3307,7 +3333,7 @@ def phase_tower(workdir: str):
     path = os.path.join(workdir, "tower_224.model.npz")
     init.save_model(path)
     del init
-    rec = Recorder()
+    rec = recorder()
     sess = ServeSession(cfg, model_path=path, device=DEVICE, monitor=rec)
     pool = images(rng, 2 * MAX_BATCH)
     try:
@@ -3462,7 +3488,10 @@ def tap_trainer(rec):
     """Record, for every ``NetTrainer`` the CLI builds, each update's
     launch counts (counter deltas), loss, wall time (to a device sync)
     and rows, each eval forward's launch counts, and each closed round's
-    throughput; the methods are restored on exit."""
+    throughput and staging copies (each staged batch's copy timed in
+    the prefetch thread, to its ``ready`` event, apart from the
+    pipeline's own counters); the methods are restored on exit."""
+    import threading
     import torch
     from cxxnet_tpu_torch.io.iter_batch import PrefetchIterator
     from cxxnet_tpu_torch.layers import kernels
@@ -3470,13 +3499,20 @@ def tap_trainer(rec):
     names = ("update", "update_many", "pred", "end_round")
     orig = {n: getattr(NetTrainer, n) for n in names}
     orig_transform = PrefetchIterator.set_transform
-    fetchers = []
+    copies, copies_lock = [], threading.Lock()
     for key in ("updates", "forwards", "rounds"):
         rec.setdefault(key, [])
 
     def set_transform(self, fn, pin_memory=False):
-        fetchers.append(self)            # a chain the CLI stages
-        return orig_transform(self, fn, pin_memory)
+        def timed(batch):                # runs in the prefetch thread
+            t0 = time.perf_counter()
+            out = fn(batch)
+            if getattr(out, "ready", None) is not None:
+                out.ready.synchronize()
+            with copies_lock:
+                copies.append(time.perf_counter() - t0)
+            return out
+        return orig_transform(self, timed, pin_memory)
 
     def on_card(t):
         return isinstance(t, torch.Tensor) and t.device.type == DEVICE
@@ -3517,15 +3553,16 @@ def tap_trainer(rec):
         was_open = self._round_t0 is not None
         orig["end_round"](self)
         if was_open:
-            # the prefetch thread's copies this round: each batch's
-            # copy calls and the wait for its ready event (reset on read)
-            h2d = [f.h2d_snapshot() for f in fetchers]
+            # the prefetch thread's copies this round (its epoch has
+            # ended: the loop read the end of the iterator)
+            with copies_lock:
+                h2d = list(copies)
+                copies.clear()
             rec["rounds"].append({
                 "round": self.round, "examples": self.last_round_examples,
                 "wall_s": self.last_round_wall_s,
                 "rows_per_s": self.last_round_examples_per_sec,
-                "h2d_batches": sum(h["h2d_batches"] for h in h2d),
-                "h2d_ms": sum(h["h2d_ms"] for h in h2d),
+                "h2d_batches": len(h2d), "h2d_ms": sum(h2d) * 1e3,
                 "staging": dict(self.staging)})
 
     NetTrainer.update = stepped(orig["update"])
@@ -3567,6 +3604,141 @@ def round_report(rec, per_round: int):
             "staging": staging,
             "pinned_ring": bool(staging.get("batches"))
             and staging.get("pinned") == staging.get("batches")}
+
+
+# the telemetry checks: a round's data wait by the step records against
+# the phase's own (its window less its updates), and the staging copy a
+# batch by the pipeline record against the tap's; each within this
+# share of the round's wall time (or batch copy) plus the absolute slack
+# of a host clock read
+WAIT_SHARE, WAIT_SLACK_S = 0.02, 0.05
+H2D_SHARE, H2D_SLACK_MS = 0.05, 0.2
+CLI_TRACE_ROUND = 1
+
+
+def train_kinds(rounds: int, per_round: int, trace_round: int):
+    """The record kinds the reference's train loop
+    (``cxxnet_tpu/main.py`` ``_task_train``) emits for a run whose rounds
+    go through the round tail alone (``dispatch_period`` past the round's
+    batches, so no progress line), its first update a first sighting,
+    an eval of the train metric and of one eval block each round, the
+    trace over ``trace_round``; the writer thread's ``checkpoint``
+    records (their place is its timing) and warnings apart."""
+    out = ["model_info", "layout", "run_start"]
+    for r in range(rounds):
+        out.append("round_start")
+        if r == trace_round:
+            out.append("trace_start")
+        out += (["compile"] if r == 0 else []) + ["step"] * per_round
+        out += ["eval", "weight_residency", "eval", "log"]
+        if r == trace_round:
+            out.append("trace_stop")
+        out += ["round_end", "memory", "io_wait", "pipeline"]
+    return out + ["log", "run_end"]
+
+
+def stream_report(recs, rep, n_updates: int, per_round: int,
+                  rounds: int, trace_round: int):
+    """The train run's record stream against the reference's vocabulary
+    and loop (:func:`train_kinds`), its step records against the updates
+    the tap saw, and by round its data wait and staging copies against
+    the phase's own (:func:`round_report`); both sides printed."""
+    from cxxnet_tpu_torch.monitor.schema import validate_records
+    errs = validate_records(recs, strict=False)
+    kinds = [r["event"] for r in recs
+             if r["event"] not in ("checkpoint", "warning")]
+    steps = [r for r in recs if r["event"] == "step"]
+    pipes = {r["round"]: r for r in recs if r["event"] == "pipeline"}
+    by_round = []
+    for rd in rep["rounds"]:
+        r = rd["round"]
+        wait = sum(x["data_wait_ms"] for x in steps if x["round"] == r) / 1e3
+        p = pipes.get(r, {})
+        rec_copy = p["h2d_ms"] / p["h2d_batches"] \
+            if p.get("h2d_batches") else None
+        tap_copy = rd["h2d_ms_per_batch"]
+        by_round.append({
+            "round": r, "records_data_wait_s": wait,
+            "phase_data_wait_s": rd["data_wait_s"],
+            "wait_agrees": abs(wait - rd["data_wait_s"])
+            <= WAIT_SHARE * rd["wall_s"] + WAIT_SLACK_S,
+            "records_h2d_ms_per_batch": rec_copy,
+            "phase_h2d_ms_per_batch": tap_copy,
+            "h2d_overlap_ratio": p.get("h2d_overlap_ratio"),
+            "h2d_agrees": rec_copy is not None and tap_copy is not None
+            and abs(rec_copy - tap_copy) <= H2D_SHARE * tap_copy
+            + H2D_SLACK_MS})
+    ck = [r for r in recs if r["event"] == "checkpoint"]
+    out = {
+        "records": len(recs), "schema_errors": errs[:5],
+        "kinds_match": kinds == train_kinds(rounds, per_round,
+                                            trace_round),
+        "steps": len(steps),
+        "steps_in_order": [x["step"] for x in steps]
+        == list(range(1, n_updates + 1))
+        and all(x["n_batches"] == 1 for x in steps),
+        "step_wall_ms": [x["wall_ms"] for x in steps],
+        "checkpoints": [(x["counter"], x["status"], x["async_write"])
+                        for x in ck],
+        "warnings": [x["code"] for x in recs if x["event"] == "warning"],
+        "by_round": by_round}
+    out["ok"] = bool(
+        not errs and out["kinds_match"] and len(steps) == n_updates
+        and out["steps_in_order"]
+        and out["checkpoints"] == [(r + 1, "ok", True)
+                                   for r in range(rounds)]
+        and all(b["wait_agrees"] and b["h2d_agrees"] for b in by_round))
+    return out
+
+
+def trace_report(recs, n: int = 8):
+    """The trace window's Chrome trace (the ``trace_stop`` record's
+    path): its size, the kernels the profiler saw, the bn_apply kernels
+    among them, the device time by kind (``kind_of``) and the top device
+    operations by summed time (kernels by name, template arguments
+    dropped)."""
+    stop = [r for r in recs if r["event"] == "trace_stop"]
+    if not stop or not os.path.exists(stop[0]["path"]):
+        return {"ok": False, "error": "no trace written"}
+    path = stop[0]["path"]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    by, kinds = {}, {}
+    for e in kern:
+        us = float(e.get("dur", 0))
+        name = re.sub(r"^void ", "", e["name"]).split("<")[0].split("(")[0]
+        by[name] = by.get(name, 0.0) + us
+        k = kind_of(e["name"])
+        kinds[k] = kinds.get(k, 0.0) + us
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:n]
+    out = {"rounds": [r["round"] for r in recs
+                      if r["event"] in ("trace_start", "trace_stop")],
+           "bytes": os.path.getsize(path), "events": len(events),
+           "kernels": len(kern), "device_ms": sum(by.values()) / 1e3,
+           "bn_fwd_kernels": sum("cxn_bn_fwd" in e["name"] for e in kern),
+           "bn_bwd_kernels": sum("cxn_bn_bwd" in e["name"] for e in kern),
+           "by_kind_ms": {k: v / 1e3 for k, v in sorted(
+               kinds.items(), key=lambda kv: -kv[1])},
+           "top_device_ms": [[k, v / 1e3] for k, v in top]}
+    out["ok"] = bool(out["bn_fwd_kernels"] and out["bn_bwd_kernels"])
+    return out
+
+
+def monitor_emit_us(workdir: str, n: int = 2000) -> float:
+    """Host microseconds a ``step`` record costs ``monitor = jsonl``
+    (assembly, JSON, the buffered write), over ``n`` records."""
+    from cxxnet_tpu_torch.monitor import JsonlSink, Monitor
+    mon = Monitor(JsonlSink(os.path.join(workdir, "emit.jsonl")))
+    fields = dict(step=1, round=0, dispatch="update", n_batches=1,
+                  examples=128, wall_ms=130.0, data_wait_ms=5.0,
+                  examples_per_sec=984.6, update_counter=1, lr=0.01,
+                  compile=False)
+    t0 = time.perf_counter()
+    for i in range(n):
+        mon.emit("step", **fields)
+    mon.close()
+    return (time.perf_counter() - t0) / n * 1e6
 
 
 def round_lines(lines):
@@ -3852,10 +4024,17 @@ def phase_cli(workdir: str):
         runs[name] = rec
         return rec
 
-    # train: the conf's own batch 128, 224 crop, 1000 classes and dtype
+    # train: the conf's own batch 128, 224 crop, 1000 classes and dtype,
+    # its record stream in JSONL and round CLI_TRACE_ROUND traced
+    stream_path = os.path.join(workdir, "cli_train.jsonl")
     tr = drive("train", [conf, "task=train", "bn_pallas=1",
                          "bn_fuse_relu=1", "num_round=%d" % CLI_ROUNDS,
-                         "print_step=1", "model_dir=" + mdir])
+                         "print_step=1", "model_dir=" + mdir,
+                         "monitor=jsonl", "monitor_path=" + stream_path,
+                         "monitor_trace_dir="
+                         + os.path.join(workdir, "trace"),
+                         "monitor_trace_begin=%d" % CLI_TRACE_ROUND,
+                         "monitor_trace_end=%d" % CLI_TRACE_ROUND])
     snap = os.path.join(mdir, "%04d.model.npz" % CLI_ROUNDS)
     ups = tr["updates"]
     per_round = -(-CLI_TRAIN_RECORDS // TRAIN_BATCH)
@@ -3867,13 +4046,25 @@ def phase_cli(workdir: str):
     # time the loop waited on the iterator (decode, augment and the copy
     # in the threadbuffer's thread)
     rep = round_report(tr, per_round)
+    from cxxnet_tpu_torch.monitor.schema import read_jsonl
+    recs = read_jsonl(stream_path) if os.path.exists(stream_path) else []
+    stream = stream_report(recs, rep, len(ups), per_round, CLI_ROUNDS,
+                           CLI_TRACE_ROUND)
+    trace = trace_report(recs)
+    traced = step_ms[CLI_TRACE_ROUND * per_round:
+                     (CLI_TRACE_ROUND + 1) * per_round]
     train = {
         "rc": tr["rc"], "wall_s": tr["wall_s"], "archives_s": archives_s,
         "round_lines": lines, "updates": len(ups), "losses": losses,
         "finite": bool(np.all(np.isfinite(losses))),
         "step_ms": step_ms,
-        "steady_step_ms": rep["update_median_ms"],
+        # the untraced round's updates, its first apart (monitor = jsonl)
+        "steady_step_ms": float(np.median(step_ms[1:per_round]))
+        if per_round > 1 and len(step_ms) >= per_round else None,
+        "traced_step_ms": float(np.median(traced)) if traced else None,
         "first_update_ms": rep["first_update_ms"],
+        "stream": stream, "trace": trace,
+        "monitor_emit_us": monitor_emit_us(workdir),
         "rows_per_update": [u["rows"] for u in ups],
         "rounds": rep["rounds"], "staging": rep["staging"],
         "pinned_ring": rep["pinned_ring"],
@@ -3897,6 +4088,7 @@ def phase_cli(workdir: str):
                 for k, n in CLI_TRAIN_LAUNCHES.items()))
     train["ok"] = bool(tr["rc"] == 0 and train["counted"]
                        and train["finite"] and train["snapshot"]
+                       and stream["ok"] and trace["ok"]
                        and sorted(lines) == list(range(1, CLI_ROUNDS + 1))
                        and all("train-error" in v and "val-error" in v
                                for v in lines.values())
@@ -3978,17 +4170,29 @@ def phase_cli(workdir: str):
         and preds["cpu"]["close"] and preds["cpu"]["top1_ok"]
         and flat.shape == (CLI_VAL_RECORDS, flat4.shape[1])
         and preds["flat_cpu"]["close"] and preds["counted"])
+    serve_path = os.path.join(workdir, "cli_serve.jsonl")
     sr = drive("serve", [conf, "task=serve", "model_in=" + snap] + knobs
-               + CLI_SOAK + ["serve_buckets=" + BUCKETS, "pred=serve.txt"]
+               + CLI_SOAK + ["serve_buckets=" + BUCKETS, "pred=serve.txt",
+                             "monitor=jsonl", "monitor_path=" + serve_path]
                + block)
     soak = serve_line(sr["lines"]) or {}
+    srecs = read_jsonl(serve_path) if os.path.exists(serve_path) else []
+    summ = [r for r in srecs if r["event"] == "serve_summary"]
     serve = dict(soak, rc=sr["rc"], wall_s=sr["wall_s"],
                  forwards=len(sr["forwards"]), launches=sr["launches"],
-                 expected_per_forward=CLI_PRED_LAUNCHES)
+                 expected_per_forward=CLI_PRED_LAUNCHES,
+                 summary_record={k: summ[0][k] for k in (
+                     "requests", "rows", "batches", "rejected", "timeouts",
+                     "errors", "latency_p50_ms", "latency_p99_ms")}
+                 if summ else None)
     serve["counted"] = bool(sr["forwards"] and all(
         f == CLI_PRED_LAUNCHES for f in sr["forwards"]))
     serve["ok"] = bool(sr["rc"] == 0 and soak.get("failed") == 0
-                       and soak.get("ok") == 64 and serve["counted"])
+                       and soak.get("ok") == 64 and serve["counted"]
+                       and len(summ) == 1 and summ[0]["requests"] == 64
+                       and summ[0]["rejected"] == summ[0]["timeouts"]
+                       == summ[0]["errors"] == 0
+                       and srecs[-1]["event"] == "task_end")
     torch.cuda.empty_cache()
     total = {k: sum(r["launches"][k] for r in runs.values())
              for k in NO_LAUNCHES}
@@ -4478,10 +4682,11 @@ def preempt_child(argv) -> int:
 def preempt_run(conf: str, mdir: str, workdir: str):
     """The conf trained in a subprocess (:func:`preempt_child`;
     print_step = 1, one update a dispatch, the reference's checkpoint
-    defaults); SIGTERM with ``os.kill`` once the second round's
-    ``CKPT_SIGNAL_AFTER``-th progress line is read. Returns rc, the
-    updates the progress lines counted, the seconds from the signal to
-    the exit, the child's launches and the output's tail."""
+    defaults, ``monitor = jsonl``); SIGTERM with ``os.kill`` once the
+    second round's ``CKPT_SIGNAL_AFTER``-th progress line is read.
+    Returns rc, the updates the progress lines counted, the seconds from
+    the signal to the exit, the child's launches, the end of its record
+    stream and the output's tail."""
     import signal
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
@@ -4489,7 +4694,9 @@ def preempt_run(conf: str, mdir: str, workdir: str):
     cmd = [sys.executable, "-c", "import sys, chip_smoke; "
            "sys.exit(chip_smoke.preempt_child(sys.argv[1:]))", conf,
            "bn_pallas=1", "bn_fuse_relu=1", "num_round=4", "print_step=1",
-           "dispatch_period=1", "model_dir=" + mdir] + cli_dev_args()
+           "dispatch_period=1", "model_dir=" + mdir, "monitor=jsonl",
+           "monitor_path=" + os.path.join(workdir, "preempt.jsonl")] \
+        + cli_dev_args()
     lines, t_sig, t_exit = [], None, None
     errp = os.path.join(workdir, "preempt_stderr.txt")
     t0 = time.perf_counter()
@@ -4514,7 +4721,23 @@ def preempt_run(conf: str, mdir: str, workdir: str):
         tail = f.read()[-2000:]
     child = next((json.loads(ln[len(PREEMPT_TAG):]) for ln in lines
                   if ln.startswith(PREEMPT_TAG)), None)
+    from cxxnet_tpu_torch.monitor.schema import read_jsonl, validate_records
+    sp = os.path.join(workdir, "preempt.jsonl")
+    recs = read_jsonl(sp) if os.path.exists(sp) else []
+    tail2 = [{k: r.get(k) for k in ("event", "counter", "emergency",
+                                    "status", "signal", "round",
+                                    "exit_code")} for r in recs[-2:]]
+    stream = {"records": len(recs),
+              "schema_errors": validate_records(recs, strict=False)[:5],
+              "steps": sum(r["event"] == "step" for r in recs),
+              "last_two": tail2}
+    stream["ok"] = bool(
+        not stream["schema_errors"] and len(tail2) == 2
+        and tail2[0]["event"] == "checkpoint" and tail2[0]["emergency"]
+        and tail2[0]["status"] == "ok" and tail2[1]["event"] == "preempt"
+        and tail2[1]["exit_code"] == 75)
     return {"rc": rc, "wall_s": time.perf_counter() - t0, "child": child,
+            "stream": stream,
             "updates": sum(bool(_PROGRESS.match(ln)) for ln in lines),
             "signal_to_exit_s": None if t_sig is None else t_exit - t_sig,
             "preempt_line": next((ln for ln in lines
@@ -4827,7 +5050,9 @@ def phase_checkpoint(workdir: str):
                update_counter=emeta.get("update_counter"),
                expected_updates=per_round + CKPT_SIGNAL_AFTER)
     pre["ok"] = bool(
-        pre["rc"] == EXIT_PREEMPTED and names == ["0001.model.npz"]
+        pre["rc"] == EXIT_PREEMPTED and pre["stream"]["ok"]
+        and pre["stream"]["steps"] == pre["updates"]
+        and names == ["0001.model.npz"]
         and ver["ok"] and pre["update_counter"] == pre["updates"]
         and pre["updates"] >= per_round + CKPT_SIGNAL_AFTER
         and pre["preempt_line"].endswith("0001.model.npz")
@@ -4852,7 +5077,12 @@ def phase_checkpoint(workdir: str):
                                 for k in emerg_blob),
         "counted": counted(rs),
         "finite": bool(np.all(np.isfinite([u["loss"]
-                                            for u in rs["updates"]])))}
+                                            for u in rs["updates"]]))),
+        # monitor = none, beside the cli phase's monitored steady_step_ms
+        # (both timed to a device sync by the tap)
+        "steady_step_ms": float(np.median([u["ms"] for u in
+                                           rs["updates"][1:]]))
+        if len(rs["updates"]) > 1 else None}
     resume["ok"] = bool(rs["rc"] == 0 and resume["round_lines"] == [2, 3]
                         and resume["updates"] == 2 * per_round
                         and resume["params_bit_exact"]
@@ -5020,6 +5250,180 @@ def phase_checkpoint(workdir: str):
     emit(res)
     if not res["ok"]:
         raise RuntimeError("checkpoint phase failed")
+    return res
+
+
+# ------------------------------------------------------------ phase 12
+
+# the Python API: Inception-BN.conf's net and globals through
+# cxxnet_tpu_torch.wrapper.Net on the card, NCHW float32 arrays at its
+# edge; the train knobs for the updates and the eval fold for predict
+WRAP_UPDATES = 3
+WRAP_ROWS = 4
+WRAP_KNOBS = [("bn_pallas", "1")] + KNOBS
+
+
+def wrapper_cfg_text(workdir: str) -> str:
+    """Inception-BN.conf's netconfig and globals (its iterator blocks
+    dropped) as config text, as a user hands ``Net``."""
+    from cxxnet_tpu_torch.utils.config import (parse_config_file,
+                                               split_sections)
+    conf = shipped_conf(workdir, "Inception-BN.conf",
+                        os.path.join(workdir, "train.rec"),
+                        os.path.join(workdir, "val.rec"))
+    _, global_cfg = split_sections(parse_config_file(conf))
+    return "".join("%s = %s\n" % kv for kv in global_cfg)
+
+
+def phase_wrapper(workdir: str):
+    """``Net(dev="gpu")`` from Inception-BN.conf's text (batch 128,
+    3x224x224, bf16): ``WRAP_UPDATES`` updates on seeded NCHW arrays
+    (each 69 + 69 bf16 bn_apply and 1 bias_grad_bf16 launches),
+    ``evaluate`` over val.rec, ``predict`` and ``extract`` of 4 rows
+    (69 bf16 conv_epilogue launches a forward) against the port on the
+    CPU from the net's snapshot (the cli phase's bf16 tolerances) and
+    ``predict`` against ``NetTrainer.predict`` on the card from that
+    snapshot (the same bits); the snapshot loaded into a second Net
+    gives the same ``get_weight`` bits. The monitor keys ride along
+    (``monitor = jsonl``: one ``step`` record an update)."""
+    import torch
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.monitor.schema import read_jsonl, validate_records
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import parse_config
+    from cxxnet_tpu_torch.wrapper import DataIter, Net
+    val_rec = os.path.join(workdir, "val.rec")
+    if not os.path.exists(val_rec):
+        write_cli_archives(workdir)
+    text = wrapper_cfg_text(workdir)
+    dev = "gpu" if DEVICE == "cuda" else DEVICE
+    stream_path = os.path.join(workdir, "wrapper.jsonl")
+    rng = np.random.RandomState(SEED + 12)
+    x = images(rng, TRAIN_BATCH)
+    if x.shape[1] != CKPT_CROP:
+        x = np.ascontiguousarray(x[:, :CKPT_CROP, :CKPT_CROP])
+    xn = np.ascontiguousarray(x.transpose(0, 3, 1, 2))       # NCHW
+    y = rng.randint(0, NCLASS, TRAIN_BATCH).astype(np.float32)
+    # the conf's eval block over val.rec
+    ev = DataIter("iter = imgrec\npath_imgrec = %s\ninput_shape = 3,%d,%d"
+                  "\niter = end\nbatch_size = %d\n"
+                  % (val_rec, CKPT_CROP, CKPT_CROP, TRAIN_BATCH))
+    # the main path, its launch counts from 0
+    kernels.reset_launch_counts()
+    t_all = time.perf_counter()
+    net = Net(dev=dev, cfg=text)
+    for k, v in WRAP_KNOBS + [("monitor", "jsonl"),
+                              ("monitor_path", stream_path)]:
+        net.set_param(k, v)
+    net.init_model()
+    updates = []
+    for i in range(WRAP_UPDATES):
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        net.start_round(i)
+        net.update(xn, y)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        updates.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "launches": {k: after[k] - before[k]
+                                     for k in after}})
+    metric = net.evaluate(ev, "val")
+    before = kernels.launch_counts()
+    pred4 = net.predict(xn[:WRAP_ROWS])
+    mid = kernels.launch_counts()
+    top4 = net.extract(xn[:WRAP_ROWS], "top")
+    flat4 = net.extract(xn[:WRAP_ROWS], "flat")
+    after = kernels.launch_counts()
+    launches = dict(after)
+    wall_s = time.perf_counter() - t_all
+    snap = os.path.join(workdir, "wrapper.model.npz")
+    net.save_model(snap)
+    net.close()
+    ev.close()
+    # comparisons: their launches are not the main path's
+    cfg = parse_config(text) + WRAP_KNOBS
+    card = NetTrainer(cfg, device=DEVICE)
+    card.load_model(snap)
+    card_pred = card.predict(DataBatch(x[:WRAP_ROWS]))
+    del card
+    kernels.restore_launch_counts(launches)
+    cpu = NetTrainer(cfg, device="cpu")
+    cpu.load_model(snap)
+    ref_top = cpu.extract_feature(DataBatch(x[:WRAP_ROWS]), "top")
+    ref_flat = cpu.extract_feature(DataBatch(x[:WRAP_ROWS]), "flat")
+    del cpu
+    kernels.restore_launch_counts(launches)
+    net2 = Net(dev=dev, cfg=text)
+    for k, v in WRAP_KNOBS:
+        net2.set_param(k, v)
+    net2.load_model(snap)
+    weights = [(lk, tag) for lk, tags in net._trainer.params.items()
+               for tag in tags if tag in ("wmat", "bias")]
+    same_weights = all(same_bits(net.get_weight(lk, tag),
+                                 net2.get_weight(lk, tag))
+                       for lk, tag in weights)
+    del net, net2
+    kernels.restore_launch_counts(launches)
+    top = top4.reshape(WRAP_ROWS, -1)
+    flat = flat4.reshape(WRAP_ROWS, -1)
+    ref_flat = ref_flat.reshape(WRAP_ROWS, -1)
+    scale = float(np.abs(ref_flat).max())
+    flat_err = np.abs(flat - ref_flat)
+    cpu_rows = rows_vs_cpu(top, ref_top.reshape(WRAP_ROWS, -1),
+                           BF16_CPU_ATOL, BF16_CPU_RTOL)
+    decided = np.array(cpu_rows["top1_decided"])
+    recs = read_jsonl(stream_path) if os.path.exists(stream_path) else []
+    steps = [r for r in recs if r["event"] == "step"]
+    m = re.search(r"val-error:(\S+)", metric)
+    res = {
+        "phase": "wrapper", "model": "Inception-BN.conf",
+        "config": "cxxnet_tpu_torch.wrapper.Net(dev=%r) from "
+                  "Inception-BN.conf's netconfig and globals (batch %d, "
+                  "3x%dx%d, %d classes, dtype = bfloat16), %s; seeded "
+                  "NCHW float32 inputs" % (dev, TRAIN_BATCH, CKPT_CROP,
+                                           CKPT_CROP, NCLASS,
+                                           ", ".join("%s = %s" % kv
+                                                     for kv in WRAP_KNOBS)),
+        "wall_s": wall_s,
+        "update_ms": [u["ms"] for u in updates],
+        "update_launches": [u["launches"] for u in updates],
+        "expected_per_update": CLI_TRAIN_LAUNCHES,
+        "predict_launches": {k: mid[k] - before[k] for k in mid},
+        "expected_per_forward": CLI_PRED_LAUNCHES,
+        "launches": launches,
+        "metric": metric,
+        "metric_finite": bool(m and np.isfinite(float(m.group(1)))),
+        "predict": pred4.tolist(),
+        "predict_same_bits_as_trainer": same_bits(pred4, card_pred),
+        "cpu": cpu_rows,
+        "predict_vs_cpu": bool(np.all(
+            (pred4 == ref_top.reshape(WRAP_ROWS, -1).argmax(1))
+            | ~decided)),
+        "flat_cpu": {"max_abs_err": float(flat_err.max()), "scale": scale,
+                     "close": bool(np.all(flat_err <= BF16_CPU_RTOL
+                                          * np.abs(ref_flat)
+                                          + 1e-3 * scale))},
+        "weights_compared": len(weights),
+        "save_load_same_bits": bool(same_weights and weights),
+        "stream": {"records": len(recs),
+                   "schema_errors": validate_records(recs,
+                                                     strict=False)[:5],
+                   "steps": [r["step"] for r in steps]}}
+    res["counted"] = bool(
+        all(u["launches"] == CLI_TRAIN_LAUNCHES for u in updates)
+        and res["predict_launches"] == CLI_PRED_LAUNCHES)
+    res["ok"] = bool(
+        res["counted"] and res["metric_finite"]
+        and res["predict_same_bits_as_trainer"] and cpu_rows["close"]
+        and res["predict_vs_cpu"] and res["flat_cpu"]["close"]
+        and res["save_load_same_bits"]
+        and not res["stream"]["schema_errors"]
+        and res["stream"]["steps"] == list(range(1, WRAP_UPDATES + 1)))
+    torch.cuda.empty_cache()
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("wrapper phase failed")
     return res
 
 
@@ -5301,6 +5705,8 @@ def main() -> int:
         alexres = phase_alexnet(workdir, bw)
         phase = "checkpoint"
         ckres = phase_checkpoint(workdir)
+        phase = "wrapper"
+        wres = phase_wrapper(workdir)
     except Exception as e:
         import traceback
         traceback.print_exc()
@@ -5320,6 +5726,9 @@ def main() -> int:
         # quarantine, retention, fault://, finetune and its pred, the
         # channel_pad and precompile updates), each from 0
         row["checkpoint_launches"] = ckres["launches"][row["name"]]
+        # the wrapper phase's main path: its updates, evaluate, predict
+        # and extract, from 0
+        row["wrapper_launches"] = wres["launches"][row["name"]]
         if row["name"] == BIAS_BF16["name"]:
             ab = kres["bias_grad_bf16_alexnet"]
             row["alexnet"] = {

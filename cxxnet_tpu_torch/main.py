@@ -36,6 +36,17 @@ Checkpoints, as the reference keeps them:
   1`` builds the net's kernels and runs one step and one eval forward
   on a zero batch before round 0 (``NetTrainer.precompile``).
 
+Telemetry (``monitor/``): ``monitor = stdout|jsonl`` (with
+``monitor_path``, ``monitor_flush_period``, ``monitor_rotate_mb``) emits
+the reference's records beside the printed lines, which stay the same
+byte for byte: ``run_start``, ``round_start``, a ``step`` per dispatch
+(``wall_ms`` to a device sync, ``data_wait_ms``), ``compile``,
+``round_end``, ``memory``, ``io_wait``, ``pipeline``, ``eval``,
+``checkpoint``, ``resume``, ``preempt``, ``run_end``; ``test_io`` and
+``task_end`` for the other tasks. ``monitor_trace_dir`` (with
+``monitor_trace_begin`` / ``monitor_trace_end``) writes a
+``torch.profiler`` trace over a round window.
+
 ``dev`` unset, or naming an accelerator (``gpu``, ``cuda``, ``tpu``),
 runs on the GPU and raises when there is none; ``dev = cpu`` runs on
 the CPU.
@@ -44,8 +55,7 @@ What this port does not have yet raises
 :class:`~cxxnet_tpu_torch.utils.config.NotPortedError` naming its
 ``ROADMAP.md`` item: the tasks ``export``, ``build_index``,
 ``serve_fleet``, ``fleet``, ``fleet_balancer`` and ``continual``; the
-keys ``test_on_server = 1``, ``monitor = stdout|jsonl``,
-``monitor_trace_dir`` and every ``dist_*`` key.
+keys ``test_on_server = 1`` and every ``dist_*`` key.
 
 Usage: python -m cxxnet_tpu_torch.main config.conf [key=value ...]
 """
@@ -65,7 +75,9 @@ import numpy as np
 from .device import resolve_device
 from .io import create_iterator
 from .io.data import DataBatch, batch_mask
-from .monitor import reset_warnings, warn_once
+from .io.iter_batch import enable_chain_wait_stats, pipeline_snapshot
+from .monitor import (Monitor, create_monitor, device_memory_snapshot,
+                      reset_warnings, run_metadata, set_global)
 from .nnet.checkpoint import (CheckpointManager, find_latest_valid,
                               write_snapshot)
 from .nnet.trainer import NetTrainer
@@ -119,9 +131,6 @@ def _not_ported_key(name: str, val: str) -> Optional[str]:
         return Roadmap.MULTI_GPU
     if name == "test_on_server" and int(val):
         return Roadmap.MULTI_GPU
-    if name in ("monitor", "monitor_trace_dir") \
-            and val not in ("", "none"):
-        return Roadmap.TELEMETRY
     return None
 
 
@@ -171,6 +180,10 @@ class LearnTask:
         # set by the SIGTERM/SIGINT handler; read at the train loop's
         # next dispatch boundary
         self._preempt_signum: Optional[int] = None
+        # telemetry: a null monitor until run() builds the configured
+        # one, so the task methods can be called directly
+        self._mon = Monitor()
+        self._cfg_stream: List[Tuple[str, str]] = []
 
     # -- config ----------------------------------------------------------
 
@@ -261,16 +274,22 @@ class LearnTask:
     def _sync_latest_model(self) -> Optional[str]:
         """The newest snapshot of model_dir that verifies (local or
         remote); corrupt candidates are quarantined with a warning.
-        Sets the round to start from."""
+        Sets the round to start from; emits the ``resume`` record."""
         rep = find_latest_valid(self.model_dir)
+        if rep.path is None and rep.quarantined:
+            self._mon.warn_once(
+                "resume_no_valid_snapshot",
+                "continue=1: model_dir %r holds %d snapshot(s) but none "
+                "verifies — quarantined %s and starting from round 0"
+                % (self.model_dir, rep.scanned,
+                   ", ".join(rep.quarantined)))
+        if self._mon.enabled:
+            self._mon.emit("resume", source=rep.path or "",
+                           counter=-1 if rep.counter is None
+                           else rep.counter,
+                           scanned=rep.scanned,
+                           quarantined=len(rep.quarantined))
         if rep.path is None:
-            if rep.quarantined:
-                warn_once(
-                    "resume_no_valid_snapshot",
-                    "continue=1: model_dir %r holds %d snapshot(s) but "
-                    "none verifies — quarantined %s and starting from "
-                    "round 0" % (self.model_dir, rep.scanned,
-                                 ", ".join(rep.quarantined)))
             return None
         self.start_counter = rep.counter + 1
         return rep.path
@@ -306,6 +325,12 @@ class LearnTask:
         # opt-in retries of transient remote reads; 0 (the default)
         # fails fast
         set_stream_retry(self.stream_retry)
+        # telemetry (monitor = none|stdout|jsonl), installed as the
+        # global monitor so deep call sites (checkpoint writers, stream
+        # retries, warnings) reach the same stream
+        self._cfg_stream = cfg
+        self._mon = create_monitor(global_cfg)
+        set_global(self._mon)
 
         # iterators (closed on exit: prefetch threads / decode pools);
         # hoisted above the try so the finally can always iterate it
@@ -339,7 +364,7 @@ class LearnTask:
                     if b["kind"] != "data":
                         continue
                     b["cfg"] = list(b["cfg"]) + list(_PRED_NEUTRAL)
-                    warn_once(
+                    self._mon.warn_once(
                         "pred_fallback_train_iter",
                         "task=%s has no 'pred =' iterator block; "
                         "falling back to the train data block %r with "
@@ -357,7 +382,7 @@ class LearnTask:
                     pred_iter = it
 
             if self.test_io:
-                return self._task_test_io(itr_train)
+                return self._task_test_io(itr_train, dev)
 
             if self.task == "serve":
                 assert self.model_in, "task serve requires model_in"
@@ -369,6 +394,9 @@ class LearnTask:
                                            dev)
 
             trainer = NetTrainer(cfg, device=dev)
+            # the monitor before init or load: their model records (and
+            # a finetune's carry record) are emitted there
+            trainer.set_monitor(self._mon)
             if self.task in ("train", "finetune"):
                 if self.model_in and (self.task == "train"
                                       or self._resume_found):
@@ -403,20 +431,34 @@ class LearnTask:
         finally:
             # iterator construction and the task bodies share one
             # cleanup scope: a config error must still close prefetch
-            # threads and decode pools
-            for it in all_iters:
-                it.close()
+            # threads and decode pools, and the sink is drained (its
+            # buffered tail, a preemption's record among it) even when a
+            # close raises
+            try:
+                for it in all_iters:
+                    it.close()
+            finally:
+                set_global(None)
+                self._mon.close()
 
-    def _task_test_io(self, itr) -> int:
+    def _task_test_io(self, itr, dev) -> int:
         assert itr is not None, "test_io requires a data block"
+        mon = self._mon
+        if mon.enabled:
+            mon.emit("run_start", **run_metadata(
+                "test_io", self._cfg_stream, dev))
         start = time.time()
         n = 0
         for r in range(self.num_round):
             for batch in itr:
                 n += batch.batch_size - batch.num_batch_padd
         dt = time.time() - start
-        print("test_io: %d instances in %.2fs (%.1f/sec)"
-              % (n, dt, n / max(dt, 1e-9)))
+        ips = n / max(dt, 1e-9)
+        mon.line("test_io: %d instances in %.2fs (%.1f/sec)"
+                 % (n, dt, ips))
+        if mon.enabled:
+            mon.emit("test_io", instances=n, wall_s=dt,
+                     instances_per_sec=ips)
         return 0
 
     # -- preemption ------------------------------------------------------
@@ -437,7 +479,7 @@ class LearnTask:
             try:
                 installed.append((s, signal.signal(s, _on_signal)))
             except (ValueError, OSError) as e:
-                warn_once(
+                self._mon.warn_once(
                     "preempt_handler_unavailable",
                     "cannot install handler for signal %s (%s); "
                     "preemption will not trigger an emergency "
@@ -458,17 +500,24 @@ class LearnTask:
         (the rounds completed): resume re-runs the interrupted round
         from its start with the mid-round weights."""
         signum = int(self._preempt_signum or 0)
+        mon = self._mon
         if self.silent == 0:
-            print("preempted by signal %d: emergency snapshot "
-                  "%04d.model.npz" % (signum, round_idx), flush=True)
+            mon.line("preempted by signal %d: emergency snapshot "
+                     "%04d.model.npz" % (signum, round_idx))
         ckpt.save(round_idx, emergency=True)
         ckpt.close()
+        if mon.enabled:
+            mon.emit("preempt", signal=signum, round=round_idx,
+                     exit_code=EXIT_PREEMPTED)
         return EXIT_PREEMPTED
 
     # -- train -----------------------------------------------------------
 
     def _task_train(self, trainer, itr_train, eval_iters) -> int:
         assert itr_train is not None, "train requires a data block"
+        mon = self._mon
+        if trainer._mon is not mon:      # run() attached it already
+            trainer.set_monitor(mon)     # (no duplicate model records)
         if hasattr(itr_train, "set_transform"):
             # threadbuffer chains stage each batch on the device in the
             # prefetch thread (from a pinned ring on CUDA), overlapped
@@ -476,10 +525,19 @@ class LearnTask:
             itr_train.set_transform(
                 trainer.device_put_batch,
                 pin_memory=trainer.device.type == "cuda")
+        monitored = mon.enabled
+        io_hist = None
+        if monitored:
+            mon.emit("run_start", **run_metadata(
+                self.task, self._cfg_stream, trainer.device))
+            # the batch-fetch wait histogram of the prefetch chain,
+            # attached only under a monitor: the default path reads no
+            # clock per batch
+            io_hist = enable_chain_wait_stats(itr_train)
         k = self.dispatch_period
         ckpt = CheckpointManager(
             trainer, self._model_path, model_dir=self.model_dir,
-            async_=bool(self.checkpoint_async),
+            monitor=mon, async_=bool(self.checkpoint_async),
             fsync=bool(self.checkpoint_fsync), keep=self.keep_snapshots)
         if self.precompile:
             trainer.precompile()
@@ -488,8 +546,8 @@ class LearnTask:
         def _progress(r, nbatch):
             if (self.print_step and nbatch % self.print_step < k
                     and self.silent == 0):
-                print("round %8d:[%8d] %ld sec elapsed"
-                      % (r, nbatch, int(time.time() - start)), flush=True)
+                mon.line("round %8d:[%8d] %ld sec elapsed"
+                         % (r, nbatch, int(time.time() - start)))
 
         # installed inside the try, so every exit path restores the
         # process's handlers
@@ -500,16 +558,31 @@ class LearnTask:
                 # r rounds have completed
                 if self._preempt_signum is not None:
                     return self._preempt_exit(ckpt, r)
+                if monitored:
+                    mon.emit("round_start", round=r)
+                # the trace runs under monitor = none too; it starts
+                # before the round's throughput window opens, so the
+                # profiler's start-up is not counted as the round's
+                mon.maybe_start_trace(r)
                 trainer.start_round(r)
                 nbatch = 0
                 window = []
+                t_wait = time.perf_counter() if monitored else 0.0
                 for batch in itr_train:
+                    if monitored:
+                        # the wait half of the step-time split: the time
+                        # this loop waited on the iterator since the
+                        # last dispatch
+                        trainer.note_data_wait(
+                            time.perf_counter() - t_wait)
                     if k == 1:
                         trainer.update(batch)
                         nbatch += 1
                     else:
                         window.append(batch)
                         if len(window) < k:
+                            if monitored:
+                                t_wait = time.perf_counter()
                             continue
                         trainer.update_many(window)
                         nbatch += len(window)
@@ -517,6 +590,8 @@ class LearnTask:
                     _progress(r, nbatch)
                     if self._preempt_signum is not None:
                         return self._preempt_exit(ckpt, r)
+                    if monitored:
+                        t_wait = time.perf_counter()
                 for batch in window:    # round tail: per-batch
                     trainer.update(batch)
                     nbatch += 1
@@ -528,18 +603,47 @@ class LearnTask:
                 for name, it in eval_iters:
                     line += trainer.evaluate(it, name)
                 if self.silent == 0:
-                    print(line, flush=True)
+                    mon.line(line)
+                mon.maybe_stop_trace(r)
+                if monitored:
+                    self._emit_round_end(trainer, itr_train, io_hist, r)
                 if self.save_period and (r + 1) % self.save_period == 0:
                     # on the background writer under checkpoint_async
                     ckpt.save(r + 1)
+            # drain the writer before run_end: every checkpoint record
+            # lands in the stream, and the last commit is durable before
+            # the exit code says so
+            ckpt.close()
         finally:
-            # the last commit is durable before the exit code says so
             ckpt.close()
             self._restore_handlers(handlers)
         if self.silent == 0:
-            print("updating end, %ld sec in all"
-                  % int(time.time() - start))
+            mon.line("updating end, %ld sec in all"
+                     % int(time.time() - start))
+        if monitored:
+            c = trainer.counters_snapshot()
+            mon.emit("run_end", wall_s=time.time() - start,
+                     steps=int(c["steps"]), examples=int(c["examples"]))
         return 0
+
+    def _emit_round_end(self, trainer, itr_train, io_hist, r: int) -> None:
+        """A round's closing records: ``round_end`` (its throughput
+        window), ``memory``, ``io_wait`` (the batch-fetch waits, reset)
+        and ``pipeline`` (buffer reuse, the staging copies' time and
+        overlap, reset)."""
+        mon = self._mon
+        mon.emit("round_end", round=r,
+                 examples=trainer.last_round_examples,
+                 wall_s=trainer.last_round_wall_s,
+                 examples_per_sec=trainer.last_round_examples_per_sec)
+        mon.emit("memory", round=r,
+                 **device_memory_snapshot(trainer.device))
+        if io_hist is not None:
+            mon.emit("io_wait", round=r, **io_hist.snapshot())
+            io_hist.reset()
+        ps = pipeline_snapshot(itr_train)
+        if ps is not None:
+            mon.emit("pipeline", round=r, **ps)
 
     # -- serve and quantize ----------------------------------------------
 
@@ -550,7 +654,12 @@ class LearnTask:
         iterator's examples."""
         assert itr is not None, "serve requires an iterator block"
         from .serve import ServeSession, run_closed_loop
-        sess = ServeSession(cfg, model_path=self.model_in, device=dev)
+        mon = self._mon
+        if mon.enabled:
+            mon.emit("run_start",
+                     **run_metadata("serve", self._cfg_stream, dev))
+        sess = ServeSession(cfg, model_path=self.model_in, monitor=mon,
+                            device=dev)
         try:
             c = sess.cfg
             # example pool for the clients: enough valid rows that
@@ -573,13 +682,17 @@ class LearnTask:
             # a failure between warmup and close must not leave the
             # worker threads running (close is idempotent)
             sess.close(drain=False)
-        print("serve: %d ok / %d busy / %d timeout / %d error requests "
-              "(%d rows) in %.2fs, p50 %.1f ms p99 %.1f ms, fill %.2f, "
-              "compiles after warmup %d"
-              % (agg["ok"], agg["busy"], agg["timeout"], agg["error"],
-                 summary["rows"], agg["wall_s"],
-                 summary["latency_p50_ms"], summary["latency_p99_ms"],
-                 summary["fill_rate"], summary["compile_events"]))
+        mon.line(
+            "serve: %d ok / %d busy / %d timeout / %d error requests "
+            "(%d rows) in %.2fs, p50 %.1f ms p99 %.1f ms, fill %.2f, "
+            "compiles after warmup %d"
+            % (agg["ok"], agg["busy"], agg["timeout"], agg["error"],
+               summary["rows"], agg["wall_s"],
+               summary["latency_p50_ms"], summary["latency_p99_ms"],
+               summary["fill_rate"], summary["compile_events"]))
+        if mon.enabled:
+            mon.emit("task_end", task="serve", requests=agg["ok"],
+                     rows=summary["rows"])
         return 0
 
     def _task_quantize(self, cfg, itr, dev) -> int:
@@ -590,11 +703,16 @@ class LearnTask:
         ranges (what ``serve_dtype = int8`` loads)."""
         assert itr is not None, "quantize requires an iterator block"
         from .nnet.quantize import Calibrator, normalize_serve_dtype
+        mon = self._mon
+        t_start = time.time()
         qdtype = normalize_serve_dtype(self.quantize_dtype)
         if qdtype not in ("int8", "fp8"):
             raise ValueError(
                 "quantize_dtype must be int8 or fp8, got %r"
                 % self.quantize_dtype)
+        if mon.enabled:
+            mon.emit("run_start",
+                     **run_metadata("quantize", self._cfg_stream, dev))
         # calibration runs the f32 graph whatever the config's
         # serve_dtype says (the override appends last, so it wins)
         trainer = NetTrainer(list(cfg) + [("serve_dtype", "float32")],
@@ -653,29 +771,53 @@ class LearnTask:
         if ok:
             arrays, meta = trainer.gather_snapshot()
             write_snapshot(out, arrays, meta)
-        print("quantize[%s]: %d layers (%d fallback) over %d batches, "
-              "parity mean|Δ| %.2g max|Δ| %.2g agree %.3f — %s"
-              % (rep.get("dtype", qdtype), rep.get("layers", 0),
-                 rep.get("fallback_layers", 0), len(batches), mean_abs,
-                 max_abs, agree_rate,
-                 ("wrote %s" % out) if ok else
-                 "PARITY GATE FAILED (eps %g), no snapshot written"
-                 % self.quantize_parity_eps))
+        if mon.enabled:
+            mon.emit("quantize", dtype=rep.get("dtype", qdtype),
+                     batches=len(batches), layers=rep.get("layers", 0),
+                     fallback_layers=rep.get("fallback_layers", 0),
+                     parity_max_abs=max_abs, parity_mean_abs=mean_abs,
+                     agree_rate=agree_rate, out=out if ok else "",
+                     wall_ms=(time.time() - t_start) * 1e3)
+        mon.line(
+            "quantize[%s]: %d layers (%d fallback) over %d batches, "
+            "parity mean|Δ| %.2g max|Δ| %.2g agree %.3f — %s"
+            % (rep.get("dtype", qdtype), rep.get("layers", 0),
+               rep.get("fallback_layers", 0), len(batches), mean_abs,
+               max_abs, agree_rate,
+               ("wrote %s" % out) if ok else
+               "PARITY GATE FAILED (eps %g), no snapshot written"
+               % self.quantize_parity_eps))
+        if mon.enabled:
+            mon.emit("task_end", task="quantize",
+                     outfile=out if ok else "", rows=nrow)
         return 0 if ok else 1
 
     # -- pred, extract, get_weight ---------------------------------------
 
     def _task_predict(self, trainer, itr) -> int:
         assert itr is not None, "pred requires an iterator"
+        mon = self._mon
+        if mon.enabled:
+            mon.emit("run_start", **run_metadata(
+                "pred", self._cfg_stream, trainer.device))
+        nrow = 0
         with open_stream(self.name_pred, "w") as f:
             for batch in itr:
                 for v in trainer.predict(batch):
                     f.write("%g\n" % v)
-        print("finished prediction, write into %s" % self.name_pred)
+                    nrow += 1
+        mon.line("finished prediction, write into %s" % self.name_pred)
+        if mon.enabled:
+            mon.emit("task_end", task="pred", outfile=self.name_pred,
+                     rows=nrow)
         return 0
 
     def _task_extract(self, trainer, itr) -> int:
         assert itr is not None, "extract requires an iterator"
+        mon = self._mon
+        if mon.enabled:
+            mon.emit("run_start", **run_metadata(
+                "extract", self._cfg_stream, trainer.device))
         node = self.extract_node_name
         txt = self.output_format == "txt"
         nrow, shape3 = 0, (0, 0, 0)
@@ -699,12 +841,19 @@ class LearnTask:
         # shape sidecar: "nrow,ch,y,x"
         with open_stream(self.name_pred + ".meta", "w") as fm:
             fm.write("%d,%d,%d,%d\n" % ((nrow,) + tuple(shape3)))
-        print("finished feature extraction, write into %s"
-              % self.name_pred)
+        mon.line("finished feature extraction, write into %s"
+                 % self.name_pred)
+        if mon.enabled:
+            mon.emit("task_end", task="extract", outfile=self.name_pred,
+                     rows=nrow)
         return 0
 
     def _task_get_weight(self, trainer) -> int:
         assert self.weight_layer, "get_weight requires weight_layer"
+        mon = self._mon
+        if mon.enabled:
+            mon.emit("run_start", **run_metadata(
+                "get_weight", self._cfg_stream, trainer.device))
         w = trainer.get_weight(self.weight_layer, self.weight_tag)
         rows = w.reshape(w.shape[0], -1) if w.ndim > 1 else w[None, :]
         if self.output_format == "txt":
@@ -713,9 +862,12 @@ class LearnTask:
         else:                            # raw float32
             with open_stream(self.weight_filename, "wb") as f:
                 f.write(np.ascontiguousarray(rows, "<f4").tobytes())
-        print("weight %s:%s %s written to %s"
-              % (self.weight_layer, self.weight_tag, w.shape,
-                 self.weight_filename))
+        mon.line("weight %s:%s %s written to %s"
+                 % (self.weight_layer, self.weight_tag, w.shape,
+                    self.weight_filename))
+        if mon.enabled:
+            mon.emit("task_end", task="get_weight",
+                     outfile=self.weight_filename)
         return 0
 
 

@@ -1,0 +1,282 @@
+"""Record vocabulary and validation for the monitor event stream (a
+copy of ``cxxnet_tpu/monitor/schema.py``: both packages hold their
+streams to one contract, records of items the port does not have yet
+included).
+
+One place defines what each event must carry, so the smoke test, the
+bench capture, and any downstream consumer of ``BENCH_r*.json``
+throughput fields all check against the same contract. Validation is
+deliberately structural (required keys, value sanity) rather than a
+full JSON-Schema dependency: the container must not grow new packages.
+
+Cross-record invariants checked by :func:`validate_records`:
+
+- every record carries ``event`` (known type) and a float ``t``
+- all ``*_ms`` / ``*_s`` timings and ``examples_per_sec`` are
+  non-negative finite numbers
+- ``step`` records carry a strictly-increasing step counter and a
+  non-decreasing round
+"""
+
+from __future__ import annotations
+
+import json
+import math
+from typing import Any, Dict, Iterable, List
+
+# required payload keys per event type (beyond "event"/"t")
+REQUIRED: Dict[str, tuple] = {
+    "run_start": ("task", "config_hash", "jax_version", "platform",
+                  "process_count", "device_count", "mesh"),
+    "round_start": ("round",),
+    "step": ("step", "round", "dispatch", "n_batches", "examples",
+             "wall_ms", "data_wait_ms", "examples_per_sec",
+             "update_counter", "lr", "compile"),
+    "compile": ("kind", "wall_ms", "signature"),
+    "memory": ("round", "available", "devices"),
+    "io_wait": ("round", "count", "total_ms", "max_ms", "p50_ms",
+                "p99_ms", "buckets"),
+    # per-round input-pipeline health: zero-copy assembly reuse +
+    # prefetch H2D overlap (doc/observability.md)
+    "pipeline": ("round", "buffer_reuse_rate", "h2d_overlap_ratio",
+                 "batches", "h2d_ms", "consumer_wait_ms"),
+    # one-time AOT compile window (precompile = 1)
+    "precompile": ("wall_ms", "programs"),
+    # static per-model records (emitted once per init/monitor attach):
+    # analytic FLOPs for MFU math + the layout/fusion pass decisions
+    "model_info": ("flops_per_example", "train_flops_per_example",
+                   "params", "layers"),
+    "layout": ("channel_pad", "layers_padded", "input_layout",
+               "bn_fuse_relu", "bn_fold_eval_pairs"),
+    "eval": ("round", "name", "metrics"),
+    "round_end": ("round", "examples", "wall_s", "examples_per_sec"),
+    "trace_start": ("dir",),
+    "trace_stop": ("dir",),
+    "warning": ("code", "message"),
+    "log": ("text",),
+    "test_io": ("instances", "wall_s", "instances_per_sec"),
+    "task_end": ("task",),
+    "run_end": ("wall_s", "steps", "examples"),
+    # serving telemetry (doc/serving.md): per-request outcome + waits,
+    # per-micro-batch fill/pad/device split, and the close-time rollup
+    "serve_request": ("status", "rows", "queue_ms", "latency_ms"),
+    "serve_batch": ("batch", "status", "rows", "requests", "bucket",
+                    "pad_rows", "fill_rate", "pad_fraction",
+                    "queue_ms", "device_ms"),
+    "serve_summary": ("requests", "rows", "batches", "rejected",
+                      "timeouts", "errors", "latency_p50_ms",
+                      "latency_p99_ms", "fill_rate", "pad_fraction",
+                      "wall_s"),
+    # fleet serving (doc/serving.md "Fleet serving"): per-request
+    # protocol outcome (both HTTP and binary funnel through one core),
+    # per-tenant quota sheds, and checkpoint-driven hot-swaps
+    "serve_http": ("protocol", "status", "model", "tenant", "rows",
+                   "latency_ms"),
+    "tenant_shed": ("tenant", "model", "rows", "rate", "burst"),
+    "hot_swap": ("model", "old_counter", "new_counter", "path",
+                 "warmup_programs", "old_requests", "wall_ms"),
+    # horizontal fleet (doc/serving.md "Horizontal fleet"): the
+    # balancer's per-request routing outcome (which replica answered,
+    # how many transparent retries a replica loss cost), the
+    # controller's scale / replica-lifecycle actions, and the canary
+    # rollout decision trail (start / promote / rollback — the
+    # promote/rollback record doubles as the schema-validated decision
+    # record written to canary_out)
+    "fleet_route": ("protocol", "status", "model", "tenant", "rows",
+                    "replica", "version", "retries", "latency_ms",
+                    "coalesced", "channel", "balancer"),
+    # one per coalesced super-batch forward (fleet_coalesce_ms > 0):
+    # how many client requests merged, the rows they carried, which
+    # replica/channel answered, and the forward wall time — the
+    # balancer-side twin of serve_batch (doc/serving.md "Fleet data
+    # path")
+    "fleet_batch": ("model", "replica", "status", "requests", "rows",
+                    "channel", "retries", "latency_ms", "balancer"),
+    "fleet_scale": ("action", "replicas", "ready", "reason"),
+    # sharded front tier (doc/serving.md "Sharded front tier"): one
+    # record per quota-share rebalance on a door — which tenants'
+    # fractions moved toward observed demand, over what window. The
+    # fleet-wide over-admission bound is "configured rate x one such
+    # window" (tests/test_fleet_front_tier.py pins it)
+    "quota_rebalance": ("balancer", "tenants", "window_s", "shares"),
+    "canary": ("phase", "baseline_version", "canary_version",
+               "fraction", "reason"),
+    # crash-safe checkpointing (doc/checkpointing.md): per-snapshot
+    # commit accounting (phase split shows the training thread paid
+    # only gather_ms when async), retention GC, the validated-resume
+    # decision, preemption exits, and recovered remote-read retries
+    "checkpoint": ("path", "counter", "status", "bytes", "digest",
+                   "gather_ms", "serialize_ms", "write_ms", "fsync_ms",
+                   "async_write", "emergency"),
+    "checkpoint_gc": ("removed", "kept"),
+    "resume": ("source", "counter", "scanned", "quarantined"),
+    "preempt": ("signal", "round", "exit_code"),
+    "stream_retry": ("uri", "what", "attempts"),
+    # low-precision inference (doc/perf_profile.md "Low-precision
+    # inference"): the task=quantize calibration+parity rollup, and the
+    # per-load activation record a trainer emits when serve_dtype turns
+    # a calibrated snapshot into a quantized graph
+    "quantize": ("dtype", "batches", "layers", "fallback_layers",
+                 "parity_max_abs", "parity_mean_abs", "agree_rate",
+                 "out", "wall_ms"),
+    "quantized_model": ("dtype", "layers", "fallback_layers", "native"),
+    # device-resident serve weights (doc/serving.md "Device memory
+    # accounting"): emitted at freeze — per-model resident device
+    # bytes (tree + retained masters, buffer-deduplicated), the
+    # one-time quantize/fold wall time, and how many layers hoisted
+    # their per-dispatch weight work into the freeze
+    "weight_residency": ("bytes", "tree_bytes", "master_bytes",
+                         "quantize_ms", "layers", "dtype", "active"),
+    # sealed model artifacts (doc/artifacts.md): the task=export
+    # rollup, and the honest per-boot accounting of a bundle load —
+    # hits (executables deserialized, never re-lowered) vs rebuilds
+    # (fingerprint mismatch / bad blob: those keys re-lower+compile
+    # on demand); hits + rebuilds always equals the bundle's program
+    # count
+    "export": ("out", "snapshot", "programs", "members", "bytes",
+               "wall_ms"),
+    "artifact_load": ("path", "fingerprint_match", "hits", "rebuilds",
+                      "wall_ms"),
+    # multi-host SPMD training (doc/distributed.md): the input/mesh
+    # topology a dist (or dryrun) run trains under, the per-round
+    # per-host input-shard accounting (rows_per_host sums exactly to
+    # the round's real rows — the exactly-once invariant, counted),
+    # the elastic world-size-change handoff a resumed run detects,
+    # and the recovered process-group collective retries
+    "dist_topology": ("hosts", "local_devices", "world_devices",
+                      "dryrun", "mesh", "global_batch"),
+    "dist_shard": ("round", "hosts", "rows_per_host", "batches"),
+    "dist_resize": ("old_hosts", "new_hosts", "counter",
+                    "start_record"),
+    "dist_retry": ("what", "attempts", "recovered"),
+    # one per world size of the dryrun scaling sweep
+    # (parallel/scaling.py, the bench.py --hosts capture path behind
+    # MULTICHIP_r*.json): throughput, the data-wait share of the step
+    # wall time, and the per-host consumed-row accounting
+    "scaling_point": ("hosts", "local_devices", "global_batch",
+                      "examples_per_sec", "data_wait_share",
+                      "rows_per_host", "zero_recompiles"),
+    # per-step time/byte split under a grad_sync mode
+    # (parallel/gradsync.py, emitted per scaling-sweep point and by
+    # bench.py --hosts): gradient-program wall, the standalone
+    # group-granular reduce wall, the full dispatched step wall, the
+    # hidden-reduce fraction, and the optimizer-state footprint —
+    # logical (unsharded) vs distinct bytes resident per host (the
+    # ZeRO-1 optim_shard win, ~1/hosts) plus the lr_mult=0 groups
+    # whose state allocation was skipped (doc/distributed.md
+    # "Overlapped gradient sync")
+    "step_breakdown": ("hosts", "grad_sync", "optim_shard", "groups",
+                       "bucket_mb", "backprop_ms", "reduce_ms",
+                       "step_ms", "overlap_ratio", "grad_bytes",
+                       "opt_state_bytes_unsharded",
+                       "opt_state_bytes_per_host", "frozen_groups"),
+    # continual train-while-serve (doc/continual.md): the per-layer
+    # finetune carry accounting (task=finetune and the loop's
+    # bootstrap), one record per generation attempt (the gate
+    # decision trail — "deployed" rows carry the gated eval value the
+    # soak's monotone check reads), and the loop's close-time rollup
+    "finetune": ("source", "source_digest", "carried", "remapped",
+                 "fresh", "frozen_groups"),
+    "generation": ("generation", "counter", "action", "metric",
+                   "value", "train_updates", "path", "wall_ms"),
+    "continual": ("generations", "deployed", "gate_skipped",
+                  "updates", "swaps", "wall_s"),
+    # embedding retrieval (doc/retrieval.md): the task=build_index
+    # rollup (corpus shape, metric, source node, sealed bytes), and
+    # the engine-vs-oracle spot check — "recall" is the fraction of
+    # probe queries whose exact top-1 matched (1.0 for a healthy
+    # exact index)
+    "index_build": ("out", "rows", "dim", "metric", "node", "bytes",
+                    "wall_ms"),
+    "retrieval": ("queries", "k", "metric", "recall", "wall_ms"),
+}
+
+_TIMING_KEYS = ("wall_ms", "data_wait_ms", "total_ms", "max_ms",
+                "mean_ms", "p50_ms", "p99_ms", "h2d_ms",
+                "consumer_wait_ms", "wall_s", "examples_per_sec",
+                "instances_per_sec", "queue_ms", "latency_ms",
+                "device_ms", "latency_p50_ms", "latency_p99_ms",
+                "rows_per_sec", "gather_ms", "serialize_ms",
+                "write_ms", "fsync_ms", "quantize_ms",
+                "backprop_ms", "reduce_ms", "step_ms", "window_s")
+
+# ratio fields must sit in [0, 1]
+_RATIO_KEYS = ("buffer_reuse_rate", "h2d_overlap_ratio", "fill_rate",
+               "pad_fraction", "agree_rate", "data_wait_share",
+               "overlap_ratio", "recall")
+
+
+def validate_record(rec: Dict[str, Any]) -> List[str]:
+    """Structural check of one record; returns a list of problems."""
+    errs: List[str] = []
+    ev = rec.get("event")
+    if ev is None:
+        return ["record has no 'event' field: %r" % (rec,)]
+    if ev not in REQUIRED:
+        return ["unknown event type %r" % ev]
+    t = rec.get("t")
+    if not isinstance(t, (int, float)) or t <= 0:
+        errs.append("%s: bad timestamp %r" % (ev, t))
+    for key in REQUIRED[ev]:
+        if key not in rec:
+            errs.append("%s: missing required key %r" % (ev, key))
+    for key in _TIMING_KEYS:
+        if key in rec:
+            v = rec[key]
+            if (not isinstance(v, (int, float)) or v < 0
+                    or not math.isfinite(v)):
+                errs.append("%s: %s must be a non-negative finite "
+                            "number, got %r" % (ev, key, v))
+    for key in _RATIO_KEYS:
+        if key in rec:
+            v = rec[key]
+            if not isinstance(v, (int, float)) or not (0 <= v <= 1):
+                errs.append("%s: %s must be a ratio in [0, 1], got %r"
+                            % (ev, key, v))
+    return errs
+
+
+def validate_records(records: Iterable[Dict[str, Any]],
+                     strict: bool = True) -> List[str]:
+    """Validate a record stream, including cross-record invariants
+    (monotonic step counter, non-decreasing round). With ``strict``
+    (default) raises ValueError on the first batch of problems;
+    otherwise returns them."""
+    errs: List[str] = []
+    last_step = 0
+    last_round = None
+    for i, rec in enumerate(records):
+        for e in validate_record(rec):
+            errs.append("record %d: %s" % (i, e))
+        if rec.get("event") == "run_start":
+            # a new run's counters start over (concatenated streams)
+            last_step, last_round = 0, None
+        if rec.get("event") == "step":
+            step = rec.get("step")
+            if isinstance(step, int):
+                if step <= last_step:
+                    errs.append(
+                        "record %d: step counter not monotonic "
+                        "(%s after %s)" % (i, step, last_step))
+                last_step = step
+            rnd = rec.get("round")
+            if isinstance(rnd, int):
+                if last_round is not None and rnd < last_round:
+                    errs.append("record %d: round went backwards "
+                                "(%s after %s)" % (i, rnd, last_round))
+                last_round = rnd
+    if errs and strict:
+        raise ValueError("invalid monitor records:\n  "
+                         + "\n  ".join(errs))
+    return errs
+
+
+def read_jsonl(path: str) -> List[Dict[str, Any]]:
+    """Load a monitor JSONL file (skipping blank lines)."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                out.append(json.loads(line))
+    return out

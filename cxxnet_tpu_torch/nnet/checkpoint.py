@@ -21,11 +21,11 @@ either package loads in the other with its digest verified.
 
 A managed (CLI) snapshot that fails to commit warns and training goes
 on; the direct ``NetTrainer.save_model`` raises. The port runs in one
-process, so it is always the root that writes. Where the reference
-takes a telemetry ``monitor``, the port takes ``monitor=None`` and
-emits nothing through it: warnings go through ``monitor.warn_once``
-(once per code and run), and telemetry records come with the telemetry
-item.
+process, so it is always the root that writes. Under an enabled
+``monitor`` the manager emits a ``checkpoint`` record per commit (its
+phase split, ``async_write``, ``emergency``) and a ``checkpoint_gc``
+record per retention sweep that removed snapshots; warnings go through
+``monitor.warn_once`` (once per code and run, into the run's stream).
 """
 
 from __future__ import annotations
@@ -472,7 +472,8 @@ class CheckpointManager:
     crash safety means surviving ENOSPC, not dying on it.
     ``last_save`` holds the training thread's share of the last
     ``save`` (``gather_ms``, ``save_ms``) and ``last_commit`` the
-    writer's stats of the last commit.
+    writer's stats of the last commit; an enabled ``monitor`` gets them
+    as ``checkpoint`` records (see the module docstring).
     """
 
     def __init__(self, trainer, path_for: Callable[[int], str],
@@ -481,6 +482,8 @@ class CheckpointManager:
         self.trainer = trainer
         self.path_for = path_for
         self.model_dir = model_dir
+        self._mon = monitor if monitor is not None and monitor.enabled \
+            else None
         self.async_ = bool(async_)
         self.fsync = bool(fsync)
         self.keep = int(keep)
@@ -501,27 +504,42 @@ class CheckpointManager:
         path = self.path_for(counter)
 
         def _commit():
+            stats = {"bytes": 0, "opt_bytes": 0, "digest": "",
+                     "serialize_ms": 0.0, "write_ms": 0.0,
+                     "fsync_ms": 0.0}
+            status, err = "ok", ""
             try:
                 stats = write_snapshot(path, arrays, meta,
                                        fsync=self.fsync)
             except Exception as e:
                 # commit failures (ENOSPC, auth, a backend bug) warn and
                 # training goes on; nothing escapes the writer thread
-                with self._lock:
-                    self.failures += 1
-                    self.last_commit = {"path": path, "status": "failed",
-                                        "error": str(e)}
+                status, err = "failed", str(e)
                 warn_once("checkpoint_write_failed",
                           "snapshot %s failed (%s); training continues "
                           "on the previous committed snapshot"
                           % (path, e))
-                return
             with self._lock:
-                self.commits += 1
-                self.last_commit = dict(stats, path=path, status="ok",
-                                        emergency=bool(emergency))
-            if self.keep > 0 and self.model_dir:
-                retention_sweep(self.model_dir, self.keep)
+                if status == "ok":
+                    self.commits += 1
+                    self.last_commit = dict(stats, path=path, status="ok",
+                                            emergency=bool(emergency))
+                else:
+                    self.failures += 1
+                    self.last_commit = {"path": path, "status": "failed",
+                                        "error": err}
+            if self._mon is not None:
+                self._mon.emit(
+                    "checkpoint", path=path, counter=int(counter),
+                    status=status, error=err, emergency=bool(emergency),
+                    async_write=self.async_, gather_ms=gather_ms,
+                    **{k: (round(v, 3) if isinstance(v, float) else v)
+                       for k, v in stats.items()})
+            if status == "ok" and self.keep > 0 and self.model_dir:
+                removed = retention_sweep(self.model_dir, self.keep)
+                if removed and self._mon is not None:
+                    self._mon.emit("checkpoint_gc", removed=len(removed),
+                                   kept=self.keep, names=removed)
 
         if self.async_ and not emergency:
             self._writer.submit(_commit)

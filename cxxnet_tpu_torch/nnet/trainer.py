@@ -7,7 +7,8 @@ one updater per (layer, tag), train and eval metrics), the one-time
 freeze of the eval weights (``freeze_serve_weights``), the eval forward
 behind ``predict`` / ``extract_feature``, the reference-layout
 weight get/set, the finetune carry (``finetune_from``,
-``copy_model_from``, ``load_weights_inplace``) and ``precompile``.
+``copy_model_from``, ``load_weights_inplace``), ``precompile`` and the
+telemetry records (``set_monitor``).
 
 A training step is the reference's ``scan_step`` written eagerly:
 autograd over ``FuncNet.loss_fn`` in place of ``jax.value_and_grad``,
@@ -171,6 +172,13 @@ class NetTrainer:
         self._copy_stream = None
         self._stream_lock = threading.Lock()
         self.staging = {"batches": 0, "pinned": 0}
+        # telemetry (set_monitor): the monitor, the iterator wait the
+        # drive loop reported since the last dispatch, and the dispatch
+        # signatures seen (a first sighting paid first-use costs)
+        self._mon = None
+        self._pending_data_wait = 0.0
+        self._seen_sigs: set = set()
+        self.input_layout = "none"
 
     # -- config ----------------------------------------------------------
 
@@ -237,6 +245,7 @@ class NetTrainer:
                 if val not in ("none", "rowmajor"):
                     raise ValueError(
                         "input_layout must be none or rowmajor")
+                self.input_layout = val
                 if val == "rowmajor":
                     # a TPU device-layout pin; CUDA tensors of the port
                     # are row-major (NHWC) already, so the batch runs
@@ -334,6 +343,7 @@ class NetTrainer:
                 self.net.node_index_by_name(node) if node else top)
         self._label_slices = g.label_slices()
         self._attach_quant()
+        self._emit_model_records()
 
     def _attach_quant(self) -> None:
         """Pin the ``serve_dtype`` specs on the layers (raises for int8
@@ -352,6 +362,7 @@ class NetTrainer:
         if dtype is not None:
             self.serve_dtype = normalize_serve_dtype(dtype)
         self._attach_quant()
+        self._emit_model_records()
 
     def _install(self, params: Tree, state: Tree) -> None:
         dev = self.device
@@ -381,6 +392,7 @@ class NetTrainer:
                                for info in g.layers
                                if info.type == "share")
         tree = {lk: dict(sub) for lk, sub in self.params.items()}
+        t0 = time.perf_counter()
         with torch.no_grad():
             for li, info in enumerate(g.layers):
                 if info.type not in ("conv", "fullc"):
@@ -444,7 +456,39 @@ class NetTrainer:
                     w = hwio_to_oihw(w)
                     t["_oihw"] = w.to(torch.bfloat16) if bf16 else w
         self._serve_tree = tree
+        if self._mon_on():
+            self._emit_residency(tree, time.perf_counter() - t0)
         return tree
+
+    def _emit_residency(self, tree: Tree, wall: float) -> None:
+        """The ``weight_residency`` record of a freeze: the tree's bytes,
+        the masters' (params and net state) and their union, each
+        storage counted once (a leaf the freeze left as it was aliases
+        its master); ``layers`` counts the conv and fullc layers whose
+        eval weights the freeze transformed (fold, quantization, bf16
+        cast or the OIHW layout)."""
+        def nbytes(trees, seen):
+            tot = 0
+            for tr in trees:
+                for sub in tr.values():
+                    for v in sub.values():
+                        st = v.untyped_storage()
+                        key = (st.device, st.data_ptr())
+                        if key not in seen:
+                            seen.add(key)
+                            tot += st.nbytes()
+            return tot
+        seen: set = set()
+        master = nbytes((self.params, self.net_state), seen)
+        total = master + nbytes((tree,), seen)
+        layers = sum(
+            1 for lk, sub in tree.items()
+            if any(sub[t] is not self.params[lk].get(t) for t in sub))
+        self._mon.emit(
+            "weight_residency", bytes=total,
+            tree_bytes=nbytes((tree,), set()), master_bytes=master,
+            quantize_ms=wall * 1e3, layers=layers,
+            dtype=self.serve_dtype, active=bool(layers))
 
     def _pred_operands(self) -> Tree:
         tree = self.freeze_serve_weights()
@@ -713,11 +757,139 @@ class NetTrainer:
         self._examples_total += examples
         self._round_examples += examples
 
+    # -- telemetry -------------------------------------------------------
+
+    def set_monitor(self, mon) -> None:
+        """Attach a ``monitor.Monitor`` (None detaches). With an enabled
+        sink every dispatch (``update``, ``update_many``, ``run_steps``)
+        emits a ``step`` record whose ``wall_ms`` runs to a device sync:
+        an honest step time, at the cost of the overlap of the host's
+        next dispatch with this one's device work. A disabled monitor
+        leaves the update path as it is: no sync, no clock read."""
+        self._mon = mon
+        if self._initialized:
+            self._emit_model_records()
+
+    def _mon_on(self) -> bool:
+        return self._mon is not None and self._mon.enabled
+
+    def _emit_model_records(self) -> None:
+        """The static records of a built model: ``model_info`` (the
+        analytic FLOPs an example, the MFU denominator), ``layout`` (the
+        fusion and padding passes' decisions) and, under a
+        ``serve_dtype``, ``quantized_model``."""
+        if not self._mon_on():
+            return
+        net = self.net
+        fwd = net.analytic_flops_per_example()
+        self._mon.emit(
+            "model_info", flops_per_example=fwd,
+            train_flops_per_example=3.0 * fwd,
+            params=sum(int(w.numel()) for pt in self.params.values()
+                       for w in pt.values()),
+            layers=len(self.graph.layers))
+        self._mon.emit(
+            "layout", input_layout=self.input_layout,
+            bn_fuse_relu=len(net._identity_layers),
+            bn_fold_eval_pairs=len(net.fold_pairs),
+            pool_concat_fused=len(net.fused_concats),
+            **net.layout_summary)
+        r = self.quant_report
+        if r.get("active"):
+            self._mon.emit("quantized_model", dtype=r["dtype"],
+                           layers=r["layers"],
+                           fallback_layers=r["fallback_layers"],
+                           native=r["native"])
+
+    def note_data_wait(self, seconds: float) -> None:
+        """The drive loop reports the time it waited on the iterator
+        since the last dispatch; the next ``step`` record carries it as
+        ``data_wait_ms``."""
+        self._pending_data_wait += seconds
+
+    def _sig(self, kind: str, batches: Sequence[DataBatch], n: int = 0
+             ) -> tuple:
+        """The reference's dispatch signature of ``kind`` over
+        ``batches`` (``cxxnet_tpu/artifact/registry.py``'s
+        ``update_sig``, ``update_many_sig``, ``run_steps_sig``), with
+        ``n`` its apply flag, window or step count."""
+        b = batches[0]
+        data = tuple(b.data.shape)
+        dt = str(b.data.dtype).replace("torch.", "")
+        label = tuple(b.label.shape) if b.label.ndim == 2 \
+            else (b.label.shape[0], 1)
+        no_mask = all(x.num_batch_padd == 0 for x in batches)
+        n_extra = len(b.extra_data)
+        if kind == "update_many":
+            k = len(batches)
+            return ((k,) + data, dt, (k,) + label, no_mask, n_extra, k,
+                    bool(n))
+        return (data, dt, label, no_mask, n_extra,
+                bool(n) if kind == "update" else int(n))
+
+    def _note_signature(self, kind: str, sig: tuple, wall: float) -> bool:
+        """The first sighting of a dispatch signature: its wall time paid
+        first-use costs. On the card those are cuDNN's algorithm search
+        for the new shapes, the allocator's growth and, on a net's first
+        dispatch, the build of its kernels (``nvcc``, unless
+        ``precompile`` ran). Emits a ``compile`` record ("first" or
+        "recompile") and returns True when so."""
+        key = (kind,) + sig
+        if key in self._seen_sigs:
+            return False
+        first = not self._seen_sigs
+        self._seen_sigs.add(key)
+        self._mon.emit("compile", kind="first" if first else "recompile",
+                       wall_ms=wall * 1e3, signature=repr(key))
+        return True
+
+    def _emit_step(self, kind: str, batches: Sequence[DataBatch],
+                   n: int, examples: int, t0: float, counter: int,
+                   epoch: int) -> None:
+        """The ``step`` record of a dispatch that began at ``t0`` (host
+        clock), after a device sync; ``counter`` is the update counter
+        before it, ``epoch`` its first batch's schedule epoch."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        compiled = self._note_signature(kind, self._sig(kind, batches, n),
+                                        wall)
+        wait, self._pending_data_wait = self._pending_data_wait, 0.0
+        n_batches = len(batches) if kind == "update_many" \
+            else (n if kind == "run_steps" else 1)
+        self._mon.emit(
+            "step", step=self._steps_total, round=self.round,
+            dispatch=kind, n_batches=n_batches, examples=examples,
+            wall_ms=wall * 1e3, data_wait_ms=wait * 1e3,
+            examples_per_sec=examples / wall if wall > 0 else 0.0,
+            update_counter=counter, lr=self._lr_at(epoch),
+            compile=compiled)
+
+    def _lr_at(self, epoch: int) -> float:
+        """The learning rate of the first (layer, tag) in sorted order
+        at ``epoch``, as float32: the reference's ``hyper[0, 0]``."""
+        if not self.updaters:
+            return 0.0
+        lk = sorted(self.updaters)[0]
+        upd = self.updaters[lk][sorted(self.updaters[lk])[0]]
+        upd.param.schedule_epoch(epoch)
+        return float(np.float32(upd.param.learning_rate))
+
+    # -- updates ---------------------------------------------------------
+
     def update(self, batch: DataBatch) -> None:
         """One training step on a host or staged batch (its padded tail
         excluded from the BN moments and the loss)."""
+        mon = self._mon_on()
+        t0 = time.perf_counter() if mon else 0.0
+        counter, sample = self.update_counter, self.sample_counter
         self._update(batch)
-        self._count_examples(batch.batch_size - batch.num_batch_padd)
+        ex = batch.batch_size - batch.num_batch_padd
+        self._count_examples(ex)
+        if mon:
+            self._emit_step("update", [batch],
+                            sample + 1 >= self.update_period, ex, t0,
+                            counter, counter)
 
     def _update(self, batch: DataBatch) -> None:
         self._check_ready()
@@ -746,6 +918,8 @@ class NetTrainer:
         n = int(n_steps)
         if n <= 0:
             return
+        mon = self._mon_on()
+        t0 = time.perf_counter() if mon else 0.0
         data, labels, mask, extra = self._device_batch(batch)
         period = self.update_period
         S, U = self.sample_counter, self.update_counter
@@ -755,6 +929,10 @@ class NetTrainer:
             self._last_loss, _ = self._train_step(
                 data, labels, mask, epoch, ((S + i + 1) % period) == 0,
                 False, (step0 + i) & 0xFFFFFFFF, extra)
+        ex = (batch.batch_size - batch.num_batch_padd) * n
+        self._count_examples(ex)
+        if mon:
+            self._emit_step("run_steps", [batch], n, ex, t0, U, U)
         self.update_counter = U + (S + n) // period
         self.sample_counter = (S + n) % period
 
@@ -763,10 +941,19 @@ class NetTrainer:
         reference fuses them into one dispatch, which eager PyTorch has
         no use for), counted as one dispatch. Staged batches stay on the
         device."""
+        if len(batches) == 1:
+            return self.update(batches[0])
+        mon = self._mon_on()
+        t0 = time.perf_counter() if mon else 0.0
+        counter = self.update_counter
+        collect = bool(self.eval_train and self._metrics.evals)
         for b in batches:
             self._update(b)
-        self._count_examples(sum(b.batch_size - b.num_batch_padd
-                                 for b in batches))
+        ex = sum(b.batch_size - b.num_batch_padd for b in batches)
+        self._count_examples(ex)
+        if mon:
+            self._emit_step("update_many", batches, collect, ex, t0,
+                            counter, counter)
 
     @property
     def last_loss(self) -> float:
@@ -780,6 +967,9 @@ class NetTrainer:
         ``eval_train = 1``, as an eval line; clears them."""
         res = self._train_metrics.results()
         self._train_metrics.clear()
+        if self._mon_on() and res:
+            self._mon.emit("eval", round=self.round, name=name,
+                           metrics={t: float(v) for t, v in res})
         return MetricSet.format_line(name, res)
 
     def evaluate(self, data_iter: Iterable[DataBatch], name: str) -> str:
@@ -801,8 +991,11 @@ class NetTrainer:
                 [v[:nvalid].cpu().numpy() for v in vals],
                 self._label_fields(self._host_label(batch), nvalid))
         res = self._metrics.results()
-        return MetricSet.format_line(name, res), \
-            {t: float(v) for t, v in res}
+        vals = {t: float(v) for t, v in res}
+        if self._mon_on() and res:
+            self._mon.emit("eval", round=self.round, name=name,
+                           metrics=vals)
+        return MetricSet.format_line(name, res), vals
 
     # -- weights ---------------------------------------------------------
 
@@ -910,6 +1103,8 @@ class NetTrainer:
                      ", ".join(fresh) or "<none>",
                      ("; frozen %s" % ", ".join(frozen)) if frozen
                      else ""))
+        if self._mon_on():
+            self._mon.emit("finetune", **rec)
         return rec
 
     def _carry_from_blob(self, blob, remap_set, strict: bool
@@ -993,11 +1188,14 @@ class NetTrainer:
         are left exactly as they were: precompile changes when a cost is
         paid, never a result. (The reference's ``window`` picks which
         update_many program to lower; eager PyTorch has none.) The zero
-        batch's kernel launches count as any launch does.
+        batch's kernel launches count as any launch does. Under a monitor
+        it emits a ``compile`` record (kind "precompile") for the step's
+        signature, which it marks seen, and a ``precompile`` record.
         Returns the kernel sources built."""
         self._check_ready()
         from ..io.data import inst_array_shape
         from ..layers import kernels
+        t_start = time.perf_counter()
         names = self.net.kernel_sources() \
             if self.device.type == "cuda" else []
         if names:
@@ -1028,8 +1226,12 @@ class NetTrainer:
                 torch.zeros((self.batch_size,) + inst_array_shape(s),
                             device=self.device)
                 for s in g.extra_shape[:g.extra_data_num])
+            t_step = time.perf_counter()
             self._train_step(data, labels, None, self.update_counter,
                              True, False, self._step_scalar(), extra)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            step_wall = time.perf_counter() - t_step
             (self.params, self.opt_state, self.net_state, self.grad_acc,
              self.sample_counter, self.update_counter, self._last_loss,
              self._serve_tree, _) = saved
@@ -1044,4 +1246,15 @@ class NetTrainer:
             torch.set_rng_state(rng)
             if cuda_rng is not None:
                 torch.cuda.set_rng_state(cuda_rng, self.device)
+        # the first dispatch of the warmed signature is not a first use
+        key = ("update",) + self._sig(
+            "update", [DataBatch(data=data, label=labels,
+                                 extra_data=list(extra))], True)
+        self._seen_sigs.add(key)
+        if self._mon_on():
+            self._mon.emit("compile", kind="precompile",
+                           wall_ms=step_wall * 1e3, signature=repr(key))
+            self._mon.emit("precompile",
+                           wall_ms=(time.perf_counter() - t_start) * 1e3,
+                           programs=1 + bool(self._metric_nodes))
         return list(names)

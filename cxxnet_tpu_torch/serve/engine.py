@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -128,13 +129,28 @@ class InferenceEngine:
         zero batch through each bucket. Returns the number of buckets
         run. Resets the counters: afterwards ``aot_hits`` counts
         dispatches at a warmed bucket and ``compile_events`` first
-        dispatches at a bucket warmup did not run."""
-        self.trainer.freeze_serve_weights()
+        dispatches at a bucket warmup did not run. Under the trainer's
+        monitor each bucket run emits a ``compile`` record (kind
+        "precompile": its first-use wall) and the warmup a
+        ``precompile`` record."""
+        t_start = time.perf_counter()
+        t = self.trainer
+        mon = t._mon if t._mon_on() else None
+        t.freeze_serve_weights()
         if warm_run:
             inst = self._inst_shape()
             for b in self.buckets:
+                t0 = time.perf_counter()
                 self.dispatch(self.stage(np.zeros((b,) + inst, np.float32)))
                 self._warm.add(b)
+                if mon is not None:
+                    mon.emit("compile", kind="precompile",
+                             wall_ms=(time.perf_counter() - t0) * 1e3,
+                             signature=repr(("pred", (b,) + inst)))
+        if mon is not None:
+            mon.emit("precompile",
+                     wall_ms=(time.perf_counter() - t_start) * 1e3,
+                     programs=len(self._warm))
         with self._lock, self._stage_lock:
             for k in self.counters:
                 self.counters[k] = 0
@@ -296,11 +312,12 @@ class InferenceEngine:
 def build_engine(cfg, model_path: str,
                  buckets: Optional[Union[str, Sequence[int]]] = None,
                  max_batch: int = 0, node: str = "",
-                 device=None) -> InferenceEngine:
+                 device=None, monitor=None) -> InferenceEngine:
     """Load a snapshot into a frozen engine on ``device`` (the GPU by
     default). ``cfg`` is the ordered config-pair stream (netconfig +
     globals, ``serve_dtype`` among them); ``buckets`` a ladder or a
-    ``serve_buckets`` spec."""
+    ``serve_buckets`` spec; ``monitor`` gets the trainer's records
+    (attached before the load)."""
     cfg = list(cfg)
     if os.path.isdir(local_path(model_path)):
         raise NotPortedError("a bundle as model_path (%r)" % model_path,
@@ -318,6 +335,7 @@ def build_engine(cfg, model_path: str,
     if isinstance(buckets, str) or buckets is None:
         buckets = parse_buckets(buckets or "", max_batch)
     trainer = NetTrainer(cfg, device=device)
+    trainer.set_monitor(monitor)
     trainer.load_model(model_path)
     return InferenceEngine(trainer, buckets=buckets, node=node,
                            input_dtype=input_dtype_for(serve_dtype))

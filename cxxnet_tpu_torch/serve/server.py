@@ -100,7 +100,7 @@ class ServeSession:
                 raise ValueError("ServeSession needs model_path or engine")
             engine = build_engine(cfg, model_path, buckets=c.buckets,
                                   max_batch=c.max_batch, node=c.node,
-                                  device=device)
+                                  device=device, monitor=monitor)
         self.engine = engine
         self.batcher = DynamicBatcher(
             engine.stage, engine.dispatch,

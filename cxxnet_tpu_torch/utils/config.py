@@ -29,7 +29,6 @@ class Roadmap:
     """The ``ROADMAP.md`` items (queue and title) that port what a
     :class:`NotPortedError` reports."""
     REMAT = "queue 1, rematerialization"
-    TELEMETRY = "queue 1, telemetry"
     QUANTIZED = "queue 1, quantized and low-precision inference"
     BUNDLES = "queue 1, sealed bundles"
     MULTI_GPU = "queue 1, multi-GPU"

@@ -21,7 +21,7 @@ import re
 import time
 from typing import Callable, Dict, Optional
 
-from ..monitor import warn_once
+from ..monitor import get_global, warn_once
 
 # 2+ chars so Windows drive letters ('C://...') stay local
 _URI_RE = re.compile(r"^([a-zA-Z][a-zA-Z0-9+.-]+)://")
@@ -81,7 +81,7 @@ def stream_retry_count() -> int:
 
 def _retrying(fn: Callable, uri: str, what: str):
     """``fn()`` under the retry policy; a success after a failure warns
-    once."""
+    once and emits a ``stream_retry`` record into the run's stream."""
     attempts = _RETRY["attempts"]
     if attempts <= 0:
         return fn()
@@ -105,6 +105,10 @@ def _retrying(fn: Callable, uri: str, what: str):
                       "retr%s (stream_retry=%d)"
                       % (what, uri, tries, "y" if tries == 1 else "ies",
                          attempts))
+            mon = get_global()
+            if mon is not None and mon.enabled:
+                mon.emit("stream_retry", uri=uri, what=what,
+                         attempts=tries)
         return out
 
 

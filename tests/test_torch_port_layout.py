@@ -12,8 +12,8 @@ bit-identical to the unpadded run on the CPU, as the reference's is on
 XLA:CPU: PyTorch sums a per-channel reduction of an NHWC tensor (the
 batch-norm moments, the bias and scale gradients) in an order that
 depends on the channel count, so the padded width reorders those sums.
-Two steps lie within 1e-6 of the unpadded run (``PAD_RTOL``,
-``PAD_ATOL``); ROADMAP.md queue 3 records it. Against the reference's
+Two steps lie within rtol 1e-5 / atol 2e-6 of the unpadded run
+(``PAD_RTOL``, ``PAD_ATOL``); ROADMAP.md queue 3 records it. Against the reference's
 own padded training (on one device) the parameters lie within
 ``REF_RTOL`` / ``REF_ATOL``.
 """

@@ -20,6 +20,7 @@ digits.
 
 import contextlib
 import io
+import json
 import os
 import re
 import shutil
@@ -285,9 +286,6 @@ def test_serve_soak_has_no_failures(env):
 
 
 NOT_PORTED = [("task=" + t, item) for t, item in NOT_PORTED_TASKS.items()] + [
-    ("monitor=stdout", Roadmap.TELEMETRY),
-    ("monitor=jsonl", Roadmap.TELEMETRY),
-    ("monitor_trace_dir=trace", Roadmap.TELEMETRY),
     ("test_on_server=1", Roadmap.MULTI_GPU),
     ("dist_coordinator=localhost:1234", Roadmap.MULTI_GPU),
     ("dist_num_hosts=2", Roadmap.MULTI_GPU),
@@ -314,6 +312,48 @@ def test_unported_raises_naming_its_item(tmp_path, monkeypatch, what,
     with pytest.raises(NotPortedError) as e:
         run_cli(LearnTask, ["c.conf"] + args)
     assert e.value.roadmap_item == item
+
+
+# the telemetry keys that raised NotPortedError before they were ported:
+# each now runs, and its record stream passes both packages' schema
+MONITOR_KEYS = ["monitor=stdout", "monitor=jsonl", "monitor_trace_dir=trace"]
+
+
+@pytest.mark.parametrize("what", MONITOR_KEYS)
+def test_monitor_keys_run(tmp_path, monkeypatch, what):
+    """``monitor = stdout`` and ``jsonl`` train two rounds with a stream
+    that validates in both packages' ``validate_records`` (one step
+    record per dispatch: 40 rows at batch 20 are two per-batch updates
+    a round);
+    ``monitor_trace_dir`` under ``monitor = none`` writes the Chrome
+    trace of round 1 and no record."""
+    from cxxnet_tpu.monitor.schema import validate_records as ref_validate
+    from cxxnet_tpu_torch.monitor.schema import read_jsonl, validate_records
+    rng = np.random.RandomState(1)
+    _csv(str(tmp_path / "train.csv"), 40, rng)
+    _csv(str(tmp_path / "test.csv"), 20, rng)
+    with open(str(tmp_path / "c.conf"), "w") as f:
+        f.write(CSV_CONF)
+    monkeypatch.chdir(tmp_path)
+    args = ["c.conf", "dev=cpu", "model_dir=m", "num_round=2", what]
+    if what == "monitor=jsonl":
+        args.append("monitor_path=mon.jsonl")
+    rc, out = run_cli(LearnTask, args)
+    assert rc == 0, out
+    if what == "monitor_trace_dir=trace":
+        assert not any(ln.startswith("{") for ln in out.splitlines())
+        assert os.listdir("trace") == ["trace_r1-1.json"]
+        with open(os.path.join("trace", "trace_r1-1.json")) as f:
+            assert json.load(f)["traceEvents"]
+        return
+    recs = read_jsonl("mon.jsonl") if what == "monitor=jsonl" else [
+        json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    assert validate_records(recs) == [] and ref_validate(recs) == []
+    steps = [r for r in recs if r["event"] == "step"]
+    assert [s["step"] for s in steps] == [1, 2, 3, 4]
+    assert [s["round"] for s in steps] == [0, 0, 1, 1]
+    assert sum(s["examples"] for s in steps) == 80
+    assert recs[-1]["event"] == "run_end" and recs[-1]["steps"] == 4
 
 
 # the checkpoint and CLI keys that raised NotPortedError before they were
