@@ -306,13 +306,44 @@ the script exits non-zero without a result line):
              snapshot loaded into a second ``Net`` gives every
              ``get_weight`` the same bits; the stream one ``step`` an
              update.
+13. fleet  — the serving front end (``task = serve_fleet``'s
+             ``FleetServer``) over Inception-BN.conf's net (bf16, the
+             eval fold, the conf's bucket ladder up to 128 rows) from
+             the wrapper phase's snapshot, its BNs calibrated: clients
+             in a process of their own (HTTP 1-2 rows; CXN1 and CXN2
+             1-16 rows, ``FLEET_V2_DEPTH`` in flight) and an over-quota
+             tenant; a perturbed snapshot committed into the watched
+             directory mid-drive: one ``hot_swap``, no failed request,
+             every reply the bits of a ``ServeSession`` on the snapshot
+             that served it at a bucket that could have served it, and
+             every reply sent after the flip the new one's; batches of
+             the ladder's top bucket among the drive's; the tenant's
+             typed 429s with ``Retry-After``; ``serve_device_mem_budget``
+             rejecting a second model at the router and an over-budget
+             model at its engine while the first keeps serving; exactly
+             69 bf16 conv_epilogue launches a served forward (the
+             warmups and every dispatch) and no other; the records
+             schema-valid; rows/s and p50 / p90 per protocol (printed),
+             and for a window of the binary clients alone.
+14. capi   — the port's C ABI (``cxxnet_tpu_torch/capi``, built with
+             ``g++`` here) through ctypes on ``"gpu"`` over the same net
+             text and snapshot: 3 ``CXNNetUpdateBatch`` calls (69 + 69
+             bf16 bn_apply, 1 bias_grad_bf16 each), predict and extract
+             of 4 rows (69 bf16 conv_epilogue a forward), the bits of
+             ``wrapper.Net(dev="gpu")`` fed the same calls (cuDNN
+             deterministic), a ``CXNNetGetWeight`` / ``CXNNetSetWeight``
+             round trip, save / load, and a compiled C program that owns
+             its interpreter predicting and extracting the softmax on
+             ``"gpu"`` from the fleet phase's calibrated snapshot: the
+             bits of ``Net(dev="gpu")`` on that snapshot.
 
 Then a ``kernels`` line (every ported kernel with its launches, error
 and times; ``cli_launches``, ``alexnet_launches``,
-``checkpoint_launches`` and ``wrapper_launches``: its count over the
-cli phase's runs, the alexnet phase's training run, the checkpoint
-phase's runs (the preempted subprocess included) and the wrapper
-phase's main path; the bias_grad_bf16 row also with AlexNet's per-update sums), the
+``checkpoint_launches``, ``wrapper_launches``, ``fleet_launches`` and
+``capi_launches``: its count over the cli phase's runs, the alexnet
+phase's training run, the checkpoint phase's runs (the preempted
+subprocess included) and the wrapper, fleet and capi phases' main
+paths; the bias_grad_bf16 row also with AlexNet's per-update sums), the
 ``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -5427,6 +5458,960 @@ def phase_wrapper(workdir: str):
     return res
 
 
+FLEET_POOL = 48                # seeded 224x224 images the clients draw from
+FLEET_PRE = 100                # ok requests before the new snapshot commits
+FLEET_POST = 150               # ok requests after the flip before the stop
+FLEET_QUOTA = "free:1:1"       # the over-quota tenant: 1 row/s, burst 1
+FLEET_HTTP_STARTS = 8          # HTTP bodies: rows from the pool's first 8
+FLEET_V2_DEPTH = 8             # CXN2 requests each v2 client keeps in flight
+FLEET_BINARY_S = 4.0           # the binary-only window after the main path
+FLEET_LAUNCHES = BF16_LAUNCHES  # per served forward (serve_dtype from dtype)
+FLEET_TIMEOUT_S = 600          # a client process's limit
+
+
+def fleet_cfg(workdir: str):
+    """Inception-BN.conf's netconfig and globals (batch 128, bf16) with
+    the eval fold, as every served session of the fleet phase reads
+    them: the conf's bucket ladder (``auto``: 1, 2, 4, ..., 128)."""
+    from cxxnet_tpu_torch.utils.config import parse_config
+    return parse_config(wrapper_cfg_text(workdir)) + KNOBS + [
+        ("serve_max_delay_ms", "2"), ("serve_queue_rows", "4096")]
+
+
+def perturbed_snapshot(src: str, dst: str, seed: int = SEED + 13):
+    """A newer snapshot through the port's checkpoint layer: every
+    parameter times (1 + 0.02 N(0, 1)), seeded."""
+    from cxxnet_tpu_torch.nnet.checkpoint import read_snapshot, write_snapshot
+    arrays, meta = read_snapshot(src)
+    rng = np.random.RandomState(seed)
+    for k in sorted(arrays):
+        if k.startswith("param/"):
+            a = arrays[k]
+            arrays[k] = (a * (1 + 0.02 * rng.randn(*a.shape))).astype(
+                a.dtype)
+    meta = {k: v for k, v in meta.items() if k != "content_digest"}
+    write_snapshot(dst, arrays, meta)
+
+
+def _http_json(port: int, body: str, timeout: float = 300.0):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", "/v1/predict", body,
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read()), dict(r.getheaders())
+    finally:
+        conn.close()
+
+
+def _commit_and_flip(ok_count, errors, swap):
+    """The hot-swap under traffic: ``FLEET_PRE`` ok requests, then the
+    perturbed snapshot commits (``os.replace`` of the staged file into
+    the watched directory, as ``write_snapshot`` commits); the flip,
+    whose time the server's process writes to ``swap["flip"]`` when its
+    ``hot_swap`` record comes; then ``FLEET_POST`` ok requests sent after
+    it. Returns the commit's and the flip's times (the flip None if it
+    never came)."""
+    deadline = time.monotonic() + 300
+    while ok_count() < FLEET_PRE and time.monotonic() < deadline \
+            and not errors:
+        time.sleep(0.02)
+    t_commit, t_swap = time.time(), None
+    os.replace(swap["staged"], swap["commit"])
+    while time.monotonic() < deadline and not errors:
+        if os.path.exists(swap["flip"]):
+            with open(swap["flip"]) as f:
+                t_swap = float(f.read())
+            break
+        time.sleep(0.02)
+    while t_swap is not None and ok_count(t_swap) < FLEET_POST \
+            and time.monotonic() < deadline and not errors:
+        time.sleep(0.02)
+    return t_commit, t_swap
+
+
+def fleet_traffic(ports, pool, swap=None, http: bool = True,
+                  seconds: float = 0.0):
+    """Concurrent clients of the fleet at ``ports`` (HTTP, binary): 2
+    HTTP (1-2 rows) and the over-quota tenant's HTTP client unless
+    ``http`` is False, 2 CXN1 (1-16 rows) and 2 CXN2 (1-16 rows,
+    ``FLEET_V2_DEPTH`` in flight). With ``swap`` (the staged snapshot,
+    its committed name and the flip file): after ``FLEET_PRE`` ok
+    requests the snapshot commits into the watched directory, and the
+    drive stops ``FLEET_POST`` ok requests after the flip; without, it
+    runs ``seconds``. Returns every request's record and the times of the
+    commit and the flip. Runs in :func:`fleet_clients`' process."""
+    import socket
+    import threading
+    from cxxnet_tpu_torch.serve.frontend import (BinaryClient,
+                                                 pack_request_v2,
+                                                 read_reply_tagged)
+    http_port, binary_port = ports
+    stop = threading.Event()
+    lock = threading.Lock()
+    log = []
+    errors = []
+    elems = int(np.prod(pool.shape[1:]))
+    flat = pool.reshape(pool.shape[0], elems)
+    # the HTTP bodies, encoded before the drive: 150,528 floats a row
+    bodies = {(s, n, tenant): json.dumps(
+        {"model": "main", "tenant": tenant,
+         "rows": flat[s:s + n].tolist()})
+        for s in range(FLEET_HTTP_STARTS) for n in (1, 2)
+        for tenant in ("gold", "free")
+        if http and (tenant == "gold" or n == 1)}
+
+    def note(proto, tenant, start, n, status, result, t_send, extra=None):
+        with lock:
+            log.append({"proto": proto, "tenant": tenant, "start": start,
+                        "n": n, "status": status, "result": result,
+                        "t_send": t_send,
+                        "ms": (time.time() - t_send) * 1e3,
+                        "extra": extra})
+
+    def guarded(fn):
+        def run(*a):
+            try:
+                fn(*a)
+            except Exception as e:              # surfaced by the checks
+                with lock:
+                    errors.append("%s: %s" % (type(e).__name__, e))
+        return run
+
+    def http_client(ci):
+        rng = np.random.RandomState(SEED + 20 + ci)
+        while not stop.is_set():
+            n = int(rng.randint(1, 3))
+            s = int(rng.randint(0, FLEET_HTTP_STARTS))
+            t = time.time()
+            code, body, hdr = _http_json(http_port, bodies[(s, n, "gold")])
+            res = np.asarray(body["result"], np.float32) if code == 200 \
+                else body
+            note("http", "gold", s, n, "ok" if code == 200 else code, res,
+                 t)
+
+    def v1_client(ci):
+        rng = np.random.RandomState(SEED + 30 + ci)
+        bc = BinaryClient("127.0.0.1", binary_port, timeout=300)
+        try:
+            while not stop.is_set():
+                n = int(rng.randint(1, 17))
+                s = int(rng.randint(0, len(pool) - n + 1))
+                t = time.time()
+                st, res = bc.predict(flat[s:s + n], model="main",
+                                     tenant="team-%d" % ci)
+                note("cxn1", "team-%d" % ci, s, n, st, res, t)
+        finally:
+            bc.close()
+
+    def v2_client(ci):
+        rng = np.random.RandomState(SEED + 40 + ci)
+        sock = socket.create_connection(("127.0.0.1", binary_port),
+                                        timeout=300)
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        rfile = sock.makefile("rb")
+        corr = 0
+        try:
+            while not stop.is_set():
+                sent = {}
+                for _ in range(FLEET_V2_DEPTH):
+                    n = int(rng.randint(1, 17))
+                    s = int(rng.randint(0, len(pool) - n + 1))
+                    sent[corr] = (s, n, time.time())
+                    sock.sendall(pack_request_v2(corr, "main", "",
+                                                 flat[s:s + n]))
+                    corr += 1
+                for _ in range(FLEET_V2_DEPTH):
+                    c, st, res = read_reply_tagged(rfile)
+                    s, n, t = sent.pop(c)
+                    note("cxn2", "", s, n, st, res, t)
+        finally:
+            rfile.close()
+            sock.close()
+
+    def free_client():
+        while not stop.is_set():
+            t = time.time()
+            code, body, hdr = _http_json(http_port, bodies[(0, 1, "free")])
+            res = np.asarray(body["result"], np.float32) if code == 200 \
+                else body
+            note("http", "free", 0, 1, "ok" if code == 200 else code, res,
+                 t, extra=hdr.get("Retry-After"))
+            time.sleep(0.01)
+
+    def ok_count(after=0.0):
+        with lock:
+            return sum(1 for r in log if r["status"] == "ok"
+                       and r["tenant"] != "free" and r["t_send"] >= after)
+
+    kinds = (http_client, v1_client, v2_client) if http \
+        else (v1_client, v2_client)
+    threads = [threading.Thread(target=guarded(f), args=(i,))
+               for f in kinds for i in range(2)]
+    if http:
+        threads.append(threading.Thread(target=guarded(free_client)))
+    t0 = time.time()
+    for t in threads:
+        t.start()
+    t_commit = t_swap = None
+    try:
+        if swap is None:
+            time.sleep(seconds)
+        else:
+            t_commit, t_swap = _commit_and_flip(ok_count, errors, swap)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+        t_end = time.time()
+    return {"log": log, "errors": errors, "t0": t0, "t_end": t_end,
+            "t_commit": t_commit, "t_swap": t_swap,
+            "alive": sum(t.is_alive() for t in threads)}
+
+
+def fleet_clients(argv) -> int:
+    """The fleet phase's clients in a process of their own, so that
+    nothing of theirs takes the server's interpreter lock: reads the
+    spec ``argv[0]`` (ports, the pool's ``.npy``, ``swap``, ``http``,
+    ``seconds``, ``out``), runs :func:`fleet_traffic` and writes its
+    log to ``<out>.json`` and the ok replies' rows, in log order, to
+    ``<out>.npy``."""
+    with open(argv[0]) as f:
+        spec = json.load(f)
+    pool = np.load(spec["pool"])
+    drive = fleet_traffic((spec["http_port"], spec["binary_port"]), pool,
+                          swap=spec["swap"], http=spec["http"],
+                          seconds=spec["seconds"])
+    rows = []
+    for r in drive["log"]:
+        if r["status"] == "ok":
+            rows.append(np.asarray(r["result"], np.float32)
+                        .reshape(r["n"], -1))
+            r["result"] = None
+        elif not isinstance(r["result"], (dict, str)):
+            r["result"] = str(r["result"])
+    np.save(spec["out"] + ".npy", np.concatenate(rows) if rows
+            else np.zeros((0, 1), np.float32))
+    with open(spec["out"] + ".json", "w") as f:
+        json.dump(drive, f)
+    return 0
+
+
+def drive_fleet(fleet, sink, workdir: str, tag: str, pool_path: str,
+                swap=None, http: bool = True, seconds: float = 0.0):
+    """Run :func:`fleet_clients` in a subprocess against the fleet's
+    ports and return its drive, every ok record's ``result`` its rows.
+    With ``swap``, this process writes the ``hot_swap`` record's time to
+    ``swap["flip"]`` when the record comes."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(workdir, tag)
+    spec = {"http_port": fleet.http_port, "binary_port": fleet.binary_port,
+            "pool": pool_path, "swap": swap, "http": http,
+            "seconds": seconds, "out": out}
+    with open(out + ".spec.json", "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH", "")) if p))
+    cmd = [sys.executable, "-c", "import sys, chip_smoke; "
+           "sys.exit(chip_smoke.fleet_clients(sys.argv[1:]))",
+           out + ".spec.json"]
+    errp = out + ".stderr.txt"
+    with open(errp, "w") as err:
+        p = subprocess.Popen(cmd, cwd=workdir, env=env, stdout=err,
+                             stderr=err)
+        try:
+            deadline = time.monotonic() + FLEET_TIMEOUT_S
+            while p.poll() is None and time.monotonic() < deadline:
+                if swap is not None and not os.path.exists(swap["flip"]):
+                    swaps = [r for r in sink.records
+                             if r["event"] == "hot_swap"]
+                    if swaps:
+                        with open(swap["flip"] + ".tmp", "w") as f:
+                            f.write(repr(swaps[0]["t"]))
+                        os.replace(swap["flip"] + ".tmp", swap["flip"])
+                time.sleep(0.02)
+            rc = p.poll()
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rc != 0:
+        with open(errp) as f:
+            raise RuntimeError("fleet clients (%s) exited with %s: %s"
+                               % (tag, rc, f.read()[-2000:]))
+    with open(out + ".json") as f:
+        drive = json.load(f)
+    rows = np.load(out + ".npy")
+    at = 0
+    for r in drive["log"]:
+        if r["status"] == "ok":
+            r["result"] = rows[at:at + r["n"]]
+            at += r["n"]
+    return drive
+
+
+def bucket_refs(sess, pool, ladder):
+    """``{bucket: rows}``: each pool image's row as ``sess`` answers it
+    in a batch of exactly that bucket (the pool in slices of the
+    bucket's rows, the last padded with zeros)."""
+    out = {}
+    for b in ladder:
+        parts = []
+        for i in range(0, len(pool), b):
+            chunk = pool[i:i + b]
+            k = len(chunk)
+            if k < b:
+                chunk = np.concatenate(
+                    [chunk, np.zeros((b - k,) + pool.shape[1:], pool.dtype)])
+            parts.append(np.asarray(sess.predict(chunk))[:k]
+                         .reshape(k, -1))
+        out[b] = np.concatenate(parts)
+    return out
+
+
+def batch_stats(records, t0: float, t1: float):
+    """The micro-batches the fleet's batcher dispatched between ``t0``
+    and ``t1`` (the records' clock): how many, their rows, how many of
+    each bucket, the dispatch thread's time each (forward and result
+    fetch: ``device_ms``; also its median per bucket) and the oldest
+    request's queue wait at batch form."""
+    bats = [r for r in records if r["event"] == "serve_batch"
+            and t0 <= r["t"] <= t1]
+    if not bats:
+        return {"batches": 0}
+    disp = np.array([r["device_ms"] for r in bats])
+    queue = np.array([r["queue_ms"] for r in bats])
+    return {"batches": len(bats), "per_s": len(bats) / (t1 - t0),
+            "rows_mean": float(np.mean([r["rows"] for r in bats])),
+            "buckets": {str(b): sum(r["bucket"] == b for r in bats)
+                        for b in sorted({r["bucket"] for r in bats})},
+            "dispatch_ms_p50": float(np.percentile(disp, 50)),
+            "dispatch_ms_p90": float(np.percentile(disp, 90)),
+            "dispatch_ms_p50_by_bucket": {
+                str(b): float(np.percentile(
+                    [r["device_ms"] for r in bats if r["bucket"] == b], 50))
+                for b in sorted({r["bucket"] for r in bats})},
+            "dispatch_busy_share": float(disp.sum() / 1e3 / (t1 - t0)),
+            "queue_ms_p50": float(np.percentile(queue, 50))}
+
+
+def proto_stats(log, wall: float, protocols):
+    """Per protocol: ok requests and rows, rows/s over ``wall``, and the
+    p50 / p90 of the clients' request times (ms)."""
+    out = {}
+    for proto in protocols:
+        rs = [r for r in log if r["proto"] == proto and r["status"] == "ok"]
+        ms = np.array([r["ms"] for r in rs]) if rs else np.zeros(1)
+        out[proto] = {
+            "requests": len(rs), "rows": int(sum(r["n"] for r in rs)),
+            "rows_per_s": sum(r["n"] for r in rs) / wall,
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p90_ms": float(np.percentile(ms, 90))}
+    return out
+
+
+def phase_fleet(workdir: str):
+    """``task = serve_fleet``'s ``FleetServer`` on the card over
+    Inception-BN.conf's net (bf16, the eval fold, the conf's bucket
+    ladder up to 128), booted from the wrapper phase's snapshot copied
+    into a fresh model_dir (``0001.model.npz``): concurrent HTTP, CXN1
+    and CXN2 traffic from a client process of its own (:func:`drive_fleet`)
+    with a hot-swap to a perturbed snapshot mid-drive (no failed request;
+    each reply the bits of a ``ServeSession`` on the snapshot that
+    served it, in a batch of a bucket that could hold it: rows do not
+    depend on their batch-mates, but their bits do on the bucket's shape;
+    every reply sent after the flip the new one's), batches of 128 rows
+    among the drive's, the over-quota tenant's typed 429s with
+    ``Retry-After``, exactly 69 bf16 conv_epilogue launches a served
+    forward and no other kernel, ``serve_device_mem_budget`` rejecting a
+    second model at the router and an over-budget model at its engine
+    while the first keeps serving, and a schema-valid record stream.
+    Rows/s and latency percentiles per protocol are printed, with no
+    limit, for the drive and for a ``FLEET_BINARY_S`` window of the
+    binary clients alone afterwards (no HTTP body parse in the server)."""
+    import torch
+    from cxxnet_tpu_torch.artifact import ResidencyBudgetError
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.monitor.schema import validate_records
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve import BinaryClient, FleetServer, ServeSession
+    from cxxnet_tpu_torch.serve.router import session_resident_bytes
+    src = os.path.join(workdir, "wrapper.model.npz")
+    if not os.path.exists(src):
+        raise RuntimeError("fleet: the wrapper phase's snapshot is missing")
+    mdir = os.path.join(workdir, "fleet_models")
+    os.makedirs(mdir)
+    snap1 = os.path.join(mdir, "0001.model.npz")
+    snap2 = os.path.join(mdir, "0002.model.npz")
+    staged = os.path.join(workdir, "fleet_staged.model.npz")
+    cfg = fleet_cfg(workdir)
+    rng = np.random.RandomState(SEED + 14)
+    pool = images(rng, FLEET_POOL)
+    if pool.shape[1] != CKPT_CROP:
+        pool = np.ascontiguousarray(pool[:, :CKPT_CROP, :CKPT_CROP])
+    pool_path = os.path.join(workdir, "fleet_pool.npy")
+    np.save(pool_path, pool)
+    # three updates leave the running BN statistics near zero and the
+    # softmax rows saturated (one class at probability 1), which would
+    # hide which snapshot answered: the BNs get the pool's moments, as
+    # the serve phase calibrates them, and the snapshot is saved anew
+    cal = NetTrainer(cfg, device=DEVICE)
+    cal.load_model(src)
+    calibrate_bn(cal, cal.to_device_batch(pool[:32]))
+    cal.save_model(snap1)
+    del cal
+    # the newer snapshot, written before the drive and committed into
+    # the watched directory during it
+    perturbed_snapshot(snap1, staged)
+    # the comparison session on the first snapshot, before the main path
+    ref1 = ServeSession(cfg, model_path=snap1, device=DEVICE)
+    resident = session_resident_bytes(ref1)
+    budget_mb = 1.5 * resident / 1e6
+    rec = recorder()
+    fcfg = cfg + [("serve_models", "main=%s" % mdir),
+                  ("serve_http_port", "0"), ("serve_binary_port", "0"),
+                  ("serve_swap_poll_s", "0.2"), ("serve_quota", FLEET_QUOTA),
+                  ("serve_device_mem_budget", "%.6f" % budget_mb)]
+    # the main path, its launch counts from 0
+    kernels.reset_launch_counts()
+    t_boot = time.perf_counter()
+    fleet = FleetServer(fcfg, monitor=rec, device=DEVICE)
+    try:
+        fleet.start()
+        boot_s = time.perf_counter() - t_boot
+        s1 = fleet.router.resolve("main").session
+        ladder = tuple(s1.engine.buckets)
+        drive = drive_fleet(fleet, rec.sink, workdir, "fleet_drive",
+                            pool_path, swap={
+                                "staged": staged, "commit": snap2,
+                                "flip": os.path.join(workdir, "fleet_flip")})
+        torch.cuda.synchronize()
+        entry = fleet.router.resolve("main")
+        s2 = entry.session
+        forwards = sum(s.warmup_programs
+                       + s.engine.counters_snapshot()["dispatches"]
+                       for s in {id(s1): s1, id(s2): s2}.values())
+        launches = kernels.launch_counts()
+        swaps = [r for r in rec.sink.records if r["event"] == "hot_swap"]
+        # comparisons: their launches are not the main path's
+        ref2 = ServeSession(cfg, model_path=snap2, device=DEVICE)
+        refs = {1: bucket_refs(ref1, pool, ladder),
+                2: bucket_refs(ref2, pool, ladder)}
+        # the two snapshots must answer apart, or the attribution below
+        # tells nothing; the buckets whose bits agree (one group per
+        # distinct set of bits) say how far the bucket is pinned
+        distinct = not same_bits(refs[1][16], refs[2][16])
+        groups = []
+        for bk in ladder:
+            for grp in groups:
+                if same_bits(refs[1][grp[0]], refs[1][bk]):
+                    grp.append(bk)
+                    break
+            else:
+                groups.append([bk])
+        served = {"old": 0, "new": 0, "neither": 0, "late_old": 0}
+        by_bucket = {}
+        worst = 0.0
+        for r in drive["log"]:
+            if r["status"] != "ok":
+                continue
+            n, st = r["n"], r["start"]
+            got = np.asarray(r["result"]).reshape(n, -1)
+            cands = [(snap, bk) for snap in (1, 2) for bk in ladder
+                     if bk >= n]
+            hit = next(((snap, bk) for snap, bk in cands
+                        if same_bits(got, refs[snap][bk][st:st + n])), None)
+            if hit is None:
+                served["neither"] += 1
+                worst = max(worst, min(
+                    float(np.abs(got - refs[snap][bk][st:st + n]).max())
+                    for snap, bk in cands))
+                continue
+            served["old" if hit[0] == 1 else "new"] += 1
+            by_bucket[hit[1]] = by_bucket.get(hit[1], 0) + 1
+            if hit[0] == 1 and drive["t_swap"] is not None \
+                    and r["t_send"] >= drive["t_swap"]:
+                served["late_old"] += 1
+        # serve_device_mem_budget: a second model at the router, and an
+        # engine whose own model passes the budget
+        try:
+            fleet.router.register("second", ref2, 2, snap2)
+            router_budget = "registered"
+        except ResidencyBudgetError as e:
+            router_budget = "ResidencyBudgetError: %s" % e
+        try:
+            ServeSession(cfg + [("serve_device_mem_budget",
+                                 "%.6f" % (0.5 * resident / 1e6))],
+                         model_path=snap1, device=DEVICE).close()
+            engine_budget = "built"
+        except ResidencyBudgetError as e:
+            engine_budget = "ResidencyBudgetError: %s" % e
+        bc = BinaryClient("127.0.0.1", fleet.binary_port, timeout=300)
+        try:
+            st, after = bc.predict(pool[:3].reshape(3, -1), model="main")
+        finally:
+            bc.close()
+        # the binary protocols alone: no JSON body parse in the server
+        quiet = drive_fleet(fleet, rec.sink, workdir, "fleet_binary",
+                            pool_path, http=False, seconds=FLEET_BINARY_S)
+        still_serving = st == "ok" and same_bits(
+            np.asarray(after).reshape(3, -1), refs[2][4][:3])
+        models = fleet.router.ids()
+        summary = fleet.close()
+    finally:
+        fleet.close(drain=False)
+    for s in (ref1, ref2):
+        s.close()
+    kernels.restore_launch_counts(launches)
+    log = drive["log"]
+    mine = [r for r in log if r["tenant"] != "free"]
+    free = [r for r in log if r["tenant"] == "free"]
+    failed = [(r["proto"], r["status"], str(r["result"])[:200])
+              for r in mine if r["status"] != "ok"]
+    shed = [r for r in free if r["status"] == 429]
+    wall = drive["t_end"] - drive["t0"]
+    by_proto = proto_stats(mine, wall, ("http", "cxn1", "cxn2"))
+    quiet_failed = [r for r in quiet["log"] if r["status"] != "ok"]
+    binary_only = proto_stats(quiet["log"], quiet["t_end"] - quiet["t0"],
+                              ("cxn1", "cxn2"))
+    drive_batches = batch_stats(rec.sink.records, drive["t0"],
+                                drive["t_end"])
+    expected = {k: v * forwards for k, v in FLEET_LAUNCHES.items()}
+    schema_errors = validate_records(rec.sink.records, strict=False)
+    res = {
+        "phase": "fleet", "model": "Inception-BN.conf",
+        "config": "FleetServer (task = serve_fleet's core) over "
+                  "Inception-BN.conf's net, dtype = bfloat16, %s, buckets "
+                  "%s, serve_max_delay_ms = 2, serve_swap_poll_s = 0.2, "
+                  "serve_quota = %s, serve_device_mem_budget = 1.5x one "
+                  "model's resident bytes; %d seeded 224x224 images; the "
+                  "clients in a process of their own"
+                  % (", ".join("%s = %s" % kv for kv in KNOBS),
+                     ",".join(map(str, ladder)), FLEET_QUOTA, FLEET_POOL),
+        "boot_s": boot_s, "wall_s": wall,
+        "requests": len(mine), "failed": failed[:10],
+        "n_failed": len(failed), "client_errors": drive["errors"][:5],
+        "threads_alive": drive["alive"],
+        "by_protocol": by_proto, "binary_only": binary_only,
+        # the drive in three windows: before the commit, while the
+        # shadow session builds and warms (it shares the interpreter),
+        # and after the flip
+        "batches": {"drive": drive_batches,
+                    "before_commit": batch_stats(
+                        rec.sink.records, drive["t0"],
+                        drive["t_commit"] or drive["t_end"]),
+                    "shadow_build": batch_stats(
+                        rec.sink.records, drive["t_commit"] or drive["t0"],
+                        drive["t_swap"] or drive["t_end"]),
+                    "after_flip": batch_stats(
+                        rec.sink.records, drive["t_swap"] or drive["t_end"],
+                        drive["t_end"]),
+                    "binary_only": batch_stats(rec.sink.records,
+                                               quiet["t0"],
+                                               quiet["t_end"])},
+        "binary_only_failed": len(quiet_failed) + len(quiet["errors"]),
+        "hot_swaps": [{k: r[k] for k in ("old_counter", "new_counter",
+                                         "warmup_programs", "old_requests",
+                                         "wall_ms")} for r in swaps],
+        "commit_to_flip_s": (drive["t_swap"] - drive["t_commit"])
+        if drive["t_swap"] else None,
+        "snapshots_distinct": distinct, "served_by": served,
+        "bucket_bit_groups": groups,
+        "matched_at_bucket": {str(k): v for k, v in sorted(by_bucket.items())},
+        "worst_mismatch": worst,
+        "quota": {"free_requests": len(free), "over_quota_429": len(shed),
+                  "typed": all(r["result"].get("error") == "over_quota"
+                               and r["extra"] for r in shed),
+                  "free_other": [(r["status"], str(r["result"])[:120])
+                                 for r in free
+                                 if r["status"] not in ("ok", 429)][:5]},
+        "resident_bytes": resident, "budget_mb": budget_mb,
+        "router_budget": router_budget, "engine_budget": engine_budget,
+        "still_serving": still_serving, "models_after": models,
+        "forwards": forwards, "launches": launches,
+        "expected_per_forward": FLEET_LAUNCHES,
+        "summary_errors": summary["requests"]["error"]
+        + summary["requests"]["closed"],
+        "records": len(rec.sink.records),
+        "schema_errors": schema_errors[:5]}
+    top = ladder[-1]
+    res["top_bucket_batches"] = drive_batches.get("buckets", {}).get(
+        str(top), 0)
+    res["counted"] = launches == expected and forwards > 0
+    res["ok"] = bool(
+        res["counted"] and not failed and not drive["errors"]
+        and not drive["alive"] and len(swaps) == 1
+        and swaps[0]["new_counter"] == 2 and distinct
+        and served["neither"] == 0
+        and served["late_old"] == 0 and served["old"] > 0
+        and served["new"] > 0 and top == 128
+        and res["top_bucket_batches"] > 0 and shed and res["quota"]["typed"]
+        and not res["quota"]["free_other"]
+        and router_budget.startswith("ResidencyBudgetError")
+        and engine_budget.startswith("ResidencyBudgetError")
+        and still_serving and models == ["main"]
+        and res["summary_errors"] == 0 and not schema_errors
+        and all(p["requests"] > 0 for p in by_proto.values())
+        and not res["binary_only_failed"] and not quiet["alive"])
+    torch.cuda.empty_cache()
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("fleet phase failed")
+    return res
+
+
+CAPI_UPDATES = 3
+CAPI_ROWS = 4
+
+C_HOST = r"""
+#include "cxxnet_wrapper.h"
+#include <stdio.h>
+#include <stdlib.h>
+
+/* host <cfg file> <device> <model> <rows file: n x c x h x w f32> n c h w
+ *      <out file: the "top" node's rows, f32> */
+static char *slurp(const char *path, long *len) {
+  FILE *f = fopen(path, "rb");
+  if (!f) return NULL;
+  fseek(f, 0, SEEK_END);
+  *len = ftell(f);
+  fseek(f, 0, SEEK_SET);
+  char *buf = (char *)malloc(*len + 1);
+  if (fread(buf, 1, *len, f) != (size_t)*len) { fclose(f); return NULL; }
+  buf[*len] = 0;
+  fclose(f);
+  return buf;
+}
+
+int main(int argc, char **argv) {
+  if (argc != 10) return 64;
+  long n_cfg = 0, n_rows = 0;
+  char *cfg = slurp(argv[1], &n_cfg);
+  float *rows = (float *)slurp(argv[4], &n_rows);
+  if (!cfg || !rows) return 65;
+  cxn_uint n = (cxn_uint)atoi(argv[5]);
+  cxn_uint dshape[4] = {n, (cxn_uint)atoi(argv[6]), (cxn_uint)atoi(argv[7]),
+                        (cxn_uint)atoi(argv[8])};
+  void *net = CXNNetCreate(argv[2], cfg);
+  if (!net) { fprintf(stderr, "create: %s\n", CXNGetLastError()); return 1; }
+  CXNNetSetParam(net, "bn_pallas", "1");
+  CXNNetSetParam(net, "bn_fold_eval", "1");
+  CXNNetSetParam(net, "bn_fuse_relu", "1");
+  CXNNetSetParam(net, "conv_pallas_epilogue", "1");
+  CXNNetLoadModel(net, argv[3]);
+  cxn_uint osize = 0;
+  const cxn_real_t *pred = CXNNetPredictBatch(net, rows, dshape, &osize);
+  if (!pred || osize != n) {
+    fprintf(stderr, "predict: %s\n", CXNGetLastError());
+    return 2;
+  }
+  printf("C-ABI-OK preds=");
+  for (cxn_uint i = 0; i < osize; ++i) printf("%s%d", i ? "," : "", (int)pred[i]);
+  cxn_uint oshape[4] = {0, 0, 0, 0};
+  const cxn_real_t *top = CXNNetExtractBatch(net, rows, dshape, "top", oshape);
+  if (!top) {
+    fprintf(stderr, "extract: %s\n", CXNGetLastError());
+    return 3;
+  }
+  size_t count = (size_t)oshape[0] * oshape[1] * oshape[2] * oshape[3];
+  FILE *out = fopen(argv[9], "wb");
+  if (!out || fwrite(top, sizeof(cxn_real_t), count, out) != count) return 4;
+  fclose(out);
+  printf(" top=%u,%u,%u,%u\n", oshape[0], oshape[1], oshape[2], oshape[3]);
+  CXNNetFree(net);
+  return 0;
+}
+"""
+
+
+class CNet:
+    """One ``CXNNet*`` handle of the port's C ABI through ctypes."""
+
+    def __init__(self, lib, dev: str, text: str):
+        import ctypes
+        self.lib, self.ct = lib, ctypes
+        h = lib.CXNNetCreate(dev.encode(), text.encode())
+        if not h:
+            raise RuntimeError("CXNNetCreate: %s"
+                               % lib.CXNGetLastError().decode())
+        self.h = ctypes.c_void_p(h)
+
+    def _shape(self, dims):
+        a = (self.ct.c_uint * 4)()
+        for i, d in enumerate(dims):
+            a[i] = d
+        return a
+
+    def _ptr(self, a):
+        return a.ctypes.data_as(self.ct.POINTER(self.ct.c_float))
+
+    def _out(self, p, shape):
+        n = int(np.prod(shape))
+        return np.ctypeslib.as_array(p, (n,)).reshape(shape).copy()
+
+    def call(self, name, *args):
+        getattr(self.lib, name)(self.h, *args)
+
+    def update(self, x, y):
+        self.lib.CXNNetUpdateBatch(self.h, self._ptr(x), self._shape(x.shape),
+                                   self._ptr(y),
+                                   (self.ct.c_uint * 2)(*y.shape))
+
+    def predict(self, x):
+        n = self.ct.c_uint()
+        p = self.lib.CXNNetPredictBatch(self.h, self._ptr(x),
+                                        self._shape(x.shape),
+                                        self.ct.byref(n))
+        if not p:
+            raise RuntimeError(self.lib.CXNGetLastError().decode())
+        return self._out(p, (n.value,))
+
+    def extract(self, x, node: str):
+        shape = self._shape(())
+        p = self.lib.CXNNetExtractBatch(self.h, self._ptr(x),
+                                        self._shape(x.shape),
+                                        node.encode(), shape)
+        if not p:
+            raise RuntimeError(self.lib.CXNGetLastError().decode())
+        return self._out(p, tuple(shape))
+
+    def weight(self, layer: str, tag: str):
+        shape, nd = self._shape(()), self.ct.c_uint()
+        p = self.lib.CXNNetGetWeight(self.h, layer.encode(), tag.encode(),
+                                     shape, self.ct.byref(nd))
+        return None if not p else self._out(p, tuple(shape[:nd.value]))
+
+    def set_weight(self, w, layer: str, tag: str):
+        w = np.ascontiguousarray(w, np.float32)
+        self.lib.CXNNetSetWeight(self.h, self._ptr(w), w.size,
+                                 layer.encode(), tag.encode())
+
+
+def load_capi():
+    """Build (g++, at first use) and bind the port's C ABI library."""
+    import ctypes
+    from cxxnet_tpu_torch import capi
+    t0 = time.perf_counter()
+    path = capi.build_library()
+    build_s = time.perf_counter() - t0
+    lib = ctypes.CDLL(path)
+    fp = ctypes.POINTER(ctypes.c_float)
+    lib.CXNNetCreate.restype = ctypes.c_void_p
+    lib.CXNNetCreate.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    for f in ("CXNNetPredictBatch", "CXNNetExtractBatch", "CXNNetGetWeight"):
+        getattr(lib, f).restype = fp
+    lib.CXNGetLastError.restype = ctypes.c_char_p
+    for f in (lib.CXNNetFree, lib.CXNNetInitModel):
+        f.argtypes = [ctypes.c_void_p]
+    return lib, path, build_s
+
+
+def phase_capi(workdir: str):
+    """The port's C ABI (``cxxnet_tpu_torch/capi``), built here with
+    ``g++`` and loaded with ctypes, with ``device = "gpu"`` over
+    Inception-BN.conf's net text (``bn_pallas`` and the eval fold through
+    ``CXNNetSetParam``) from the wrapper phase's snapshot: ``CAPI_UPDATES``
+    ``CXNNetUpdateBatch`` calls on seeded NCHW batches of 128 (each 69 +
+    69 bf16 bn_apply and 1 bias_grad_bf16 launches), ``CXNNetPredictBatch``
+    and ``CXNNetExtractBatch`` of ``CAPI_ROWS`` rows (69 bf16
+    conv_epilogue launches a forward), all the bits of
+    ``cxxnet_tpu_torch.wrapper.Net(dev="gpu")`` fed the same calls (cuDNN
+    deterministic, both); a ``CXNNetGetWeight`` / ``CXNNetSetWeight``
+    round trip; save / load the same bits; and a compiled standalone C
+    program (the library owns its interpreter) that creates a net on
+    ``"gpu"`` from the fleet phase's calibrated snapshot, predicts and
+    writes the ``"top"`` node's rows: ``Net.predict`` / ``Net.extract``
+    of the same rows, bit for bit, and the rows distinct."""
+    import torch
+    from cxxnet_tpu_torch import capi
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.wrapper import Net
+    snap = os.path.join(workdir, "wrapper.model.npz")
+    calib = os.path.join(workdir, "fleet_models", "0001.model.npz")
+    for path, phase in ((snap, "wrapper"), (calib, "fleet")):
+        if not os.path.exists(path):
+            raise RuntimeError("capi: the %s phase's snapshot is missing"
+                               % phase)
+    lib, so_path, build_s = load_capi()
+    text = wrapper_cfg_text(workdir)
+    dev = "gpu" if DEVICE == "cuda" else DEVICE
+    rng = np.random.RandomState(SEED + 15)
+    batches = []
+    for _ in range(CAPI_UPDATES):
+        x = images(rng, TRAIN_BATCH)
+        if x.shape[1] != CKPT_CROP:
+            x = np.ascontiguousarray(x[:, :CKPT_CROP, :CKPT_CROP])
+        batches.append((np.ascontiguousarray(x.transpose(0, 3, 1, 2)),
+                        rng.randint(0, NCLASS, (TRAIN_BATCH, 1))
+                        .astype(np.float32)))
+    rows = np.ascontiguousarray(batches[0][0][:CAPI_ROWS])
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # the main path, its launch counts from 0
+        kernels.reset_launch_counts()
+        t_all = time.perf_counter()
+        net = CNet(lib, dev, text)
+        for k, v in WRAP_KNOBS:
+            lib.CXNNetSetParam(net.h, k.encode(), v.encode())
+        lib.CXNNetLoadModel(net.h, snap.encode())
+        updates = []
+        for i, (x, y) in enumerate(batches):
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            lib.CXNNetStartRound(net.h, i)
+            net.update(x, y)
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            updates.append({"ms": (time.perf_counter() - t0) * 1e3,
+                            "launches": {k: after[k] - before[k]
+                                         for k in after}})
+        before = kernels.launch_counts()
+        pred = net.predict(rows)
+        mid = kernels.launch_counts()
+        top = net.extract(rows, "top")
+        flat = net.extract(rows, "flat")
+        launches = kernels.launch_counts()
+        wall_s = time.perf_counter() - t_all
+        last_error = lib.CXNGetLastError().decode()
+        # the same calls through the Python API (not the main path)
+        py = Net(dev=dev, cfg=text)
+        for k, v in WRAP_KNOBS:
+            py.set_param(k, v)
+        py.load_model(snap)
+        for i, (x, y) in enumerate(batches):
+            py.start_round(i)
+            py.update(x, y[:, 0])
+        py_pred = py.predict(rows)
+        py_top = py.extract(rows, "top")
+        py_flat = py.extract(rows, "flat")
+        weights = [(lk, tag) for lk, tags in py._trainer.params.items()
+                   for tag in tags if tag in ("wmat", "bias")]
+        same_weights = all(same_bits(net.weight(lk, tag),
+                                     py.get_weight(lk, tag))
+                           for lk, tag in weights)
+        # GetWeight / SetWeight round trip (flat in, reference layout out)
+        w = net.weight("fc1", "wmat")
+        net.set_weight(w.ravel() * 0.5, "fc1", "wmat")
+        halved = net.weight("fc1", "wmat")
+        net.set_weight(w, "fc1", "wmat")
+        round_trip = bool(w is not None and same_bits(halved, w * 0.5)
+                          and same_bits(net.weight("fc1", "wmat"), w))
+        # save / load the same bits
+        saved = os.path.join(workdir, "capi.model.npz")
+        lib.CXNNetSaveModel(net.h, saved.encode())
+        net2 = CNet(lib, dev, text)
+        for k, v in WRAP_KNOBS:
+            lib.CXNNetSetParam(net2.h, k.encode(), v.encode())
+        lib.CXNNetLoadModel(net2.h, saved.encode())
+        save_load = all(same_bits(net.weight(lk, tag),
+                                  net2.weight(lk, tag))
+                        for lk, tag in weights) \
+            and same_bits(net2.predict(rows), pred)
+        lib.CXNNetFree(net.h)
+        lib.CXNNetFree(net2.h)
+        del py
+    finally:
+        torch.backends.cudnn.deterministic = det
+    # the standalone C program: the library owns the interpreter; its
+    # process runs cuDNN at the defaults, as this one does from here. It
+    # predicts from the fleet phase's calibrated snapshot, whose softmax
+    # rows are not saturated, and writes the "top" node's bits
+    host_src = os.path.join(workdir, "capi_host.c")
+    with open(host_src, "w") as f:
+        f.write(C_HOST)
+    exe = os.path.join(workdir, "capi_host")
+    cc = subprocess.run(["gcc", host_src, "-I", capi.CAPI_DIR,
+                         "-L", capi.BUILD_DIR,
+                         "-Wl,-rpath," + capi.BUILD_DIR,
+                         "-lcxxnet_wrapper", "-o", exe],
+                        capture_output=True, text=True)
+    host = {"compile_rc": cc.returncode, "compile_log": cc.stderr[-800:],
+            "model": os.path.relpath(calib, workdir)}
+    if cc.returncode == 0:
+        cfg_file = os.path.join(workdir, "capi_net.conf")
+        with open(cfg_file, "w") as f:
+            f.write(text)
+        rows_file = os.path.join(workdir, "capi_rows.f32")
+        rows.astype("<f4").tofile(rows_file)
+        top_file = os.path.join(workdir, "capi_top.f32")
+        t0 = time.perf_counter()
+        run = subprocess.run([exe, cfg_file, dev, calib, rows_file]
+                             + [str(d) for d in rows.shape] + [top_file],
+                             capture_output=True, text=True, timeout=600)
+        host.update(rc=run.returncode, s=time.perf_counter() - t0,
+                    stdout=run.stdout[-400:], stderr=run.stderr[-800:])
+        m = re.search(r"C-ABI-OK preds=([\d,]+) top=([\d,]+)", run.stdout)
+        host["preds"] = [int(v) for v in m.group(1).split(",")] \
+            if m else None
+        c_top = None
+        if m and os.path.exists(top_file):
+            shape = tuple(int(v) for v in m.group(2).split(","))
+            c_top = np.fromfile(top_file, "<f4").reshape(shape)
+        loaded = Net(dev=dev, cfg=text)
+        for k, v in WRAP_KNOBS:
+            loaded.set_param(k, v)
+        loaded.load_model(calib)
+        host["python_preds"] = [int(v) for v in loaded.predict(rows)]
+        ref_top = loaded.extract(rows, "top")
+        del loaded
+        host["top_same_bits"] = c_top is not None and same_bits(c_top,
+                                                                ref_top)
+        # rows that differ from one another: a net that answers every
+        # row alike would not pass
+        host["top_rows_distinct"] = None if c_top is None else len(
+            {c_top[i].tobytes() for i in range(len(c_top))})
+        host["top_row_max"] = None if c_top is None else \
+            c_top.reshape(len(c_top), -1).max(axis=1).tolist()
+    kernels.restore_launch_counts(launches)
+    res = {
+        "phase": "capi", "model": "Inception-BN.conf",
+        "config": "the port's C ABI (%s, built by g++ in %.2f s) with "
+                  "device %r over Inception-BN.conf's netconfig and "
+                  "globals (batch %d, 3x%dx%d, %d classes, dtype = "
+                  "bfloat16), %s through CXNNetSetParam, from the wrapper "
+                  "phase's snapshot; seeded NCHW float32 inputs; cuDNN "
+                  "deterministic but in the C program and its "
+                  "comparison" % (os.path.relpath(so_path), build_s, dev,
+                                     TRAIN_BATCH, CKPT_CROP, CKPT_CROP,
+                                     NCLASS, ", ".join("%s = %s" % kv
+                                                       for kv in WRAP_KNOBS)),
+        "build_s": build_s, "wall_s": wall_s,
+        "update_ms": [u["ms"] for u in updates],
+        "update_launches": [u["launches"] for u in updates],
+        "expected_per_update": CLI_TRAIN_LAUNCHES,
+        "predict_launches": {k: mid[k] - before[k] for k in mid},
+        "expected_per_forward": CLI_PRED_LAUNCHES,
+        "launches": launches, "last_error": last_error,
+        "predict": pred.tolist(),
+        "predict_same_bits_as_net": same_bits(pred, py_pred),
+        "extract_same_bits_as_net": bool(same_bits(top, py_top)
+                                         and same_bits(flat, py_flat)),
+        "weights_compared": len(weights),
+        "weights_same_bits_as_net": bool(same_weights and weights),
+        "weight_round_trip": round_trip,
+        "save_load_same_bits": bool(save_load),
+        "standalone": host}
+    res["counted"] = bool(
+        all(u["launches"] == CLI_TRAIN_LAUNCHES for u in updates)
+        and res["predict_launches"] == CLI_PRED_LAUNCHES)
+    res["ok"] = bool(
+        res["counted"] and not last_error
+        and res["predict_same_bits_as_net"]
+        and res["extract_same_bits_as_net"]
+        and res["weights_same_bits_as_net"] and round_trip and save_load
+        and host.get("rc") == 0 and host.get("preds") is not None
+        and host["preds"] == host.get("python_preds")
+        and host.get("top_same_bits")
+        and host.get("top_rows_distinct") == CAPI_ROWS)
+    torch.cuda.empty_cache()
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("capi phase failed")
+    return res
+
+
 def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
     """The ``kernels`` record: every ported kernel (and bf16
     instantiation) with its launches on its path's run, its error
@@ -5707,6 +6692,10 @@ def main() -> int:
         ckres = phase_checkpoint(workdir)
         phase = "wrapper"
         wres = phase_wrapper(workdir)
+        phase = "fleet"
+        fres = phase_fleet(workdir)
+        phase = "capi"
+        cres = phase_capi(workdir)
     except Exception as e:
         import traceback
         traceback.print_exc()
@@ -5729,6 +6718,11 @@ def main() -> int:
         # the wrapper phase's main path: its updates, evaluate, predict
         # and extract, from 0
         row["wrapper_launches"] = wres["launches"][row["name"]]
+        # the fleet phase's main path (boot, traffic, the hot-swap's
+        # shadow build) and the C ABI's updates, predict and extract,
+        # each from 0
+        row["fleet_launches"] = fres["launches"][row["name"]]
+        row["capi_launches"] = cres["launches"][row["name"]]
         if row["name"] == BIAS_BF16["name"]:
             ab = kres["bias_grad_bf16_alexnet"]
             row["alexnet"] = {

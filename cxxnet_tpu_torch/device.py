@@ -12,6 +12,13 @@ from typing import Optional, Union
 import torch
 
 
+def named_device(name: str) -> str:
+    """A ``dev`` value of the config or the Python API as a device type:
+    ``cpu`` (or ``cpu:<n>``) runs on the CPU, every other name (``gpu``,
+    ``tpu``, ``cuda``, ``gpu:<n>``) on the GPU."""
+    return "cpu" if name.split(":")[0] == "cpu" else "cuda"
+
+
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """``None`` means ``cuda``. A CUDA request without a usable GPU

@@ -3,8 +3,11 @@
 
 A config file plus ``key=value`` CLI overrides drives the tasks
 ``train`` / ``finetune`` / ``pred`` / ``pred_raw`` / ``extract``
-(``extract_feature``) / ``get_weight`` / ``serve`` / ``quantize``, and
-``test_io = 1`` runs the data pipeline without the net. The printed
+(``extract_feature``) / ``get_weight`` / ``serve`` / ``serve_fleet`` /
+``quantize``, and ``test_io = 1`` runs the data pipeline without the
+net. ``serve_fleet`` serves HTTP/JSON and the CXN1/CXN2 binary
+protocols (``serve/frontend.py``) for ``serve_fleet_duration_s``
+seconds, or until SIGTERM or SIGINT when it is 0, then drains. The printed
 lines keep the reference's format (``[r]\\ttrain-error:...``, the
 ``round %8d:[%8d]`` progress line, ``updating end, ...``).
 
@@ -53,9 +56,9 @@ the CPU.
 
 What this port does not have yet raises
 :class:`~cxxnet_tpu_torch.utils.config.NotPortedError` naming its
-``ROADMAP.md`` item: the tasks ``export``, ``build_index``,
-``serve_fleet``, ``fleet``, ``fleet_balancer`` and ``continual``; the
-keys ``test_on_server = 1`` and every ``dist_*`` key.
+``ROADMAP.md`` item: the tasks ``export``, ``build_index``, ``fleet``,
+``fleet_balancer`` and ``continual``; the keys ``test_on_server = 1``
+and every ``dist_*`` key.
 
 Usage: python -m cxxnet_tpu_torch.main config.conf [key=value ...]
 """
@@ -72,7 +75,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .device import resolve_device
+from .device import named_device, resolve_device
 from .io import create_iterator
 from .io.data import DataBatch, batch_mask
 from .io.iter_batch import enable_chain_wait_stats, pipeline_snapshot
@@ -117,7 +120,6 @@ _PRED_NEUTRAL = (
 NOT_PORTED_TASKS: Dict[str, str] = {
     "export": Roadmap.BUNDLES,
     "build_index": Roadmap.RETRIEVAL,
-    "serve_fleet": Roadmap.FLEET,
     "fleet": Roadmap.FLEET,
     "fleet_balancer": Roadmap.FLEET,
     "continual": Roadmap.FLEET,
@@ -261,7 +263,7 @@ class LearnTask:
     def _torch_device(self) -> str:
         """``dev = cpu`` runs on the CPU; unset or any accelerator name
         on the GPU."""
-        return "cpu" if self.device.split(":")[0] == "cpu" else "cuda"
+        return named_device(self.device)
 
     # -- model files -----------------------------------------------------
 
@@ -336,6 +338,11 @@ class LearnTask:
         # hoisted above the try so the finally can always iterate it
         all_iters: List[object] = []
         try:
+            if self.task == "serve_fleet":
+                # network traffic, not an iterator: no data block is
+                # built (a deployment config's train blocks may point
+                # at paths the serving host does not mount)
+                return self._task_serve_fleet(cfg, dev)
             # model_in via filename convention infers the start counter
             # (finetune starts a fresh numbering)
             if self.model_in and self.task == "train":
@@ -693,6 +700,51 @@ class LearnTask:
         if mon.enabled:
             mon.emit("task_end", task="serve", requests=agg["ok"],
                      rows=summary["rows"])
+        return 0
+
+    def _task_serve_fleet(self, cfg, dev) -> int:
+        """Fleet serving: N routed engines with per-tenant quotas and
+        checkpoint-driven hot-swap behind the HTTP/JSON and binary
+        listeners, for ``serve_fleet_duration_s`` seconds (0: until
+        SIGTERM or SIGINT, the deployment mode), then a drain of every
+        engine."""
+        from .serve import FleetServer
+        mon = self._mon
+        if mon.enabled:
+            mon.emit("run_start",
+                     **run_metadata("serve_fleet", self._cfg_stream, dev))
+        fleet = FleetServer(cfg, monitor=mon, device=dev)
+        handlers = []
+        try:
+            fleet.start()
+            mon.line("serve_fleet: listening http=%s binary=%s, "
+                     "models: %s"
+                     % (fleet.http_port, fleet.binary_port,
+                        ", ".join("%s@%04d" % (d["model"], d["counter"])
+                                  for d in fleet.describe())))
+            handlers = self._install_preempt_handlers()
+            dur = fleet.fleet_cfg.duration_s
+            deadline = time.monotonic() + dur if dur > 0 else None
+            while self._preempt_signum is None:
+                if deadline is not None \
+                        and time.monotonic() >= deadline:
+                    break
+                time.sleep(0.05)
+            summary = fleet.close()
+        finally:
+            # a failure between start and close still stops the
+            # listener and watcher threads and the engines (close is
+            # idempotent: a no-op after the drain above)
+            fleet.close(drain=False)
+            self._restore_handlers(handlers)
+        c = summary["requests"]
+        mon.line("serve_fleet: %d requests (%d ok / %d over_quota / "
+                 "%d busy / %d timeout / %d error), %d hot-swaps"
+                 % (c["requests"], c["ok"], c["over_quota"], c["busy"],
+                    c["timeout"], c["error"], summary["swaps"]))
+        if mon.enabled:
+            mon.emit("task_end", task="serve_fleet",
+                     requests=c["requests"], swaps=summary["swaps"])
         return 0
 
     def _task_quantize(self, cfg, itr, dev) -> int:

@@ -49,11 +49,13 @@ import re
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Any, Dict, Iterable, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
+from ..artifact.registry import ResidencyBudgetError
 from ..device import resolve_device
 from ..graph import NetGraph
 from ..io.data import DataBatch, batch_mask
@@ -73,6 +75,30 @@ from .quantize import (QUANT_PREFIX, attach, normalize_serve_dtype,
 
 _RE_METRIC = re.compile(r"^metric(?:\[([^\]]*)\])?$")
 _RAW_DTYPES = (torch.uint8, torch.bfloat16)
+
+
+def _storage_bytes(trees: Sequence[Tree], seen: set) -> int:
+    """Bytes of the storages under ``trees`` not yet in ``seen`` (which
+    gains them): a storage two leaves share counts once."""
+    tot = 0
+    for tr in trees:
+        for sub in tr.values():
+            for v in sub.values():
+                st = v.untyped_storage()
+                key = (st.device, st.data_ptr())
+                if key not in seen:
+                    seen.add(key)
+                    tot += st.nbytes()
+    return tot
+
+
+class _FreezePlan(NamedTuple):
+    """What the serve-weight freeze makes of one conv or fullc layer."""
+    fold: bool            # a conv of its own: the BN fold's entries
+    quant: bool           # affine-quantized: "_wq" and "_r_dequant"
+    bf16: bool            # the frozen weight is cast to bfloat16
+    key: Optional[str]    # the tree entry of the weight it makes, or None
+    itemsize: int         # that weight's bytes per element (0: none)
 
 
 class FinetuneShapeError(ValueError):
@@ -141,6 +167,9 @@ class NetTrainer:
         self.quant_meta: Dict[str, Any] = {}   # __meta__["quantized"]
         self.quant_report: Dict[str, Any] = {"active": False}
         self.serve_weight_residency = 1
+        # device bytes one model's serve weights may hold (in MB, as the
+        # reference reads it; 0 = unlimited)
+        self.serve_device_mem_budget = 0.0
         self.silent = 0
         # precompile(): the input dtype of its zero batch (uint8 for
         # raw-pixel pipelines)
@@ -154,6 +183,9 @@ class NetTrainer:
         self.grad_acc: Optional[Dict[Tuple[str, str], torch.Tensor]] = None
         self._last_loss: Optional[torch.Tensor] = None
         self._serve_tree: Optional[Tree] = None
+        # (id of the tree, its accounting) of the last freeze: an id, so
+        # a stale tree is not kept alive on the device by its record
+        self._residency: Optional[Tuple[int, Dict[str, Any]]] = None
         self._initialized = False
         # progress counters (the CLI's round lines and
         # counters_snapshot): update calls (an update_many window counts
@@ -231,9 +263,8 @@ class NetTrainer:
                 self.serve_dtype = normalize_serve_dtype(val)
             if name == "serve_weight_residency":
                 self.serve_weight_residency = int(val)
-            if name == "serve_device_mem_budget" and float(val):
-                raise NotPortedError("serve_device_mem_budget",
-                                     Roadmap.QUANTIZED)
+            if name == "serve_device_mem_budget":
+                self.serve_device_mem_budget = float(val)
             if name == "silent":
                 self.silent = int(val)
             if name == "precompile_dtype":
@@ -381,114 +412,151 @@ class NetTrainer:
         contraction reads, per fullc its int8 or bf16 weight (see the
         module docstring). None when ``serve_weight_residency = 0``: the
         forward then folds, quantizes and converts per call, as the
-        reference's legacy path does."""
+        reference's legacy path does.
+
+        Under ``serve_device_mem_budget`` (MB) a model whose masters
+        plus the tree's new tensors would pass the budget is rejected
+        with :class:`ResidencyBudgetError` before a tensor of the tree
+        is made, and a tree whose counted bytes pass it is dropped
+        before it is installed (the reference's two checks)."""
         self._check_ready()
         if not self.serve_weight_residency:
             return None
         if self._serve_tree is not None:
             return self._serve_tree
-        net, g = self.net, self.graph
-        shared_primaries = set(info.primary_layer_index
-                               for info in g.layers
-                               if info.type == "share")
+        plans = list(self._freeze_plans())
+        budget = int(self.serve_device_mem_budget * 1e6)
+        if budget:
+            master = _storage_bytes((self.params, self.net_state), set())
+            # per-channel vectors are noise beside the weights and are
+            # left out, as the reference leaves them out
+            extra = sum(plan.itemsize
+                        * int(self.params[lkey]["wmat"].numel())
+                        for lkey, _, _, plan in plans)
+            if master + extra > budget:
+                raise ResidencyBudgetError(
+                    "model needs ~%d resident bytes (masters %d + serve "
+                    "tree extra %d) but serve_device_mem_budget allows %d"
+                    % (master + extra, master, extra, budget))
+        net = self.net
         tree = {lk: dict(sub) for lk, sub in self.params.items()}
         t0 = time.perf_counter()
         with torch.no_grad():
-            for li, info in enumerate(g.layers):
-                if info.type not in ("conv", "fullc"):
-                    continue
-                lkey = g.layer_key(li)
+            for lkey, li, layer, plan in plans:
                 p, t = self.params[lkey], tree[lkey]
-                layer = net.layer_objs[li]
-                if getattr(layer, "_in_layout", None) is not None \
-                        or getattr(layer, "_out_pad", 0):
-                    # channel_pad layers keep the per-call path (a
-                    # training knob; serving graphs run unpadded)
-                    continue
-                q = layer._quant
-                quant = q is not None and q.is_affine
-                bf16 = layer.param.compute_dtype == "bfloat16" or (
-                    q is not None and q.dtype == "bfloat16")
-                w = p["wmat"]
-                if li in shared_primaries:
-                    # every share site runs this layer's object: its
-                    # fold and quantization stay per call (the
-                    # reference's resident plan skips it); the conv
-                    # weight's layout (and bf16 cast) is frozen
-                    if info.type == "conv" and not quant:
-                        w = hwio_to_oihw(w)
-                        t["_oihw"] = w.to(torch.bfloat16) if bf16 else w
-                    continue
-                if info.type == "fullc":
-                    if quant:
-                        t["_wq"] = q.weight_operand(w)
-                        t["_r_dequant"] = q.dequant_vec()
-                    elif bf16:
-                        t["wmat"] = w.to(torch.bfloat16)
-                    continue
-                bias = p["bias"] if layer.param.no_bias == 0 else None
-                shift, relu = bias, False
-                if net.bn_fold_eval and li in net.fold_pairs:
-                    fe = net.fold_entries(self.params, self.net_state, li)
-                    scale, shift = fe["_fold_scale"], fe["_fold_shift"]
-                    if bias is not None:
-                        shift = shift + bias * scale
-                    relu = "_fold_relu" in fe
-                    if layer.param.conv_pallas_epilogue and not quant:
-                        # the fold applies to the conv output
-                        t["_ep_scale"] = scale.contiguous()
-                        t["_ep_shift"] = shift.contiguous()
-                        if relu:
-                            t["_ep_relu"] = fe["_fold_relu"]
-                    else:
-                        # the fold multiplies the weight (before it is
-                        # quantized); the shift goes after the conv
-                        w = w * scale
-                        t["_r_shift_relu" if relu else "_r_shift"] = shift
-                if quant:
-                    dq = q.dequant_vec()
+                q, w = layer._quant, p["wmat"]
+                if plan.fold:
+                    bias = p["bias"] if layer.param.no_bias == 0 else None
+                    shift, relu = bias, False
+                    if net.bn_fold_eval and li in net.fold_pairs:
+                        fe = net.fold_entries(self.params, self.net_state,
+                                              li)
+                        scale, shift = fe["_fold_scale"], fe["_fold_shift"]
+                        if bias is not None:
+                            shift = shift + bias * scale
+                        relu = "_fold_relu" in fe
+                        if layer.param.conv_pallas_epilogue \
+                                and not plan.quant:
+                            # the fold applies to the conv output
+                            t["_ep_scale"] = scale.contiguous()
+                            t["_ep_shift"] = shift.contiguous()
+                            if relu:
+                                t["_ep_relu"] = fe["_fold_relu"]
+                        else:
+                            # the fold multiplies the weight (before it
+                            # is quantized); the shift goes after the
+                            # conv
+                            w = w * scale
+                            t["_r_shift_relu" if relu else "_r_shift"] = \
+                                shift
+                if plan.key == "_wq":
                     t["_wq"] = q.weight_operand(w)
-                    t["_r_dequant"] = dq
-                    if "_r_shift" not in t and "_r_shift_relu" not in t:
+                    t["_r_dequant"] = q.dequant_vec()
+                    if plan.fold and "_r_shift" not in t \
+                            and "_r_shift_relu" not in t:
                         t["_r_shift"] = shift if shift is not None \
-                            else torch.zeros_like(dq)
-                else:
-                    w = hwio_to_oihw(w)
-                    t["_oihw"] = w.to(torch.bfloat16) if bf16 else w
+                            else torch.zeros_like(t["_r_dequant"])
+                elif plan.key is not None:
+                    if plan.key == "_oihw":
+                        w = hwio_to_oihw(w)
+                    t[plan.key] = w.to(torch.bfloat16) if plan.bf16 else w
+        rec = self._residency_record(tree, time.perf_counter() - t0)
+        if budget and rec["bytes"] > budget:
+            raise ResidencyBudgetError(
+                "model weight tree needs %d resident bytes but "
+                "serve_device_mem_budget allows %d"
+                % (rec["bytes"], budget))
         self._serve_tree = tree
+        self._residency = (id(tree), rec)
         if self._mon_on():
-            self._emit_residency(tree, time.perf_counter() - t0)
+            self._mon.emit("weight_residency", **rec)
         return tree
 
-    def _emit_residency(self, tree: Tree, wall: float) -> None:
-        """The ``weight_residency`` record of a freeze: the tree's bytes,
+    @property
+    def residency(self) -> Optional[Dict[str, Any]]:
+        """The live frozen tree's accounting (the ``weight_residency``
+        record's fields; ``bytes`` is what the model holds on its
+        device), or None before a freeze and after the weights moved."""
+        if self._residency is None or self._serve_tree is None \
+                or self._residency[0] != id(self._serve_tree):
+            return None
+        return self._residency[1]
+
+    def _freeze_plans(self):
+        """(layer key, index, layer object, :class:`_FreezePlan`) of each
+        conv and fullc layer the freeze transforms, in graph order: the
+        freeze builds its tree from these and its budget check counts
+        them, so the estimate is the tree that is built. channel_pad
+        layers keep the per-call path (a training knob; serving graphs
+        run unpadded) and have none."""
+        g = self.graph
+        shared = set(info.primary_layer_index for info in g.layers
+                     if info.type == "share")
+        for li, info in enumerate(g.layers):
+            if info.type not in ("conv", "fullc"):
+                continue
+            layer = self.net.layer_objs[li]
+            if getattr(layer, "_in_layout", None) is not None \
+                    or getattr(layer, "_out_pad", 0):
+                continue
+            q = layer._quant
+            quant = q is not None and q.is_affine
+            bf16 = layer.param.compute_dtype == "bfloat16" or (
+                q is not None and q.dtype == "bfloat16")
+            conv = info.type == "conv"
+            if li in shared:
+                # every share site runs this layer's object: its fold and
+                # quantization stay per call (the reference's resident
+                # plan skips it); only a conv weight's layout (and bf16
+                # cast) is frozen
+                key = "_oihw" if conv and not quant else None
+            elif quant:
+                key = "_wq"
+            else:
+                key = "_oihw" if conv else ("wmat" if bf16 else None)
+            itemsize = 0 if key is None else (
+                (1 if q.native else 4) if key == "_wq" else 2 if bf16 else 4)
+            yield g.layer_key(li), li, layer, _FreezePlan(
+                conv and li not in shared, quant, bf16, key, itemsize)
+
+    def _residency_record(self, tree: Tree, wall: float) -> Dict[str, Any]:
+        """The ``weight_residency`` fields of a freeze: the tree's bytes,
         the masters' (params and net state) and their union, each
         storage counted once (a leaf the freeze left as it was aliases
         its master); ``layers`` counts the conv and fullc layers whose
         eval weights the freeze transformed (fold, quantization, bf16
         cast or the OIHW layout)."""
-        def nbytes(trees, seen):
-            tot = 0
-            for tr in trees:
-                for sub in tr.values():
-                    for v in sub.values():
-                        st = v.untyped_storage()
-                        key = (st.device, st.data_ptr())
-                        if key not in seen:
-                            seen.add(key)
-                            tot += st.nbytes()
-            return tot
         seen: set = set()
-        master = nbytes((self.params, self.net_state), seen)
-        total = master + nbytes((tree,), seen)
+        master = _storage_bytes((self.params, self.net_state), seen)
+        total = master + _storage_bytes((tree,), seen)
         layers = sum(
             1 for lk, sub in tree.items()
             if any(sub[t] is not self.params[lk].get(t) for t in sub))
-        self._mon.emit(
-            "weight_residency", bytes=total,
-            tree_bytes=nbytes((tree,), set()), master_bytes=master,
-            quantize_ms=wall * 1e3, layers=layers,
-            dtype=self.serve_dtype, active=bool(layers))
+        return {"bytes": total,
+                "tree_bytes": _storage_bytes((tree,), set()),
+                "master_bytes": master, "quantize_ms": wall * 1e3,
+                "layers": layers, "dtype": self.serve_dtype,
+                "active": bool(layers)}
 
     def _pred_operands(self) -> Tree:
         tree = self.freeze_serve_weights()

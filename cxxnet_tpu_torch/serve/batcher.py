@@ -372,6 +372,35 @@ class DynamicBatcher:
             pad_fraction=(bucket - rows) / float(bucket),
             queue_ms=(t_form - oldest) * 1e3, device_ms=device_ms)
 
+    # -- load introspection (the fleet's /healthz signals) ---------------
+
+    def queue_rows(self) -> int:
+        """Rows waiting in the coalescing queue now."""
+        with self._lock:
+            return self._pending_rows
+
+    def latency_percentile(self, q: float) -> float:
+        """Request-latency percentile (ms) over the batcher's lifetime
+        histogram: the ``p99_ms`` health signal."""
+        with self._stats:
+            return self._lat.percentile(q)
+
+    def fill_stats(self) -> Dict[str, Any]:
+        """Cumulative micro-batch economics: batches, rows, bucket rows,
+        pad rows and the fill and pad ratios derived from them."""
+        with self._stats:
+            c = dict(self.counters)
+        return {
+            "batches": c["batches"],
+            "batch_rows": c["batch_rows"],
+            "bucket_rows": c["bucket_rows"],
+            "pad_rows": c["pad_rows"],
+            "fill_rate": c["batch_rows"]
+            / float(max(1, c["batches"] * self.max_batch)),
+            "pad_fraction": c["pad_rows"]
+            / float(max(1, c["bucket_rows"])),
+        }
+
     # -- shutdown --------------------------------------------------------
 
     def close(self, drain: bool = True,

@@ -19,6 +19,11 @@ value`` grammar as the reference:
   convolutions and activations) or ``int8`` (a snapshot with
   calibration tables; int8 products into int32, dequantized in the
   conv_epilogue kernel)
+- ``serve_device_mem_budget`` — MB of device memory the model's
+  masters and frozen serve weights may hold (0 = unlimited): the
+  warmup's freeze rejects a larger model with
+  :class:`~cxxnet_tpu_torch.artifact.registry.ResidencyBudgetError`
+  before the tree is made, and the session is not built
 - ``serve_clients`` / ``serve_requests`` / ``serve_request_rows`` —
   the CLI soak drive (``task = serve``): N closed-loop clients each
   issuing M requests of K rows
@@ -102,6 +107,11 @@ class ServeSession:
                                   max_batch=c.max_batch, node=c.node,
                                   device=device, monitor=monitor)
         self.engine = engine
+        # retrieval is not ported: no session holds an embedding index,
+        # and the fleet answers search requests as the reference does
+        # for an index-less model
+        self.retrieval = None
+        self.index_bytes = 0
         self.batcher = DynamicBatcher(
             engine.stage, engine.dispatch,
             max_batch=engine.max_batch, max_delay_ms=c.max_delay_ms,
@@ -122,11 +132,13 @@ class ServeSession:
 
     def _engine_summary(self) -> Dict[str, int]:
         snap = self.engine.counters_snapshot()
+        res = self.engine.trainer.residency
         return {"compile_events": snap["compile_events"],
                 "aot_hits": snap["aot_hits"],
                 "d2h_bytes": snap["d2h_bytes"],
                 "staging_reuse": snap["staging_reuse"],
-                "staging_alloc": snap["staging_alloc"]}
+                "staging_alloc": snap["staging_alloc"],
+                "resident_bytes": res["bytes"] if res else 0}
 
     def submit(self, rows: np.ndarray,
                timeout_ms: Optional[float] = None):

@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .device import resolve_device
+from .device import named_device, resolve_device
 from .io import create_iterator
 from .io.data import DataBatch
 from .monitor import Monitor, create_monitor, run_metadata
@@ -129,8 +129,7 @@ class Net:
     globals) on the device ``dev`` names (see the module docstring)."""
 
     def __init__(self, dev: str = "tpu", cfg: str = ""):
-        self.device = resolve_device(
-            "cpu" if dev.split(":")[0] == "cpu" else "cuda")
+        self.device = resolve_device(named_device(dev))
         self._cfg = parse_config(cfg) if cfg else []
         if self._cfg:
             self._validate_netconfig(self._cfg)

@@ -314,6 +314,49 @@ def test_unported_raises_naming_its_item(tmp_path, monkeypatch, what,
     assert e.value.roadmap_item == item
 
 
+# tasks that raised NotPortedError before they were ported: each now runs
+# through both CLIs
+PORTED_TASKS = ["task=serve_fleet"]
+
+
+@pytest.mark.parametrize("what", PORTED_TASKS)
+def test_ported_tasks_run(tmp_path, monkeypatch, what):
+    """``task = serve_fleet`` (the reference's
+    ``test_main_task_serve_fleet_runs_and_drains``): both CLIs boot the
+    newest snapshot of ``model_dir``, listen, print the same lines and
+    drain after ``serve_fleet_duration_s``; both streams pass both
+    packages' ``validate_records``."""
+    from cxxnet_tpu.monitor.schema import validate_records as ref_validate
+    from cxxnet_tpu_torch.monitor.schema import read_jsonl, validate_records
+    rng = np.random.RandomState(1)
+    _csv(str(tmp_path / "train.csv"), 40, rng)
+    _csv(str(tmp_path / "test.csv"), 20, rng)
+    with open(str(tmp_path / "c.conf"), "w") as f:
+        f.write(CSV_CONF)
+    monkeypatch.chdir(tmp_path)
+    rc, _ = run_cli(LearnTask, ["c.conf", "dev=cpu", "model_dir=m"])
+    assert rc == 0 and os.path.exists("m/0001.model.npz")
+    outs = {}
+    for name, cls in (("ref", RefTask), ("port", LearnTask)):
+        rc, out = run_cli(cls, [
+            "c.conf", "dev=cpu", "model_dir=m", what,
+            "serve_http_port=0", "serve_binary_port=-1",
+            "serve_swap_poll_s=0", "serve_fleet_duration_s=0.3",
+            "monitor=jsonl", "monitor_path=%s.jsonl" % name])
+        assert rc == 0, out
+        recs = read_jsonl("%s.jsonl" % name)
+        assert validate_records(recs, strict=False) == []
+        assert ref_validate(recs, strict=False) == []
+        events = [r["event"] for r in recs]
+        assert events[0] == "run_start" and "task_end" in events
+        outs[name] = re.sub(r"http=\d+", "http=N", out)
+    assert outs["port"] == outs["ref"]
+    assert "serve_fleet: listening http=N binary=-1, models: " \
+        "default@0001" in outs["port"]
+    assert "serve_fleet: 0 requests (0 ok / 0 over_quota / 0 busy / " \
+        "0 timeout / 0 error), 0 hot-swaps" in outs["port"]
+
+
 # the telemetry keys that raised NotPortedError before they were ported:
 # each now runs, and its record stream passes both packages' schema
 MONITOR_KEYS = ["monitor=stdout", "monitor=jsonl", "monitor_trace_dir=trace"]

@@ -245,18 +245,55 @@ def test_port_model_builders_match_jax():
 @pytest.mark.parametrize("extra,item", [
     ([("serve_dtype", "fp8")], "quantized"),
     ([("serve_dtype", "float8_e4m3")], "quantized"),
-    ([("serve_device_mem_budget", "512")], "quantized"),
     ([("remat", "full")], "rematerialization"),
     ([("shard_optimizer", "1")], "multi-GPU"),
     ([("update_on_server", "1")], "multi-GPU"),
     ([("remat", "conv")], "rematerialization"),
     ([("grad_sync", "overlap")], "multi-GPU"),
-], ids=["fp8", "fp8_alias", "serve_device_mem_budget", "remat_full",
-        "shard_optimizer", "update_on_server", "remat", "grad_sync"])
+], ids=["fp8", "fp8_alias", "remat_full", "shard_optimizer",
+        "update_on_server", "remat", "grad_sync"])
 def test_unported_keys_raise(ref, extra, item):
     with pytest.raises(NotPortedError, match=item):
         t = NetTrainer(_cfg(extra), device="cpu")
         t.load_model(ref["path"])
+
+
+@pytest.mark.parametrize("key", ["serve_device_mem_budget"])
+def test_serve_keys_hold_the_budget(ref, key):
+    """``serve_device_mem_budget`` (MB), once refused: under a budget
+    above the model's resident bytes the port serves the reference's
+    rows and its freeze counts bytes within the budget; under one below
+    them both packages reject the freeze with ResidencyBudgetError
+    before the serve tree is made, and nothing is left frozen."""
+    from cxxnet_tpu.artifact.registry import \
+        ResidencyBudgetError as RefBudgetError
+    from cxxnet_tpu_torch.artifact import ResidencyBudgetError
+    probe = NetTrainer(_cfg(), device="cpu")
+    probe.load_model(ref["path"])
+    probe.freeze_serve_weights()
+    need = probe.residency["bytes"]
+    assert need > probe.residency["master_bytes"] > 0
+    roomy = _cfg([(key, "%.6f" % (1.5 * need / 1e6))])
+    sess = ServeSession(roomy + [("serve_buckets", "8")],
+                        model_path=ref["path"], device="cpu")
+    try:
+        np.testing.assert_allclose(sess.predict(ref["x"]), ref["probs"],
+                                   rtol=RTOL, atol=ATOL)
+        assert sess.engine.trainer.residency["bytes"] == need
+    finally:
+        sess.close()
+    tight = _cfg([(key, "%.6f" % (0.5 * need / 1e6))])
+    t = NetTrainer(tight, device="cpu")
+    t.load_model(ref["path"])
+    with pytest.raises(ResidencyBudgetError, match="model needs ~"):
+        t.freeze_serve_weights()
+    assert t.residency is None and t._serve_tree is None
+    with pytest.raises(ResidencyBudgetError):
+        ServeSession(tight, model_path=ref["path"], device="cpu")
+    jt = JaxTrainer(tight)
+    jt.load_model(ref["path"])
+    with pytest.raises(RefBudgetError, match="model needs ~"):
+        jt.freeze_serve_weights()
 
 
 @pytest.mark.parametrize("extra", [
