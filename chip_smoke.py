@@ -336,16 +336,56 @@ the script exits non-zero without a result line):
              its interpreter predicting and extracting the softmax on
              ``"gpu"`` from the fleet phase's calibrated snapshot: the
              bits of ``Net(dev="gpu")`` on that snapshot.
+15. bundle — sealed bundles of the fleet phase's net (bf16, the eval
+             fold, the conf's ladder) from its calibrated snapshot:
+             ``task = export`` through the CLI (8 warmed buckets, 69 bf16
+             conv_epilogue each); the bundle verifies, its programs are
+             the kernel libraries whose counters one served forward
+             moves (``conv_epilogue``), and a member byte, the marker,
+             a manifest byte and a missing marker get the reference's
+             verdicts; ``task = pred`` / ``pred_raw`` / ``serve`` from the
+             bundle: ``artifact_load`` every program a hit on a matching
+             fingerprint, 69 bf16 conv_epilogue a forward, the raw rows
+             (``output_format = bin``) the bits of ``pred_raw`` from the
+             inner snapshot, a soak with no failed request; a cold start
+             in a fresh process on a copy of the tree without
+             ``_build/``, from the bundle (no nvcc) and from the snapshot
+             (nvcc builds conv_epilogue), seconds from the spawn to the
+             first reply printed with the nvcc seconds saved; and a
+             watched model_dir (``0001.model.npz``) under binary clients
+             of a process of their own while the CLI, each export a
+             process of its own, commits ``0001.model.bundle`` and then
+             a perturbed ``0002.model.bundle``: two flips (snapshot ->
+             bundle at the same counter, bundle -> bundle), no failed
+             request, every reply the bits of a session on the snapshot
+             that served it, 69 bf16 conv_epilogue a forward, the
+             commit-to-flip times printed.
+16. continual — ``task = continual`` through the CLI with binary
+             clients on its fleet from its boot to its last generation:
+             example/MNIST/MNIST_CONTINUAL.conf as shipped on the
+             tracked digits (``CONT_MNIST_OVERRIDES``: every generation
+             deployed or gate-skipped, its metric printed, no failed
+             request); Inception-BN.conf on the cli phase's archives
+             with the eval fold (``CONT_INCEPTION_OVERRIDES``): exactly
+             69 + 69 bf16 bn_apply and 1 bias_grad_bf16 an update and 69
+             bf16 conv_epilogue a forward (gate evals, export warmups,
+             the fleet's warmups and traffic) and no other launch;
+             generation 2's export reloads the engine in place and runs
+             no nvcc; its flip fails no request; the update time and
+             each generation's time printed.
 
-Then a ``kernels`` line (every ported kernel with its launches, error
-and times; ``cli_launches``, ``alexnet_launches``,
-``checkpoint_launches``, ``wrapper_launches``, ``fleet_launches`` and
-``capi_launches``: its count over the cli phase's runs, the alexnet
-phase's training run, the checkpoint phase's runs (the preempted
-subprocess included) and the wrapper, fleet and capi phases' main
-paths; the bias_grad_bf16 row also with AlexNet's per-update sums), the
-``nvidia-smi`` line, and the last line
-``{"ok": true, "device": {...}}``.
+Then a ``phase_seconds`` line, a ``kernels`` line (every ported kernel
+with its launches, error and times; ``cli_launches``,
+``alexnet_launches``, ``checkpoint_launches``, ``wrapper_launches``,
+``fleet_launches``, ``capi_launches``, ``bundle_launches`` and
+``continual_launches``: its count over the cli phase's runs, the
+alexnet phase's training run, the checkpoint phase's runs (the
+preempted subprocess included), the wrapper, fleet and capi phases'
+main paths, the bundle phase's runs (both cold-start processes
+included; the hot-swap exports run in processes of their own and are
+not counted) and the continual phase's two loops; the bias_grad_bf16
+row also with AlexNet's per-update sums), the ``nvidia-smi`` line, and
+the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -5532,7 +5572,9 @@ def _commit_and_flip(ok_count, errors, swap):
 
 
 def fleet_traffic(ports, pool, swap=None, http: bool = True,
-                  seconds: float = 0.0):
+                  seconds: float = 0.0, until: str = "",
+                  model: str = "main", started: str = "",
+                  max_rows: int = 16, v2_depth: int = FLEET_V2_DEPTH):
     """Concurrent clients of the fleet at ``ports`` (HTTP, binary): 2
     HTTP (1-2 rows) and the over-quota tenant's HTTP client unless
     ``http`` is False, 2 CXN1 (1-16 rows) and 2 CXN2 (1-16 rows,
@@ -5540,8 +5582,13 @@ def fleet_traffic(ports, pool, swap=None, http: bool = True,
     its committed name and the flip file): after ``FLEET_PRE`` ok
     requests the snapshot commits into the watched directory, and the
     drive stops ``FLEET_POST`` ok requests after the flip; without, it
-    runs ``seconds``. Returns every request's record and the times of the
-    commit and the flip. Runs in :func:`fleet_clients`' process."""
+    runs ``seconds``, or until the file ``until`` exists when one is
+    named. ``model`` is the routed model the binary clients ask for; the
+    file ``started``, when named, is written at the first ok reply; the
+    binary requests carry 1 to ``max_rows`` rows, CXN2 ``v2_depth`` in
+    flight.
+    Returns every request's record and the times of the commit and the
+    flip. Runs in :func:`fleet_clients`' process."""
     import socket
     import threading
     from cxxnet_tpu_torch.serve.frontend import (BinaryClient,
@@ -5569,6 +5616,9 @@ def fleet_traffic(ports, pool, swap=None, http: bool = True,
                         "t_send": t_send,
                         "ms": (time.time() - t_send) * 1e3,
                         "extra": extra})
+            if started and status == "ok" and not os.path.exists(started):
+                with open(started, "w") as f:
+                    f.write(repr(t_send))
 
     def guarded(fn):
         def run(*a):
@@ -5596,10 +5646,10 @@ def fleet_traffic(ports, pool, swap=None, http: bool = True,
         bc = BinaryClient("127.0.0.1", binary_port, timeout=300)
         try:
             while not stop.is_set():
-                n = int(rng.randint(1, 17))
+                n = int(rng.randint(1, max_rows + 1))
                 s = int(rng.randint(0, len(pool) - n + 1))
                 t = time.time()
-                st, res = bc.predict(flat[s:s + n], model="main",
+                st, res = bc.predict(flat[s:s + n], model=model,
                                      tenant="team-%d" % ci)
                 note("cxn1", "team-%d" % ci, s, n, st, res, t)
         finally:
@@ -5615,14 +5665,14 @@ def fleet_traffic(ports, pool, swap=None, http: bool = True,
         try:
             while not stop.is_set():
                 sent = {}
-                for _ in range(FLEET_V2_DEPTH):
-                    n = int(rng.randint(1, 17))
+                for _ in range(v2_depth):
+                    n = int(rng.randint(1, max_rows + 1))
                     s = int(rng.randint(0, len(pool) - n + 1))
                     sent[corr] = (s, n, time.time())
-                    sock.sendall(pack_request_v2(corr, "main", "",
+                    sock.sendall(pack_request_v2(corr, model, "",
                                                  flat[s:s + n]))
                     corr += 1
-                for _ in range(FLEET_V2_DEPTH):
+                for _ in range(v2_depth):
                     c, st, res = read_reply_tagged(rfile)
                     s, n, t = sent.pop(c)
                     note("cxn2", "", s, n, st, res, t)
@@ -5657,7 +5707,10 @@ def fleet_traffic(ports, pool, swap=None, http: bool = True,
     t_commit = t_swap = None
     try:
         if swap is None:
-            time.sleep(seconds)
+            deadline = time.monotonic() + seconds
+            while time.monotonic() < deadline \
+                    and not (until and os.path.exists(until)):
+                time.sleep(0.02)
         else:
             t_commit, t_swap = _commit_and_flip(ok_count, errors, swap)
     finally:
@@ -5673,16 +5726,34 @@ def fleet_traffic(ports, pool, swap=None, http: bool = True,
 def fleet_clients(argv) -> int:
     """The fleet phase's clients in a process of their own, so that
     nothing of theirs takes the server's interpreter lock: reads the
-    spec ``argv[0]`` (ports, the pool's ``.npy``, ``swap``, ``http``,
-    ``seconds``, ``out``), runs :func:`fleet_traffic` and writes its
-    log to ``<out>.json`` and the ok replies' rows, in log order, to
+    spec ``argv[0]`` (ports, or a ``port_file`` to wait for; the pool's
+    ``.npy``, ``swap``, ``http``, ``seconds``, ``until``, ``model``,
+    ``out``), runs :func:`fleet_traffic` and writes its log to
+    ``<out>.json`` and the ok replies' rows, in log order, to
     ``<out>.npy``."""
     with open(argv[0]) as f:
         spec = json.load(f)
+    if spec.get("port_file"):
+        # a server that boots later (the continual loop's fleet starts
+        # after its first generation)
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        while not os.path.exists(spec["port_file"]):
+            if time.monotonic() > deadline:
+                raise RuntimeError("no port file %s" % spec["port_file"])
+            time.sleep(0.05)
+        with open(spec["port_file"]) as f:
+            ports = json.load(f)
+        spec.update(http_port=ports["http_port"],
+                    binary_port=ports["binary_port"])
     pool = np.load(spec["pool"])
     drive = fleet_traffic((spec["http_port"], spec["binary_port"]), pool,
                           swap=spec["swap"], http=spec["http"],
-                          seconds=spec["seconds"])
+                          seconds=spec["seconds"],
+                          until=spec.get("until", ""),
+                          model=spec.get("model", "main"),
+                          started=spec.get("started", ""),
+                          max_rows=spec.get("max_rows", 16),
+                          v2_depth=spec.get("v2_depth", FLEET_V2_DEPTH))
     rows = []
     for r in drive["log"]:
         if r["status"] == "ok":
@@ -5698,17 +5769,12 @@ def fleet_clients(argv) -> int:
     return 0
 
 
-def drive_fleet(fleet, sink, workdir: str, tag: str, pool_path: str,
-                swap=None, http: bool = True, seconds: float = 0.0):
-    """Run :func:`fleet_clients` in a subprocess against the fleet's
-    ports and return its drive, every ok record's ``result`` its rows.
-    With ``swap``, this process writes the ``hot_swap`` record's time to
-    ``swap["flip"]`` when the record comes."""
+def start_clients(workdir: str, tag: str, spec):
+    """Start :func:`fleet_clients` in a subprocess with ``spec`` (its
+    ``out`` set from ``tag``); :func:`finish_clients` collects it."""
     here = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(workdir, tag)
-    spec = {"http_port": fleet.http_port, "binary_port": fleet.binary_port,
-            "pool": pool_path, "swap": swap, "http": http,
-            "seconds": seconds, "out": out}
+    spec = dict(spec, out=out)
     with open(out + ".spec.json", "w") as f:
         json.dump(spec, f)
     env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
@@ -5716,30 +5782,32 @@ def drive_fleet(fleet, sink, workdir: str, tag: str, pool_path: str,
     cmd = [sys.executable, "-c", "import sys, chip_smoke; "
            "sys.exit(chip_smoke.fleet_clients(sys.argv[1:]))",
            out + ".spec.json"]
-    errp = out + ".stderr.txt"
-    with open(errp, "w") as err:
-        p = subprocess.Popen(cmd, cwd=workdir, env=env, stdout=err,
-                             stderr=err)
-        try:
-            deadline = time.monotonic() + FLEET_TIMEOUT_S
-            while p.poll() is None and time.monotonic() < deadline:
-                if swap is not None and not os.path.exists(swap["flip"]):
-                    swaps = [r for r in sink.records
-                             if r["event"] == "hot_swap"]
-                    if swaps:
-                        with open(swap["flip"] + ".tmp", "w") as f:
-                            f.write(repr(swaps[0]["t"]))
-                        os.replace(swap["flip"] + ".tmp", swap["flip"])
-                time.sleep(0.02)
-            rc = p.poll()
-        finally:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    err = open(out + ".stderr.txt", "w")
+    p = subprocess.Popen(cmd, cwd=workdir, env=env, stdout=err, stderr=err)
+    return {"p": p, "out": out, "err": err, "tag": tag}
+
+
+def finish_clients(cl, poll=None):
+    """Wait for the clients' process (``poll()`` runs every 20 ms
+    meanwhile), kill it past ``FLEET_TIMEOUT_S``, and return its drive,
+    every ok record's ``result`` its rows."""
+    p, out = cl["p"], cl["out"]
+    try:
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        while p.poll() is None and time.monotonic() < deadline:
+            if poll is not None:
+                poll()
+            time.sleep(0.02)
+        rc = p.poll()
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        cl["err"].close()
     if rc != 0:
-        with open(errp) as f:
+        with open(out + ".stderr.txt") as f:
             raise RuntimeError("fleet clients (%s) exited with %s: %s"
-                               % (tag, rc, f.read()[-2000:]))
+                               % (cl["tag"], rc, f.read()[-2000:]))
     with open(out + ".json") as f:
         drive = json.load(f)
     rows = np.load(out + ".npy")
@@ -5749,6 +5817,29 @@ def drive_fleet(fleet, sink, workdir: str, tag: str, pool_path: str,
             r["result"] = rows[at:at + r["n"]]
             at += r["n"]
     return drive
+
+
+def drive_fleet(fleet, sink, workdir: str, tag: str, pool_path: str,
+                swap=None, http: bool = True, seconds: float = 0.0,
+                until: str = ""):
+    """Run :func:`fleet_clients` in a subprocess against the fleet's
+    ports and return its drive, every ok record's ``result`` its rows.
+    With ``swap``, this process writes the ``hot_swap`` record's time to
+    ``swap["flip"]`` when the record comes."""
+    cl = start_clients(workdir, tag, {
+        "http_port": fleet.http_port, "binary_port": fleet.binary_port,
+        "pool": pool_path, "swap": swap, "http": http,
+        "seconds": seconds, "until": until})
+
+    def note_flip():
+        if swap is not None and not os.path.exists(swap["flip"]):
+            swaps = [r for r in sink.records if r["event"] == "hot_swap"]
+            if swaps:
+                with open(swap["flip"] + ".tmp", "w") as f:
+                    f.write(repr(swaps[0]["t"]))
+                os.replace(swap["flip"] + ".tmp", swap["flip"])
+
+    return finish_clients(cl, note_flip)
 
 
 def bucket_refs(sess, pool, ladder):
@@ -6412,6 +6503,761 @@ def phase_capi(workdir: str):
     return res
 
 
+# ------------------------------------------------------------ phase 15
+
+# the kernel libraries one served forward of Inception-BN.conf's net (the
+# eval fold, conv_pallas_epilogue) loads: what an export seals
+BUNDLE_PROGRAMS = ["conv_epilogue"]
+# a tampered copy's verdict, as the reference's ckpt_verify tests read
+# them (tests/test_artifact.py): what is tampered -> a piece of the error
+BUNDLE_TAMPER = {"member_byte": "fails its sha256",
+                 "marker": "not a JSON object",
+                 "manifest_byte": "file_sha256",
+                 "uncommitted": "uncommitted"}
+COLD_TAG = "cold_child "
+
+
+def library_of(counter: str) -> str:
+    """The ``csrc/`` library whose launch a counter counts."""
+    if counter.startswith("conv_epilogue_bwd"):
+        return "bn_apply"             # cxn_conv_epilogue_bwd
+    for lib in ("conv_epilogue", "bn_apply", "matmul", "relu_max_pool",
+                "pool_concat", "bias_grad_bf16"):
+        if counter.startswith(lib):
+            return lib
+    raise KeyError(counter)
+
+
+def write_conf(path: str, pairs) -> str:
+    """Config pairs as a config file the CLI reads back in order."""
+    with open(path, "w") as f:
+        for k, v in pairs:
+            f.write('%s = "%s"\n' % (k, v) if any(c.isspace() for c in v)
+                    else "%s = %s\n" % (k, v))
+    return path
+
+
+def run_cli_proc(argv, cwd: str, tag: str):
+    """``python -m cxxnet_tpu_torch.main argv`` in a process of its own:
+    (rc, stdout lines, seconds)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH", "")) if p))
+    t0 = time.perf_counter()
+    with open(os.path.join(cwd, tag + ".stderr.txt"), "w") as err:
+        p = subprocess.run([sys.executable, "-m", "cxxnet_tpu_torch.main"]
+                           + list(argv) + cli_dev_args(), cwd=cwd, env=env,
+                           stdout=subprocess.PIPE, stderr=err, text=True,
+                           timeout=600)
+    return p.returncode, p.stdout.splitlines(), time.perf_counter() - t0
+
+
+def tamper_verdicts(bundle: str, workdir: str):
+    """A copy of ``bundle`` per ``BUNDLE_TAMPER`` case, tampered, and
+    the port's ``verify_bundle`` report of each."""
+    from cxxnet_tpu_torch.artifact import bundle as pb
+    out = {}
+    for case, want in BUNDLE_TAMPER.items():
+        b = os.path.join(workdir, "tamper_%s.model.bundle" % case)
+        shutil.copytree(bundle, b)
+        ok = os.path.join(b, pb.MANIFEST_NAME + pb.OK_SUFFIX)
+        if case in ("member_byte", "manifest_byte"):
+            name = pb.MANIFEST_NAME if case == "manifest_byte" \
+                else "prog-0000.pkl" if os.path.exists(os.path.join(
+                    b, "prog-0000.pkl")) else pb.SNAPSHOT_MEMBER
+            path = os.path.join(b, name)
+            data = bytearray(open(path, "rb").read())
+            data[len(data) // 2] ^= 0x01        # same size, one bit
+            with open(path, "wb") as f:
+                f.write(bytes(data))
+        elif case == "marker":
+            with open(ok, "w") as f:
+                f.write("[]")
+        else:
+            os.remove(ok)
+        rep = pb.verify_bundle(b)
+        out[case] = {"ok": rep["ok"], "error": rep["error"][-160:],
+                     "as_reference": (not rep["ok"]) and want in rep["error"]}
+        shutil.rmtree(b)
+    return out
+
+
+def cold_child(argv) -> int:
+    """A serve boot in a fresh process from a copy of the tree without
+    ``_build/``: ``argv`` is the parent's clock at the spawn and a spec
+    (config pairs, the model, the pool, the output). Writes the seconds
+    from the spawn to the first reply, the nvcc builds, the
+    ``artifact_load`` record, one reply's launches and row."""
+    t_spawn = float(argv[0])
+    with open(argv[1]) as f:
+        spec = json.load(f)
+    import torch
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.serve import ServeSession
+    t_import = time.time()
+    rec = recorder()
+    pool = np.load(spec["pool"])
+    sess = ServeSession([tuple(p) for p in spec["cfg"]],
+                        model_path=spec["model"], monitor=rec,
+                        device=spec["device"])
+    try:
+        t_boot = time.time()
+        kernels.reset_launch_counts()
+        row = np.asarray(sess.predict(pool[:1]))
+        if spec["device"] == "cuda":
+            torch.cuda.synchronize()
+        t_first = time.time()
+        launches = kernels.launch_counts()
+    finally:
+        sess.close()
+    np.save(spec["out"] + ".npy", row)
+    art = [r for r in rec.sink.records if r["event"] == "artifact_load"]
+    with open(spec["out"], "w") as f:
+        json.dump({"import_s": t_import - t_spawn,
+                   "boot_s": t_boot - t_spawn,
+                   "first_reply_s": t_first - t_spawn,
+                   "nvcc_runs": kernels.nvcc_runs,
+                   "nvcc_s": sum(float(v["seconds"])
+                                 for v in kernels.build_info.values()),
+                   "builds": {k: {"seconds": v["seconds"],
+                                  "log": str(v["log"])[:24]}
+                              for k, v in kernels.build_info.items()},
+                   "artifact_load": art[0] if art else None,
+                   "launches": launches}, f)
+    return 0
+
+
+def cold_start(workdir: str, cfg, model: str, pool_path: str, tag: str):
+    """:func:`cold_child` from a fresh copy of ``cxxnet_tpu_torch/``
+    (no ``_build/``) and this script."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    tree = os.path.join(workdir, tag)
+    shutil.copytree(os.path.join(here, "cxxnet_tpu_torch"),
+                    os.path.join(tree, "cxxnet_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(os.path.abspath(__file__), tree)
+    out = os.path.join(workdir, tag + ".json")
+    spec = os.path.join(workdir, tag + ".spec.json")
+    with open(spec, "w") as f:
+        json.dump({"cfg": [list(p) for p in cfg], "model": model,
+                   "pool": pool_path, "out": out, "device": DEVICE}, f)
+    env = dict(os.environ, PYTHONPATH=tree)
+    t_spawn = time.time()
+    with open(os.path.join(workdir, tag + ".stderr.txt"), "w") as err:
+        p = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+             "chip_smoke.cold_child(sys.argv[1:]))", repr(t_spawn), spec],
+            cwd=tree, env=env, stdout=err, stderr=err, timeout=600)
+    if p.returncode != 0:
+        with open(os.path.join(workdir, tag + ".stderr.txt")) as f:
+            raise RuntimeError("cold start %s exited with %s: %s"
+                               % (tag, p.returncode, f.read()[-2000:]))
+    with open(out) as f:
+        res = json.load(f)
+    res["row"] = np.load(out + ".npy")
+    build = os.path.join(tree, "cxxnet_tpu_torch", "_build")
+    res["built_here"] = sorted(os.listdir(build)) \
+        if os.path.isdir(build) else []
+    shutil.rmtree(tree)
+    return res
+
+
+@contextlib.contextmanager
+def count_forwards():
+    """Count every ``NetTrainer.pred`` call, from any thread, while the
+    block runs: the served forwards (warmups included) of the trainers
+    it builds."""
+    import threading
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    orig = NetTrainer.pred
+    box, lock = {"n": 0}, threading.Lock()
+
+    def pred(self, *a, **k):
+        with lock:
+            box["n"] += 1
+        return orig(self, *a, **k)
+
+    NetTrainer.pred = pred
+    try:
+        yield box
+    finally:
+        NetTrainer.pred = orig
+
+
+def hot_swap_drive(fcfg, rec, d: str, conf: str, hdir: str, staged: str,
+                   pool_path: str):
+    """A ``FleetServer`` over the watched ``hdir`` (``0001.model.npz``)
+    under binary clients of their own process; meanwhile a thread runs
+    two exports through the CLI, each a process of its own: the served
+    snapshot into ``0001.model.bundle``, then ``staged`` into
+    ``0002.model.bundle``, each waiting for its flip (its commit is the
+    marker's mtime, its flip the ``hot_swap`` record's time)."""
+    import threading
+    import torch
+    from cxxnet_tpu_torch.artifact import bundle as pb
+    from cxxnet_tpu_torch.serve import FleetServer
+    until = os.path.join(d, "hot_swap.done")
+    steps = []
+
+    def exports():
+        try:
+            for i, (model, out) in enumerate((
+                    (os.path.join(hdir, "0001.model.npz"),
+                     os.path.join(hdir, "0001.model.bundle")),
+                    (staged, os.path.join(hdir, "0002.model.bundle")))):
+                time.sleep(2.0)
+                rc, _, secs = run_cli_proc(
+                    [conf, "task=export", "model_in=" + model,
+                     "export_out=" + out], d, "hot_export%d" % i)
+                step = {"rc": rc, "export_s": secs}
+                ok = os.path.join(out, pb.MANIFEST_NAME + pb.OK_SUFFIX)
+                steps.append(step)
+                if rc != 0 or not os.path.exists(ok):
+                    break
+                step["t_commit"] = os.stat(ok).st_mtime
+                deadline = time.monotonic() + 300
+                while time.monotonic() < deadline:
+                    sw = [r for r in rec.sink.records
+                          if r["event"] == "hot_swap"]
+                    if len(sw) > i:
+                        step["t_flip"] = sw[i]["t"]
+                        break
+                    time.sleep(0.02)
+                if "t_flip" not in step:
+                    break
+            time.sleep(2.0)
+        finally:
+            with open(until, "w") as f:
+                f.write("done")
+
+    fleet = FleetServer(fcfg, monitor=rec, device=DEVICE)
+    try:
+        fleet.start()
+        ladder = tuple(fleet.router.resolve("main").session.engine.buckets)
+        th = threading.Thread(target=exports)
+        cl = start_clients(d, "hot_swap_drive", {
+            "http_port": fleet.http_port, "binary_port": fleet.binary_port,
+            "pool": pool_path, "swap": None, "http": False,
+            "seconds": FLEET_TIMEOUT_S - 60, "until": until})
+        th.start()
+        drive = finish_clients(cl)
+        th.join(timeout=600)
+        torch.cuda.synchronize()
+        entry = fleet.router.resolve("main")
+        summary = fleet.close()
+    finally:
+        fleet.close(drain=False)
+    return {"drive": drive, "steps": steps, "ladder": ladder,
+            "swaps": [r for r in rec.sink.records
+                      if r["event"] == "hot_swap"],
+            "final": (entry.counter, entry.path),
+            "summary_errors": summary["requests"]["error"]
+            + summary["requests"]["closed"]}
+
+
+def phase_bundle(workdir: str):
+    """Sealed bundles of Inception-BN.conf's net as the fleet phase
+    serves it (bf16, the eval fold, the conf's ladder up to 128 rows),
+    from the fleet phase's calibrated snapshot: ``task = export`` through
+    the CLI (the bundle verifies, its programs are the libraries one
+    served forward loads, tampered copies get the reference's verdicts);
+    ``task = pred`` / ``pred_raw`` / ``serve`` from the bundle (69 bf16
+    conv_epilogue a forward, ``artifact_load`` every program a hit, the
+    same bits as from the inner snapshot); a cold start from the bundle
+    and from the snapshot, each in a fresh process on a copy of the tree
+    without ``_build/`` (the bundle's runs no nvcc); and a watched
+    model_dir under binary traffic flipping snapshot -> bundle (the same
+    counter) -> a perturbed next bundle, each exported by the CLI in a
+    process of its own, with no failed request and every reply the bits
+    of a session on the model that served it."""
+    import torch
+    from cxxnet_tpu_torch.artifact import bundle as pb
+    from cxxnet_tpu_torch.artifact.registry import parse_key
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.monitor.schema import read_jsonl, validate_records
+    from cxxnet_tpu_torch.serve import ServeSession
+    src = os.path.join(workdir, "fleet_models", "0001.model.npz")
+    pool_path = os.path.join(workdir, "fleet_pool.npy")
+    if not (os.path.exists(src) and os.path.exists(pool_path)):
+        raise RuntimeError("bundle: the fleet phase's snapshot is missing")
+    pool = np.load(pool_path)
+    d = os.path.join(workdir, "bundle")
+    mdir = os.path.join(d, "models")
+    os.makedirs(mdir)
+    snap = os.path.join(mdir, "0001.model.npz")
+    shutil.copy(src, snap)
+    cfg = fleet_cfg(workdir)
+    conf = write_conf(os.path.join(d, "serve.conf"), cfg)
+    launches = dict(NO_LAUNCHES)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # 1. export through the CLI (in process: its launches count)
+    exp_stream = os.path.join(d, "export.jsonl")
+    er = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tap_trainer(er):
+        rc, lines = run_cli([conf, "task=export", "model_in=" + snap,
+                             "monitor=jsonl", "monitor_path=" + exp_stream])
+    export_s = time.perf_counter() - t0
+    add(kernels.launch_counts())
+    bundle = os.path.join(mdir, "0001.model.bundle")
+    rep = pb.verify_bundle(bundle)
+    man = pb.bundle_manifest(bundle) if rep["ok"] else {"programs": []}
+    sealed = sorted(parse_key(p["key"])[1] for p in man["programs"])
+    erecs = read_jsonl(exp_stream) if os.path.exists(exp_stream) else []
+    exp_rec = [r for r in erecs if r["event"] == "export"]
+    # one served forward from the snapshot: the libraries it loads
+    ref1 = ServeSession(cfg, model_path=snap, device=DEVICE)
+    kernels.reset_launch_counts()
+    ref1.predict(pool[:4])
+    torch.cuda.synchronize()
+    moved = sorted({library_of(k) for k, v in kernels.launch_counts().items()
+                    if v})
+    export = {
+        "rc": rc, "s": export_s, "line": next(
+            (ln for ln in lines if ln.startswith("export:")), ""),
+        "verify": {k: rep[k] for k in ("ok", "error", "members",
+                                       "programs", "committed")},
+        "programs": sealed, "moved_in_one_forward": moved,
+        "bytes": exp_rec[0]["bytes"] if exp_rec else None,
+        "members": [(m["name"], m["bytes"]) for m in man.get("members", [])],
+        "fingerprint": man.get("fingerprint"),
+        "warmup_forwards": len(er["forwards"]),
+        "warmup_counted": bool(er["forwards"] and all(
+            f == BF16_LAUNCHES for f in er["forwards"])),
+        "tamper": tamper_verdicts(bundle, d),
+        "schema_errors": validate_records(erecs, strict=False)[:5]}
+    export["ok"] = bool(
+        rc == 0 and rep["ok"] and sealed == moved == BUNDLE_PROGRAMS
+        and export["warmup_counted"] and exp_rec
+        and all(t["as_reference"] for t in export["tamper"].values())
+        and not export["schema_errors"])
+    # 2. pred / pred_raw / serve from the bundle, pred_raw from the
+    # snapshot (raw float32 rows: output_format = bin)
+    train_rec = os.path.join(workdir, "train.rec")
+    val_rec = os.path.join(workdir, "val.rec")
+    iconf = shipped_conf(workdir, "Inception-BN.conf", train_rec, val_rec)
+    knobs = ["%s=%s" % kv for kv in KNOBS]
+    block = ["iter=imgrec", "path_imgrec=" + val_rec,
+             "input_shape=3,%d,%d" % (CKPT_CROP, CKPT_CROP),
+             "mean_value=123,117,104", "iter=end"]
+    runs = {}
+    for name, model, extra in (
+            ("pred", bundle, []),
+            ("pred_raw", bundle, ["output_format=bin"]),
+            ("pred_raw_snapshot", snap, ["output_format=bin"]),
+            ("serve", bundle, CLI_SOAK + ["serve_buckets=" + BUCKETS])):
+        rec = {}
+        task = name.split("_snapshot")[0]
+        stream = os.path.join(d, name + ".jsonl")
+        outp = os.path.join(d, name + ".out")
+        kernels.reset_launch_counts()
+        with tap_trainer(rec):
+            rc, lines = run_cli([iconf, "task=" + task, "model_in=" + model]
+                                + knobs + extra
+                                + ["monitor=jsonl", "monitor_path=" + stream,
+                                   "pred=" + outp] + block)
+        counts = kernels.launch_counts()
+        if model == bundle:
+            add(counts)
+        recs = read_jsonl(stream) if os.path.exists(stream) else []
+        art = [r for r in recs if r["event"] == "artifact_load"]
+        runs[name] = {
+            "rc": rc, "forwards": len(rec["forwards"]),
+            "counted": bool(rec["forwards"] and all(
+                f == BF16_LAUNCHES for f in rec["forwards"])
+                and counts == {k: v * len(rec["forwards"])
+                               for k, v in BF16_LAUNCHES.items()}),
+            "artifact_load": {k: art[0][k] for k in (
+                "fingerprint_match", "hits", "rebuilds")} if art else None,
+            "schema_errors": validate_records(recs, strict=False)[:3]}
+        if task == "serve":
+            runs[name]["soak"] = serve_line(lines)
+    with open(os.path.join(d, "pred_raw.out"), "rb") as f:
+        raw_bundle = f.read()
+    with open(os.path.join(d, "pred_raw_snapshot.out"), "rb") as f:
+        raw_snap = f.read()
+    nprog = len(sealed)
+    boot = {"runs": runs, "raw_bytes": len(raw_bundle),
+            "same_bits_as_snapshot": raw_bundle == raw_snap
+            and len(raw_bundle) == 4 * CLI_VAL_RECORDS * NCLASS}
+    boot["ok"] = bool(
+        boot["same_bits_as_snapshot"]
+        and all(r["rc"] == 0 and r["counted"] and not r["schema_errors"]
+                for r in runs.values())
+        and all(runs[n]["artifact_load"] == {
+            "fingerprint_match": True, "hits": nprog, "rebuilds": 0}
+            for n in ("pred", "pred_raw", "serve"))
+        and runs["pred_raw_snapshot"]["artifact_load"] is None
+        and (runs["serve"]["soak"] or {}).get("failed") == 0
+        and (runs["serve"]["soak"] or {}).get("ok") == 64)
+    # 3. cold start: a fresh process on a fresh tree, from the bundle and
+    # from the snapshot
+    cold = {}
+    for tag, model in (("cold_bundle", bundle), ("cold_snapshot", snap)):
+        cold[tag] = cold_start(d, cfg, model, pool_path, tag)
+        add(cold[tag]["launches"])
+    cb, cs = cold["cold_bundle"], cold["cold_snapshot"]
+    cold_res = {
+        tag: {k: c[k] for k in ("import_s", "boot_s", "first_reply_s",
+                                "nvcc_runs", "nvcc_s", "builds",
+                                "artifact_load", "built_here")}
+        for tag, c in cold.items()}
+    cold_res.update(
+        nvcc_s_saved=cs["nvcc_s"] - cb["nvcc_s"],
+        first_reply_s_saved=cs["first_reply_s"] - cb["first_reply_s"],
+        same_bits=same_bits(cb["row"], cs["row"]))
+    cold_res["ok"] = bool(
+        cb["nvcc_runs"] == 0 and cs["nvcc_runs"] == len(BUNDLE_PROGRAMS)
+        and cb["artifact_load"] and cb["artifact_load"]["hits"] == nprog
+        and cb["artifact_load"]["fingerprint_match"]
+        and cb["built_here"] == cs["built_here"]
+        and all(c["launches"] == BF16_LAUNCHES for c in cold.values())
+        and cold_res["same_bits"])
+    # 4. hot-swap: snapshot -> its bundle -> a perturbed next bundle,
+    # each export a CLI process of its own, under binary traffic
+    hdir = os.path.join(d, "watched")
+    os.makedirs(hdir)
+    shutil.copy(snap, os.path.join(hdir, "0001.model.npz"))
+    staged = os.path.join(d, "staged", "0002.model.npz")
+    os.makedirs(os.path.dirname(staged))
+    perturbed_snapshot(snap, staged)
+    ref2 = ServeSession(cfg, model_path=staged, device=DEVICE)
+    rec = recorder()
+    fcfg = cfg + [("serve_models", "main=%s" % hdir),
+                  ("serve_http_port", "-1"), ("serve_binary_port", "0"),
+                  ("serve_swap_poll_s", "0.2")]
+    kernels.reset_launch_counts()
+    with count_forwards() as fwd:
+        hs = hot_swap_drive(fcfg, rec, d, conf, hdir, staged, pool_path)
+    forwards = fwd["n"]
+    counts = kernels.launch_counts()
+    add(counts)
+    drive, steps, swaps, final, ladder = (hs["drive"], hs["steps"],
+                                          hs["swaps"], hs["final"],
+                                          hs["ladder"])
+    refs = {1: bucket_refs(ref1, pool, ladder),
+            2: bucket_refs(ref2, pool, ladder)}
+    for s in (ref1, ref2):
+        s.close()
+    served = {"old": 0, "new": 0, "neither": 0, "late_old": 0}
+    t_last = steps[-1].get("t_flip") if steps else None
+    for r in drive["log"]:
+        if r["status"] != "ok":
+            continue
+        n, st = r["n"], r["start"]
+        got = np.asarray(r["result"]).reshape(n, -1)
+        hit = next((snap_i for snap_i in (1, 2) for bk in ladder
+                    if bk >= n and same_bits(
+                        got, refs[snap_i][bk][st:st + n])), None)
+        if hit is None:
+            served["neither"] += 1
+            continue
+        served["old" if hit == 1 else "new"] += 1
+        if hit == 1 and t_last is not None and r["t_send"] >= t_last:
+            served["late_old"] += 1
+    failed = [(r["proto"], r["status"], str(r["result"])[:160])
+              for r in drive["log"] if r["status"] != "ok"]
+    hot = {
+        "exports": steps,
+        "commit_to_flip_s": [s["t_flip"] - s["t_commit"] for s in steps
+                             if "t_flip" in s],
+        "flips": [(r["old_counter"], r["new_counter"],
+                   os.path.basename(r["path"]), r["wall_ms"])
+                  for r in swaps],
+        "final": [final[0], os.path.basename(final[1])],
+        "requests": len(drive["log"]), "n_failed": len(failed),
+        "failed": failed[:5], "client_errors": drive["errors"][:5],
+        "served_by": served,
+        "by_protocol": proto_stats(drive["log"],
+                                   drive["t_end"] - drive["t0"],
+                                   ("cxn1", "cxn2")),
+        "summary_errors": hs["summary_errors"],
+        "forwards": forwards, "launches": counts,
+        "schema_errors": validate_records(rec.sink.records,
+                                          strict=False)[:5]}
+    hot["ok"] = bool(
+        len(steps) == 2 and all(s["rc"] == 0 and "t_flip" in s
+                                for s in steps)
+        and [(f[0], f[1], f[2]) for f in hot["flips"]]
+        == [(1, 1, "0001.model.bundle"), (1, 2, "0002.model.bundle")]
+        and final[0] == 2 and not failed and not drive["errors"]
+        and not drive["alive"] and served["neither"] == 0
+        and served["late_old"] == 0 and served["old"] > 0
+        and served["new"] > 0 and hot["summary_errors"] == 0
+        and forwards > 0
+        and counts == {k: v * forwards for k, v in BF16_LAUNCHES.items()}
+        and not hot["schema_errors"])
+    torch.cuda.empty_cache()
+    res = {"phase": "bundle", "model": "Inception-BN.conf",
+           "config": "the fleet phase's net and knobs (dtype = bfloat16, "
+                     "%s, buckets auto 1-128) from its calibrated "
+                     "snapshot" % ", ".join("%s = %s" % kv for kv in KNOBS),
+           "export": export, "boot": boot, "cold_start": cold_res,
+           "hot_swap": hot, "launches": launches}
+    res["ok"] = bool(export["ok"] and boot["ok"] and cold_res["ok"]
+                     and hot["ok"])
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("bundle phase failed")
+    return res
+
+
+# ------------------------------------------------------------ phase 16
+
+# MNIST_CONTINUAL.conf as shipped, with these overrides (listed in the
+# phase's output); the port file and the paths are where the phase
+# reads them
+CONT_MNIST_OVERRIDES = ["serve_http_port=0", "serve_binary_port=0",
+                        "continual_linger_s=0", "continual_generations=3"]
+# Inception-BN.conf under task = continual on the cli phase's archives
+CONT_INCEPTION_OVERRIDES = ["continual_export_every=6",
+                            "continual_generations=2", "continual_gate=off",
+                            "serve_http_port=-1", "serve_binary_port=0",
+                            "bn_pallas=1", "bn_fuse_relu=1"]
+CONT_POOL = 48                 # MNIST test digits the clients draw from
+# the continual phase's binary clients: 1-4 rows a request, CXN2 4 in
+# flight, so the shipped configs' queue bounds (8x serve_max_batch rows)
+# are never what answers
+CONT_MAX_ROWS, CONT_V2_DEPTH = 4, 4
+
+
+@contextlib.contextmanager
+def tap_continual(on_generation):
+    """Call ``on_generation(loop, record)`` after every generation record
+    of each ``ContinualLoop`` the CLI builds (its own hook is kept)."""
+    from cxxnet_tpu_torch.continual import loop as cl
+    orig = cl.ContinualLoop.__init__
+
+    def init(self, *a, **kw):
+        orig(self, *a, **kw)
+        own = self._on_generation
+
+        def hook(rec, loop=self):
+            on_generation(loop, rec)
+            if own is not None:
+                own(rec)
+        self._on_generation = hook
+
+    cl.ContinualLoop.__init__ = init
+    try:
+        yield
+    finally:
+        cl.ContinualLoop.__init__ = orig
+
+
+def continual_run(argv, cwd: str, d: str, tag: str, pool_path: str,
+                  model: str = "default"):
+    """``task = continual`` through the CLI in process (its updates and
+    forwards tapped), with binary clients of a process of their own on
+    its fleet from the first boot (they read ``serve_port_file``): at the
+    last deployed generation the hook stops the clients and waits for
+    them, so the loop's drain meets no request in flight; at the first
+    (the fleet's boot) it waits for their first ok reply, so the
+    traffic spans every flip."""
+    from cxxnet_tpu_torch.layers import kernels
+    port_file = os.path.join(d, tag + ".port.json")
+    until = os.path.join(d, tag + ".done")
+    started = os.path.join(d, tag + ".started")
+    gens = []
+    cl = start_clients(d, tag + "_clients", {
+        "port_file": port_file, "pool": pool_path, "swap": None,
+        "http": False, "seconds": FLEET_TIMEOUT_S - 60, "until": until,
+        "model": model, "started": started,
+        "max_rows": CONT_MAX_ROWS, "v2_depth": CONT_V2_DEPTH})
+
+    def on_generation(loop, rec):
+        gens.append(dict(rec, t_hook=time.time()))
+        done = sum(g["action"] == "deployed" for g in gens)
+        if rec.get("boot"):
+            deadline = time.monotonic() + 120
+            while not os.path.exists(started) and cl["p"].poll() is None \
+                    and time.monotonic() < deadline:
+                time.sleep(0.02)
+        if done >= loop.cc.generations:
+            with open(until, "w") as f:
+                f.write("done")
+            cl["p"].wait(timeout=120)
+
+    tap = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with tap_continual(on_generation), tap_trainer(tap), \
+                count_forwards() as fwd:
+            rc, lines = run_cli(list(argv) + ["serve_port_file=" + port_file],
+                                cwd=cwd)
+    finally:
+        if not os.path.exists(until):
+            with open(until, "w") as f:
+                f.write("done")
+    wall = time.perf_counter() - t0
+    drive = finish_clients(cl)
+    return {"rc": rc, "lines": lines, "wall_s": wall, "gens": gens,
+            "tap": tap, "forwards": fwd["n"],
+            "launches": kernels.launch_counts(), "drive": drive}
+
+
+def _flips(recs):
+    """The ``hot_swap`` records of a stream as (new counter, basename):
+    a generation's snapshot commits before its bundle, so the watcher
+    may flip to the snapshot first and then to the bundle of its
+    counter, as the reference's watcher may."""
+    return [(r["new_counter"], os.path.basename(r["path"].rstrip("/")))
+            for r in recs if r["event"] == "hot_swap"]
+
+
+def _flipped_in(flips, gens) -> bool:
+    """Every deployed generation after the first (the fleet's boot) was
+    flipped in, in order, and the last flip serves the last one."""
+    want = [g["counter"] for g in gens if g["action"] == "deployed"][1:]
+    got = [c for c, _ in flips]
+    return bool(want) and got == sorted(got) and set(got) == set(want) \
+        and got[-1] == want[-1]
+
+
+def _client_stats(drive):
+    failed = [(r["proto"], r["status"], str(r["result"])[:160])
+              for r in drive["log"] if r["status"] != "ok"]
+    return {"requests": len(drive["log"]), "n_failed": len(failed),
+            "failed": failed[:5], "errors": drive["errors"][:5],
+            "alive": drive["alive"],
+            "by_protocol": proto_stats(drive["log"],
+                                       max(drive["t_end"] - drive["t0"],
+                                           1e-9), ("cxn1", "cxn2"))}
+
+
+def phase_continual(workdir: str):
+    """``task = continual`` on the card, through the CLI, with binary
+    clients on its fleet throughout: example/MNIST/MNIST_CONTINUAL.conf
+    as shipped on the tracked digits (``CONT_MNIST_OVERRIDES``: every
+    generation deployed or gate-skipped, its metric printed, no failed
+    request), then Inception-BN.conf on the cli phase's archives
+    (``CONT_INCEPTION_OVERRIDES`` with the eval fold: exactly 69 + 69
+    bf16 bn_apply and 1 bias_grad_bf16 an update, 69 bf16 conv_epilogue
+    a forward and no other launch; generation 2's export reloads the
+    engine in place and runs no nvcc; its flip fails no request), with
+    the update time and the time per generation."""
+    import torch
+    from cxxnet_tpu_torch.monitor.schema import read_jsonl, validate_records
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(workdir, "continual")
+    os.makedirs(d)
+    launches = dict(NO_LAUNCHES)
+    # A. MNIST_CONTINUAL.conf as shipped
+    md = os.path.join(d, "mnist")
+    os.makedirs(md)
+    os.symlink(os.path.join(here, "example", "MNIST", "data"),
+               os.path.join(md, "data"))
+    with open(os.path.join(md, "data", "t10k-images-idx3-ubyte"),
+              "rb") as f:
+        f.read(16)
+        digits = np.frombuffer(f.read(CONT_POOL * 784), np.uint8)
+    mpool = os.path.join(d, "mnist_pool.npy")
+    np.save(mpool, (digits.reshape(CONT_POOL, 1, 784, 1)
+                    .astype(np.float32) / 256.0))
+    conf = os.path.join(here, "example", "MNIST", "MNIST_CONTINUAL.conf")
+    mr = continual_run([conf] + CONT_MNIST_OVERRIDES, md, d, "mnist",
+                       mpool)
+    for k, v in mr["launches"].items():
+        launches[k] += v
+    mrecs = read_jsonl(os.path.join(md, "mnist_continual.jsonl"))
+    mg = [r for r in mrecs if r["event"] == "generation"]
+    mroll = [r for r in mrecs if r["event"] == "continual"]
+    mnist = {
+        "rc": mr["rc"], "wall_s": mr["wall_s"],
+        "overrides": CONT_MNIST_OVERRIDES + ["serve_port_file=<phase>"],
+        "generations": [{k: g.get(k) for k in (
+            "generation", "action", "metric", "value", "train_updates",
+            "wall_ms", "swap_wall_s", "export_ms")} for g in mg],
+        "summary": mroll[0] if mroll else None,
+        "flips": _flips(mrecs),
+        "clients": _client_stats(mr["drive"]),
+        "lines": [ln for ln in mr["lines"] if ln.startswith("continual:")
+                  or ln.startswith("[gen")],
+        "schema_errors": validate_records(mrecs, strict=False)[:5]}
+    mnist["ok"] = bool(
+        mr["rc"] == 0 and mg
+        and all(g["action"] in ("deployed", "gate_skipped") for g in mg)
+        and sum(g["action"] == "deployed" for g in mg) == 3
+        and _flipped_in(mnist["flips"], mg)
+        and mnist["clients"]["requests"] > 0
+        and mnist["clients"]["n_failed"] == 0
+        and not mnist["clients"]["errors"] and not mnist["clients"]["alive"]
+        and not mnist["schema_errors"])
+    # B. Inception-BN.conf under task = continual, the eval fold on
+    train_rec = os.path.join(workdir, "train.rec")
+    val_rec = os.path.join(workdir, "val.rec")
+    iconf = shipped_conf(workdir, "Inception-BN.conf", train_rec, val_rec)
+    stream = os.path.join(d, "inception.jsonl")
+    ir = continual_run(
+        [iconf, "task=continual", "model_dir=" + os.path.join(d, "models"),
+         "monitor=jsonl", "monitor_path=" + stream]
+        + ["%s=%s" % kv for kv in KNOBS] + CONT_INCEPTION_OVERRIDES,
+        d, d, "inception", os.path.join(workdir, "fleet_pool.npy"))
+    torch.cuda.synchronize()
+    for k, v in ir["launches"].items():
+        launches[k] += v
+    irecs = read_jsonl(stream) if os.path.exists(stream) else []
+    ig = [r for r in irecs if r["event"] == "generation"]
+    iroll = [r for r in irecs if r["event"] == "continual"]
+    ups = ir["tap"]["updates"]
+    nup = sum(u["batches"] for u in ups)
+    expected = {k: CLI_TRAIN_LAUNCHES[k] * nup
+                + BF16_LAUNCHES[k] * ir["forwards"] for k in NO_LAUNCHES}
+    t_start = [r["t"] for r in irecs if r["event"] == "run_start"][:1]
+    t_gen = t_start + [g["t"] for g in ig]
+    inception = {
+        "rc": ir["rc"], "wall_s": ir["wall_s"],
+        "overrides": CONT_INCEPTION_OVERRIDES
+        + ["%s=%s" % kv for kv in KNOBS],
+        "updates": nup, "forwards": ir["forwards"],
+        "launches": ir["launches"], "expected": expected,
+        "counted": ir["launches"] == expected and nup > 0
+        and ir["forwards"] > 0,
+        "update_ms": [round(u["ms"] / u["batches"], 3) for u in ups],
+        "update_ms_median": float(np.median(
+            [u["ms"] / u["batches"] for u in ups])) if ups else None,
+        "generations": [{k: g.get(k) for k in (
+            "generation", "action", "train_updates", "wall_ms",
+            "export_ms", "export_engine_built", "export_nvcc_runs",
+            "swap_wall_s", "export_programs")} for g in ig],
+        # run start to generation 1, generation 1 to 2 (the records'
+        # clock): training, the gate's eval, snapshot, export and flip
+        "generation_s": [b - a for a, b in zip(t_gen, t_gen[1:])],
+        "summary": iroll[0] if iroll else None,
+        "flips": _flips(irecs),
+        "clients": _client_stats(ir["drive"]),
+        "lines": [ln for ln in ir["lines"] if ln.startswith("continual:")],
+        "schema_errors": validate_records(irecs, strict=False)[:5]}
+    inception["ok"] = bool(
+        ir["rc"] == 0 and inception["counted"] and len(ig) == 2
+        and all(g["action"] == "deployed" for g in ig)
+        and ig[0].get("export_engine_built") is True
+        and ig[1].get("export_engine_built") is False
+        and ig[1].get("export_nvcc_runs") == 0
+        and all(g.get("export_programs") == len(BUNDLE_PROGRAMS)
+                for g in ig)
+        and iroll and _flipped_in(inception["flips"], ig)
+        and inception["clients"]["requests"] > 0
+        and inception["clients"]["n_failed"] == 0
+        and not inception["clients"]["errors"]
+        and not inception["clients"]["alive"]
+        and not inception["schema_errors"])
+    torch.cuda.empty_cache()
+    res = {"phase": "continual", "mnist": mnist, "inception": inception,
+           "launches": launches}
+    res["ok"] = bool(mnist["ok"] and inception["ok"])
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("continual phase failed")
+    return res
+
+
 def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
     """The ``kernels`` record: every ported kernel (and bf16
     instantiation) with its launches on its path's run, its error
@@ -6664,6 +7510,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, here)
     phase = "env"
+    stamps = [(phase, time.perf_counter())]     # each phase's start
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         from cxxnet_tpu_torch.device import resolve_device
@@ -6671,31 +7518,50 @@ def main() -> int:
         smi = phase_env()
         bw, flops, part = card_peaks(torch.cuda.get_device_name(0))
         phase = "kernels"
+        stamps.append((phase, time.perf_counter()))
         kres = phase_kernels(bw, flops, bf16_tc_peak(part))
         phase = "serve"
+        stamps.append((phase, time.perf_counter()))
         sres = phase_serve(workdir)
         phase = "serve_lowp"
+        stamps.append((phase, time.perf_counter()))
         lres = phase_serve_lowp(workdir, kres)
         phase = "train"
+        stamps.append((phase, time.perf_counter()))
         tres = phase_train(workdir)
         phase = "train_bf16"
+        stamps.append((phase, time.perf_counter()))
         tbres = phase_train_bf16(workdir, tres["step_ms"])
         phase = "train_kaiming"
+        stamps.append((phase, time.perf_counter()))
         kmres = phase_train_kaiming(workdir)
         phase = "tower"
+        stamps.append((phase, time.perf_counter()))
         twres = phase_tower(workdir)
         phase = "cli"
+        stamps.append((phase, time.perf_counter()))
         clires = phase_cli(workdir)
         phase = "alexnet"
+        stamps.append((phase, time.perf_counter()))
         alexres = phase_alexnet(workdir, bw)
         phase = "checkpoint"
+        stamps.append((phase, time.perf_counter()))
         ckres = phase_checkpoint(workdir)
         phase = "wrapper"
+        stamps.append((phase, time.perf_counter()))
         wres = phase_wrapper(workdir)
         phase = "fleet"
+        stamps.append((phase, time.perf_counter()))
         fres = phase_fleet(workdir)
         phase = "capi"
+        stamps.append((phase, time.perf_counter()))
         cres = phase_capi(workdir)
+        phase = "bundle"
+        stamps.append((phase, time.perf_counter()))
+        bres = phase_bundle(workdir)
+        phase = "continual"
+        stamps.append((phase, time.perf_counter()))
+        cnres = phase_continual(workdir)
     except Exception as e:
         import traceback
         traceback.print_exc()
@@ -6704,6 +7570,9 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    stamps.append(("end", time.perf_counter()))
+    emit({"phase_seconds": {a[0]: b[1] - a[1]
+                            for a, b in zip(stamps, stamps[1:])}})
     kl = kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part)
     for row in kl["kernels"]:
         # the cli phase's runs (train, pred, pred_raw, serve), each with
@@ -6723,6 +7592,12 @@ def main() -> int:
         # each from 0
         row["fleet_launches"] = fres["launches"][row["name"]]
         row["capi_launches"] = cres["launches"][row["name"]]
+        # the bundle phase's runs (the export, pred / pred_raw / serve from
+        # the bundle, both cold starts, the hot-swap fleet) and the
+        # continual phase's two loops (updates, gate evals, exports, the
+        # fleet's boots, shadow builds and traffic), each from 0
+        row["bundle_launches"] = bres["launches"][row["name"]]
+        row["continual_launches"] = cnres["launches"][row["name"]]
         if row["name"] == BIAS_BF16["name"]:
             ab = kres["bias_grad_bf16_alexnet"]
             row["alexnet"] = {

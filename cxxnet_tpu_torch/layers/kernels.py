@@ -40,6 +40,14 @@ Ported so far:
   (:func:`xla_bias_sum_plan`), through :func:`bias_add`. It replaces no
   Pallas kernel: XLA's reduce.
 
+A sealed bundle (``artifact/bundle.py``) carries these libraries as
+its programs: :func:`record_libraries` names the libraries a path
+loads, :func:`library_key` names a library by this tree's source hash,
+and :func:`install_library` writes a bundle's verified library to its
+path, so that :func:`build_kernels` finds it and runs no ``nvcc``
+(``build_info[name]["log"]`` is then ``"bundle"``; ``nvcc_runs`` counts
+the compilers this process started).
+
 The bf16 instantiations compute what the reference's dtype-generic
 Pallas kernels compute under ``dtype = bfloat16``; their plain
 versions, the oracle, round where PyTorch's bf16 tensor ops round.
@@ -50,6 +58,7 @@ their float32 and bfloat16 launches apart: ``launches`` and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -59,7 +68,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Set, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -82,6 +91,10 @@ _lib_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # what the last build of each source did: path, seconds, compiler log
 build_info: Dict[str, Dict[str, object]] = {}
+# nvcc processes this process started
+nvcc_runs = 0
+# the set record_libraries() fills on this thread, if any
+_recorder = threading.local()
 
 
 def _find_nvcc() -> str:
@@ -108,10 +121,60 @@ def _so_path(name: str) -> Tuple[str, str]:
     return src, os.path.join(BUILD_DIR, "%s-%s.so" % (name, digest))
 
 
+def library_key(name: str) -> Tuple[str, str]:
+    """(source hash, library path) of kernel ``name`` in this tree: the
+    hash (16 hex digits) is the one in the library's file name."""
+    _, so = _so_path(name)
+    return os.path.basename(so)[len(name) + 1:-len(".so")], so
+
+
+def install_library(name: str, sha16: str, blob: bytes) -> bool:
+    """Put a sealed bundle's verified library at its path, so that
+    :func:`build_kernels` finds it: False (nothing written) when
+    ``name`` is no kernel of this tree or ``sha16`` is not this tree's
+    hash. A library already at the path stays (its bytes came from the
+    same source and flags); a new one goes through a tmp file and a
+    rename. An unwritable path raises OSError."""
+    if name not in KERNEL_SOURCES:
+        return False
+    want, so = library_key(name)
+    if sha16 != want:
+        return False
+    entry = {"path": so, "seconds": 0.0, "log": "bundle"}
+    if os.path.exists(so):
+        build_info.setdefault(name, entry)
+        return True
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = "%s.tmp%d" % (so, os.getpid())
+    try:
+        with open(tmp, "wb") as f:
+            f.write(blob)
+        os.replace(tmp, so)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
+    build_info[name] = entry
+    return True
+
+
+@contextlib.contextmanager
+def record_libraries(into: Set[str]):
+    """Add to ``into`` the name of every library a launch on this thread
+    loads while the block runs (the libraries a path uses)."""
+    prev = getattr(_recorder, "into", None)
+    _recorder.into = into
+    try:
+        yield into
+    finally:
+        _recorder.into = prev
+
+
 def build_kernels(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, str]:
     """Compile each ``csrc/<name>.cu`` not built yet into
     ``_build/<name>-<hash>.so``, one ``nvcc`` per source, all started
     together; return every name's library path."""
+    global nvcc_runs
     paths: Dict[str, str] = {}
     running = []
     for name in names:
@@ -126,6 +189,7 @@ def build_kernels(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, str]:
         cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
+        nvcc_runs += 1
         running.append((name, src, so, tmp, proc, time.perf_counter()))
     failures = []
     for name, src, so, tmp, proc, t0 in running:
@@ -150,6 +214,9 @@ def build_kernels(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, str]:
 
 
 def _load(name: str) -> ctypes.CDLL:
+    into = getattr(_recorder, "into", None)
+    if into is not None:
+        into.add(name)
     with _lib_lock:
         lib = _libs.get(name)
         if lib is None:

@@ -4,10 +4,16 @@
 A config file plus ``key=value`` CLI overrides drives the tasks
 ``train`` / ``finetune`` / ``pred`` / ``pred_raw`` / ``extract``
 (``extract_feature``) / ``get_weight`` / ``serve`` / ``serve_fleet`` /
-``quantize``, and ``test_io = 1`` runs the data pipeline without the
-net. ``serve_fleet`` serves HTTP/JSON and the CXN1/CXN2 binary
-protocols (``serve/frontend.py``) for ``serve_fleet_duration_s``
-seconds, or until SIGTERM or SIGINT when it is 0, then drains. The printed
+``quantize`` / ``export`` / ``continual``, and ``test_io = 1`` runs the
+data pipeline without the net. ``serve_fleet`` serves HTTP/JSON and the
+CXN1/CXN2 binary protocols (``serve/frontend.py``) for
+``serve_fleet_duration_s`` seconds, or until SIGTERM or SIGINT when it
+is 0, then drains. ``export`` seals ``model_in`` into a bundle at
+``export_out`` (default: ``NNNN.model.bundle`` beside it;
+``artifact/bundle.py``), and a bundle serves as ``model_in`` wherever a
+snapshot does. ``continual`` trains while its fleet serves and
+hot-swaps each gated generation's bundle in (``continual/loop.py``);
+SIGTERM or SIGINT ends it with an emergency snapshot and exit 75. The printed
 lines keep the reference's format (``[r]\\ttrain-error:...``, the
 ``round %8d:[%8d]`` progress line, ``updating end, ...``).
 
@@ -56,9 +62,9 @@ the CPU.
 
 What this port does not have yet raises
 :class:`~cxxnet_tpu_torch.utils.config.NotPortedError` naming its
-``ROADMAP.md`` item: the tasks ``export``, ``build_index``, ``fleet``,
-``fleet_balancer`` and ``continual``; the keys ``test_on_server = 1``
-and every ``dist_*`` key.
+``ROADMAP.md`` item: the tasks ``build_index``, ``fleet``,
+``fleet_balancer``; the keys ``test_on_server = 1`` and every ``dist_*``
+key.
 
 Usage: python -m cxxnet_tpu_torch.main config.conf [key=value ...]
 """
@@ -118,11 +124,9 @@ _PRED_NEUTRAL = (
 
 # tasks of the reference this port does not have yet, by ROADMAP item
 NOT_PORTED_TASKS: Dict[str, str] = {
-    "export": Roadmap.BUNDLES,
     "build_index": Roadmap.RETRIEVAL,
     "fleet": Roadmap.FLEET,
     "fleet_balancer": Roadmap.FLEET,
-    "continual": Roadmap.FLEET,
 }
 
 
@@ -178,6 +182,8 @@ class LearnTask:
         # other changed shape raises unless finetune_strict = 0
         self.finetune_remap: Tuple[str, ...] = ()
         self.finetune_strict = 1
+        # task = export: the bundle's path ("" = beside model_in)
+        self.export_out = ""
         self._resume_found = False
         # set by the SIGTERM/SIGINT handler; read at the train loop's
         # next dispatch boundary
@@ -259,6 +265,8 @@ class LearnTask:
                 t.strip() for t in val.split(",") if t.strip())
         if name == "finetune_strict":
             self.finetune_strict = int(val)
+        if name == "export_out":
+            self.export_out = val
 
     def _torch_device(self) -> str:
         """``dev = cpu`` runs on the CPU; unset or any accelerator name
@@ -343,6 +351,11 @@ class LearnTask:
                 # built (a deployment config's train blocks may point
                 # at paths the serving host does not mount)
                 return self._task_serve_fleet(cfg, dev)
+            if self.task == "export":
+                # sealing needs the net config and the serve contract,
+                # no data
+                assert self.model_in, "task export requires model_in"
+                return self._task_export(cfg, dev)
             # model_in via filename convention infers the start counter
             # (finetune starts a fresh numbering)
             if self.model_in and self.task == "train":
@@ -401,11 +414,17 @@ class LearnTask:
                                            dev)
 
             trainer = NetTrainer(cfg, device=dev)
-            # the monitor before init or load: their model records (and
-            # a finetune's carry record) are emitted there
+            # the monitor before init or load: their model records (a
+            # finetune's carry record, a bundle's artifact_load) are
+            # emitted there
             trainer.set_monitor(self._mon)
-            if self.task in ("train", "finetune"):
-                if self.model_in and (self.task == "train"
+            if self.task in ("train", "finetune", "continual"):
+                mode = self.task
+                if self.task == "continual":
+                    # the loop's training mode (continual_task)
+                    from .continual import ContinualConfig
+                    mode = ContinualConfig(cfg).task
+                if self.model_in and (mode == "train"
                                       or self._resume_found):
                     # a plain verified load, a resumed finetune too: its
                     # own snapshots carry the remapped structure, and a
@@ -413,11 +432,14 @@ class LearnTask:
                     trainer.load_model(self.model_in)
                 else:
                     trainer.init_model()
-                    if self.task == "finetune":
+                    if mode == "finetune":
                         assert self.model_in, "finetune requires model_in"
                         trainer.finetune_from(
                             self.model_in, remap=self.finetune_remap,
                             strict=bool(self.finetune_strict))
+                if self.task == "continual":
+                    return self._task_continual(cfg, trainer, itr_train,
+                                                eval_iters)
                 return self._task_train(trainer, itr_train, eval_iters)
 
             assert self.model_in, "task %s requires model_in" % self.task
@@ -633,6 +655,61 @@ class LearnTask:
                      steps=int(c["steps"]), examples=int(c["examples"]))
         return 0
 
+    # -- continual -------------------------------------------------------
+
+    def _task_continual(self, cfg, trainer, itr_train, eval_iters) -> int:
+        """Continual train-while-serve: one process trains on a looping
+        iterator while its fleet serves ``model_dir``; every
+        ``continual_export_every`` updates the generation pipeline runs
+        (eval gate -> verified snapshot -> sealed bundle -> watcher
+        ``notify()`` -> flip), for ``continual_generations``
+        generations. SIGTERM or SIGINT takes the emergency-snapshot
+        exit (75), as ``task = train`` does."""
+        assert itr_train is not None, "continual requires a data block"
+        from .continual import ContinualLoop
+        mon = self._mon
+        if hasattr(itr_train, "set_transform"):
+            # the batches stage on the device in the prefetch thread,
+            # as in _task_train
+            itr_train.set_transform(
+                trainer.device_put_batch,
+                pin_memory=trainer.device.type == "cuda")
+        if mon.enabled:
+            mon.emit("run_start", **run_metadata(
+                "continual", self._cfg_stream, trainer.device))
+        handlers = []
+        try:
+            handlers = self._install_preempt_handlers()
+            loop = ContinualLoop(
+                cfg, trainer, itr_train, eval_iters,
+                model_dir=self.model_dir,
+                path_for=self._model_path,
+                monitor=mon,
+                should_stop=lambda: self._preempt_signum is not None,
+                checkpoint_async=bool(self.checkpoint_async),
+                checkpoint_fsync=bool(self.checkpoint_fsync),
+                keep_snapshots=self.keep_snapshots,
+                start_counter=self.start_counter,
+                dispatch_period=self.dispatch_period)
+            summary = loop.run()
+        finally:
+            self._restore_handlers(handlers)
+        if summary["preempted"]:
+            signum = int(self._preempt_signum or 0)
+            if self.silent == 0:
+                mon.line("continual: preempted by signal %d after %d "
+                         "generation(s); emergency snapshot committed"
+                         % (signum, summary["deployed"]))
+            if mon.enabled:
+                mon.emit("preempt", signal=signum, round=trainer.round,
+                         exit_code=EXIT_PREEMPTED)
+            return EXIT_PREEMPTED
+        if mon.enabled:
+            mon.emit("task_end", task="continual",
+                     generations=summary["deployed"],
+                     requests=summary["requests"])
+        return 0
+
     def _emit_round_end(self, trainer, itr_train, io_hist, r: int) -> None:
         """A round's closing records: ``round_end`` (its throughput
         window), ``memory``, ``io_wait`` (the batch-fetch waits, reset)
@@ -745,6 +822,37 @@ class LearnTask:
         if mon.enabled:
             mon.emit("task_end", task="serve_fleet",
                      requests=c["requests"], swaps=summary["swaps"])
+        return 0
+
+    def _task_export(self, cfg, dev) -> int:
+        """Seal ``model_in`` (a snapshot or a bundle) into a bundle at
+        ``export_out`` (default: the ``NNNN.model.bundle`` beside it):
+        load it into a frozen engine of the serve contract's ladder, run
+        each bucket once (the kernels the serve path launches load or
+        build there), and commit the snapshot, those kernel libraries,
+        the fingerprint and the manifest as one two-phase bundle
+        (``artifact/bundle.py``)."""
+        from .artifact.bundle import default_bundle_path, export_bundle
+        from .serve import ServeConfig, build_engine
+        mon = self._mon
+        if mon.enabled:
+            mon.emit("run_start",
+                     **run_metadata("export", self._cfg_stream, dev))
+        sc = ServeConfig(cfg)
+        engine = build_engine(cfg, self.model_in, buckets=sc.buckets,
+                              max_batch=sc.max_batch, node=sc.node,
+                              device=dev, monitor=mon)
+        compiled = engine.warmup()
+        out = self.export_out or default_bundle_path(self.model_in)
+        stats = export_bundle(engine, out, node=sc.node, monitor=mon)
+        if mon.enabled:
+            mon.emit("export", **stats)
+        mon.line("export: sealed %s -> %s (%d programs compiled, %d "
+                 "serialized, %d bytes)"
+                 % (self.model_in, out, compiled, stats["programs"],
+                    stats["bytes"]))
+        if mon.enabled:
+            mon.emit("task_end", task="export", outfile=out)
         return 0
 
     def _task_quantize(self, cfg, itr, dev) -> int:

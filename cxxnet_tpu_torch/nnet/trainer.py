@@ -8,7 +8,11 @@ freeze of the eval weights (``freeze_serve_weights``), the eval forward
 behind ``predict`` / ``extract_feature``, the reference-layout
 weight get/set, the finetune carry (``finetune_from``,
 ``copy_model_from``, ``load_weights_inplace``), ``precompile`` and the
-telemetry records (``set_monitor``).
+telemetry records (``set_monitor``). A sealed bundle loads wherever a
+snapshot does (``load_model``, ``finetune_from``,
+``load_weights_inplace``); ``load_model`` installs its kernel libraries
+into ``programs`` (``artifact/registry.py``), and every eval forward
+records the libraries it loads there, which is what an export seals.
 
 A training step is the reference's ``scan_step`` written eagerly:
 autograd over ``FuncNet.loss_fn`` in place of ``jax.value_and_grad``,
@@ -44,7 +48,6 @@ arrays and their summary as ``__meta__["quantized"]``.
 
 from __future__ import annotations
 
-import os
 import re
 import threading
 import time
@@ -55,17 +58,17 @@ from typing import (Any, Dict, Iterable, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
-from ..artifact.registry import ResidencyBudgetError
+from ..artifact.registry import ProgramStore, ResidencyBudgetError
 from ..device import resolve_device
 from ..graph import NetGraph
 from ..io.data import DataBatch, batch_mask
 from ..layers.conv import hwio_to_oihw
+from ..layers.kernels import record_libraries
 from ..monitor import warn_once
 from ..updater import create_updater
 from ..utils.config import (ConfigError, ConfigPairs, NotPortedError,
                             Roadmap)
 from ..utils.metric import MetricSet
-from ..utils.stream import local_path
 from .checkpoint import read_snapshot, write_snapshot
 from .convert import (OptTree, Tree, opt_from_numpy, params_from_numpy,
                       params_to_numpy)
@@ -211,6 +214,9 @@ class NetTrainer:
         self._pending_data_wait = 0.0
         self._seen_sigs: set = set()
         self.input_layout = "none"
+        # the kernel libraries the eval forward loads, and a bundle
+        # boot's accounting (artifact/registry.py)
+        self.programs = ProgramStore()
 
     # -- config ----------------------------------------------------------
 
@@ -308,11 +314,17 @@ class NetTrainer:
 
     def load_model(self, path: str) -> None:
         """Load a snapshot (either package's), digest verified; its
-        optimizer state, when it carries one, resumes too."""
-        if os.path.isdir(local_path(path)):
-            raise NotPortedError("a bundle as model_path (%r)" % path,
-                                 Roadmap.BUNDLES)
-        blob, meta = read_snapshot(path)
+        optimizer state, when it carries one, resumes too. A sealed
+        bundle (either package's) loads as its inner snapshot, read from
+        the bytes its verification read, and then installs its programs
+        (:meth:`_attach_bundle`)."""
+        from ..artifact import bundle as _ab
+        bundle = None
+        if _ab.is_bundle(path):
+            bundle = _ab.load_bundle(path)
+            path = bundle.snapshot_uri
+        blob, meta = read_snapshot(
+            path, raw=bundle.snapshot_raw if bundle else None)
         self._absorb_globals()
         self.graph = NetGraph.from_dict(meta["structure"])
         self.graph.configure(self.cfg)
@@ -339,6 +351,37 @@ class NetTrainer:
                         # snapshots store float32; the momentum_dtype of
                         # the resuming run wins
                         st[k] = saved_o[lk][tag][k].to(st[k].dtype)
+        if bundle is not None:
+            self._attach_bundle(bundle)
+
+    def _attach_bundle(self, bundle) -> None:
+        """Install a loaded bundle's programs (its kernel libraries) and
+        emit the ``artifact_load`` record. The gate is exact equality of
+        the sealed fingerprint with this runtime's, and of the sealed
+        ``weight_residency`` with this trainer's; otherwise every
+        program is a rebuild, with one warning. The programs never
+        change a result: the same rows come out either way."""
+        from ..artifact.fingerprint import runtime_fingerprint
+        man = bundle.manifest
+        fp_ok = man.get("fingerprint") == runtime_fingerprint(self.device)
+        if int(man.get("weight_residency", 0)) \
+                != int(bool(self.serve_weight_residency)):
+            fp_ok = False
+        rep = self.programs.install(bundle.programs, bundle.path, fp_ok,
+                                    monitor=self._mon)
+        if self._mon_on():
+            self._mon.emit("artifact_load", **rep)
+
+    @staticmethod
+    def _read_source_blob(path: str):
+        """Digest-verified (arrays, meta) of a finetune or reload
+        source: a snapshot, or a bundle's inner snapshot after the
+        bundle's members verify."""
+        from ..artifact import bundle as _ab
+        if _ab.is_bundle(path):
+            b = _ab.load_bundle(path)
+            return read_snapshot(b.snapshot_uri, raw=b.snapshot_raw)
+        return read_snapshot(path)
 
     def _post_init(self) -> None:
         """What init_model and load_model share after the weights are
@@ -373,6 +416,7 @@ class NetTrainer:
             self._metric_nodes.append(
                 self.net.node_index_by_name(node) if node else top)
         self._label_slices = g.label_slices()
+        self.programs.reset()            # a new net loads its own
         self._attach_quant()
         self._emit_model_records()
 
@@ -573,7 +617,8 @@ class NetTrainer:
         params = self._pred_operands()
         if mask is not None:
             mask = torch.as_tensor(mask).to(data.device)
-        with torch.inference_mode():
+        with torch.inference_mode(), \
+                record_libraries(self.programs.libraries):
             nodes, _, _ = self.net.forward(params, self.net_state, data,
                                            mask=mask, extra=extra)
             return [self.net.depad_node(i, nodes[i]).float()
@@ -1138,14 +1183,14 @@ class NetTrainer:
     def finetune_from(self, path: str, remap: Sequence[str] = (),
                       strict: bool = True) -> Dict[str, Any]:
         """The ``task = finetune`` bootstrap: carry weights from a
-        verified snapshot into this freshly initialized net, by layer
+        verified snapshot or bundle into this freshly initialized net, by layer
         name with exact shapes; the layers named in ``remap`` keep their
         fresh init and fresh state (a new-label-count head). A layer
         whose saved shape differs and that is not in ``remap`` raises
         :class:`FinetuneShapeError` (``strict=False``: it is skipped and
         keeps its fresh init). Returns the carry accounting."""
         self._check_ready()
-        blob, meta = read_snapshot(path)
+        blob, meta = self._read_source_blob(path)
         remap_set = set(remap)
         unknown = remap_set - set(self.params.keys())
         if unknown:
@@ -1219,10 +1264,12 @@ class NetTrainer:
 
     def load_weights_inplace(self, path: str) -> None:
         """Refresh params, net state and ``update_counter`` from a
-        verified snapshot without rebuilding the net: every array must
-        match a live leaf's shape exactly."""
+        verified snapshot (or bundle) without rebuilding the net: every
+        array must match a live leaf's shape exactly. The continual
+        exporter's per-generation reload: the frozen serve tree is
+        rebuilt at the next forward, and the libraries stay loaded."""
         self._check_ready()
-        blob, meta = read_snapshot(path)
+        blob, meta = self._read_source_blob(path)
         try:
             self._carry_from_blob(blob, set(), strict=True)
         except FinetuneShapeError as e:

@@ -24,7 +24,6 @@ buffer, so every stage takes a fresh one.
 
 from __future__ import annotations
 
-import os
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -35,8 +34,6 @@ import torch
 from ..io.data import inst_array_shape
 from ..nnet.quantize import normalize_serve_dtype
 from ..nnet.trainer import NetTrainer
-from ..utils.config import NotPortedError, Roadmap
-from ..utils.stream import local_path
 from .bucketing import parse_buckets, pick_bucket
 
 # staging ring depth per bucket: covers every concurrently in-flight
@@ -313,16 +310,20 @@ def build_engine(cfg, model_path: str,
                  buckets: Optional[Union[str, Sequence[int]]] = None,
                  max_batch: int = 0, node: str = "",
                  device=None, monitor=None) -> InferenceEngine:
-    """Load a snapshot into a frozen engine on ``device`` (the GPU by
-    default). ``cfg`` is the ordered config-pair stream (netconfig +
-    globals, ``serve_dtype`` among them); ``buckets`` a ladder or a
-    ``serve_buckets`` spec; ``monitor`` gets the trainer's records
-    (attached before the load)."""
+    """Load a snapshot, or a sealed bundle, into a frozen engine on
+    ``device`` (the GPU by default). ``cfg`` is the ordered config-pair
+    stream (netconfig + globals, ``serve_dtype`` among them);
+    ``buckets`` a ladder or a ``serve_buckets`` spec; ``monitor`` gets
+    the trainer's records (attached before the load, so a bundle's
+    ``artifact_load`` record lands there).
+
+    From a bundle, the serve contract it was sealed for fills what the
+    config leaves at its default: the sealed ladder replaces ``auto``,
+    its ``serve_dtype``, ``node`` and ``weight_residency`` apply unless
+    the config names them. Explicit config values win."""
+    from ..artifact import bundle as _ab
     cfg = list(cfg)
-    if os.path.isdir(local_path(model_path)):
-        raise NotPortedError("a bundle as model_path (%r)" % model_path,
-                             Roadmap.BUNDLES)
-    serve_dtype = "float32"
+    serve_dtype = ""
     for k, v in cfg:
         if k == "serve_dtype":
             serve_dtype = normalize_serve_dtype(v)
@@ -330,10 +331,31 @@ def build_engine(cfg, model_path: str,
         for k, v in cfg:
             if k == "batch_size":
                 max_batch = int(v)
+    if _ab.is_bundle(model_path):
+        man = _ab.bundle_manifest(model_path)
+        if buckets is None or buckets in ("", "auto"):
+            buckets = tuple(int(b) for b in man["buckets"])
+        if not max_batch:
+            max_batch = max(man["buckets"])
+        if not serve_dtype and man.get("serve_dtype"):
+            serve_dtype = normalize_serve_dtype(man["serve_dtype"])
+            # appended last, so the trainer builds the graph the
+            # bundle was sealed from
+            cfg = cfg + [("serve_dtype", serve_dtype)]
+        if not node and man.get("node"):
+            node = man["node"]
+        if not any(k == "serve_weight_residency" for k, _ in cfg):
+            cfg = cfg + [("serve_weight_residency",
+                          str(int(man.get("weight_residency", 0))))]
+    serve_dtype = serve_dtype or "float32"
     if not max_batch:
         raise ValueError("serve needs batch_size (or serve_max_batch)")
     if isinstance(buckets, str) or buckets is None:
         buckets = parse_buckets(buckets or "", max_batch)
+    if not any(k == "batch_size" for k, _ in cfg):
+        # a conf-less boot (serve_cfg_from_bundle's pairs): the net is
+        # sized for the largest bucket
+        cfg = cfg + [("batch_size", str(max(buckets)))]
     trainer = NetTrainer(cfg, device=device)
     trainer.set_monitor(monitor)
     trainer.load_model(model_path)

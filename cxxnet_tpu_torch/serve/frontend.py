@@ -25,7 +25,8 @@ serve_fleet``; the reference's doc/serving.md):
   the same way.
 - **zero-downtime hot-swap** — a
   :class:`~cxxnet_tpu_torch.serve.swap.SnapshotWatcher` per model polls its
-  ``model_dir`` for newer *verified* snapshots, warms a shadow engine,
+  ``model_dir`` for newer *verified* snapshots and sealed bundles, warms
+  a shadow engine,
   flips the router entry, drains the old engine. The front end retries
   the one unclosable race (``ServeClosedError`` from a session that
   was flipped away mid-request) through a fresh resolve, so a swap
@@ -59,17 +60,17 @@ import numpy as np
 
 import torch
 
+from ..artifact.bundle import is_bundle
 from ..artifact.fingerprint import fingerprint_sha, runtime_fingerprint
 from ..device import named_device, resolve_device
 from ..monitor import SafeEmitter
-from ..utils.config import NotPortedError, Roadmap
 from ..utils.stream import stream_exists
 from .batcher import (ServeBusyError, ServeClosedError,
                       ServeTimeoutError)
 from .quota import QuotaManager, TenantQuotaError
 from .router import ModelRouter, UnknownModelError
 from .server import ServeSession
-from .swap import SnapshotWatcher, counter_of, is_bundle, newest_model
+from .swap import SnapshotWatcher, counter_of, latest_verified
 
 # -- binary protocol ------------------------------------------------------
 #
@@ -696,20 +697,17 @@ class FleetServer:
 
     @staticmethod
     def _resolve_source(src: str) -> Tuple[int, str, str]:
-        """A model source is a snapshot file (PINNED: served as-is, no
-        watcher — naming an exact snapshot is a deliberate version pin)
-        or a model_dir (serve the newest verified snapshot and hot-swap
-        as newer ones commit). Returns (counter, snapshot_path,
-        dir_to_watch) — watch dir "" means pinned. A sealed bundle, as
-        the source or as the newest model of the directory, raises
-        NotPortedError."""
+        """A model source is a snapshot file or a sealed bundle
+        (PINNED: served as-is, no watcher — naming an exact artifact is
+        a deliberate version pin) or a model_dir (serve the newest
+        verified snapshot or bundle and hot-swap as newer ones commit).
+        Returns (counter, model_path, dir_to_watch) — watch dir ""
+        means pinned."""
         if src.endswith(".npz") and stream_exists(src):
             return counter_of(src), src, ""
         if is_bundle(src):
-            raise NotPortedError(
-                "a sealed bundle as a serve_models source (%r)" % src,
-                Roadmap.BUNDLES)
-        counter, path = newest_model(src)
+            return counter_of(src), src, ""
+        counter, path = latest_verified(src)
         if path is None:
             raise FileNotFoundError(
                 "model source %r holds no verified snapshot" % src)
@@ -1018,12 +1016,11 @@ class FleetServer:
                 "buckets": list(e.session.engine.buckets),
                 # per-model device-memory accounting
                 "device_mem_bytes": e.resident_bytes,
-                # version identity: the snapshot counter this engine
-                # was booted from, whether the source was a sealed
-                # bundle (never, until bundles are ported), and the
+                # version identity: the counter this engine was booted
+                # from, whether the source was a sealed bundle, and the
                 # hash of the runtime its kernels and weights were
                 # built for
-                "bundle": False,
+                "bundle": bool(is_bundle(e.path)),
                 "fingerprint_sha256": self._fingerprint_sha(
                     e.session.engine.device),
             })

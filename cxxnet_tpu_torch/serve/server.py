@@ -1,8 +1,8 @@
 """Config-driven serve session: snapshot -> engine -> batcher
 (counterpart of ``cxxnet_tpu/serve/server.py``).
 
-``ServeSession`` is the library surface: it loads a snapshot into a
-frozen :class:`~cxxnet_tpu_torch.serve.engine.InferenceEngine`, warms
+``ServeSession`` is the library surface: it loads a snapshot (or a
+sealed bundle, ``artifact/bundle.py``) into a frozen :class:`~cxxnet_tpu_torch.serve.engine.InferenceEngine`, warms
 its bucket ladder, fronts it with a
 :class:`~cxxnet_tpu_torch.serve.batcher.DynamicBatcher`, and exposes
 ``submit`` / ``predict`` / ``close``. Knobs come from the same ``key =
@@ -37,8 +37,21 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..utils.config import NotPortedError, Roadmap
 from .batcher import DynamicBatcher, ServeBusyError, ServeTimeoutError
 from .engine import InferenceEngine, build_engine
+
+
+def _refuse_sealed_index(model_path: str) -> None:
+    """A bundle that seals an embedding index is served with its search
+    operations by the reference; retrieval is not ported, so its model
+    part is not served without them either."""
+    from ..artifact import bundle as _ab
+    if _ab.is_bundle(model_path) \
+            and _ab.bundle_manifest(model_path).get("index") is not None:
+        raise NotPortedError(
+            "the embedding index sealed in bundle %r" % model_path,
+            Roadmap.RETRIEVAL)
 
 
 class ServeConfig:
@@ -103,6 +116,7 @@ class ServeSession:
         if engine is None:
             if not model_path:
                 raise ValueError("ServeSession needs model_path or engine")
+            _refuse_sealed_index(model_path)
             engine = build_engine(cfg, model_path, buckets=c.buckets,
                                   max_batch=c.max_batch, node=c.node,
                                   device=device, monitor=monitor)

@@ -2,13 +2,15 @@
 ``cxxnet_tpu/serve/swap.py``).
 
 A :class:`SnapshotWatcher` polls a model's ``model_dir`` for a newer
-*verified* snapshot (``nnet.checkpoint.verify_snapshot``: digest and
-structure checked before a byte is trusted), builds and warms a
+*verified* model — a snapshot that passes ``nnet.checkpoint.
+verify_snapshot`` or a sealed bundle (``NNNN.model.bundle``) that
+passes ``artifact.bundle.verify_bundle`` — builds and warms a
 **shadow** session off the request path, then flips the router entry
 and drains the retired session:
 
-1. **scan** — committed candidates newest first, read-only
-   (:func:`latest_verified`): never :func:`~cxxnet_tpu_torch.nnet.
+1. **scan** — committed candidates newest first, a bundle before a
+   snapshot at the same counter, read-only (:func:`latest_verified`):
+   never :func:`~cxxnet_tpu_torch.nnet.
    checkpoint.find_latest_valid`, which sweeps ``.tmp`` files and
    quarantines corrupt candidates, because a watched ``model_dir``
    usually has a live writer (the training run whose snapshots are
@@ -22,96 +24,52 @@ and drains the retired session:
    end retries the one race a flip cannot close (resolved the old
    session, submitted after its drain began) through a fresh resolve.
 
-Every swap emits a ``hot_swap`` record; a failed shadow build warns and
-leaves the old session serving.
-
-Sealed bundles (``NNNN.model.bundle``) are not ported (ROADMAP queue 1,
-sealed bundles). The reference boots the newest verified entry and,
-at equal counters, prefers a bundle; the port cannot verify or load
-one, so it never serves one silently: a committed bundle that would be
-the newest entry at boot raises :class:`~cxxnet_tpu_torch.utils.config.
-NotPortedError` (:func:`newest_model`), and one that commits while the
-watcher serves a snapshot is skipped with one warning per bundle.
+While the entry serves a snapshot, a bundle that commits at the same
+counter (an export of the served snapshot) swaps in too; one that
+fails verification warns once and is not re-hashed until its commit
+marker is rewritten. Every swap emits a ``hot_swap`` record; a failed
+shadow build warns and leaves the old session serving.
 """
 
 from __future__ import annotations
 
 import os
-import re
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
+from ..artifact.bundle import (BUNDLE_RE, MANIFEST_NAME, OK_SUFFIX,
+                               member_uri, scan_bundles, verify_bundle)
 from ..monitor import warn_once
-from ..nnet.checkpoint import (MODEL_RE, OK_SUFFIX, scan_snapshots,
-                               snapshot_uri, verify_snapshot)
-from ..utils.config import NotPortedError, Roadmap
-from ..utils.stream import list_stream_dir, stream_exists
+from ..nnet.checkpoint import (MODEL_RE, scan_snapshots, snapshot_uri,
+                               verify_snapshot)
+from ..utils.stream import local_path, read_stream_bytes, uri_scheme
 from .router import ModelRouter
-
-# the reference's bundle naming (cxxnet_tpu/artifact/bundle.py): a
-# directory whose commit marker is MANIFEST.json.ok
-BUNDLE_RE = re.compile(r"^(\d{4})\.model\.bundle$")
-BUNDLE_MANIFEST = "MANIFEST.json"
-
-
-def scan_bundles(model_dir: str) -> List[Tuple[int, str]]:
-    """Committed bundle candidates in ``model_dir`` as (counter,
-    basename), newest first; a bundle without its commit marker may
-    still be being written and is left out. Read-only."""
-    out = []
-    for n in list_stream_dir(model_dir):
-        m = BUNDLE_RE.match(n)
-        if not m:
-            continue
-        marker = snapshot_uri(snapshot_uri(model_dir, n),
-                              BUNDLE_MANIFEST + OK_SUFFIX)
-        if stream_exists(marker):
-            out.append((int(m.group(1)), n))
-    out.sort(reverse=True)
-    return out
-
-
-def is_bundle(path: str) -> bool:
-    """True when ``path`` is a bundle directory (committed or not)."""
-    return stream_exists(snapshot_uri(path, BUNDLE_MANIFEST))
 
 
 def latest_verified(model_dir: str, min_counter: int = -1,
                     ) -> Tuple[Optional[int], Optional[str]]:
-    """Newest snapshot in ``model_dir`` that passes
-    ``verify_snapshot``, as (counter, uri); (None, None) when none
-    does. ``min_counter`` prunes candidates at or below it before they
-    are verified (the idle poll costs a listing, not a re-hash).
-    Read-only: safe against a ``model_dir`` a live writer commits
-    into."""
+    """Newest verified model in ``model_dir`` — a snapshot that passes
+    ``verify_snapshot`` or a bundle that passes ``verify_bundle`` — as
+    (counter, uri); (None, None) when none does. At an equal counter
+    the bundle wins. ``min_counter`` prunes candidates at or below it
+    before they are verified (the idle poll costs a listing, not a
+    re-hash). Read-only: safe against a ``model_dir`` a live writer
+    commits into."""
     try:
-        candidates = scan_snapshots(model_dir)
+        candidates = [(c, n, False) for c, n in scan_snapshots(model_dir)]
+        candidates += [(c, n, True) for c, n in scan_bundles(model_dir)]
     except (IOError, OSError):
         return None, None
-    for counter, name in candidates:         # newest first
+    candidates.sort(key=lambda c: (c[0], c[2]), reverse=True)
+    for counter, name, bundle in candidates:
         if counter <= min_counter:
-            break
+            break                        # sorted: nothing newer left
         uri = snapshot_uri(model_dir, name)
-        if verify_snapshot(uri)["ok"]:
+        rep = verify_bundle(uri) if bundle else verify_snapshot(uri)
+        if rep["ok"]:
             return counter, uri
     return None, None
-
-
-def newest_model(model_dir: str) -> Tuple[Optional[int], Optional[str]]:
-    """What a ``model_dir`` source boots: :func:`latest_verified`.
-    Raises NotPortedError when a committed bundle is at least as new
-    (the reference would boot that bundle)."""
-    counter, path = latest_verified(model_dir)
-    try:
-        bundles = scan_bundles(model_dir)
-    except (IOError, OSError):
-        bundles = []
-    if bundles and (counter is None or bundles[0][0] >= counter):
-        raise NotPortedError(
-            "the sealed bundle %s, the newest model in %r"
-            % (bundles[0][1], model_dir), Roadmap.BUNDLES)
-    return counter, path
 
 
 def counter_of(path: str) -> int:
@@ -126,10 +84,10 @@ def counter_of(path: str) -> int:
 
 class SnapshotWatcher:
     """Poll one model's directory and hot-swap on a newer verified
-    snapshot.
+    snapshot or bundle.
 
     ``builder(path)`` returns a warmed ``ServeSession`` for the
-    snapshot at ``path`` (the front end passes its session factory).
+    snapshot or bundle at ``path`` (the front end passes its session factory).
     ``check_once()`` is the synchronous core; the poll thread calls it
     every ``poll_s`` seconds, and ``notify()`` wakes it at once.
     """
@@ -156,23 +114,30 @@ class SnapshotWatcher:
         self._lock = threading.Lock()
         self.swaps = 0
         self.failed_builds = 0
+        # the same-counter bundle probe's negative cache: uri -> the
+        # commit-marker bytes that failed verification (a re-export
+        # rewrites the marker, which retries)
+        self._bad_upgrade: Dict[str, bytes] = {}
 
     # -- the swap core ----------------------------------------------------
 
     def check_once(self) -> Optional[Dict[str, Any]]:
-        """One poll: swap if a newer verified snapshot exists. Returns
-        the ``hot_swap`` record fields on a swap, None otherwise. Never
-        raises: a failed shadow build warns and leaves the current
-        session serving."""
+        """One poll: swap if a newer verified model exists, or a bundle
+        at the served snapshot's counter. Returns the ``hot_swap``
+        record fields on a swap, None otherwise. Never raises: a failed
+        shadow build warns and leaves the current session serving."""
         with self._lock:
             try:
                 current = self.router.resolve(self.model_id)
             except KeyError:
                 return None
-            self._skip_bundles(current.counter)
             counter, path = latest_verified(
                 self.model_dir, min_counter=current.counter)
-            if counter is None or path == current.path:
+            if counter is None:
+                counter, path = self._bundle_upgrade(current)
+                if counter is None:
+                    return None
+            if counter < current.counter or path == current.path:
                 return None
             t0 = time.monotonic()
             try:
@@ -224,23 +189,57 @@ class SnapshotWatcher:
                                "not be emitted" % self.model_id)
             return rec
 
-    def _skip_bundles(self, served: int) -> None:
-        """Warn once for each committed bundle at or past the served
-        counter: the reference would swap to it; the port keeps
-        serving snapshots."""
+    def _bundle_upgrade(self, current) -> Tuple[Optional[int],
+                                                Optional[str]]:
+        """A committed bundle at the served counter while the entry
+        serves a snapshot: (counter, uri) once it verifies, else (None,
+        None). Cheap (a listing and a marker's existence) until such a
+        bundle appears; one that fails verification warns once and is
+        skipped until its marker is rewritten."""
+        if BUNDLE_RE.match(os.path.basename(
+                (current.path or "").rstrip("/"))):
+            return None, None            # already serving a bundle
         try:
             bundles = scan_bundles(self.model_dir)
         except (IOError, OSError):
-            return
+            return None, None
         for c, name in bundles:
-            if c < served:
-                break
-            self._warn("hot_swap_bundle_skipped:%s" % name,
-                       "bundle %s in %r is not served: sealed bundles "
-                       "are not ported to cxxnet_tpu_torch yet "
-                       "(ROADMAP.md %s); model %r keeps serving snapshots"
-                       % (name, self.model_dir, Roadmap.BUNDLES,
-                          self.model_id))
+            if c != current.counter:
+                continue
+            uri = snapshot_uri(self.model_dir, name)
+            if uri == current.path:
+                return None, None
+            marker = self._read_marker(uri)
+            if marker is not None \
+                    and self._bad_upgrade.get(uri) == marker:
+                return None, None        # the same failed bytes
+            # the shadow build's load_bundle verifies again at read time
+            rep = verify_bundle(uri)
+            if rep["ok"]:
+                self._bad_upgrade.pop(uri, None)
+                return c, uri
+            if marker is not None:
+                self._bad_upgrade[uri] = marker
+            self._warn("bundle_upgrade_invalid:%s" % uri,
+                       "bundle %s at the served counter fails "
+                       "verification (%s); staying on the snapshot "
+                       "(re-export to retry)" % (uri, rep["error"]))
+            return None, None
+        return None, None
+
+    @staticmethod
+    def _read_marker(uri: str) -> Optional[bytes]:
+        """The negative-cache key of a bundle: its commit-marker bytes
+        and, on a local path, the marker's mtime (a deterministic
+        re-export writes the same marker bytes); None when unreadable."""
+        ok = member_uri(uri, MANIFEST_NAME + OK_SUFFIX)
+        try:
+            data = read_stream_bytes(ok)
+            if not uri_scheme(ok):
+                data += b"@%d" % os.stat(local_path(ok)).st_mtime_ns
+            return data
+        except (IOError, OSError):
+            return None
 
     def _warn(self, code: str, message: str) -> None:
         if self._mon is not None:

@@ -28,14 +28,11 @@ class ConfigError(ValueError):
 class Roadmap:
     """The ``ROADMAP.md`` items (queue and title) that port what a
     :class:`NotPortedError` reports. The C ABI, the serving front end
-    (``task = serve_fleet``) and ``serve_device_mem_budget`` are ported
-    and raise nothing."""
-    # sealed bundles: task = export, a bundle as model_path or as a
-    # serve_models source (or the newest model of a watched directory)
-    BUNDLES = "queue 1, sealed bundles"
-    # the continual loop, then the fleet tier: task = continual, fleet
-    # and fleet_balancer
-    FLEET = "queue 1, the continual loop and the fleet"
+    (``task = serve_fleet``), ``serve_device_mem_budget``, sealed
+    bundles (``task = export``) and the continual loop (``task =
+    continual``) are ported and raise nothing."""
+    # the fleet tier: task = fleet and fleet_balancer
+    FLEET = "queue 1, the fleet"
     # serve_dtype = fp8
     QUANTIZED = "queue 1, quantized and low-precision inference"
     RETRIEVAL = "queue 1, retrieval"

@@ -1,7 +1,7 @@
 """``task = finetune`` in the port against the reference's
-``tests/test_finetune.py``: the cases without a sealed bundle, case for
-case (bundles are ROADMAP queue 1 item 9; the bundle case's other
-assertions run here from the plain snapshot), and ``finetune_from`` on
+``tests/test_finetune.py``, case for case (the bundle case through the
+port's own export: the reference's bundle boot fails in this container),
+and ``finetune_from`` on
 a reference snapshot: the same layers carried, bit for bit, and the same
 first update within ``UPDATE_RTOL`` / ``UPDATE_ATOL`` (the reference's
 step compiled for one device; XLA:CPU and PyTorch's CPU products sum in
@@ -94,6 +94,53 @@ def test_finetune_remap_end_to_end(setup):
     snap, _ = read_snapshot(os.path.join(mdir, "0001.model.npz"))
     assert snap["param/fc2/wmat"].shape == (32, 6)
     assert snap["param/fc2/bias"].shape == (6,)
+
+
+def test_finetune_bundle_remap_end_to_end(setup):
+    """The reference's acceptance path from a sealed bundle: export the
+    source, finetune from the bundle with the head remapped (the carry
+    record names the bundle and the inner snapshot's digest; the carried
+    backbone is the source's bits), export the finetuned model, and
+    boot the new bundle from its manifest alone (every program a hit:
+    none on the CPU)."""
+    from cxxnet_tpu.artifact.bundle import verify_bundle as ref_verify
+    from cxxnet_tpu_torch.artifact.bundle import serve_cfg_from_bundle
+    from cxxnet_tpu_torch.monitor import MemorySink, Monitor
+    from cxxnet_tpu_torch.monitor.schema import read_jsonl, validate_records
+    from cxxnet_tpu_torch.serve import ServeSession
+    tmp_path, conf, p6, model = setup
+    assert main([conf, "task=export", "model_in=" + model]) == 0
+    bundle = model[:-len(".npz")] + ".bundle"
+    assert ref_verify(bundle)["ok"]
+    mdir = str(tmp_path / "ft_bundle")
+    mon_file = str(tmp_path / "ft_bundle.jsonl")
+    assert main([p6, "task=finetune", "model_in=" + bundle,
+                 "finetune_remap=fc2", "num_round=1", "model_dir=" + mdir,
+                 "monitor=jsonl", "monitor_path=" + mon_file]) == 0
+    records = read_jsonl(mon_file)
+    assert validate_records(records, strict=False) == []
+    (rec,) = [r for r in records if r["event"] == "finetune"]
+    assert rec["source"] == bundle
+    assert rec["carried_layers"] == ["fc1"]
+    assert rec["remapped_layers"] == ["fc2"]
+    _, src_meta = read_snapshot(model)
+    assert rec["source_digest"] == src_meta["content_digest"]
+    snap, _ = read_snapshot(os.path.join(mdir, "0001.model.npz"))
+    assert snap["param/fc2/wmat"].shape == (32, 6)
+    ft_model = os.path.join(mdir, "0001.model.npz")
+    assert main([p6, "task=export", "model_in=" + ft_model]) == 0
+    ft_bundle = os.path.join(mdir, "0001.model.bundle")
+    sink = MemorySink()
+    session = ServeSession(serve_cfg_from_bundle(ft_bundle),
+                           model_path=ft_bundle, monitor=Monitor(sink),
+                           device="cpu")
+    try:
+        out = session.predict(np.zeros((2, 256), np.float32))
+    finally:
+        session.close()
+    assert out.shape == (2, 6)
+    (art,) = [r for r in sink.records if r["event"] == "artifact_load"]
+    assert art["fingerprint_match"] and art["rebuilds"] == 0
 
 
 def test_shape_mismatch_without_remap_is_typed_and_names_layer(setup):

@@ -51,7 +51,6 @@ from cxxnet_tpu_torch.monitor.schema import validate_records
 from cxxnet_tpu_torch.nnet.checkpoint import read_snapshot, write_snapshot
 from cxxnet_tpu_torch.serve import ModelRouter, ServeSession
 from cxxnet_tpu_torch.serve import swap as pswap
-from cxxnet_tpu_torch.utils.config import NotPortedError, Roadmap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL, RTOL = 1e-5, 1e-4
@@ -482,26 +481,53 @@ def _bundle(d, counter, committed=True):
     return str(b)
 
 
-def test_bundle_sources_raise_not_ported(snaps, tmp_path):
+def _export(snap, out):
+    """The port's export of ``snap`` (on the CPU: no kernel library)."""
+    from cxxnet_tpu_torch.artifact.bundle import export_bundle
+    from cxxnet_tpu_torch.serve import build_engine
+    engine = build_engine(FLEET_GLOBALS, snap, buckets="1,4",
+                          device="cpu")
+    engine.warmup()
+    return export_bundle(engine, out)
+
+
+def test_bundle_sources_boot_and_win_at_equal_counter(snaps, tmp_path):
+    """A bundle beside the snapshot of its counter wins, in both
+    packages' scans; an uncommitted one is not seen; a pinned bundle
+    source boots and serves its snapshot's rows."""
     d = tmp_path / "models"
     d.mkdir()
     shutil.copy(snaps["mlp"], str(d / "0001.model.npz"))
     _bundle(d, 2, committed=False)          # still being written
     assert pf.FleetServer._resolve_source(str(d))[0] == 1
-    b = _bundle(d, 3)
-    with pytest.raises(NotPortedError) as e:
-        pf.FleetServer._resolve_source(str(d))
-    assert e.value.roadmap_item == Roadmap.BUNDLES
-    assert "0003.model.bundle" in str(e.value)
-    with pytest.raises(NotPortedError) as e:
-        pf.FleetServer._resolve_source(b)
-    assert e.value.roadmap_item == Roadmap.BUNDLES
+    b = str(d / "0001.model.bundle")
+    assert _export(str(d / "0001.model.npz"), b)["programs"] == 0
+    got = pf.FleetServer._resolve_source(str(d))
+    assert got == rf.FleetServer._resolve_source(str(d)) == (1, b, str(d))
+    assert pf.FleetServer._resolve_source(b) == \
+        rf.FleetServer._resolve_source(b) == (1, b, "")
+    rows = _rows(3, 3, MLP_ROW)
+    sink = MemorySink()
+    outs = []
+    for path, mon in ((b, Monitor(sink)), (str(d / "0001.model.npz"),
+                                           None)):
+        s = ServeSession(FLEET_GLOBALS + [("dev", "cpu")],
+                         model_path=path, monitor=mon, device="cpu")
+        try:
+            outs.append(s.predict(rows))
+        finally:
+            s.close()
+    np.testing.assert_array_equal(outs[0], outs[1])
+    (art,) = [r for r in sink.records if r["event"] == "artifact_load"]
+    assert art["fingerprint_match"] and art["hits"] == 0 \
+        and art["rebuilds"] == 0
 
 
 def test_watcher_skips_a_bundle_and_keeps_serving_snapshots(snaps,
                                                             tmp_path):
-    """A bundle committing mid-serve is skipped with one warning; a
-    newer snapshot still swaps in, a failed build keeps the old one."""
+    """A committed bundle that fails verification is skipped (its
+    manifest is no manifest), as the reference's scan skips it; a newer
+    snapshot still swaps in, a failed build keeps the old one."""
     d = tmp_path / "models"
     d.mkdir()
     shutil.copy(snaps["mlp"], str(d / "0001.model.npz"))
@@ -529,7 +555,8 @@ def test_watcher_skips_a_bundle_and_keeps_serving_snapshots(snaps,
     assert w.check_once() is None and w.failed_builds == 1
     assert router.resolve("main").counter == 2
     codes = [r["code"] for r in sink.records if r["event"] == "warning"]
-    assert codes.count("hot_swap_bundle_skipped:0005.model.bundle") == 1
+    assert not any("0005.model.bundle" in c for c in codes)
+    assert rswap.latest_verified(str(d)) == pswap.latest_verified(str(d))
     assert "hot_swap_build_failed:%s" % (d / "0004.model.npz") in codes
     assert [r["event"] for r in sink.records].count("hot_swap") == 1
 

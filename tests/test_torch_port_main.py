@@ -315,27 +315,14 @@ def test_unported_raises_naming_its_item(tmp_path, monkeypatch, what,
 
 
 # tasks that raised NotPortedError before they were ported: each now runs
-# through both CLIs
-PORTED_TASKS = ["task=serve_fleet"]
+# through the port's CLI, and through the reference's where its path runs
+# in this container (its continual loop boots bundles, which fail here)
+PORTED_TASKS = ["task=serve_fleet", "task=export", "task=continual"]
 
 
-@pytest.mark.parametrize("what", PORTED_TASKS)
-def test_ported_tasks_run(tmp_path, monkeypatch, what):
-    """``task = serve_fleet`` (the reference's
-    ``test_main_task_serve_fleet_runs_and_drains``): both CLIs boot the
-    newest snapshot of ``model_dir``, listen, print the same lines and
-    drain after ``serve_fleet_duration_s``; both streams pass both
-    packages' ``validate_records``."""
+def _ported_serve_fleet(what):
     from cxxnet_tpu.monitor.schema import validate_records as ref_validate
     from cxxnet_tpu_torch.monitor.schema import read_jsonl, validate_records
-    rng = np.random.RandomState(1)
-    _csv(str(tmp_path / "train.csv"), 40, rng)
-    _csv(str(tmp_path / "test.csv"), 20, rng)
-    with open(str(tmp_path / "c.conf"), "w") as f:
-        f.write(CSV_CONF)
-    monkeypatch.chdir(tmp_path)
-    rc, _ = run_cli(LearnTask, ["c.conf", "dev=cpu", "model_dir=m"])
-    assert rc == 0 and os.path.exists("m/0001.model.npz")
     outs = {}
     for name, cls in (("ref", RefTask), ("port", LearnTask)):
         rc, out = run_cli(cls, [
@@ -355,6 +342,96 @@ def test_ported_tasks_run(tmp_path, monkeypatch, what):
         "default@0001" in outs["port"]
     assert "serve_fleet: 0 requests (0 ok / 0 over_quota / 0 busy / " \
         "0 timeout / 0 error), 0 hot-swaps" in outs["port"]
+
+
+def _ported_export(what):
+    """Both CLIs seal m/0001.model.npz; each bundle passes both
+    packages' verification, and their inner snapshots hold the same
+    parameters. The reference seals its XLA executables, the port on
+    the CPU no kernel library."""
+    from cxxnet_tpu.artifact import bundle as rb
+    from cxxnet_tpu.monitor.schema import validate_records as ref_validate
+    from cxxnet_tpu_torch.artifact import bundle as pb
+    from cxxnet_tpu_torch.monitor.schema import read_jsonl, validate_records
+    pat = re.compile(r"^export: sealed m/0001\.model\.npz -> (\S+) "
+                     r"\((\d+) programs compiled, (\d+) serialized, "
+                     r"(\d+) bytes\)$", re.M)
+    params = {}
+    for name, cls in (("ref", RefTask), ("port", LearnTask)):
+        out_b = "%s.model.bundle" % name
+        rc, out = run_cli(cls, [
+            "c.conf", "dev=cpu", "model_dir=m", what,
+            "model_in=m/0001.model.npz", "export_out=" + out_b,
+            "monitor=jsonl", "monitor_path=%s.jsonl" % name])
+        assert rc == 0, out
+        m = pat.search(out)
+        assert m and m.group(1) == out_b, out
+        recs = read_jsonl("%s.jsonl" % name)
+        assert validate_records(recs, strict=False) == []
+        assert ref_validate(recs, strict=False) == []
+        (exp,) = [r for r in recs if r["event"] == "export"]
+        assert exp["out"] == out_b and exp["programs"] == int(m.group(3))
+        for mod in (rb, pb):
+            rep = mod.verify_bundle(out_b)
+            assert rep["ok"], rep
+            assert rep["programs"] == exp["programs"]
+        arrays, _ = read_snapshot(os.path.join(out_b,
+                                               pb.SNAPSHOT_MEMBER))
+        params[name] = {k: v for k, v in arrays.items()
+                        if k.startswith("param/")}
+    assert sorted(params["ref"]) == sorted(params["port"])
+    for k in params["ref"]:
+        np.testing.assert_array_equal(params["port"][k], params["ref"][k])
+
+
+def _ported_continual(what):
+    """The port's continual loop over the CSV net: two ungated
+    generations, each a committed bundle the reference verifies, and a
+    record stream both schemas accept."""
+    from cxxnet_tpu.artifact import bundle as rb
+    from cxxnet_tpu.monitor.schema import validate_records as ref_validate
+    from cxxnet_tpu_torch.monitor.schema import read_jsonl, validate_records
+    rc, out = run_cli(LearnTask, [
+        "c.conf", "dev=cpu", "model_dir=cm", what,
+        "continual_export_every=2", "continual_generations=2",
+        "continual_gate=off", "dispatch_period=1", "serve_buckets=1,4",
+        "serve_http_port=0", "serve_binary_port=-1",
+        "monitor=jsonl", "monitor_path=port.jsonl"])
+    assert rc == 0, out
+    recs = read_jsonl("port.jsonl")
+    assert validate_records(recs, strict=False) == []
+    assert ref_validate(recs, strict=False) == []
+    gens = [r for r in recs if r["event"] == "generation"]
+    assert [(r["counter"], r["action"], r["train_updates"])
+            for r in gens] == [(1, "deployed", 2), (2, "deployed", 4)]
+    assert [r["export_engine_built"] for r in gens] == [True, False]
+    (roll,) = [r for r in recs if r["event"] == "continual"]
+    assert roll["deployed"] == 2 and roll["swaps"] == 1
+    for c in (1, 2):
+        assert rb.verify_bundle("cm/%04d.model.bundle" % c)["ok"]
+    assert "continual: 2 generation(s) deployed (0 gate-skipped, 0 " \
+        "failed), 4 updates, 1 hot-swaps" in out
+
+
+@pytest.mark.parametrize("what", PORTED_TASKS)
+def test_ported_tasks_run(tmp_path, monkeypatch, what):
+    """``task = serve_fleet`` (the reference's
+    ``test_main_task_serve_fleet_runs_and_drains``): both CLIs boot the
+    newest snapshot of ``model_dir``, listen, print the same lines and
+    drain after ``serve_fleet_duration_s``; both streams pass both
+    packages' ``validate_records``. ``task = export`` and ``task =
+    continual``: see their helpers."""
+    rng = np.random.RandomState(1)
+    _csv(str(tmp_path / "train.csv"), 40, rng)
+    _csv(str(tmp_path / "test.csv"), 20, rng)
+    with open(str(tmp_path / "c.conf"), "w") as f:
+        f.write(CSV_CONF)
+    monkeypatch.chdir(tmp_path)
+    rc, _ = run_cli(LearnTask, ["c.conf", "dev=cpu", "model_dir=m"])
+    assert rc == 0 and os.path.exists("m/0001.model.npz")
+    {"task=serve_fleet": _ported_serve_fleet,
+     "task=export": _ported_export,
+     "task=continual": _ported_continual}[what](what)
 
 
 # the telemetry keys that raised NotPortedError before they were ported:

@@ -387,18 +387,30 @@ def test_grad_dtype_without_bf16_compute_raises(ref):
 
 def test_unported_layer_type_and_bundle_raise(ref, tmp_path):
     """No layer type of the reference is unported any more (``lrn``,
-    once the example, builds), nor the net key ``channel_pad``; a sealed
-    bundle still raises NotPortedError."""
+    once the example, builds), nor the net key ``channel_pad``. Sealed
+    bundles are ported (``tests/test_torch_port_bundle.py``): a bundle
+    directory whose manifest has no commit marker raises the reference's
+    ``BundleError``, and a directory without a manifest is no bundle and
+    no snapshot either."""
     text = ("netconfig=start\nlayer[0->1] = lrn\n"
             "netconfig=end\ninput_shape = 3,8,8\nbatch_size = 2\n")
     NetTrainer(parse_config(text), device="cpu").init_model()
     t = NetTrainer(parse_config(text + "channel_pad = 1\n"), device="cpu")
     t.init_model()
     assert t.net.layout_summary["channel_pad"] == 1
+    from cxxnet_tpu.artifact.bundle import BundleError as RefBundleError
+    from cxxnet_tpu.serve import ServeSession as RefSession
+    from cxxnet_tpu_torch.artifact.bundle import BundleError
     bundle = tmp_path / "0001.model.bundle"
     os.makedirs(bundle)
-    with pytest.raises(NotPortedError, match="sealed bundles"):
+    with pytest.raises(SnapshotIntegrityError, match="unreadable"):
         ServeSession(_cfg(), model_path=str(bundle), device="cpu")
+    (bundle / "MANIFEST.json").write_text("{}")
+    with pytest.raises(RefBundleError, match="uncommitted") as ref_e:
+        RefSession(_cfg(), model_path=str(bundle))
+    with pytest.raises(BundleError, match="uncommitted") as port_e:
+        ServeSession(_cfg(), model_path=str(bundle), device="cpu")
+    assert str(port_e.value) == str(ref_e.value)
 
 
 def test_port_init_is_seeded():
