@@ -5583,7 +5583,7 @@ def fleet_traffic(ports, pool, swap=None, http: bool = True,
     requests the snapshot commits into the watched directory, and the
     drive stops ``FLEET_POST`` ok requests after the flip; without, it
     runs ``seconds``, or until the file ``until`` exists when one is
-    named. ``model`` is the routed model the binary clients ask for; the
+    named. ``model`` is the routed model the clients ask for; the
     file ``started``, when named, is written at the first ok reply; the
     binary requests carry 1 to ``max_rows`` rows, CXN2 ``v2_depth`` in
     flight.
@@ -5603,7 +5603,7 @@ def fleet_traffic(ports, pool, swap=None, http: bool = True,
     flat = pool.reshape(pool.shape[0], elems)
     # the HTTP bodies, encoded before the drive: 150,528 floats a row
     bodies = {(s, n, tenant): json.dumps(
-        {"model": "main", "tenant": tenant,
+        {"model": model, "tenant": tenant,
          "rows": flat[s:s + n].tolist()})
         for s in range(FLEET_HTTP_STARTS) for n in (1, 2)
         for tenant in ("gold", "free")
@@ -5728,7 +5728,8 @@ def fleet_clients(argv) -> int:
     nothing of theirs takes the server's interpreter lock: reads the
     spec ``argv[0]`` (ports, or a ``port_file`` to wait for; the pool's
     ``.npy``, ``swap``, ``http``, ``seconds``, ``until``, ``model``,
-    ``out``), runs :func:`fleet_traffic` and writes its log to
+    ``out``), runs :func:`fleet_traffic` (or, given ``failover``
+    endpoints, :func:`door_traffic`) and writes its log to
     ``<out>.json`` and the ok replies' rows, in log order, to
     ``<out>.npy``."""
     with open(argv[0]) as f:
@@ -5746,14 +5747,19 @@ def fleet_clients(argv) -> int:
         spec.update(http_port=ports["http_port"],
                     binary_port=ports["binary_port"])
     pool = np.load(spec["pool"])
-    drive = fleet_traffic((spec["http_port"], spec["binary_port"]), pool,
-                          swap=spec["swap"], http=spec["http"],
-                          seconds=spec["seconds"],
-                          until=spec.get("until", ""),
-                          model=spec.get("model", "main"),
-                          started=spec.get("started", ""),
-                          max_rows=spec.get("max_rows", 16),
-                          v2_depth=spec.get("v2_depth", FLEET_V2_DEPTH))
+    if spec.get("failover"):
+        drive = door_traffic([tuple(e) for e in spec["failover"]], pool,
+                             until=spec["until"], model=spec["model"],
+                             started=spec.get("started", ""))
+    else:
+        drive = fleet_traffic((spec["http_port"], spec["binary_port"]), pool,
+                              swap=spec["swap"], http=spec["http"],
+                              seconds=spec["seconds"],
+                              until=spec.get("until", ""),
+                              model=spec.get("model", "main"),
+                              started=spec.get("started", ""),
+                              max_rows=spec.get("max_rows", 16),
+                              v2_depth=spec.get("v2_depth", FLEET_V2_DEPTH))
     rows = []
     for r in drive["log"]:
         if r["status"] == "ok":
@@ -7258,6 +7264,646 @@ def phase_continual(workdir: str):
     return res
 
 
+# ------------------------------------------------------------ phase 17
+
+# task = fleet over Inception-BN.conf replicas, booted from the bundle
+# phase's bundles: the calibrated snapshot's, and as the canary the
+# perturbed next one's
+TIER_CANARY_FRACTION = 0.25
+TIER_CANARY_WINDOW_S = 25.0    # from the canary's arm: spans the kill and heal
+TIER_CANARY_MIN = 40           # canary requests the decision needs
+# replicas of both versions share one card, and the baseline's window
+# holds the kill's retries: a canary only as slow as they are promotes
+TIER_CANARY_P99_RATIO = 4.0
+TIER_COALESCE_MS = 2.0
+# the over-quota tenant is shed by design, and the queues of six clients
+# are the load the replicas are sized for: neither scales the fleet out,
+# so the replica after the kill is the controller's heal
+TIER_SHED_HI = 1.0
+TIER_QUEUE_HI = 4.0
+# a merged batch closes once it holds this many rows, so it has at most
+# 111 + 16: one micro-batch of the ladder's top bucket (128)
+TIER_COALESCE_ROWS = 112
+TIER_KILL_AFTER_S = 4.0        # traffic before a replica's or door's SIGKILL
+TIER_AFTER_S = 4.0             # traffic after the decision / the door's heal
+TIER_WAIT_S = 420.0            # a drive's limit
+TIER_MEMBER = "import sys, chip_smoke; sys.exit(chip_smoke.%s(sys.argv[1:]))"
+
+
+def door_traffic(endpoints, pool, until: str, model: str,
+                 started: str = "", clients: int = 4, max_rows: int = 16):
+    """Binary clients of a sharded front tier: ``clients``
+    ``FailoverBinaryClient`` s over ``endpoints`` (every other one in
+    reverse order, so that half start at each door), 1 to ``max_rows``
+    rows a request, until the file ``until`` exists (``started`` written
+    at the first ok reply). Returns every request's record, as
+    :func:`fleet_traffic` does, and each client's failovers. Runs in
+    :func:`fleet_clients`' process."""
+    import threading
+    from cxxnet_tpu_torch.serve.frontend import FailoverBinaryClient
+    stop = threading.Event()
+    lock = threading.Lock()
+    log, errors, failovers = [], [], [0] * clients
+    flat = pool.reshape(pool.shape[0], -1)
+
+    def client(ci):
+        rng = np.random.RandomState(SEED + 50 + ci)
+        fc = FailoverBinaryClient(
+            list(reversed(endpoints)) if ci % 2 else list(endpoints),
+            timeout=300)
+        try:
+            while not stop.is_set():
+                n = int(rng.randint(1, max_rows + 1))
+                s = int(rng.randint(0, len(pool) - n + 1))
+                t = time.time()
+                st, res = fc.predict(flat[s:s + n], model=model,
+                                     tenant="door-%d" % ci)
+                with lock:
+                    log.append({"proto": "cxn1", "tenant": "door-%d" % ci,
+                                "start": s, "n": n, "status": st,
+                                "result": res, "t_send": t,
+                                "ms": (time.time() - t) * 1e3,
+                                "extra": None})
+                    if started and st == "ok" \
+                            and not os.path.exists(started):
+                        with open(started, "w") as f:
+                            f.write(repr(t))
+        except Exception as e:                  # surfaced by the checks
+            with lock:
+                errors.append("%s: %s" % (type(e).__name__, e))
+        finally:
+            failovers[ci] = fc.failovers
+            fc.close()
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(clients)]
+    t0 = time.time()
+    for t in threads:
+        t.start()
+    try:
+        deadline = time.monotonic() + FLEET_TIMEOUT_S - 60
+        while time.monotonic() < deadline and not os.path.exists(until):
+            time.sleep(0.02)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+    return {"log": log, "errors": errors, "t0": t0, "t_end": time.time(),
+            "t_commit": None, "t_swap": None, "failovers": failovers,
+            "alive": sum(t.is_alive() for t in threads)}
+
+
+def _port_file_arg(argv) -> str:
+    return next(a.split("=", 1)[1] for a in argv
+                if a.startswith(("serve_port_file=", "fleet_port_file=")))
+
+
+def fleet_member(argv) -> int:
+    """One process of the tier (a replica or a door): ``argv[0]`` is the
+    spawner's clock at the spawn, the rest the arguments of
+    ``python -m cxxnet_tpu_torch.main``. Runs that entry point with every
+    launch count from 0 and every served forward counted
+    (:func:`count_forwards`), and after it returns (SIGTERM drains it)
+    writes beside its port file (``<id>.counts.json``) its pid, exit
+    code, forwards, launches, nvcc runs, kernel build logs and whether it
+    initialized CUDA. A SIGKILLed member writes nothing."""
+    args = argv[1:]
+    import torch
+    from cxxnet_tpu_torch import main as pmain
+    from cxxnet_tpu_torch.layers import kernels
+    out = _port_file_arg(args)[:-len(".ports.json")] + ".counts.json"
+    kernels.reset_launch_counts()
+    with count_forwards() as fwd:
+        rc = pmain.main(args)
+    res = {"pid": os.getpid(), "rc": rc, "t_spawn": float(argv[0]),
+           "forwards": fwd["n"], "launches": kernels.launch_counts(),
+           "nvcc_runs": kernels.nvcc_runs,
+           "builds": {k: str(v["log"])[:24]
+                      for k, v in kernels.build_info.items()},
+           "cuda_initialized": torch.cuda.is_initialized()}
+    with open(out + ".tmp", "w") as f:
+        json.dump(res, f)
+    os.replace(out + ".tmp", out)
+    return rc
+
+
+def tier_child(argv) -> int:
+    """``python -m cxxnet_tpu_torch.main argv[1:]`` (``task = fleet``)
+    in this process, with the ``Launcher`` seam
+    (``fleet.placement.LocalLauncher.launch``) swapped so that every
+    replica and door it spawns runs the same entry point through
+    :func:`fleet_member`. Writes to ``argv[0]`` its pid, exit code,
+    whether it initialized CUDA and each member id's spawn clocks."""
+    import torch
+    from cxxnet_tpu_torch import main as pmain
+    from cxxnet_tpu_torch.fleet import placement
+    orig = placement.LocalLauncher.launch
+    spawns = {}
+
+    def launch(self, cmd, log_path):
+        if list(cmd[1:3]) != ["-m", "cxxnet_tpu_torch.main"]:
+            raise RuntimeError("unexpected spawn command %r" % (cmd,))
+        t = time.time()
+        mid = os.path.basename(_port_file_arg(cmd))[:-len(".ports.json")]
+        spawns.setdefault(mid, []).append(t)
+        return orig(self, [cmd[0], "-c", TIER_MEMBER % "fleet_member",
+                           repr(t)] + list(cmd[3:]), log_path)
+
+    placement.LocalLauncher.launch = launch
+    rc = pmain.main(argv[1:])
+    with open(argv[0], "w") as f:
+        json.dump({"pid": os.getpid(), "rc": rc, "spawns": spawns,
+                   "cuda_initialized": torch.cuda.is_initialized()}, f)
+    return rc
+
+
+def tier_proc(d: str, tag: str, argv):
+    """:func:`tier_child` over ``argv`` in a process of its own."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH", "")) if p))
+    out = os.path.join(d, tag + ".child.json")
+    log = open(os.path.join(d, tag + ".log"), "w")
+    p = subprocess.Popen([sys.executable, "-c", TIER_MEMBER % "tier_child",
+                          out] + list(argv) + cli_dev_args(), cwd=d,
+                         env=env, stdout=log, stderr=subprocess.STDOUT)
+    return {"p": p, "out": out, "log": log, "tag": tag}
+
+
+def tier_wait(cond, procs, what: str, limit: float = TIER_WAIT_S):
+    """Poll ``cond()`` every 0.1 s until it returns a true value; raise
+    if a process of ``procs`` (:func:`tier_proc` or
+    :func:`start_clients` handles) exits first, or past ``limit``."""
+    from cxxnet_tpu_torch.fleet.replica import _log_tail
+    deadline = time.monotonic() + limit
+    while True:
+        v = cond()
+        if v:
+            return v
+        for pr in procs:
+            if pr["p"].poll() is not None:
+                path = pr["log"].name if "log" in pr \
+                    else pr["out"] + ".stderr.txt"
+                raise RuntimeError("fleet_tier: %s exited with %s before "
+                                   "%s: %s" % (pr["tag"], pr["p"].returncode,
+                                               what, _log_tail(path)))
+        if time.monotonic() > deadline:
+            raise RuntimeError("fleet_tier: no %s within %.0f s"
+                               % (what, limit))
+        time.sleep(0.1)
+
+
+def stop_tier(proc, registry, limit: float = 180.0):
+    """SIGTERM the fleet process (it drains its replicas and doors) and
+    wait for it; then SIGKILL whatever member the registry still names.
+    Returns the exit code and :func:`tier_child`'s record."""
+    import signal
+    p = proc["p"]
+    if p.poll() is None:
+        p.send_signal(signal.SIGTERM)
+        try:
+            p.wait(timeout=limit)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    proc["log"].close()
+    for e in registry.endpoints():
+        if e.get("pid"):
+            try:
+                os.kill(int(e["pid"]), signal.SIGKILL)
+            except ProcessLookupError:
+                pass                     # drained and gone, as it should
+    out = None
+    if os.path.exists(proc["out"]):
+        with open(proc["out"]) as f:
+            out = json.load(f)
+    return p.returncode, out
+
+
+def gpu_pids():
+    """``{pid: used_memory}`` of the card's compute processes, as
+    ``nvidia-smi --query-compute-apps=pid,used_memory`` lists them."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout
+    except FileNotFoundError:             # a CPU rehearsal
+        return {}
+    pids = {}
+    for line in out.splitlines():
+        parts = [s.strip() for s in line.split(",")]
+        if parts[0].isdigit():
+            pids[int(parts[0])] = parts[1] if len(parts) > 1 else ""
+    return pids
+
+
+def nvidia_files(pid: int):
+    """The ``/dev/nvidia*`` files process ``pid`` holds open (its
+    ``/proc/<pid>/fd``; None when it is gone): a CUDA context holds its
+    card's (``/dev/nvidia<N>``)."""
+    d = "/proc/%d/fd" % pid
+    try:
+        fds = os.listdir(d)
+    except OSError:
+        return None
+    out = set()
+    for fd in fds:
+        try:
+            target = os.readlink(os.path.join(d, fd))
+        except OSError:
+            continue                     # closed while we looked
+        if target.startswith("/dev/nvidia"):
+            out.add(target)
+    return sorted(out)
+
+
+def on_card(members, fleet_pid):
+    """Where the tier's processes live, read while they run: the card's
+    compute processes as ``nvidia-smi`` lists them, and the
+    ``/dev/nvidia*`` files each process holds. Replicas must hold their
+    card's device file (``/dev/nvidia<N>``) and the fleet process and
+    doors none; where the
+    listing names this machine's pids (a pid namespace can hide them),
+    the replicas must be in it and the others not."""
+    rpids = [int(e["pid"]) for e in members if e["role"] == "replica"]
+    others = [int(e["pid"]) for e in members
+              if e["role"] == "balancer" and e.get("pid")] + [fleet_pid]
+    smi = gpu_pids()
+    files = {p: nvidia_files(p) for p in rpids + others}
+    named = any(p in smi for p in rpids + others)
+    card = [p for p in rpids + others
+            if any(re.match(r"/dev/nvidia\d+$", f) for f in files[p] or ())]
+    return {"listed": smi, "listing_names_pids": named,
+            "replica_pids": rpids, "other_pids": others,
+            "nvidia_files": files,
+            "replicas_on_card": bool(rpids) and set(rpids) <= set(card)
+            and (not named or all(p in smi for p in rpids)),
+            "others_off_card": not set(others) & set(card)
+            and not any(p in smi for p in others)}
+
+
+def member_counts(fdir: str):
+    """Every :func:`fleet_member` record under ``fdir``, by member id."""
+    out = {}
+    for name in sorted(os.listdir(fdir)):
+        if name.endswith(".counts.json"):
+            with open(os.path.join(fdir, name)) as f:
+                out[name[:-len(".counts.json")]] = json.load(f)
+    return out
+
+
+def attribute(log, refs, ladder, t_switch=None):
+    """Each ok reply of ``log`` against ``refs`` (``{version: {bucket:
+    rows}}``) at every bucket that could hold it: how many matched each
+    version, how many neither (and the worst distance then), and how
+    many replies sent after ``t_switch`` were not of the last version."""
+    versions = list(refs)
+    served = dict({v: 0 for v in versions}, neither=0, late_other=0)
+    worst = 0.0
+    for r in log:
+        if r["status"] != "ok":
+            continue
+        n, st = r["n"], r["start"]
+        got = np.asarray(r["result"]).reshape(n, -1)
+        cands = [(v, bk) for v in versions for bk in ladder if bk >= n]
+        hit = next((v for v, bk in cands
+                    if same_bits(got, refs[v][bk][st:st + n])), None)
+        if hit is None:
+            served["neither"] += 1
+            worst = max(worst, min(float(np.abs(
+                got - refs[v][bk][st:st + n]).max()) for v, bk in cands))
+            continue
+        served[hit] += 1
+        if t_switch is not None and r["t_send"] >= t_switch \
+                and hit != versions[-1]:
+            served["late_other"] += 1
+    served["worst_mismatch"] = worst
+    return served
+
+
+def phase_fleet_tier(workdir: str, fres):
+    """The horizontal tier (``task = fleet``, ``fleet/``) over
+    Inception-BN.conf replica processes on the card (bf16, the eval fold,
+    the conf's ladder 1-128), each a ``task = serve_fleet`` child booted
+    from a sealed bundle of the bundle phase. Drive A: one fleet process
+    (2 replicas, at most 3, balancer coalescing, a canary of the
+    perturbed bundle at a quarter of the traffic) under HTTP, CXN1 and
+    CXN2 clients of a process of their own and the over-quota tenant; a
+    baseline replica SIGKILLed mid-traffic and healed from the bundle;
+    the canary run to its decision (the whole fleet rolled to it on a
+    promote). Drive B: a sharded front tier (``fleet_balancers = 2``)
+    under ``FailoverBinaryClient`` s, one door SIGKILLed mid-traffic and
+    respawned. No failed request of an in-quota tenant; each ok reply the
+    bits of a ``ServeSession`` on one of the two snapshots at a bucket
+    that could hold it, and after a promote the canary's; the replicas on
+    the card (``nvidia-smi``), the fleet processes and doors not (nor
+    CUDA initialized in them); each replica's launches exactly 69 bf16
+    conv_epilogue a served forward (the Launcher seam runs each member
+    through :func:`fleet_member`); no nvcc in a bundle boot."""
+    import signal
+    import torch
+    from cxxnet_tpu_torch.fleet.placement import EndpointRegistry
+    from cxxnet_tpu_torch.monitor.schema import (read_jsonl, validate_record,
+                                                 validate_records)
+    from cxxnet_tpu_torch.serve import ServeSession
+    snap1 = os.path.join(workdir, "fleet_models", "0001.model.npz")
+    snap2 = os.path.join(workdir, "bundle", "staged", "0002.model.npz")
+    base = os.path.join(workdir, "bundle", "models", "0001.model.bundle")
+    cane = os.path.join(workdir, "bundle", "watched", "0002.model.bundle")
+    pool_path = os.path.join(workdir, "fleet_pool.npy")
+    for path in (snap1, snap2, base, cane, pool_path):
+        if not os.path.exists(path):
+            raise RuntimeError("fleet_tier: %s of an earlier phase is "
+                               "missing" % path)
+    pool = np.load(pool_path)
+    d = os.path.join(workdir, "fleet_tier")
+    os.makedirs(d)
+    cfg = fleet_cfg(workdir)
+    conf = write_conf(os.path.join(d, "tier.conf"),
+                      cfg + [("serve_quota", FLEET_QUOTA)])
+    torch.cuda.empty_cache()
+    adir, bdir = os.path.join(d, "a"), os.path.join(d, "b")
+    areg = EndpointRegistry(os.path.join(adir, "endpoints.json"))
+    breg = EndpointRegistry(os.path.join(bdir, "endpoints.json"))
+    decision = os.path.join(d, "canary_decision.json")
+    astream, bstream = os.path.join(d, "a.jsonl"), os.path.join(d, "b.jsonl")
+    common = ["task=fleet", "model_in=" + base, "fleet_duration_s=0",
+              "monitor=jsonl", "monitor_flush_period=0.2"]
+    a_argv = [conf] + common + [
+        "fleet_replicas=2", "fleet_max_replicas=3",
+        "fleet_coalesce_ms=%g" % TIER_COALESCE_MS,
+        "fleet_coalesce_rows=%d" % TIER_COALESCE_ROWS,
+        "fleet_shed_hi=%g" % TIER_SHED_HI,
+        "fleet_queue_hi=%g" % TIER_QUEUE_HI, "fleet_dir=" + adir, "fleet_registry=" + areg.path,
+        "canary_source=" + cane,
+        "canary_fraction=%g" % TIER_CANARY_FRACTION,
+        "canary_window_s=%g" % TIER_CANARY_WINDOW_S,
+        "canary_min_requests=%d" % TIER_CANARY_MIN,
+        "canary_p99_ratio=%g" % TIER_CANARY_P99_RATIO,
+        "canary_out=" + decision, "monitor_path=" + astream]
+    b_argv = [conf] + common + [
+        "fleet_replicas=1", "fleet_balancers=2", "fleet_gossip_s=0.2",
+        "fleet_health_poll_s=0.2", "fleet_dir=" + bdir,
+        "fleet_registry=" + breg.path, "monitor_path=" + bstream]
+    t0 = time.perf_counter()
+    live = []                                  # (process, registry)
+    clients = []
+    try:
+        # -- drive A: kill, heal, canary -------------------------------
+        A = tier_proc(d, "tier_a", a_argv)
+        live.append((A, areg))
+
+        def a_ready():
+            reps = areg.endpoints("replica")
+            kinds = sorted(e["kind"] for e in reps)
+            return reps if kinds == ["baseline", "baseline", "canary"] \
+                and areg.endpoints("balancer") else None
+
+        reps0 = tier_wait(a_ready, [A], "two replicas and the canary")
+        a_up_s = time.perf_counter() - t0
+        door_a = areg.endpoints("balancer")[0]
+        started, a_stop = os.path.join(d, "a.started"), \
+            os.path.join(d, "a.stop")
+        cl = start_clients(d, "tier_a_drive", {
+            "http_port": door_a["http_port"],
+            "binary_port": door_a["binary_port"], "pool": pool_path,
+            "swap": None, "http": True, "seconds": FLEET_TIMEOUT_S - 60,
+            "until": a_stop, "model": "default", "started": started})
+        clients.append(cl)
+        tier_wait(lambda: os.path.exists(started), [A, cl],
+                  "a first ok reply")
+        time.sleep(TIER_KILL_AFTER_S)
+        victim = next(e for e in reps0 if e["kind"] == "baseline")
+        os.kill(int(victim["pid"]), signal.SIGKILL)
+        t_kill = time.time()
+
+        def healed():
+            return [e for e in areg.endpoints("replica")
+                    if e["kind"] == "baseline" and e["id"] != victim["id"]
+                    and e["id"] not in {r["id"] for r in reps0}]
+
+        tier_wait(healed, [A, cl], "a healed replica")
+        tier_wait(lambda: os.path.exists(decision), [A, cl],
+                  "the canary's decision")
+        time.sleep(TIER_AFTER_S)
+        a_gpu = on_card(areg.endpoints(), A["p"].pid)
+        with open(a_stop, "w") as f:
+            f.write("stop")
+        drive_a = finish_clients(cl)
+        clients.remove(cl)
+        a_rc, a_child = stop_tier(A, areg)
+        live.remove((A, areg))
+        # -- drive B: the sharded front tier, a door killed ------------
+        B = tier_proc(d, "tier_b", b_argv)
+        live.append((B, breg))
+
+        def b_ready():
+            doors = breg.endpoints("balancer")
+            return doors if len(doors) == 2 \
+                and breg.endpoints("replica") else None
+
+        doors0 = tier_wait(b_ready, [B], "two doors and a replica")
+        # the spawned door serves once its registry sync saw the replica
+        tier_wait(lambda: _door_ready(doors0[1]), [B],
+                  "door b1's replica")
+        started, b_stop = os.path.join(d, "b.started"), \
+            os.path.join(d, "b.stop")
+        cl = start_clients(d, "tier_b_drive", {
+            "failover": [["127.0.0.1", e["binary_port"]] for e in doors0],
+            "pool": pool_path, "until": b_stop, "model": "default",
+            "started": started})
+        clients.append(cl)
+        tier_wait(lambda: os.path.exists(started), [B, cl],
+                  "a first ok reply")
+        time.sleep(TIER_KILL_AFTER_S)
+        door = next(e for e in doors0 if e.get("pid"))
+        os.kill(int(door["pid"]), signal.SIGKILL)
+        t_door_kill = time.time()
+        tier_wait(lambda: [e for e in breg.endpoints("balancer")
+                           if e["id"] == door["id"]
+                           and e["pid"] != door["pid"]], [B, cl],
+                  "the door's respawn")
+        time.sleep(TIER_AFTER_S)
+        b_gpu = on_card(breg.endpoints(), B["p"].pid)
+        with open(b_stop, "w") as f:
+            f.write("stop")
+        drive_b = finish_clients(cl)
+        clients.remove(cl)
+        b_rc, b_child = stop_tier(B, breg)
+        live.remove((B, breg))
+    finally:
+        for cl in clients:
+            if cl["p"].poll() is None:
+                cl["p"].kill()
+                cl["p"].wait()
+            cl["err"].close()
+        for proc, reg in live:
+            stop_tier(proc, reg, limit=60.0)
+    drive_s = time.perf_counter() - t0
+    # the comparison sessions, after the drives: not the main path
+    ref1 = ServeSession(cfg, model_path=snap1, device=DEVICE)
+    ref2 = ServeSession(cfg, model_path=snap2, device=DEVICE)
+    ladder = tuple(ref1.engine.buckets)
+    refs = {"baseline": bucket_refs(ref1, pool, ladder),
+            "canary": bucket_refs(ref2, pool, ladder)}
+    for s in (ref1, ref2):
+        s.close()
+    torch.cuda.empty_cache()
+    distinct = not same_bits(refs["baseline"][16], refs["canary"][16])
+    arecs = read_jsonl(astream) if os.path.exists(astream) else []
+    brecs = read_jsonl(bstream) if os.path.exists(bstream) else []
+    with open(decision) as f:
+        dec = json.load(f)
+    canary_recs = [r for r in arecs if r["event"] == "canary"]
+    scale_a = [r for r in arecs if r["event"] == "fleet_scale"]
+    scale_b = [r for r in brecs if r["event"] == "fleet_scale"]
+    promoted = dec.get("phase") == "promote"
+    log_a = drive_a["log"]
+    mine_a = [r for r in log_a if r["tenant"] != "free"]
+    free = [r for r in log_a if r["tenant"] == "free"]
+    shed = [r for r in free if r["status"] == 429]
+    failed = [(r["proto"], r["status"], str(r["result"])[:160])
+              for r in mine_a + drive_b["log"] if r["status"] != "ok"]
+    served_a = attribute(mine_a, refs, ladder,
+                         dec["t"] if promoted else None)
+    served_b = attribute(drive_b["log"], refs, ladder)
+    # the members: spawn to ready (the controller's replica_ready /
+    # balancer_ready record), launches, nvcc, CUDA
+    counts = dict(member_counts(adir), **{
+        "b/" + k: v for k, v in member_counts(bdir).items()})
+    ready_t = {}
+    for tag, recs in (("", scale_a), ("b/", scale_b)):
+        for r in recs:
+            m = re.match(r"(?:replica|balancer) (\S+) \(pid", r["reason"])
+            if r["action"] in ("replica_ready", "balancer_ready") and m:
+                ready_t.setdefault(tag + m.group(1), []).append(r["t"])
+    spawns = dict((a_child or {}).get("spawns", {}), **{
+        "b/" + k: v for k, v in ((b_child or {}).get("spawns") or {}).items()})
+    spawn_to_ready = {k: [r - s for s, r in zip(ts, ready_t.get(k, []))]
+                      for k, ts in sorted(spawns.items())}
+    launches = dict(NO_LAUNCHES)
+    replicas = {}
+    for mid, c in counts.items():
+        if c["forwards"] == 0 and not any(c["launches"].values()):
+            continue                                 # a door
+        for k, v in c["launches"].items():
+            launches[k] += v
+        replicas[mid] = {
+            "pid": c["pid"], "rc": c["rc"], "forwards": c["forwards"],
+            "nvcc_runs": c["nvcc_runs"], "builds": c["builds"],
+            "cuda": c["cuda_initialized"],
+            "counted": c["forwards"] > 0 and c["launches"] == {
+                k: v * c["forwards"] for k, v in BF16_LAUNCHES.items()}}
+    doors = {mid: {"pid": c["pid"], "rc": c["rc"],
+                   "cuda": c["cuda_initialized"]}
+             for mid, c in counts.items() if mid not in replicas}
+    gpu = {"a": a_gpu, "b": b_gpu}
+    heal_s = next((r["t"] - t_kill for r in scale_a
+                   if r["action"] == "replica_ready" and r["t"] > t_kill),
+                  None)
+    kill_b = [r for r in drive_b["log"] if r["t_send"] >= t_door_kill - 1.0
+              and r["t_send"] <= t_door_kill + 5.0]
+    wall_a = drive_a["t_end"] - drive_a["t0"]
+    wall_b = drive_b["t_end"] - drive_b["t0"]
+    fields_ok = sorted(dec) == sorted(
+        ("event", "t", "phase", "baseline_version", "canary_version",
+         "fraction", "reason", "window_s", "baseline", "canary"))
+    res = {
+        "phase": "fleet_tier", "model": "Inception-BN.conf",
+        "config": "python -m cxxnet_tpu_torch.main tier.conf task=fleet "
+                  "(Inception-BN.conf's net, dtype = bfloat16, %s, buckets "
+                  "%s, serve_quota = %s) from the bundle phase's bundles; "
+                  "A: fleet_replicas = 2, fleet_max_replicas = 3, "
+                  "fleet_coalesce_ms = %g, fleet_coalesce_rows = %d, "
+                  "fleet_shed_hi = %g, fleet_queue_hi = %g, canary_fraction = %g, canary_window_s = %g, "
+                  "canary_min_requests = %d, canary_p99_ratio = %g; B: "
+                  "fleet_replicas = 1, fleet_balancers = 2; clients in a "
+                  "process of their own"
+                  % (", ".join("%s = %s" % kv for kv in KNOBS),
+                     ",".join(map(str, ladder)), FLEET_QUOTA,
+                     TIER_COALESCE_MS, TIER_COALESCE_ROWS, TIER_SHED_HI,
+                     TIER_QUEUE_HI, TIER_CANARY_FRACTION, TIER_CANARY_WINDOW_S,
+                     TIER_CANARY_MIN, TIER_CANARY_P99_RATIO),
+        "a_up_s": a_up_s, "drive_s": drive_s,
+        "requests": len(mine_a) + len(drive_b["log"]),
+        "n_failed": len(failed), "failed": failed[:10],
+        "client_errors": (drive_a["errors"] + drive_b["errors"])[:5],
+        "threads_alive": drive_a["alive"] + drive_b["alive"],
+        "by_protocol": proto_stats(mine_a, wall_a, ("http", "cxn1", "cxn2")),
+        "rows_per_s": sum(r["n"] for r in mine_a
+                          if r["status"] == "ok") / wall_a,
+        "direct_binary": fres.get("binary_only"),
+        "doors": {"by_protocol": proto_stats(drive_b["log"], wall_b,
+                                             ("cxn1",)),
+                  "failovers": drive_b["failovers"],
+                  "gap_ms": max((r["ms"] for r in kill_b), default=None),
+                  "killed": door["id"]},
+        "snapshots_distinct": distinct, "served_by": served_a,
+        "served_by_doors": served_b,
+        "quota": {"free_requests": len(free), "over_quota_429": len(shed),
+                  "typed": all(r["result"].get("error") == "over_quota"
+                               and r["extra"] for r in shed)},
+        "canary": {"decision": {k: dec.get(k) for k in (
+                       "phase", "reason", "baseline_version",
+                       "canary_version", "baseline", "canary")},
+                   "fields_as_reference": fields_ok,
+                   "valid": validate_record(dec) == [],
+                   "records": [r["phase"] for r in canary_recs]},
+        "scale_a": [(r["action"], round(r["t"] - t_kill, 3))
+                    for r in scale_a],
+        "scale_b": [r["action"] for r in scale_b],
+        "heal_s": heal_s, "spawn_to_ready_s": spawn_to_ready,
+        "replicas": replicas, "fleet_doors": doors, "gpu": gpu,
+        "fleet_processes": {"a": {"rc": a_rc, "child": a_child},
+                            "b": {"rc": b_rc, "child": b_child}},
+        "launches": launches,
+        "schema_errors": (validate_records(arecs, strict=False)
+                          + validate_records(brecs, strict=False))[:5]}
+    res["ok"] = bool(
+        not failed and not res["client_errors"] and not res["threads_alive"]
+        and distinct and promoted and fields_ok and res["canary"]["valid"]
+        and res["canary"]["records"][:1] == ["start"]
+        and served_a["neither"] == 0 and served_a["late_other"] == 0
+        and served_a["baseline"] > 0 and served_a["canary"] > 0
+        and served_b["neither"] == 0 and served_b["baseline"] > 0
+        and shed and res["quota"]["typed"]
+        and [a for a, t in res["scale_a"] if t > 0][:2]
+        == ["replica_lost", "replica_ready"] and heal_s is not None
+        and "balancer_lost" in res["scale_b"]
+        and sum(drive_b["failovers"]) > 0
+        and all(g["replicas_on_card"] and g["others_off_card"]
+                for g in gpu.values())
+        and a_child and b_child and not a_child["cuda_initialized"]
+        and not b_child["cuda_initialized"] and a_rc == 0 and b_rc == 0
+        and len(replicas) >= 4
+        and all(r["counted"] and r["nvcc_runs"] == 0 and r["rc"] == 0
+                and r["cuda"] for r in replicas.values())
+        and doors and all(not o["cuda"] and o["rc"] == 0
+                          for o in doors.values())
+        and not res["schema_errors"])
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("fleet_tier phase failed")
+    return res
+
+
+def _door_ready(door) -> bool:
+    """Whether the door's ``/healthz`` counts a ready replica."""
+    import http.client
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", door["http_port"],
+                                          timeout=5)
+        try:
+            conn.request("GET", "/healthz")
+            h = json.loads(conn.getresponse().read())
+        finally:
+            conn.close()
+    except (OSError, ValueError):
+        return False                     # not listening yet
+    return h.get("ready", 0) >= 1
+
+
 def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
     """The ``kernels`` record: every ported kernel (and bf16
     instantiation) with its launches on its path's run, its error
@@ -7562,6 +8208,9 @@ def main() -> int:
         phase = "continual"
         stamps.append((phase, time.perf_counter()))
         cnres = phase_continual(workdir)
+        phase = "fleet_tier"
+        stamps.append((phase, time.perf_counter()))
+        ftres = phase_fleet_tier(workdir, fres)
     except Exception as e:
         import traceback
         traceback.print_exc()
@@ -7571,8 +8220,9 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     stamps.append(("end", time.perf_counter()))
-    emit({"phase_seconds": {a[0]: b[1] - a[1]
-                            for a, b in zip(stamps, stamps[1:])}})
+    emit({"phase_seconds": dict({a[0]: b[1] - a[1]
+                                 for a, b in zip(stamps, stamps[1:])},
+                                all=stamps[-1][1] - stamps[0][1])})
     kl = kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part)
     for row in kl["kernels"]:
         # the cli phase's runs (train, pred, pred_raw, serve), each with
@@ -7598,6 +8248,11 @@ def main() -> int:
         # fleet's boots, shadow builds and traffic), each from 0
         row["bundle_launches"] = bres["launches"][row["name"]]
         row["continual_launches"] = cnres["launches"][row["name"]]
+        # the fleet tier's replica processes (boots, warmups, traffic,
+        # the heal, the canary and the promote's roll), each from 0 at
+        # its start, summed over those that drained (a SIGKILLed one
+        # reports nothing)
+        row["fleet_tier_launches"] = ftres["launches"][row["name"]]
         if row["name"] == BIAS_BF16["name"]:
             ab = kres["bias_grad_bf16_alexnet"]
             row["alexnet"] = {

@@ -4,8 +4,9 @@
 A config file plus ``key=value`` CLI overrides drives the tasks
 ``train`` / ``finetune`` / ``pred`` / ``pred_raw`` / ``extract``
 (``extract_feature``) / ``get_weight`` / ``serve`` / ``serve_fleet`` /
-``quantize`` / ``export`` / ``continual``, and ``test_io = 1`` runs the
-data pipeline without the net. ``serve_fleet`` serves HTTP/JSON and the
+``quantize`` / ``export`` / ``continual`` / ``fleet`` /
+``fleet_balancer``, and ``test_io = 1`` runs the data pipeline without
+the net. ``serve_fleet`` serves HTTP/JSON and the
 CXN1/CXN2 binary protocols (``serve/frontend.py``) for
 ``serve_fleet_duration_s`` seconds, or until SIGTERM or SIGINT when it
 is 0, then drains. ``export`` seals ``model_in`` into a bundle at
@@ -13,7 +14,14 @@ is 0, then drains. ``export`` seals ``model_in`` into a bundle at
 ``artifact/bundle.py``), and a bundle serves as ``model_in`` wherever a
 snapshot does. ``continual`` trains while its fleet serves and
 hot-swaps each gated generation's bundle in (``continual/loop.py``);
-SIGTERM or SIGINT ends it with an emergency snapshot and exit 75. The printed
+SIGTERM or SIGINT ends it with an emergency snapshot and exit 75.
+``fleet`` runs the horizontal tier (``fleet/``): a balancer and an
+autoscale controller (with an optional canary rollout and extra
+``fleet_balancer`` doors) over ``task = serve_fleet`` replica processes
+spawned from the same config file and CLI overrides, for
+``fleet_duration_s`` seconds (0: until SIGTERM or SIGINT), then drains
+them. ``fleet_balancer`` is one door of a sharded front tier, learning
+replicas and peers from the endpoint registry. The printed
 lines keep the reference's format (``[r]\\ttrain-error:...``, the
 ``round %8d:[%8d]`` progress line, ``updating end, ...``).
 
@@ -58,13 +66,14 @@ byte for byte: ``run_start``, ``round_start``, a ``step`` per dispatch
 
 ``dev`` unset, or naming an accelerator (``gpu``, ``cuda``, ``tpu``),
 runs on the GPU and raises when there is none; ``dev = cpu`` runs on
-the CPU.
+the CPU. ``fleet`` and ``fleet_balancer`` resolve no device (they only
+move bytes, and open no CUDA context); their replicas resolve ``dev``
+themselves.
 
 What this port does not have yet raises
 :class:`~cxxnet_tpu_torch.utils.config.NotPortedError` naming its
-``ROADMAP.md`` item: the tasks ``build_index``, ``fleet``,
-``fleet_balancer``; the keys ``test_on_server = 1`` and every ``dist_*``
-key.
+``ROADMAP.md`` item: the task ``build_index``; the keys
+``test_on_server = 1`` and every ``dist_*`` key.
 
 Usage: python -m cxxnet_tpu_torch.main config.conf [key=value ...]
 """
@@ -80,6 +89,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .device import named_device, resolve_device
 from .io import create_iterator
@@ -125,9 +135,11 @@ _PRED_NEUTRAL = (
 # tasks of the reference this port does not have yet, by ROADMAP item
 NOT_PORTED_TASKS: Dict[str, str] = {
     "build_index": Roadmap.RETRIEVAL,
-    "fleet": Roadmap.FLEET,
-    "fleet_balancer": Roadmap.FLEET,
 }
+
+# tasks whose process computes nothing (the fleet tier's controller and
+# doors): no device is resolved for them
+_TIER_TASKS = ("fleet", "fleet_balancer")
 
 
 def _not_ported_key(name: str, val: str) -> Optional[str]:
@@ -330,8 +342,10 @@ class LearnTask:
             if name == "pred":
                 self.name_pred = val
         # the device first: no GPU and no dev = cpu raises before any
-        # file is read
-        dev = resolve_device(self._torch_device())
+        # file is read. The tier's processes only move bytes and open
+        # no CUDA context; their replicas resolve dev themselves
+        dev = None if self.task in _TIER_TASKS \
+            else resolve_device(self._torch_device())
         # opt-in retries of transient remote reads; 0 (the default)
         # fails fast
         set_stream_retry(self.stream_retry)
@@ -351,6 +365,15 @@ class LearnTask:
                 # built (a deployment config's train blocks may point
                 # at paths the serving host does not mount)
                 return self._task_serve_fleet(cfg, dev)
+            if self.task == "fleet":
+                # balancer + autoscaler + canary over N replica
+                # processes, each a task = serve_fleet child spawned
+                # from this same config file and these CLI overrides
+                return self._task_fleet(cfg, argv[0], argv[1:])
+            if self.task == "fleet_balancer":
+                # one door of a sharded front tier, learning replicas
+                # and peers from the endpoint registry
+                return self._task_fleet_balancer(cfg)
             if self.task == "export":
                 # sealing needs the net config and the serve contract,
                 # no data
@@ -800,13 +823,7 @@ class LearnTask:
                         ", ".join("%s@%04d" % (d["model"], d["counter"])
                                   for d in fleet.describe())))
             handlers = self._install_preempt_handlers()
-            dur = fleet.fleet_cfg.duration_s
-            deadline = time.monotonic() + dur if dur > 0 else None
-            while self._preempt_signum is None:
-                if deadline is not None \
-                        and time.monotonic() >= deadline:
-                    break
-                time.sleep(0.05)
+            self._wait_for_stop(fleet.fleet_cfg.duration_s)
             summary = fleet.close()
         finally:
             # a failure between start and close still stops the
@@ -823,6 +840,122 @@ class LearnTask:
             mon.emit("task_end", task="serve_fleet",
                      requests=c["requests"], swaps=summary["swaps"])
         return 0
+
+    def _task_fleet(self, cfg, conf_path: str,
+                    cli_overrides: List[str]) -> int:
+        """The horizontal fleet: a front-of-fleet balancer and an
+        autoscale controller (and an optional canary rollout) over N
+        shared-nothing ``serve_fleet`` replica processes spawned from
+        this same config file. Runs for ``fleet_duration_s`` seconds (0:
+        until SIGTERM or SIGINT), then drains every replica in scale-in
+        order on every exit path: deroute, wait for in-flight, SIGTERM.
+        The process resolves no device; the replicas inherit ``dev``
+        through the config file and ``cli_overrides``."""
+        from .fleet import FleetController
+        mon = self._mon
+        if mon.enabled:
+            mon.emit("run_start", **run_metadata(
+                "fleet", self._cfg_stream, torch.device("cpu")))
+        controller = FleetController(cfg, conf_path, monitor=mon,
+                                     extra_overrides=cli_overrides)
+        handlers = []
+        try:
+            controller.start()
+            bal = controller.balancer
+            mon.line("fleet: balancer http=%s binary=%s, %d replicas "
+                     "serving %s%s"
+                     % (bal.http_port, bal.binary_port,
+                        controller.ready_count(),
+                        controller.current_version(),
+                        ", canary %s armed"
+                        % controller.canary.canary_version
+                        if controller.canary else ""))
+            handlers = self._install_preempt_handlers()
+            self._wait_for_stop(controller.tier.duration_s)
+        finally:
+            # a failure between start and the wait must still stop the
+            # scale thread, drain the replicas and close the listeners
+            # (close is idempotent per component)
+            summary = controller.close()
+            self._restore_handlers(handlers)
+        mon.line("fleet: %d requests (%d ok / %d shed / %d error, "
+                 "%d retries recovered)%s"
+                 % (summary.get("requests", 0), summary.get("ok", 0),
+                    summary.get("shed", 0), summary.get("errors", 0),
+                    summary.get("retries", 0),
+                    ", canary %s" % summary["canary"]
+                    if "canary" in summary else ""))
+        if mon.enabled:
+            mon.emit("task_end", task="fleet",
+                     requests=summary.get("requests", 0))
+        return 0
+
+    def _task_fleet_balancer(self, cfg) -> int:
+        """One door of the sharded front tier: a standalone
+        :class:`~cxxnet_tpu_torch.fleet.FleetBalancer` that publishes
+        its ports through ``fleet_port_file`` and reconciles replicas
+        and tier peers from the shared endpoint registry on every sync
+        tick. Runs for ``fleet_duration_s`` seconds (0: until SIGTERM or
+        SIGINT)."""
+        from .fleet import FleetBalancer, FleetTierConfig
+        from .fleet.placement import (EndpointRegistry,
+                                      sync_from_registry,
+                                      write_endpoint_file)
+        mon = self._mon
+        if mon.enabled:
+            mon.emit("run_start", **run_metadata(
+                "fleet_balancer", self._cfg_stream, torch.device("cpu")))
+        tier = FleetTierConfig(cfg)
+        bal = FleetBalancer(tier, cfg, monitor=mon)
+        registry = EndpointRegistry(tier.registry_path)
+        handlers = []
+        try:
+            bal.start()
+            sync_from_registry(bal, registry, tier.balancer_id)
+            if tier.port_file:
+                write_endpoint_file(
+                    tier.port_file,
+                    {"pid": os.getpid(), "http_port": bal.http_port,
+                     "binary_port": bal.binary_port})
+            mon.line("fleet_balancer: %s http=%s binary=%s, "
+                     "registry %s"
+                     % (tier.balancer_id, bal.http_port,
+                        bal.binary_port, tier.registry_path))
+            handlers = self._install_preempt_handlers()
+            # the sync cadence bounds how fast this door sees a drain
+            # or a new replica: well under the controller's drain wait,
+            # and cheap (an mtime stat when nothing changed)
+            self._wait_for_stop(
+                tier.duration_s, min(0.2, tier.gossip_s),
+                lambda: sync_from_registry(bal, registry,
+                                           tier.balancer_id))
+        finally:
+            summary = bal.close()
+            self._restore_handlers(handlers)
+        mon.line("fleet_balancer: %s served %d requests (%d ok / "
+                 "%d shed / %d error, %d retries recovered)"
+                 % (tier.balancer_id, summary.get("requests", 0),
+                    summary.get("ok", 0), summary.get("shed", 0),
+                    summary.get("errors", 0),
+                    summary.get("retries", 0)))
+        if mon.enabled:
+            mon.emit("task_end", task="fleet_balancer",
+                     requests=summary.get("requests", 0))
+        return 0
+
+    def _wait_for_stop(self, duration_s: float, period_s: float = 0.05,
+                       tick=None) -> None:
+        """Sleep in ``period_s`` steps (calling ``tick`` before each)
+        until ``duration_s`` seconds passed (0: forever) or SIGTERM or
+        SIGINT arrived."""
+        deadline = time.monotonic() + duration_s if duration_s > 0 \
+            else None
+        while self._preempt_signum is None:
+            if deadline is not None and time.monotonic() >= deadline:
+                break
+            if tick is not None:
+                tick()
+            time.sleep(period_s)
 
     def _task_export(self, cfg, dev) -> int:
         """Seal ``model_in`` (a snapshot or a bundle) into a bundle at

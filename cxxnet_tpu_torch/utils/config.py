@@ -29,10 +29,9 @@ class Roadmap:
     """The ``ROADMAP.md`` items (queue and title) that port what a
     :class:`NotPortedError` reports. The C ABI, the serving front end
     (``task = serve_fleet``), ``serve_device_mem_budget``, sealed
-    bundles (``task = export``) and the continual loop (``task =
-    continual``) are ported and raise nothing."""
-    # the fleet tier: task = fleet and fleet_balancer
-    FLEET = "queue 1, the fleet"
+    bundles (``task = export``), the continual loop (``task =
+    continual``) and the fleet tier (``task = fleet`` and
+    ``fleet_balancer``) are ported and raise nothing."""
     # serve_dtype = fp8
     QUANTIZED = "queue 1, quantized and low-precision inference"
     RETRIEVAL = "queue 1, retrieval"
