@@ -106,7 +106,16 @@ the script exits non-zero without a result line):
              1e-3, the same top-1 where the CPU's top two differ by more
              than the tolerance); then ``serve_dtype = bfloat16``: one
              bucket-128 forward with 69 bf16 conv_epilogue launches and
-             4 rows against the CPU's.
+             4 rows against the CPU's; then ``serve_dtype = fp8`` from
+             the same tables: its gate on the same 8 batches, the serve
+             phase's drive with 0 failed requests and exactly 69 f32
+             conv_epilogue launches a forward (none int32, none bf16),
+             the bucket-128 forward beside int8's, f32's and bf16's with
+             a profile by kind (im2col copies, quantize passes,
+             ``_scaled_mm``), the e4m3 weights the CPU's bytes, every
+             quantized conv and fullc of a 4-row forward on the card's
+             own e4m3 input against the exact sum (``FP8_ACC_REL``) and
+             the 4 rows' logits against the CPU's (``FP8_LOGIT_REL``).
 5. train   — Inception-BN-224 with fc1 declared ``pallas_fullc`` and
              ``bn_pallas = bn_fuse_relu = 1``, seeded weights, batch 128:
              2 warm and 10 timed ``NetTrainer.update`` steps on one
@@ -373,17 +382,47 @@ the script exits non-zero without a result line):
              generation 2's export reloads the engine in place and runs
              no nvcc; its flip fails no request; the update time and
              each generation's time printed.
+17. fleet_tier — ``task = fleet`` over replica processes of the fleet
+             phase's net from the bundle phase's bundles: a replica's
+             and a door's SIGKILL, the heal, a canary's rollout and
+             promote, no failed request, each reply one snapshot's bits.
+18. retrieval — ``task = build_index`` through the CLI on the fleet
+             phase's calibrated snapshot over a seeded 2,048-record
+             archive (bf16, the eval fold, ``serve_node = flat``,
+             cosine, ``search_k = 10``, ``search_buckets = 1,4,16,32``):
+             the bundle verifies, self-recall 1.0, 69 bf16
+             conv_epilogue a forward, the first 4 index rows against the
+             CPU port's pooled features; ``task = serve_fleet``'s
+             ``FleetServer`` from that bundle under 2 HTTP clients
+             (``/v1/embed``; ``/v1/search`` with ``fan_out`` 0 and 1) and
+             2 CXN2 clients (``#search:10``, ``#fsearch:5``) in a process
+             of their own, hot-swapped
+             mid-drive to the bundle of a perturbed snapshot: no failed
+             request, no nvcc, zero search compile events, every reply
+             one generation's (embed rows its bits at a bucket; search
+             ids the float64 oracle's over its index up to near-ties;
+             fsearch its embedding against its own index), p50 / p90
+             per operation; and the engine over a seeded 1,048,576 x
+             1024 corpus made on the card (dot and cosine): per query
+             bucket a dispatch's device time against the corpus read
+             once and the plain sort version's, the ids against a
+             float64 oracle (exact on planted duplicates and an
+             integer-valued block), and a budget below weights + index
+             rejected before the corpus moves.
 
 Then a ``phase_seconds`` line, a ``kernels`` line (every ported kernel
 with its launches, error and times; ``cli_launches``,
 ``alexnet_launches``, ``checkpoint_launches``, ``wrapper_launches``,
-``fleet_launches``, ``capi_launches``, ``bundle_launches`` and
-``continual_launches``: its count over the cli phase's runs, the
+``fleet_launches``, ``capi_launches``, ``bundle_launches``,
+``continual_launches``, ``fleet_tier_launches`` and
+``retrieval_launches``: its count over the cli phase's runs, the
 alexnet phase's training run, the checkpoint phase's runs (the
 preempted subprocess included), the wrapper, fleet and capi phases'
 main paths, the bundle phase's runs (both cold-start processes
 included; the hot-swap exports run in processes of their own and are
-not counted) and the continual phase's two loops; the bias_grad_bf16
+not counted), the continual phase's two loops, the fleet tier's
+drained replicas and the retrieval phase's builds and server; the
+conv_epilogue row also with the fp8 path's launches; the bias_grad_bf16
 row also with AlexNet's per-update sums), the ``nvidia-smi`` line, and
 the last line ``{"ok": true, "device": {...}}``.
 """
@@ -393,6 +432,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -497,6 +537,9 @@ TOWER_SERVE_LAUNCHES = dict(NO_LAUNCHES, conv_epilogue=26, pool_concat_fwd=2)
 SERVE_LAUNCHES = dict(NO_LAUNCHES, conv_epilogue=69)
 INT8_LAUNCHES = dict(NO_LAUNCHES, conv_epilogue=69, conv_epilogue_int32=69)
 BF16_LAUNCHES = dict(NO_LAUNCHES, conv_epilogue=69, conv_epilogue_bf16=69)
+# the fp8-served one: every conv's float32 accumulator through the f32
+# variant (the total counter; none int32, none bf16)
+FP8_LAUNCHES = dict(NO_LAUNCHES, conv_epilogue=69)
 # quantization: calibration batches and the parity gate of the
 # reference's task = quantize (mean |int8 - f32| of the softmax rows)
 CALIB_BATCHES = 8
@@ -515,6 +558,34 @@ INT8_CPU_ATOL = 1e-6
 # three ulps give ~0.1 p (the relative error measured is reported
 # beside it as max_rel_err)
 BF16_CPU_RTOL, BF16_CPU_ATOL = 0.1, 1e-6
+# the card's fp8 path against the CPU's. The e4m3 weights are the same
+# bytes on both (checked) and every e4m3 product is exact in float32,
+# but the sums are not the CPU's: Hopper's tensor cores add the products
+# of an fp8 MMA step with a narrower accumulator (about 14 bits kept,
+# as DeepSeek-V3's report measured on the H800) before cuBLASLt promotes
+# the partial sum to float32, where the CPU sums in float32. Its error
+# does not grow with K as a float32 sum's does (K units of 2^-24 *
+# sum |a_i b_i|): on an H100 at 700 W the 70 quantized products of
+# Inception-BN-224 lay 430 to 4,106 such units (2^-12.0 of sum |a_i
+# b_i|) from their exact sums at K from 64 to 2,304, and K = 1728 seeded
+# operands 618. So every quantized conv and fullc of a forward is held on
+# the card's own e4m3 input against the exact (float64) sum of the same
+# operands: its product within FP8_ACC_REL * sum |a_i b_i| (4x the
+# largest seen), and its output (dequant, folded shift, relu, or the
+# fc's bias) within that error times |dequant| plus two float32
+# roundings of the epilogue. The CPU's product, on the same input, is
+# held to float32's K units. A wrong operand, layout or dequant misses
+# these bounds by orders of magnitude. An activation within such an
+# error of an e4m3 rounding boundary moves by one e4m3 step (2^-3
+# relative) before the next conv, so the two forwards' inputs drift
+# apart layer by layer (counted; the first conv's must be equal) and
+# the logits lie further apart than one layer's error. The whole rows
+# are held on the logits (the fc before softmax), row by row as
+# ||z_card - z_cpu|| / ||z_cpu - mean(z_cpu)||: within FP8_LOGIT_REL. A
+# constant row (a uniform softmax) scores 1 or more, whatever its
+# value, and a row without the dequant far more.
+FP8_ACC_REL = 2.0 ** -10
+FP8_LOGIT_REL = 0.5
 SERVE_SNAPSHOT = "inception_bn_224.model.npz"
 # channel sums and matmul outputs: error against rtol * sum |terms|
 SUM_RTOL = 1e-5
@@ -2369,9 +2440,10 @@ def phase_serve(workdir: str):
 
 # kernel-name substrings -> the kind of work of a quantized forward
 _SERVE_KINDS = (("conv_epilogue kernel", ("epilogue_",)),
-                ("int8 products (cuBLASLt)", ("gemm", "Gemm", "imma",
-                                              "xmma", "cutlass", "sm90",
-                                              "sm80", "s8")),
+                ("int8 / fp8 products (cuBLASLt)", ("gemm", "Gemm", "imma",
+                                                    "xmma", "cutlass",
+                                                    "sm90", "sm80", "s8",
+                                                    "e4m3", "nvjet")),
                 ("quantize passes (divide, round, clamp)",
                  ("Div", "round", "clamp", "Clamp")),
                 ("copies (im2col, pads, int8 casts, staging)",
@@ -2411,10 +2483,260 @@ def launches_ok(launches, expected, forwards: int) -> bool:
                                 for k, n in expected.items())
 
 
+def fp8_capture(trainer, x):
+    """One eval forward of the host rows ``x`` through ``trainer`` with
+    every e4m3 product recorded, in call order: a conv's or fullc's e4m3
+    input, packed weight, geometry and float32 product, a conv's
+    epilogue operands and output, a fullc's dequant, bias and output.
+    Returns (records, the last fullc's output: the logits, the top
+    node's rows), the logits and rows in float64 on the host."""
+    import torch
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.layers import common, conv
+    recs, fc_out = [], []
+    real_conv, real_dot = conv.conv_fp8, common.dot_fp8
+    real_epi = conv.ConvolutionLayer._epilogue
+    real_fc = common.FullConnectLayer.forward
+
+    def rec_conv(xq, wm, n, *geo):
+        y = real_conv(xq, wm, n, *geo)
+        recs.append({"kind": "conv", "xq": xq, "wm": wm, "n": n,
+                     "geo": geo, "y": y})
+        return y
+
+    def rec_dot(xq, wm, n):
+        y = real_dot(xq, wm, n)
+        recs.append({"kind": "fullc", "xq": xq, "wm": wm, "n": n,
+                     "geo": None, "y": y})
+        return y
+
+    def rec_epi(self, y, scale, shift, relu, out_dtype):
+        out = real_epi(self, y, scale, shift, relu, out_dtype)
+        if recs and recs[-1]["y"] is y:
+            recs[-1].update(scale=scale, shift=shift, relu=bool(relu),
+                            out=out)
+        return out
+
+    def rec_fc(self, params, state, inputs, is_train=False):
+        outs, st = real_fc(self, params, state, inputs, is_train)
+        if recs and recs[-1]["kind"] == "fullc" and "out" not in recs[-1]:
+            recs[-1].update(scale=params.get("_r_dequant"),
+                            shift=params.get("bias"), relu=False,
+                            out=outs[0])
+        fc_out.append(outs[0])
+        return outs, st
+
+    conv.conv_fp8, common.dot_fp8 = rec_conv, rec_dot
+    conv.ConvolutionLayer._epilogue = rec_epi
+    common.FullConnectLayer.forward = rec_fc
+    try:
+        top = trainer.extract_feature(DataBatch(x), "top")
+    finally:
+        conv.conv_fp8, common.dot_fp8 = real_conv, real_dot
+        conv.ConvolutionLayer._epilogue = real_epi
+        common.FullConnectLayer.forward = real_fc
+    return recs, fc_out[-1].float().cpu().double(), \
+        torch.from_numpy(np.asarray(top, np.float64))
+
+
+def fp8_layers_vs_cpu(gpu, cpu, cpu_f32, x):
+    """The card's fp8 forward of ``x`` layer by layer (see
+    ``FP8_ACC_REL``): each product and output on the card's own
+    e4m3 input against the exact sum of the same operands with the CPU
+    trainer's packed weight and dequant, the CPU's product on that input
+    beside it, the drift of the card's inputs from the CPU's own, and
+    the logits against the CPU's (``FP8_LOGIT_REL``)."""
+    import torch
+    from cxxnet_tpu_torch.layers.quant_ops import (FP8, _im2col, _pad_k,
+                                                   conv_fp8, dot_fp8)
+    g_recs, g_z, g_top = fp8_capture(gpu, x)
+    c_recs, c_z, c_top = fp8_capture(cpu, x)
+    _, f_z, _ = fp8_capture(cpu_f32, x)
+    u = 2.0 ** -24
+    if len(g_recs) != len(c_recs) or not g_recs or any(
+            "out" not in r for r in g_recs + c_recs):
+        return {"layers": len(g_recs), "cpu_layers": len(c_recs),
+                "ok": False}
+
+    def units(y, exact, mag):
+        e = (y - exact).abs()
+        r = torch.where(mag > 0, e / mag.clamp_min(1e-300),
+                        torch.where(e > 0, float("inf"), 0.0))
+        return float(r.max()) / u
+
+    rows, worst = [], {"card_ratio": 0.0, "cpu_ratio": 0.0,
+                       "out_ratio": 0.0}
+    same_operands = True
+    for i, (g, c) in enumerate(zip(g_recs, c_recs)):
+        xq = g["xq"].cpu()
+        wm, n = c["wm"], c["n"]
+        same_operands &= bool(g["kind"] == c["kind"] and n == g["n"]
+                              and g["geo"] == c["geo"] and torch.equal(
+                                  g["wm"].cpu().view(torch.uint8),
+                                  wm.view(torch.uint8))
+                              and torch.equal(g["scale"].cpu(), c["scale"])
+                              and torch.equal(g["shift"].cpu(), c["shift"]))
+        if g["kind"] == "conv":
+            kh, kw = c["geo"][0], c["geo"][1]
+            k = kh * kw * xq.shape[-1]
+            a = _im2col(xq.view(torch.int8), wm.shape[1], *c["geo"]) \
+                .view(FP8)
+            y_cpu = conv_fp8(xq, wm, n, *c["geo"])
+        else:
+            k = xq.shape[1]
+            a = _pad_k(xq, wm.shape[1])
+            y_cpu = dot_fp8(xq, wm, n)
+        a, b = a.double(), wm[:n].double()
+        exact, mag = a @ b.t(), a.abs() @ b.abs().t()
+        del a, b
+        y_g = g["y"].cpu().double().reshape(exact.shape)
+        card_u = units(y_g, exact, mag)
+        cpu_u = units(y_cpu.double().reshape(exact.shape), exact, mag)
+        lim = FP8_ACC_REL / u
+        sc, sh = c["scale"].double(), c["shift"].double()
+        ex_out = exact * sc + sh
+        if g["relu"]:
+            ex_out = ex_out.clamp_min(0.0)
+        tol = lim * u * mag * sc.abs() \
+            + 2 * u * ((exact * sc).abs() + sh.abs()) \
+            + float(torch.finfo(torch.float32).tiny)
+        o_g = g["out"].cpu().double().reshape(exact.shape)
+        out_ratio = float(((o_g - ex_out).abs() / tol).max())
+        drift = int((xq.view(torch.uint8)
+                     != c["xq"].view(torch.uint8)).sum())
+        rows.append({"i": i, "kind": g["kind"], "k": k, "m": exact.shape[0],
+                     "n": n, "card_units": card_u, "cpu_units": cpu_u,
+                     "out_ratio": out_ratio, "inputs_differing": drift,
+                     "inputs": int(xq.numel())})
+        worst["card_ratio"] = max(worst["card_ratio"], card_u / lim)
+        worst["cpu_ratio"] = max(worst["cpu_ratio"], cpu_u / k)
+        worst["out_ratio"] = max(worst["out_ratio"], out_ratio)
+        del exact, mag, y_g, ex_out, o_g, tol
+    def rel(z, ref):
+        dev = ref - ref.mean(1, keepdim=True)
+        return ((z - ref).norm(dim=1) / dev.norm(dim=1)).tolist()
+
+    r_card = rel(g_z, c_z)
+    logits = {"rel": r_card, "limit": FP8_LOGIT_REL,
+              "rel_fp8_vs_f32": rel(c_z, f_z),
+              "rel_uniform": rel(c_z.mean(1, keepdim=True).expand_as(c_z),
+                                 c_z),
+              "max_abs_err": float((g_z - c_z).abs().max()),
+              "fp8_vs_f32_max_abs": float((c_z - f_z).abs().max()),
+              "prob_max_abs_err": float((g_top - c_top).abs().max()),
+              "top1_same": (g_z.argmax(1) == c_z.argmax(1)).tolist(),
+              "top1_same_f32": (c_z.argmax(1) == f_z.argmax(1)).tolist()}
+    logits["ok"] = bool(np.all(np.isfinite(r_card))
+                        and max(r_card) <= FP8_LOGIT_REL)
+    res = {"layers": len(rows), "acc_rel_limit": FP8_ACC_REL,
+           "same_operands": same_operands, "worst": worst,
+           "first_inputs_differing": rows[0]["inputs_differing"],
+           "drift": [[r["i"], r["inputs_differing"]] for r in rows],
+           "by_layer": rows, "logits": logits}
+    res["ok"] = bool(same_operands and worst["card_ratio"] <= 1.0
+                     and worst["cpu_ratio"] <= 1.0
+                     and worst["out_ratio"] <= 1.0
+                     and rows[0]["inputs_differing"] == 0
+                     and logits["ok"])
+    return res
+
+
+def fp8_serve(cfg, q_path: str, pool, kres):
+    """serve_dtype = fp8 from the int8 snapshot's tables: the serving main
+    path (a closed loop and a burst, launch counts from 0: 69 f32
+    conv_epilogue a forward), the bucket-128 forward by CUDA events and
+    profiled, and 4 rows and the e4m3 weights against the port on the
+    CPU."""
+    import torch
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve import ServeSession
+    fcfg = cfg + [("serve_dtype", "fp8")]
+    rec = recorder()
+    t0 = time.perf_counter()
+    sess = ServeSession(fcfg, model_path=q_path, device=DEVICE, monitor=rec)
+    open_s = time.perf_counter() - t0
+    eng = sess.engine
+    try:
+        d = drive_session(sess, pool, rec)
+        first4 = sess.predict(pool[:4])
+    finally:
+        summary = sess.close()
+    loop, burst = d["loop"], d["burst"]
+    failed = loop["error"] + loop["busy"] + loop["timeout"] \
+        + summary["errors"] + summary["timeouts"] + summary["rejected"]
+    finite = bool(np.all(np.isfinite(burst)) and np.all(np.isfinite(first4)))
+    counted = launches_ok(d["launches"], FP8_LAUNCHES, d["dispatches"])
+    t = eng.trainer
+    before = kernels.launch_counts()
+    dev_batch = t.to_device_batch(pool[:MAX_BATCH])
+    fp8_ms = cuda_time_ms(lambda i: t.pred(dev_batch, eng.nodes), 10)
+    prof = profile_forward(t, dev_batch, eng.nodes, kinds=_SERVE_KINDS)
+    prof["epilogue_bound_ms"] = kres["forward_sum"]["bound_ms"]
+    kernels.restore_launch_counts(before)
+    del dev_batch
+    cpu = NetTrainer(fcfg, device="cpu")
+    cpu.load_model(q_path)
+    cpu_f32 = NetTrainer(cfg, device="cpu")
+    cpu_f32.load_model(q_path)
+    cpu_fp8 = {}
+    ctree, gtree = cpu.freeze_serve_weights(), t.freeze_serve_weights()
+    wq = [(gtree[lk]["_wq"].cpu().view(torch.uint8),
+           sub["_wq"].view(torch.uint8))
+          for lk, sub in ctree.items() if "_wq" in sub]
+    cpu_fp8["fp8_weights"] = sum(int(c.numel()) for _, c in wq)
+    cpu_fp8["fp8_weights_differing"] = sum(int((g != c).sum())
+                                           for g, c in wq)
+    cpu_fp8["weight_dtype"] = str(next(sub["_wq"].dtype
+                                       for sub in gtree.values()
+                                       if "_wq" in sub))
+    del ctree, wq
+    t0 = time.perf_counter()
+    before = kernels.launch_counts()
+    layers = fp8_layers_vs_cpu(t, cpu, cpu_f32, pool[:4])
+    kernels.restore_launch_counts(before)
+    layers["seconds"] = time.perf_counter() - t0
+    cpu_fp8["layers"] = layers
+    del cpu, cpu_f32
+    # the product's precision on the card: K = 1728 (the 3x3 convs of
+    # 192 channels) on seeded e4m3 operands, against the exact sums of
+    # the same values in float64, in units of 2^-24 * sum |a_i b_i| (a
+    # float32 sum of K terms is within K; the card's held to FP8_ACC_REL)
+    from cxxnet_tpu_torch.layers.quant_ops import dot_fp8, pack_weight
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 70)
+    a = (torch.randn((4096, 1728), generator=g, device=DEVICE) * 40) \
+        .to(torch.float8_e4m3fn)
+    w = (torch.randn((1728, 192), generator=g, device=DEVICE) * 40) \
+        .to(torch.float8_e4m3fn)
+    got = dot_fp8(a, pack_weight(w, "fp8"), 192).double()
+    exact = a.double() @ w.double()
+    mag = a.double().abs() @ w.double().abs()
+    units = ((got - exact).abs() / (mag * 2.0 ** -24)).max().item()
+    fp8_product = {"k": 1728, "max_err_units": units,
+                   "limit_units": FP8_ACC_REL * 2.0 ** 24,
+                   "float32_bound_units": 1728}
+    fp8_product["ok"] = bool(units <= fp8_product["limit_units"])
+    del a, w, got, exact, mag
+    res = {"open_s": open_s, "closed_loop": loop, "summary": summary,
+           "tails": d["tails"], "failed_requests": failed,
+           "dispatches": d["dispatches"], "launches": d["launches"],
+           "expected_per_forward": FP8_LAUNCHES, "counted": counted,
+           "rows_per_sec": loop["rows_per_sec"], "fwd128_ms": fp8_ms,
+           "img_per_s": MAX_BATCH / fp8_ms * 1e3, "profile": prof,
+           "cpu": cpu_fp8, "finite": finite, "fp8_product": fp8_product,
+           "native": t.quant_report["native"]}
+    res["ok"] = bool(failed == 0 and finite and counted and res["native"]
+                     and layers["ok"] and fp8_product["ok"]
+                     and cpu_fp8["fp8_weights_differing"] == 0)
+    return res
+
+
 def phase_serve_lowp(workdir: str, kres):
-    """serve_dtype = int8 (and bfloat16) on the serve phase's snapshot:
-    calibration, the parity gate, the int8 snapshot, its serving main
-    path, and a bf16 bucket-128 forward."""
+    """serve_dtype = int8 (and bfloat16 and fp8) on the serve phase's
+    snapshot: calibration, the parity gates (int8 and fp8 from the same
+    tables), the int8 snapshot, its serving main path at int8 and at
+    fp8, and a bf16 bucket-128 forward."""
     import torch
     from cxxnet_tpu_torch.io import DataBatch
     from cxxnet_tpu_torch.layers import kernels
@@ -2458,11 +2780,28 @@ def phase_serve_lowp(workdir: str, kres):
             "top1_agree": agree / (len(batches) * MAX_BATCH),
             "f32_max_prob_mean": float(np.mean([r.max(1) for r in refs]))}
     gate["ok"] = gate["mean_abs"] <= GATE_EPS
+    # the fp8 gate from the same tables (one calibration serves both),
+    # then back to int8 for the snapshot
+    int8_meta = t.quant_meta
+    t.set_quantization(tables, dict(int8_meta, dtype="fp8"), dtype="fp8")
+    fdiffs, fagree = [], 0
+    for x, ref in zip(batches, refs):
+        got = t.pred(t.to_device_batch(x), top)[0].cpu().numpy()
+        fdiffs.append(np.abs(got.astype(np.float64) - ref))
+        fagree += int(np.sum(got.argmax(1) == ref.argmax(1)))
+    fp8_gate = {"batches": len(batches), "layers": t.quant_report["layers"],
+                "native": t.quant_report["native"],
+                "mean_abs": float(np.mean(fdiffs)),
+                "max_abs": float(np.max(fdiffs)), "eps": GATE_EPS,
+                "top1_agree": fagree / (len(batches) * MAX_BATCH)}
+    fp8_gate["ok"] = bool(fp8_gate["mean_abs"] <= GATE_EPS
+                          and fp8_gate["native"])
+    t.set_quantization(tables, int8_meta, dtype="int8")
     kernels.restore_launch_counts(counts0)
-    if not gate["ok"]:
-        raise RuntimeError("parity gate failed: %s" % gate)
+    if not gate["ok"] or not fp8_gate["ok"]:
+        raise RuntimeError("parity gate failed: %s %s" % (gate, fp8_gate))
     t.save_model(q_path)
-    del t, refs, diffs
+    del t, refs, diffs, fdiffs
     torch.cuda.empty_cache()
 
     # 4-5. the int8 snapshot served: the main path
@@ -2542,6 +2881,8 @@ def phase_serve_lowp(workdir: str, kres):
             "finite": bool(np.all(np.isfinite(b128))),
             "fwd128_ms": bf16_ms, "img_per_s": MAX_BATCH / bf16_ms * 1e3,
             "profile": bprof, "cpu": cpu_bf16}
+    fp8 = fp8_serve(cfg, q_path, pool, kres)
+    fp8["gate"] = fp8_gate
 
     res = {"phase": "serve_lowp", "model": "inception_bn_224",
            "serve_dtype": "int8", "buckets": BUCKETS, "gate": gate,
@@ -2558,12 +2899,14 @@ def phase_serve_lowp(workdir: str, kres):
            "img_per_s_int8": MAX_BATCH / int8_ms * 1e3,
            "img_per_s_f32": MAX_BATCH / f32_ms * 1e3,
            "peak_mem_gb": peak / 1e9, "profile": prof,
-           "cpu": cpu_int8, "finite": finite, "bf16": bf16}
+           "cpu": cpu_int8, "finite": finite, "bf16": bf16, "fp8": fp8,
+           "fwd128_ms_fp8": fp8["fwd128_ms"]}
     res["ok"] = bool(failed == 0 and finite and counted
                      and cpu_int8["close"] and cpu_int8["top1_ok"]
                      and cpu_int8["int8_weights_differing"] == 0
                      and bf16["counted"] and bf16["finite"]
-                     and cpu_bf16["close"] and cpu_bf16["top1_ok"])
+                     and cpu_bf16["close"] and cpu_bf16["top1_ok"]
+                     and fp8["ok"])
     emit(res)
     if not res["ok"]:
         raise RuntimeError("serve_lowp phase failed")
@@ -5775,9 +6118,11 @@ def fleet_clients(argv) -> int:
     return 0
 
 
-def start_clients(workdir: str, tag: str, spec):
-    """Start :func:`fleet_clients` in a subprocess with ``spec`` (its
-    ``out`` set from ``tag``); :func:`finish_clients` collects it."""
+def start_clients(workdir: str, tag: str, spec,
+                  entry: str = "fleet_clients"):
+    """Start :func:`fleet_clients` (or another ``entry`` of this module
+    that takes a spec file) in a subprocess with ``spec`` (its ``out``
+    set from ``tag``); :func:`finish_clients` collects it."""
     here = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(workdir, tag)
     spec = dict(spec, out=out)
@@ -5786,17 +6131,18 @@ def start_clients(workdir: str, tag: str, spec):
     env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
         p for p in (here, os.environ.get("PYTHONPATH", "")) if p))
     cmd = [sys.executable, "-c", "import sys, chip_smoke; "
-           "sys.exit(chip_smoke.fleet_clients(sys.argv[1:]))",
+           "sys.exit(chip_smoke.%s(sys.argv[1:]))" % entry,
            out + ".spec.json"]
     err = open(out + ".stderr.txt", "w")
     p = subprocess.Popen(cmd, cwd=workdir, env=env, stdout=err, stderr=err)
-    return {"p": p, "out": out, "err": err, "tag": tag}
+    return {"p": p, "out": out, "err": err, "tag": tag, "entry": entry}
 
 
 def finish_clients(cl, poll=None):
     """Wait for the clients' process (``poll()`` runs every 20 ms
     meanwhile), kill it past ``FLEET_TIMEOUT_S``, and return its drive,
-    every ok record's ``result`` its rows."""
+    every ok record's ``result`` its rows (:func:`retrieval_clients`:
+    its drive as it wrote it)."""
     p, out = cl["p"], cl["out"]
     try:
         deadline = time.monotonic() + FLEET_TIMEOUT_S
@@ -5814,6 +6160,9 @@ def finish_clients(cl, poll=None):
         with open(out + ".stderr.txt") as f:
             raise RuntimeError("fleet clients (%s) exited with %s: %s"
                                % (cl["tag"], rc, f.read()[-2000:]))
+    if cl["entry"] == "retrieval_clients":
+        with open(out + ".pkl", "rb") as f:
+            return pickle.load(f)
     with open(out + ".json") as f:
         drive = json.load(f)
     rows = np.load(out + ".npy")
@@ -7904,6 +8253,689 @@ def _door_ready(door) -> bool:
     return h.get("ready", 0) >= 1
 
 
+# ------------------------------------------------------------ phase 18
+
+RETR_ROWS = 2048               # the corpus: seeded raw-tensor records
+RETR_K, RETR_FSEARCH_K = 10, 5
+RETR_BUCKETS = "1,4,16,32"
+RETR_NODE = "flat"             # Inception-BN's 1024-d pooled features
+RETR_QUERIES = 64              # query vectors: 32 corpus rows, 32 random
+RETR_HTTP_STARTS = 4           # HTTP image bodies: the pool's first 4
+RETR_PRE_S = 3.0               # traffic before the second generation commits
+RETR_POST_S = 3.0              # traffic after its flip
+RETR_V2_DEPTH = 4              # CXN2 requests in flight a client
+RETR_BIG_ROWS = 1 << 20        # the engine at a real corpus size
+RETR_BIG_DIM = 1024
+RETR_BIG_CLUSTERS = 1024
+RETR_DUPES = 64                # planted exact duplicates
+RETR_INT_ROWS = 4096           # the integer-valued block
+RETR_BIG_BUCKETS = (1, 4, 16, 32)
+# a served score against the float64 oracle: a float32 dot product of
+# two unit vectors of the pooled features' 1024 dims is within 1024 *
+# 2^-24 of the exact one (the classical bound of a 1024-term sum), and
+# the float32 query normalization adds a few ulps: twice the bound
+RETR_TOL = 2 * 1024 * 2.0 ** -24
+
+
+def retrieval_build(conf: str, snap: str, out: str, block, stream: str):
+    """``task = build_index`` through the CLI, in this process: the corpus
+    is the pred block's first ``RETR_ROWS`` rows embedded at
+    ``RETR_NODE`` (bf16, the eval fold), cosine, ``search_k`` and
+    ``search_buckets`` as the phase serves them. Returns the run (rc,
+    lines, seconds, launches, forwards)."""
+    from cxxnet_tpu_torch.layers import kernels
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with count_forwards() as fwd:
+        rc, lines = run_cli([conf, "task=build_index", "model_in=" + snap,
+                             "export_out=" + out, "serve_node=" + RETR_NODE,
+                             "index_metric=cosine",
+                             "index_rows=%d" % RETR_ROWS,
+                             "search_k=%d" % RETR_K,
+                             "search_buckets=" + RETR_BUCKETS,
+                             "monitor=jsonl", "monitor_path=" + stream]
+                            + ["%s=%s" % kv for kv in KNOBS] + list(block))
+    return {"rc": rc, "s": time.perf_counter() - t0,
+            "line": next((ln for ln in lines
+                          if ln.startswith("build_index:")), ""),
+            "launches": kernels.launch_counts(), "forwards": fwd["n"]}
+
+
+def topk_checks(ids, scores, oracle, tol: float) -> bool:
+    """Is each reply row a top-k of the float64 scores? ``oracle`` is
+    ``(s64, top)``: the rows' exact scores and their k largest,
+    descending. Each id's exact score must lie within ``tol`` of its
+    rank's (only near-ties may reorder), no id twice, and each reply
+    score within ``tol`` of its id's exact one."""
+    s64, top = oracle
+    k = ids.shape[1]
+    for r in range(ids.shape[0]):
+        got = s64[r, ids[r]]
+        if len(set(ids[r].tolist())) != k \
+                or np.any(np.abs(got - top[r, :k]) > tol) \
+                or np.any(np.abs(scores[r] - got) > tol):
+            return False
+    return True
+
+
+def cosine_oracle(q, vectors, k: int = RETR_K):
+    """float64 cosine scores of queries ``q`` against the unit-row corpus
+    ``vectors`` on the card, and each row's ``k`` largest, descending."""
+    import torch
+    qd = torch.as_tensor(np.asarray(q, np.float64), device=DEVICE)
+    qd = qd / torch.clamp(torch.linalg.vector_norm(qd, dim=1, keepdim=True),
+                          min=1e-12)
+    c = torch.as_tensor(vectors, device=DEVICE).double()
+    s = qd @ c.t()
+    return s.cpu().numpy(), torch.topk(s, k, dim=1).values.cpu().numpy()
+
+
+def retrieval_traffic(ports, pool, qpool, stop_after, k=RETR_K,
+                      kf=RETR_FSEARCH_K):
+    """The served search's clients (:func:`retrieval_clients` runs them
+    in a process of their own): HTTP 1 posts
+    ``/v1/embed`` (1-2 pool images), HTTP 2 alternates ``/v1/search``
+    with ``fan_out`` 0 (1-16 query vectors) and 1 (1-2 images); CXN2 1
+    sends ``main#search:k`` (1-16 query vectors), CXN2 2
+    ``main#fsearch:kf`` (1-16 images), ``RETR_V2_DEPTH`` in flight each.
+    ``stop_after()`` returns when the drive should end. Returns every
+    request's record."""
+    import http.client
+    import socket
+    import threading
+    from cxxnet_tpu_torch.serve.frontend import (pack_request_v2,
+                                                 read_reply_tagged)
+    http_port, binary_port = ports
+    flat = pool.reshape(pool.shape[0], -1)
+    bodies = {(path, s, n): json.dumps(dict(
+        {"model": "main", "rows": flat[s:s + n].tolist()},
+        **({"fan_out": 1, "k": k} if path == "/v1/search" else {})))
+        for path in ("/v1/embed", "/v1/search")
+        for s in range(RETR_HTTP_STARTS) for n in (1, 2)}
+    stop = threading.Event()
+    lock = threading.Lock()
+    log, errors = [], []
+
+    def note(op, proto, s, n, status, res, t):
+        with lock:
+            log.append({"op": op, "proto": proto, "start": s, "n": n,
+                        "status": status, "result": res, "t_send": t,
+                        "ms": (time.time() - t) * 1e3})
+
+    def post(path, body):
+        conn = http.client.HTTPConnection("127.0.0.1", http_port,
+                                          timeout=300)
+        try:
+            conn.request("POST", path, body,
+                         {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+        finally:
+            conn.close()
+
+    def guarded(fn):
+        def run(*a):
+            try:
+                fn(*a)
+            except Exception as e:              # surfaced by the checks
+                with lock:
+                    errors.append("%s: %s" % (type(e).__name__, e))
+        return run
+
+    def http_embed():
+        rng = np.random.RandomState(SEED + 50)
+        while not stop.is_set():
+            s, n = int(rng.randint(RETR_HTTP_STARTS)), int(rng.randint(1, 3))
+            t = time.time()
+            code, body = post("/v1/embed", bodies[("/v1/embed", s, n)])
+            note("embed", "http", s, n, "ok" if code == 200 else code,
+                 np.asarray(body["result"], np.float32) if code == 200
+                 else body, t)
+
+    def http_search():
+        rng = np.random.RandomState(SEED + 51)
+        fan = 0
+        while not stop.is_set():
+            t = time.time()
+            if fan:
+                s, n = int(rng.randint(RETR_HTTP_STARTS)), \
+                    int(rng.randint(1, 3))
+                code, body = post("/v1/search",
+                                  bodies[("/v1/search", s, n)])
+                op = "fsearch"
+            else:
+                n = int(rng.randint(1, 17))
+                s = int(rng.randint(0, len(qpool) - n + 1))
+                code, body = post("/v1/search", json.dumps(
+                    {"model": "main", "rows": qpool[s:s + n].tolist(),
+                     "k": k}))
+                op = "search"
+            note(op, "http", s, n, "ok" if code == 200 else code,
+                 (np.asarray(body["ids"]), np.asarray(body["scores"],
+                                                      np.float32))
+                 if code == 200 else body, t)
+            fan = 1 - fan
+
+    def v2_client(op):
+        rng = np.random.RandomState(SEED + (52 if op == "search" else 53))
+        src = qpool if op == "search" else flat
+        model = "main#%s:%d" % (op, k if op == "search" else kf)
+        sock = socket.create_connection(("127.0.0.1", binary_port),
+                                        timeout=300)
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        rfile = sock.makefile("rb")
+        corr = 0
+        try:
+            while not stop.is_set():
+                sent = {}
+                for _ in range(RETR_V2_DEPTH):
+                    n = int(rng.randint(1, 17))
+                    s = int(rng.randint(0, len(src) - n + 1))
+                    sent[corr] = (s, n, time.time())
+                    sock.sendall(pack_request_v2(corr, model, "",
+                                                 src[s:s + n]))
+                    corr += 1
+                for _ in range(RETR_V2_DEPTH):
+                    c, st, res = read_reply_tagged(rfile)
+                    s, n, t = sent.pop(c)
+                    if st == "ok":
+                        kk = res.shape[1] // 2
+                        res = (res[:, :kk].astype(np.int64), res[:, kk:])
+                    note(op, "cxn2", s, n, st, res, t)
+        finally:
+            rfile.close()
+            sock.close()
+
+    threads = [threading.Thread(target=guarded(f), args=a)
+               for f, a in ((http_embed, ()), (http_search, ()),
+                            (v2_client, ("search",)),
+                            (v2_client, ("fsearch",)))]
+    t0 = time.time()
+    for t in threads:
+        t.start()
+    try:
+        stop_after(lambda: bool(errors))
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+    return {"log": log, "errors": errors, "t0": t0, "t_end": time.time(),
+            "alive": sum(t.is_alive() for t in threads)}
+
+
+def retrieval_clients(argv) -> int:
+    """:func:`retrieval_traffic` in a process of its own, so that nothing
+    of the clients takes the server's interpreter lock: reads the spec
+    ``argv[0]`` (``http_port``, ``binary_port``, the ``pool`` and
+    ``qpool`` ``.npy`` files, ``started``, ``until``, ``error``, ``out``),
+    writes the file ``started`` once its clients run, drives until the
+    file ``until`` exists (or a client fails: then it writes ``error``),
+    and pickles the drive to ``<out>.pkl``."""
+    with open(argv[0]) as f:
+        spec = json.load(f)
+
+    def stop_after(failed):
+        with open(spec["started"], "w") as f:
+            f.write(repr(time.time()))
+        while not os.path.exists(spec["until"]) and not failed():
+            time.sleep(0.02)
+        if failed():
+            with open(spec["error"], "w") as f:
+                f.write("client error")
+
+    drive = retrieval_traffic((spec["http_port"], spec["binary_port"]),
+                              np.load(spec["pool"]), np.load(spec["qpool"]),
+                              stop_after)
+    with open(spec["out"] + ".pkl", "wb") as f:
+        pickle.dump(drive, f)
+    return 0
+
+
+def big_engine_check(weight_bytes: int, bw: float):
+    """The engine at a real corpus size: a seeded ``RETR_BIG_ROWS`` x
+    ``RETR_BIG_DIM`` float32 corpus made on the card (clustered rows,
+    ``RETR_DUPES`` planted exact duplicates, an integer-valued block of
+    ``RETR_INT_ROWS`` rows), served under dot and cosine. Per query
+    bucket: a dispatch's device time by CUDA events (the product and the
+    exact top-k) against the bound (the corpus read once) and the plain
+    sort version's; the ids against a float64 oracle (exactly on the
+    planted ties and the integer block, elsewhere away from near-ties);
+    a budget below weights + index rejected before the corpus moves."""
+    import torch
+    from cxxnet_tpu_torch.artifact.registry import ResidencyBudgetError
+    from cxxnet_tpu_torch.retrieval import EmbeddingIndex, RetrievalEngine
+    from cxxnet_tpu_torch.retrieval.engine import exact_topk, exact_topk_sort
+    n, dim = RETR_BIG_ROWS, RETR_BIG_DIM
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 60)
+    t0 = time.perf_counter()
+    centers = torch.randn((RETR_BIG_CLUSTERS, dim), generator=g,
+                          device=DEVICE)
+    assign = torch.randint(0, RETR_BIG_CLUSTERS, (n,), generator=g,
+                           device=DEVICE)
+    corpus = centers[assign]
+    corpus += 0.3 * torch.randn((n, dim), generator=g, device=DEVICE)
+    del centers, assign
+    perm = torch.randperm(n - RETR_INT_ROWS, generator=g, device=DEVICE)
+    src = perm[:RETR_DUPES]
+    dst = perm[RETR_DUPES:2 * RETR_DUPES]
+    corpus[dst] = corpus[src]
+    lo = n - RETR_INT_ROWS
+    corpus[lo:] = torch.randint(0, 5, (RETR_INT_ROWS, dim), generator=g,
+                                device=DEVICE).float()
+    host = corpus.cpu().numpy()
+    # the cosine corpus normalized on the card (``EmbeddingIndex.build``
+    # would normalize 4.29 GB on the host): float32 rows over their
+    # float32 norms, as ``l2_normalize`` computes them
+    unit = (corpus / torch.clamp(torch.linalg.vector_norm(
+        corpus, dim=1, keepdim=True), min=1e-12)).cpu().numpy()
+    del corpus
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    src, dst = src.cpu().numpy(), dst.cpu().numpy()
+    rng = np.random.RandomState(SEED + 61)
+    out = {"rows": n, "dim": dim, "make_s": make_s,
+           "bound_ms": n * dim * 4 / bw * 1e3, "metrics": {}}
+    for metric in ("dot", "cosine"):
+        t0 = time.perf_counter()
+        ids = np.arange(n, dtype=np.int64)
+        index = EmbeddingIndex.build(ids, host, metric="dot") \
+            if metric == "dot" else EmbeddingIndex(ids, unit, "cosine")
+        build_s = time.perf_counter() - t0
+        eng = RetrievalEngine(index, DEVICE, k=RETR_K,
+                              buckets=RETR_BIG_BUCKETS)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        try:
+            eng.warmup(budget_bytes=weight_bytes + index.nbytes - 1,
+                       weight_bytes=weight_bytes)
+            budget = {"raised": False}
+        except ResidencyBudgetError as e:
+            budget = {"raised": True, "message": str(e)[:160]}
+        budget["bytes_moved"] = torch.cuda.memory_allocated() - before
+        t0 = time.perf_counter()
+        eng.warmup(budget_bytes=weight_bytes + index.nbytes,
+                   weight_bytes=weight_bytes)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        res = {"build_s": build_s, "warmup_s": warm_s, "budget": budget,
+               "buckets": {}}
+        vec = index.vectors
+        for b in RETR_BIG_BUCKETS:
+            # queries: corpus rows (planted duplicates among them),
+            # perturbed rows and, under dot, integer queries into the
+            # integer block
+            nint = b // 2 if metric == "dot" and b >= 4 else 0
+            ndup = min(4, b - nint)
+            rows = rng.randint(0, lo, b)
+            q = vec[rows] + (0.05 * rng.randn(b, dim)).astype(np.float32)
+            q[:ndup] = vec[src[:ndup]]
+            if nint:
+                q[-nint:] = rng.randint(0, 4, (nint, dim)).astype(np.float32)
+            qd = torch.from_numpy(q).to(DEVICE)
+            ms = cuda_time_ms(lambda i: exact_topk(eng._scores(qd), RETR_K),
+                              10)
+            plain_ms = cuda_time_ms(
+                lambda i: exact_topk_sort(eng._scores(qd), RETR_K), 5)
+            scores_ms = cuda_time_ms(lambda i: eng._scores(qd), 10)
+            t1 = time.perf_counter()
+            ids, sc = eng.search(q)
+            search_ms = (time.perf_counter() - t1) * 1e3
+            _, cols = exact_topk_sort(eng._scores(qd), RETR_K)
+            same_plain = bool(np.array_equal(cols.cpu().numpy(), ids))
+            # the float64 oracle, over slices of the engine's corpus
+            q64 = torch.from_numpy(q).double().to(DEVICE)
+            if metric == "cosine":
+                q64 = q64 / torch.clamp(torch.linalg.vector_norm(
+                    q64, dim=1, keepdim=True), min=1e-12)
+            s64 = torch.empty((b, n), dtype=torch.float64, device=DEVICE)
+            for i in range(0, n, 1 << 17):
+                c = eng._corpus[i:i + (1 << 17)]
+                s64[:, i:i + c.shape[0]] = q64 @ c.double().t()
+            order = torch.sort(s64, dim=1, descending=True,
+                               stable=True).indices[:, :RETR_K]
+            s_ord = torch.gather(s64, 1, order).cpu().numpy()
+            s_ids = torch.gather(s64, 1, torch.from_numpy(ids).to(DEVICE)) \
+                .cpu().numpy()
+            order = order.cpu().numpy()
+            # the float32 bound of a dim-term product, dim * 2^-24 * sum
+            # |q_i c_i| over the replied rows (cosine: of the normalized
+            # query), twice
+            mag = (torch.from_numpy(np.abs(q)).double().to(DEVICE)
+                   @ eng._corpus[torch.from_numpy(ids.ravel()).to(DEVICE)]
+                   .abs().double().t()).cpu().numpy()
+            if metric == "cosine":
+                mag = mag / np.linalg.norm(q.astype(np.float64),
+                                           axis=1)[:, None]
+            tol = float(dim * 2.0 ** -24 * mag.max()) * 2
+            exact_rows = 0
+            near_ok = True
+            for r in range(b):
+                if ids[r].tolist() == order[r].tolist():
+                    exact_rows += 1
+                    continue
+                # only near-ties may differ: each reply id's exact score
+                # within tol of its rank's
+                near_ok &= bool(np.all(np.abs(s_ids[r] - s_ord[r]) <= tol))
+            # planted ties: a duplicated row's query finds the pair
+            # together, the lower row first, with the same score bits
+            dup_ok = True
+            for r in range(ndup):
+                pair = sorted((int(src[r]), int(dst[r])))
+                lst = ids[r].tolist()
+                if pair[0] in lst:
+                    j = lst.index(pair[0])
+                    dup_ok &= bool(j + 1 < len(lst) and lst[j + 1] == pair[1]
+                                   and sc[r, j].view(np.int32)
+                                   == sc[r, j + 1].view(np.int32))
+                else:
+                    dup_ok = False
+            # the integer block: exact scores, ids equal the oracle's
+            int_ok = all(ids[r].tolist() == order[r].tolist()
+                         for r in range(b - nint, b)) if nint else None
+            res["buckets"][str(b)] = {
+                "ms": ms, "plain_ms": plain_ms, "scores_ms": scores_ms,
+                "search_ms": search_ms, "bound_ms": out["bound_ms"],
+                "bound_share": out["bound_ms"] / ms,
+                "rows_exact": exact_rows, "near_ties_ok": bool(near_ok),
+                "duplicates_ok": bool(dup_ok), "integer_ok": int_ok,
+                "same_as_plain": same_plain, "tol": tol}
+            del qd, q64, s64, cols
+        res["ok"] = bool(budget["raised"] and budget["bytes_moved"] == 0
+                         and all(v["near_ties_ok"] and v["duplicates_ok"]
+                                 and v["integer_ok"] is not False
+                                 and v["same_as_plain"]
+                                 for v in res["buckets"].values()))
+        out["metrics"][metric] = res
+        del eng, index
+        torch.cuda.empty_cache()
+    del host, unit
+    out["ok"] = all(m["ok"] for m in out["metrics"].values())
+    return out
+
+
+def phase_retrieval(workdir: str, bw: float):
+    """Retrieval and its serving over Inception-BN.conf's net as the fleet
+    phase serves it (bf16, the eval fold), from the fleet phase's
+    calibrated snapshot: ``task = build_index`` through the CLI over a
+    seeded ``RETR_ROWS``-record archive (the bundle verifies, self-recall
+    1.0, 69 bf16 conv_epilogue a forward, the first 4 index rows against
+    the CPU port's pooled features); ``task = serve_fleet``'s
+    ``FleetServer`` from that bundle, under HTTP embed / search / fan-out
+    and CXN2 search / fsearch traffic, hot-swapping to the bundle of a
+    perturbed snapshot mid-drive (no failed request; every search the
+    float64 oracle's over the index of a generation, every fsearch one
+    generation's embedding against its own index; no nvcc; zero search
+    compile events); and the engine over a 1,048,576 x 1024 corpus."""
+    import torch
+    from cxxnet_tpu_torch.artifact import bundle as pb
+    from cxxnet_tpu_torch.io import DataBatch, create_iterator
+    from cxxnet_tpu_torch.monitor.schema import read_jsonl, validate_records
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.retrieval import EmbeddingIndex
+    from cxxnet_tpu_torch.serve import ServeSession
+    from cxxnet_tpu_torch.utils.config import (parse_cli_overrides,
+                                               parse_config_file)
+    src = os.path.join(workdir, "fleet_models", "0001.model.npz")
+    pool_path = os.path.join(workdir, "fleet_pool.npy")
+    if not (os.path.exists(src) and os.path.exists(pool_path)):
+        raise RuntimeError("retrieval: the fleet phase's snapshot is missing")
+    pool = np.load(pool_path)
+    d = os.path.join(workdir, "retrieval")
+    mdir = os.path.join(d, "models")
+    os.makedirs(mdir)
+    snap1 = os.path.join(d, "0001.model.npz")
+    snap2 = os.path.join(d, "0002.model.npz")
+    shutil.copy(src, snap1)
+    perturbed_snapshot(snap1, snap2, seed=SEED + 15)
+    (rec_path,) = write_cli_archives(d, (("corpus.rec", RETR_ROWS),))
+    conf = shipped_conf(d, "Inception-BN.conf",
+                        os.path.join(workdir, "train.rec"),
+                        os.path.join(workdir, "val.rec"))
+    block = ["pred=" + os.path.join(d, "unused.txt"), "iter=imgrec",
+             "path_imgrec=" + rec_path,
+             "input_shape=3,%d,%d" % (CKPT_CROP, CKPT_CROP),
+             "mean_value=123,117,104", "iter=end"]
+    launches = dict(NO_LAUNCHES)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # 1. build_index through the CLI: generation 1 into the watched
+    # directory, generation 2 (the perturbed snapshot) beside it
+    b1 = os.path.join(mdir, "0001.model.bundle")
+    side = os.path.join(d, "side", "0002.model.bundle")
+    builds = {}
+    for tag, snap, out in (("gen1", snap1, b1), ("gen2", snap2, side)):
+        stream = os.path.join(d, tag + ".jsonl")
+        r = retrieval_build(conf, snap, out, block, stream)
+        add(r["launches"])
+        recs = read_jsonl(stream) if os.path.exists(stream) else []
+        kinds = [x["event"] for x in recs]
+        ret = [x for x in recs if x["event"] == "retrieval"]
+        ib = [x for x in recs if x["event"] == "index_build"]
+        rep = pb.verify_bundle(out)
+        man = pb.bundle_manifest(out) if rep["ok"] else {}
+        r.update(verify_ok=rep["ok"], index=man.get("index"),
+                 recall=ret[0]["recall"] if ret else None,
+                 index_build=ib[0] if ib else None,
+                 schema_errors=len(validate_records(recs, strict=False)),
+                 kinds_ok=all(k in kinds for k in (
+                     "run_start", "retrieval", "index_build", "export",
+                     "task_end")),
+                 counted=launches_ok(r["launches"], BF16_LAUNCHES,
+                                     r["forwards"]))
+        r["ok"] = bool(r["rc"] == 0 and rep["ok"] and r["recall"] == 1.0
+                       and r["kinds_ok"] and not r["schema_errors"]
+                       and r["counted"] and r["index"] is not None
+                       and r["index"]["rows"] == RETR_ROWS
+                       and r["index"]["k"] == RETR_K)
+        builds[tag] = r
+    idx = {1: EmbeddingIndex.deserialize(pb.read_index_member(b1)),
+           2: EmbeddingIndex.deserialize(pb.read_index_member(side))}
+    # the first 4 index rows against the port's pooled features on the
+    # CPU (the same snapshot, knobs and records), normalized
+    cfg = parse_config_file(conf) + parse_cli_overrides(
+        ["%s=%s" % kv for kv in KNOBS])
+    cpu = NetTrainer(cfg, device="cpu")
+    cpu.load_model(snap1)
+    it = create_iterator(parse_cli_overrides(block[1:-1]),
+                         [("batch_size", "4")])
+    it.init()
+    try:
+        first4 = next(iter(it))
+    finally:
+        it.close()
+    flat4 = cpu.extract_feature(DataBatch(first4.data), RETR_NODE) \
+        .reshape(4, -1).astype(np.float64)
+    del cpu
+    flat4 = flat4 / np.linalg.norm(flat4, axis=1, keepdims=True)
+    scale = float(np.abs(flat4).max())
+    err = np.abs(idx[1].vectors[:4] - flat4)
+    cpu_rows = {"max_abs_err": float(err.max()),
+                "close": bool(np.all(err <= BF16_CPU_RTOL * np.abs(flat4)
+                                     + 1e-3 * scale))}
+
+    # 2. task = serve_fleet's FleetServer, from the watched directory of
+    # generation 1; the clients in a process of their own; generation 2
+    # renamed into the watched directory mid-drive. Each generation's embed rows at every
+    # bucket come from a session on its bundle (generation 2's: the one
+    # the fleet serves after the flip)
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.serve import FleetServer
+    qrng = np.random.RandomState(SEED + 62)
+    qpool = np.concatenate([
+        idx[1].vectors[qrng.randint(0, RETR_ROWS, RETR_QUERIES // 2)],
+        qrng.randn(RETR_QUERIES - RETR_QUERIES // 2,
+                   idx[1].dim).astype(np.float32)])
+    ref1 = ServeSession(fleet_cfg(workdir), model_path=b1, device=DEVICE)
+    try:
+        ladder = tuple(ref1.engine.buckets)
+        emb = {1: bucket_refs(ref1, pool, ladder)}
+        weight_bytes = ref1.engine.trainer.residency["bytes"]
+    finally:
+        ref1.close()
+    fcfg = fleet_cfg(workdir) + [
+        ("serve_models", "main=" + mdir), ("serve_http_port", "0"),
+        ("serve_binary_port", "0"), ("serve_swap_poll_s", "0.2")]
+    rec = recorder()
+    flip = {}
+    qpool_path = os.path.join(d, "qpool.npy")
+    np.save(qpool_path, qpool)
+    marks = {k: os.path.join(d, "clients." + k)
+             for k in ("started", "until", "error")}
+
+    def stop_after(failed):
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        while not os.path.exists(marks["started"]) and not failed() \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+        t_end = time.monotonic() + RETR_PRE_S
+        while time.monotonic() < t_end and not failed():
+            time.sleep(0.05)
+        flip["t_commit"] = time.time()
+        os.rename(side, os.path.join(mdir, "0002.model.bundle"))
+        deadline = time.monotonic() + 180
+        while fleet.router.resolve("main").counter < 2 \
+                and time.monotonic() < deadline and not failed():
+            time.sleep(0.05)
+        t_end = time.monotonic() + RETR_POST_S
+        while time.monotonic() < t_end and not failed():
+            time.sleep(0.05)
+        with open(marks["until"], "w") as f:
+            f.write(repr(time.time()))
+
+    kernels.reset_launch_counts()
+    nvcc0 = kernels.nvcc_runs
+    t0 = time.perf_counter()
+    with count_forwards() as fwd:
+        fleet = FleetServer(fcfg, monitor=rec, device=DEVICE)
+        try:
+            fleet.start()
+            boot_s = time.perf_counter() - t0
+            boot_nvcc = kernels.nvcc_runs - nvcc0
+            health0 = fleet.health_snapshot()
+            cl = start_clients(d, "clients", dict(
+                marks, http_port=fleet.http_port,
+                binary_port=fleet.binary_port, pool=pool_path,
+                qpool=qpool_path), entry="retrieval_clients")
+            try:
+                stop_after(lambda: os.path.exists(marks["error"])
+                           or cl["p"].poll() is not None)
+            finally:
+                if not os.path.exists(marks["until"]):
+                    open(marks["until"], "w").close()
+                drive = finish_clients(cl)
+            torch.cuda.synchronize()
+            health = fleet.health_snapshot()
+            models = fleet.describe()
+            served_launches, forwards = kernels.launch_counts(), fwd["n"]
+            emb[2] = bucket_refs(fleet.router.resolve("main").session, pool,
+                                 ladder)
+        finally:
+            fleet.close()
+    add(served_launches)
+    swaps = [x for x in rec.sink.records if x["event"] == "hot_swap"]
+    t_flip = swaps[0]["t"] if swaps else None
+    loads = [x for x in rec.sink.records if x["event"] == "artifact_load"]
+    tol = RETR_TOL
+    qs64 = {g: cosine_oracle(qpool, idx[g].vectors) for g in (1, 2)}
+    es64 = {(ge, b, gi): cosine_oracle(emb[ge][b], idx[gi].vectors)
+            for ge in (1, 2) for b in ladder for gi in (1, 2)}
+
+    def rows_of(oracle, s, n):
+        return oracle[0][s:s + n], oracle[1][s:s + n]
+
+    by_op = {}
+    served = {"g1": 0, "g2": 0, "both": 0, "neither": 0, "mixed_only": 0,
+              "late_old": 0}
+    for r in drive["log"]:
+        op = by_op.setdefault(r["op"], {"ok": 0, "failed": 0, "ms": []})
+        if r["status"] != "ok":
+            op["failed"] += 1
+            continue
+        op["ok"] += 1
+        op["ms"].append(r["ms"])
+        s, n = r["start"], r["n"]
+        if r["op"] == "embed":
+            gens = {g for g in (1, 2) for b in ladder if b >= n
+                    and np.array_equal(r["result"], emb[g][b][s:s + n])}
+            mixed = False
+        elif r["op"] == "search":
+            ids, sc = r["result"]
+            gens = {g for g in (1, 2)
+                    if topk_checks(ids, sc, rows_of(qs64[g], s, n), tol)}
+            mixed = False
+        else:
+            ids, sc = r["result"]
+            gens = {ge for ge in (1, 2) for b in ladder if b >= n
+                    if topk_checks(ids, sc, rows_of(es64[(ge, b, ge)], s, n),
+                                   tol)}
+            # one generation's embedding against the other's corpus
+            mixed = not gens and any(
+                topk_checks(ids, sc, rows_of(es64[(ge, b, 3 - ge)], s, n),
+                            tol)
+                for ge in (1, 2) for b in ladder if b >= n)
+        if not gens:
+            served["neither"] += 1
+            served["mixed_only"] += int(mixed)
+        elif len(gens) == 2:
+            served["both"] += 1
+        else:
+            served["g%d" % min(gens)] += 1
+            if gens == {1} and t_flip is not None and r["t_send"] > t_flip:
+                served["late_old"] += 1
+    ops = {k: {"ok": v["ok"], "failed": v["failed"],
+               "p50_ms": float(np.percentile(v["ms"], 50)) if v["ms"]
+               else None,
+               "p90_ms": float(np.percentile(v["ms"], 90)) if v["ms"]
+               else None} for k, v in by_op.items()}
+    row = health["model_health"][0]
+    serve = {
+        "boot_s": boot_s, "boot_nvcc_runs": boot_nvcc,
+        "nvcc_runs": kernels.nvcc_runs - nvcc0, "forwards": forwards,
+        "counted": launches_ok(served_launches, BF16_LAUNCHES, forwards),
+        "artifact_load": [{k: x[k] for k in ("hits", "rebuilds",
+                                             "fingerprint_match")}
+                          for x in loads],
+        "errors": drive["errors"], "alive": drive["alive"],
+        "by_op": ops, "served_by": served,
+        "commit_to_flip_s": (t_flip - flip["t_commit"])
+        if t_flip is not None and "t_commit" in flip else None,
+        "counter_after": row["counter"],
+        "search_compile_events": [health0["model_health"][0].get(
+            "search_compile_events"), row.get("search_compile_events")],
+        "search_aot_hits": row.get("search_aot_hits"),
+        "compile_events": row.get("compile_events"),
+        "index_block": models[0].get("index")}
+    n_failed = sum(v["failed"] for v in ops.values())
+    serve["ok"] = bool(
+        n_failed == 0 and not drive["errors"] and drive["alive"] == 0
+        and serve["nvcc_runs"] == 0 and serve["counted"]
+        and served["neither"] == 0 and served["late_old"] == 0
+        and served["g1"] + served["both"] > 0
+        and served["g2"] + served["both"] > 0
+        and len(ops) == 3 and all(v["ok"] > 0 for v in ops.values())
+        and row["counter"] == 2 and swaps
+        and serve["search_compile_events"] == [0, 0]
+        and row.get("compile_events") == 0
+        and serve["index_block"] is not None
+        and serve["index_block"]["rows"] == RETR_ROWS)
+
+    # 3. the engine at a real corpus size
+    big = big_engine_check(weight_bytes, bw)
+    res = {"phase": "retrieval", "model": "Inception-BN.conf",
+           "node": RETR_NODE, "rows": RETR_ROWS, "builds": builds,
+           "cpu": cpu_rows, "serve": serve, "big": big,
+           "launches": launches}
+    res["ok"] = bool(all(b["ok"] for b in builds.values())
+                     and cpu_rows["close"] and serve["ok"] and big["ok"])
+    emit(res)
+    if not res["ok"]:
+        raise RuntimeError("retrieval phase failed")
+    return res
+
+
 def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
     """The ``kernels`` record: every ported kernel (and bf16
     instantiation) with its launches on its path's run, its error
@@ -7998,7 +9030,10 @@ def kernels_line(kres, sres, lres, tres, tbres, kmres, twres, part: str):
              plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
              bound_by=kres["bound_by"], library_ms=None,
              device_ms=sres["profile"]["epilogue_device_ms"],
-             per=per_fwd, peaks=part),
+             fp8_launches=lres["fp8"]["launches"]["conv_epilogue"],
+             fp8_device_ms=lres["fp8"]["profile"]["epilogue_device_ms"],
+             per=per_fwd + "; fp8_launches: the serve_dtype = fp8 main "
+             "path's (its float32 accumulators)", peaks=part),
         dict(EPILOGUE_INT32,
              launches=lres["launches"]["conv_epilogue_int32"],
              max_abs_err=i32["max_abs_err"], ms=i32["forward_sum"]["ms"],
@@ -8211,6 +9246,9 @@ def main() -> int:
         phase = "fleet_tier"
         stamps.append((phase, time.perf_counter()))
         ftres = phase_fleet_tier(workdir, fres)
+        phase = "retrieval"
+        stamps.append((phase, time.perf_counter()))
+        rtres = phase_retrieval(workdir, bw)
     except Exception as e:
         import traceback
         traceback.print_exc()
@@ -8253,6 +9291,10 @@ def main() -> int:
         # its start, summed over those that drained (a SIGKILLed one
         # reports nothing)
         row["fleet_tier_launches"] = ftres["launches"][row["name"]]
+        # the retrieval phase's runs: both build_index exports in this
+        # process and the serve_fleet process (boot, the shadow build, the
+        # traffic), each from 0
+        row["retrieval_launches"] = rtres["launches"][row["name"]]
         if row["name"] == BIAS_BF16["name"]:
             ab = kres["bias_grad_bf16_alexnet"]
             row["alexnet"] = {

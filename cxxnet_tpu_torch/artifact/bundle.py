@@ -13,6 +13,10 @@ one directory holding
   library the frozen serve path loads (``artifact/registry.py``: the
   library-as-program rule); in the reference's, a pickled JAX
   executable, which the port never unpickles;
+- ``index.embed.npz`` — with ``task = build_index`` (or a continual
+  generation with ``continual_index_rows``), the embedding index
+  (``retrieval/index.py``), and the manifest's ``index`` block (shape,
+  metric, node, the search depth ``k`` and query ``buckets``);
 - ``MANIFEST.json`` — format version 1, the runtime fingerprint
   (``artifact/fingerprint.py``: backend ``torch`` here), the bucket
   ladder and serve dtype the programs were sealed for, and a (name,
@@ -56,8 +60,8 @@ BUNDLE_KIND = "cxxnet_artifact_bundle"
 MANIFEST_NAME = "MANIFEST.json"
 OK_SUFFIX = ".ok"
 SNAPSHOT_MEMBER = "snapshot.model.npz"
-# the reference's sealed embedding index member (retrieval is not
-# ported; a re-export sweeps it like a program member)
+# the sealed embedding index member (a re-export sweeps it like a
+# program member); the same name as retrieval.index.INDEX_MEMBER
 INDEX_MEMBER = "index.embed.npz"
 
 BUNDLE_RE = re.compile(r"^(\d{4})\.model\.bundle$")
@@ -147,9 +151,14 @@ def default_bundle_path(model_in: str) -> str:
 
 
 def export_bundle(engine, out: str, node: str = "",
-                  monitor=None) -> Dict[str, Any]:
+                  monitor=None, retrieval=None) -> Dict[str, Any]:
     """Seal a warmed engine into a committed bundle at ``out``: its
     trainer's weights and the kernel libraries its serve path loaded.
+    ``retrieval`` (a warmed
+    :class:`~cxxnet_tpu_torch.retrieval.engine.RetrievalEngine`, or
+    None) also seals its embedding index and its search contract, so
+    model and index commit, verify and hot-swap as one artifact; the
+    search runs no hand-written kernel, so it seals no program.
 
     Write order is the commit protocol: a stale ``.ok`` and the program
     members of an earlier export at the same path go first, then the
@@ -191,6 +200,19 @@ def export_bundle(engine, out: str, node: str = "",
                         "sha256": hashlib.sha256(blob).hexdigest()})
         programs.append({"name": name, "key": repr(key)})
         total += len(blob)
+    index_entry = None
+    if retrieval is not None:
+        idx_blob = retrieval.index.serialize()
+        index_entry = retrieval.index.manifest_entry()
+        # the served search contract, so a boot serves what was sealed
+        index_entry.update({"k": int(retrieval.k),
+                            "buckets": [int(b)
+                                        for b in retrieval.buckets]})
+        _commit_member(member_uri(out, index_entry["member"]), idx_blob)
+        members.append({
+            "name": index_entry["member"], "bytes": len(idx_blob),
+            "sha256": hashlib.sha256(idx_blob).hexdigest()})
+        total += len(idx_blob)
     manifest = {
         "format_version": BUNDLE_FORMAT_VERSION,
         "kind": BUNDLE_KIND,
@@ -209,6 +231,8 @@ def export_bundle(engine, out: str, node: str = "",
         "members": members,
         "programs": programs,
     }
+    if index_entry is not None:
+        manifest["index"] = index_entry
     man_bytes = json.dumps(manifest, sort_keys=True, indent=1).encode()
     _commit_member(member_uri(out, MANIFEST_NAME), man_bytes)
     _fsync_dir(out)

@@ -35,21 +35,25 @@ Every ``continual_export_every`` applied updates the loop runs one
 The loop keeps the CLI's preemption contract: ``should_stop`` is read
 at every dispatch and pipeline boundary, and a preempted run commits
 an emergency snapshot, drains the fleet and reports ``preempted``, so
-that ``main`` exits 75. ``continual_index_rows > 0`` (a retrieval
-corpus sealed with each generation) raises
-:class:`~cxxnet_tpu_torch.utils.config.NotPortedError`: retrieval is
-not ported.
+that ``main`` exits 75. ``continual_index_rows > 0`` tees the first N
+valid raw training rows off the stream as a retrieval corpus; each
+generation's export re-embeds them through its own weights and seals
+the rebuilt index into its bundle, so the flip carries model and index
+as one pair.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from ..artifact.bundle import default_bundle_path, export_bundle
 from ..nnet.checkpoint import CheckpointManager
 from ..serve import FleetServer, ServeConfig, build_engine
-from ..utils.config import NotPortedError, Roadmap
+from ..serve.server import build_retrieval
 
 _GATE_MODES = ("min", "max", "off")
 _TASKS = ("train", "finetune")
@@ -74,7 +78,10 @@ class ContinualConfig:
     - ``continual_linger_s`` — serve-only time after the last
       generation, before the drain;
     - ``continual_max_updates`` — a bound on applied updates (0: none);
-    - ``continual_index_rows`` — must stay 0 (retrieval).
+    - ``continual_index_rows`` — when > 0, the first N valid training
+      rows are captured as a retrieval corpus, re-embedded with every
+      generation's weights and sealed into its bundle (0: index-less
+      bundles).
     """
 
     def __init__(self, cfg: Sequence[Tuple[str, str]]):
@@ -126,10 +133,6 @@ class ContinualConfig:
             raise ValueError(
                 "task=continual requires continual_export_every >= 1 "
                 "(applied updates between generation attempts)")
-        if self.index_rows > 0:
-            raise NotPortedError(
-                "continual_index_rows = %d" % self.index_rows,
-                Roadmap.RETRIEVAL)
 
     def passes(self, value: float, best: Optional[float]) -> bool:
         if self.gate == "off" or best is None:
@@ -164,9 +167,12 @@ class GenerationExporter:
         self.engine = None
         self.engine_builds = 0
 
-    def export(self, snapshot: str, out: str) -> Dict[str, Any]:
+    def export(self, snapshot: str, out: str,
+               corpus: Optional[np.ndarray] = None) -> Dict[str, Any]:
         """Seal ``snapshot`` into a committed bundle at ``out``; returns
-        the ``export`` record fields."""
+        the ``export`` record fields. With a ``corpus`` (raw host rows),
+        re-embed it through this generation's weights and seal the
+        rebuilt index into the same bundle."""
         if self.engine is None:
             engine = build_engine(
                 self.cfg, snapshot, buckets=self.sc.buckets,
@@ -179,8 +185,12 @@ class GenerationExporter:
             self.engine_builds += 1
         else:
             self.engine.trainer.load_weights_inplace(snapshot)
+        retrieval = None
+        if corpus is not None and corpus.shape[0] > 0:
+            retrieval = build_retrieval(self.engine, corpus, self.sc,
+                                        monitor=self._mon, out=out)
         return export_bundle(self.engine, out, node=self.sc.node,
-                             monitor=self._mon)
+                             monitor=self._mon, retrieval=retrieval)
 
 
 class ContinualLoop:
@@ -224,6 +234,11 @@ class ContinualLoop:
         self.exporter = GenerationExporter(self.cfg, monitor=monitor,
                                            device=trainer.device)
         self._round = 0
+        # the retrieval corpus (continual_index_rows): raw rows, not
+        # embeddings: every generation re-embeds them through its own
+        # weights, so the sealed index always matches its bundle
+        self._corpus_parts: List[np.ndarray] = []
+        self._corpus_got = 0
         # (model_id, router generation) -> that engine's last observed
         # compile count: each engine counts once in the total
         self._compile_counts: Dict[Tuple[str, int], int] = {}
@@ -277,6 +292,35 @@ class ContinualLoop:
                        wall_s=t.last_round_wall_s,
                        examples_per_sec=t.last_round_examples_per_sec)
             self._round += 1
+
+    def _capture_corpus(self, stream):
+        """Tee the first ``continual_index_rows`` valid training rows off
+        the batch stream as the retrieval corpus: float32 host copies
+        (the iterator may recycle its buffers, and a staged batch lives
+        on the device, its copy done once ``ready`` has fired)."""
+        want = self.cc.index_rows
+        for batch in stream:
+            if self._corpus_got < want:
+                n = min(batch.batch_size - batch.num_batch_padd,
+                        want - self._corpus_got)
+                if n > 0:
+                    data = batch.data
+                    if isinstance(data, torch.Tensor):
+                        if getattr(batch, "ready", None) is not None:
+                            batch.ready.synchronize()
+                        data = data[:n].float().cpu().numpy()
+                    self._corpus_parts.append(
+                        np.array(np.asarray(data)[:n], np.float32))
+                    self._corpus_got += n
+            yield batch
+
+    def _corpus_rows(self) -> Optional[np.ndarray]:
+        if not self._corpus_parts:
+            return None
+        if len(self._corpus_parts) > 1:
+            self._corpus_parts = [
+                np.concatenate(self._corpus_parts, axis=0)]
+        return self._corpus_parts[0]
 
     def _train_until(self, stream, target_updates: int) -> bool:
         """Advance the trainer to ``target_updates`` applied updates in
@@ -393,7 +437,8 @@ class ContinualLoop:
         builds, nvcc = self.exporter.engine_builds, kernels.nvcc_runs
         t_exp = time.perf_counter()
         try:
-            stats = self.exporter.export(snap, out)
+            stats = self.exporter.export(snap, out,
+                                         corpus=self._corpus_rows())
         except Exception as e:
             # failing to upgrade must not take down what serves: the
             # committed snapshot stays a valid swap target
@@ -461,6 +506,8 @@ class ContinualLoop:
         best: Optional[float] = None
         preempted = False
         stream = self._stream()
+        if cc.index_rows > 0:
+            stream = self._capture_corpus(stream)
         self._ckpt = CheckpointManager(
             self.trainer, self.path_for, model_dir=self.model_dir,
             monitor=self._mon, **self._ckpt_kw)

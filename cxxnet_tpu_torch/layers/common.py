@@ -3,8 +3,8 @@
 training, differentiated by autograd:
 
 - fullc        — y = x @ W + b, W stored (in, out); at eval under
-  ``serve_dtype = int8`` an int8 product into int32, dequantized per out
-  channel; under ``serve_dtype = bfloat16`` or ``dtype = bfloat16`` a
+  ``serve_dtype = int8`` an int8 product into int32 (``fp8``: an e4m3
+  product into float32), dequantized per out channel; under ``serve_dtype = bfloat16`` or ``dtype = bfloat16`` a
   product of bf16 operands (bf16 output)
 - pallas_fullc — the same through the matmul kernel
   (``PallasFullConnectLayer``, counterpart of the reference's in
@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from ..utils.stream import open_stream
 from .base import Layer, Shape3, StepKey, as_mat
 from .kernels import bias_add, matmul, pool_concat
-from .quant_ops import dot_int8
+from .quant_ops import dot_fp8, dot_int8
 
 
 def dropout_uniform(shape: Sequence[int], key: StepKey,
@@ -98,8 +98,9 @@ class FullConnectLayer(Layer):
     def forward(self, params, state, inputs, is_train=False):
         x = inputs[0]
         # the serve_dtype spec (nnet/quantize.attach), eval only: int8
-        # contracts the quantized operands into int32 and dequantizes
-        # per out channel; bfloat16 multiplies bf16 operands
+        # (fp8) contracts the quantized operands into int32 (float32)
+        # and dequantizes per out channel; bfloat16 multiplies bf16
+        # operands
         q = None if is_train else self._quant
         if q is not None and q.is_affine:
             dq = params.get("_r_dequant")
@@ -108,7 +109,8 @@ class FullConnectLayer(Layer):
             else:
                 wq = params["_wq"]
             xq = q.quantize_x(x)
-            y = dot_int8(xq, wq, self.param.num_hidden) if q.native \
+            dot_q = dot_fp8 if q.dtype == "fp8" else dot_int8
+            y = dot_q(xq, wq, self.param.num_hidden) if q.native \
                 else xq @ wq
             y = y.float() * dq
             if self.param.no_bias == 0:

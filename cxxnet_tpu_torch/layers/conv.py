@@ -11,11 +11,13 @@
 - the batch-norm fold (``bn_fold_eval``) either multiplies the weight
   (``conv_pallas_epilogue = 0``) or runs on the conv output as one
   launch of the ``conv_epilogue`` kernel (``conv_pallas_epilogue = 1``).
-- ``serve_dtype = int8`` (eval only): the fold multiplies the weight
-  before it is quantized; the activation quantizes on the device, the
-  int8 product accumulates in int32 (``quant_ops.conv_int8``) and the
-  conv_epilogue kernel applies the per-channel dequant, the folded
-  shift and the relu to the int32 accumulator. ``serve_dtype =
+- ``serve_dtype = int8`` or ``fp8`` (eval only): the fold multiplies
+  the weight before it is quantized; the activation quantizes on the
+  device, the int8 product accumulates in int32
+  (``quant_ops.conv_int8``), the e4m3 one in float32
+  (``quant_ops.conv_fp8``), and the conv_epilogue kernel applies the
+  per-channel dequant, the folded shift and the relu to the
+  accumulator. ``serve_dtype =
   bfloat16`` and ``dtype = bfloat16`` (eval and training): the conv
   runs on bf16 operands, its output (and its epilogue's) stays bf16,
   and so the activations ride bf16 through batch norm, relu and the
@@ -66,7 +68,7 @@ from . import common
 from .base import Layer, Shape3
 from .kernels import (bias_add, bn_apply, bn_apply_plain, conv_epilogue,
                       conv_epilogue_plain, relu_max_pool, scale_mul)
-from .quant_ops import conv_int8
+from .quant_ops import conv_fp8, conv_int8
 
 
 def _conv_out_dim(size: int, pad: int, k: int, stride: int) -> int:
@@ -98,7 +100,7 @@ class ConvolutionLayer(Layer):
       applied by the conv_epilogue kernel, bias already in the shift;
     - ``_r_shift``/``_r_shift_relu``: the frozen weight-side fold, the
       effective shift added after the conv;
-    - ``_wq`` + ``_r_dequant`` (``serve_dtype = int8``): the folded
+    - ``_wq`` + ``_r_dequant`` (``serve_dtype = int8|fp8``): the folded
       weight quantized once (``QuantSpec.weight_operand``) and the
       per-channel dequant; the shift then goes to the epilogue;
     - ``_fold_scale``/``_fold_shift`` (+ ``_fold_relu``): the fold as the
@@ -176,13 +178,15 @@ class ConvolutionLayer(Layer):
     def _conv_quant(self, q, x: torch.Tensor,
                     wq: torch.Tensor) -> torch.Tensor:
         """The quantized contraction: x quantized on its device, then
-        the int8 product into int32 (``q.native``), or the grid values
-        in float32 (a grouped conv); ``wq`` is ``q.weight_operand``."""
+        the int8 product into int32 or the e4m3 one into float32
+        (``q.native``), or the grid values in float32 (a grouped conv);
+        ``wq`` is ``q.weight_operand``."""
         p = self.param
         xq = q.quantize_x(x)
         if q.native:
-            return conv_int8(xq, wq, p.num_channel, p.kernel_height,
-                             p.kernel_width, p.stride, p.pad_y, p.pad_x)
+            conv_q = conv_fp8 if q.dtype == "fp8" else conv_int8
+            return conv_q(xq, wq, p.num_channel, p.kernel_height,
+                          p.kernel_width, p.stride, p.pad_y, p.pad_x)
         return self.conv(xq, wq)
 
     def _epilogue(self, y, scale, shift, relu, out_dtype):
@@ -209,8 +213,8 @@ class ConvolutionLayer(Layer):
             if p.no_bias == 0:
                 y = bias_add(y, self._physical_bias(params["bias"]))
             return [y], state
-        # the serve_dtype spec (nnet/quantize.attach): int8 contracts
-        # quantized operands, bfloat16 (or dtype = bfloat16) runs the
+        # the serve_dtype spec (nnet/quantize.attach): int8 and fp8
+        # contract quantized operands, bfloat16 (or dtype = bfloat16) runs the
         # conv and its epilogue in bf16 (the activations stay bf16
         # between layers)
         q = self._quant
@@ -225,7 +229,8 @@ class ConvolutionLayer(Layer):
         dq = params.get("_r_dequant")
         if dq is not None:
             # frozen quantized weight (folded before it was quantized):
-            # the int32 accumulator through the epilogue with the dequant
+            # the int32 or float32 accumulator through the epilogue with
+            # the dequant
             y = self._conv_quant(q, x, params["_wq"])
             return [self._epilogue(y, dq, shift, relu, out_dtype)], state
         w = params.get("_oihw")

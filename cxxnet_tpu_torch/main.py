@@ -70,10 +70,16 @@ the CPU. ``fleet`` and ``fleet_balancer`` resolve no device (they only
 move bytes, and open no CUDA context); their replicas resolve ``dev``
 themselves.
 
+``task = build_index`` embeds the pred iterator's rows (at most
+``index_rows``; 0 = all) through the frozen serve net at ``serve_node``
+and seals the model and an :class:`~cxxnet_tpu_torch.retrieval.
+EmbeddingIndex` (``index_metric = dot|cosine``; ``search_k``,
+``search_buckets``) as one bundle at ``export_out``.
+
 What this port does not have yet raises
 :class:`~cxxnet_tpu_torch.utils.config.NotPortedError` naming its
-``ROADMAP.md`` item: the task ``build_index``; the keys
-``test_on_server = 1`` and every ``dist_*`` key.
+``ROADMAP.md`` item: the keys ``test_on_server = 1`` and every
+``dist_*`` key.
 
 Usage: python -m cxxnet_tpu_torch.main config.conf [key=value ...]
 """
@@ -86,7 +92,7 @@ import signal
 import sys
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -131,11 +137,6 @@ _PRED_NEUTRAL = (
     ("min_crop_size", "-1"), ("max_crop_size", "-1"),
     ("rotate", "-1"), ("rotate_list", ""),
 )
-
-# tasks of the reference this port does not have yet, by ROADMAP item
-NOT_PORTED_TASKS: Dict[str, str] = {
-    "build_index": Roadmap.RETRIEVAL,
-}
 
 # tasks whose process computes nothing (the fleet tier's controller and
 # doors): no device is resolved for them
@@ -194,8 +195,12 @@ class LearnTask:
         # other changed shape raises unless finetune_strict = 0
         self.finetune_remap: Tuple[str, ...] = ()
         self.finetune_strict = 1
-        # task = export: the bundle's path ("" = beside model_in)
+        # task = export / build_index: the bundle's path ("" = beside
+        # model_in)
         self.export_out = ""
+        # task = build_index: a cap on the corpus rows (0 = the whole
+        # iterator); the metric is ServeConfig's index_metric
+        self.index_rows = 0
         self._resume_found = False
         # set by the SIGTERM/SIGINT handler; read at the train loop's
         # next dispatch boundary
@@ -279,6 +284,8 @@ class LearnTask:
             self.finetune_strict = int(val)
         if name == "export_out":
             self.export_out = val
+        if name == "index_rows":
+            self.index_rows = int(val)
 
     def _torch_device(self) -> str:
         """``dev = cpu`` runs on the CPU; unset or any accelerator name
@@ -333,9 +340,6 @@ class LearnTask:
         blocks, global_cfg = split_sections(cfg)
         for name, val in global_cfg:
             self._set(name, val)
-        if self.task in NOT_PORTED_TASKS:
-            raise NotPortedError("task = %s" % self.task,
-                                 NOT_PORTED_TASKS[self.task])
         # 'pred = <outfile>' doubles as the pred-block marker, so read
         # it from the raw stream
         for name, val in cfg:
@@ -435,6 +439,12 @@ class LearnTask:
                 assert self.model_in, "task quantize requires model_in"
                 return self._task_quantize(cfg, pred_iter or itr_train,
                                            dev)
+
+            if self.task == "build_index":
+                assert self.model_in, \
+                    "task build_index requires model_in"
+                return self._task_build_index(cfg, pred_iter or itr_train,
+                                              dev)
 
             trainer = NetTrainer(cfg, device=dev)
             # the monitor before init or load: their model records (a
@@ -986,6 +996,66 @@ class LearnTask:
                     stats["bytes"]))
         if mon.enabled:
             mon.emit("task_end", task="export", outfile=out)
+        return 0
+
+    def _task_build_index(self, cfg, itr, dev) -> int:
+        """Embed the iterator's corpus through the frozen serve net and
+        seal model + index as one bundle: the valid rows go through the
+        bucketed engine (the dispatch ``/v1/embed`` serves), the exact
+        index is built over the embeddings, a retrieval engine warms on
+        the device (its self-recall spot check is the ``retrieval``
+        record), and everything commits as one digest-verified
+        artifact."""
+        assert itr is not None, "build_index requires an iterator block"
+        from .artifact.bundle import default_bundle_path, export_bundle
+        from .retrieval import self_recall
+        from .serve import ServeConfig, build_engine
+        from .serve.server import build_retrieval
+        mon = self._mon
+        t_start = time.time()
+        if mon.enabled:
+            mon.emit("run_start",
+                     **run_metadata("build_index", self._cfg_stream, dev))
+        sc = ServeConfig(cfg)
+        engine = build_engine(cfg, self.model_in, buckets=sc.buckets,
+                              max_batch=sc.max_batch, node=sc.node,
+                              device=dev, monitor=mon)
+        compiled = engine.warmup()
+        # corpus pass: valid rows only, private copies (iterator ring
+        # buffers recycle their arrays), capped by index_rows
+        parts, got, cap = [], 0, self.index_rows
+        for batch in itr:
+            n = batch.batch_size - batch.num_batch_padd
+            if cap and got + n > cap:
+                n = cap - got
+            if n > 0:
+                parts.append(np.array(batch.data[:n], np.float32))
+                got += n
+            if cap and got >= cap:
+                break
+        assert parts, "build_index: iterator produced no examples"
+        out = self.export_out or default_bundle_path(self.model_in)
+        rengine = build_retrieval(engine, np.concatenate(parts, axis=0), sc,
+                                  monitor=mon, out=out, t0=t_start)
+        index = rengine.index
+        t_rec = time.time()
+        rec = self_recall(rengine)
+        if mon.enabled:
+            mon.emit("retrieval", queries=min(8, index.rows), k=1,
+                     metric=index.metric, recall=rec,
+                     wall_ms=(time.time() - t_rec) * 1e3)
+        stats = export_bundle(engine, out, node=sc.node, monitor=mon,
+                              retrieval=rengine)
+        if mon.enabled:
+            mon.emit("export", **stats)
+        mon.line(
+            "build_index: %d rows x %d dims (%s) sealed with %s -> %s "
+            "(self-recall@1 %.3f, %d+%d programs, %d index bytes)"
+            % (index.rows, index.dim, index.metric, self.model_in,
+               out, rec, compiled, len(rengine.buckets), index.nbytes))
+        if mon.enabled:
+            mon.emit("task_end", task="build_index", outfile=out,
+                     rows=index.rows)
         return 0
 
     def _task_quantize(self, cfg, itr, dev) -> int:

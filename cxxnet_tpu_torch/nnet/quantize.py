@@ -9,19 +9,23 @@
 - **scales in the snapshot**: the ranges ride as ``quant/<layer>/...``
   arrays in the npz, covered by the content digest like every array,
   and the summary in ``__meta__["quantized"]``.
-- **activation** (:func:`attach`): ``serve_dtype = int8|bfloat16``
+- **activation** (:func:`attach`): ``serve_dtype = int8|fp8|bfloat16``
   turns the ranges into symmetric scales (per tensor for activations,
   per out channel for weights) and pins a :class:`QuantSpec` on each
   quantizable layer; the eval forward then quantizes the activation on
-  the device, contracts int8 into int32 (``layers/quant_ops.py``) and
-  applies the per-channel dequant in the conv_epilogue kernel.
+  the device, contracts int8 into int32 or e4m3 into float32
+  (``layers/quant_ops.py``) and applies the per-channel dequant in the
+  conv_epilogue kernel. One calibration serves int8 and fp8: the
+  scales derive at attach time.
 
 Quantization is bit for bit the reference's: a division by the float32
 scale (not a multiply by its reciprocal; on the card the scale stays a
 device tensor, since PyTorch turns a division by a host scalar into a
-multiply), round half to even, a clamp to +-127, then int8. A grouped
-conv is simulated as in the reference: the grid values contract in
-float32.
+multiply); for int8 a round half to even, a clamp to +-127, then int8;
+for fp8 a clamp to +-448 (e4m3's largest finite value), then the cast
+to ``float8_e4m3fn``, which rounds the mantissa to nearest even. A
+grouped conv is simulated as in the reference: the grid values
+contract in float32.
 """
 
 from __future__ import annotations
@@ -32,12 +36,13 @@ from typing import Any, Dict, List, NamedTuple
 import numpy as np
 import torch
 
-from ..layers.quant_ops import pack_weight
-from ..utils.config import ConfigError, NotPortedError, Roadmap
+from ..layers.quant_ops import FP8, pack_weight
+from ..utils.config import ConfigError
 
-# the symmetric int8 grid keeps -128 out, so +/-amax map to +/-127 with
-# one scale (fp8's e4m3 grid is not ported)
-QMAX = {"int8": 127.0}
+# symmetric grids: int8 keeps -128 out, so +/-amax map to +/-127 with
+# one scale; fp8 e4m3 saturates at its largest finite value, 448
+QMAX = {"int8": 127.0, "fp8": 448.0}
+
 
 SERVE_DTYPES = ("float32", "bfloat16", "int8", "fp8")
 
@@ -55,26 +60,28 @@ _DTYPE_ALIAS = {"f32": "float32", "bf16": "bfloat16", "float8": "fp8",
 
 
 def normalize_serve_dtype(val: str) -> str:
-    """Canonical ``serve_dtype`` value (accepts the short aliases);
-    ``fp8`` is not ported."""
+    """Canonical ``serve_dtype`` value (accepts the short aliases)."""
     v = _DTYPE_ALIAS.get(val, val)
     if v not in SERVE_DTYPES:
         raise ConfigError("serve_dtype must be one of %s (got %r)"
                           % ("|".join(SERVE_DTYPES), val))
-    if v == "fp8":
-        raise NotPortedError("serve_dtype = fp8", Roadmap.QUANTIZED)
     return v
 
 
 def quantize_tensor(v: torch.Tensor, scale: torch.Tensor, dtype: str,
                     native: bool) -> torch.Tensor:
-    """Symmetric quantization onto the ``dtype`` grid: ``round(v /
-    scale)`` half to even, clamped to +-QMAX; int8 when ``native``,
-    else the grid values in float32. ``scale`` is a float32 tensor on
-    v's device: per out channel (the last axis) for weights, 0-dim for
-    activations."""
+    """Symmetric quantization onto the ``dtype`` grid. int8: ``round(v
+    / scale)`` half to even, clamped to +-127; fp8: ``v / scale``
+    clamped to +-448, then cast to e4m3 (no rounding before the cast).
+    The int8 or e4m3 tensor when ``native``, else the grid values in
+    float32. ``scale`` is a float32 tensor on v's device: per out
+    channel (the last axis) for weights, 0-dim for activations."""
     qmax = QMAX[dtype]
     q = v.float() / scale
+    if dtype == "fp8":
+        torch.clamp(q, -qmax, qmax, out=q)
+        q8 = q.to(FP8)
+        return q8 if native else q8.float()
     torch.round(q, out=q)
     torch.clamp(q, -qmax, qmax, out=q)
     return q.to(torch.int8) if native else q
@@ -82,9 +89,10 @@ def quantize_tensor(v: torch.Tensor, scale: torch.Tensor, dtype: str,
 
 class QuantSpec:
     """Per-layer recipe pinned on the layer by :func:`attach`. ``dtype``
-    is 'int8' or 'bfloat16'; the int8 scales are symmetric, per tensor for
-    the activation (``x_scale``, a Python float) and per out channel for
-    the weight (``w_scale``, a float32 tensor on the serving device)."""
+    is 'int8', 'fp8' or 'bfloat16'; the int8 and fp8 scales are
+    symmetric, per tensor for the activation (``x_scale``, a Python
+    float) and per out channel for the weight (``w_scale``, a float32
+    tensor on the serving device)."""
 
     __slots__ = ("dtype", "x_scale", "w_scale", "native", "_x_scale_t")
 
@@ -100,7 +108,7 @@ class QuantSpec:
 
     @property
     def is_affine(self) -> bool:
-        return self.dtype == "int8"
+        return self.dtype in ("int8", "fp8")
 
     def dequant_vec(self) -> torch.Tensor:
         """Per-out-channel dequant factors ``w_scale * f32(x_scale)``
@@ -113,11 +121,12 @@ class QuantSpec:
     def weight_operand(self, w: torch.Tensor) -> torch.Tensor:
         """A float weight in the reference layout (conv HWIO, fullc
         ``(in, out)``), quantized per out channel, in the layout the
-        contraction reads: the packed int8 matrix when native; else the
-        grid values, a conv's as PyTorch's OIHW (channels-last)."""
+        contraction reads: the packed int8 or e4m3 matrix when native;
+        else the grid values, a conv's as PyTorch's OIHW
+        (channels-last)."""
         wq = quantize_tensor(w, self.w_scale, self.dtype, self.native)
         if self.native:
-            return pack_weight(wq)
+            return pack_weight(wq, self.dtype)
         if wq.dim() == 4:
             return wq.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
@@ -235,8 +244,8 @@ def attach(trainer) -> Dict[str, Any]:
     return the report: effective dtype, quantized layers, fallback
     layers (targets without a table), whether every contraction is
     native. float32 clears every spec; bfloat16 needs no tables; int8
-    needs a calibrated snapshot and raises ``ValueError`` without
-    one."""
+    and fp8 need a calibrated snapshot (one set of tables serves both)
+    and raise ``ValueError`` without one."""
     net = trainer.net
     for layer in net.layer_objs:
         layer._quant = None
@@ -275,9 +284,9 @@ def attach(trainer) -> Dict[str, Any]:
                             _AMAX_FLOOR) / qmax)
         w_scale = np.maximum(tab["w_amax"].astype(np.float32),
                              _AMAX_FLOOR) / qmax
-        # the int8 product into int32 (layers/quant_ops.py) runs on
-        # every device; a grouped conv contracts the grid values in
-        # float32 (the same values), as the reference's
+        # the int8 product into int32 and the e4m3 product into float32
+        # (layers/quant_ops.py) run on every device; a grouped conv
+        # contracts the grid values in float32, as the reference's
         native = not (tgt.kind == "conv"
                       and net.layer_objs[tgt.li].param.num_group > 1)
         natives.append(native)

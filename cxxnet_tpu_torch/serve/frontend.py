@@ -36,11 +36,15 @@ Every request emits a schema-validated ``serve_http`` record; quota
 sheds additionally emit ``tenant_shed``; swaps emit ``hot_swap``.
 
 The sessions run on the GPU unless the config says ``dev = cpu`` (or
-the caller passes ``device``). Retrieval is not ported (ROADMAP queue
-1, retrieval): every session has ``retrieval = None``, so ``model#search``,
-``model#fsearch`` and ``POST /v1/search`` answer as the reference
-answers for a model without an embedding index (``bad_request``, the
-same message); ``model#embed`` and ``POST /v1/embed`` are predict.
+the caller passes ``device``). A model booted from a bundle that seals
+an embedding index answers the retrieval operations through its
+session's :class:`~cxxnet_tpu_torch.retrieval.engine.RetrievalEngine`:
+``model#search[:k]`` and ``POST /v1/search`` take query vectors,
+``model#fsearch[:k]`` and ``/v1/search`` with ``fan_out = 1`` take model
+inputs (embed, then search, on one resolved session, so a hot-swap
+never pairs one generation's embedding with the other's corpus), and
+``model#embed`` and ``POST /v1/embed`` are predict. A model without an
+index answers a search with ``bad_request``, in the reference's words.
 """
 
 from __future__ import annotations
@@ -165,6 +169,20 @@ def parse_model_op(model_id: str) -> Tuple[str, str, Optional[int]]:
         if k < 1:
             raise ValueError("search k must be >= 1, got %d" % k)
     return base, op, k
+
+
+def pack_search_result(ids: np.ndarray, scores: np.ndarray
+                       ) -> Tuple[np.ndarray, Dict[str, Any]]:
+    """One wire form of a top-k answer for both protocols: the result
+    rows are the (n, 2k) float32 block ``[ids | scores]`` (the binary
+    reply ships it as it is; doc ids are exact in float32 up to 2**24
+    corpus rows) and the extra dict carries the JSON lists the HTTP
+    handler answers with."""
+    payload = np.concatenate(
+        [ids.astype(np.float32), scores.astype(np.float32)], axis=1)
+    extra = {"k": int(ids.shape[1]), "ids": ids.tolist(),
+             "scores": scores.tolist()}
+    return payload, extra
 
 
 def pack_request(model: str, tenant: str, rows: np.ndarray,
@@ -738,16 +756,18 @@ class FleetServer:
         nrows = 0
         resolved = model_id
         try:
-            base, op, _ = parse_model_op(model_id)
+            base, op, k = parse_model_op(model_id)
             resolved = base
             entry = self.router.resolve(base)
             resolved = entry.model_id
-            if op in ("search", "fsearch"):
-                # no port session holds an index (retrieval is not
-                # ported): the reference's answer for an index-less model
+            if op in ("search", "fsearch") \
+                    and entry.session.retrieval is None:
                 raise ValueError("model %r serves no embedding index"
                                  % resolved)
-            arr = self._shape_rows(entry, rows)
+            if op == "search":
+                arr = self._shape_queries(entry, rows)
+            else:
+                arr = self._shape_rows(entry, rows)
             nrows = arr.shape[0]
             try:
                 self.quota.admit(tenant, nrows)
@@ -757,10 +777,19 @@ class FleetServer:
                            burst=e.burst,
                            retry_after_s=round(e.retry_after_s, 3))
                 raise
-            # "" and "embed" are the same dispatch: the served node's
-            # per-row vectors through the batcher
-            out = self._predict_with_retry(resolved, arr, timeout_ms)
-            extra = {}
+            if op == "search":
+                out, extra = pack_search_result(
+                    *self._search_current(resolved, arr, k))
+            elif op == "fsearch":
+                out, extra = pack_search_result(
+                    *self._fanout_with_retry(resolved, arr, k,
+                                             timeout_ms))
+            else:
+                # "" and "embed" are the same dispatch: the served
+                # node's per-row vectors through the batcher
+                out = self._predict_with_retry(resolved, arr,
+                                               timeout_ms)
+                extra = {}
             status, result = "ok", out
         except TenantQuotaError as e:
             status, result = "over_quota", str(e)
@@ -800,6 +829,20 @@ class FleetServer:
                 % (tuple(arr.shape), inst, elems))
         return arr
 
+    def _shape_queries(self, entry, rows) -> np.ndarray:
+        """``#search`` rows are query vectors in the index's embedding
+        space (not model inputs): coerced to (n, dim) against the
+        served index; mismatches bounce as bad_request."""
+        arr = np.asarray(rows, dtype=np.float32)
+        dim = entry.session.retrieval.index.dim
+        if arr.ndim == 1 and arr.size == dim:
+            arr = arr.reshape(1, dim)
+        if arr.ndim != 2 or arr.shape[1] != dim:
+            raise ValueError(
+                "queries of shape %r do not match the index embedding "
+                "dim %d" % (tuple(arr.shape), dim))
+        return arr
+
     def handle_async(self, model_id: str, tenant: str, rows,
                      protocol: str = "binary",
                      timeout_ms: Optional[float] = None,
@@ -812,9 +855,12 @@ class FleetServer:
         for admission failures, from a serve worker thread otherwise
         — and, like ``handle``, this never raises."""
         if "#" in model_id:
-            # ``model#op[:k]`` answers through the synchronous core, as
-            # the reference's retrieval ops do (handle() records the
-            # request itself, so ``done`` fires directly)
+            # ``model#op[:k]`` answers through the synchronous core:
+            # search dispatches outside the batcher, and fsearch holds
+            # one resolved entry across both legs, so neither rides a
+            # batcher Future (handle() records the request itself, so
+            # ``done`` fires directly; these replies come in
+            # handler-thread completion order)
             status, result, extra = self.handle(
                 model_id, tenant, rows, protocol=protocol,
                 timeout_ms=timeout_ms)
@@ -972,6 +1018,48 @@ class FleetServer:
         raise ServeClosedError(
             "model %r kept draining across retries" % model_id)
 
+    def _search_current(self, model_id: str, arr: np.ndarray,
+                        k: Optional[int]
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k over the current entry's index. The router swaps model
+        and index as one entry, so one resolve is the whole consistency
+        story; the retrieval engine dispatches outside the batcher and
+        never raises ServeClosedError."""
+        entry = self.router.resolve(model_id)
+        r = entry.session.retrieval
+        if r is None:        # raced a swap to an index-less bundle
+            raise ValueError("model %r serves no embedding index"
+                             % model_id)
+        return r.search(arr, k=k)
+
+    def _fanout_with_retry(self, model_id: str, arr: np.ndarray,
+                           k: Optional[int],
+                           timeout_ms: Optional[float]
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """``fan_out = 1``: embed then search in one request on one
+        resolved entry, so a hot-swap mid-flight never pairs the new
+        model with the old index (or the reverse). The embed leg rides
+        the batcher with plain predict traffic; a ServeClosedError
+        retries the whole composition through a fresh resolve, as
+        :meth:`_predict_with_retry` does."""
+        for _ in range(8):
+            entry = self.router.resolve(model_id)
+            r = entry.session.retrieval
+            if r is None:
+                raise ValueError("model %r serves no embedding index"
+                                 % model_id)
+            try:
+                vecs = entry.session.predict(arr, timeout_ms)
+            except ServeClosedError:
+                if self._closing:
+                    raise
+                time.sleep(0.001)
+                continue
+            vecs = np.asarray(vecs, dtype=np.float32)
+            return r.search(vecs.reshape(vecs.shape[0], -1), k=k)
+        raise ServeClosedError(
+            "model %r kept draining across retries" % model_id)
+
     # -- telemetry / accounting -------------------------------------------
 
     def _emit(self, kind: str, **fields) -> None:
@@ -1024,6 +1112,11 @@ class FleetServer:
                 "fingerprint_sha256": self._fingerprint_sha(
                     e.session.engine.device),
             })
+            r = e.session.retrieval
+            if r is not None:
+                # the search contract clients compose against: what
+                # /v1/search accepts and the k it answers by default
+                out[-1]["index"] = r.describe()
         return out
 
     def health_snapshot(self) -> Dict[str, Any]:
@@ -1058,6 +1151,13 @@ class FleetServer:
                 "compile_events": snap["compile_events"],
                 "aot_hits": snap["aot_hits"],
             }
+            r = e.session.retrieval
+            if r is not None:
+                # search keeps its own books: the zero-compile boot
+                # covers predict and search dispatch
+                rsnap = r.counters_snapshot()
+                row["search_compile_events"] = rsnap["compile_events"]
+                row["search_aot_hits"] = rsnap["aot_hits"]
             # cumulative batch economics (fill/pad): what a fleet bench
             # aggregates across replicas
             row.update(batcher.fill_stats())
@@ -1227,6 +1327,12 @@ class _HttpHandler(BaseHTTPRequestHandler):
             op_model, tenant, rows, protocol="http",
             timeout_ms=timeout_ms)
         code = HTTP_STATUS[status]
+        if status == "ok" and "ids" in extra:
+            self._send_json(code, {
+                "model": model or fleet.router.default_id,
+                "rows": len(extra["ids"]), "k": extra["k"],
+                "ids": extra["ids"], "scores": extra["scores"]})
+            return
         if status == "ok":
             flat = np.asarray(result)
             self._send_json(code, {

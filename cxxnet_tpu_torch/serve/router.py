@@ -35,7 +35,7 @@ def session_resident_bytes(session) -> int:
     """A session's device-resident bytes: the model's frozen serve
     weight tree + retained masters (storage-deduplicated: the freeze's
     own ``weight_residency`` accounting) plus the device corpus of an
-    embedding index, which stays 0 until retrieval is ported. 0 when
+    embedding index (``session.index_bytes``). 0 when
     the engine runs without weight residency (``serve_weight_residency
     = 0``) or the session has no trainer (a test double)."""
     idx_bytes = int(getattr(session, "index_bytes", 0) or 0)

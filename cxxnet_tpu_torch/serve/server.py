@@ -16,9 +16,10 @@ value`` grammar as the reference:
 - ``serve_node`` — node to serve (default: the top node)
 - ``serve_warm_run`` — run each bucket once at warmup (default 1)
 - ``serve_dtype`` — ``float32`` (default), ``bfloat16`` (bf16 staging,
-  convolutions and activations) or ``int8`` (a snapshot with
+  convolutions and activations), ``int8`` (a snapshot with
   calibration tables; int8 products into int32, dequantized in the
-  conv_epilogue kernel)
+  conv_epilogue kernel) or ``fp8`` (the same tables; e4m3 products
+  into float32, dequantized alike)
 - ``serve_device_mem_budget`` — MB of device memory the model's
   masters and frozen serve weights may hold (0 = unlimited): the
   warmup's freeze rejects a larger model with
@@ -27,6 +28,12 @@ value`` grammar as the reference:
 - ``serve_clients`` / ``serve_requests`` / ``serve_request_rows`` —
   the CLI soak drive (``task = serve``): N closed-loop clients each
   issuing M requests of K rows
+- ``search_k`` / ``search_buckets`` — a bundle that seals an embedding
+  index gets a :class:`~cxxnet_tpu_torch.retrieval.engine.
+  RetrievalEngine` beside the predictor (``session.retrieval``), on the
+  same device and under the same budget (weights + index); these keys
+  override the search depth and query ladder the bundle sealed (0 /
+  "" defer to it)
 """
 
 from __future__ import annotations
@@ -37,21 +44,60 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..utils.config import NotPortedError, Roadmap
 from .batcher import DynamicBatcher, ServeBusyError, ServeTimeoutError
 from .engine import InferenceEngine, build_engine
 
 
-def _refuse_sealed_index(model_path: str) -> None:
-    """A bundle that seals an embedding index is served with its search
-    operations by the reference; retrieval is not ported, so its model
-    part is not served without them either."""
-    from ..artifact import bundle as _ab
-    if _ab.is_bundle(model_path) \
-            and _ab.bundle_manifest(model_path).get("index") is not None:
-        raise NotPortedError(
-            "the embedding index sealed in bundle %r" % model_path,
-            Roadmap.RETRIEVAL)
+def parse_search_buckets(spec: str, sealed=None):
+    """The query ladder: an explicit ``search_buckets`` list wins, unset
+    falls back to the ladder a bundle ``sealed``, and ``auto`` (or
+    neither) gives None (the engine's default ladder)."""
+    if spec and spec != "auto":
+        return tuple(sorted({int(t) for t in spec.split(",")
+                             if t.strip()}))
+    if spec != "auto" and sealed:
+        return tuple(int(b) for b in sealed)
+    return None
+
+
+def warm_retrieval(index, engine: InferenceEngine, k: int, buckets,
+                   warm_run: bool):
+    """A :class:`~cxxnet_tpu_torch.retrieval.engine.RetrievalEngine` over
+    ``index`` on ``engine``'s device, warmed under the budget its weights
+    froze under (the index bytes stack on the frozen tree's)."""
+    from ..retrieval import RetrievalEngine
+    t = engine.trainer
+    r = RetrievalEngine(index, engine.device, k=k, buckets=buckets)
+    res = t.residency
+    r.warmup(warm_run=warm_run,
+             budget_bytes=int(t.serve_device_mem_budget * 1e6),
+             weight_bytes=res["bytes"] if res else 0)
+    return r
+
+
+def build_retrieval(engine: InferenceEngine, rows: np.ndarray, sc,
+                    monitor=None, out: str = "", t0: Optional[float] = None):
+    """Embed raw host ``rows`` through ``engine``'s bucketed dispatch (the
+    one ``/v1/embed`` serves), build the exact index over them (ids 0..n-1,
+    ``sc.index_metric``, ``sc.node``) and warm a retrieval engine on it
+    (:func:`warm_retrieval` at ``sc.search_k`` and ``sc.search_buckets``).
+    Emits the ``index_build`` record for the bundle at ``out``, its wall
+    time from ``t0`` (default: this call)."""
+    from ..retrieval import EmbeddingIndex
+    t0 = time.time() if t0 is None else t0
+    vecs = np.asarray(engine.run(rows), np.float32)
+    index = EmbeddingIndex.build(
+        ids=np.arange(rows.shape[0], dtype=np.int64),
+        vectors=vecs.reshape(rows.shape[0], -1),
+        metric=sc.index_metric, node=sc.node)
+    r = warm_retrieval(index, engine, sc.search_k or 10,
+                       parse_search_buckets(sc.search_buckets), False)
+    if monitor is not None and monitor.enabled:
+        monitor.emit("index_build", out=out, rows=index.rows,
+                     dim=index.dim, metric=index.metric, node=sc.node,
+                     bytes=index.nbytes,
+                     wall_ms=(time.time() - t0) * 1e3)
+    return r
 
 
 class ServeConfig:
@@ -68,6 +114,13 @@ class ServeConfig:
         self.clients = 8
         self.requests = 32
         self.request_rows = 1
+        # retrieval overrides: 0 / "" defer to the bundle's sealed
+        # search contract
+        self.search_k = 0
+        self.search_buckets = ""
+        # the metric an index built from this config uses (build_index,
+        # continual_index_rows)
+        self.index_metric = "dot"
         batch_size = 0
         for name, val in cfg:
             if name == "batch_size":
@@ -92,6 +145,12 @@ class ServeConfig:
                 self.requests = int(val)
             if name == "serve_request_rows":
                 self.request_rows = int(val)
+            if name == "search_k":
+                self.search_k = int(val)
+            if name == "search_buckets":
+                self.search_buckets = val
+            if name == "index_metric":
+                self.index_metric = val
         if not self.max_batch:
             self.max_batch = batch_size
         if not self.max_batch:
@@ -116,14 +175,14 @@ class ServeSession:
         if engine is None:
             if not model_path:
                 raise ValueError("ServeSession needs model_path or engine")
-            _refuse_sealed_index(model_path)
             engine = build_engine(cfg, model_path, buckets=c.buckets,
                                   max_batch=c.max_batch, node=c.node,
                                   device=device, monitor=monitor)
         self.engine = engine
-        # retrieval is not ported: no session holds an embedding index,
-        # and the fleet answers search requests as the reference does
-        # for an index-less model
+        # a bundle that seals an embedding index gets a retrieval engine
+        # beside the predictor (attached after the weights froze, so the
+        # budget counts them): one session, so a hot-swap flips model
+        # and index as one pair
         self.retrieval = None
         self.index_bytes = 0
         self.batcher = DynamicBatcher(
@@ -140,9 +199,35 @@ class ServeSession:
         try:
             self.warmup_programs = self.batcher.run_in_dispatcher(
                 lambda: engine.warmup(warm_run=bool(c.warm_run)))
+            if model_path:
+                self._attach_index(model_path)
         except BaseException:
             self.batcher.close(drain=False)
             raise
+
+    def _attach_index(self, model_path: str) -> None:
+        """Load the bundle's sealed index (digest-verified) into a warmed
+        :class:`~cxxnet_tpu_torch.retrieval.engine.RetrievalEngine` on
+        the engine's device. No-op for snapshots and index-less
+        bundles. Explicit ``search_k`` / ``search_buckets`` win over the
+        sealed contract."""
+        from ..artifact import bundle as _ab
+        if not _ab.is_bundle(model_path):
+            return
+        man = _ab.bundle_manifest(model_path)
+        entry = man.get("index")
+        if entry is None:
+            return
+        from ..retrieval import EmbeddingIndex
+        index = EmbeddingIndex.deserialize(
+            _ab.read_index_member(model_path, man))
+        c = self.cfg
+        retrieval = warm_retrieval(
+            index, self.engine, c.search_k or int(entry.get("k", 0)) or 10,
+            parse_search_buckets(c.search_buckets, entry.get("buckets")),
+            bool(c.warm_run))
+        self.retrieval = retrieval
+        self.index_bytes = index.nbytes
 
     def _engine_summary(self) -> Dict[str, int]:
         snap = self.engine.counters_snapshot()

@@ -18,7 +18,9 @@ and drains the retired session:
 2. **shadow build** — a full :class:`~cxxnet_tpu_torch.serve.server.
    ServeSession` (own trainer, own bucket ladder), warmed on its
    dispatch thread before the flip, so the first request on it pays no
-   first-use cost.
+   first-use cost. A bundle that seals an embedding index builds and
+   warms its retrieval engine inside that session (the corpus on the
+   device), so model and index flip as one pair.
 3. **flip** — ``router.swap`` replaces the entry atomically.
 4. **drain** — the retired session ``close(drain=True)``s; the front
    end retries the one race a flip cannot close (resolved the old

@@ -30,11 +30,9 @@ class Roadmap:
     :class:`NotPortedError` reports. The C ABI, the serving front end
     (``task = serve_fleet``), ``serve_device_mem_budget``, sealed
     bundles (``task = export``), the continual loop (``task =
-    continual``) and the fleet tier (``task = fleet`` and
-    ``fleet_balancer``) are ported and raise nothing."""
-    # serve_dtype = fp8
-    QUANTIZED = "queue 1, quantized and low-precision inference"
-    RETRIEVAL = "queue 1, retrieval"
+    continual``), the fleet tier (``task = fleet`` and
+    ``fleet_balancer``), fp8 serving and retrieval (``task =
+    build_index``) are ported and raise nothing."""
     REMAT = "queue 1, rematerialization"
     MULTI_GPU = "queue 1, multi-GPU"
 

@@ -44,6 +44,8 @@ from cxxnet_tpu.nnet.checkpoint import (read_snapshot as ref_read,
                                         write_snapshot as ref_write)
 from cxxnet_tpu.nnet.trainer import NetTrainer as RefTrainer
 from cxxnet_tpu.parallel import make_mesh
+from cxxnet_tpu.retrieval import EmbeddingIndex as RefIndex
+from cxxnet_tpu.retrieval import IndexError_ as RefIndexError
 from cxxnet_tpu.serve import ServeSession as RefSession
 from cxxnet_tpu.serve import build_engine as ref_build_engine
 from cxxnet_tpu.serve import swap as rswap
@@ -56,7 +58,7 @@ from cxxnet_tpu_torch.main import LearnTask
 from cxxnet_tpu_torch.monitor import MemorySink, Monitor
 from cxxnet_tpu_torch.serve import FleetServer, ServeSession, build_engine
 from cxxnet_tpu_torch.serve import swap as pswap
-from cxxnet_tpu_torch.utils.config import NotPortedError, Roadmap
+from cxxnet_tpu_torch.retrieval import IndexError_ as PortIndexError
 from cxxnet_tpu_torch.utils.faultfs import FaultFS
 from cxxnet_tpu_torch.utils.stream import open_stream
 
@@ -509,9 +511,13 @@ def test_bundle_sealing_an_index_is_not_served(ref, tmp_path):
             "rows": 1, "dim": 4, "k": 1, "buckets": [1]})))
     assert pb.verify_bundle(b)["ok"] and rb.verify_bundle(b)["ok"]
     assert pb.read_index_member(b) == rb.read_index_member(b) == blob
-    with pytest.raises(NotPortedError) as e:
+    # the member's bytes are no index: the typed IndexError_ of both
+    # packages, and the port builds no session around it
+    with pytest.raises(PortIndexError) as e:
         ServeSession(PORT_CFG, model_path=b, device="cpu")
-    assert e.value.roadmap_item == Roadmap.RETRIEVAL
+    with pytest.raises(RefIndexError) as r:
+        RefIndex.deserialize(rb.read_index_member(b))
+    assert str(e.value) == str(r.value)
 
 
 # -- the watcher ----------------------------------------------------------

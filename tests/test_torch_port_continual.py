@@ -6,8 +6,8 @@ boot: ROADMAP queue 3, "A note on the oracle itself"), so the loop is
 held against the reference's snapshot flow:
 
 - ``ContinualConfig`` raises, passes and ratchets alike in both
-  packages; ``continual_index_rows > 0`` raises ``NotPortedError``
-  (retrieval);
+  packages, ``continual_index_rows`` included (a retrieval corpus:
+  ``tests/test_torch_port_build_index.py`` runs it);
 - a reduced MNIST MLP (784-32-10) on the first 600 / 200 tracked digits,
   ``shuffle = 0``, runs ``task = continual`` with ``continual_task =
   finetune`` from a reference snapshot, 6 updates a generation: each
@@ -43,7 +43,6 @@ from cxxnet_tpu_torch.main import LearnTask
 from cxxnet_tpu_torch.monitor.schema import read_jsonl, validate_records
 from cxxnet_tpu_torch.nnet.checkpoint import read_snapshot
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer
-from cxxnet_tpu_torch.utils.config import NotPortedError, Roadmap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIGITS = os.path.join(ROOT, "example", "MNIST", "data")
@@ -139,10 +138,11 @@ def test_gate_passes_and_ratchets_alike(gate):
 
 
 def test_index_rows_raise_not_ported():
-    with pytest.raises(NotPortedError) as e:
-        ContinualConfig([("continual_export_every", "5"),
-                         ("continual_index_rows", "16")])
-    assert e.value.roadmap_item == Roadmap.RETRIEVAL
+    """continual_index_rows is ported: both packages read it alike and
+    neither raises."""
+    cfg = [("continual_export_every", "5"), ("continual_index_rows", "16")]
+    p, r = ContinualConfig(cfg), RefConfig(cfg)
+    assert p.index_rows == r.index_rows == 16
 
 
 def test_gate_needs_an_eval_block(tmp_path):

@@ -33,7 +33,7 @@ import torch
 
 from cxxnet_tpu.main import LearnTask as RefTask
 from cxxnet_tpu.nnet.checkpoint import read_snapshot as ref_read_snapshot
-from cxxnet_tpu_torch.main import LearnTask, NOT_PORTED_TASKS
+from cxxnet_tpu_torch.main import LearnTask
 from cxxnet_tpu_torch.nnet.checkpoint import read_snapshot
 from cxxnet_tpu_torch.utils.config import NotPortedError, Roadmap
 
@@ -285,7 +285,7 @@ def test_serve_soak_has_no_failures(env):
         assert [int(g) for g in m.groups()] == [24, 0, 0, 0, 72]
 
 
-NOT_PORTED = [("task=" + t, item) for t, item in NOT_PORTED_TASKS.items()] + [
+NOT_PORTED = [
     ("test_on_server=1", Roadmap.MULTI_GPU),
     ("dist_coordinator=localhost:1234", Roadmap.MULTI_GPU),
     ("dist_num_hosts=2", Roadmap.MULTI_GPU),
@@ -317,7 +317,8 @@ def test_unported_raises_naming_its_item(tmp_path, monkeypatch, what,
 # tasks that raised NotPortedError before they were ported: each now runs
 # through the port's CLI, and through the reference's where its path runs
 # in this container (its continual loop boots bundles, which fail here)
-PORTED_TASKS = ["task=serve_fleet", "task=export", "task=continual"]
+PORTED_TASKS = ["task=serve_fleet", "task=export", "task=continual",
+                "task=build_index"]
 
 
 def _ported_serve_fleet(what):
@@ -413,14 +414,47 @@ def _ported_continual(what):
         "failed), 4 updates, 1 hot-swaps" in out
 
 
+def _ported_build_index(what):
+    """Both CLIs index the pred block's 20 rows through the frozen net
+    and seal them with m/0001.model.npz: the same line, manifest
+    ``index`` blocks equal, vectors within rtol 1e-5 / atol 1e-6, each
+    bundle verified by both packages."""
+    from cxxnet_tpu.artifact import bundle as rb
+    from cxxnet_tpu_torch.artifact import bundle as pb
+    from cxxnet_tpu_torch.retrieval import EmbeddingIndex
+    pat = re.compile(r"^build_index: 20 rows x 4 dims \(dot\) sealed with "
+                     r"m/0001\.model\.npz -> (\S+) \(self-recall@1 "
+                     r"(\S+), \d+\+2 programs, 320 index bytes\)$", re.M)
+    idx = {}
+    for name, cls in (("ref", RefTask), ("port", LearnTask)):
+        out_b = "%s.model.bundle" % name
+        rc, out = run_cli(cls, [
+            "c.conf", "dev=cpu", "model_dir=m", what,
+            "model_in=m/0001.model.npz", "export_out=" + out_b,
+            "search_k=3", "search_buckets=1,4"])
+        assert rc == 0, out
+        m = pat.search(out)
+        assert m and m.group(1) == out_b, out
+        for mod in (rb, pb):
+            assert mod.verify_bundle(out_b)["ok"]
+        idx[name] = (pb.bundle_manifest(out_b)["index"],
+                     EmbeddingIndex.deserialize(
+                         pb.read_index_member(out_b)))
+    assert idx["port"][0] == idx["ref"][0]
+    np.testing.assert_array_equal(idx["port"][1].ids, idx["ref"][1].ids)
+    np.testing.assert_allclose(idx["port"][1].vectors,
+                               idx["ref"][1].vectors, rtol=1e-5,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize("what", PORTED_TASKS)
 def test_ported_tasks_run(tmp_path, monkeypatch, what):
     """``task = serve_fleet`` (the reference's
     ``test_main_task_serve_fleet_runs_and_drains``): both CLIs boot the
     newest snapshot of ``model_dir``, listen, print the same lines and
     drain after ``serve_fleet_duration_s``; both streams pass both
-    packages' ``validate_records``. ``task = export`` and ``task =
-    continual``: see their helpers."""
+    packages' ``validate_records``. ``task = export``, ``task =
+    continual`` and ``task = build_index``: see their helpers."""
     rng = np.random.RandomState(1)
     _csv(str(tmp_path / "train.csv"), 40, rng)
     _csv(str(tmp_path / "test.csv"), 20, rng)
@@ -431,7 +465,8 @@ def test_ported_tasks_run(tmp_path, monkeypatch, what):
     assert rc == 0 and os.path.exists("m/0001.model.npz")
     {"task=serve_fleet": _ported_serve_fleet,
      "task=export": _ported_export,
-     "task=continual": _ported_continual}[what](what)
+     "task=continual": _ported_continual,
+     "task=build_index": _ported_build_index}[what](what)
 
 
 # the telemetry keys that raised NotPortedError before they were ported:
