@@ -515,6 +515,25 @@ TRAIN_LAUNCHES = dict(NO_LAUNCHES, bn_apply_fwd=69, bn_apply_bwd=69,
                       matmul=3)
 TRAIN_BF16_LAUNCHES = dict(NO_LAUNCHES, bn_apply_fwd_bf16=69,
                            bn_apply_bwd_bf16=69, matmul_bf16=3)
+# per bench-set training step of Inception-BN-224 under each remat
+# policy (nnet/remat.py): a recompute launches its bn_apply forwards and
+# fc1's product again. fc1 is pallas_fullc, no dot, so dots cuts where
+# full does. full's outer recompute stops before the last conv segment
+# (its 4 batch norms and fc1), which its own recompute runs: 69 + 65 +
+# 69. remat_barrier = 0 runs the none path.
+REMAT_LAUNCHES = {
+    "none": TRAIN_BF16_LAUNCHES,
+    "full": dict(TRAIN_BF16_LAUNCHES, bn_apply_fwd_bf16=203, matmul_bf16=4),
+    "dots": dict(TRAIN_BF16_LAUNCHES, bn_apply_fwd_bf16=203, matmul_bf16=4),
+    "conv": dict(TRAIN_BF16_LAUNCHES, bn_apply_fwd_bf16=138, matmul_bf16=4),
+    "barrier0": TRAIN_BF16_LAUNCHES}
+REMAT_STEPS = 2
+# the bench entry's Inception-BN (fullc fc1 with its bf16 bias,
+# channel_pad = 128) at the bench set, per step
+BENCH_ENTRY_LAUNCHES = {"bn_apply_fwd_bf16": 69, "bn_apply_bwd_bf16": 69,
+                        "bias_grad_bf16": 1}
+BENCH_ENTRY_ARGS = ["--model", "inception_bn", "--steps", "10",
+                    "--extra", "bn_pallas=1"]
 # per training step of kaiming-224 with fused_pools and pallas_pool = 1
 KAIMING_LAUNCHES = dict(NO_LAUNCHES, relu_max_pool_fwd=3,
                         relu_max_pool_bwd=3)
@@ -3549,12 +3568,113 @@ def phase_train(workdir: str):
 # ------------------------------------------------------------- phase 6
 
 
+def remat_check(cfg, batch):
+    """``remat`` on the card: REMAT_STEPS updates of ``cfg`` on
+    ``batch`` under each policy of REMAT_LAUNCHES from the same seeded
+    weights (cuDNN deterministic), each policy's launches a step (counts
+    to 0 just before each update, read just after) against
+    REMAT_LAUNCHES, its peak memory over the updates, and its parameters
+    against none's: the same bits, or else the whole update within
+    BF16_UPDATE_RTOL, the phase's bench-set update tolerance."""
+    import torch
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    keys = {"none": [("remat", "none")], "full": [("remat", "full")],
+            "dots": [("remat", "dots")], "conv": [("remat", "conv")],
+            "barrier0": [("remat", "full"), ("remat_barrier", "0")]}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs, out = {}, {}
+    try:
+        for pol in REMAT_LAUNCHES:
+            t = NetTrainer(list(cfg) + [("eval_train", "0")] + keys[pol],
+                           device=DEVICE)
+            t.init_model()
+            w0 = {(lk, tg): w.detach().cpu().clone()
+                  for lk, sub in t.params.items() for tg, w in sub.items()}
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            per_step = []
+            t0 = time.perf_counter()
+            for _ in range(REMAT_STEPS):
+                kernels.reset_launch_counts()
+                t.update(batch)
+                per_step.append({k: v for k, v in
+                                 kernels.launch_counts().items()})
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / REMAT_STEPS * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            runs[pol] = ({k: t.params[k[0]][k[1]].detach().cpu().double()
+                          - w0[k].double() for k in w0}, t.last_loss)
+            out[pol] = {"peak_mem_gb": peak / 1e9,
+                        "step_wall_ms": wall_ms,
+                        "launches_per_step": {k: v for k, v in
+                                              per_step[-1].items() if v},
+                        "counted": all(ps == REMAT_LAUNCHES[pol]
+                                       for ps in per_step),
+                        "loss": runs[pol][1]}
+            del t
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    for pol in REMAT_LAUNCHES:
+        if pol == "none":
+            continue
+        _, _, whole = update_distances(runs, ((pol, "none"),))
+        same = all(torch.equal(runs[pol][0][k], runs["none"][0][k])
+                   for k in runs["none"][0])
+        out[pol].update(same_bits_as_none=same,
+                        whole_vs_none=whole["%s_vs_none" % pol],
+                        held="bits" if same else "rtol %g" % BF16_UPDATE_RTOL)
+        out[pol]["ok"] = bool(out[pol]["counted"] and (
+            same or whole["%s_vs_none" % pol] <= BF16_UPDATE_RTOL))
+        print("remat %s: peak %.3f GB (none %.3f), %.1f ms an update, "
+              "params %s, launches a step %s" % (
+                  pol, out[pol]["peak_mem_gb"], out["none"]["peak_mem_gb"],
+                  out[pol]["step_wall_ms"],
+                  "the same bits as none" if same else
+                  "%.3g from none" % whole["%s_vs_none" % pol],
+                  out[pol]["launches_per_step"]), flush=True)
+    out["none"]["ok"] = out["none"]["counted"]
+    out["ok"] = all(v["ok"] for v in out.values())
+    out["steps"], out["batch"] = REMAT_STEPS, batch.batch_size
+    return out
+
+
+def bench_entry_check():
+    """``python -m cxxnet_tpu_torch.bench`` BENCH_ENTRY_ARGS in a process
+    of its own (no ``dev`` pair: on the card): its record not suspect,
+    no first-use cost in a timed window, a positive img/s, and the
+    launches a step BENCH_ENTRY_LAUNCHES."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "cxxnet_tpu_torch.bench"] + BENCH_ENTRY_ARGS,
+        cwd=here, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=here))
+    wall_s = time.perf_counter() - t0
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+    rec = json.loads(lines[-1]) if lines else {}
+    out = {"argv": BENCH_ENTRY_ARGS, "rc": p.returncode, "wall_s": wall_s,
+           "record": rec, "stderr": p.stderr[-2000:] if p.returncode
+           else ""}
+    out["ok"] = bool(p.returncode == 0 and rec
+                     and rec["suspect"] is False
+                     and rec["zero_recompiles"] is True
+                     and rec["value"] > 0
+                     and rec["launches_per_step"] == BENCH_ENTRY_LAUNCHES)
+    return out
+
+
 def phase_train_bf16(workdir: str, f32_step_ms: float):
     """Inception-BN-224 at the bench set (``dtype = grad_dtype =
     momentum_dtype = bfloat16``), batch 128: the training drive, exactly
     69 + 69 bf16 bn_apply and 3 bf16 matmul launches per step and no
     float32 one, then the batch-4 update through the kernels against
-    the card's bf16 plain path."""
+    the card's bf16 plain path; then ``remat`` on the same net and batch
+    (:func:`remat_check`) and the bench entry's Inception-BN
+    (:func:`bench_entry_check`)."""
     import torch
     t, res = drive_train(train_cfg_bf16(TRAIN_BATCH), TRAIN_BF16_LAUNCHES,
                          BN_DEVICE_KEYS)
@@ -3562,12 +3682,21 @@ def phase_train_bf16(workdir: str, f32_step_ms: float):
     torch.cuda.empty_cache()
     delta = bf16_update_check(workdir, train_cfg_bf16(4),
                               TRAIN_BF16_LAUNCHES, "train4_bf16")
+    rng = np.random.RandomState(SEED + 1)
+    from cxxnet_tpu_torch.io import DataBatch
+    remat = remat_check(train_cfg_bf16(TRAIN_BATCH), DataBatch(
+        images(rng, TRAIN_BATCH),
+        rng.randint(0, NCLASS, (TRAIN_BATCH, 1)).astype(np.float32)))
+    torch.cuda.empty_cache()
+    bench = bench_entry_check()
     res = dict({"phase": "train_bf16", "model": "inception_bn_224",
                 "config": "pallas_fullc fc1, bn_pallas, bn_fuse_relu, "
                           "dtype = grad_dtype = momentum_dtype = "
                           "bfloat16, sgd momentum 0.9"}, **res)
-    res.update(f32_step_ms=f32_step_ms, update_vs_plain=delta)
-    res["ok"] = bool(res["counted"] and res["loss_falls"] and delta["ok"])
+    res.update(f32_step_ms=f32_step_ms, update_vs_plain=delta,
+               remat=remat, bench_entry=bench)
+    res["ok"] = bool(res["counted"] and res["loss_falls"] and delta["ok"]
+                     and remat["ok"] and bench["ok"])
     emit(res)
     if not res["ok"]:
         raise RuntimeError("train_bf16 phase failed")
@@ -7366,9 +7495,11 @@ def phase_bundle(workdir: str):
 
 # MNIST_CONTINUAL.conf as shipped, with these overrides (listed in the
 # phase's output); the port file and the paths are where the phase
-# reads them
+# reads them. Its generations train 200 updates, not the conf's 600:
+# the drive's depth, cut to leave the train_bf16 phase its time
 CONT_MNIST_OVERRIDES = ["serve_http_port=0", "serve_binary_port=0",
-                        "continual_linger_s=0", "continual_generations=3"]
+                        "continual_linger_s=0", "continual_generations=3",
+                        "continual_export_every=200"]
 # Inception-BN.conf under task = continual on the cli phase's archives
 CONT_INCEPTION_OVERRIDES = ["continual_export_every=6",
                             "continual_generations=2", "continual_gate=off",
@@ -7633,8 +7764,8 @@ TIER_QUEUE_HI = 4.0
 # a merged batch closes once it holds this many rows, so it has at most
 # 111 + 16: one micro-batch of the ladder's top bucket (128)
 TIER_COALESCE_ROWS = 112
-TIER_KILL_AFTER_S = 4.0        # traffic before a replica's or door's SIGKILL
-TIER_AFTER_S = 4.0             # traffic after the decision / the door's heal
+TIER_KILL_AFTER_S = 2.0        # traffic before a replica's or door's SIGKILL
+TIER_AFTER_S = 2.0             # traffic after the decision / the door's heal
 TIER_WAIT_S = 420.0            # a drive's limit
 TIER_MEMBER = "import sys, chip_smoke; sys.exit(chip_smoke.%s(sys.argv[1:]))"
 
@@ -7941,9 +8072,10 @@ def phase_fleet_tier(workdir: str, fres):
     CXN2 clients of a process of their own and the over-quota tenant; a
     baseline replica SIGKILLed mid-traffic and healed from the bundle;
     the canary run to its decision (the whole fleet rolled to it on a
-    promote). Drive B: a sharded front tier (``fleet_balancers = 2``)
-    under ``FailoverBinaryClient`` s, one door SIGKILLed mid-traffic and
-    respawned. No failed request of an in-quota tenant; each ok reply the
+    promote). Drive B: a sharded front tier (``fleet_balancers = 2``),
+    booted from the canary's decision on while A drains, under
+    ``FailoverBinaryClient`` s once A is gone, one door SIGKILLed
+    mid-traffic and respawned. No failed request of an in-quota tenant; each ok reply the
     bits of a ``ServeSession`` on one of the two snapshots at a bucket
     that could hold it, and after a promote the canary's; the replicas on
     the card (``nvidia-smi``), the fleet processes and doors not (nor
@@ -8035,6 +8167,11 @@ def phase_fleet_tier(workdir: str, fres):
         tier_wait(healed, [A, cl], "a healed replica")
         tier_wait(lambda: os.path.exists(decision), [A, cl],
                   "the canary's decision")
+        # drive B's fleet boots while A rolls to the canary and drains
+        # (its own registry and members; its traffic starts after A's
+        # process is gone)
+        B = tier_proc(d, "tier_b", b_argv)
+        live.append((B, breg))
         time.sleep(TIER_AFTER_S)
         a_gpu = on_card(areg.endpoints(), A["p"].pid)
         with open(a_stop, "w") as f:
@@ -8044,8 +8181,6 @@ def phase_fleet_tier(workdir: str, fres):
         a_rc, a_child = stop_tier(A, areg)
         live.remove((A, areg))
         # -- drive B: the sharded front tier, a door killed ------------
-        B = tier_proc(d, "tier_b", b_argv)
-        live.append((B, breg))
 
         def b_ready():
             doors = breg.endpoints("balancer")

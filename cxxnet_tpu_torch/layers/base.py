@@ -13,7 +13,7 @@ and y == 1 marks a "matrix" node stored 2-D.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -195,6 +195,12 @@ class Layer:
 
     is_loss = False
     self_loop = False           # must be a self-loop connection
+    #: the name rematerialization keeps this layer's output under
+    #: (``nnet/remat.py``): ``"conv_out"`` for the conv layers, as the
+    #: reference tags them with ``checkpoint_name``; ``"dot"`` for the
+    #: layers whose output is one non-batched ``torch.matmul`` product
+    #: (the reference's ``dots_with_no_batch_dims_saveable``)
+    remat_name: Optional[str] = None
     #: the ``serve_dtype`` spec (:class:`~cxxnet_tpu_torch.nnet.quantize.
     #: QuantSpec`) that ``quantize.attach`` pins on a conv or fullc
     #: layer; only their eval forward reads it

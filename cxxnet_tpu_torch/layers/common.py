@@ -68,6 +68,8 @@ class FullConnectLayer(Layer):
     reference package's layout; the reference-convention transpose
     happens only at the weight get/set API (trainer.get_weight)."""
 
+    remat_name = "dot"
+
     def infer_shape(self, in_shapes: List[Shape3]) -> List[Shape3]:
         s = self._expect_one(in_shapes)
         if not s.is_mat:
@@ -129,7 +131,11 @@ class FullConnectLayer(Layer):
 class PallasFullConnectLayer(FullConnectLayer):
     """fullc with the product through the matmul kernel (config name
     ``pallas_fullc``); the same function as ``fullc``. The forward and
-    both backward products are kernel launches; the bias add is plain."""
+    both backward products are kernel launches; the bias add is plain.
+    Its product is a kernel launch, not a dot: ``remat = dots`` does
+    not keep it (the reference's is a ``pallas_call``)."""
+
+    remat_name = None
 
     def _matmul(self, x, w):
         return matmul(x, w)
@@ -472,6 +478,8 @@ class FixConnectLayer(Layer):
     ``nrow ncol nnz`` then ``row col value`` triples of a (num_hidden,
     num_input) matrix in the reference's convention. It is held as an
     (in, out) tensor, like fullc's weight, and is no parameter."""
+
+    remat_name = "dot"
 
     def __init__(self, cfg=()):
         self.fname_weight = ""

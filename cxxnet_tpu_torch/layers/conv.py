@@ -105,7 +105,14 @@ class ConvolutionLayer(Layer):
       per-channel dequant; the shift then goes to the epilogue;
     - ``_fold_scale``/``_fold_shift`` (+ ``_fold_relu``): the fold as the
       net injects it per forward when the serve weights are not frozen.
+
+    Its output is what ``remat = conv`` keeps (``remat_name``): the
+    layer's return, bias added, as the reference tags it ``conv_out``
+    (``cxxnet_tpu/layers/conv.py:265``); a tag on ``F.conv2d`` would
+    leave the bias add outside what is kept.
     """
+
+    remat_name = "conv_out"
 
     def infer_shape(self, in_shapes: List[Shape3]) -> List[Shape3]:
         s = self._expect_one(in_shapes)

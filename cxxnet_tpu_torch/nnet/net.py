@@ -65,6 +65,8 @@ class FuncNet:
         self.layer_objs: List[Layer] = []
         self.node_shapes: List[Optional[Shape3]] = \
             [None] * graph.num_nodes
+        # (policy, collected nodes) -> remat.plan's segments
+        self.remat_plans: Dict[tuple, list] = {}
         self._build()
 
     def _build(self) -> None:
@@ -261,73 +263,109 @@ class FuncNet:
             nodes[1 + i] = extra[i]
         new_state: NetState = dict(state)
         loss_inputs: Dict[int, torch.Tensor] = {}
-        fold_eval = self.bn_fold_eval and not is_train
         for li, info in enumerate(g.layers):
-            if li in self._identity_layers \
-                    or li in self._pool_passthrough \
-                    or (fold_eval and li in self._fold_bns):
-                # the epilogue already ran fused inside the producer (relu
-                # inside BN, BN inside the folded conv, the pool inside the
-                # fused concat)
-                v = nodes[info.nindex_in[0]]
-                for ni in info.nindex_out:
-                    nodes[ni] = v
-                continue
-            layer = self.layer_objs[li]
-            pkey = g.layer_key(g.param_layer_index(li))
-            p = params.get(pkey, {})
-            s = new_state.get(pkey, {})
-            if fold_eval and li in self.fold_pairs \
-                    and not any(k in p for k in FROZEN_FOLD_KEYS):
-                p = dict(p)
-                p.update(self.fold_entries(params, state, li))
-            if li in self._depad_layers:
-                # layout barrier: this layer sees logical channels
-                ins = [self.depad_node(ni, nodes[ni])
-                       for ni in info.nindex_in]
-            else:
-                ins = [nodes[ni] for ni in info.nindex_in]
-            if collect_logits and layer.is_loss:
-                loss_inputs[li] = ins[0]
-            kw = {}
-            if layer.needs_mask:
-                kw["mask"] = mask
-            if layer.needs_rng:
-                kw["rng"] = None if rng is None \
-                    else StepKey(rng[0], rng[1], li)
-            outs, s2 = layer.forward(p, s, ins, is_train, **kw)
-            if s2:
-                new_state[pkey] = s2
+            outs = self.apply_layer(
+                li, [nodes[ni] for ni in info.nindex_in], params, state,
+                new_state, is_train, mask, rng,
+                loss_inputs if collect_logits else None)
             for ni, v in zip(info.nindex_out, outs):
                 nodes[ni] = v
         return nodes, new_state, loss_inputs
+
+    def apply_layer(self, li: int, ins: List[torch.Tensor],
+                    params: Params, state: NetState, new_state: NetState,
+                    is_train: bool, mask: Optional[torch.Tensor],
+                    rng: Optional[Tuple[int, int]],
+                    loss_inputs: Optional[Dict[int, torch.Tensor]]
+                    ) -> List[torch.Tensor]:
+        """Connection ``li`` on its input node values: its output values.
+        It reads its layer's state from ``new_state`` and writes the
+        update back there; a loss layer records its (depadded) input in
+        ``loss_inputs`` when that is given. ``state`` is the state the
+        forward started from (the eval fold reads it)."""
+        g = self.graph
+        info = g.layers[li]
+        fold_eval = self.bn_fold_eval and not is_train
+        if li in self._identity_layers \
+                or li in self._pool_passthrough \
+                or (fold_eval and li in self._fold_bns):
+            # the epilogue already ran fused inside the producer (relu
+            # inside BN, BN inside the folded conv, the pool inside the
+            # fused concat)
+            return [ins[0]] * len(info.nindex_out)
+        layer = self.layer_objs[li]
+        pkey = g.layer_key(g.param_layer_index(li))
+        p = params.get(pkey, {})
+        s = new_state.get(pkey, {})
+        if fold_eval and li in self.fold_pairs \
+                and not any(k in p for k in FROZEN_FOLD_KEYS):
+            p = dict(p)
+            p.update(self.fold_entries(params, state, li))
+        if li in self._depad_layers:
+            # layout barrier: this layer sees logical channels
+            ins = [self.depad_node(ni, v)
+                   for ni, v in zip(info.nindex_in, ins)]
+        if loss_inputs is not None and layer.is_loss:
+            loss_inputs[li] = ins[0]
+        kw = {}
+        if layer.needs_mask:
+            kw["mask"] = mask
+        if layer.needs_rng:
+            kw["rng"] = None if rng is None \
+                else StepKey(rng[0], rng[1], li)
+        outs, s2 = layer.forward(p, s, ins, is_train, **kw)
+        if s2:
+            new_state[pkey] = s2
+        return outs
+
+    def passes_through(self, li: int) -> bool:
+        """Whether connection ``li`` hands its input on as its output in
+        training (a relu fused into its batch norm, a pool fused into
+        its concat)."""
+        return li in self._identity_layers or li in self._pool_passthrough
 
     def loss_fn(self, params: Params, state: NetState,
                 data: torch.Tensor, labels: torch.Tensor,
                 mask: Optional[torch.Tensor],
                 collect_nodes: Sequence[int] = (),
                 rng: Optional[Tuple[int, int]] = None,
-                extra: Sequence[torch.Tensor] = ()):
+                extra: Sequence[torch.Tensor] = (),
+                remat: str = "none"):
         """Total training loss (sum over loss layers) and (new state,
         the values of ``collect_nodes``). ``labels`` is the (batch,
         label_width) matrix; each loss layer's ``target`` selects its
         columns through the graph's label fields. ``rng`` is the step's
         ``(seed, step)`` and ``extra`` the extra inputs (see
-        :meth:`forward`)."""
-        nodes, new_state, loss_inputs = self.forward(
-            params, state, data, is_train=True, mask=mask,
-            collect_logits=True, rng=rng, extra=extra)
+        :meth:`forward`). ``remat`` (``none | full | dots | conv``) is
+        the rematerialization policy of ``nnet/remat.py``: the same
+        values, with only what the policy keeps held for the
+        backward."""
         slices = {name: (a, b) for name, a, b in self.graph.label_slices()}
-        total = torch.zeros((), dtype=torch.float32, device=data.device)
-        for li, logit in loss_inputs.items():
+
+        def loss_of(li: int, logit: torch.Tensor) -> torch.Tensor:
             layer = self.layer_objs[li]
             if layer.target not in slices:
                 raise ValueError("loss layer: unknown target=%s"
                                  % layer.target)
             a, b = slices[layer.target]
-            total = total + layer.loss_value(logit, labels[:, a:b], mask)
-        return total, (new_state, [self.depad_node(ni, nodes[ni])
-                                   for ni in collect_nodes])
+            return layer.loss_value(logit, labels[:, a:b], mask)
+
+        if remat == "none":
+            nodes, new_state, loss_inputs = self.forward(
+                params, state, data, is_train=True, mask=mask,
+                collect_logits=True, rng=rng, extra=extra)
+            terms = {li: loss_of(li, v) for li, v in loss_inputs.items()}
+            outs = [nodes[ni] for ni in collect_nodes]
+        else:
+            from .remat import remat_forward
+            outs, new_state, terms = remat_forward(
+                self, remat, params, state, data, mask, rng, extra,
+                collect_nodes, loss_of)
+        total = torch.zeros((), dtype=torch.float32, device=data.device)
+        for li in sorted(terms):
+            total = total + terms[li]
+        return total, (new_state, [self.depad_node(ni, v) for ni, v
+                                   in zip(collect_nodes, outs)])
 
     def depad_node(self, ni: int, v):
         """A node value sliced back to its logical channels (itself for

@@ -17,6 +17,8 @@ records the libraries it loads there, which is what an export seals.
 A training step is the reference's ``scan_step`` written eagerly:
 autograd over ``FuncNet.loss_fn`` in place of ``jax.value_and_grad``,
 then the updaters; the schedule is evaluated on the host per step.
+``remat = full|dots|conv`` recomputes in the backward what its policy
+does not keep (``nnet/remat.py``).
 Stochastic layers (dropout) draw for the step's ``(seed, global sample
 step)``, so ``update``, ``update_many`` and ``run_steps`` give one batch
 sequence the same masks.
@@ -163,6 +165,10 @@ class NetTrainer:
         self.eval_train = 1
         self.save_optimizer = 0
         self.grad_dtype = "float32"      # bfloat16: bf16 cotangents
+        # rematerialization (nnet/remat.py): none | full | dots | conv;
+        # remat_barrier = 0 runs the none path (see _train_step)
+        self.remat = "none"
+        self.remat_barrier = 1
         self.serve_dtype = "float32"     # eval/pred compute dtype:
         #                                  float32 | bfloat16 | int8;
         #                                  int8 needs calibration tables
@@ -244,8 +250,9 @@ class NetTrainer:
             if name == "remat":
                 if val not in ("none", "0", "full", "dots", "conv"):
                     raise ValueError("remat must be none|full|dots|conv")
-                if val not in ("none", "0"):
-                    raise NotPortedError("remat = %s" % val, Roadmap.REMAT)
+                self.remat = "none" if val == "0" else val
+            if name == "remat_barrier":
+                self.remat_barrier = int(val)
             if name == "grad_sync":
                 if val not in ("fused", "overlap"):
                     raise ValueError("grad_sync must be fused|overlap")
@@ -795,7 +802,15 @@ class NetTrainer:
 
         Under ``grad_dtype = bfloat16`` the forward reads a bf16 shadow
         of every float32 weight, so autograd hands back bf16 gradients;
-        they are cast to the masters' dtype before the update."""
+        they are cast to the masters' dtype before the update.
+
+        ``remat`` (``nnet/remat.py``) keeps for the backward only what
+        its policy says and recomputes the rest; the values are the
+        same. Under ``remat_barrier = 0`` the reference drops the
+        checkpoint's optimization barriers, XLA CSEs the recompute
+        against the forward and the program is remat = none's
+        (``cxxnet_tpu/nnet/trainer.py:496-502``): the port runs the
+        none path."""
         trained = [(lk, tag) for lk, tags in self.opt_state.items()
                    for tag, st in tags.items() if st]
         shadow = self.grad_dtype == "bfloat16"
@@ -809,7 +824,8 @@ class NetTrainer:
         with torch.enable_grad():
             loss, (new_state, preds) = self.net.loss_fn(
                 leaves, self.net_state, data, labels, mask, nodes,
-                rng=(self.seed, step), extra=extra)
+                rng=(self.seed, step), extra=extra,
+                remat=self.remat if self.remat_barrier else "none")
             grads = torch.autograd.grad(
                 loss, [leaves[lk][tag] for lk, tag in trained]) \
                 if trained else ()

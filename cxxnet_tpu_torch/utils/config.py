@@ -31,10 +31,31 @@ class Roadmap:
     (``task = serve_fleet``), ``serve_device_mem_budget``, sealed
     bundles (``task = export``), the continual loop (``task =
     continual``), the fleet tier (``task = fleet`` and
-    ``fleet_balancer``), fp8 serving and retrieval (``task =
-    build_index``) are ported and raise nothing."""
-    REMAT = "queue 1, rematerialization"
+    ``fleet_balancer``), fp8 serving, retrieval (``task =
+    build_index``) and rematerialization (``remat``) are ported and
+    raise nothing."""
     MULTI_GPU = "queue 1, multi-GPU"
+
+
+# Keys the reference reads that the port accepts and leaves without
+# effect on purpose, each with its reason. None of them changes the
+# reference's results beyond summation order; an update with any of
+# them set is bit-identical to one without.
+NO_OP_KEYS: Dict[str, str] = {
+    "compile_cache_dir": "XLA's persistent compile cache "
+                         "(cxxnet_tpu/nnet/trainer.py:238); the port "
+                         "compiles no program (its kernel libraries "
+                         "cache in _build/ beside the sources)",
+    "serve_donate": "XLA's buffer donation on the serve dispatch "
+                    "(cxxnet_tpu/nnet/trainer.py:257); eager PyTorch "
+                    "frees a batch when its last reference goes",
+    "temp_col_max": "the reference's im2col budget, parsed and unused "
+                    "in the reference too (cxxnet_tpu/layers/conv.py:5-8, "
+                    "base.py:148)",
+    "conv_1x1_matmul": "a lowering choice of XLA for 1x1 convolutions "
+                       "(cxxnet_tpu/layers/base.py:154); cuDNN picks "
+                       "its own algorithm",
+}
 
 
 class NotPortedError(ConfigError):

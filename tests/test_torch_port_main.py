@@ -807,3 +807,61 @@ def test_round_counters_match_reference(tmp_path):
                     trainer.last_round_wall_s > 0,
                     snap_c["last_round_examples_per_sec"] > 0))
     assert got[1] == got[0] == (2, 55, 0, 55, True, True)
+
+
+# every key the reference reads that the port keeps as a no-op on
+# purpose (utils/config.py NO_OP_KEYS), with a value the reference
+# accepts, and the reference source line that reads it
+NO_OP_CASES = {
+    "compile_cache_dir": ("cache", "cxxnet_tpu/nnet/trainer.py"),
+    "serve_donate": ("1", "cxxnet_tpu/nnet/trainer.py"),
+    "temp_col_max": ("64", "cxxnet_tpu/layers/base.py"),
+    "conv_1x1_matmul": ("1", "cxxnet_tpu/layers/base.py"),
+}
+
+
+@pytest.mark.parametrize("key", sorted(NO_OP_CASES))
+def test_no_op_keys_are_accepted_and_change_nothing(key, tmp_path):
+    """Each listed no-op key is read by the reference, accepted by the
+    port, and leaves an update of a conv net (1x1 convs included) the
+    same bits as one without it."""
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.utils.config import NO_OP_KEYS, parse_config
+    assert set(NO_OP_KEYS) == set(NO_OP_CASES)
+    val, src = NO_OP_CASES[key]
+    with open(os.path.join(ROOT, src)) as f:
+        assert 'name == "%s"' % key in f.read()
+    if key == "compile_cache_dir":
+        val = str(tmp_path / val)
+    text = """netconfig=start
+layer[0->1] = conv:c1
+  kernel_size = 1
+  nchannel = 4
+layer[1->2] = relu
+layer[2->3] = conv:c2
+  kernel_size = 3
+  pad = 1
+  nchannel = 4
+layer[3->4] = flatten
+layer[4->5] = fullc:fc
+  nhidden = 3
+layer[5->5] = softmax
+netconfig=end
+input_shape = 2,6,6
+batch_size = 8
+eta = 0.1
+"""
+    rng = np.random.RandomState(4)
+    batch = DataBatch(rng.rand(8, 6, 6, 2).astype(np.float32),
+                      rng.randint(0, 3, (8, 1)).astype(np.float32))
+    params = []
+    for extra in ([], [(key, val)]):
+        t = NetTrainer(parse_config(text) + extra, device="cpu")
+        t.init_model()
+        t.update(batch)
+        params.append({(lk, tg): v for lk, sub in t.params.items()
+                       for tg, v in sub.items()})
+    assert params[0].keys() == params[1].keys()
+    assert all(torch.equal(params[0][k], params[1][k]) for k in params[0])
+    assert not os.path.exists(str(tmp_path / "cache"))

@@ -245,13 +245,11 @@ def test_port_model_builders_match_jax():
 @pytest.mark.parametrize("extra,item", [
     ([("serve_dtype", "fp8")], "calibrated snapshot"),
     ([("serve_dtype", "float8_e4m3")], "calibrated snapshot"),
-    ([("remat", "full")], "rematerialization"),
     ([("shard_optimizer", "1")], "multi-GPU"),
     ([("update_on_server", "1")], "multi-GPU"),
-    ([("remat", "conv")], "rematerialization"),
     ([("grad_sync", "overlap")], "multi-GPU"),
-], ids=["fp8", "fp8_alias", "remat_full", "shard_optimizer",
-        "update_on_server", "remat", "grad_sync"])
+], ids=["fp8", "fp8_alias", "shard_optimizer", "update_on_server",
+        "grad_sync"])
 def test_unported_keys_raise(ref, extra, item):
     """Each key whose feature is not ported raises NotPortedError naming
     its item. fp8 serving is ported: on this uncalibrated snapshot it
