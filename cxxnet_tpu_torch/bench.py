@@ -29,8 +29,9 @@ reads) runs it on the CPU, which times the CPU::
 Exit status: 0; 1 when ``--compare`` finds a regression; 2 on a usage
 error or a corrupt ``--compare`` record; 3 when a ``--compare`` verdict
 is suspect. The multi-GPU flags (``--hosts``, ``--virtual-devices``,
-``--grad-sync overlap``, ``--grad-sync-bucket-mb``, ``--optim-shard 1``)
-raise ``NotPortedError``.
+``--hosts-rows``, ``--hosts-batch``, ``--grad-sync overlap``,
+``--grad-sync-bucket-mb``, ``--optim-shard 1``) raise
+``NotPortedError``.
 """
 
 import gc
@@ -245,8 +246,7 @@ def _device_of(extra):
 def measure(steps: int = 200, batch: int = None, model: str = "alexnet",
             dtype: str = "bfloat16",
             grad_dtype: str = "bfloat16",
-            extra: tuple = (), builder_kw: dict = None,
-            peak_tflops: float = 0.0,
+            extra: tuple = (), peak_tflops: float = 0.0,
             grad_sync: str = "fused",
             optim_shard: int = 0) -> dict:
     """One model's capture record (see the module docstring): img/s of
@@ -269,8 +269,7 @@ def measure(steps: int = 200, batch: int = None, model: str = "alexnet",
         batch = default_batch
     builder = getattr(zoo, builder_name)
     t = NetTrainer(parse_config(builder(nclass=1000, batch_size=batch,
-                                        image_size=size,
-                                        **(builder_kw or {})))
+                                        image_size=size))
                    + [("eval_train", "0"), ("dtype", dtype),
                       ("grad_dtype", grad_dtype),
                       ("momentum_dtype", "bfloat16"), ("silent", "1"),
@@ -519,6 +518,8 @@ def _refuse_multi_gpu(args) -> None:
     from cxxnet_tpu_torch.utils.config import NotPortedError, Roadmap
     for flag, on in (("--hosts", args.hosts),
                      ("--virtual-devices", args.virtual_devices > 0),
+                     ("--hosts-rows", args.hosts_rows is not None),
+                     ("--hosts-batch", args.hosts_batch is not None),
                      ("--grad-sync overlap", args.grad_sync != "fused"),
                      ("--grad-sync-bucket-mb",
                       args.grad_sync_bucket_mb != 0.0),
@@ -582,10 +583,12 @@ def main(argv=None):
     ap.add_argument("--virtual-devices", type=int, default=0,
                     help="virtual devices for --hosts (not ported, "
                          "multi-GPU)")
-    ap.add_argument("--hosts-rows", type=int, default=2048,
-                    help="dataset rows for the --hosts sweep")
-    ap.add_argument("--hosts-batch", type=int, default=64,
-                    help="global batch for the --hosts sweep")
+    ap.add_argument("--hosts-rows", type=int, default=None,
+                    help="dataset rows for the --hosts sweep (not "
+                         "ported, multi-GPU)")
+    ap.add_argument("--hosts-batch", type=int, default=None,
+                    help="global batch for the --hosts sweep (not "
+                         "ported, multi-GPU)")
     ap.add_argument("--peak-tflops", type=float, default=0.0,
                     help="the device's peak TFLOP/s for the compute "
                          "dtype; when set, each model's record carries "

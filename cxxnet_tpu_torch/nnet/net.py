@@ -286,9 +286,7 @@ class FuncNet:
         g = self.graph
         info = g.layers[li]
         fold_eval = self.bn_fold_eval and not is_train
-        if li in self._identity_layers \
-                or li in self._pool_passthrough \
-                or (fold_eval and li in self._fold_bns):
+        if self.passes_through(li) or (fold_eval and li in self._fold_bns):
             # the epilogue already ran fused inside the producer (relu
             # inside BN, BN inside the folded conv, the pool inside the
             # fused concat)

@@ -284,10 +284,11 @@ def test_without_a_gpu_the_entry_raises():
 
 @pytest.mark.parametrize("flags", [
     ["--hosts", "1,2"], ["--virtual-devices", "4"],
+    ["--hosts-rows", "100"], ["--hosts-batch", "8"],
     ["--grad-sync", "overlap"], ["--grad-sync-bucket-mb", "4"],
     ["--optim-shard", "1"]],
-    ids=["hosts", "virtual_devices", "grad_sync", "bucket_mb",
-         "optim_shard"])
+    ids=["hosts", "virtual_devices", "hosts_rows", "hosts_batch",
+         "grad_sync", "bucket_mb", "optim_shard"])
 def test_multi_gpu_flags_raise_not_ported(flags):
     with pytest.raises(NotPortedError, match="multi-GPU") as e:
         port_bench.main(["--model", "alexnet", "--extra", "dev=cpu"]

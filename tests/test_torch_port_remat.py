@@ -278,7 +278,9 @@ def test_chip_smoke_remat_launches_on_the_cpu():
     """chip_smoke.REMAT_LAUNCHES, the launches a step it asserts on the
     card, counted here as calls of the kernels' wrappers (each launches
     once on the card) on its bench-set Inception-BN-224 at batch 1 (the
-    counts do not depend on the batch)."""
+    counts do not depend on the batch); ``full_one_cut`` under
+    ``chip_smoke.remat_one_cut``."""
+    import contextlib
     import chip_smoke
     names = {"bn_apply_fwd": "bn_apply_fwd_bf16",
              "bn_apply_bwd": "bn_apply_bwd_bf16",
@@ -289,12 +291,9 @@ def test_chip_smoke_remat_launches_on_the_cpu():
                       rng.randint(0, 1000, (1, 1)).astype(np.float32))
     keys = {"none": [], "full": [("remat", "full")],
             "dots": [("remat", "dots")], "conv": [("remat", "conv")],
-            "barrier0": [("remat", "full"), ("remat_barrier", "0")]}
+            "full_one_cut": [("remat", "full")]}
     assert set(keys) == set(chip_smoke.REMAT_LAUNCHES)
     for pol, extra in keys.items():
-        t = NetTrainer(chip_smoke.train_cfg_bf16(1) + extra
-                       + [("eval_train", "0")], device="cpu")
-        t.init_model()
         calls = {v: 0 for v in names.values()}
 
         def counted(n):
@@ -303,13 +302,19 @@ def test_chip_smoke_remat_launches_on_the_cpu():
                 return orig[n](*a, **k)
             return f
 
-        try:
-            for n in names:
-                setattr(kernels, n, counted(n))
-            t.update(batch)
-        finally:
-            for n, f in orig.items():
-                setattr(kernels, n, f)
+        with chip_smoke.remat_one_cut("full") if pol == "full_one_cut" \
+                else contextlib.nullcontext():
+            t = NetTrainer(chip_smoke.train_cfg_bf16(1) + extra
+                           + [("eval_train", "0")], device="cpu")
+            t.init_model()
+            try:
+                for n in names:
+                    setattr(kernels, n, counted(n))
+                t.update(batch)
+            finally:
+                for n, f in orig.items():
+                    setattr(kernels, n, f)
+        assert remat._LEVELS["full"] == ((), ("conv_out",))
         expected = {k: v for k, v in chip_smoke.REMAT_LAUNCHES[pol].items()
                     if v}
         assert calls == expected, pol
