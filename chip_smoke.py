@@ -7211,6 +7211,146 @@ def count_forwards():
         NetTrainer.pred = orig
 
 
+# the serving benchmark's two runs on Inception-BN.conf's net (the
+# bundle phase's conf, bundle and snapshot; the argv's paths are filled
+# in): the bf16 bundle's sweep with its cold-start columns, the resident
+# bytes and MFU at the card's dense bf16 peak, and the int8 sweep from the
+# snapshot's calibrated copy; each with its per-forward launches
+SB_RUNS = (
+    ("bf16_bundle", ["--artifact", "{bundle}", "--conf", "{conf}",
+                     "--model-in", "{snap}", "--clients", "1,8",
+                     "--requests", "16", "--device-mem",
+                     "--peak-tflops", "989"], "BF16_LAUNCHES"),
+    ("int8", ["--serve-dtype", "int8", "--conf", "{conf}", "--model-in",
+              "{int8}", "--clients", "8", "--requests", "16"],
+     "INT8_LAUNCHES"))
+SB_CALIB_ROWS = 16             # pool rows a calibration batch holds
+
+
+@contextlib.contextmanager
+def engine_forwards():
+    """Sum, over every ``ServeSession`` closed while the block runs, the
+    forwards its engine ran by its own books: the buckets its warmup ran
+    (``warmup_programs``) and its dispatches since."""
+    import threading
+    from cxxnet_tpu_torch.serve.server import ServeSession
+    orig = ServeSession.close
+    box, lock = {"n": 0, "sessions": 0}, threading.Lock()
+
+    def close(self, drain=True):
+        first = not self._closed
+        out = orig(self, drain)
+        if first:
+            with lock:
+                box["n"] += int(self.warmup_programs) \
+                    + self.engine.counters_snapshot()["dispatches"]
+                box["sessions"] += 1
+        return out
+
+    ServeSession.close = close
+    try:
+        yield box
+    finally:
+        ServeSession.close = orig
+
+
+def serve_bench_check(d: str, conf: str, snap: str, bundle: str,
+                      pool: np.ndarray):
+    """``python -m cxxnet_tpu_torch.tools.serve_bench`` in this process
+    (``main(argv)``, its stdout captured), :data:`SB_RUNS`: the record of
+    each run, its exit code, and its launches against the per-forward
+    counts times the forwards the engines ran. The int8 run serves a copy
+    of ``snap`` calibrated on the pool (the ``task = quantize``
+    sequence)."""
+    import io
+    import torch
+    from cxxnet_tpu_torch.io import DataBatch
+    from cxxnet_tpu_torch.layers import kernels
+    from cxxnet_tpu_torch.nnet.quantize import Calibrator
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.tools import serve_bench as sb
+    from cxxnet_tpu_torch.utils.config import parse_config_file
+    t0 = time.perf_counter()
+    q = NetTrainer(parse_config_file(conf), device=DEVICE)
+    q.load_model(snap)
+    cal = Calibrator(q)
+    for i in range(0, len(pool), SB_CALIB_ROWS):
+        cal.observe(DataBatch(pool[i:i + SB_CALIB_ROWS]))
+    q.set_quantization(cal.finish(), {"dtype": "int8",
+                                      "batches": cal.batches,
+                                      "bn_fold_eval": True}, dtype="int8")
+    int8 = os.path.join(d, "serve_bench.int8.model.npz")
+    q.save_model(int8)
+    del q, cal
+    calib_s = time.perf_counter() - t0
+    paths = {"bundle": bundle, "conf": conf, "snap": snap, "int8": int8}
+    dev = ["--dev", "cpu" if DEVICE == "cpu" else "gpu"]
+    launches = dict(NO_LAUNCHES)
+    runs = {}
+    for tag, argv, per_name in SB_RUNS:
+        per = globals()[per_name]
+        argv = [a.format(**paths) for a in argv] + dev
+        out = io.StringIO()
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        with engine_forwards() as ef, count_forwards() as cf, \
+                contextlib.redirect_stdout(out):
+            rc = sb.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = kernels.launch_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("{")]
+        rec = json.loads(lines[-1]) if lines else {}
+        emit({"serve_bench": tag, "argv": argv, "rc": rc, "record": rec})
+        pts = rec.get("sweep", [])
+        mem = [p.get("device_mem_bytes") for p in pts]
+        n = ef["n"]
+        run = {"rc": rc, "wall_s": wall, "forwards": n,
+               "pred_calls": cf["n"], "sessions": ef["sessions"],
+               "launches": counts,
+               "counted": bool(n > 0 and n == cf["n"] and counts == {
+                   k: v * n for k, v in per.items()}),
+               "all_ok": bool(pts) and all(
+                   p["requests_ok"]
+                   == p["clients"] * rec["requests_per_client"]
+                   and p["requests_error"] == 0 and p["requests_busy"] == 0
+                   for p in pts),
+               "points": [{k: p.get(k) for k in (
+                   "clients", "rows_per_sec", "latency_p50_ms",
+                   "latency_p99_ms", "fill_rate", "pad_fraction", "batches",
+                   "mean_rows_per_batch", "compile_events",
+                   "device_mem_bytes", "mfu")} for p in pts]}
+        ok = bool(rc == 0 and rec.get("zero_recompiles")
+                  and rec.get("platform") == ("cpu" if DEVICE == "cpu"
+                                              else "gpu")
+                  and run["all_ok"] and run["counted"])
+        if "--device-mem" in argv:
+            run["resident_bytes"] = mem
+            ok = ok and bool(mem) and all(m and m > 0 for m in mem) \
+                and not any(b > a for a, b in zip(mem, mem[1:]))
+        if "--peak-tflops" in argv:
+            ok = ok and all((p.get("mfu") or 0) > 0 for p in pts)
+        if "--artifact" in argv:
+            cold = rec.get("cold_start") or [{}]
+            run["cold_start"] = cold
+            art = cold[0]
+            ok = ok and bool(
+                art.get("via") == "artifact"
+                and art.get("artifact_hits", 0) > 0
+                and art.get("artifact_rebuilds") == 0
+                and art.get("fingerprint_match") is True
+                and art.get("compile_events") == 0)
+        run["ok"] = ok
+        runs[tag] = run
+    res = {"calib_s": calib_s, "runs": runs, "launches": launches,
+           "wall_s": time.perf_counter() - t0}
+    res["ok"] = all(r["ok"] for r in runs.values())
+    return res
+
+
 def hot_swap_drive(fcfg, rec, d: str, conf: str, hdir: str, staged: str,
                    pool_path: str):
     """A ``FleetServer`` over the watched ``hdir`` (``0001.model.npz``)
@@ -7363,6 +7503,9 @@ def phase_bundle(workdir: str):
         and export["warmup_counted"] and exp_rec
         and all(t["as_reference"] for t in export["tamper"].values())
         and not export["schema_errors"])
+    # 1b. the serving benchmark over the bundle and the snapshot (its
+    # launches apart from the phase's: serve_bench_launches)
+    sbres = serve_bench_check(d, conf, snap, bundle, pool)
     # 2. pred / pred_raw / serve from the bundle, pred_raw from the
     # snapshot (raw float32 rows: output_format = bin)
     train_rec = os.path.join(workdir, "train.rec")
@@ -7524,10 +7667,10 @@ def phase_bundle(workdir: str):
            "config": "the fleet phase's net and knobs (dtype = bfloat16, "
                      "%s, buckets auto 1-128) from its calibrated "
                      "snapshot" % ", ".join("%s = %s" % kv for kv in KNOBS),
-           "export": export, "boot": boot, "cold_start": cold_res,
-           "hot_swap": hot, "launches": launches}
-    res["ok"] = bool(export["ok"] and boot["ok"] and cold_res["ok"]
-                     and hot["ok"])
+           "export": export, "serve_bench": sbres, "boot": boot,
+           "cold_start": cold_res, "hot_swap": hot, "launches": launches}
+    res["ok"] = bool(export["ok"] and sbres["ok"] and boot["ok"]
+                     and cold_res["ok"] and hot["ok"])
     emit(res)
     if not res["ok"]:
         raise RuntimeError("bundle phase failed")
@@ -9463,6 +9606,10 @@ def main() -> int:
         # continual phase's two loops (updates, gate evals, exports, the
         # fleet's boots, shadow builds and traffic), each from 0
         row["bundle_launches"] = bres["launches"][row["name"]]
+        # the serving benchmark's two runs in the bundle phase (the bf16
+        # bundle's sweep and cold starts, the int8 sweep), from 0
+        row["serve_bench_launches"] = \
+            bres["serve_bench"]["launches"][row["name"]]
         row["continual_launches"] = cnres["launches"][row["name"]]
         # the fleet tier's replica processes (boots, warmups, traffic,
         # the heal, the canary and the promote's roll), each from 0 at
