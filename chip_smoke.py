@@ -7215,14 +7215,18 @@ def count_forwards():
 # bundle phase's conf, bundle and snapshot; the argv's paths are filled
 # in): the bf16 bundle's sweep with its cold-start columns, the resident
 # bytes and MFU at the card's dense bf16 peak, and the int8 sweep from the
-# snapshot's calibrated copy; each with its per-forward launches
+# snapshot's calibrated copy; each with its per-forward launches. Each
+# client sends SB_REQUESTS requests, so that a point's p99 is not its
+# slowest request (the 99th of 100 at 1 client, of 800 at 8), and the
+# check stays under 60 s on a slow host (200 took 74.5 s on one)
+SB_REQUESTS = "100"
 SB_RUNS = (
     ("bf16_bundle", ["--artifact", "{bundle}", "--conf", "{conf}",
                      "--model-in", "{snap}", "--clients", "1,8",
-                     "--requests", "16", "--device-mem",
+                     "--requests", SB_REQUESTS, "--device-mem",
                      "--peak-tflops", "989"], "BF16_LAUNCHES"),
     ("int8", ["--serve-dtype", "int8", "--conf", "{conf}", "--model-in",
-              "{int8}", "--clients", "8", "--requests", "16"],
+              "{int8}", "--clients", "8", "--requests", SB_REQUESTS],
      "INT8_LAUNCHES"))
 SB_CALIB_ROWS = 16             # pool rows a calibration batch holds
 
@@ -7231,7 +7235,11 @@ SB_CALIB_ROWS = 16             # pool rows a calibration batch holds
 def engine_forwards():
     """Sum, over every ``ServeSession`` closed while the block runs, the
     forwards its engine ran by its own books: the buckets its warmup ran
-    (``warmup_programs``) and its dispatches since."""
+    (``warmup_programs``) and its dispatches since. The launches are
+    held against these books; :func:`count_forwards` (every
+    ``NetTrainer.pred``) counts the same forwards from below, and the
+    two must agree, so that no forward ran outside an engine's books
+    (the cold-start replies, a ``model_info`` probe)."""
     import threading
     from cxxnet_tpu_torch.serve.server import ServeSession
     orig = ServeSession.close

@@ -74,11 +74,6 @@ def _device(args) -> str:
     return "cpu" if args.dev == "cpu" else "cuda"
 
 
-def _platform(args) -> str:
-    """The record's ``platform``, in the reference's vocabulary."""
-    return "cpu" if args.dev == "cpu" else "gpu"
-
-
 def build_session(args, monitor, via: str = ""):
     """``via`` selects the boot source when both are configured:
     "artifact" (the sealed bundle), "snapshot" (--conf/--model-in),
@@ -2286,13 +2281,16 @@ def main(argv=None) -> int:
 
     from cxxnet_tpu_torch.device import resolve_device
     from cxxnet_tpu_torch.monitor import MemorySink, Monitor
-    # no GPU and no --dev cpu: raise here, never carry on on the CPU
-    resolve_device(_device(args))
+    # no GPU and no --dev cpu: raise here, never carry on on the CPU;
+    # the records' platform is the resolved device's, in the
+    # reference's vocabulary
+    dev = resolve_device(_device(args))
+    platform = "gpu" if dev.type == "cuda" else "cpu"
     sink = MemorySink()
     monitor = Monitor(sink)
     if args.balancers:
         rec, clean, _zero = run_front_tier(args, monitor, sink)
-        rec["platform"] = _platform(args)
+        rec["platform"] = platform
         out = json.dumps(rec, sort_keys=True)
         print(out)
         if args.out:
@@ -2305,7 +2303,7 @@ def main(argv=None) -> int:
     if args.embed_search:
         rec, clean, zero_recompiles = run_embed_search(
             args, monitor, sink)
-        rec["platform"] = _platform(args)
+        rec["platform"] = platform
         out = json.dumps(rec, sort_keys=True)
         print(out)
         if args.out:
@@ -2319,7 +2317,7 @@ def main(argv=None) -> int:
     if args.generations:
         rec, clean, zero_recompiles = run_continual_soak(
             args, monitor, sink)
-        rec["platform"] = _platform(args)
+        rec["platform"] = platform
         out = json.dumps(rec, sort_keys=True)
         print(out)
         if args.out:
@@ -2333,7 +2331,7 @@ def main(argv=None) -> int:
     if args.replicas:
         rec, clean, zero_recompiles = run_multi_replica(
             args, monitor, sink)
-        rec["platform"] = _platform(args)
+        rec["platform"] = platform
         out = json.dumps(rec, sort_keys=True)
         print(out)
         if args.out:
@@ -2348,7 +2346,7 @@ def main(argv=None) -> int:
     if args.tenants:
         rec, slo_ok, zero_recompiles = run_multi_tenant(
             args, monitor, sink)
-        rec["platform"] = _platform(args)
+        rec["platform"] = platform
         out = json.dumps(rec, sort_keys=True)
         print(out)
         if args.out:
@@ -2404,7 +2402,7 @@ def main(argv=None) -> int:
     rec = {
         "name": "serve_bench",
         "t": time.time(),
-        "platform": _platform(args),
+        "platform": platform,
         "model": args.artifact or args.conf
         or "synthetic_mlp_256_64_10",
         "dtype": rec_dtype,
